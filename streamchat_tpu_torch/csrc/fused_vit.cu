@@ -1,0 +1,82 @@
+// The ViT layer (K1) and the LN-MLP (K2) composed from the hand-written
+// kernels of this library.
+//
+// Replaces the TPU kernels ops/fused_vit.py:fused_vit_layer (_layer_kernel)
+// and ops/fused_vit.py:fused_ln_mlp (_mlp_kernel). On the TPU each was ONE
+// Pallas kernel that kept a frame tile, every intermediate and all weights
+// in VMEM. A Hopper block has at most 227 KB of shared memory, far below one
+// frame's [577, 4096] MLP intermediate, so the layer runs as a sequence of
+// launches on one stream: LayerNorm -> QKV GEMM -> flash attention ->
+// O GEMM + residual -> LayerNorm -> fc1 GEMM + quick_gelu -> fc2 GEMM +
+// residual. The GEMM epilogues fuse bias, activation and residual, and the
+// mid-layer residual stays f32 as in the TPU kernel; the intermediates round
+// trip device memory in workspaces the Python wrapper allocates. The layer is
+// bound by tensor-core throughput in the GEMMs (about 95% of its FLOPs).
+#include "kernels.cuh"
+
+// x, out: [N * S, D] bf16; ws_h: [N*S, D] bf16; ws_qkv: [N*S, 3D]
+// bf16; ws_attn: [N*S, D] bf16; ws_mid_x: [N*S, D] f32; ws_mid: [N*S, Dmid] bf16.
+extern "C" int sc_fused_vit_layer(const void* x, const void* ln1_s, const void* ln1_b,
+                                  const void* wqkv, const void* bqkv, const void* wo,
+                                  const void* bo, const void* ln2_s, const void* ln2_b,
+                                  const void* w1, const void* b1, const void* w2,
+                                  const void* b2, void* out, void* ws_h, void* ws_qkv,
+                                  void* ws_attn, void* ws_mid_x, void* ws_mid, int N, int S,
+                                  int D, int Dmid, int H, float eps, void* stream) {
+  using bf = __nv_bfloat16;
+  auto st = static_cast<cudaStream_t>(stream);
+  const int M = N * S;
+  const int dh = D / H;
+  auto h = static_cast<bf*>(ws_h);
+  auto qkv = static_cast<bf*>(ws_qkv);
+  auto attn = static_cast<bf*>(ws_attn);
+  auto mid = static_cast<bf*>(ws_mid);
+
+  sc::launch_layernorm(x, sc::kBF16, static_cast<const bf*>(ln1_s),
+                       static_cast<const bf*>(ln1_b), h, M, D, eps, st);
+  sc::launch_gemm(h, D, static_cast<const bf*>(wqkv), static_cast<const bf*>(bqkv), nullptr,
+                  sc::kBF16, 0, qkv, sc::kBF16, 3 * D, M, 3 * D, D, sc::kActNone, st);
+  const int64_t qkv_strides[3] = {(int64_t)S * 3 * D, dh, 3 * D};
+  const int64_t o_strides[3] = {(int64_t)S * D, dh, D};
+  cudaError_t err = sc::launch_flash(qkv, qkv_strides, qkv + D, qkv_strides, qkv + 2 * D,
+                                     qkv_strides, attn, o_strides, nullptr, N, H, H, S, S,
+                                     dh, /*causal=*/0, 1.0f / sqrtf((float)dh), st);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  sc::launch_gemm(attn, D, static_cast<const bf*>(wo), static_cast<const bf*>(bo), x,
+                  sc::kBF16, D, ws_mid_x, sc::kF32, D, M, D, D, sc::kActNone, st);
+  sc::launch_layernorm(ws_mid_x, sc::kF32, static_cast<const bf*>(ln2_s),
+                       static_cast<const bf*>(ln2_b), h, M, D, eps, st);
+  sc::launch_gemm(h, D, static_cast<const bf*>(w1), static_cast<const bf*>(b1), nullptr,
+                  sc::kBF16, 0, mid, sc::kBF16, Dmid, M, Dmid, D, sc::kActQuickGelu, st);
+  sc::launch_gemm(mid, Dmid, static_cast<const bf*>(w2), static_cast<const bf*>(b2),
+                  ws_mid_x, sc::kF32, D, out, sc::kBF16, D, M, D, Dmid, sc::kActNone, st);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// out = [x +] fc2(act(fc1([LN] x))): x [T, Din] bf16, out [T, Dout] bf16,
+// ws_h [T, Din] bf16 (used only with layernorm), ws_mid [T, Dmid] bf16.
+extern "C" int sc_fused_ln_mlp(const void* x, const void* ln_s, const void* ln_b,
+                               const void* w1, const void* b1, const void* w2, const void* b2,
+                               void* out, void* ws_h, void* ws_mid, int T, int Din, int Dmid,
+                               int Dout, int act, int layernorm, int residual, float eps,
+                               void* stream) {
+  using bf = __nv_bfloat16;
+  auto st = static_cast<cudaStream_t>(stream);
+  const bf* h = static_cast<const bf*>(x);
+  if (layernorm) {
+    sc::launch_layernorm(x, sc::kBF16, static_cast<const bf*>(ln_s),
+                         static_cast<const bf*>(ln_b), static_cast<bf*>(ws_h), T, Din, eps,
+                         st);
+    h = static_cast<const bf*>(ws_h);
+  }
+  sc::launch_gemm(h, Din, static_cast<const bf*>(w1), static_cast<const bf*>(b1), nullptr,
+                  sc::kBF16, 0, ws_mid, sc::kBF16, Dmid, T, Dmid, Din, act, st);
+  sc::launch_gemm(static_cast<const bf*>(ws_mid), Dmid, static_cast<const bf*>(w2),
+                  static_cast<const bf*>(b2), residual ? x : nullptr, sc::kBF16, Din, out,
+                  sc::kBF16, Dout, T, Dout, Dmid, sc::kActNone, st);
+  return static_cast<int>(cudaGetLastError());
+}
+
+extern "C" const char* sc_error_string(int err) {
+  return cudaGetErrorString(static_cast<cudaError_t>(err));
+}

@@ -1,0 +1,31 @@
+"""Kernel library loader and the launch counters of the kernel wrappers.
+
+Each wrapper of a hand-written kernel is registered with `counted`; it adds
+one to its `launches` attribute where it launches its kernel on a CUDA
+tensor, and nowhere else (the CPU branch runs the plain PyTorch version and
+does not count). `launch_counts()` reads every counter and
+`reset_launch_counts()` zeroes them, so a run can show that its main path
+went through the kernels.
+"""
+
+from __future__ import annotations
+
+from typing import Callable, Dict
+
+_WRAPPERS: Dict[str, Callable] = {}
+
+
+def counted(fn: Callable) -> Callable:
+    """Register a kernel wrapper and give it a `launches` counter."""
+    fn.launches = 0
+    _WRAPPERS[fn.__name__] = fn
+    return fn
+
+
+def launch_counts() -> Dict[str, int]:
+    return {name: fn.launches for name, fn in _WRAPPERS.items()}
+
+
+def reset_launch_counts() -> None:
+    for fn in _WRAPPERS.values():
+        fn.launches = 0

@@ -1,0 +1,117 @@
+"""Build and load the hand-written CUDA kernels.
+
+Every `csrc/*.cu` file is compiled by `nvcc` into one shared library with a
+plain C interface, `build/libstreamchat_kernels.so` inside the package, and
+loaded with `ctypes` (the repo's `native/frameproc.py` pattern, without a
+silent fallback: a failed build raises). The library is rebuilt whenever a
+source under `csrc/` is newer than it, so a fresh checkout builds everything
+from its own sources on first use — a few seconds of `nvcc` for these files.
+
+Nothing here runs at import time: the CPU tests import every module of the
+package on machines that have no `nvcc` and no GPU.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+import glob
+import os
+import shutil
+import subprocess
+import time
+
+PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+SRC_DIR = os.path.join(PKG_DIR, "csrc")
+BUILD_DIR = os.path.join(PKG_DIR, "build")
+LIB_PATH = os.path.join(BUILD_DIR, "libstreamchat_kernels.so")
+
+NVCC_FLAGS = [
+    "-gencode", "arch=compute_90a,code=sm_90a",
+    "-O3", "-std=c++17", "-shared", "-Xcompiler", "-fPIC", "-lineinfo",
+]
+
+_P, _I, _I64, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64, ctypes.c_float
+_PI64 = ctypes.POINTER(ctypes.c_int64)
+
+# C signatures of the exported functions (all return a cudaError_t as int).
+SIGNATURES = {
+    "sc_flash_attention": [_P, _PI64, _P, _PI64, _P, _PI64, _P, _PI64, _P,
+                           _I, _I, _I, _I, _I, _I, _I, _F, _P],
+    "sc_paged_decode": [_P, _I64, _I64, _P, _P, _P, _I, _I, _I, _I, _I, _I,
+                        _I, _F, _P, _P, _P, _P, _P],
+    "sc_fused_vit_layer": [_P] * 19 + [_I, _I, _I, _I, _I, _F, _P],
+    "sc_fused_ln_mlp": [_P] * 10 + [_I, _I, _I, _I, _I, _I, _I, _F, _P],
+}
+
+
+def _sources():
+    return sorted(glob.glob(os.path.join(SRC_DIR, "*.cu")))
+
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    home = os.environ.get("CUDA_HOME") or os.environ.get("CUDA_PATH")
+    if not home:
+        from torch.utils.cpp_extension import CUDA_HOME
+
+        home = CUDA_HOME
+    cand = os.path.join(home, "bin", "nvcc") if home else None
+    if cand and os.path.exists(cand):
+        return cand
+    raise RuntimeError("nvcc not found: the CUDA kernels build only where "
+                       "the CUDA toolkit is installed")
+
+
+def _stale() -> bool:
+    if not os.path.exists(LIB_PATH):
+        return True
+    built = os.path.getmtime(LIB_PATH)
+    deps = _sources() + glob.glob(os.path.join(SRC_DIR, "*.cuh"))
+    return any(os.path.getmtime(p) > built for p in deps)
+
+
+def build(force: bool = False) -> dict:
+    """Compile csrc/*.cu into LIB_PATH when stale -> {"seconds", "log"}.
+
+    Raises RuntimeError when nvcc fails.
+    """
+    if not force and not _stale():
+        return {"seconds": 0.0, "log": "", "built": False}
+    os.makedirs(BUILD_DIR, exist_ok=True)
+    tmp = f"{LIB_PATH}.{os.getpid()}.tmp"
+    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, *_sources()]
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    seconds = time.perf_counter() - t0
+    if proc.returncode != 0:
+        raise RuntimeError(
+            f"nvcc failed ({proc.returncode}):\n{' '.join(cmd)}\n"
+            f"{proc.stdout}\n{proc.stderr}")
+    os.replace(tmp, LIB_PATH)
+    return {"seconds": seconds, "log": proc.stdout + proc.stderr, "built": True}
+
+
+@functools.lru_cache(maxsize=1)
+def library() -> ctypes.CDLL:
+    """The loaded kernel library (built first when stale)."""
+    build()
+    lib = ctypes.CDLL(LIB_PATH)
+    for name, argtypes in SIGNATURES.items():
+        fn = getattr(lib, name)
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+    lib.sc_error_string.argtypes = [ctypes.c_int]
+    lib.sc_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+def call(name: str, *args) -> None:
+    """Invoke an exported kernel launcher and raise on a CUDA error."""
+    lib = library()
+    err = getattr(lib, name)(*args)
+    if err != 0:
+        msg = lib.sc_error_string(err).decode()
+        raise RuntimeError(f"{name}: CUDA error {err} ({msg})")

@@ -1,0 +1,168 @@
+"""Causal decoder core (Qwen2 / LLaMA geometry), prefill side
+(`streamchat_tpu/models/decoder.py`).
+
+The projections are plain matrix products (`x @ w`, [in, out] weights, as
+the JAX package leaves them to XLA); prefill attention is the K3 kernel
+wrapper (`ops.attention.flash_attention`). RMSNorm, RoPE (HF rotate-half)
+and the logits run in f32. Decode runs against the paged pool in
+`models/paged_kv.py`.
+
+The port prefills every prompt in ONE pass, however long: the JAX
+package's chunked prefill (`decoder.prefill_chunked`, prompts over 8192
+tokens) exists to fit a 16 GB chip, and a one-shot 23k-token caption
+prefill fits an 80 GB H100 (MLP intermediates ~2.6 GB, dense KV ~1.3 GB,
+weights 15.2 GB). tests/test_torch_models.py pins one-shot == chunked.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Dict, Tuple
+
+import torch
+
+from streamchat_tpu_torch.config import DecoderConfig
+from streamchat_tpu_torch.ops.attention import flash_attention
+
+Params = Dict[str, Any]
+
+
+@dataclasses.dataclass
+class KVCache:
+    """Dense per-layer key/value store: k, v [L, B, Hkv, Lmax, Dh]; length [B]."""
+
+    k: torch.Tensor
+    v: torch.Tensor
+    length: torch.Tensor
+
+    @classmethod
+    def create(cls, cfg: DecoderConfig, batch: int, max_len: int,
+               dtype=torch.bfloat16, device="cpu") -> "KVCache":
+        shape = (cfg.num_layers, batch, cfg.num_kv_heads, max_len, cfg.head_dim)
+        return cls(k=torch.zeros(shape, dtype=dtype, device=device),
+                   v=torch.zeros(shape, dtype=dtype, device=device),
+                   length=torch.zeros(batch, dtype=torch.int32, device=device))
+
+
+def rmsnorm(x: torch.Tensor, scale: torch.Tensor, eps: float) -> torch.Tensor:
+    x32 = x.float()
+    var = (x32 * x32).mean(-1, keepdim=True)
+    return (x32 * torch.rsqrt(var + eps) * scale.float()).to(x.dtype)
+
+
+def rope(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.Tensor:
+    """Rotary embedding, HF rotate-half convention. x [B, H, S, Dh],
+    positions [B, S]."""
+    dh = x.shape[-1]
+    inv_freq = 1.0 / (theta ** (torch.arange(0, dh, 2, dtype=torch.float32,
+                                             device=x.device) / dh))
+    ang = positions[:, None, :, None].float() * inv_freq          # [B,1,S,Dh/2]
+    cos, sin = torch.cos(ang), torch.sin(ang)
+    x32 = x.float()
+    x1, x2 = x32[..., : dh // 2], x32[..., dh // 2:]
+    return torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1).to(x.dtype)
+
+
+def init(cfg: DecoderConfig, generator: torch.Generator, *, device="cpu",
+         dtype=torch.bfloat16) -> Params:
+    """Random parameters at the exact geometry of `cfg`."""
+    d, dh = cfg.hidden_size, cfg.head_dim
+    hq, hkv, f = cfg.num_heads, cfg.num_kv_heads, cfg.intermediate_size
+
+    def mat(kin, kout):
+        w = torch.randn(kin, kout, generator=generator, device=device)
+        return (w * kin ** -0.5).to(dtype)
+
+    def ones(n):
+        return torch.ones(n, dtype=dtype, device=device)
+
+    def zeros(n):
+        return torch.zeros(n, dtype=dtype, device=device)
+
+    layers = []
+    for _ in range(cfg.num_layers):
+        attn = {"q": {"w": mat(d, hq * dh)}, "k": {"w": mat(d, hkv * dh)},
+                "v": {"w": mat(d, hkv * dh)}, "o": {"w": mat(hq * dh, d)}}
+        if cfg.qkv_bias:
+            attn["q"]["b"] = zeros(hq * dh)
+            attn["k"]["b"] = zeros(hkv * dh)
+            attn["v"]["b"] = zeros(hkv * dh)
+        layers.append({"input_norm": ones(d), "attn": attn, "post_norm": ones(d),
+                       "mlp": {"gate": mat(d, f), "up": mat(d, f), "down": mat(f, d)}})
+    embed = torch.randn(cfg.vocab_size, d, generator=generator, device=device)
+    params = {"embed": (embed * 0.02).to(dtype), "layers": layers,
+              "final_norm": ones(d)}
+    if not cfg.tie_embeddings:
+        params["lm_head"] = mat(d, cfg.vocab_size)
+    return params
+
+
+def _proj(x: torch.Tensor, p: Params) -> torch.Tensor:
+    y = x @ p["w"]
+    if "b" in p:
+        y = y + p["b"]
+    return y
+
+
+def qkv_proj(h, attn, b, s, hq, hkv, dh):
+    """q/k/v projections -> ([B,Hq,S,Dh], [B,Hkv,S,Dh], [B,Hkv,S,Dh])."""
+    q = _proj(h, attn["q"]).view(b, s, hq, dh).transpose(1, 2)
+    k = _proj(h, attn["k"]).view(b, s, hkv, dh).transpose(1, 2)
+    v = _proj(h, attn["v"]).view(b, s, hkv, dh).transpose(1, 2)
+    return q, k, v
+
+
+def mlp_block(h: torch.Tensor, mlp: Params) -> torch.Tensor:
+    """SwiGLU: down(silu(gate(h)) * up(h))."""
+    gated = torch.nn.functional.silu((h @ mlp["gate"]).float()).to(h.dtype)
+    return (gated * (h @ mlp["up"])) @ mlp["down"]
+
+
+def forward(params: Params, cfg: DecoderConfig, embeds: torch.Tensor,
+            positions: torch.Tensor, cache: KVCache, seq_length: torch.Tensor
+            ) -> Tuple[torch.Tensor, KVCache]:
+    """Prefill the stack over embeds [B, S, D] into a FRESH cache (length 0).
+
+    positions [B, S]; seq_length [B] valid tokens of `embeds` (the rest is
+    padding, masked by kv_length). Returns (post-norm hidden [B, S, D],
+    cache with k/v written at [0, S) and length = seq_length).
+    """
+    b, s, _ = embeds.shape
+    hq, hkv, dh = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    kv_length = seq_length.to(torch.int32)
+    x = embeds
+    for i, p in enumerate(params["layers"]):
+        h = rmsnorm(x, p["input_norm"], cfg.rms_eps)
+        q, k, v = qkv_proj(h, p["attn"], b, s, hq, hkv, dh)
+        q = rope(q, positions, cfg.rope_theta)
+        k = rope(k, positions, cfg.rope_theta)
+        cache.k[i, :, :, :s] = k
+        cache.v[i, :, :, :s] = v
+        o = flash_attention(q, k, v, kv_length, causal=True)
+        x = x + _proj(o.transpose(1, 2).reshape(b, s, hq * dh), p["attn"]["o"])
+        x = x + mlp_block(rmsnorm(x, p["post_norm"], cfg.rms_eps), p["mlp"])
+    cache.length = kv_length.clone()
+    return rmsnorm(x, params["final_norm"], cfg.rms_eps), cache
+
+
+def logits_from_hidden(params: Params, cfg: DecoderConfig,
+                       hidden: torch.Tensor) -> torch.Tensor:
+    """f32 logits of the given rows (callers pass the last row only)."""
+    head = params["embed"].T if cfg.tie_embeddings else params["lm_head"]
+    return hidden.float() @ head.float()
+
+
+def embed_tokens(params: Params, token_ids: torch.Tensor) -> torch.Tensor:
+    return params["embed"][token_ids]
+
+
+def prefill(params: Params, cfg: DecoderConfig, embeds: torch.Tensor,
+            cache: KVCache, seq_length: torch.Tensor
+            ) -> Tuple[torch.Tensor, KVCache]:
+    """One-shot prefill of a padded prompt -> (last-token logits [B, V], cache)."""
+    b, s, _ = embeds.shape
+    positions = torch.arange(s, device=embeds.device)[None].expand(b, s)
+    hidden, cache = forward(params, cfg, embeds, positions, cache, seq_length)
+    last = (seq_length.to(embeds.device).long() - 1)
+    rows = hidden[torch.arange(b, device=embeds.device), last]      # [B, D]
+    return logits_from_hidden(params, cfg, rows[:, None])[:, 0], cache

@@ -1,0 +1,127 @@
+"""LongVA assembly: vision tower + projector + Qwen2 decoder + splice
+(`streamchat_tpu/models/longva.py`).
+
+One model serves the answerer and the captioner. `encode_images` runs the
+ViT (K1 per layer) and the projector (K2); `generate_with_image_embedding`
+splices the prompt's `<image>` markers with visual embeddings, pads to a
+128-token bucket and generates through the paged backend (K3 prefill, K4
+decode). Random draws come from the `torch.Generator` the facade holds
+(the JAX package's `KeySeq`).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import List, Optional, Sequence, Tuple
+
+import torch
+
+from streamchat_tpu_torch.config import DecoderConfig, ViTConfig
+from streamchat_tpu_torch.models import decoder, projector, vit
+from streamchat_tpu_torch.models.generate import pad_to_bucket
+from streamchat_tpu_torch.models.generate_paged import generate_paged
+from streamchat_tpu_torch.models.tokenizer import (
+    IMAGE_TOKEN_INDEX,
+    ByteTokenizer,
+    tokenize_with_image_token,
+)
+
+PROMPT_BUCKET = 128     # prompt padding granularity (tokens)
+
+
+@dataclasses.dataclass
+class LongVA:
+    vit_params: dict
+    proj_params: dict
+    dec_params: dict
+    vit_cfg: ViTConfig
+    dec_cfg: DecoderConfig
+    tokenizer: object
+    generator: torch.Generator
+    # Prefill / decode seconds, decode steps, prompt and generated tokens,
+    # summed over every generate call (models/generate_paged `stats`).
+    gen_stats: dict = dataclasses.field(default_factory=dict)
+
+    @property
+    def device(self) -> torch.device:
+        return self.dec_params["embed"].device
+
+    @classmethod
+    def init_random(cls, vit_cfg: ViTConfig | None = None,
+                    dec_cfg: DecoderConfig | None = None, *, seed: int = 0,
+                    device="cpu", dtype=torch.bfloat16) -> "LongVA":
+        """Random weights at the given geometry (default LongVA-7B), built
+        on `device` from a seeded generator."""
+        vit_cfg = vit_cfg or ViTConfig()
+        dec_cfg = dec_cfg or DecoderConfig.qwen2_7b()
+        g = torch.Generator(device=device).manual_seed(seed)
+        return cls(
+            vit_params=vit.init(vit_cfg, g, device=device, dtype=dtype),
+            proj_params=projector.init(vit_cfg.hidden_size, dec_cfg.hidden_size, g,
+                                       device=device, dtype=dtype),
+            dec_params=decoder.init(dec_cfg, g, device=device, dtype=dtype),
+            vit_cfg=vit_cfg, dec_cfg=dec_cfg,
+            tokenizer=ByteTokenizer(), generator=g)
+
+    def encode_images(self, pixels: torch.Tensor) -> torch.Tensor:
+        """[N, 3, H, W] -> [N, P, lm_hidden] (tower -> projector)."""
+        feats = vit.encode(self.vit_params, pixels, self.vit_cfg)
+        return projector.apply(self.proj_params, feats)
+
+    def embed_text(self, text: str) -> torch.Tensor:
+        ids = torch.tensor(self.tokenizer.encode(text), device=self.device)
+        return decoder.embed_tokens(self.dec_params, ids)
+
+    def splice_prompt(self, prompt: str,
+                      image_embeddings: Optional[Sequence[torch.Tensor]]
+                      ) -> Tuple[torch.Tensor, int]:
+        """Prompt text -> (embeds [1, S_pad, D] padded to a PROMPT_BUCKET
+        multiple, valid length).
+
+        Each `<image>` consumes the next entry of image_embeddings: a
+        [T, D] block or a LIST of blocks. Truncates to
+        max_position_embeddings like the reference's tokenizer clamp.
+        """
+        ids = tokenize_with_image_token(prompt, self.tokenizer)
+        dtype = self.dec_params["embed"].dtype
+        segments: List[torch.Tensor] = []
+        img_idx = 0
+        text_run: List[int] = []
+
+        def flush_text():
+            if text_run:
+                segments.append(decoder.embed_tokens(
+                    self.dec_params, torch.tensor(text_run, device=self.device)))
+                text_run.clear()
+
+        for tid in ids:
+            if tid == IMAGE_TOKEN_INDEX:
+                flush_text()
+                if image_embeddings is None or img_idx >= len(image_embeddings):
+                    raise ValueError("prompt has more <image> tokens than embeddings")
+                feats = image_embeddings[img_idx]
+                img_idx += 1
+                blocks = feats if isinstance(feats, (list, tuple)) else [feats]
+                segments.extend(b.reshape(-1, b.shape[-1]).to(dtype) for b in blocks)
+            else:
+                text_run.append(tid)
+        flush_text()
+        embeds = torch.cat(segments, dim=0)
+        length = min(embeds.shape[0], self.dec_cfg.max_position_embeddings)
+        padded = pad_to_bucket(length, PROMPT_BUCKET, minimum=PROMPT_BUCKET)
+        out = torch.zeros(padded, embeds.shape[1], dtype=dtype, device=self.device)
+        out[:length] = embeds[:length]
+        return out[None], length
+
+    def generate_with_image_embedding(
+        self, prompt: str, image_embeddings: Optional[Sequence[torch.Tensor]] = None,
+        *, max_new_tokens: int = 256, temperature: float = 0.0,
+        top_p: float | None = None,
+    ) -> str:
+        embeds, length = self.splice_prompt(prompt, image_embeddings)
+        toks, count = generate_paged(
+            self.dec_params, self.dec_cfg, embeds,
+            torch.tensor([length], dtype=torch.int32, device=self.device),
+            self.generator, max_new_tokens=max_new_tokens, temperature=temperature,
+            top_p=top_p, eos_ids=tuple(self.tokenizer.eos_ids), stats=self.gen_stats)
+        return self.tokenizer.decode(toks[0][: int(count[0])].tolist()).strip()

@@ -1,0 +1,118 @@
+"""Prefill attention (K3) for Hopper, its plain twin, and plain decode.
+
+Counterpart of `streamchat_tpu/ops/attention.py`. Layouts as there:
+q [B, H, S, D], k/v [B, Hkv, S, D] (GQA: query head h reads kv head
+h // (H / Hkv)), kv_length [B] masks keys at and past each row's length.
+
+* `flash_attention` — causal or non-causal online-softmax attention. A CUDA
+  tensor launches `csrc/flash_attention.cu` (bf16, head dim 64 or 128,
+  any strides with a contiguous last dim); a CPU tensor runs
+  `flash_attention_plain`. Rows that see no key output 0, like the TPU
+  kernel's `l == 0` guard. The decoder calls it for every prefill: the
+  port prefills every prompt in one pass.
+* `decode_attention` — one query token against a contiguous cache (plain
+  PyTorch; the paged decode path uses ops/paged_attention).
+"""
+
+from __future__ import annotations
+
+import math
+
+import torch
+
+from streamchat_tpu_torch.kernels import counted
+
+
+def flash_attention_plain(q, k, v, kv_length=None, *, causal: bool = True):
+    """Plain PyTorch twin of `flash_attention` (same signature)."""
+    b, hq, sq, d = q.shape
+    hkv, sk = k.shape[1], k.shape[2]
+    if hq != hkv:
+        k = k.repeat_interleave(hq // hkv, dim=1)
+        v = v.repeat_interleave(hq // hkv, dim=1)
+    s = (q.float() @ k.float().transpose(-1, -2)) / math.sqrt(d)    # [B,H,Sq,Sk]
+    col = torch.arange(sk, device=q.device)
+    mask = torch.ones(sq, sk, dtype=torch.bool, device=q.device)
+    if causal:
+        mask = col[None, :] <= torch.arange(sq, device=q.device)[:, None]
+    mask = mask[None, None]
+    if kv_length is not None:
+        mask = mask & (col[None, None, None, :]
+                       < kv_length.to(q.device)[:, None, None, None])
+    s = s.masked_fill(~mask, float("-inf"))
+    m = s.amax(-1, keepdim=True)
+    m = torch.where(torch.isinf(m), torch.zeros_like(m), m)
+    p = torch.exp(s - m)
+    l = p.sum(-1, keepdim=True)
+    o = (p @ v.float()) / torch.where(l == 0, torch.ones_like(l), l)
+    return o.to(q.dtype)
+
+
+def _strides(t: torch.Tensor, name: str):
+    if t.stride(-1) != 1:
+        raise ValueError(f"flash_attention {name}: last dim must be contiguous")
+    st = t.stride()[:3]
+    if any(x % 8 for x in st) or t.data_ptr() % 16:
+        raise ValueError(f"flash_attention {name}: strides {st} must be "
+                         "16-byte multiples")
+    return (st[0], st[1], st[2])
+
+
+@counted
+def flash_attention(q, k, v, kv_length=None, *, causal: bool = True):
+    """Tiled flash attention (K3), scores scaled by D^-0.5 -> [B, H, Sq, D]
+    in q's dtype.
+
+    On CUDA the result is a [B, H, Sq, D] view of a [B, Sq, H, D] buffer,
+    so the decoder's following transpose to [B, Sq, H * D] is free.
+    """
+    b, hq, sq, d = q.shape
+    _, hkv, sk, _ = k.shape
+    if q.device.type == "cpu":
+        return flash_attention_plain(q, k, v, kv_length, causal=causal)
+    import ctypes
+
+    from streamchat_tpu_torch.kernels.build import call
+
+    for name, t in (("q", q), ("k", k), ("v", v)):
+        if t.device.type != "cuda" or t.dtype != torch.bfloat16:
+            raise ValueError(f"flash_attention {name}: expected CUDA bf16, got "
+                             f"{t.device} {t.dtype}")
+    if d not in (64, 128) or hq % hkv or tuple(v.shape) != tuple(k.shape):
+        raise ValueError(f"flash_attention: unsupported shapes q {tuple(q.shape)}"
+                         f" k {tuple(k.shape)} v {tuple(v.shape)}")
+    if kv_length is not None:
+        if (kv_length.device != q.device or kv_length.dtype != torch.int32
+                or tuple(kv_length.shape) != (b,)):
+            raise ValueError("flash_attention kv_length: expected int32 [B] "
+                             "on the query's device")
+        kv_length = kv_length.contiguous()
+    out = torch.empty(b, sq, hq, d, dtype=q.dtype, device=q.device).transpose(1, 2)
+    arr = lambda st: (ctypes.c_int64 * 3)(*st)  # noqa: E731
+    qs, ks, vs, os_ = (arr(_strides(t, n)) for t, n in
+                       ((q, "q"), (k, "k"), (v, "v"), (out, "out")))
+    call("sc_flash_attention", q.data_ptr(), qs, k.data_ptr(), ks,
+         v.data_ptr(), vs, out.data_ptr(), os_,
+         None if kv_length is None else kv_length.data_ptr(),
+         b, hq, hkv, sq, sk, d, int(causal), 1.0 / math.sqrt(d),
+         torch.cuda.current_stream().cuda_stream)
+    flash_attention.launches += 1
+    return out
+
+
+def decode_attention(q, k_cache, v_cache, length):
+    """One-token attention against a contiguous cache.
+
+    q [B, H, 1, D]; k_cache/v_cache [B, Hkv, Lmax, D]; length [B] valid
+    entries (the new token's K/V already written).
+    """
+    b, hq, _, d = q.shape
+    hkv, lmax = k_cache.shape[1], k_cache.shape[2]
+    qg = q.reshape(b, hkv, hq // hkv, d).float()
+    s = torch.einsum("bhgd,bhld->bhgl", qg, k_cache.float()) / math.sqrt(d)
+    col = torch.arange(lmax, device=q.device)
+    s = s.masked_fill(col[None, None, None, :] >= length[:, None, None, None],
+                      float("-inf"))
+    p = torch.softmax(s, dim=-1)
+    o = torch.einsum("bhgl,bhld->bhgd", p, v_cache.float())
+    return o.reshape(b, hq, 1, d).to(q.dtype)

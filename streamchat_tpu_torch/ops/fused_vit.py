@@ -1,0 +1,192 @@
+"""The ViT layer (K1) and the LN-MLP (K2) for Hopper, with plain twins.
+
+Counterparts of `streamchat_tpu/ops/fused_vit.py`:
+
+* `fused_vit_layer` — one pre-LN CLIP block,
+  out = y + fc2(quick_gelu(fc1(LN2(y)))),  y = x + O(attn(QKV(LN1(x)))),
+  the unfolded form of the TPU kernel with the exact (max-subtracting)
+  softmax. On a CUDA tensor it launches `csrc/fused_vit.cu`
+  (`sc_fused_vit_layer`: LayerNorm, tensor-core GEMMs with fused epilogues
+  and the flash-attention kernel on one stream); on a CPU tensor it runs
+  `fused_vit_layer_plain`.
+* `fused_ln_mlp` — out = [x +] fc2(act(fc1([LN] x))), act one of
+  quick_gelu / erf-GELU / none (the projector runs it with LN off, no
+  residual and erf-GELU). CUDA: `sc_fused_ln_mlp`; CPU: `fused_ln_mlp_plain`.
+
+Numerics follow the TPU kernels: LayerNorm statistics in f32, products of
+the storage dtype with f32 accumulation, the mid-layer residual kept in
+f32, activations rounded to the storage dtype between the products. The
+plain twins compute each product in f32 from the rounded operands, which is
+what the kernels' f32 accumulation computes up to summation order.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from streamchat_tpu_torch.kernels import counted
+from streamchat_tpu_torch.ops.attention import flash_attention_plain
+
+ACTIVATIONS = {"none": 0, "quick_gelu": 1, "gelu": 2}
+
+
+def _mm(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Product of the (rounded) operands with f32 accumulation and output."""
+    return a.float() @ b.float()
+
+
+def _ln_f32(x32, scale, bias, eps):
+    mu = x32.mean(-1, keepdim=True)
+    var = (x32 - mu).square().mean(-1, keepdim=True)
+    return (x32 - mu) * torch.rsqrt(var + eps) * scale.float() + bias.float()
+
+
+def _activate(h32, activation: str):
+    if activation == "quick_gelu":
+        return h32 * torch.sigmoid(1.702 * h32)
+    if activation == "gelu":
+        return 0.5 * h32 * (1.0 + torch.erf(h32 * 2.0 ** -0.5))
+    if activation == "none":
+        return h32
+    raise ValueError(f"unknown activation: {activation}")
+
+
+def _check_cuda(name, t, dtype, shape=None):
+    if t.device.type != "cuda":
+        raise ValueError(f"{name}: expected a CUDA tensor, got {t.device}")
+    if t.dtype != dtype:
+        raise ValueError(f"{name}: expected {dtype}, got {t.dtype}")
+    if shape is not None and tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{name}: expected shape {tuple(shape)}, got {tuple(t.shape)}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name}: expected a contiguous tensor")
+    if t.data_ptr() % 16:
+        raise ValueError(f"{name}: expected a 16-byte aligned tensor")
+
+
+def _stream() -> int:
+    return torch.cuda.current_stream().cuda_stream
+
+
+def fused_vit_layer_plain(x, ln1_scale, ln1_bias, wqkv, bqkv, wo, bo,
+                          ln2_scale, ln2_bias, w1, b1, w2, b2, *,
+                          num_heads: int, eps: float = 1e-5):
+    """Plain PyTorch twin of `fused_vit_layer` (same signature)."""
+    dt = x.dtype
+    n, s, d = x.shape
+    dh = d // num_heads
+    x32 = x.float()
+    h = _ln_f32(x32, ln1_scale, ln1_bias, eps).to(dt)
+    qkv = (_mm(h, wqkv) + bqkv.float()).to(dt)                # [n, s, 3d]
+    heads = qkv.view(n, s, 3, num_heads, dh).permute(2, 0, 3, 1, 4)
+    attn = flash_attention_plain(heads[0], heads[1], heads[2],
+                                 causal=False)              # [n, H, s, dh]
+    attn = attn.transpose(1, 2).reshape(n, s, d)
+    mid_x = _mm(attn, wo) + bo.float() + x32
+    h = _ln_f32(mid_x, ln2_scale, ln2_bias, eps).to(dt)
+    mid = _activate(_mm(h, w1) + b1.float(), "quick_gelu").to(dt)
+    return (_mm(mid, w2) + b2.float() + mid_x).to(dt)
+
+
+@counted
+def fused_vit_layer(x, ln1_scale, ln1_bias, wqkv, bqkv, wo, bo,
+                    ln2_scale, ln2_bias, w1, b1, w2, b2, *,
+                    num_heads: int, eps: float = 1e-5):
+    """One pre-LN CLIP block over x [N, S, D] -> [N, S, D] (K1).
+
+    Weights are [in, out]; wqkv is the merged [D, 3D] q|k|v projection.
+    CPU tensors run the plain twin; CUDA tensors launch the kernel (bf16,
+    D and the MLP width multiples of 128, head dim 64 or 128) or raise.
+    """
+    if x.device.type == "cpu":
+        return fused_vit_layer_plain(
+            x, ln1_scale, ln1_bias, wqkv, bqkv, wo, bo, ln2_scale, ln2_bias,
+            w1, b1, w2, b2, num_heads=num_heads, eps=eps)
+    from streamchat_tpu_torch.kernels.build import call
+
+    n, s, d = x.shape
+    dmid = w1.shape[1]
+    dh = d // num_heads
+    if d % 128 or dmid % 128 or dh * num_heads != d or dh not in (64, 128):
+        raise ValueError(f"fused_vit_layer: unsupported D={d}, MLP={dmid}, "
+                         f"heads={num_heads}")
+    bf = torch.bfloat16
+    for name, t, shape in (
+        ("x", x, (n, s, d)), ("ln1_scale", ln1_scale, (d,)),
+        ("ln1_bias", ln1_bias, (d,)), ("wqkv", wqkv, (d, 3 * d)),
+        ("bqkv", bqkv, (3 * d,)), ("wo", wo, (d, d)), ("bo", bo, (d,)),
+        ("ln2_scale", ln2_scale, (d,)), ("ln2_bias", ln2_bias, (d,)),
+        ("w1", w1, (d, dmid)), ("b1", b1, (dmid,)), ("w2", w2, (dmid, d)),
+        ("b2", b2, (d,)),
+    ):
+        _check_cuda(f"fused_vit_layer {name}", t, bf, shape)
+    m = n * s
+    out = torch.empty_like(x)
+    ws_h = torch.empty(m, d, dtype=bf, device=x.device)
+    ws_qkv = torch.empty(m, 3 * d, dtype=bf, device=x.device)
+    ws_attn = torch.empty(m, d, dtype=bf, device=x.device)
+    ws_mid_x = torch.empty(m, d, dtype=torch.float32, device=x.device)
+    ws_mid = torch.empty(m, dmid, dtype=bf, device=x.device)
+    ptrs = [t.data_ptr() for t in (
+        x, ln1_scale, ln1_bias, wqkv, bqkv, wo, bo, ln2_scale, ln2_bias,
+        w1, b1, w2, b2, out, ws_h, ws_qkv, ws_attn, ws_mid_x, ws_mid)]
+    call("sc_fused_vit_layer", *ptrs, n, s, d, dmid, num_heads, eps, _stream())
+    fused_vit_layer.launches += 1
+    return out
+
+
+def fused_ln_mlp_plain(x, ln_scale, ln_bias, w1, b1, w2, b2, *,
+                       eps: float = 1e-5, activation: str = "quick_gelu",
+                       layernorm: bool = True, residual: bool = True):
+    """Plain PyTorch twin of `fused_ln_mlp` (same signature)."""
+    dt = x.dtype
+    x32 = x.float()
+    h = _ln_f32(x32, ln_scale, ln_bias, eps).to(dt) if layernorm else x
+    mid = _activate(_mm(h, w1) + b1.float(), activation).to(dt)
+    out = _mm(mid, w2) + b2.float()
+    if residual:
+        out = out + x32
+    return out.to(dt)
+
+
+@counted
+def fused_ln_mlp(x, ln_scale, ln_bias, w1, b1, w2, b2, *,
+                 eps: float = 1e-5, activation: str = "quick_gelu",
+                 layernorm: bool = True, residual: bool = True):
+    """out = [x +] fc2(act(fc1([LN] x))) over x [T, Din] (K2).
+
+    ln_scale / ln_bias may be None when layernorm is False. CPU tensors
+    run the plain twin; CUDA tensors launch the kernel (bf16, Din % 32 == 0,
+    MLP and output widths multiples of 128) or raise.
+    """
+    t, din = x.shape
+    dmid, dout = w1.shape[1], w2.shape[1]
+    if residual and dout != din:
+        raise ValueError("residual requires matching in/out dims")
+    if activation not in ACTIVATIONS:
+        raise ValueError(f"unknown activation: {activation}")
+    if x.device.type == "cpu":
+        return fused_ln_mlp_plain(
+            x, ln_scale, ln_bias, w1, b1, w2, b2, eps=eps,
+            activation=activation, layernorm=layernorm, residual=residual)
+    from streamchat_tpu_torch.kernels.build import call
+
+    if din % 32 or dmid % 128 or dout % 128:
+        raise ValueError(f"fused_ln_mlp: unsupported widths {din}->{dmid}->{dout}")
+    bf = torch.bfloat16
+    checks = [("x", x, (t, din)), ("w1", w1, (din, dmid)), ("b1", b1, (dmid,)),
+              ("w2", w2, (dmid, dout)), ("b2", b2, (dout,))]
+    if layernorm:
+        checks += [("ln_scale", ln_scale, (din,)), ("ln_bias", ln_bias, (din,))]
+    for name, tt, shape in checks:
+        _check_cuda(f"fused_ln_mlp {name}", tt, bf, shape)
+    out = torch.empty(t, dout, dtype=bf, device=x.device)
+    ws_mid = torch.empty(t, dmid, dtype=bf, device=x.device)
+    ws_h = torch.empty(t, din, dtype=bf, device=x.device) if layernorm else None
+    ptr = lambda tt: None if tt is None else tt.data_ptr()  # noqa: E731
+    call("sc_fused_ln_mlp", ptr(x), ptr(ln_scale if layernorm else None),
+         ptr(ln_bias if layernorm else None), ptr(w1), ptr(b1), ptr(w2), ptr(b2),
+         ptr(out), ptr(ws_h), ptr(ws_mid), t, din, dmid, dout,
+         ACTIVATIONS[activation], int(layernorm), int(residual), eps, _stream())
+    fused_ln_mlp.launches += 1
+    return out

@@ -1,0 +1,74 @@
+"""Per-segment memory update (`streamchat_tpu/pipeline/memory_update.py`).
+
+1. Short memory: the segment's last `short_window` frames, sampled down to
+   `remember_window` by the Ebbinghaus curve (reset every breakpoint, as the
+   reference does).
+2. Long memory: the segment cut into `chunk_size` chunks; each RAW chunk is
+   captioned, each full chunk is k-means reduced to `num_clusters` centroids
+   for its tree node (the partial tail chunk stays raw), and the nodes enter
+   the tree. `cluster_full_chunks=False` (the reference's literal dead
+   guard) is not ported yet.
+
+The JAX package's host offload of chunks and weights (`offload_chunks`,
+`offload_residents`, OFFLOAD_STATS) exists to fit a 16 GB chip; the H100's
+80 GB holds a segment's features and the caption prefill together.
+"""
+
+from __future__ import annotations
+
+from typing import Callable, List, Tuple
+
+import torch
+
+from streamchat_tpu_torch.config import MemoryConfig
+from streamchat_tpu_torch.memory.tree import VisualMemoryTree
+from streamchat_tpu_torch.ops.forgetting import select_short_memory
+from streamchat_tpu_torch.ops.kmeans import weighted_kmeans_feature
+
+CaptionFn = Callable[[torch.Tensor], str]
+
+
+def build_short_memory(features: torch.Tensor, cfg: MemoryConfig,
+                       generator: torch.Generator | None = None) -> torch.Tensor:
+    """[N, P, D] segment features -> [R, P, D] short memory."""
+    n = features.shape[0]
+    if n == 0:
+        raise ValueError("empty segment: no short memory")
+    window = features[-cfg.short_window:] if n > cfg.short_window else features
+    r = min(cfg.remember_window, window.shape[0])
+    if window.shape[0] <= r:
+        return window
+    return select_short_memory(window, r, cfg.tau, generator=generator)
+
+
+def chunk_and_cluster(features: torch.Tensor, cfg: MemoryConfig,
+                      generator: torch.Generator | None = None
+                      ) -> Tuple[List[torch.Tensor], List[torch.Tensor]]:
+    """Split [N, P, D] into chunk_size chunks -> (raw_chunks, node_features)."""
+    raw: List[torch.Tensor] = []
+    node: List[torch.Tensor] = []
+    for i in range(0, features.shape[0], cfg.chunk_size):
+        chunk = features[i: i + cfg.chunk_size]
+        raw.append(chunk)
+        if chunk.shape[0] >= cfg.chunk_size and chunk.shape[0] > cfg.num_clusters:
+            centroids, _ = weighted_kmeans_feature(chunk, cfg.num_clusters,
+                                                   generator=generator)
+            node.append(centroids)
+        else:
+            node.append(chunk)
+    return raw, node
+
+
+def update_memory(features: torch.Tensor, tree: VisualMemoryTree, caption_fn: CaptionFn,
+                  cfg: MemoryConfig, generator: torch.Generator | None = None
+                  ) -> Tuple[VisualMemoryTree, torch.Tensor]:
+    """One segment's memory update -> (tree, short_memory [R, P, D])."""
+    if cfg.compress_rate > 1:
+        raise NotImplementedError(
+            "compress_rate > 1 (spatial pooling) is not ported yet: ROADMAP §A "
+            "'Memory update'")
+    short = build_short_memory(features, cfg, generator)
+    raw_chunks, node_feats = chunk_and_cluster(features, cfg, generator)
+    captions = [caption_fn(c) for c in raw_chunks]
+    tree.add_chunks(node_feats, captions)
+    return tree, short

@@ -1,0 +1,105 @@
+"""Profile the slice's phases at full LongVA-7B width on one GPU.
+
+    python -m streamchat_tpu_torch.utils.profile_slice
+
+Random seeded weights, bf16. Three profiled windows under `torch.profiler`
+(CPU + CUDA activities), each after a warm-up:
+
+* ingest: 64 frames of a 360x640 synthetic video (the padded 60-frame
+  segment) through preprocess, ViT-L (23 layers) and the projector;
+* a chunk-40 caption (~23.4k-token prompt) with 1 new token, which is
+  the prefill and one logits row;
+* the same caption with 33 new tokens, so the difference of the two is
+  32 decode steps at a 23.4k context.
+
+For each window it prints the host wall time (from before the first launch
+to after a device synchronize), the device time (the sum of the durations
+of every device event the profiler recorded, kernels and copies; the slice
+runs on one stream, so they do not overlap), the idle share 1 - device
+time / wall, and the kernels with the largest device time. Last, an unprofiled 129-token
+caption gives decode ms per step without the profiler's host overhead,
+and the peak device memory.
+"""
+
+from __future__ import annotations
+
+import json
+import subprocess
+import time
+
+import torch
+
+
+def summarize(prof, wall: float, label: str, rows: int = 18) -> None:
+    from torch.autograd import DeviceType
+
+    kern = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    busy = sum(e.time_range.elapsed_us() for e in kern) / 1e6
+    print(f"== {label}: wall {wall:.4f} s, device kernel time {busy:.4f} s, "
+          f"idle share {1 - busy / wall:.3f}, kernels {len(kern)}")
+    by = {}
+    for e in kern:
+        name = e.name[:90]
+        t, n = by.get(name, (0.0, 0))
+        by[name] = (t + e.time_range.elapsed_us() / 1e6, n + 1)
+    for name, (t, n) in sorted(by.items(), key=lambda kv: -kv[1][0])[:rows]:
+        print(f"   {t:9.4f} s  {100 * t / busy:5.1f}%  n={n:6d}  {name}")
+
+
+def main() -> None:
+    if not torch.cuda.is_available():
+        raise SystemExit("profile_slice: no CUDA device")
+    from torch.profiler import ProfilerActivity, profile
+
+    from streamchat_tpu_torch.config import PipelineConfig
+    from streamchat_tpu_torch.pipeline import prompts
+    from streamchat_tpu_torch.pipeline.preprocess import preprocess_frames
+    from streamchat_tpu_torch.pipeline.runner import build_pipeline
+    from streamchat_tpu_torch.video.reader import SyntheticVideoReader
+
+    print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"],
+                         capture_output=True, text=True, check=True).stdout.strip())
+    pipe = build_pipeline(PipelineConfig(), device="cuda", geometry="longva7b",
+                          dtype=torch.bfloat16)
+    m = pipe.model
+    activities = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
+
+    reader = SyntheticVideoReader(total_frames=600, frame_rate=30, height=360, width=640)
+    frames = reader.read_frames(list(range(0, 300, 5)) + [0, 0, 0, 0])
+    for _ in range(2):
+        m.encode_images(preprocess_frames(frames, 336, device="cuda"))
+    torch.cuda.synchronize()
+    with profile(activities=activities) as prof:
+        t0 = time.perf_counter()
+        feats = m.encode_images(preprocess_frames(frames, 336, device="cuda"))
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    summarize(prof, wall, "ingest 64 frames")
+
+    chunk = feats[:40].contiguous().reshape(-1, feats.shape[-1])
+    prompt = prompts.build_caption_prompt()
+    m.generate_with_image_embedding(prompt, [chunk[: 2 * feats.shape[1]]], max_new_tokens=4)
+    torch.cuda.synchronize()
+    for new in (1, 33):
+        m.gen_stats.clear()
+        with profile(activities=activities) as prof:
+            t0 = time.perf_counter()
+            m.generate_with_image_embedding(prompt, [chunk], max_new_tokens=new,
+                                            temperature=0.1)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        print(json.dumps(m.gen_stats))
+        summarize(prof, wall, f"caption 40 frames, {new} new tokens")
+
+    m.gen_stats.clear()
+    m.generate_with_image_embedding(prompt, [chunk], max_new_tokens=129,
+                                    temperature=0.1)
+    gs = m.gen_stats
+    print("unprofiled 129-token caption:", json.dumps(gs),
+          f"decode ms/step {1e3 * gs['decode_s'] / gs['decode_steps']:.3f}")
+    print(f"peak GiB {torch.cuda.max_memory_allocated() / 2**30:.2f}")
+
+
+if __name__ == "__main__":
+    main()

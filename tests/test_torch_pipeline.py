@@ -1,0 +1,197 @@
+"""The port's off-line pipeline against the JAX package's, end to end.
+
+Slice parity: both packages run `process_video` at tiny geometry from the
+same converted float32 weights, greedy, with settings under which nothing
+draws random numbers (short_window == remember_window, chunk_size <=
+num_clusters, fewer than `interval` tree nodes), and their result records
+must agree field by field. Also: the port imports and runs with jax and
+the JAX package blocked, and every CLI option that is not ported raises.
+"""
+
+import dataclasses
+import os
+import subprocess
+import sys
+import textwrap
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+import streamchat_tpu.models.generate_paged as j_generate_paged
+from streamchat_tpu import config as jconfig
+from streamchat_tpu.memory.bank import MemoryBank as JBank
+from streamchat_tpu.models.embedder import TextEmbedder as JEmbedder
+from streamchat_tpu.models.longva import LongVA as JLongVA
+from streamchat_tpu.pipeline.runner import StreamChatPipeline as JPipeline
+from streamchat_tpu.video.reader import SyntheticVideoReader
+from streamchat_tpu_torch import config, convert
+from streamchat_tpu_torch.memory.bank import MemoryBank
+from streamchat_tpu_torch.models import longva as port_longva
+from streamchat_tpu_torch.models.embedder import TextEmbedder
+from streamchat_tpu_torch.models.longva import LongVA
+from streamchat_tpu_torch.models.tokenizer import ByteTokenizer
+from streamchat_tpu_torch.pipeline import runner
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+def _np(tree):
+    return jax.tree.map(np.asarray, tree)
+
+
+def _cfg(jcfg, cls):
+    return cls(**dataclasses.asdict(jcfg))
+
+
+def _pipelines():
+    dcfg = jconfig.DecoderConfig.tiny()
+    k1, k2, k3 = jax.random.split(jax.random.key(0), 3)
+    jm = JLongVA.init_random(k1, jconfig.ViTConfig.tiny(projection_dim=dcfg.hidden_size),
+                             dcfg, dtype=jnp.float32)
+    jtree = JEmbedder.init_random(k2, jconfig.BertConfig.tiny())
+    jbank = JEmbedder.init_random(
+        k3, dataclasses.replace(jconfig.BertConfig.tiny(), pooling="mean"))
+    jcfg = jconfig.PipelineConfig(
+        memory=jconfig.MemoryConfig(chunk_size=5, num_clusters=5, interval=10,
+                                    short_window=5, remember_window=5),
+        sampling=jconfig.SamplingConfig(temperature=0.0, caption_temperature=0.0,
+                                        max_answer_tokens=8, max_caption_tokens=6,
+                                        max_summary_tokens=6))
+    jp = JPipeline(jm, jtree, jbank, jcfg)
+
+    model = LongVA(
+        vit_params=convert.vit_params(_np(jm.vit_params)),
+        proj_params=convert.to_torch(_np(jm.proj_params)),
+        dec_params=convert.to_torch(_np(jm.dec_params)),
+        vit_cfg=_cfg(jm.vit_cfg, config.ViTConfig), dec_cfg=_cfg(dcfg, config.DecoderConfig),
+        tokenizer=ByteTokenizer(), generator=torch.Generator().manual_seed(0))
+
+    def emb(j):
+        return TextEmbedder(convert.to_torch(_np(j.params)), _cfg(j.cfg, config.BertConfig),
+                            ByteTokenizer(), max_length=j.max_length)
+
+    pcfg = config.PipelineConfig(
+        memory=_cfg(jcfg.memory, config.MemoryConfig),
+        sampling=_cfg(jcfg.sampling, config.SamplingConfig))
+    return jp, runner.StreamChatPipeline(model, emb(jtree), emb(jbank), pcfg)
+
+
+BREAKPOINTS = [
+    {"question": "What do I see?", "answer": "a room", "class": "scene", "time": 1},
+    {"question": "What is on the table?", "answer": "a cup", "class": "object", "time": 3},
+    {"question": "What changed?", "answer": "nothing", "class": "change", "time": 5},
+]
+
+
+def _recording(fn, sink):
+    def wrapped(*args, **kwargs):
+        toks, count = fn(*args, **kwargs)[:2]
+        sink.append(np.asarray(toks)[0, : int(np.asarray(count)[0])].tolist())
+        return toks, count
+    return wrapped
+
+
+def test_slice_parity_with_jax_pipeline(tmp_path, monkeypatch):
+    jp, pp = _pipelines()
+    jtoks, ptoks = [], []
+    monkeypatch.setattr(j_generate_paged, "generate_paged_fetch",
+                        _recording(j_generate_paged.generate_paged_fetch, jtoks))
+    monkeypatch.setattr(port_longva, "generate_paged",
+                        _recording(port_longva.generate_paged, ptoks))
+    jres = jp.process_video(
+        SyntheticVideoReader(total_frames=150, frame_rate=30, height=56, width=56),
+        BREAKPOINTS, JBank(str(tmp_path / "j.json"), lambda t: jp.bank_embedder.embed(t)),
+        user_name="User")
+    pres = pp.process_video(
+        SyntheticVideoReader(total_frames=150, frame_rate=30, height=56, width=56),
+        BREAKPOINTS, MemoryBank(str(tmp_path / "p.json"), pp.bank_embed), user_name="User")
+    assert len(pres) == len(jres) == len(BREAKPOINTS)
+    # Every caption and answer, token for token (decoded text can hide a
+    # difference: undecodable bytes all print as U+FFFD).
+    assert len(ptoks) == len(jtoks) == 11 and ptoks == jtoks
+    assert sum(map(len, ptoks)) > 0
+    for p, j in zip(pres, jres):
+        assert set(p) == set(j)
+        for field in ("time", "question", "label", "predict", "class"):
+            assert p[field] == j[field], field
+    assert [n.text for n in pp.last_tree.roots] == [n.text for n in jp.last_tree.roots]
+    assert len(pp.last_tree) == len(jp.last_tree) == 8
+    for pn, jn in zip(pp.last_tree.roots, jp.last_tree.roots):
+        np.testing.assert_allclose(pn.centroids.numpy(), np.asarray(jn.centroids),
+                                   atol=1e-4, rtol=0)
+    assert set(pp.last_phase_totals) >= {"ingest", "memory_update", "caption", "answer"}
+
+
+def test_port_runs_with_jax_blocked(tmp_path):
+    """The port imports neither jax nor the JAX package, and a tiny
+    process_video runs on the CPU without them."""
+    code = textwrap.dedent(f"""
+        import sys
+        sys.modules["jax"] = None
+        sys.modules["streamchat_tpu"] = None
+        import torch
+        from streamchat_tpu_torch.config import MemoryConfig, PipelineConfig, SamplingConfig
+        from streamchat_tpu_torch.memory.bank import MemoryBank
+        from streamchat_tpu_torch.pipeline.runner import build_pipeline
+        from streamchat_tpu_torch.video.reader import SyntheticVideoReader
+        cfg = PipelineConfig(
+            memory=MemoryConfig(chunk_size=4, num_clusters=2, interval=3,
+                                short_window=6, remember_window=3),
+            sampling=SamplingConfig(max_answer_tokens=4, max_caption_tokens=4,
+                                    max_summary_tokens=4))
+        pipe = build_pipeline(cfg, device="cpu", geometry="tiny", dtype=torch.float32)
+        bank = MemoryBank({str(tmp_path / "m.json")!r}, pipe.bank_embed)
+        res = pipe.process_video(
+            SyntheticVideoReader(total_frames=150, frame_rate=30, height=56, width=56),
+            [{{"question": "q1", "time": 2}}, {{"question": "q2", "time": 5}}],
+            bank, "User")
+        assert len(res) == 2 and len(pipe.last_tree) > 0
+        print("OK")
+    """)
+    env = dict(os.environ, PYTHONPATH=REPO)
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
+                         env=env, cwd=REPO, timeout=300)
+    assert out.returncode == 0, out.stderr[-3000:]
+    assert out.stdout.strip().endswith("OK")
+
+
+BASE = ["--video_dir", "v", "--memory_basic_dir", "m", "--save_file", "s.json",
+        "--annotations", "a.json", "--multi_modal_memory"]
+
+
+@pytest.mark.parametrize("flags", [
+    [],                                   # --int8 is the CLI default
+    ["--int8"], ["--int4"], ["--bf16", "--spec_tokens", "2"],
+    ["--bf16", "--mode", "on_line"], ["--bf16", "--shard"],
+    ["--bf16", "--offload_chunks"], ["--bf16", "--offload_residents"],
+    ["--bf16", "--ppl"], ["--bf16", "--literal_kmeans"],
+    ["--bf16", "--save_tree_dir", "t"],
+])
+def test_unported_cli_options_raise(flags):
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        runner.config_from_args(runner.parse_args(BASE + flags))
+
+
+@pytest.mark.parametrize("change", [
+    dict(paths=config.ModelPaths(longva="ckpt")),
+    dict(multi_modal_memory=False),
+    dict(sampling=config.SamplingConfig(caption_batch=2)),
+])
+def test_unported_pipeline_settings_raise(change):
+    cfg = config.PipelineConfig(**change)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        runner.build_pipeline(cfg, device="cpu", geometry="tiny", dtype=torch.float32)
+
+
+def test_cli_refuses_without_cuda_by_default(monkeypatch):
+    """The CLI runs on the card unless a CPU run is asked for: with no card
+    it raises before it builds a model, and never falls back to the CPU."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    monkeypatch.setattr(runner, "build_pipeline", lambda *a, **k: pytest.fail("built"))
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        runner.main(BASE + ["--bf16"])
+    args = runner.parse_args(BASE + ["--bf16"])
+    assert (args.device, args.geometry) == ("cuda", "longva7b")
