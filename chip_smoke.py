@@ -4,29 +4,46 @@
 
 1. Requires a CUDA device; prints the card's name and power limit
    (nvidia-smi) and the torch / CUDA versions.
-2. Builds every hand-written kernel from `streamchat_tpu_torch/csrc/` and
-   prints the build seconds.
+2. Builds every hand-written kernel from `streamchat_tpu_torch/csrc/` (one
+   nvcc per source, in parallel) and prints the build seconds.
 3. Builds the pipeline at full LongVA-7B width on random weights (seeded).
-4. Holds each kernel (K1 ViT layer, K2 projector MLP, K3 flash attention,
-   K4 paged decode) against its plain PyTorch twin at main-path shapes,
+4. Holds each kernel against its plain PyTorch twin at main-path shapes,
    tolerance |kernel - plain| <= 3e-2 + 2e-2 |plain| (bf16 storage, f32
-   accumulation in both, different summation order), and times both.
-   Attention outputs over ~23k keys are small (a near-flat softmax averages
-   the values), so K3 and K4 are also held to a relative L2 error of 1e-2
-   per output row. Their keys and values past the valid length hold large
-   garbage, as stale cache slots may, and planted faults (a key tile or a
-   4-page chunk zeroed, the valid length ignored or 128 past its end) must
-   fail that same check.
+   accumulation in both, different summation order), and times both (ms:
+   device time per call, the summed device events torch.profiler records;
+   wall_ms: back-to-back calls timed with CUDA events, which for a kernel
+   shorter than its wrapper's host work is the host's pace):
+   K1 ViT layer, K2 projector MLP, K3 flash attention, K4 paged decode,
+   W8 int8 GEMV (gate, down, and the lm_head with f32 output), K10 int4
+   GEMV (gate, down), K11 fused int4 GEMV (the q/k/v triple, the gate/up
+   pair) and K6 paged decode over int8 pages. K3, K4, K6 and the GEMVs are
+   also held to a relative L2 error of 1e-2 per output row (attention
+   outputs over ~23k keys are small), and planted faults must fail that
+   same check: a key tile or a 4-page chunk zeroed, the valid length
+   ignored or 128 past its end, a 128-row slice of an int8 weight zeroed,
+   int4 nibble halves swapped, one group's scale ignored, int8 page scales
+   replaced by 1. Keys, values and scales past the valid length hold large
+   garbage (NaN and inf for the int8 scales), as stale cache slots may. The
+   GEMVs and K6 are timed over several layers' weights or pools in turn, so
+   that what one call reads is not in the 50 MB L2 from the call before,
+   and report effective GB/s.
 5. Checks the composed paths on small inputs: two frames through ViT +
    projector against the plain twins (per-token cosine >= 0.99 after 23
-   bf16 layers), and one 28-layer decode step through K4 against the
-   page-table gather path (relative L2 error of the logits <= 5e-2: one
+   bf16 layers); one 28-layer decode step through K4 against the
+   page-table gather path; and one 28-layer decode step of the int8 tree
+   (W8) and of the int4 tree (K10/K11) each against the same step on its
+   dequantized bf16 tree (relative L2 error of the logits <= 5e-2: one
    bf16 rounding difference per layer compounds through the stack).
-6. Zeroes the launch counters, runs `StreamChatPipeline.process_video`
-   (off-line, canonical v0.3 memory settings, bf16) over a 600-frame
-   360x640 synthetic video with breakpoints at 10 s and 20 s, and fails if
-   any kernel was not launched, an answer is missing or no token was
-   generated.
+6. Runs `StreamChatPipeline.process_video` (off-line, canonical v0.3
+   memory settings) on a 600-frame 360x640 synthetic video three times on
+   one model build, the launch counters zeroed before each run and read
+   after it: (1) bf16 weights, breakpoint at 10 s; (2) int8 weights, the
+   CLI default, breakpoints at 10 s and 20 s; (3) int4 weights with int8 KV
+   pages, breakpoint at 10 s. Each quantized tree is made from the bf16
+   tree and freed before the next. A run fails if one of its kernels was
+   not launched, an answer is missing, no token was generated or no
+   caption prompt passed 23,000 tokens. Prints decode ms/step, peak
+   memory, and the weight and KV bytes a decode token reads.
 7. Prints the kernels JSON line, then the device JSON line last.
 
 Any failure raises: the script then exits non-zero and prints no result.
@@ -34,6 +51,8 @@ Any failure raises: the script then exits non-zero and prints no result.
 
 from __future__ import annotations
 
+import contextlib
+import itertools
 import json
 import os
 import subprocess
@@ -45,6 +64,45 @@ import torch
 
 ATOL, RTOL = 3e-2, 2e-2
 ROW_REL_L2 = 1e-2
+STEP_REL_L2 = 5e-2
+CAPTION_TOKENS_MIN = 23000
+
+# Kernels each process_video run must launch (wrapper names).
+BF16_KERNELS = ("fused_vit_layer", "fused_ln_mlp", "flash_attention",
+                "paged_decode_attention_seq")
+RUNS = {
+    "bf16": BF16_KERNELS,
+    "int8": BF16_KERNELS + ("qmatvec_int8",),
+    "int4_kv_int8": ("fused_vit_layer", "fused_ln_mlp", "flash_attention",
+                     "paged_decode_attention_seq_int8", "qmatvec_int4",
+                     "qmatvec_int4_fused", "qmatvec_int8"),
+}
+SOURCES = {
+    "fused_vit_layer": ("streamchat_tpu_torch/csrc/fused_vit.cu",
+                        "streamchat_tpu/ops/fused_vit.py:358"),
+    "fused_ln_mlp": ("streamchat_tpu_torch/csrc/fused_vit.cu",
+                     "streamchat_tpu/ops/fused_vit.py:159"),
+    "flash_attention": ("streamchat_tpu_torch/csrc/flash_attention.cu",
+                        "streamchat_tpu/ops/attention.py:173"),
+    "paged_decode_attention_seq": ("streamchat_tpu_torch/csrc/paged_decode.cu",
+                                   "streamchat_tpu/ops/paged_attention.py:382"),
+    "qmatvec_int8": ("streamchat_tpu_torch/csrc/w8a16_gemv.cu",
+                     "streamchat_tpu/ops/quant.py:203"),
+    "qmatvec_int4": ("streamchat_tpu_torch/csrc/int4_gemv.cu",
+                     "streamchat_tpu/ops/int4_matmul.py:145"),
+    "qmatvec_int4_fused": ("streamchat_tpu_torch/csrc/int4_gemv.cu",
+                           "streamchat_tpu/ops/int4_matmul.py:203"),
+    "paged_decode_attention_seq_int8": ("streamchat_tpu_torch/csrc/paged_decode.cu",
+                                        "streamchat_tpu/ops/paged_attention.py:423"),
+}
+
+
+@contextlib.contextmanager
+def phase(name):
+    t0 = time.perf_counter()
+    yield
+    torch.cuda.synchronize()
+    print(f"phase {name}: {time.perf_counter() - t0:.2f} s", flush=True)
 
 
 def _smi() -> str:
@@ -55,6 +113,8 @@ def _smi() -> str:
 
 
 def _time_ms(fn, iters: int) -> float:
+    """Wall time per call of back-to-back calls (CUDA events): for a kernel
+    shorter than its wrapper's host work this is the host's pace."""
     fn()
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
@@ -65,6 +125,41 @@ def _time_ms(fn, iters: int) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def _device_ms(fn, iters: int) -> float:
+    """Device time per call: the summed durations of the device events
+    torch.profiler records over `iters` calls (kernels and copies)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    events = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    if not events:
+        raise AssertionError("torch.profiler recorded no device event")
+    return sum(e.time_range.elapsed_us() for e in events) / iters / 1e3
+
+
+def _timings(kernel, plain, iters, plain_iters):
+    """-> ms / plain_ms (device time per call) and wall_ms / plain_wall_ms."""
+    return dict(ms=_device_ms(kernel, iters), plain_ms=_device_ms(plain, plain_iters),
+                wall_ms=_time_ms(kernel, iters), plain_wall_ms=_time_ms(plain, plain_iters))
+
+
+def _rotating(fn, arg_sets):
+    """A call of fn on the next argument set in turn (distinct layers'
+    weights, so one call's bytes are not in L2 from the call before)."""
+    it = itertools.cycle(arg_sets)
+    return lambda: fn(*next(it))
+
+
+def _gbs(nbytes, ms):
+    return nbytes / (ms * 1e-3) / 1e9
 
 
 def _errors(got, ref, row_rel):
@@ -94,7 +189,7 @@ def _compare(name, got, ref, row_rel=False):
 
 
 def _planted(name, got, ref):
-    """A deliberately wrong kernel output must fail the K3/K4 check."""
+    """A deliberately wrong kernel output must fail the row-L2 kernel check."""
     abs_err, rel, ok = _errors(got, ref, row_rel=True)
     if ok:
         raise AssertionError(f"planted fault '{name}' passed the check (max abs "
@@ -129,7 +224,7 @@ def check_kernels(model, g):
     rows["fused_vit_layer"] = dict(
         shapes="x [16, 577, 1024] bf16, ViT-L layer",
         max_abs_err=_compare("K1 fused_vit_layer", k1(), p1())[0],
-        ms=_time_ms(k1, 20), plain_ms=_time_ms(p1, 5))
+        **_timings(k1, p1, 20, 5))
 
     # K2: the projector over 16 frames of patch features.
     pp = model.proj_params
@@ -142,7 +237,7 @@ def check_kernels(model, g):
     rows["fused_ln_mlp"] = dict(
         shapes="x [9216, 1024] bf16 -> 3584 -> 3584, erf-GELU",
         max_abs_err=_compare("K2 fused_ln_mlp", k2(), p2())[0],
-        ms=_time_ms(k2, 20), plain_ms=_time_ms(p2, 5))
+        **_timings(k2, p2, 20, 5))
 
     # K3: causal GQA prefill, 28 query heads over 4 kv heads, dh 128, at
     # S = 4096 and at the chunk-40 caption bucket S = 23168 with a ragged
@@ -182,13 +277,13 @@ def check_kernels(model, g):
                 ref)
             del k0, v0
         del ref
-        times[s] = (_time_ms(lambda: attention.flash_attention(q, k, v, kl, causal=True), 5),
-                    _time_ms(plain_heads, 1))
+        times[s] = _timings(lambda: attention.flash_attention(q, k, v, kl, causal=True),
+                            plain_heads, 5, 1)
     rows["flash_attention"] = dict(
         shapes="q [1, 28, S, 128], k/v [1, 4, S, 128] bf16 causal; S=23168 "
                "with kv_length 23105 (timed) and S=4096",
-        max_abs_err=max(errs), max_row_rel_l2=max(rels), ms=times[23168][0],
-        plain_ms=times[23168][1], ms_s4096=times[4096][0], plain_ms_s4096=times[4096][1])
+        max_abs_err=max(errs), max_row_rel_l2=max(rels), **times[23168],
+        ms_s4096=times[4096]["ms"], plain_ms_s4096=times[4096]["plain_ms"])
 
     # K4: one decode token against a 23,105-token context (one layer's pool
     # of 182 pages; the last valid page is partly filled).
@@ -213,8 +308,257 @@ def check_kernels(model, g):
         "K4 4-page chunk zeroed", paged_attention.paged_decode_attention_seq(q, k0, v0, ln), ref)
     rows["paged_decode_attention_seq"] = dict(
         shapes="q [1, 28, 1, 128], pages [182, 4, 128, 128] bf16, length 23105",
-        max_abs_err=err, max_row_rel_l2=rel, ms=_time_ms(k4, 50), plain_ms=_time_ms(p4, 10))
+        max_abs_err=err, max_row_rel_l2=rel, **_timings(k4, p4, 50, 10))
     return rows, planted
+
+
+def _int8_bytes(q):
+    return q["w_i8"].numel() + 4 * q["scale"].numel()
+
+
+def _int4_bytes(q):
+    return q["w_i4p"].numel() + 4 * q["scale"].numel()
+
+
+def _swap_nibbles(p):
+    b = p.to(torch.int32) & 0xFF
+    b = ((b & 0xF) << 4) | (b >> 4)
+    return torch.where(b >= 128, b - 256, b).to(torch.int8)
+
+
+def check_quant_kernels(model, g):
+    """W8, K10, K11 and K6 against their plain twins at main-path shapes ->
+    (report rows, planted faults). Weights are the model's, quantized."""
+    from streamchat_tpu_torch.ops import int4_matmul, paged_attention, quant
+
+    bf, dev = torch.bfloat16, "cuda"
+    layers = model.dec_params["layers"]
+    rows, planted = {}, {}
+
+    def x_for(kin):
+        return torch.randn(1, kin, generator=g, device=dev).to(bf)
+
+    # W8: gate [3584, 18944], down [18944, 3584] (bf16 out), lm_head
+    # [3584, 152064] (f32 out). Timed over 4 layers' weights in turn.
+    cases = {}
+    for label, ws, out_dtype in (
+            ("gate", [p["mlp"]["gate"] for p in layers[:4]], bf),
+            ("down", [p["mlp"]["down"] for p in layers[:4]], bf),
+            ("lm_head", [model.dec_params["lm_head"]], torch.float32)):
+        qs = [quant.quantize_weight(w) for w in ws]
+        q0, x = qs[0], x_for(ws[0].shape[0])
+        ref = quant.qmatvec_int8_plain(x, q0["w_i8"], q0["scale"], out_dtype)
+        got = quant.qmatvec_int8(x, q0["w_i8"], q0["scale"], out_dtype)
+        if got.dtype != out_dtype:
+            raise AssertionError(f"W8 {label}: output {got.dtype}, expected {out_dtype}")
+        err, rel = _compare(f"W8 qmatvec_int8 {label}", got, ref, row_rel=True)
+        bad = q0["w_i8"].clone()
+        r0 = bad.shape[0] // 2 // 128 * 128
+        bad[r0:r0 + 128] = 0
+        name = f"W8 {label} weight rows {r0}:{r0 + 128} zeroed"
+        planted[name] = _planted(name, quant.qmatvec_int8(x, bad, q0["scale"], out_dtype), ref)
+        del bad
+        args = [(x, q["w_i8"], q["scale"], out_dtype) for q in qs]
+        t = _timings(_rotating(quant.qmatvec_int8, args),
+                     _rotating(quant.qmatvec_int8_plain, args), 40, 10)
+        cases[label] = dict(shape=list(q0["w_i8"].shape), max_abs_err=err, max_row_rel_l2=rel,
+                            **t, gbs=_gbs(_int8_bytes(q0), t["ms"]),
+                            plain_gbs=_gbs(_int8_bytes(q0), t["plain_ms"]))
+        del qs, args
+    rows["qmatvec_int8"] = dict(
+        shapes="x [1, in] bf16, w_i8 gate [3584, 18944] / down [18944, 3584] (bf16 out), "
+               "lm_head [3584, 152064] (f32 out); ms = gate",
+        max_abs_err=max(c["max_abs_err"] for c in cases.values()),
+        max_row_rel_l2=max(c["max_row_rel_l2"] for c in cases.values()),
+        **{k: cases["gate"][k] for k in ("ms", "plain_ms", "wall_ms", "plain_wall_ms", "gbs")},
+        cases=cases)
+
+    # K10: int4 gate and down (148 groups).
+    cases = {}
+    for label, ws in (("gate", [p["mlp"]["gate"] for p in layers[:4]]),
+                      ("down", [p["mlp"]["down"] for p in layers[:4]])):
+        qs = [quant.quantize_weight_int4(w) for w in ws]
+        q0, x = qs[0], x_for(ws[0].shape[0])
+        ref = int4_matmul.qmatvec_int4_plain(x, q0["w_i4p"], q0["scale"])
+        err, rel = _compare(f"K10 qmatvec_int4 {label}",
+                            int4_matmul.qmatvec_int4(x, q0["w_i4p"], q0["scale"]), ref,
+                            row_rel=True)
+        name = f"K10 {label} nibble halves swapped"
+        planted[name] = _planted(name, int4_matmul.qmatvec_int4(
+            x, _swap_nibbles(q0["w_i4p"]), q0["scale"]), ref)
+        one = q0["scale"].clone()
+        g5 = min(5, one.shape[0] - 1)
+        one[g5] = 1.0
+        name = f"K10 {label} group {g5} scale ignored"
+        planted[name] = _planted(name, int4_matmul.qmatvec_int4(x, q0["w_i4p"], one), ref)
+        args = [(x, q["w_i4p"], q["scale"]) for q in qs]
+        t = _timings(_rotating(int4_matmul.qmatvec_int4, args),
+                     _rotating(int4_matmul.qmatvec_int4_plain, args), 40, 5)
+        cases[label] = dict(shape=list(q0["w_i4p"].shape), groups=q0["scale"].shape[0],
+                            max_abs_err=err, max_row_rel_l2=rel, **t,
+                            gbs=_gbs(_int4_bytes(q0), t["ms"]),
+                            plain_gbs=_gbs(_int4_bytes(q0), t["plain_ms"]))
+        del qs, args
+    rows["qmatvec_int4"] = dict(
+        shapes="x [1, in] bf16, packed gate [3584, 9472] / down [18944, 1792] (148 groups), "
+               "f32 out; ms = gate",
+        max_abs_err=max(c["max_abs_err"] for c in cases.values()),
+        max_row_rel_l2=max(c["max_row_rel_l2"] for c in cases.values()),
+        **{k: cases["gate"][k] for k in ("ms", "plain_ms", "wall_ms", "plain_wall_ms", "gbs")},
+        cases=cases)
+
+    # K11: the q/k/v triple (timed over 8 layers) and the gate/up pair (4).
+    cases = {}
+    for label, names, n_layers in (("qkv", ("q", "k", "v"), 8), ("gate_up", ("gate", "up"), 4)):
+        flats, nbytes = [], 0
+        for p in layers[:n_layers]:
+            src = p["attn"] if label == "qkv" else p["mlp"]
+            parts = [quant.quantize_weight_int4(src[n]["w"] if label == "qkv" else src[n])
+                     for n in names]
+            flats.append([t for q in parts for t in (q["w_i4p"], q["scale"])])
+            nbytes = sum(_int4_bytes(q) for q in parts)
+        x = x_for(model.dec_cfg.hidden_size)
+        got = int4_matmul.qmatvec_int4_fused(x, *flats[0], out_dtype=bf)
+        ref = int4_matmul.qmatvec_int4_fused_plain(x, *flats[0], out_dtype=bf)
+        errs = [_compare(f"K11 qmatvec_int4_fused {label} part {i}", a, b, row_rel=True)
+                for i, (a, b) in enumerate(zip(got, ref))]
+
+        def fused(*flat):
+            return int4_matmul.qmatvec_int4_fused(x, *flat, out_dtype=bf)
+
+        def fused_plain(*flat):
+            return int4_matmul.qmatvec_int4_fused_plain(x, *flat, out_dtype=bf)
+
+        t = _timings(_rotating(fused, flats), _rotating(fused_plain, flats), 40, 5)
+        cases[label] = dict(widths=[2 * f.shape[1] for f in flats[0][::2]],
+                            max_abs_err=max(e[0] for e in errs),
+                            max_row_rel_l2=max(e[1] for e in errs), **t,
+                            gbs=_gbs(nbytes, t["ms"]), plain_gbs=_gbs(nbytes, t["plain_ms"]))
+        del flats
+    rows["qmatvec_int4_fused"] = dict(
+        shapes="x [1, 3584] bf16; q/k/v (3584 -> 3584, 512, 512) and gate/up "
+               "(3584 -> 18944 x 2), bf16 out; ms = gate/up",
+        max_abs_err=max(c["max_abs_err"] for c in cases.values()),
+        max_row_rel_l2=max(c["max_row_rel_l2"] for c in cases.values()),
+        **{k: cases["gate_up"][k] for k in ("ms", "plain_ms", "wall_ms", "plain_wall_ms", "gbs")},
+        cases=cases)
+
+    # K6: one decode token over int8 pages, 23,105 valid tokens of 182 pages
+    # (4 pools in turn for the timing); past the length, random int8 pages
+    # and NaN / inf scales.
+    hq, hkv = model.dec_cfg.num_heads, model.dec_cfg.num_kv_heads
+    pages, length, ps = -(-(23168 + 128) // 128), 23105, 128
+    q = torch.randn(1, hq, 1, 128, generator=g, device=dev).to(bf)
+    pools = []
+    for _ in range(4):
+        kp, vp = (torch.randint(-127, 128, (pages, hkv, ps, 128), generator=g, device=dev,
+                                dtype=torch.int8) for _ in range(2))
+        ks, vs = (torch.rand(pages, hkv, ps, generator=g, device=dev) * 0.04 + 0.01
+                  for _ in range(2))
+        for t, bad in ((ks, float("nan")), (vs, float("inf"))):
+            t[length // ps, :, length % ps:] = bad
+            t[length // ps + 1:] = bad
+        pools.append((q, kp, vp, ks, vs))
+    ln = torch.tensor([length], dtype=torch.int32, device=dev)
+    _, kp, vp, ks, vs = pools[0]
+    k6, p6 = (paged_attention.paged_decode_attention_seq_int8,
+              paged_attention.paged_decode_attention_seq_int8_plain)
+    ref = p6(q, kp, vp, ks, vs, ln)
+    err, rel = _compare("K6 paged_decode_attention_seq_int8", k6(q, kp, vp, ks, vs, ln), ref,
+                        row_rel=True)
+    planted["K6 length + 128"] = _planted("K6 length + 128", k6(q, kp, vp, ks, vs, ln + 128), ref)
+    k0, v0 = kp.clone(), vp.clone()
+    k0[80:84] = 0
+    v0[80:84] = 0
+    planted["K6 pages 80:84 zeroed"] = _planted("K6 4-page chunk zeroed",
+                                                k6(q, k0, v0, ks, vs, ln), ref)
+    del k0, v0
+    planted["K6 scales replaced by 1"] = _planted(
+        "K6 scales replaced by 1", k6(q, kp, vp, torch.ones_like(ks), torch.ones_like(vs), ln),
+        ref)
+    args = [pool + (ln,) for pool in pools]
+    t = _timings(_rotating(k6, args), _rotating(p6, args), 50, 10)
+    nbytes = length * hkv * 2 * (128 + 4)
+    rows["paged_decode_attention_seq_int8"] = dict(
+        shapes="q [1, 28, 1, 128] bf16, pages [182, 4, 128, 128] int8, scales "
+               "[182, 4, 128] f32, length 23105",
+        max_abs_err=err, max_row_rel_l2=rel, **t,
+        gbs=_gbs(nbytes, t["ms"]), plain_gbs=_gbs(nbytes, t["plain_ms"]))
+    return rows, planted
+
+
+def _dequantized(params):
+    """The bf16 tree a quantized decoder tree stands for."""
+    from streamchat_tpu_torch.ops import quant
+
+    def deq(p):
+        if "w_i4p" in p:
+            w = quant.dequantize_weight_int4(p, torch.bfloat16)
+        else:
+            w = quant.dequantize_weight(p, torch.bfloat16)
+        return dict({"w": w}, **({"b": p["b"]} if "b" in p else {}))
+
+    out = dict(params)
+    out["layers"] = [{
+        "input_norm": p["input_norm"], "post_norm": p["post_norm"],
+        "attn": {n: deq(p["attn"][n]) for n in ("q", "k", "v", "o")},
+        "mlp": {n: deq(p["mlp"][n])["w"] for n in ("gate", "up", "down")},
+    } for p in params["layers"]]
+    out["lm_head"] = deq(params["lm_head"])["w"]
+    return out
+
+
+def check_composed_quant(model, g, label, expected):
+    """One 28-layer decode step of the model's quantized tree (the GEMV
+    kernels `expected`) against the same step on its dequantized bf16
+    tree, from one prefilled cache -> relative L2 error of the logits."""
+    from streamchat_tpu_torch import kernels
+    from streamchat_tpu_torch.models import decoder, paged_kv
+
+    dcfg, qp = model.dec_cfg, model.dec_params
+    deq = _dequantized(qp)
+    s = 256
+    embeds = (torch.randn(1, s, dcfg.hidden_size, generator=g, device="cuda") * 0.02
+              ).to(torch.bfloat16)
+    length = torch.tensor([250], dtype=torch.int32, device="cuda")
+    dense = decoder.KVCache.create(dcfg, 1, s, dtype=embeds.dtype, device="cuda")
+    logits, dense = decoder.prefill(deq, dcfg, embeds, dense, length)
+    tok = torch.argmax(logits, -1)
+    kernels.reset_launch_counts()
+    got, _ = paged_kv.decode_step_paged(qp, dcfg, tok, paged_kv.from_contiguous(dense, 3, 3))
+    counts = kernels.launch_counts()
+    ref, _ = paged_kv.decode_step_paged(deq, dcfg, tok, paged_kv.from_contiguous(dense, 3, 3))
+    del deq
+    rel = ((got - ref).norm() / ref.norm()).item()
+    if not torch.isfinite(got).all() or rel > STEP_REL_L2:
+        raise AssertionError(f"{label} decode step vs its dequantized bf16 tree: relative "
+                             f"L2 error {rel} past {STEP_REL_L2}")
+    missing = [n for n in expected if counts.get(n, 0) == 0]
+    if missing:
+        raise AssertionError(f"{label} decode step launched no {missing}: {counts}")
+    return rel
+
+
+def _decode_weight_bytes(params) -> int:
+    """Bytes of weights one decode token reads: every layer tensor, the
+    head and one embedding row."""
+    def size(t):
+        if isinstance(t, dict):
+            return sum(size(v) for v in t.values())
+        if isinstance(t, (list, tuple)):
+            return sum(size(v) for v in t)
+        return t.numel() * t.element_size()
+
+    emb = params["embed"]
+    emb = emb["w_i8"] if isinstance(emb, dict) else emb
+    return (size(params["layers"]) + size(params["final_norm"]) + size(params["lm_head"])
+            + emb.shape[1] * emb.element_size())
+
+
+def _kv_bytes_per_token(cfg, context: int, kv_int8: bool) -> int:
+    """KV bytes a decode token reads at `context` (K and V, every layer)."""
+    row = cfg.head_dim + 4 if kv_int8 else 2 * cfg.head_dim
+    return context * cfg.num_layers * cfg.num_kv_heads * 2 * row
 
 
 def check_composed(model, g):
@@ -267,7 +611,15 @@ def check_composed(model, g):
     return {"vit_projector_min_cosine": cos, "decode_logits_rel_l2_err": rel}
 
 
-def run_slice(pipe):
+BREAKPOINTS = [
+    {"question": "What is on the table in front of me?", "answer": "a cup",
+     "class": "object", "time": 10},
+    {"question": "Where did I put the keys?", "answer": "in the drawer",
+     "class": "location", "time": 20},
+]
+
+
+def run_slice(pipe, breakpoints):
     """The off-line main path at full width -> (results, seconds, prompt lengths)."""
     from streamchat_tpu_torch.video.reader import SyntheticVideoReader
     from streamchat_tpu_torch.memory.bank import MemoryBank
@@ -282,12 +634,6 @@ def run_slice(pipe):
 
     pipe.model.splice_prompt = recording_splice
     reader = SyntheticVideoReader(total_frames=600, frame_rate=30, height=360, width=640)
-    breakpoints = [
-        {"question": "What is on the table in front of me?", "answer": "a cup",
-         "class": "object", "time": 10},
-        {"question": "Where did I put the keys?", "answer": "in the drawer",
-         "class": "location", "time": 20},
-    ]
     with tempfile.TemporaryDirectory() as d:
         bank = MemoryBank(os.path.join(d, "memory.json"), pipe.bank_embed)
         torch.cuda.synchronize()
@@ -302,15 +648,49 @@ def run_slice(pipe):
     return results, seconds, lengths
 
 
+def drive(pipe, label, breakpoints):
+    """One process_video run with the launch counters zeroed before it and
+    read after it -> its report."""
+    from streamchat_tpu_torch import kernels
+
+    m = pipe.model
+    m.gen_stats.clear()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launch_counts()
+    results, seconds, lengths = run_slice(pipe, breakpoints)
+    counts = kernels.launch_counts()
+    gs = m.gen_stats
+    report = dict(
+        seconds=seconds, answers=len(results), generated_tokens=gs["generated_tokens"],
+        decode_ms_per_step=1e3 * gs["decode_s"] / gs["decode_steps"],
+        prefill_tokens_per_s=gs["prompt_tokens"] / gs["prefill_s"],
+        peak_gib=torch.cuda.max_memory_allocated() / 2**30, prompt_lengths=lengths,
+        weight_bytes_per_token=_decode_weight_bytes(m.dec_params),
+        kv_bytes_per_token_at_max_prompt=_kv_bytes_per_token(m.dec_cfg, max(lengths),
+                                                             m.kv_int8),
+        launches={n: c for n, c in counts.items() if c},
+        phase_totals=pipe.last_phase_totals)
+    print(f"process_video [{label}]: {json.dumps(report)}", flush=True)
+    missing = [n for n in RUNS[label] if counts.get(n, 0) == 0]
+    if missing:
+        raise AssertionError(f"run {label}: kernels never launched: {missing}")
+    if gs["generated_tokens"] == 0:
+        raise AssertionError(f"run {label}: the main path generated no token")
+    if max(lengths) <= CAPTION_TOKENS_MIN:
+        raise AssertionError(f"run {label}: no chunk-40 caption prompt over "
+                             f"{CAPTION_TOKENS_MIN} tokens: {lengths}")
+    return report, counts
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device (torch.cuda.is_available() "
                          "is False)")
     from streamchat_tpu_torch.config import PipelineConfig
-    from streamchat_tpu_torch import kernels
     from streamchat_tpu_torch.kernels.build import build, library
     from streamchat_tpu_torch.pipeline.runner import build_pipeline
 
+    t_start = time.perf_counter()
     smi = _smi()
     print(smi)
     print(f"python {sys.version.split()[0]}  torch {torch.__version__}  "
@@ -320,63 +700,65 @@ def main() -> None:
 
     info = build(force=True)
     library()
-    print(f"kernel build: {info['seconds']:.2f} s")
+    print(f"kernel build: {info['seconds']:.2f} s", flush=True)
 
-    t0 = time.perf_counter()
-    pipe = build_pipeline(PipelineConfig(), device="cuda", dtype=torch.bfloat16,
-                          geometry="longva7b")
-    torch.cuda.synchronize()
-    print(f"pipeline build (random LongVA-7B weights): {time.perf_counter() - t0:.2f} s")
+    with phase("pipeline build (random LongVA-7B weights)"):
+        pipe = build_pipeline(PipelineConfig(), device="cuda", dtype=torch.bfloat16,
+                              geometry="longva7b")
     g = torch.Generator(device="cuda").manual_seed(1234)
 
-    rows, planted = check_kernels(pipe.model, g)
+    with phase("kernel checks K1-K4"):
+        rows, planted = check_kernels(pipe.model, g)
+    with phase("kernel checks W8, K10, K11, K6"):
+        qrows, qplanted = check_quant_kernels(pipe.model, g)
+    rows.update(qrows)
+    planted.update(qplanted)
     for name, row in rows.items():
         print(f"{name}: max_abs_err {row['max_abs_err']:.6g}  max_row_rel_l2 "
-              f"{row.get('max_row_rel_l2')}  kernel {row['ms']:.4f} ms  "
-              f"plain {row['plain_ms']:.4f} ms  [{row['shapes']}]")
+              f"{row.get('max_row_rel_l2')}  kernel {row['ms']:.4f} ms (wall "
+              f"{row['wall_ms']:.4f})  plain {row['plain_ms']:.4f} ms (wall "
+              f"{row['plain_wall_ms']:.4f})  [{row['shapes']}]")
+        for label, case in row.get("cases", {}).items():
+            print(f"    {label}: {json.dumps(case)}")
     for name, rel in planted.items():
         print(f"planted fault rejected: {name}: max row relative L2 err {rel:.6g} "
               f"(limit {ROW_REL_L2})")
-    composed = check_composed(pipe.model, g)
+    with phase("composed checks (bf16)"):
+        composed = check_composed(pipe.model, g)
+
+    m = pipe.model
+    runs, counts = {}, {}
+    with phase("process_video bf16, 1 breakpoint"):
+        runs["bf16"], counts["bf16"] = drive(pipe, "bf16", BREAKPOINTS[:1])
+    bf16_tree = m.dec_params
+    with phase("quantize int8 + composed check"):
+        m.quantize()                                  # the CLI default, as `main` does
+        composed["int8_step_logits_rel_l2_err"] = check_composed_quant(
+            m, g, "int8", ("qmatvec_int8",))
+    with phase("process_video int8, 2 breakpoints"):
+        runs["int8"], counts["int8"] = drive(pipe, "int8", BREAKPOINTS)
+    m.dec_params = bf16_tree                          # frees the int8 tree
+    torch.cuda.empty_cache()
+    with phase("quantize int4 + composed check"):
+        m.quantize(bits=4)
+        m.kv_int8 = True
+        composed["int4_step_logits_rel_l2_err"] = check_composed_quant(
+            m, g, "int4", ("qmatvec_int4", "qmatvec_int4_fused", "qmatvec_int8"))
+    with phase("process_video int4 + kv_int8, 1 breakpoint"):
+        runs["int4_kv_int8"], counts["int4_kv_int8"] = drive(pipe, "int4_kv_int8",
+                                                             BREAKPOINTS[:1])
     print(f"composed checks: {composed}")
 
-    pipe.model.gen_stats.clear()
-    torch.cuda.reset_peak_memory_stats()
-    kernels.reset_launch_counts()
-    results, seconds, lengths = run_slice(pipe)
-    counts = kernels.launch_counts()
-    print(f"process_video: {seconds:.3f} s, answers {len(results)}, generated "
-          f"tokens {pipe.model.gen_stats['generated_tokens']}, peak memory "
-          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
-    gs = pipe.model.gen_stats
-    print(f"generate: {gs}; decode {1e3 * gs['decode_s'] / gs['decode_steps']:.2f} "
-          f"ms/step, prefill {gs['prompt_tokens'] / gs['prefill_s']:.0f} tokens/s")
-    print(f"phase totals (s): {pipe.last_phase_totals}")
-    print(f"phase counts: {pipe.last_phase_counts}")
-    print(f"prompt lengths: {lengths}")
-    print(f"launch counts: {counts}")
-    missing = [n for n in rows if counts.get(n, 0) == 0]
-    if missing:
-        raise AssertionError(f"kernels never launched on the main path: {missing}")
-    if pipe.model.gen_stats["generated_tokens"] == 0:
-        raise AssertionError("the main path generated no token")
-    if max(lengths) <= 23000:
-        raise AssertionError(f"no chunk-40 caption prompt over 23000 tokens: {lengths}")
-
-    sources = {
-        "fused_vit_layer": ("streamchat_tpu_torch/csrc/fused_vit.cu",
-                            "streamchat_tpu/ops/fused_vit.py:358"),
-        "fused_ln_mlp": ("streamchat_tpu_torch/csrc/fused_vit.cu",
-                         "streamchat_tpu/ops/fused_vit.py:159"),
-        "flash_attention": ("streamchat_tpu_torch/csrc/flash_attention.cu",
-                            "streamchat_tpu/ops/attention.py:173"),
-        "paged_decode_attention_seq": ("streamchat_tpu_torch/csrc/paged_decode.cu",
-                                       "streamchat_tpu/ops/paged_attention.py:382"),
-    }
-    report = [dict(name=n, route="cuda", source=sources[n][0], replaces=sources[n][1],
-                   launches=counts[n], **row) for n, row in rows.items()]
-    print(f"summary: kernel build {info['seconds']:.2f} s, process_video {seconds:.3f} s, "
-          f"planted faults rejected {len(planted)}")
+    report = []
+    for n, row in rows.items():
+        by_run = {label: c.get(n, 0) for label, c in counts.items()}
+        report.append(dict(name=n, route="cuda", source=SOURCES[n][0], replaces=SOURCES[n][1],
+                           launches=sum(by_run.values()), launches_by_run=by_run, **row))
+    print(f"summary: kernel build {info['seconds']:.2f} s, process_video "
+          + ", ".join(f"{k} {v['seconds']:.3f} s ({v['decode_ms_per_step']:.2f} ms/step)"
+                      for k, v in runs.items())
+          + f", planted faults rejected {len(planted)}, total "
+          f"{time.perf_counter() - t_start:.1f} s")
     print(smi)
     print(json.dumps({"kernels": report}))
     print(json.dumps({"ok": True, "device": {

@@ -18,13 +18,17 @@ import torch
 
 
 def to_torch(tree: Any) -> Any:
-    """Map every array leaf of a dict/list tree to a CPU torch tensor."""
+    """Map every array leaf of a dict/list tree to a CPU torch tensor.
+
+    Float, integer and bool leaves keep their dtype (the int8 weights and
+    f32 scales of a quantized tree cross unchanged); bf16, which numpy only
+    knows as a non-native dtype, becomes float32."""
     if isinstance(tree, dict):
         return {k: to_torch(v) for k, v in tree.items()}
     if isinstance(tree, (list, tuple)):
         return [to_torch(v) for v in tree]
     arr = np.asarray(tree)
-    if arr.dtype.kind != "f":          # bf16 arrives as a non-native numpy dtype
+    if arr.dtype.kind not in "fiub":
         arr = arr.astype(np.float32)
     return torch.from_numpy(np.array(arr, order="C"))
 

@@ -31,4 +31,11 @@ cudaError_t launch_flash(const __nv_bfloat16* q, const int64_t* qs,
                          int Sq, int Sk, int D, int causal, float scale,
                          cudaStream_t stream);
 
+// Second pass of a split-K GEMV: y[i] = (sum_s partial[s][i]) (* scale[i % O])
+// over i < n * O, summed in slice order (deterministic); scale may be null;
+// y is f32 when out_f32, else bf16.
+cudaError_t launch_splitk_reduce(const float* partial, int nsplit, int n, int O,
+                                 const float* scale, void* y, int out_f32,
+                                 cudaStream_t stream);
+
 }  // namespace sc

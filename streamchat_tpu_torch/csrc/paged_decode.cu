@@ -1,7 +1,9 @@
-// One-token GQA decode attention over a sequential page pool.
+// One-token GQA decode attention over a sequential page pool, bf16 pages (K4)
+// or int8 pages with per-(token, head) f32 scales (K6).
 //
-// Replaces the TPU kernel ops/paged_attention.py:paged_decode_attention_pallas_seq
-// (_seq_decode_kernel via _seq_attention_call): pages in pool order (identity
+// Replaces the TPU kernels ops/paged_attention.py:paged_decode_attention_pallas_seq
+// (K4, _seq_decode_kernel) and paged_decode_attention_pallas_seq_int8 (K6,
+// _seq_decode_int8_kernel), both via _seq_attention_call: pages in pool order (identity
 // table at B = 1, statically partitioned rows at B > 1: row b owns pool pages
 // [b * row_pages, (b + 1) * row_pages)), a per-row length mask, normalized
 // output.
@@ -17,6 +19,15 @@
 // block writes an unnormalized f32 partial (acc, m, l); a second small
 // kernel merges the chunks with the online-softmax rule. Chunks wholly past
 // the row's length write m = -inf and are skipped by the merge.
+//
+// K6 is the same kernel on int8 pages. The scales commute out of both
+// contractions (models/paged_kv.py PagedKVCacheInt8): s = (q . k_i8) * k_scale
+// * D^-0.5, and the value row enters P V as v_scale * v_i8, so nothing is
+// dequantized into memory and the page bytes read per token halve. Keys at or
+// past the row's length are never loaded, so garbage (NaN or inf) in stale
+// pages or scales cannot reach the accumulator.
+#include <type_traits>
+
 #include "kernels.cuh"
 
 namespace sc {
@@ -24,15 +35,21 @@ namespace {
 
 constexpr int THREADS = 128, NWARPS = THREADS / 32, G_MAX = 8;
 
-template <int D>
+__device__ __forceinline__ float page_val(__nv_bfloat16 v) { return __bfloat162float(v); }
+__device__ __forceinline__ float page_val(int8_t v) { return static_cast<float>(v); }
+
+// T is the page element type: __nv_bfloat16 (K4) or int8_t (K6, with the
+// per-(page, head, slot) scales k_scale / v_scale; null for K4).
+template <int D, typename T>
 __global__ void __launch_bounds__(THREADS)
 paged_partial_kernel(const __nv_bfloat16* __restrict__ q, int64_t qsb, int64_t qsh,
-                     const __nv_bfloat16* __restrict__ k_pages,
-                     const __nv_bfloat16* __restrict__ v_pages,
+                     const T* __restrict__ k_pages, const T* __restrict__ v_pages,
+                     const float* __restrict__ k_scale, const float* __restrict__ v_scale,
                      const int* __restrict__ length, int row_pages, int page_size,
                      int pages_per_chunk, int nchunks, int g, int Hkv, float scale,
                      float* __restrict__ acc_out, float* __restrict__ m_out,
                      float* __restrict__ l_out) {
+  constexpr bool kInt8 = std::is_same<T, int8_t>::value;
   extern __shared__ __align__(16) float sm[];
   const int chunk_keys = pages_per_chunk * page_size;
   float* qs = sm;                         // [G_MAX][D]
@@ -66,17 +83,18 @@ paged_partial_kernel(const __nv_bfloat16* __restrict__ q, int64_t qsb, int64_t q
   for (int kk = warp; kk < nkeys; kk += NWARPS) {
     const int pos = key0 + kk;
     const int64_t page = row_page0 + pos / page_size;
-    const __nv_bfloat16* kr =
-        k_pages + ((page * Hkv + hk) * page_size + pos % page_size) * D + lane * E;
+    const int64_t slot = (page * Hkv + hk) * page_size + pos % page_size;
+    const T* kr = k_pages + slot * D + lane * E;
     float kv[E];
 #pragma unroll
-    for (int e = 0; e < E; ++e) kv[e] = __bfloat162float(kr[e]);
+    for (int e = 0; e < E; ++e) kv[e] = page_val(kr[e]);
+    const float ks = kInt8 ? k_scale[slot] : 1.0f;
     for (int i = 0; i < g; ++i) {
       float s = 0.0f;
 #pragma unroll
       for (int e = 0; e < E; ++e) s += qs[i * D + lane * E + e] * kv[e];
       s = warp_sum(s);
-      if (lane == 0) sc[i * chunk_keys + kk] = s * scale;
+      if (lane == 0) sc[i * chunk_keys + kk] = kInt8 ? s * ks * scale : s * scale;
     }
   }
   __syncthreads();
@@ -109,8 +127,9 @@ paged_partial_kernel(const __nv_bfloat16* __restrict__ q, int64_t qsb, int64_t q
   for (int kk = kg; kk < nkeys; kk += KG) {
     const int pos = key0 + kk;
     const int64_t page = row_page0 + pos / page_size;
-    const float vv = __bfloat162float(
-        v_pages[((page * Hkv + hk) * page_size + pos % page_size) * D + d]);
+    const int64_t slot = (page * Hkv + hk) * page_size + pos % page_size;
+    float vv = page_val(v_pages[slot * D + d]);
+    if (kInt8) vv *= v_scale[slot];
 #pragma unroll
     for (int i = 0; i < G_MAX; ++i)
       if (i < g) acc[i] += sc[i * chunk_keys + kk] * vv;
@@ -152,25 +171,52 @@ __global__ void paged_merge_kernel(const float* __restrict__ acc, const float* _
   out[((int64_t)b * gridDim.x + hq) * D + d] = __float2bfloat16(L > 0.0f ? o / L : 0.0f);
 }
 
-template <int D>
-cudaError_t launch(const __nv_bfloat16* q, int64_t qsb, int64_t qsh, const __nv_bfloat16* kp,
-                   const __nv_bfloat16* vp, const int* length, int B, int Hq, int Hkv,
-                   int row_pages, int page_size, int pages_per_chunk, float scale,
+template <int D, typename T>
+cudaError_t launch(const __nv_bfloat16* q, int64_t qsb, int64_t qsh, const T* kp, const T* vp,
+                   const float* ks, const float* vs, const int* length, int B, int Hq,
+                   int Hkv, int row_pages, int page_size, int pages_per_chunk, float scale,
                    float* acc, float* m, float* l, __nv_bfloat16* out, cudaStream_t stream) {
   const int g = Hq / Hkv;
   const int nchunks = (row_pages + pages_per_chunk - 1) / pages_per_chunk;
   const size_t bytes =
       sizeof(float) * (G_MAX * D + G_MAX * pages_per_chunk * page_size + THREADS * G_MAX);
   cudaError_t err = cudaFuncSetAttribute(
-      paged_partial_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+      paged_partial_kernel<D, T>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
   if (err != cudaSuccess) return err;
-  paged_partial_kernel<D><<<dim3(nchunks, Hkv, B), THREADS, bytes, stream>>>(
-      q, qsb, qsh, kp, vp, length, row_pages, page_size, pages_per_chunk, nchunks, g, Hkv,
-      scale, acc, m, l);
+  paged_partial_kernel<D, T><<<dim3(nchunks, Hkv, B), THREADS, bytes, stream>>>(
+      q, qsb, qsh, kp, vp, ks, vs, length, row_pages, page_size, pages_per_chunk, nchunks,
+      g, Hkv, scale, acc, m, l);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   paged_merge_kernel<<<dim3(Hq, B), D, 0, stream>>>(acc, m, l, out, nchunks, g, Hkv, D);
   return cudaGetLastError();
+}
+
+template <typename T>
+int dispatch(const void* q, int64_t qsb, int64_t qsh, const void* k_pages, const void* v_pages,
+             const void* k_scale, const void* v_scale, const int* length, int B, int Hq,
+             int Hkv, int row_pages, int page_size, int pages_per_chunk, int D, float scale,
+             void* acc, void* m, void* l, void* out, void* stream) {
+  auto qp = static_cast<const __nv_bfloat16*>(q);
+  auto kp = static_cast<const T*>(k_pages);
+  auto vp = static_cast<const T*>(v_pages);
+  auto ks = static_cast<const float*>(k_scale);
+  auto vs = static_cast<const float*>(v_scale);
+  auto st = static_cast<cudaStream_t>(stream);
+  auto accp = static_cast<float*>(acc);
+  auto mp = static_cast<float*>(m);
+  auto lp = static_cast<float*>(l);
+  auto op = static_cast<__nv_bfloat16*>(out);
+  cudaError_t err;
+  if (D == 64)
+    err = launch<64, T>(qp, qsb, qsh, kp, vp, ks, vs, length, B, Hq, Hkv, row_pages,
+                        page_size, pages_per_chunk, scale, accp, mp, lp, op, st);
+  else if (D == 128)
+    err = launch<128, T>(qp, qsb, qsh, kp, vp, ks, vs, length, B, Hq, Hkv, row_pages,
+                         page_size, pages_per_chunk, scale, accp, mp, lp, op, st);
+  else
+    err = cudaErrorInvalidValue;
+  return static_cast<int>(err);
 }
 
 }  // namespace
@@ -184,22 +230,20 @@ extern "C" int sc_paged_decode(const void* q, int64_t qsb, int64_t qsh, const vo
                                int Hkv, int row_pages, int page_size, int pages_per_chunk,
                                int D, float scale, void* acc, void* m, void* l, void* out,
                                void* stream) {
-  auto qp = static_cast<const __nv_bfloat16*>(q);
-  auto kp = static_cast<const __nv_bfloat16*>(k_pages);
-  auto vp = static_cast<const __nv_bfloat16*>(v_pages);
-  auto st = static_cast<cudaStream_t>(stream);
-  cudaError_t err;
-  if (D == 64)
-    err = sc::launch<64>(qp, qsb, qsh, kp, vp, length, B, Hq, Hkv, row_pages, page_size,
-                         pages_per_chunk, scale, static_cast<float*>(acc),
-                         static_cast<float*>(m), static_cast<float*>(l),
-                         static_cast<__nv_bfloat16*>(out), st);
-  else if (D == 128)
-    err = sc::launch<128>(qp, qsb, qsh, kp, vp, length, B, Hq, Hkv, row_pages, page_size,
-                          pages_per_chunk, scale, static_cast<float*>(acc),
-                          static_cast<float*>(m), static_cast<float*>(l),
-                          static_cast<__nv_bfloat16*>(out), st);
-  else
-    err = cudaErrorInvalidValue;
-  return static_cast<int>(err);
+  return sc::dispatch<__nv_bfloat16>(q, qsb, qsh, k_pages, v_pages, nullptr, nullptr, length,
+                                     B, Hq, Hkv, row_pages, page_size, pages_per_chunk, D,
+                                     scale, acc, m, l, out, stream);
+}
+
+// As sc_paged_decode over int8 pages; k_scale / v_scale: contiguous f32
+// [num_pages, Hkv, page_size] of the same layer.
+extern "C" int sc_paged_decode_int8(const void* q, int64_t qsb, int64_t qsh,
+                                    const void* k_pages, const void* v_pages,
+                                    const void* k_scale, const void* v_scale,
+                                    const int* length, int B, int Hq, int Hkv, int row_pages,
+                                    int page_size, int pages_per_chunk, int D, float scale,
+                                    void* acc, void* m, void* l, void* out, void* stream) {
+  return sc::dispatch<int8_t>(q, qsb, qsh, k_pages, v_pages, k_scale, v_scale, length, B, Hq,
+                              Hkv, row_pages, page_size, pages_per_chunk, D, scale, acc, m, l,
+                              out, stream);
 }

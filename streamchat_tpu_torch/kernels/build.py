@@ -1,11 +1,12 @@
 """Build and load the hand-written CUDA kernels.
 
-Every `csrc/*.cu` file is compiled by `nvcc` into one shared library with a
-plain C interface, `build/libstreamchat_kernels.so` inside the package, and
-loaded with `ctypes` (the repo's `native/frameproc.py` pattern, without a
-silent fallback: a failed build raises). The library is rebuilt whenever a
-source under `csrc/` is newer than it, so a fresh checkout builds everything
-from its own sources on first use — a few seconds of `nvcc` for these files.
+Every `csrc/*.cu` file is compiled by its own `nvcc` process (all started
+together) into an object, and the objects are linked into one shared
+library with a plain C interface, `build/libstreamchat_kernels.so` inside
+the package, loaded with `ctypes` (the repo's `native/frameproc.py`
+pattern, without a silent fallback: a failed build raises). The library is
+rebuilt whenever a source under `csrc/` is newer than it, so a fresh
+checkout builds everything from its own sources on first use.
 
 Nothing here runs at import time: the CPU tests import every module of the
 package on machines that have no `nvcc` and no GPU.
@@ -28,7 +29,7 @@ LIB_PATH = os.path.join(BUILD_DIR, "libstreamchat_kernels.so")
 
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a",
-    "-O3", "-std=c++17", "-shared", "-Xcompiler", "-fPIC", "-lineinfo",
+    "-O3", "-std=c++17", "-Xcompiler", "-fPIC", "-lineinfo",
 ]
 
 _P, _I, _I64, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64, ctypes.c_float
@@ -40,6 +41,11 @@ SIGNATURES = {
                            _I, _I, _I, _I, _I, _I, _I, _F, _P],
     "sc_paged_decode": [_P, _I64, _I64, _P, _P, _P, _I, _I, _I, _I, _I, _I,
                         _I, _F, _P, _P, _P, _P, _P],
+    "sc_paged_decode_int8": [_P, _I64, _I64, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
+                             _I, _I, _F, _P, _P, _P, _P, _P],
+    "sc_w8a16_gemv": [_P, _P, _P, _I, _I, _I, _I, _I, _P, _P, _I, _P],
+    "sc_int4_gemv": [_P, _I, _I, _I, _P, _P, _I, _P, _P, _I, _P, _P, _I, _I, _I, _P,
+                     _P, _I, _P],
     "sc_fused_vit_layer": [_P] * 19 + [_I, _I, _I, _I, _I, _F, _P],
     "sc_fused_ln_mlp": [_P] * 10 + [_I, _I, _I, _I, _I, _I, _I, _F, _P],
 }
@@ -74,24 +80,46 @@ def _stale() -> bool:
 
 
 def build(force: bool = False) -> dict:
-    """Compile csrc/*.cu into LIB_PATH when stale -> {"seconds", "log"}.
+    """Compile csrc/*.cu into LIB_PATH when stale -> {"seconds", "log", "built"}.
 
-    Raises RuntimeError when nvcc fails.
+    One nvcc per source, run in parallel, then one link. Raises
+    RuntimeError when nvcc fails.
     """
     if not force and not _stale():
         return {"seconds": 0.0, "log": "", "built": False}
     os.makedirs(BUILD_DIR, exist_ok=True)
-    tmp = f"{LIB_PATH}.{os.getpid()}.tmp"
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, *_sources()]
+    nvcc = _nvcc()
+    tag = f"{os.getpid()}.tmp"
     t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    seconds = time.perf_counter() - t0
-    if proc.returncode != 0:
-        raise RuntimeError(
-            f"nvcc failed ({proc.returncode}):\n{' '.join(cmd)}\n"
-            f"{proc.stdout}\n{proc.stderr}")
-    os.replace(tmp, LIB_PATH)
-    return {"seconds": seconds, "log": proc.stdout + proc.stderr, "built": True}
+    jobs = []
+    for src in _sources():
+        obj = os.path.join(BUILD_DIR, f"{os.path.basename(src)}.{tag}.o")
+        cmd = [nvcc, *NVCC_FLAGS, "-c", "-o", obj, src]
+        jobs.append((cmd, obj, subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
+    log, failed = [], []
+    for cmd, _, proc in jobs:
+        out = proc.communicate()[0]
+        log.append(out)
+        if proc.returncode != 0:
+            failed.append(f"nvcc failed ({proc.returncode}):\n{' '.join(cmd)}\n{out}")
+    objs = [obj for _, obj, _ in jobs]
+    try:
+        if failed:
+            raise RuntimeError("\n".join(failed))
+        tmp = f"{LIB_PATH}.{tag}"
+        cmd = [nvcc, *NVCC_FLAGS, "-shared", "-o", tmp, *objs]
+        proc = subprocess.run(cmd, capture_output=True, text=True)
+        log.append(proc.stdout + proc.stderr)
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc link failed ({proc.returncode}):\n{' '.join(cmd)}\n"
+                               f"{proc.stdout}\n{proc.stderr}")
+        os.replace(tmp, LIB_PATH)
+    finally:
+        for obj in objs:
+            if os.path.exists(obj):
+                os.remove(obj)
+    return {"seconds": time.perf_counter() - t0, "log": "".join(log), "built": True}
 
 
 @functools.lru_cache(maxsize=1)

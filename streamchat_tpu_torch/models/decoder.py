@@ -1,10 +1,13 @@
 """Causal decoder core (Qwen2 / LLaMA geometry), prefill side
 (`streamchat_tpu/models/decoder.py`).
 
-The projections are plain matrix products (`x @ w`, [in, out] weights, as
-the JAX package leaves them to XLA); prefill attention is the K3 kernel
-wrapper (`ops.attention.flash_attention`). RMSNorm, RoPE (HF rotate-half)
-and the logits run in f32. Decode runs against the paged pool in
+The projections take bf16 / f32 weights as plain matrix products (`x @ w`,
+[in, out] weights, as the JAX package leaves them to XLA), or the int8 /
+int4 weight-only forms of `ops/quant.py`, whose decode rows go to the W8,
+K10 and K11 GEMV kernels (q/k/v and gate/up share one K11 launch when all
+parts are int4). Prefill attention is the K3 kernel wrapper
+(`ops.attention.flash_attention`). RMSNorm, RoPE (HF rotate-half) and the
+logits run in f32. Decode runs against the paged pool in
 `models/paged_kv.py`.
 
 The port prefills every prompt in ONE pass, however long: the JAX
@@ -22,6 +25,7 @@ from typing import Any, Dict, Tuple
 import torch
 
 from streamchat_tpu_torch.config import DecoderConfig
+from streamchat_tpu_torch.ops import quant
 from streamchat_tpu_torch.ops.attention import flash_attention
 
 Params = Dict[str, Any]
@@ -98,24 +102,53 @@ def init(cfg: DecoderConfig, generator: torch.Generator, *, device="cpu",
 
 
 def _proj(x: torch.Tensor, p: Params) -> torch.Tensor:
-    y = x @ p["w"]
+    """x @ W (+ b) for p = {"w"(, "b")}, the int8 form {"w_i8", "scale"(, "b")}
+    or the int4 form {"w_i4p", "scale"(, "b")}."""
+    if "w_i4p" in p:
+        y = quant.qmatmul_int4(x, p)
+    elif "w_i8" in p:
+        y = quant.qmatmul(x, p)
+    else:
+        y = x @ p["w"]
     if "b" in p:
         y = y + p["b"]
     return y
 
 
+def _mm(x: torch.Tensor, w) -> torch.Tensor:
+    """x @ w where w may be a plain tensor or a quantized dict."""
+    return quant.matmul_any(x, w)
+
+
+def _all_int4(*ps) -> bool:
+    return all(isinstance(p, dict) and "w_i4p" in p for p in ps)
+
+
 def qkv_proj(h, attn, b, s, hq, hkv, dh):
-    """q/k/v projections -> ([B,Hq,S,Dh], [B,Hkv,S,Dh], [B,Hkv,S,Dh])."""
-    q = _proj(h, attn["q"]).view(b, s, hq, dh).transpose(1, 2)
-    k = _proj(h, attn["k"]).view(b, s, hkv, dh).transpose(1, 2)
-    v = _proj(h, attn["v"]).view(b, s, hkv, dh).transpose(1, 2)
-    return q, k, v
+    """q/k/v projections -> ([B,Hq,S,Dh], [B,Hkv,S,Dh], [B,Hkv,S,Dh]); one
+    fused K11 launch at decode when all three are int4."""
+    pq, pk, pv = attn["q"], attn["k"], attn["v"]
+    if _all_int4(pq, pk, pv):
+        qy, ky, vy = quant.qmatmul_int4_multi(h, (pq, pk, pv))
+        if "b" in pq:
+            qy, ky, vy = qy + pq["b"], ky + pk["b"], vy + pv["b"]
+    else:
+        qy, ky, vy = _proj(h, pq), _proj(h, pk), _proj(h, pv)
+    return (qy.reshape(b, s, hq, dh).transpose(1, 2),
+            ky.reshape(b, s, hkv, dh).transpose(1, 2),
+            vy.reshape(b, s, hkv, dh).transpose(1, 2))
 
 
 def mlp_block(h: torch.Tensor, mlp: Params) -> torch.Tensor:
-    """SwiGLU: down(silu(gate(h)) * up(h))."""
-    gated = torch.nn.functional.silu((h @ mlp["gate"]).float()).to(h.dtype)
-    return (gated * (h @ mlp["up"])) @ mlp["down"]
+    """SwiGLU: down(silu(gate(h)) * up(h)); gate/up share one K11 launch at
+    decode when both are int4."""
+    pg, pu = mlp["gate"], mlp["up"]
+    if _all_int4(pg, pu):
+        gy, uy = quant.qmatmul_int4_multi(h, (pg, pu))
+    else:
+        gy, uy = _mm(h, pg), _mm(h, pu)
+    gated = torch.nn.functional.silu(gy.float()).to(h.dtype)
+    return _mm(gated * uy, mlp["down"])
 
 
 def forward(params: Params, cfg: DecoderConfig, embeds: torch.Tensor,
@@ -147,13 +180,29 @@ def forward(params: Params, cfg: DecoderConfig, embeds: torch.Tensor,
 
 def logits_from_hidden(params: Params, cfg: DecoderConfig,
                        hidden: torch.Tensor) -> torch.Tensor:
-    """f32 logits of the given rows (callers pass the last row only)."""
+    """f32 logits of the given rows (callers pass the last row only). An
+    int8 head is an f32 product scaled per column (the W8 kernel with f32
+    output at decode: a bf16 hidden state times int8 is exact in f32)."""
+    if cfg.tie_embeddings and quant.is_quantized(params["embed"]):
+        raise NotImplementedError(
+            "tied embeddings with an int8 table would double quantization "
+            "error through the logits; quantize_embed is for untied models")
     head = params["embed"].T if cfg.tie_embeddings else params["lm_head"]
+    if isinstance(head, dict) and "w_i4p" in head:
+        return quant.qmatmul_int4(hidden.float(), head)
+    if quant.is_quantized(head):
+        return quant.qmatmul(hidden, head, out_dtype=torch.float32)
     return hidden.float() @ head.float()
 
 
 def embed_tokens(params: Params, token_ids: torch.Tensor) -> torch.Tensor:
-    return params["embed"][token_ids]
+    """Token rows; an int8-row table (ops/quant.quantize_embedding) is
+    dequantized per row to bf16."""
+    emb = params["embed"]
+    if isinstance(emb, dict):
+        rows = emb["w_i8"][token_ids].float() * emb["scale"][token_ids][..., None]
+        return rows.to(torch.bfloat16)
+    return emb[token_ids]
 
 
 def prefill(params: Params, cfg: DecoderConfig, embeds: torch.Tensor,

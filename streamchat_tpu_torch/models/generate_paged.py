@@ -6,9 +6,15 @@ One-shot prefill into a dense cache, paged into an identity-mapped pool
 sized for prompt + max_new tokens (so it never overflows and needs no
 allocator), then a Python loop: sample -> write -> decode step through the
 K4 kernel. Finished rows emit the pad id; `count` is the number of tokens
-before the first EOS, as in the JAX loop. Batched rows
-(`caption_batch > 1`), H2O eviction, int8 KV pages and speculative
-decoding are not ported yet (ROADMAP §A).
+before the first EOS, as in the JAX loop.
+
+kv_int8 keeps the prefill bf16 and dense, then quantizes it one layer at a
+time into int8 pages (`paged_kv.from_contiguous_int8`) and decodes through
+the K6 kernel. This is the JAX package's semantics for prompts of up to
+8192 tokens; beyond that the JAX package prefills in chunks into an int8
+dense cache to fit a 16 GB chip, which the port's one-pass prefill does not
+need on 80 GB (ROADMAP §C). Batched rows (`caption_batch > 1`), H2O
+eviction and speculative decoding are not ported yet (ROADMAP §A).
 """
 
 from __future__ import annotations
@@ -21,7 +27,12 @@ import torch
 
 from streamchat_tpu_torch.config import DecoderConfig
 from streamchat_tpu_torch.models import decoder
-from streamchat_tpu_torch.models.paged_kv import decode_step_paged, from_contiguous
+from streamchat_tpu_torch.models.paged_kv import (
+    decode_step_paged,
+    decode_step_paged_int8,
+    from_contiguous,
+    from_contiguous_int8,
+)
 from streamchat_tpu_torch.ops.sampling import sample_token
 
 
@@ -29,7 +40,7 @@ def generate_paged(params, cfg: DecoderConfig, prompt_embeds: torch.Tensor,
                    seq_length: torch.Tensor, generator: torch.Generator | None = None,
                    *, max_new_tokens: int, page_size: int = 128,
                    temperature: float = 0.0, top_p: float | None = None,
-                   eos_ids: Sequence[int] | None = None,
+                   eos_ids: Sequence[int] | None = None, kv_int8: bool = False,
                    stats: Optional[dict] = None) -> Tuple[np.ndarray, np.ndarray]:
     """-> (tokens [B, max_new] int64, count [B]) as numpy arrays.
 
@@ -54,7 +65,12 @@ def generate_paged(params, cfg: DecoderConfig, prompt_embeds: torch.Tensor,
     dense = decoder.KVCache.create(cfg, b, s_pad, dtype=prompt_embeds.dtype, device=dev)
     logits, dense = decoder.prefill(params, cfg, prompt_embeds, dense, seq_length)
     maxp = -(-(s_pad + max_new_tokens) // page_size)
-    cache = from_contiguous(dense, maxp, maxp, page_size)
+    if kv_int8:
+        cache = from_contiguous_int8(dense, maxp, maxp, page_size)
+        step_fn = decode_step_paged_int8
+    else:
+        cache = from_contiguous(dense, maxp, maxp, page_size)
+        step_fn = decode_step_paged
     del dense
     if stats is not None and dev.type == "cuda":
         torch.cuda.synchronize(dev)
@@ -69,7 +85,7 @@ def generate_paged(params, cfg: DecoderConfig, prompt_embeds: torch.Tensor,
         tok = torch.where(done, torch.full_like(tok, cfg.pad_token_id), tok)
         done = done | torch.isin(tok, eos)
         out[:, step] = tok
-        logits, cache = decode_step_paged(params, cfg, tok, cache)
+        logits, cache = step_fn(params, cfg, tok, cache)
         step += 1
         if bool(done.all()):
             break

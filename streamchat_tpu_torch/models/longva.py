@@ -5,8 +5,10 @@ One model serves the answerer and the captioner. `encode_images` runs the
 ViT (K1 per layer) and the projector (K2); `generate_with_image_embedding`
 splices the prompt's `<image>` markers with visual embeddings, pads to a
 128-token bucket and generates through the paged backend (K3 prefill, K4
-decode). Random draws come from the `torch.Generator` the facade holds
-(the JAX package's `KeySeq`).
+decode, or K6 over int8 pages with `kv_int8`). `quantize` switches the
+decoder to int8 / int4 weight-only storage (W8, K10, K11 at decode).
+Random draws come from the `torch.Generator` the facade holds (the JAX
+package's `KeySeq`).
 """
 
 from __future__ import annotations
@@ -25,6 +27,7 @@ from streamchat_tpu_torch.models.tokenizer import (
     ByteTokenizer,
     tokenize_with_image_token,
 )
+from streamchat_tpu_torch.ops.quant import embed_dtype, quantize_decoder_params
 
 PROMPT_BUCKET = 128     # prompt padding granularity (tokens)
 
@@ -41,10 +44,23 @@ class LongVA:
     # Prefill / decode seconds, decode steps, prompt and generated tokens,
     # summed over every generate call (models/generate_paged `stats`).
     gen_stats: dict = dataclasses.field(default_factory=dict)
+    # Store KV pages as int8 + per-(token, head) scales (half the pool
+    # bytes a decode step reads). A facade attribute, not a CLI flag, as in
+    # the JAX package.
+    kv_int8: bool = False
 
     @property
     def device(self) -> torch.device:
-        return self.dec_params["embed"].device
+        return self.dec_params["final_norm"].device
+
+    def quantize(self, quantize_embed: bool = False, bits: int = 8) -> "LongVA":
+        """Switch the decoder to int8 (bits=8) or group-128 int4 (bits=4,
+        lm_head kept int8) weight-only storage (ops/quant.py); the ViT and
+        projector stay as they are. quantize_embed also stores the token
+        table as int8 rows."""
+        self.dec_params = quantize_decoder_params(
+            self.dec_params, quantize_embed=quantize_embed, bits=bits)
+        return self
 
     @classmethod
     def init_random(cls, vit_cfg: ViTConfig | None = None,
@@ -83,7 +99,7 @@ class LongVA:
         max_position_embeddings like the reference's tokenizer clamp.
         """
         ids = tokenize_with_image_token(prompt, self.tokenizer)
-        dtype = self.dec_params["embed"].dtype
+        dtype = embed_dtype(self.dec_params)
         segments: List[torch.Tensor] = []
         img_idx = 0
         text_run: List[int] = []
@@ -123,5 +139,6 @@ class LongVA:
             self.dec_params, self.dec_cfg, embeds,
             torch.tensor([length], dtype=torch.int32, device=self.device),
             self.generator, max_new_tokens=max_new_tokens, temperature=temperature,
-            top_p=top_p, eos_ids=tuple(self.tokenizer.eos_ids), stats=self.gen_stats)
+            top_p=top_p, eos_ids=tuple(self.tokenizer.eos_ids), kv_int8=self.kv_int8,
+            stats=self.gen_stats)
         return self.tokenizer.decode(toks[0][: int(count[0])].tolist()).strip()

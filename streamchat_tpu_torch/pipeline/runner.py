@@ -7,8 +7,9 @@ dialogue retrieval -> answer -> result append -> memory write-back. Phase
 totals are host wall-clock windows that end in a device synchronize, so on
 a GPU they are true device-inclusive times.
 
-Not ported yet, each raising NotImplementedError that names its ROADMAP
-item: --int8 (the CLI default: pass --bf16), --int4, --spec_tokens,
+`--int8` (the default) and `--int4` quantize the decoder after it is built,
+as the JAX `main` does; `--bf16` keeps it bf16. Not ported yet, each
+raising NotImplementedError that names its ROADMAP item: --spec_tokens,
 --mode on_line, --shard, --offload_chunks / --offload_residents, --ppl,
 --literal_kmeans, the uni-modal answer (no --multi_modal_memory) and
 checkpoint loading (--model_name / --embedding_model / --minilm_model).
@@ -322,8 +323,6 @@ def parse_args(argv=None):
 
 
 _NOT_PORTED = (
-    ("int4", "--int4", "int4 weight-only decode"),
-    ("int8", "--int8 (the default; pass --bf16)", "W8A16 int8 decode"),
     ("spec_tokens", "--spec_tokens", "Speculative decode"),
     ("shard", "--shard", "Multi-GPU"),
     ("offload_chunks", "--offload_chunks", "Host offload"),
@@ -366,6 +365,10 @@ def main(argv=None) -> None:
                            "(pass --device cpu --geometry tiny for a CPU run)")
     pipeline = build_pipeline(cfg, device=device, dtype=torch.bfloat16,
                               geometry=args.geometry)
+    if args.int4:
+        pipeline.model.quantize(bits=4)
+    elif args.int8:
+        pipeline.model.quantize()
     t0 = time.time()
     run_inference(pipeline, args)
     print(json.dumps({"seconds": round(time.time() - t0, 3),

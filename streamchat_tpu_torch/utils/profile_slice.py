@@ -1,8 +1,10 @@
 """Profile the slice's phases at full LongVA-7B width on one GPU.
 
-    python -m streamchat_tpu_torch.utils.profile_slice
+    python -m streamchat_tpu_torch.utils.profile_slice [--weights bf16|int8|int4] [--kv_int8]
 
-Random seeded weights, bf16. Three profiled windows under `torch.profiler`
+Random seeded weights, bf16; `--weights int8` / `int4` quantizes the
+decoder after the build (as the CLI's `--int8` / `--int4` do) and
+`--kv_int8` stores the KV pages as int8. Three profiled windows under `torch.profiler`
 (CPU + CUDA activities), each after a warm-up:
 
 * ingest: 64 frames of a 360x640 synthetic video (the padded 60-frame
@@ -23,6 +25,7 @@ and the peak device memory.
 
 from __future__ import annotations
 
+import argparse
 import json
 import subprocess
 import time
@@ -46,7 +49,11 @@ def summarize(prof, wall: float, label: str, rows: int = 18) -> None:
         print(f"   {t:9.4f} s  {100 * t / busy:5.1f}%  n={n:6d}  {name}")
 
 
-def main() -> None:
+def main(argv=None) -> None:
+    p = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    p.add_argument("--weights", choices=("bf16", "int8", "int4"), default="bf16")
+    p.add_argument("--kv_int8", action="store_true")
+    args = p.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("profile_slice: no CUDA device")
     from torch.profiler import ProfilerActivity, profile
@@ -63,6 +70,10 @@ def main() -> None:
     pipe = build_pipeline(PipelineConfig(), device="cuda", geometry="longva7b",
                           dtype=torch.bfloat16)
     m = pipe.model
+    if args.weights != "bf16":
+        m.quantize(bits=4 if args.weights == "int4" else 8)
+    m.kv_int8 = args.kv_int8
+    print(f"weights {args.weights}, kv_int8 {args.kv_int8}")
     activities = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
 
     reader = SyntheticVideoReader(total_frames=600, frame_rate=30, height=360, width=640)

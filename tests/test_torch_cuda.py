@@ -9,7 +9,9 @@ neither jax nor the JAX package, so it runs on a GPU machine without jax:
 
 (`--noconftest` skips tests/conftest.py, which sets up jax.) Tolerance:
 |kernel - plain| <= 3e-2 + 2e-2 |plain|, bf16 storage with f32
-accumulation in both, summed in a different order.
+accumulation in both, summed in a different order. The quantized GEMVs
+(W8, K10, K11) take ragged in / out edges and 1 or 8 rows; the int8-page
+decode (K6) takes pages and scales with NaN and inf past the length.
 """
 
 import numpy as np
@@ -17,7 +19,7 @@ import pytest
 import torch
 
 from streamchat_tpu_torch import kernels
-from streamchat_tpu_torch.ops import attention, fused_vit, paged_attention
+from streamchat_tpu_torch.ops import attention, fused_vit, int4_matmul, paged_attention, quant
 
 ATOL, RTOL = 3e-2, 2e-2
 
@@ -88,3 +90,78 @@ def test_cuda_paged_decode(cuda, b, lengths, pages):
     _close(paged_attention.paged_decode_attention_seq(q, kp, vp, ln),
            paged_attention.paged_decode_attention_seq_plain(q, kp, vp, ln))
     assert paged_attention.paged_decode_attention_seq.launches == 1
+
+
+def _int4(seed, dev, kin, out):
+    q = quant.quantize_weight_int4(torch.from_numpy(
+        np.random.default_rng(seed).standard_normal((kin, out)).astype(np.float32) * 0.1))
+    return q["w_i4p"].to(dev), q["scale"].to(dev)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [1, 8])
+@pytest.mark.parametrize("kin,out", [(200, 528), (3584, 512), (1000, 48)])
+def test_cuda_w8a16_gemv(cuda, n, kin, out):
+    """Ragged in (not a multiple of the 8-row warp step or the slice) and
+    out (not a multiple of the 512-column tile); bf16 and f32 outputs."""
+    w = np.random.default_rng(kin).standard_normal((kin, out)).astype(np.float32) * 0.1
+    q = {k: v.to(cuda) for k, v in quant.quantize_weight(torch.from_numpy(w)).items()}
+    x = _bf(1, cuda, n, kin)
+    for dt in (torch.bfloat16, torch.float32):
+        got = quant.qmatvec_int8(x, q["w_i8"], q["scale"], dt)
+        assert got.dtype == dt and got.shape == (n, out)
+        _close(got, quant.qmatvec_int8_plain(x, q["w_i8"], q["scale"], dt))
+    assert quant.qmatvec_int8.launches == 2
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [1, 8])
+@pytest.mark.parametrize("kin,out", [(384, 200), (3584, 512), (128, 520)])
+def test_cuda_int4_gemv(cuda, n, kin, out):
+    """Group ranges that do not split evenly and packed widths that are not
+    a multiple of the 128-column tile."""
+    w, s = _int4(kin + out, cuda, kin, out)
+    x = _bf(2, cuda, n, kin)
+    got = int4_matmul.qmatvec_int4(x, w, s)
+    assert got.dtype == torch.float32 and got.shape == (n, out)
+    _close(got, int4_matmul.qmatvec_int4_plain(x, w, s))
+    assert int4_matmul.qmatvec_int4.launches == 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [1, 8])
+@pytest.mark.parametrize("widths", [(512, 128, 128), (1024, 1032)])
+def test_cuda_int4_gemv_fused(cuda, n, widths):
+    """k/v parts narrower than one column tile; two and three parts."""
+    parts = [_int4(10 + i, cuda, 384, w) for i, w in enumerate(widths)]
+    flat = [t for part in parts for t in part]
+    x = _bf(3, cuda, n, 384)
+    got = int4_matmul.qmatvec_int4_fused(x, *flat, out_dtype=torch.bfloat16)
+    want = int4_matmul.qmatvec_int4_fused_plain(x, *flat, out_dtype=torch.bfloat16)
+    assert len(got) == len(widths)
+    for g, w, width in zip(got, want, widths):
+        assert g.shape == (n, width)
+        _close(g, w)
+    assert int4_matmul.qmatvec_int4_fused.launches == 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,lengths,pages", [(2, (1000, 3), 18), (1, (2049,), 17)])
+def test_cuda_paged_decode_int8(cuda, b, lengths, pages):
+    q = _bf(1, cuda, b, 8, 1, 128)
+    rng = np.random.default_rng(4)
+    kp, vp = (torch.from_numpy(rng.integers(-127, 128, (pages, 2, 128, 128), dtype=np.int8)
+                               ).to(cuda) for _ in range(2))
+    ks, vs = (torch.from_numpy(rng.uniform(0.005, 0.02, (pages, 2, 128)).astype(np.float32)
+                               ).to(cuda) for _ in range(2))
+    row = pages // b
+    for r, n in enumerate(lengths):              # garbage past each row's length
+        for t, bad in ((ks, float("nan")), (vs, float("inf"))):
+            flat = t[r * row:(r + 1) * row].transpose(0, 1).reshape(2, -1)
+            flat[:, n:] = bad
+            t[r * row:(r + 1) * row] = flat.reshape(2, row, 128).transpose(0, 1)
+    ln = torch.tensor(lengths, dtype=torch.int32, device=cuda)
+    got = paged_attention.paged_decode_attention_seq_int8(q, kp, vp, ks, vs, ln)
+    assert torch.isfinite(got).all()
+    _close(got, paged_attention.paged_decode_attention_seq_int8_plain(q, kp, vp, ks, vs, ln))
+    assert paged_attention.paged_decode_attention_seq_int8.launches == 1

@@ -4,8 +4,11 @@ Slice parity: both packages run `process_video` at tiny geometry from the
 same converted float32 weights, greedy, with settings under which nothing
 draws random numbers (short_window == remember_window, chunk_size <=
 num_clusters, fewer than `interval` tree nodes), and their result records
-must agree field by field. Also: the port imports and runs with jax and
-the JAX package blocked, and every CLI option that is not ported raises.
+must agree field by field: with bf16-free float32 weights, and with each
+package quantizing its own copy to int8, to int4, and to int4 with int8 KV
+pages. Also: the port imports and runs with jax and the JAX package
+blocked, every CLI option that is not ported raises, and the CLI's weight
+storage flags quantize the model as the JAX `main` does.
 """
 
 import dataclasses
@@ -46,7 +49,9 @@ def _cfg(jcfg, cls):
     return cls(**dataclasses.asdict(jcfg))
 
 
-def _pipelines():
+def _pipelines(bits=None, kv_int8=False):
+    """Both pipelines on the same weights; bits 8 / 4 quantizes each
+    package's decoder with its own `LongVA.quantize`."""
     dcfg = jconfig.DecoderConfig.tiny()
     k1, k2, k3 = jax.random.split(jax.random.key(0), 3)
     jm = JLongVA.init_random(k1, jconfig.ViTConfig.tiny(projection_dim=dcfg.hidden_size),
@@ -76,6 +81,10 @@ def _pipelines():
     pcfg = config.PipelineConfig(
         memory=_cfg(jcfg.memory, config.MemoryConfig),
         sampling=_cfg(jcfg.sampling, config.SamplingConfig))
+    if bits is not None:
+        jm.quantize(bits=bits)
+        model.quantize(bits=bits)
+    jm.kv_int8 = model.kv_int8 = kv_int8
     return jp, runner.StreamChatPipeline(model, emb(jtree), emb(jbank), pcfg)
 
 
@@ -94,8 +103,10 @@ def _recording(fn, sink):
     return wrapped
 
 
-def test_slice_parity_with_jax_pipeline(tmp_path, monkeypatch):
-    jp, pp = _pipelines()
+@pytest.mark.parametrize("bits,kv_int8", [(None, False), (8, False), (4, False), (4, True)],
+                         ids=["f32", "int8", "int4", "int4-kv_int8"])
+def test_slice_parity_with_jax_pipeline(tmp_path, monkeypatch, bits, kv_int8):
+    jp, pp = _pipelines(bits, kv_int8)
     jtoks, ptoks = [], []
     monkeypatch.setattr(j_generate_paged, "generate_paged_fetch",
                         _recording(j_generate_paged.generate_paged_fetch, jtoks))
@@ -163,8 +174,7 @@ BASE = ["--video_dir", "v", "--memory_basic_dir", "m", "--save_file", "s.json",
 
 
 @pytest.mark.parametrize("flags", [
-    [],                                   # --int8 is the CLI default
-    ["--int8"], ["--int4"], ["--bf16", "--spec_tokens", "2"],
+    ["--bf16", "--spec_tokens", "2"],
     ["--bf16", "--mode", "on_line"], ["--bf16", "--shard"],
     ["--bf16", "--offload_chunks"], ["--bf16", "--offload_residents"],
     ["--bf16", "--ppl"], ["--bf16", "--literal_kmeans"],
@@ -173,6 +183,33 @@ BASE = ["--video_dir", "v", "--memory_basic_dir", "m", "--save_file", "s.json",
 def test_unported_cli_options_raise(flags):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         runner.config_from_args(runner.parse_args(BASE + flags))
+
+
+@pytest.mark.parametrize("flags,key", [
+    ([], "w_i8"),                         # --int8 is the CLI default
+    (["--int8"], "w_i8"), (["--int4"], "w_i4p"),
+])
+def test_cli_weight_storage_flags_quantize(monkeypatch, flags, key):
+    """--int8 (the default) and --int4 parse and `main` quantizes the built
+    model to that storage, as the JAX `main` does; the lm_head stays int8."""
+    built = []
+
+    def tiny(cfg, *, device, geometry, dtype):
+        built.append(runner.StreamChatPipeline.__new__(runner.StreamChatPipeline))
+        built[0].model = LongVA.init_random(
+            config.ViTConfig.tiny(projection_dim=128), config.DecoderConfig.tiny(),
+            device=device, dtype=torch.float32)
+        built[0].last_phase_totals = {}
+        return built[0]
+
+    monkeypatch.setattr(runner, "build_pipeline", tiny)
+    monkeypatch.setattr(runner, "run_inference", lambda pipe, args: None)
+    runner.main(BASE + flags + ["--device", "cpu", "--geometry", "tiny"])
+    params = built[0].model.dec_params
+    for layer in params["layers"]:
+        for p in (*layer["attn"].values(), *layer["mlp"].values()):
+            assert p[key].dtype == torch.int8 and "w" not in p
+    assert params["lm_head"]["w_i8"].dtype == torch.int8
 
 
 @pytest.mark.parametrize("change", [
