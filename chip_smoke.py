@@ -7,44 +7,59 @@
 2. Builds every hand-written kernel from `streamchat_tpu_torch/csrc/` (one
    nvcc per source, in parallel) and prints the build seconds.
 3. Builds the pipeline at full LongVA-7B width on random weights (seeded).
-4. Holds each kernel against its plain PyTorch twin at main-path shapes,
-   tolerance |kernel - plain| <= 3e-2 + 2e-2 |plain| (bf16 storage, f32
-   accumulation in both, different summation order), and times both (ms:
-   device time per call, the summed device events torch.profiler records;
-   wall_ms: back-to-back calls timed with CUDA events, which for a kernel
-   shorter than its wrapper's host work is the host's pace):
-   K1 ViT layer, K2 projector MLP, K3 flash attention, K4 paged decode,
-   W8 int8 GEMV (gate, down, and the lm_head with f32 output), K10 int4
-   GEMV (gate, down), K11 fused int4 GEMV (the q/k/v triple, the gate/up
-   pair) and K6 paged decode over int8 pages. K3, K4, K6 and the GEMVs are
-   also held to a relative L2 error of 1e-2 per output row (attention
-   outputs over ~23k keys are small), and planted faults must fail that
-   same check: a key tile or a 4-page chunk zeroed, the valid length
-   ignored or 128 past its end, a 128-row slice of an int8 weight zeroed,
-   int4 nibble halves swapped, one group's scale ignored, int8 page scales
-   replaced by 1. Keys, values and scales past the valid length hold large
-   garbage (NaN and inf for the int8 scales), as stale cache slots may. The
-   GEMVs and K6 are timed over several layers' weights or pools in turn, so
-   that what one call reads is not in the 50 MB L2 from the call before,
-   and report effective GB/s.
+4. Holds each of the eleven kernels against its plain PyTorch twin at
+   main-path shapes, tolerance |kernel - plain| <= 3e-2 + 2e-2 |plain|
+   (bf16 storage, f32 accumulation in both, different summation order),
+   and times both (ms: device time per call, the summed device events
+   torch.profiler records; wall_ms: back-to-back calls timed with CUDA
+   events, which for a kernel shorter than its wrapper's host work is the
+   host's pace): K1 ViT layer, K2 projector MLP, K3 flash attention, K4
+   paged decode, W8 int8 GEMV (gate, down, and the lm_head with f32
+   output), K10 int4 GEMV (gate, down), K11 fused int4 GEMV (the q/k/v
+   triple, the gate/up pair), K6 paged decode over int8 pages, K5 partial
+   flash attention (the last 3,072-token chunk of a 23,552-token caption
+   prefill, global offset 20,480), K7 and K7-int8 (five in-flight queries
+   against 23,105 pool tokens, bf16 and int8 pages). All but K1 and K2 are
+   also held to a relative L2 error of 1e-2 per output row (the partial
+   kernels through acc / l, and m and l elementwise), and planted faults
+   must fail that same check: a key tile or a 4-page chunk zeroed, the
+   valid length ignored or 128 past its end, a 128-row slice of an int8
+   weight zeroed, int4 nibble halves swapped, one group's scale ignored,
+   int8 page scales replaced by 1, K5's offsets swapped or its m left
+   unclamped, K7's row fold transposed or its pool length counting the
+   block. Keys, values and scales past the valid length hold large
+   garbage (NaN and inf for the int8 scales), as stale cache slots may.
+   Each row carries the kernel's bound (the larger of its FLOPs at 989
+   TFLOP/s and its bytes at 3.35 TB/s, each input read and each output
+   written once) and, where one PyTorch call computes the same function,
+   that call's device time (`library_ms`: SDPA for K3 and K5, a bf16
+   matmul on the dequantized weight for W8, K10 and K11).
 5. Checks the composed paths on small inputs: two frames through ViT +
    projector against the plain twins (per-token cosine >= 0.99 after 23
    bf16 layers); one 28-layer decode step through K4 against the
-   page-table gather path; and one 28-layer decode step of the int8 tree
-   (W8) and of the int4 tree (K10/K11) each against the same step on its
-   dequantized bf16 tree (relative L2 error of the logits <= 5e-2: one
-   bf16 rounding difference per layer compounds through the stack).
-6. Runs `StreamChatPipeline.process_video` (off-line, canonical v0.3
-   memory settings) on a 600-frame 360x640 synthetic video three times on
+   page-table gather path; one 28-layer decode step of the int8 tree (W8)
+   and of the int4 tree (K10/K11) each against the same step on its
+   dequantized bf16 tree; and one 28-layer verify step of five
+   teacher-forced tokens (K7, bf16 and int8 pages) against five vanilla
+   decode steps (K4 / K6). Logits are held to a relative L2 error of 5e-2
+   (one bf16 rounding difference per layer compounds through the stack).
+6. Times the chunk-40 caption prefill (23,441 tokens, bf16 weights) in one
+   pass (K3 only, the port before chunked prefill) and through the chunked
+   dispatch (K3 for chunk 0, K5 for chunks 1-5), in turns.
+7. Runs `StreamChatPipeline.process_video` (off-line, canonical v0.3
+   memory settings) on a 600-frame 360x640 synthetic video five times on
    one model build, the launch counters zeroed before each run and read
    after it: (1) bf16 weights, breakpoint at 10 s; (2) int8 weights, the
    CLI default, breakpoints at 10 s and 20 s; (3) int4 weights with int8 KV
-   pages, breakpoint at 10 s. Each quantized tree is made from the bf16
-   tree and freed before the next. A run fails if one of its kernels was
-   not launched, an answer is missing, no token was generated or no
-   caption prompt passed 23,000 tokens. Prints decode ms/step, peak
+   pages, breakpoint at 10 s; (4) int8 weights with spec_tokens = 4,
+   breakpoint at 10 s; (5) int4 weights, int8 KV pages and spec_tokens = 4,
+   breakpoint at 10 s (the run that drives K7-int8). Each quantized tree is
+   made from the bf16 tree and freed before the next. A run fails if one
+   of its kernels was not launched, an answer is missing, no token was
+   generated or no caption prompt passed 23,000 tokens. Prints decode
+   ms/step and per emitted token, accepted tokens per verify step, peak
    memory, and the weight and KV bytes a decode token reads.
-7. Prints the kernels JSON line, then the device JSON line last.
+8. Prints the kernels JSON line, then the device JSON line last.
 
 Any failure raises: the script then exits non-zero and prints no result.
 """
@@ -62,20 +77,27 @@ import time
 
 import torch
 
+from streamchat_tpu_torch.utils.profiling import device_ms
+
 ATOL, RTOL = 3e-2, 2e-2
 ROW_REL_L2 = 1e-2
 STEP_REL_L2 = 5e-2
 CAPTION_TOKENS_MIN = 23000
 
-# Kernels each process_video run must launch (wrapper names).
-BF16_KERNELS = ("fused_vit_layer", "fused_ln_mlp", "flash_attention",
-                "paged_decode_attention_seq")
+# Published peaks of one H100 SXM (dense bf16 tensor cores, HBM3).
+PEAK_FLOPS, PEAK_BYTES = 989e12, 3.35e12
+SPEC_TOKENS = 4
+
+# Kernels each process_video run must launch (wrapper names): every run
+# prefills its 23k-token captions in chunks (K3 + K5).
+PREFILL = ("fused_vit_layer", "fused_ln_mlp", "flash_attention", "flash_attention_partial")
+INT4 = ("qmatvec_int4", "qmatvec_int4_fused", "qmatvec_int8")
 RUNS = {
-    "bf16": BF16_KERNELS,
-    "int8": BF16_KERNELS + ("qmatvec_int8",),
-    "int4_kv_int8": ("fused_vit_layer", "fused_ln_mlp", "flash_attention",
-                     "paged_decode_attention_seq_int8", "qmatvec_int4",
-                     "qmatvec_int4_fused", "qmatvec_int8"),
+    "bf16": PREFILL + ("paged_decode_attention_seq",),
+    "int8": PREFILL + ("paged_decode_attention_seq", "qmatvec_int8"),
+    "int4_kv_int8": PREFILL + ("paged_decode_attention_seq_int8",) + INT4,
+    "int8_spec": PREFILL + ("paged_seq_attention_partial", "qmatvec_int8"),
+    "int4_kv_int8_spec": PREFILL + ("paged_seq_attention_partial_int8",) + INT4,
 }
 SOURCES = {
     "fused_vit_layer": ("streamchat_tpu_torch/csrc/fused_vit.cu",
@@ -94,6 +116,12 @@ SOURCES = {
                            "streamchat_tpu/ops/int4_matmul.py:203"),
     "paged_decode_attention_seq_int8": ("streamchat_tpu_torch/csrc/paged_decode.cu",
                                         "streamchat_tpu/ops/paged_attention.py:423"),
+    "flash_attention_partial": ("streamchat_tpu_torch/csrc/flash_attention.cu",
+                                "streamchat_tpu/ops/attention.py:470"),
+    "paged_seq_attention_partial": ("streamchat_tpu_torch/csrc/paged_decode.cu",
+                                    "streamchat_tpu/ops/paged_attention.py:454"),
+    "paged_seq_attention_partial_int8": ("streamchat_tpu_torch/csrc/paged_decode.cu",
+                                         "streamchat_tpu/ops/paged_attention.py:485"),
 }
 
 
@@ -127,27 +155,9 @@ def _time_ms(fn, iters: int) -> float:
     return start.elapsed_time(end) / iters
 
 
-def _device_ms(fn, iters: int) -> float:
-    """Device time per call: the summed durations of the device events
-    torch.profiler records over `iters` calls (kernels and copies)."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
-    fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            fn()
-        torch.cuda.synchronize()
-    events = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
-    if not events:
-        raise AssertionError("torch.profiler recorded no device event")
-    return sum(e.time_range.elapsed_us() for e in events) / iters / 1e3
-
-
 def _timings(kernel, plain, iters, plain_iters):
     """-> ms / plain_ms (device time per call) and wall_ms / plain_wall_ms."""
-    return dict(ms=_device_ms(kernel, iters), plain_ms=_device_ms(plain, plain_iters),
+    return dict(ms=device_ms(kernel, iters), plain_ms=device_ms(plain, plain_iters),
                 wall_ms=_time_ms(kernel, iters), plain_wall_ms=_time_ms(plain, plain_iters))
 
 
@@ -160,6 +170,30 @@ def _rotating(fn, arg_sets):
 
 def _gbs(nbytes, ms):
     return nbytes / (ms * 1e-3) / 1e9
+
+
+def _bound(flops, nbytes):
+    """The least time the card could take: the larger of the FLOPs at the
+    bf16 tensor-core peak and the bytes (each input read once, each output
+    written once) at the memory rate."""
+    t_ops, t_bytes = flops / PEAK_FLOPS, nbytes / PEAK_BYTES
+    return dict(bound_ms=1e3 * max(t_ops, t_bytes),
+                bound_by="operations" if t_ops >= t_bytes else "bytes",
+                flops=flops, bytes=nbytes)
+
+
+def _nbytes(*ts):
+    return sum(t.numel() * t.element_size() for t in ts)
+
+
+def _causal_pairs(sq, q_off, kv_len):
+    """(query, key) pairs a causal pass computes: row r sees min(q_off + r + 1,
+    kv_len) keys."""
+    return sum(min(q_off + r + 1, kv_len) for r in range(sq))
+
+
+def _sdpa(q, k, v, **kw):
+    return torch.nn.functional.scaled_dot_product_attention(q, k, v, **kw)
 
 
 def _errors(got, ref, row_rel):
@@ -221,10 +255,19 @@ def check_kernels(model, g):
     x = torch.randn(16, 577, 1024, generator=g, device=dev).to(bf)
     k1 = lambda: fused_vit.fused_vit_layer(x, *args, num_heads=heads)  # noqa: E731
     p1 = lambda: fused_vit.fused_vit_layer_plain(x, *args, num_heads=heads)  # noqa: E731
+    n, dm, ff, dh = 16 * 577, 1024, 4096, 1024 // heads
+    qa, ka, va = (torch.randn(16, heads, 577, dh, generator=g, device=dev).to(bf)
+                  for _ in range(3))
     rows["fused_vit_layer"] = dict(
         shapes="x [16, 577, 1024] bf16, ViT-L layer",
         max_abs_err=_compare("K1 fused_vit_layer", k1(), p1())[0],
-        **_timings(k1, p1, 20, 5))
+        **_timings(k1, p1, 20, 5),
+        **_bound(2 * n * (4 * dm * dm + 2 * dm * ff) + 4 * 16 * heads * 577 * 577 * dh,
+                 _nbytes(*args) + 2 * _nbytes(x)),
+        library_ms=None, library="none for the whole layer; attention_library_ms: "
+        "SDPA of its attention alone, q/k/v [16, 16, 577, 64]",
+        attention_library_ms=device_ms(lambda: _sdpa(qa, ka, va), 20))
+    del qa, ka, va
 
     # K2: the projector over 16 frames of patch features.
     pp = model.proj_params
@@ -237,7 +280,11 @@ def check_kernels(model, g):
     rows["fused_ln_mlp"] = dict(
         shapes="x [9216, 1024] bf16 -> 3584 -> 3584, erf-GELU",
         max_abs_err=_compare("K2 fused_ln_mlp", k2(), p2())[0],
-        **_timings(k2, p2, 20, 5))
+        **_timings(k2, p2, 20, 5),
+        **_bound(2 * 9216 * (1024 * 3584 + 3584 * 3584),
+                 _nbytes(f, pp["fc1"]["w"], pp["fc1"]["b"], pp["fc2"]["w"], pp["fc2"]["b"])
+                 + 9216 * 3584 * 2),
+        library_ms=None, library="none (two GEMMs and a GELU are three calls)")
 
     # K3: causal GQA prefill, 28 query heads over 4 kv heads, dh 128, at
     # S = 4096 and at the chunk-40 caption bucket S = 23168 with a ragged
@@ -279,11 +326,16 @@ def check_kernels(model, g):
         del ref
         times[s] = _timings(lambda: attention.flash_attention(q, k, v, kl, causal=True),
                             plain_heads, 5, 1)
+    # q, k, v, kl are the S = 23168 case. SDPA's is_causal masks keys past
+    # kv_length for every row but the 63 padding rows at and past it.
     rows["flash_attention"] = dict(
         shapes="q [1, 28, S, 128], k/v [1, 4, S, 128] bf16 causal; S=23168 "
                "with kv_length 23105 (timed) and S=4096",
         max_abs_err=max(errs), max_row_rel_l2=max(rels), **times[23168],
-        ms_s4096=times[4096]["ms"], plain_ms_s4096=times[4096]["plain_ms"])
+        ms_s4096=times[4096]["ms"], plain_ms_s4096=times[4096]["plain_ms"],
+        **_bound(4 * 128 * hq * _causal_pairs(23168, 0, 23105), 2 * _nbytes(q, k)),
+        library_ms=device_ms(lambda: _sdpa(q, k, v, is_causal=True, enable_gqa=True), 5),
+        library="F.scaled_dot_product_attention(is_causal, enable_gqa) on the same q/k/v")
 
     # K4: one decode token against a 23,105-token context (one layer's pool
     # of 182 pages; the last valid page is partly filled).
@@ -308,8 +360,15 @@ def check_kernels(model, g):
         "K4 4-page chunk zeroed", paged_attention.paged_decode_attention_seq(q, k0, v0, ln), ref)
     rows["paged_decode_attention_seq"] = dict(
         shapes="q [1, 28, 1, 128], pages [182, 4, 128, 128] bf16, length 23105",
-        max_abs_err=err, max_row_rel_l2=rel, **_timings(k4, p4, 50, 10))
+        max_abs_err=err, max_row_rel_l2=rel, **_timings(k4, p4, 50, 10),
+        **_bound(4 * hq * length * 128, length * hkv * 128 * 2 * 2 + 2 * _nbytes(q)),
+        library_ms=None, library="none (no PyTorch call reads a page pool)")
     return rows, planted
+
+
+# The keys a GEMV row takes from its timed case.
+_GATE_KEYS = ("ms", "plain_ms", "wall_ms", "plain_wall_ms", "gbs", "bound_ms", "bound_by",
+              "flops", "bytes", "library_ms")
 
 
 def _int8_bytes(q):
@@ -361,17 +420,22 @@ def check_quant_kernels(model, g):
         args = [(x, q["w_i8"], q["scale"], out_dtype) for q in qs]
         t = _timings(_rotating(quant.qmatvec_int8, args),
                      _rotating(quant.qmatvec_int8_plain, args), 40, 10)
+        kin, kout = q0["w_i8"].shape
+        deq = [(x, quant.dequantize_weight(q, bf)) for q in qs]
         cases[label] = dict(shape=list(q0["w_i8"].shape), max_abs_err=err, max_row_rel_l2=rel,
                             **t, gbs=_gbs(_int8_bytes(q0), t["ms"]),
-                            plain_gbs=_gbs(_int8_bytes(q0), t["plain_ms"]))
-        del qs, args
+                            plain_gbs=_gbs(_int8_bytes(q0), t["plain_ms"]),
+                            **_bound(2 * kin * kout, _int8_bytes(q0) + _nbytes(x)
+                                     + kout * torch.finfo(out_dtype).bits // 8),
+                            library_ms=device_ms(_rotating(torch.matmul, deq), 40))
+        del qs, args, deq
     rows["qmatvec_int8"] = dict(
         shapes="x [1, in] bf16, w_i8 gate [3584, 18944] / down [18944, 3584] (bf16 out), "
                "lm_head [3584, 152064] (f32 out); ms = gate",
         max_abs_err=max(c["max_abs_err"] for c in cases.values()),
         max_row_rel_l2=max(c["max_row_rel_l2"] for c in cases.values()),
-        **{k: cases["gate"][k] for k in ("ms", "plain_ms", "wall_ms", "plain_wall_ms", "gbs")},
-        cases=cases)
+        **{k: cases["gate"][k] for k in _GATE_KEYS}, cases=cases,
+        library="torch.matmul(x, W) on the dequantized bf16 weight")
 
     # K10: int4 gate and down (148 groups).
     cases = {}
@@ -394,30 +458,36 @@ def check_quant_kernels(model, g):
         args = [(x, q["w_i4p"], q["scale"]) for q in qs]
         t = _timings(_rotating(int4_matmul.qmatvec_int4, args),
                      _rotating(int4_matmul.qmatvec_int4_plain, args), 40, 5)
+        kin, kout = q0["w_i4p"].shape[0], 2 * q0["w_i4p"].shape[1]
+        deq = [(x, quant.dequantize_weight_int4(q, bf)) for q in qs]
         cases[label] = dict(shape=list(q0["w_i4p"].shape), groups=q0["scale"].shape[0],
                             max_abs_err=err, max_row_rel_l2=rel, **t,
                             gbs=_gbs(_int4_bytes(q0), t["ms"]),
-                            plain_gbs=_gbs(_int4_bytes(q0), t["plain_ms"]))
-        del qs, args
+                            plain_gbs=_gbs(_int4_bytes(q0), t["plain_ms"]),
+                            **_bound(2 * kin * kout, _int4_bytes(q0) + _nbytes(x) + 4 * kout),
+                            library_ms=device_ms(_rotating(torch.matmul, deq), 40))
+        del qs, args, deq
     rows["qmatvec_int4"] = dict(
         shapes="x [1, in] bf16, packed gate [3584, 9472] / down [18944, 1792] (148 groups), "
                "f32 out; ms = gate",
         max_abs_err=max(c["max_abs_err"] for c in cases.values()),
         max_row_rel_l2=max(c["max_row_rel_l2"] for c in cases.values()),
-        **{k: cases["gate"][k] for k in ("ms", "plain_ms", "wall_ms", "plain_wall_ms", "gbs")},
-        cases=cases)
+        **{k: cases["gate"][k] for k in _GATE_KEYS}, cases=cases,
+        library="torch.matmul(x, W) on the dequantized bf16 weight")
 
     # K11: the q/k/v triple (timed over 8 layers) and the gate/up pair (4).
     cases = {}
     for label, names, n_layers in (("qkv", ("q", "k", "v"), 8), ("gate_up", ("gate", "up"), 4)):
-        flats, nbytes = [], 0
+        flats, nbytes, deq = [], 0, []
+        x = x_for(model.dec_cfg.hidden_size)
         for p in layers[:n_layers]:
             src = p["attn"] if label == "qkv" else p["mlp"]
             parts = [quant.quantize_weight_int4(src[n]["w"] if label == "qkv" else src[n])
                      for n in names]
             flats.append([t for q in parts for t in (q["w_i4p"], q["scale"])])
             nbytes = sum(_int4_bytes(q) for q in parts)
-        x = x_for(model.dec_cfg.hidden_size)
+            deq.append((x, torch.cat([quant.dequantize_weight_int4(q, bf) for q in parts], 1)))
+        kout = deq[0][1].shape[1]
         got = int4_matmul.qmatvec_int4_fused(x, *flats[0], out_dtype=bf)
         ref = int4_matmul.qmatvec_int4_fused_plain(x, *flats[0], out_dtype=bf)
         errs = [_compare(f"K11 qmatvec_int4_fused {label} part {i}", a, b, row_rel=True)
@@ -433,15 +503,17 @@ def check_quant_kernels(model, g):
         cases[label] = dict(widths=[2 * f.shape[1] for f in flats[0][::2]],
                             max_abs_err=max(e[0] for e in errs),
                             max_row_rel_l2=max(e[1] for e in errs), **t,
-                            gbs=_gbs(nbytes, t["ms"]), plain_gbs=_gbs(nbytes, t["plain_ms"]))
-        del flats
+                            gbs=_gbs(nbytes, t["ms"]), plain_gbs=_gbs(nbytes, t["plain_ms"]),
+                            **_bound(2 * 3584 * kout, nbytes + _nbytes(x) + 2 * kout),
+                            library_ms=device_ms(_rotating(torch.matmul, deq), 40))
+        del flats, deq
     rows["qmatvec_int4_fused"] = dict(
         shapes="x [1, 3584] bf16; q/k/v (3584 -> 3584, 512, 512) and gate/up "
                "(3584 -> 18944 x 2), bf16 out; ms = gate/up",
         max_abs_err=max(c["max_abs_err"] for c in cases.values()),
         max_row_rel_l2=max(c["max_row_rel_l2"] for c in cases.values()),
-        **{k: cases["gate_up"][k] for k in ("ms", "plain_ms", "wall_ms", "plain_wall_ms", "gbs")},
-        cases=cases)
+        **{k: cases["gate_up"][k] for k in _GATE_KEYS}, cases=cases,
+        library="torch.matmul(x, W) on the parts' dequantized bf16 weights, concatenated")
 
     # K6: one decode token over int8 pages, 23,105 valid tokens of 182 pages
     # (4 pools in turn for the timing); past the length, random int8 pages
@@ -483,8 +555,241 @@ def check_quant_kernels(model, g):
         shapes="q [1, 28, 1, 128] bf16, pages [182, 4, 128, 128] int8, scales "
                "[182, 4, 128] f32, length 23105",
         max_abs_err=err, max_row_rel_l2=rel, **t,
-        gbs=_gbs(nbytes, t["ms"]), plain_gbs=_gbs(nbytes, t["plain_ms"]))
+        gbs=_gbs(nbytes, t["ms"]), plain_gbs=_gbs(nbytes, t["plain_ms"]),
+        **_bound(4 * hq * length * 128, nbytes + 2 * _nbytes(q)),
+        library_ms=None, library="none (no PyTorch call reads int8 pages with scales)")
     return rows, planted
+
+
+def _partial_errors(got, ref):
+    """(acc, m, l) against the twin's -> (max abs err and max row relative L2
+    err of acc / l, max abs err of m and of l, within tolerance): acc / l
+    (0 where l == 0) under the row bound, m and l elementwise and finite."""
+    acc, m, l = got
+    racc, rm, rl = ref
+
+    def norm(a, n):
+        return a / torch.where(n == 0, torch.ones_like(n), n)[..., None]
+
+    err, rel, ok = _errors(norm(acc, l), norm(racc, rl), row_rel=True)
+    m_err, _, m_ok = _errors(m, rm, row_rel=False)
+    l_err, _, l_ok = _errors(l, rl, row_rel=False)
+    return err, rel, m_err, l_err, ok and m_ok and l_ok
+
+
+def _compare_partial(name, got, ref):
+    err, rel, m_err, l_err, ok = _partial_errors(got, ref)
+    if not ok:
+        raise AssertionError(f"{name}: acc / l max abs err {err}, max row relative L2 err "
+                             f"{rel}, m err {m_err}, l err {l_err}: past atol {ATOL} + rtol "
+                             f"{RTOL} * |plain| or row relative L2 {ROW_REL_L2}")
+    return err, rel
+
+
+def _planted_partial(name, got, ref):
+    """A deliberately wrong (acc, m, l) must fail the partial check -> the
+    largest of its row relative L2 error and its m error."""
+    err, rel, m_err, l_err, ok = _partial_errors(got, ref)
+    if ok:
+        raise AssertionError(f"planted fault '{name}' passed the check (row relative L2 "
+                             f"{rel}, m err {m_err}, l err {l_err})")
+    return max(rel, m_err)
+
+
+def check_partial_kernels(model, g):
+    """K5, K7 and K7-int8 against their plain twins at main-path shapes ->
+    (report rows, planted faults)."""
+    from torch.nn.attention.bias import causal_lower_right
+
+    from streamchat_tpu_torch.ops import attention, paged_attention
+
+    bf, dev = torch.bfloat16, "cuda"
+    hq, hkv = model.dec_cfg.num_heads, model.dec_cfg.num_kv_heads
+    grp = hq // hkv
+    rows, planted = {}, {}
+
+    # K5: the last chunk of a chunk-40 caption prefill (23,552 padded tokens
+    # in chunks of 4,096): 3,072 queries at global offset 20,480 against the
+    # whole cache view. The twin runs one head at a time.
+    sk, off, width = 23552, 20480, 3072
+    q = torch.randn(1, hq, width, 128, generator=g, device=dev).to(bf)
+    k = torch.randn(1, hkv, sk, 128, generator=g, device=dev).to(bf)
+    v = torch.randn(1, hkv, sk, 128, generator=g, device=dev).to(bf)
+    kl = torch.tensor([sk], dtype=torch.int32, device=dev)
+
+    def k5(q=q, k=k, v=v, q_off=off, k_off=0):
+        return attention.flash_attention_partial(q, k, v, q_off, k_off, kl)
+
+    def p5():
+        parts = [attention.flash_attention_partial_plain(
+            q[:, h:h + 1], k[:, h // grp:h // grp + 1], v[:, h // grp:h // grp + 1], off, 0, kl)
+            for h in range(hq)]
+        return tuple(torch.cat(x, dim=1) for x in zip(*parts))
+
+    ref = p5()
+    err, rel = _compare_partial("K5 flash_attention_partial", k5(), ref)
+    planted["K5 offsets swapped"] = _planted_partial("K5 offsets swapped",
+                                                     k5(q_off=0, k_off=off), ref)
+    del ref
+    # Rows with no visible key (q_offset < k_offset), NaN in V past kv_length.
+    qs = torch.randn(1, hq, 512, 128, generator=g, device=dev).to(bf)
+    ks = torch.randn(1, hkv, 1024, 128, generator=g, device=dev).to(bf)
+    vs = torch.randn(1, hkv, 1024, 128, generator=g, device=dev).to(bf)
+    vs[:, :, 900:] = float("nan")
+    kls = torch.tensor([900], dtype=torch.int32, device=dev)
+    got = attention.flash_attention_partial(qs, ks, vs, 0, 256, kls)
+    ref = attention.flash_attention_partial_plain(qs, ks, vs, 0, 256, kls)
+    err_m, rel_m = _compare_partial("K5 rows without keys", got, ref)
+    if not (ref[2] == 0).any():
+        raise AssertionError("K5 masked-rows case has no row without keys")
+    acc, m, l = got
+    planted["K5 m left unclamped"] = _planted_partial(
+        "K5 m left unclamped", (acc, torch.where(m <= -1e30, float("-inf"), m), l), ref)
+    xk, xv = k.repeat_interleave(grp, 1), v.repeat_interleave(grp, 1)
+    bias = causal_lower_right(width, sk)
+    rows["flash_attention_partial"] = dict(
+        shapes="q [1, 28, 3072, 128], k/v [1, 4, 23552, 128] bf16, q_offset 20480, "
+               "k_offset 0, kv_length 23552 (timed); q [1, 28, 512, 128] vs k/v "
+               "[1, 4, 1024, 128], k_offset 256, kv_length 900 (rows without keys)",
+        max_abs_err=max(err, err_m), max_row_rel_l2=max(rel, rel_m), **_timings(k5, p5, 5, 1),
+        **_bound(4 * 128 * hq * _causal_pairs(width, off, sk),
+                 _nbytes(q, k, v) + hq * width * (128 + 2) * 4),
+        library_ms=device_ms(lambda: _sdpa(q, xk, xv, attn_mask=bias), 5),
+        library="F.scaled_dot_product_attention with causal_lower_right (offset 20480) over "
+                "K/V expanded to 28 heads beforehand; normalized output")
+    del q, k, v, xk, xv, qs, ks, vs
+
+    # K7: five in-flight queries against a 23,105-token pool (182 pages),
+    # bf16 and int8 pages, four pools in turn for the timing.
+    t, pages, length, ps = SPEC_TOKENS + 1, -(-(23168 + 128) // 128), 23105, 128
+    ln = torch.tensor([length], dtype=torch.int32, device=dev)
+    q = torch.randn(1, hq, t, 128, generator=g, device=dev).to(bf)
+    # The same queries folded token-major (row t_i * g + g_i) where the
+    # kernel folds head-major (row g_i * T + t_i).
+    q_tm = q.reshape(1, hkv, grp, t, 128).transpose(2, 3).reshape(1, hq, t, 128)
+    for label, int8 in (("paged_seq_attention_partial", False),
+                        ("paged_seq_attention_partial_int8", True)):
+        pools = []
+        for _ in range(4):
+            if int8:
+                kp, vp = (torch.randint(-127, 128, (pages, hkv, ps, 128), generator=g,
+                                        device=dev, dtype=torch.int8) for _ in range(2))
+                sc = [torch.rand(pages, hkv, ps, generator=g, device=dev) * 0.04 + 0.01
+                      for _ in range(2)]
+                for x, bad in zip(sc, (float("nan"), float("inf"))):
+                    x[length // ps, :, length % ps:] = bad
+                    x[length // ps + 1:] = bad
+                pools.append((kp, vp, *sc))
+            else:
+                kp, vp = (torch.randn(pages, hkv, ps, 128, generator=g, device=dev).to(bf)
+                          for _ in range(2))
+                for x, val in ((kp, 8.0), (vp, 100.0)):
+                    x[length // ps, :, length % ps:] = val
+                    x[length // ps + 1:] = val
+                pools.append((kp, vp))
+        fn = getattr(paged_attention, label)
+        plain = getattr(paged_attention, label + "_plain")
+        name = "K7-int8" if int8 else "K7"
+        ref = plain(q, *pools[0], ln)
+        err, rel = _compare_partial(f"{name} {label}", fn(q, *pools[0], ln), ref)
+        planted[f"{name} row fold transposed"] = _planted_partial(
+            f"{name} row fold transposed", fn(q_tm, *pools[0], ln), ref)
+        planted[f"{name} pool length counts the block"] = _planted_partial(
+            f"{name} pool length counts the block", fn(q, *pools[0], ln + t), ref)
+        args = [(q,) + pool + (ln,) for pool in pools]
+        row_bytes = 128 + 4 if int8 else 2 * 128
+        rows[label] = dict(
+            shapes=f"q [1, 28, {t}, 128] bf16, pages [182, 4, 128, 128] "
+                   + ("int8, scales [182, 4, 128] f32" if int8 else "bf16") + ", length 23105",
+            max_abs_err=err, max_row_rel_l2=rel,
+            **_timings(_rotating(fn, args), _rotating(plain, args), 50, 10),
+            **_bound(4 * hq * t * length * 128,
+                     length * hkv * 2 * row_bytes + _nbytes(q) + hq * t * (128 + 2) * 4),
+            library_ms=None, library="none (no PyTorch call reads a page pool)")
+        rows[label]["gbs"] = _gbs(length * hkv * 2 * row_bytes, rows[label]["ms"])
+        del pools, args
+    return rows, planted
+
+
+def check_composed_spec(model, g):
+    """One 28-layer verify step (K7) of five teacher-forced tokens against
+    five vanilla decode steps (K4 / K6) from one prefilled cache, bf16 and
+    int8 pages -> per mode the largest row relative L2 error of the logits
+    and the greedy agreement."""
+    from streamchat_tpu_torch.models import decoder, paged_kv, spec_decode
+
+    dcfg, dp = model.dec_cfg, model.dec_params
+    s, valid, t = 256, 250, SPEC_TOKENS + 1
+    embeds = (torch.randn(1, s, dcfg.hidden_size, generator=g, device="cuda") * 0.02
+              ).to(torch.bfloat16)
+    length = torch.tensor([valid], dtype=torch.int32, device="cuda")
+    dense = decoder.KVCache.create(dcfg, 1, s, dtype=embeds.dtype, device="cuda")
+    logits, dense = decoder.prefill(dp, dcfg, embeds, dense, length)
+    out = {}
+    for label, page, step in (("bf16", paged_kv.from_contiguous, paged_kv.decode_step_paged),
+                              ("int8", paged_kv.from_contiguous_int8,
+                               paged_kv.decode_step_paged_int8)):
+        caches = []
+        for _ in range(2):
+            c = page(dense, 3, 3)
+            c.page_table = torch.arange(3, dtype=torch.int32, device="cuda")[None]
+            caches.append(c)
+        vanilla, spec = caches
+        tokens, ref, lg = [], [], logits
+        for _ in range(t):
+            tokens.append(torch.argmax(lg, -1))
+            lg, vanilla = step(dp, dcfg, tokens[-1], vanilla)
+            ref.append(lg[0])
+        got, _ = spec_decode.decode_step_spec(
+            dp, dcfg, torch.stack(tokens, 1), spec,
+            valid + torch.arange(t, device="cuda")[None])
+        ref = torch.stack(ref)
+        got = got[0]
+        rel = ((got - ref).norm(dim=-1) / ref.norm(dim=-1)).max().item()
+        if not torch.isfinite(got).all() or rel > STEP_REL_L2:
+            raise AssertionError(f"verify step ({label} pages) vs {t} decode steps: row "
+                                 f"relative L2 error {rel} past {STEP_REL_L2}")
+        agree = int((got.argmax(-1) == ref.argmax(-1)).sum())
+        out[label] = {"row_rel_l2": rel, "greedy_agreement": f"{agree}/{t}"}
+    return out
+
+
+def compare_prefill(model, g):
+    """The chunk-40 caption prefill (23,441 valid of 23,552 tokens, bf16
+    weights) in one pass (K3) and through the chunked dispatch (K3 + K5),
+    in turns (one, chunked, chunked, one) -> seconds, peak GiB, K5 launches
+    and the logits' relative L2 difference."""
+    from streamchat_tpu_torch import kernels
+    from streamchat_tpu_torch.models import decoder, generate
+
+    dcfg, dp = model.dec_cfg, model.dec_params
+    s, valid = 23552, 23441
+    embeds = (torch.randn(1, s, dcfg.hidden_size, generator=g, device="cuda") * 0.02
+              ).to(torch.bfloat16)
+    ln = torch.tensor([valid], dtype=torch.int32, device="cuda")
+    fns = {"one_pass": decoder.prefill, "chunked": generate._prefill_inline}
+    res = {n: {"seconds": [], "peak_gib": []} for n in fns}
+    logits = {}
+    for name in ("one_pass", "chunked", "chunked", "one_pass"):
+        cache = decoder.KVCache.create(dcfg, 1, s, dtype=embeds.dtype, device="cuda")
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        kernels.reset_launch_counts()
+        t0 = time.perf_counter()
+        logits[name], _ = fns[name](dp, dcfg, embeds, cache, ln)
+        torch.cuda.synchronize()
+        res[name]["seconds"].append(time.perf_counter() - t0)
+        res[name]["peak_gib"].append(torch.cuda.max_memory_allocated() / 2**30)
+        res[name]["k5_launches"] = kernels.launch_counts()["flash_attention_partial"]
+        del cache
+    if res["chunked"]["k5_launches"] != 5 * dcfg.num_layers:
+        raise AssertionError(f"chunked prefill launched K5 {res['chunked']['k5_launches']} "
+                             f"times, expected {5 * dcfg.num_layers}")
+    a, b = logits["chunked"], logits["one_pass"]
+    res["logits_rel_l2"] = ((a - b).norm() / b.norm()).item()
+    for name in fns:
+        res[name]["tokens_per_s"] = [s / x for x in res[name]["seconds"]]
+    return res
 
 
 def _dequantized(params):
@@ -660,9 +965,15 @@ def drive(pipe, label, breakpoints):
     results, seconds, lengths = run_slice(pipe, breakpoints)
     counts = kernels.launch_counts()
     gs = m.gen_stats
+    # A vanilla step emits one token; a verify step emits accepted_tokens /
+    # verify_steps on average.
+    emitted = gs.get("accepted_tokens", gs["decode_steps"])
     report = dict(
         seconds=seconds, answers=len(results), generated_tokens=gs["generated_tokens"],
         decode_ms_per_step=1e3 * gs["decode_s"] / gs["decode_steps"],
+        decode_ms_per_emitted_token=1e3 * gs["decode_s"] / emitted,
+        accepted_tokens_per_verify_step=(gs["accepted_tokens"] / gs["verify_steps"]
+                                         if "verify_steps" in gs else None),
         prefill_tokens_per_s=gs["prompt_tokens"] / gs["prefill_s"],
         peak_gib=torch.cuda.max_memory_allocated() / 2**30, prompt_lengths=lengths,
         weight_bytes_per_token=_decode_weight_bytes(m.dec_params),
@@ -713,11 +1024,16 @@ def main() -> None:
         qrows, qplanted = check_quant_kernels(pipe.model, g)
     rows.update(qrows)
     planted.update(qplanted)
+    with phase("kernel checks K5, K7, K7-int8"):
+        prows, pplanted = check_partial_kernels(pipe.model, g)
+    rows.update(prows)
+    planted.update(pplanted)
     for name, row in rows.items():
         print(f"{name}: max_abs_err {row['max_abs_err']:.6g}  max_row_rel_l2 "
               f"{row.get('max_row_rel_l2')}  kernel {row['ms']:.4f} ms (wall "
               f"{row['wall_ms']:.4f})  plain {row['plain_ms']:.4f} ms (wall "
-              f"{row['plain_wall_ms']:.4f})  [{row['shapes']}]")
+              f"{row['plain_wall_ms']:.4f})  bound {row['bound_ms']:.4f} ms "
+              f"({row['bound_by']})  library {row['library_ms']}  [{row['shapes']}]")
         for label, case in row.get("cases", {}).items():
             print(f"    {label}: {json.dumps(case)}")
     for name, rel in planted.items():
@@ -725,6 +1041,10 @@ def main() -> None:
               f"(limit {ROW_REL_L2})")
     with phase("composed checks (bf16)"):
         composed = check_composed(pipe.model, g)
+        composed["verify_step_vs_decode_steps"] = check_composed_spec(pipe.model, g)
+    with phase("chunk-40 caption prefill, one pass vs chunked"):
+        prefill_cmp = compare_prefill(pipe.model, g)
+    print(f"caption prefill one pass vs chunked: {json.dumps(prefill_cmp)}", flush=True)
 
     m = pipe.model
     runs, counts = {}, {}
@@ -737,6 +1057,10 @@ def main() -> None:
             m, g, "int8", ("qmatvec_int8",))
     with phase("process_video int8, 2 breakpoints"):
         runs["int8"], counts["int8"] = drive(pipe, "int8", BREAKPOINTS)
+    with phase(f"process_video int8, spec_tokens {SPEC_TOKENS}, 1 breakpoint"):
+        m.spec_tokens = SPEC_TOKENS
+        runs["int8_spec"], counts["int8_spec"] = drive(pipe, "int8_spec", BREAKPOINTS[:1])
+        m.spec_tokens = 0
     m.dec_params = bf16_tree                          # frees the int8 tree
     torch.cuda.empty_cache()
     with phase("quantize int4 + composed check"):
@@ -747,7 +1071,11 @@ def main() -> None:
     with phase("process_video int4 + kv_int8, 1 breakpoint"):
         runs["int4_kv_int8"], counts["int4_kv_int8"] = drive(pipe, "int4_kv_int8",
                                                              BREAKPOINTS[:1])
-    print(f"composed checks: {composed}")
+    with phase(f"process_video int4 + kv_int8, spec_tokens {SPEC_TOKENS}, 1 breakpoint"):
+        m.spec_tokens = SPEC_TOKENS
+        runs["int4_kv_int8_spec"], counts["int4_kv_int8_spec"] = drive(
+            pipe, "int4_kv_int8_spec", BREAKPOINTS[:1])
+    print(f"composed checks: {json.dumps(composed)}")
 
     report = []
     for n, row in rows.items():
@@ -755,7 +1083,8 @@ def main() -> None:
         report.append(dict(name=n, route="cuda", source=SOURCES[n][0], replaces=SOURCES[n][1],
                            launches=sum(by_run.values()), launches_by_run=by_run, **row))
     print(f"summary: kernel build {info['seconds']:.2f} s, process_video "
-          + ", ".join(f"{k} {v['seconds']:.3f} s ({v['decode_ms_per_step']:.2f} ms/step)"
+          + ", ".join(f"{k} {v['seconds']:.3f} s ({v['decode_ms_per_step']:.2f} ms/step, "
+                      f"{v['decode_ms_per_emitted_token']:.2f} ms/token)"
                       for k, v in runs.items())
           + f", planted faults rejected {len(planted)}, total "
           f"{time.perf_counter() - t_start:.1f} s")

@@ -1,10 +1,19 @@
-// Online-softmax (flash) attention for prefill and the ViT layer.
+// Online-softmax (flash) attention for prefill and the ViT layer (K3), and its
+// partial variant for chunked prefill (K5).
 //
-// Replaces the TPU kernel ops/attention.py:flash_attention (_flash_kernel):
+// K3 replaces the TPU kernel ops/attention.py:flash_attention (_flash_kernel):
 // causal or non-causal GQA attention with a per-row kv_length mask and a
 // normalized output. It also serves as the attention inside
 // ops/fused_vit.py:fused_vit_layer (_attn_body: non-causal, 16 heads of 64,
 // 577 tokens).
+//
+// K5 replaces ops/attention.py:flash_attention_partial (_flash_partial_kernel):
+// the same tile loop with GLOBAL causality (k_off + col <= q_off + row, the
+// offsets being the global positions of q's and k's first rows) and an
+// epilogue that writes the unnormalized f32 accumulator with the running max
+// m (scaled domain, clamped to neg_inf) and the exponent sum l, for a caller
+// that merges or normalizes. The chunked prefill sends a 4096-row chunk of a
+// long prompt against the (dequantized) cache up to its causal horizon.
 //
 // On the H100 a long causal prefill (up to ~23k tokens, 28 query heads over 4
 // kv heads, dh 128) is bound by tensor-core throughput; what must not happen
@@ -13,12 +22,15 @@
 // O += P V run as nvcuda::wmma bf16 16x16x16 products with f32 accumulation,
 // the running max / sum live in shared memory, and the f32 output tile is
 // rescaled in shared memory before each P V product accumulates on top of it.
-// Tiles past kv_length and tiles above the causal diagonal are never loaded.
-// V rows past kv_length are zero-filled on load (0 * NaN would survive p == 0,
-// the trap of attention.py:143-149); rows with no visible key output 0. The
-// softmax subtracts the running max (exact for every logit range). Query
-// heads read kv head h / (Hq / Hkv) (GQA) from strided q/k/v, so the ViT's
-// merged [rows, 3*D] QKV buffer is read in place.
+// Tiles past kv_length and tiles wholly above the (global) causal diagonal are
+// never loaded. V rows past kv_length are zero-filled on load (0 * NaN would
+// survive p == 0, the trap of attention.py:143-149 and :435-439); masked
+// scores are -inf and a row whose running max is still -inf takes p = 0, so a
+// row with every key masked accumulates nothing (the exp(DMV - DMV) = 1 trap
+// of attention.py:421-430 cannot arise): K3 writes 0 for it, K5 acc 0, l 0 and
+// m = neg_inf. The softmax subtracts the running max (exact for every logit
+// range). Query heads read kv head h / (Hq / Hkv) (GQA) from strided q/k/v, so
+// the ViT's merged [rows, 3*D] QKV buffer and a cache view are read in place.
 #include "kernels.cuh"
 
 namespace sc {
@@ -58,14 +70,25 @@ __device__ __forceinline__ void load_rows(__nv_bfloat16* dst, const __nv_bfloat1
   }
 }
 
-template <int D>
+// The partial outputs of K5: contiguous f32 acc [B, Hq, Sq, D], m and l
+// [B, Hq, Sq]; unused (null) for K3.
+struct Partial {
+  float* acc;
+  float* m;
+  float* l;
+  float neg_inf;
+};
+
+// kPartial = false is K3 (normalized bf16 store through o's strides, called
+// with q_off = k_off = 0); true is K5 (the Partial outputs).
+template <int D, bool kPartial>
 __global__ void __launch_bounds__(THREADS)
 flash_kernel(const __nv_bfloat16* __restrict__ q, int64_t qsb, int64_t qsh, int64_t qss,
              const __nv_bfloat16* __restrict__ k, int64_t ksb, int64_t ksh, int64_t kss,
              const __nv_bfloat16* __restrict__ v, int64_t vsb, int64_t vsh, int64_t vss,
              __nv_bfloat16* __restrict__ o, int64_t osb, int64_t osh, int64_t oss,
-             const int* __restrict__ kv_len, int Hq, int Hkv, int Sq, int Sk, int causal,
-             float scale) {
+             Partial part, const int* __restrict__ kv_len, int Hq, int Hkv, int Sq, int Sk,
+             int causal, float scale, int q_off, int k_off) {
   extern __shared__ __align__(128) unsigned char smem[];
   using L = Smem<D>;
   __nv_bfloat16* Qs = reinterpret_cast<__nv_bfloat16*>(smem + L::q);
@@ -90,9 +113,12 @@ flash_kernel(const __nv_bfloat16* __restrict__ q, int64_t qsb, int64_t qsh, int6
     l_row[i] = 0.0f;
   }
 
+  // Keys past the tile's last row's causal horizon (global positions) or
+  // past kv_length are never loaded. K3's offsets are the constant 0.
+  const int qo = kPartial ? q_off : 0, ko = kPartial ? k_off : 0;
   int kend = kvlen;
-  if (causal) kend = min(kend, q0 + BQ);
-  const int ntiles = (kend + BKV - 1) / BKV;
+  if (causal) kend = min(kend, qo - ko + q0 + BQ);
+  const int ntiles = kend > 0 ? (kend + BKV - 1) / BKV : 0;
   const __nv_bfloat16* kb = k + b * ksb + hk * ksh;
   const __nv_bfloat16* vb = v + b * vsb + hk * vsh;
 
@@ -131,7 +157,7 @@ flash_kernel(const __nv_bfloat16* __restrict__ q, int64_t qsb, int64_t qsh, int6
 #pragma unroll
       for (int c = 0; c < 2; ++c) {
         const int kpos = k0 + lane + 32 * c;
-        ok[c] = kpos < kvlen && (!causal || kpos <= qpos);
+        ok[c] = kpos < kvlen && (!causal || ko + kpos <= qo + qpos);
         x[c] = ok[c] ? Ss[row * S_LD + lane + 32 * c] * scale : -INFINITY;
       }
       const float m_old = m_row[row];
@@ -176,30 +202,46 @@ flash_kernel(const __nv_bfloat16* __restrict__ q, int64_t qsb, int64_t qsh, int6
   cp_async_wait<0>();  // the Q load when no key tile ran
   __syncthreads();
 
-  __nv_bfloat16* ob = o + b * osb + h * osh;
-  for (int r = 0; r < 16; ++r) {
-    const int row = warp * 16 + r;
-    if (q0 + row >= Sq) break;
-    const float l = l_row[row];
-    const float inv = l > 0.0f ? 1.0f / l : 0.0f;
-    for (int d = lane; d < D; d += 32)
-      ob[(int64_t)(q0 + row) * oss + d] = __float2bfloat16(Os[row * L::O_LD + d] * inv);
+  if constexpr (kPartial) {
+    const int64_t row0 = (int64_t)(b * Hq + h) * Sq + q0;
+    for (int r = 0; r < 16; ++r) {
+      const int row = warp * 16 + r;
+      if (q0 + row >= Sq) break;
+      for (int d = lane; d < D; d += 32) part.acc[(row0 + row) * D + d] = Os[row * L::O_LD + d];
+      if (lane == 0) {
+        part.m[row0 + row] = fmaxf(m_row[row], part.neg_inf);
+        part.l[row0 + row] = l_row[row];
+      }
+    }
+  } else {
+    __nv_bfloat16* ob = o + b * osb + h * osh;
+    for (int r = 0; r < 16; ++r) {
+      const int row = warp * 16 + r;
+      if (q0 + row >= Sq) break;
+      const float l = l_row[row];
+      const float inv = l > 0.0f ? 1.0f / l : 0.0f;
+      for (int d = lane; d < D; d += 32)
+        ob[(int64_t)(q0 + row) * oss + d] = __float2bfloat16(Os[row * L::O_LD + d] * inv);
+    }
   }
 }
 
-template <int D>
+template <int D, bool kPartial>
 cudaError_t launch(const __nv_bfloat16* q, const int64_t* qs, const __nv_bfloat16* k,
                    const int64_t* ks, const __nv_bfloat16* v, const int64_t* vs,
-                   __nv_bfloat16* o, const int64_t* os, const int* kv_len, int B, int Hq,
-                   int Hkv, int Sq, int Sk, int causal, float scale, cudaStream_t stream) {
+                   __nv_bfloat16* o, const int64_t* os, Partial part, const int* kv_len,
+                   int B, int Hq, int Hkv, int Sq, int Sk, int causal, float scale, int q_off,
+                   int k_off, cudaStream_t stream) {
   constexpr size_t bytes = Smem<D>::bytes;
   cudaError_t err = cudaFuncSetAttribute(
-      flash_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+      flash_kernel<D, kPartial>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
   if (err != cudaSuccess) return err;
   dim3 grid((Sq + BQ - 1) / BQ, Hq, B);
-  flash_kernel<D><<<grid, THREADS, bytes, stream>>>(
+  const int64_t no[3] = {0, 0, 0};
+  if (!os) os = no;
+  flash_kernel<D, kPartial><<<grid, THREADS, bytes, stream>>>(
       q, qs[0], qs[1], qs[2], k, ks[0], ks[1], ks[2], v, vs[0], vs[1], vs[2], o, os[0],
-      os[1], os[2], kv_len, Hq, Hkv, Sq, Sk, causal, scale);
+      os[1], os[2], part, kv_len, Hq, Hkv, Sq, Sk, causal, scale, q_off, k_off);
   return cudaGetLastError();
 }
 
@@ -210,12 +252,13 @@ cudaError_t launch_flash(const __nv_bfloat16* q, const int64_t* qs, const __nv_b
                          __nv_bfloat16* o, const int64_t* os, const int* kv_len, int B,
                          int Hq, int Hkv, int Sq, int Sk, int D, int causal, float scale,
                          cudaStream_t stream) {
+  const Partial none{nullptr, nullptr, nullptr, 0.0f};
   if (D == 64)
-    return launch<64>(q, qs, k, ks, v, vs, o, os, kv_len, B, Hq, Hkv, Sq, Sk, causal, scale,
-                      stream);
+    return launch<64, false>(q, qs, k, ks, v, vs, o, os, none, kv_len, B, Hq, Hkv, Sq, Sk,
+                             causal, scale, 0, 0, stream);
   if (D == 128)
-    return launch<128>(q, qs, k, ks, v, vs, o, os, kv_len, B, Hq, Hkv, Sq, Sk, causal, scale,
-                       stream);
+    return launch<128, false>(q, qs, k, ks, v, vs, o, os, none, kv_len, B, Hq, Hkv, Sq, Sk,
+                              causal, scale, 0, 0, stream);
   return cudaErrorInvalidValue;
 }
 
@@ -233,5 +276,34 @@ extern "C" int sc_flash_attention(const void* q, const int64_t* q_strides, const
       k_strides, static_cast<const __nv_bfloat16*>(v), v_strides,
       static_cast<__nv_bfloat16*>(o), o_strides, kv_len, B, Hq, Hkv, Sq, Sk, D, causal,
       scale, static_cast<cudaStream_t>(stream));
+  return static_cast<int>(err);
+}
+
+// K5. strides: three int64 (batch, head, seq) per input, in elements; acc
+// [B, Hq, Sq, D], m and l [B, Hq, Sq]: contiguous f32.
+extern "C" int sc_flash_attention_partial(const void* q, const int64_t* q_strides,
+                                          const void* k, const int64_t* k_strides,
+                                          const void* v, const int64_t* v_strides, void* acc,
+                                          void* m, void* l, const int* kv_len, int B, int Hq,
+                                          int Hkv, int Sq, int Sk, int D, int causal,
+                                          float scale, int q_off, int k_off, float neg_inf,
+                                          void* stream) {
+  const sc::Partial part{static_cast<float*>(acc), static_cast<float*>(m),
+                         static_cast<float*>(l), neg_inf};
+  auto qp = static_cast<const __nv_bfloat16*>(q);
+  auto kp = static_cast<const __nv_bfloat16*>(k);
+  auto vp = static_cast<const __nv_bfloat16*>(v);
+  auto st = static_cast<cudaStream_t>(stream);
+  cudaError_t err;
+  if (D == 64)
+    err = sc::launch<64, true>(qp, q_strides, kp, k_strides, vp, v_strides, nullptr, nullptr,
+                               part, kv_len, B, Hq, Hkv, Sq, Sk, causal, scale, q_off, k_off,
+                               st);
+  else if (D == 128)
+    err = sc::launch<128, true>(qp, q_strides, kp, k_strides, vp, v_strides, nullptr, nullptr,
+                                part, kv_len, B, Hq, Hkv, Sq, Sk, causal, scale, q_off, k_off,
+                                st);
+  else
+    err = cudaErrorInvalidValue;
   return static_cast<int>(err);
 }

@@ -1,26 +1,34 @@
-// One-token GQA decode attention over a sequential page pool, bf16 pages (K4)
-// or int8 pages with per-(token, head) f32 scales (K6).
+// GQA attention over a sequential page pool: one-token decode over bf16 pages
+// (K4) or int8 pages with per-(token, head) f32 scales (K6), and the
+// multi-query partial form of both for the speculative verify step (K7).
 //
 // Replaces the TPU kernels ops/paged_attention.py:paged_decode_attention_pallas_seq
-// (K4, _seq_decode_kernel) and paged_decode_attention_pallas_seq_int8 (K6,
-// _seq_decode_int8_kernel), both via _seq_attention_call: pages in pool order (identity
+// (K4, _seq_decode_kernel), paged_decode_attention_pallas_seq_int8 (K6,
+// _seq_decode_int8_kernel) and paged_seq_attention_partial{,_int8} (K7,
+// emit_ml=True), all via _seq_attention_call: pages in pool order (identity
 // table at B = 1, statically partitioned rows at B > 1: row b owns pool pages
-// [b * row_pages, (b + 1) * row_pages)), a per-row length mask, normalized
-// output.
+// [b * row_pages, (b + 1) * row_pages)), a per-row length mask. K4 and K6
+// write the normalized bf16 output; K7 writes the unnormalized f32 (acc, m, l)
+// of T in-flight queries against the pool (the length excludes the block),
+// which the caller merges with the staged block under one softmax.
 //
 // On the H100 decode attention is bound by reading the KV pages (each byte is
-// used by only g = Hq / Hkv query heads). The TPU grid gave one lane to each
-// (row, kv head) and walked the pages in order; at batch 1 with 4 kv heads
-// that would occupy 4 of 132 SMs. Here the page range is split into chunks of
-// `pages_per_chunk` pages, one block per (chunk, kv head, row) — a 23k-token
-// context gives ~180 blocks — and each block serves all g query heads of its
-// kv head, so every K/V row is read once: warps take whole 256-byte K rows
-// (coalesced) for the scores, then threads take V columns for P V. Each
-// block writes an unnormalized f32 partial (acc, m, l); a second small
-// kernel merges the chunks with the online-softmax rule. Chunks wholly past
-// the row's length write m = -inf and are skipped by the merge.
+// used by only g = Hq / Hkv query heads, g * T query rows for K7). The TPU grid
+// gave one lane to each (row, kv head) and walked the pages in order; at batch
+// 1 with 4 kv heads that would occupy 4 of 132 SMs. Here the page range is
+// split into chunks of `pages_per_chunk` pages, one block per (chunk, kv head,
+// row) — a 23k-token context gives ~180 blocks — and each block serves all
+// query rows of its kv head (R = g * T, folded head-major as on the TPU: row
+// g_i * T + t_i is query head hk * g + g_i at token t_i), so every K/V row is
+// read once: warps take whole 256-byte K rows (coalesced) for the scores, then
+// threads take V columns for P V. Each block writes an unnormalized f32
+// partial (acc, m, l); a second small kernel merges the chunks with the
+// online-softmax rule and either normalizes (K4, K6) or emits the merged
+// partial with m clamped to -1e30 (K7; a row with no live key gets acc 0 and
+// l 0). Chunks wholly past the row's length write m = -inf and are skipped by
+// the merge.
 //
-// K6 is the same kernel on int8 pages. The scales commute out of both
+// K6 and K7-int8 run on int8 pages. The scales commute out of both
 // contractions (models/paged_kv.py PagedKVCacheInt8): s = (q . k_i8) * k_scale
 // * D^-0.5, and the value row enters P V as v_scale * v_i8, so nothing is
 // dequantized into memory and the page bytes read per token halve. Keys at or
@@ -33,47 +41,60 @@
 namespace sc {
 namespace {
 
-constexpr int THREADS = 128, NWARPS = THREADS / 32, G_MAX = 8;
+constexpr int THREADS = 128, NWARPS = THREADS / 32;
+// Query rows per kv head: K4 / K6 serve g <= 8 heads, K7 g * T <= 64 rows
+// (T <= 9 tokens at g = 7).
+constexpr int R_DECODE = 8, R_PARTIAL = 64;
 
 __device__ __forceinline__ float page_val(__nv_bfloat16 v) { return __bfloat162float(v); }
 __device__ __forceinline__ float page_val(int8_t v) { return static_cast<float>(v); }
 
-// T is the page element type: __nv_bfloat16 (K4) or int8_t (K6, with the
-// per-(page, head, slot) scales k_scale / v_scale; null for K4).
-template <int D, typename T>
+// T is the page element type: __nv_bfloat16 (K4, K7) or int8_t (K6, K7-int8,
+// with the per-(page, head, slot) scales k_scale / v_scale; null otherwise).
+// The block's R = g * ntok query rows: row i is query head hk * g + i / ntok
+// at token i % ntok.
+template <int D, typename T, int R_MAX>
 __global__ void __launch_bounds__(THREADS)
 paged_partial_kernel(const __nv_bfloat16* __restrict__ q, int64_t qsb, int64_t qsh,
-                     const T* __restrict__ k_pages, const T* __restrict__ v_pages,
-                     const float* __restrict__ k_scale, const float* __restrict__ v_scale,
-                     const int* __restrict__ length, int row_pages, int page_size,
-                     int pages_per_chunk, int nchunks, int g, int Hkv, float scale,
-                     float* __restrict__ acc_out, float* __restrict__ m_out,
-                     float* __restrict__ l_out) {
+                     int64_t qst, int ntok, const T* __restrict__ k_pages,
+                     const T* __restrict__ v_pages, const float* __restrict__ k_scale,
+                     const float* __restrict__ v_scale, const int* __restrict__ length,
+                     int row_pages, int page_size, int pages_per_chunk, int nchunks, int g,
+                     int Hkv, float scale, float* __restrict__ acc_out,
+                     float* __restrict__ m_out, float* __restrict__ l_out) {
   constexpr bool kInt8 = std::is_same<T, int8_t>::value;
+  // K4 / K6 serve one token with compile-time layout strides; K7 sizes its
+  // shared memory to its rows.
+  constexpr bool kDecode = R_MAX == R_DECODE;
+  constexpr int KG = THREADS / D;          // key groups of the P V loop
   extern __shared__ __align__(16) float sm[];
+  const int nt = kDecode ? 1 : ntok;
+  const int rows = g * nt;
+  const int rs = kDecode ? R_MAX : rows;   // row stride of the buffers
   const int chunk_keys = pages_per_chunk * page_size;
-  float* qs = sm;                         // [G_MAX][D]
-  float* sc = qs + G_MAX * D;             // [G_MAX][chunk_keys]
-  float* red = sc + G_MAX * chunk_keys;   // [THREADS / D][G_MAX][D]
+  float* qs = sm;                          // [rs][D]
+  float* sc = qs + rs * D;                 // [rs][chunk_keys]
+  float* red = sc + rs * chunk_keys;       // [KG][rs][D]
 
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
   const int c = blockIdx.x, hk = blockIdx.y, b = blockIdx.z;
-  const int64_t part = ((int64_t)(b * Hkv + hk) * nchunks + c) * g;
+  const int64_t part = ((int64_t)(b * Hkv + hk) * nchunks + c) * rows;
   const int key0 = c * chunk_keys;
   const int len = length[b];
   int nkeys = min(chunk_keys, len - key0);
   nkeys = min(nkeys, (row_pages - c * pages_per_chunk) * page_size);
   if (nkeys <= 0) {
-    if (tid < g) {
-      m_out[part + tid] = -INFINITY;
-      l_out[part + tid] = 0.0f;
+    for (int i = tid; i < rows; i += THREADS) {
+      m_out[part + i] = -INFINITY;
+      l_out[part + i] = 0.0f;
     }
     return;
   }
 
-  for (int i = tid; i < g * D; i += THREADS) {
-    const int hq = hk * g + i / D;
-    qs[i] = __bfloat162float(q[b * qsb + hq * qsh + i % D]);
+  for (int i = tid; i < rows * D; i += THREADS) {
+    const int r = i / D;
+    const int hq = hk * g + r / nt;
+    qs[i] = __bfloat162float(q[b * qsb + hq * qsh + (r % nt) * qst + i % D]);
   }
   __syncthreads();
 
@@ -89,7 +110,7 @@ paged_partial_kernel(const __nv_bfloat16* __restrict__ q, int64_t qsb, int64_t q
 #pragma unroll
     for (int e = 0; e < E; ++e) kv[e] = page_val(kr[e]);
     const float ks = kInt8 ? k_scale[slot] : 1.0f;
-    for (int i = 0; i < g; ++i) {
+    for (int i = 0; i < rows; ++i) {
       float s = 0.0f;
 #pragma unroll
       for (int e = 0; e < E; ++e) s += qs[i * D + lane * E + e] * kv[e];
@@ -99,8 +120,8 @@ paged_partial_kernel(const __nv_bfloat16* __restrict__ q, int64_t qsb, int64_t q
   }
   __syncthreads();
 
-  // Per-head max and exponent sum over the chunk.
-  for (int i = warp; i < g; i += NWARPS) {
+  // Per-row max and exponent sum over the chunk.
+  for (int i = warp; i < rows; i += NWARPS) {
     float mx = -INFINITY;
     for (int kk = lane; kk < nkeys; kk += 32) mx = fmaxf(mx, sc[i * chunk_keys + kk]);
     mx = warp_max(mx);
@@ -119,11 +140,10 @@ paged_partial_kernel(const __nv_bfloat16* __restrict__ q, int64_t qsb, int64_t q
   __syncthreads();
 
   // acc[i][d] = sum_k p[i][k] V[k][d]; thread = (key group, column).
-  constexpr int KG = THREADS / D;
   const int d = tid % D, kg = tid / D;
-  float acc[G_MAX];
+  float acc[R_MAX];
 #pragma unroll
-  for (int i = 0; i < G_MAX; ++i) acc[i] = 0.0f;
+  for (int i = 0; i < R_MAX; ++i) acc[i] = 0.0f;
   for (int kk = kg; kk < nkeys; kk += KG) {
     const int pos = key0 + kk;
     const int64_t page = row_page0 + pos / page_size;
@@ -131,89 +151,123 @@ paged_partial_kernel(const __nv_bfloat16* __restrict__ q, int64_t qsb, int64_t q
     float vv = page_val(v_pages[slot * D + d]);
     if (kInt8) vv *= v_scale[slot];
 #pragma unroll
-    for (int i = 0; i < G_MAX; ++i)
-      if (i < g) acc[i] += sc[i * chunk_keys + kk] * vv;
+    for (int i = 0; i < R_MAX; ++i)
+      if (i < rows) acc[i] += sc[i * chunk_keys + kk] * vv;
   }
   if (KG > 1) {
 #pragma unroll
-    for (int i = 0; i < G_MAX; ++i) red[(kg * G_MAX + i) * D + d] = acc[i];
+    for (int i = 0; i < R_MAX; ++i)
+      if (i < rows) red[(kg * rs + i) * D + d] = acc[i];
     __syncthreads();
     if (kg == 0) {
       for (int j = 1; j < KG; ++j)
 #pragma unroll
-        for (int i = 0; i < G_MAX; ++i) acc[i] += red[(j * G_MAX + i) * D + d];
+        for (int i = 0; i < R_MAX; ++i)
+          if (i < rows) acc[i] += red[(j * rs + i) * D + d];
     }
   }
   if (kg == 0) {
-    for (int i = 0; i < g; ++i) acc_out[(part + i) * D + d] = acc[i];
+    for (int i = 0; i < rows; ++i) acc_out[(part + i) * D + d] = acc[i];
   }
 }
 
-// out[b, hq, :] = sum_c acc_c exp(m_c - M) / sum_c l_c exp(m_c - M)
+// Merge the chunks of row x = hk * rows + i of batch row b (one block each,
+// one thread per column): M = max_c m_c, L = sum_c l_c exp(m_c - M),
+// o = sum_c acc_c exp(m_c - M). K4 / K6 write o / L as bf16 (0 where L == 0)
+// to out[b, x]; K7 writes o, max(M, -1e30) and L to acc_o / m_o / l_o[b, x].
+template <bool kPartial>
 __global__ void paged_merge_kernel(const float* __restrict__ acc, const float* __restrict__ m,
                                    const float* __restrict__ l, __nv_bfloat16* __restrict__ out,
-                                   int nchunks, int g, int Hkv, int D) {
-  const int hq = blockIdx.x, b = blockIdx.y, d = threadIdx.x;
-  const int hk = hq / g, i = hq % g;
+                                   float* __restrict__ acc_o, float* __restrict__ m_o,
+                                   float* __restrict__ l_o, int nchunks, int rows, int Hkv,
+                                   int D) {
+  const int x = blockIdx.x, b = blockIdx.y, d = threadIdx.x;
+  const int hk = x / rows, i = x % rows;
   const int64_t base = (int64_t)(b * Hkv + hk) * nchunks;
   float M = -INFINITY;
-  for (int c = 0; c < nchunks; ++c) M = fmaxf(M, m[(base + c) * g + i]);
+  for (int c = 0; c < nchunks; ++c) M = fmaxf(M, m[(base + c) * rows + i]);
   float L = 0.0f, o = 0.0f;
   if (M != -INFINITY) {
     for (int c = 0; c < nchunks; ++c) {
-      const float mc = m[(base + c) * g + i];
+      const float mc = m[(base + c) * rows + i];
       if (mc == -INFINITY) continue;
       const float w = expf(mc - M);
-      L += l[(base + c) * g + i] * w;
-      o += acc[((base + c) * g + i) * D + d] * w;
+      L += l[(base + c) * rows + i] * w;
+      o += acc[((base + c) * rows + i) * D + d] * w;
     }
   }
-  out[((int64_t)b * gridDim.x + hq) * D + d] = __float2bfloat16(L > 0.0f ? o / L : 0.0f);
+  const int64_t row = (int64_t)b * gridDim.x + x;
+  if constexpr (kPartial) {
+    acc_o[row * D + d] = o;
+    if (d == 0) {
+      m_o[row] = fmaxf(M, -1e30f);
+      l_o[row] = L;
+    }
+  } else {
+    out[row * D + d] = __float2bfloat16(L > 0.0f ? o / L : 0.0f);
+  }
 }
 
-template <int D, typename T>
-cudaError_t launch(const __nv_bfloat16* q, int64_t qsb, int64_t qsh, const T* kp, const T* vp,
-                   const float* ks, const float* vs, const int* length, int B, int Hq,
-                   int Hkv, int row_pages, int page_size, int pages_per_chunk, float scale,
-                   float* acc, float* m, float* l, __nv_bfloat16* out, cudaStream_t stream) {
-  const int g = Hq / Hkv;
+// Pointers of one launch. kp / vp: one layer's contiguous [num_pages, Hkv,
+// page_size, D] pages; ks / vs: [num_pages, Hkv, page_size] f32 scales (int8
+// only); acc / m / l: f32 scratch [B, Hkv, nchunks, R(, D)]; out (K4, K6)
+// or acc_o / m_o / l_o (K7): the result.
+struct Args {
+  const void* q;
+  int64_t qsb, qsh, qst;
+  const void* kp;
+  const void* vp;
+  const float* ks;
+  const float* vs;
+  const int* length;
+  float* acc;
+  float* m;
+  float* l;
+  __nv_bfloat16* out;
+  float* acc_o;
+  float* m_o;
+  float* l_o;
+};
+
+template <int D, typename T, int R_MAX>
+cudaError_t launch(const Args& a, int ntok, int B, int Hq, int Hkv, int row_pages,
+                   int page_size, int pages_per_chunk, float scale, cudaStream_t stream) {
+  const int g = Hq / Hkv, rows = g * ntok;
+  if (rows > R_MAX) return cudaErrorInvalidValue;
   const int nchunks = (row_pages + pages_per_chunk - 1) / pages_per_chunk;
-  const size_t bytes =
-      sizeof(float) * (G_MAX * D + G_MAX * pages_per_chunk * page_size + THREADS * G_MAX);
-  cudaError_t err = cudaFuncSetAttribute(
-      paged_partial_kernel<D, T>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+  const size_t rs = R_MAX == R_DECODE ? R_MAX : rows;
+  const size_t bytes = sizeof(float) * rs * (D + pages_per_chunk * page_size + THREADS);
+  auto kernel = paged_partial_kernel<D, T, R_MAX>;
+  cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
   if (err != cudaSuccess) return err;
-  paged_partial_kernel<D, T><<<dim3(nchunks, Hkv, B), THREADS, bytes, stream>>>(
-      q, qsb, qsh, kp, vp, ks, vs, length, row_pages, page_size, pages_per_chunk, nchunks,
-      g, Hkv, scale, acc, m, l);
+  kernel<<<dim3(nchunks, Hkv, B), THREADS, bytes, stream>>>(
+      static_cast<const __nv_bfloat16*>(a.q), a.qsb, a.qsh, a.qst, ntok,
+      static_cast<const T*>(a.kp), static_cast<const T*>(a.vp), a.ks, a.vs, a.length,
+      row_pages, page_size, pages_per_chunk, nchunks, g, Hkv, scale, a.acc, a.m, a.l);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  paged_merge_kernel<<<dim3(Hq, B), D, 0, stream>>>(acc, m, l, out, nchunks, g, Hkv, D);
+  const dim3 grid(Hkv * rows, B);
+  if (a.out)
+    paged_merge_kernel<false><<<grid, D, 0, stream>>>(a.acc, a.m, a.l, a.out, nullptr,
+                                                      nullptr, nullptr, nchunks, rows, Hkv, D);
+  else
+    paged_merge_kernel<true><<<grid, D, 0, stream>>>(a.acc, a.m, a.l, nullptr, a.acc_o, a.m_o,
+                                                     a.l_o, nchunks, rows, Hkv, D);
   return cudaGetLastError();
 }
 
-template <typename T>
-int dispatch(const void* q, int64_t qsb, int64_t qsh, const void* k_pages, const void* v_pages,
-             const void* k_scale, const void* v_scale, const int* length, int B, int Hq,
-             int Hkv, int row_pages, int page_size, int pages_per_chunk, int D, float scale,
-             void* acc, void* m, void* l, void* out, void* stream) {
-  auto qp = static_cast<const __nv_bfloat16*>(q);
-  auto kp = static_cast<const T*>(k_pages);
-  auto vp = static_cast<const T*>(v_pages);
-  auto ks = static_cast<const float*>(k_scale);
-  auto vs = static_cast<const float*>(v_scale);
+template <typename T, int R_MAX>
+int dispatch(const Args& a, int ntok, int B, int Hq, int Hkv, int row_pages, int page_size,
+             int pages_per_chunk, int D, float scale, void* stream) {
   auto st = static_cast<cudaStream_t>(stream);
-  auto accp = static_cast<float*>(acc);
-  auto mp = static_cast<float*>(m);
-  auto lp = static_cast<float*>(l);
-  auto op = static_cast<__nv_bfloat16*>(out);
   cudaError_t err;
   if (D == 64)
-    err = launch<64, T>(qp, qsb, qsh, kp, vp, ks, vs, length, B, Hq, Hkv, row_pages,
-                        page_size, pages_per_chunk, scale, accp, mp, lp, op, st);
+    err = launch<64, T, R_MAX>(a, ntok, B, Hq, Hkv, row_pages, page_size, pages_per_chunk,
+                               scale, st);
   else if (D == 128)
-    err = launch<128, T>(qp, qsb, qsh, kp, vp, ks, vs, length, B, Hq, Hkv, row_pages,
-                         page_size, pages_per_chunk, scale, accp, mp, lp, op, st);
+    err = launch<128, T, R_MAX>(a, ntok, B, Hq, Hkv, row_pages, page_size, pages_per_chunk,
+                                scale, st);
   else
     err = cudaErrorInvalidValue;
   return static_cast<int>(err);
@@ -230,9 +284,11 @@ extern "C" int sc_paged_decode(const void* q, int64_t qsb, int64_t qsh, const vo
                                int Hkv, int row_pages, int page_size, int pages_per_chunk,
                                int D, float scale, void* acc, void* m, void* l, void* out,
                                void* stream) {
-  return sc::dispatch<__nv_bfloat16>(q, qsb, qsh, k_pages, v_pages, nullptr, nullptr, length,
-                                     B, Hq, Hkv, row_pages, page_size, pages_per_chunk, D,
-                                     scale, acc, m, l, out, stream);
+  const sc::Args a{q, qsb, qsh, 0, k_pages, v_pages, nullptr, nullptr, length,
+                   static_cast<float*>(acc), static_cast<float*>(m), static_cast<float*>(l),
+                   static_cast<__nv_bfloat16*>(out), nullptr, nullptr, nullptr};
+  return sc::dispatch<__nv_bfloat16, sc::R_DECODE>(a, 1, B, Hq, Hkv, row_pages, page_size,
+                                                   pages_per_chunk, D, scale, stream);
 }
 
 // As sc_paged_decode over int8 pages; k_scale / v_scale: contiguous f32
@@ -243,7 +299,45 @@ extern "C" int sc_paged_decode_int8(const void* q, int64_t qsb, int64_t qsh,
                                     const int* length, int B, int Hq, int Hkv, int row_pages,
                                     int page_size, int pages_per_chunk, int D, float scale,
                                     void* acc, void* m, void* l, void* out, void* stream) {
-  return sc::dispatch<int8_t>(q, qsb, qsh, k_pages, v_pages, k_scale, v_scale, length, B, Hq,
-                              Hkv, row_pages, page_size, pages_per_chunk, D, scale, acc, m, l,
-                              out, stream);
+  const sc::Args a{q, qsb, qsh, 0, k_pages, v_pages, static_cast<const float*>(k_scale),
+                   static_cast<const float*>(v_scale), length, static_cast<float*>(acc),
+                   static_cast<float*>(m), static_cast<float*>(l),
+                   static_cast<__nv_bfloat16*>(out), nullptr, nullptr, nullptr};
+  return sc::dispatch<int8_t, sc::R_DECODE>(a, 1, B, Hq, Hkv, row_pages, page_size,
+                                            pages_per_chunk, D, scale, stream);
+}
+
+// K7: q [B, Hq, ntok, D] addressed by (qsb, qsh, qst) element strides, the
+// pages and length as above (length counts pool tokens only); acc/m/l: f32
+// scratch of [B, Hkv, nchunks, g * ntok(, D)]; acc_o [B, Hq, ntok, D], m_o and
+// l_o [B, Hq, ntok]: contiguous f32 results.
+extern "C" int sc_paged_seq_partial(const void* q, int64_t qsb, int64_t qsh, int64_t qst,
+                                    int ntok, const void* k_pages, const void* v_pages,
+                                    const int* length, int B, int Hq, int Hkv, int row_pages,
+                                    int page_size, int pages_per_chunk, int D, float scale,
+                                    void* acc, void* m, void* l, void* acc_o, void* m_o,
+                                    void* l_o, void* stream) {
+  const sc::Args a{q, qsb, qsh, qst, k_pages, v_pages, nullptr, nullptr, length,
+                   static_cast<float*>(acc), static_cast<float*>(m), static_cast<float*>(l),
+                   nullptr, static_cast<float*>(acc_o), static_cast<float*>(m_o),
+                   static_cast<float*>(l_o)};
+  return sc::dispatch<__nv_bfloat16, sc::R_PARTIAL>(a, ntok, B, Hq, Hkv, row_pages, page_size,
+                                                    pages_per_chunk, D, scale, stream);
+}
+
+// K7 over int8 pages with their f32 scales.
+extern "C" int sc_paged_seq_partial_int8(const void* q, int64_t qsb, int64_t qsh, int64_t qst,
+                                         int ntok, const void* k_pages, const void* v_pages,
+                                         const void* k_scale, const void* v_scale,
+                                         const int* length, int B, int Hq, int Hkv,
+                                         int row_pages, int page_size, int pages_per_chunk,
+                                         int D, float scale, void* acc, void* m, void* l,
+                                         void* acc_o, void* m_o, void* l_o, void* stream) {
+  const sc::Args a{q, qsb, qsh, qst, k_pages, v_pages, static_cast<const float*>(k_scale),
+                   static_cast<const float*>(v_scale), length, static_cast<float*>(acc),
+                   static_cast<float*>(m), static_cast<float*>(l), nullptr,
+                   static_cast<float*>(acc_o), static_cast<float*>(m_o),
+                   static_cast<float*>(l_o)};
+  return sc::dispatch<int8_t, sc::R_PARTIAL>(a, ntok, B, Hq, Hkv, row_pages, page_size,
+                                             pages_per_chunk, D, scale, stream);
 }

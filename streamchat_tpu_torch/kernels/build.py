@@ -39,10 +39,16 @@ _PI64 = ctypes.POINTER(ctypes.c_int64)
 SIGNATURES = {
     "sc_flash_attention": [_P, _PI64, _P, _PI64, _P, _PI64, _P, _PI64, _P,
                            _I, _I, _I, _I, _I, _I, _I, _F, _P],
+    "sc_flash_attention_partial": [_P, _PI64, _P, _PI64, _P, _PI64, _P, _P, _P, _P,
+                                   _I, _I, _I, _I, _I, _I, _I, _F, _I, _I, _F, _P],
     "sc_paged_decode": [_P, _I64, _I64, _P, _P, _P, _I, _I, _I, _I, _I, _I,
                         _I, _F, _P, _P, _P, _P, _P],
     "sc_paged_decode_int8": [_P, _I64, _I64, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
                              _I, _I, _F, _P, _P, _P, _P, _P],
+    "sc_paged_seq_partial": [_P, _I64, _I64, _I64, _I, _P, _P, _P] + [_I] * 7 + [_F]
+                            + [_P] * 7,
+    "sc_paged_seq_partial_int8": [_P, _I64, _I64, _I64, _I, _P, _P, _P, _P, _P] + [_I] * 7
+                                 + [_F] + [_P] * 7,
     "sc_w8a16_gemv": [_P, _P, _P, _I, _I, _I, _I, _I, _P, _P, _I, _P],
     "sc_int4_gemv": [_P, _I, _I, _I, _P, _P, _I, _P, _P, _I, _P, _P, _I, _I, _I, _P,
                      _P, _I, _P],

@@ -10,11 +10,15 @@ parts are int4). Prefill attention is the K3 kernel wrapper
 logits run in f32. Decode runs against the paged pool in
 `models/paged_kv.py`.
 
-The port prefills every prompt in ONE pass, however long: the JAX
-package's chunked prefill (`decoder.prefill_chunked`, prompts over 8192
-tokens) exists to fit a 16 GB chip, and a one-shot 23k-token caption
-prefill fits an 80 GB H100 (MLP intermediates ~2.6 GB, dense KV ~1.3 GB,
-weights 15.2 GB). tests/test_torch_models.py pins one-shot == chunked.
+Long prompts prefill in chunks, as in the JAX package (`prefill_chunked`,
+called by `models/generate._prefill_inline` for prompts over
+`CHUNKED_PREFILL_THRESHOLD` tokens): chunk 0 attends within itself through
+K3 over its fresh K/V, every later chunk attends causally against the
+whole cache up to its horizon (`kv_view`) through the K5 kernel
+(`ops.attention.flash_attention_partial`). The cache is the dense bf16
+`KVCache` or, for int8 KV pages, the `Int8KVCache`: values are quantized
+on write and later chunks attend through a per-layer dequantized view, so
+the result is the JAX package's, not a bf16 prefill quantized afterwards.
 """
 
 from __future__ import annotations
@@ -26,7 +30,7 @@ import torch
 
 from streamchat_tpu_torch.config import DecoderConfig
 from streamchat_tpu_torch.ops import quant
-from streamchat_tpu_torch.ops.attention import flash_attention
+from streamchat_tpu_torch.ops.attention import flash_attention, flash_attention_partial
 
 Params = Dict[str, Any]
 
@@ -45,6 +49,31 @@ class KVCache:
         shape = (cfg.num_layers, batch, cfg.num_kv_heads, max_len, cfg.head_dim)
         return cls(k=torch.zeros(shape, dtype=dtype, device=device),
                    v=torch.zeros(shape, dtype=dtype, device=device),
+                   length=torch.zeros(batch, dtype=torch.int32, device=device))
+
+
+@dataclasses.dataclass
+class Int8KVCache:
+    """Dense KV cache stored int8 with per-(token, head) f32 scales, the
+    layout of `KVCache`: k, v int8 [L, B, Hkv, Lmax, Dh]; k_s, v_s f32
+    [L, B, Hkv, Lmax] (created as ones); length [B]. Values are quantized
+    on write exactly as `paged_kv._quantize_kv`, so paging it
+    (`paged_kv.from_contiguous_int8`) is a pure layout shuffle."""
+
+    k: torch.Tensor
+    v: torch.Tensor
+    k_s: torch.Tensor
+    v_s: torch.Tensor
+    length: torch.Tensor
+
+    @classmethod
+    def create(cls, cfg: DecoderConfig, batch: int, max_len: int,
+               device="cpu") -> "Int8KVCache":
+        shape = (cfg.num_layers, batch, cfg.num_kv_heads, max_len, cfg.head_dim)
+        return cls(k=torch.zeros(shape, dtype=torch.int8, device=device),
+                   v=torch.zeros(shape, dtype=torch.int8, device=device),
+                   k_s=torch.ones(shape[:-1], dtype=torch.float32, device=device),
+                   v_s=torch.ones(shape[:-1], dtype=torch.float32, device=device),
                    length=torch.zeros(batch, dtype=torch.int32, device=device))
 
 
@@ -151,27 +180,74 @@ def mlp_block(h: torch.Tensor, mlp: Params) -> torch.Tensor:
     return _mm(gated * uy, mlp["down"])
 
 
+def _chunk_cache_attention(q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tensor,
+                           q_offset: int, kv_length: torch.Tensor) -> torch.Tensor:
+    """Causal attention of a mid-prompt chunk q [B, Hq, C, Dh] against the
+    cache view [B, Hkv, view, Dh] (this chunk included): global causality
+    col <= q_offset + row, keys masked at and past kv_length [B]. The K5
+    kernel (its plain twin on the CPU), then the normalization."""
+    acc, _, l = flash_attention_partial(q, k_cache, v_cache, q_offset, 0, kv_length,
+                                        causal=True)
+    l_safe = torch.where(l == 0.0, torch.ones_like(l), l)
+    return (acc / l_safe[..., None]).to(q.dtype)
+
+
+def _write_kv(cache, i: int, start: int, k: torch.Tensor, v: torch.Tensor) -> None:
+    """Write a block's K/V [B, Hkv, S, Dh] into layer i at [start, start + S),
+    in place; an `Int8KVCache` quantizes them on the way."""
+    s = k.shape[2]
+    if isinstance(cache, Int8KVCache):
+        from streamchat_tpu_torch.models.paged_kv import _quantize_kv
+
+        vals, sc = _quantize_kv(torch.stack([k, v]))
+        cache.k[i, :, :, start:start + s] = vals[0]
+        cache.v[i, :, :, start:start + s] = vals[1]
+        cache.k_s[i, :, :, start:start + s] = sc[0]
+        cache.v_s[i, :, :, start:start + s] = sc[1]
+    else:
+        cache.k[i, :, :, start:start + s] = k
+        cache.v[i, :, :, start:start + s] = v
+
+
+def _cache_view(cache, i: int, kv_view: int, dtype):
+    """Layer i's K/V over [0, kv_view) in `dtype`; an `Int8KVCache` is
+    dequantized, for this layer's view only."""
+    k, v = cache.k[i, :, :, :kv_view], cache.v[i, :, :, :kv_view]
+    if isinstance(cache, Int8KVCache):
+        k = (k.float() * cache.k_s[i, :, :, :kv_view, None]).to(dtype)
+        v = (v.float() * cache.v_s[i, :, :, :kv_view, None]).to(dtype)
+    return k, v
+
+
 def forward(params: Params, cfg: DecoderConfig, embeds: torch.Tensor,
-            positions: torch.Tensor, cache: KVCache, seq_length: torch.Tensor
-            ) -> Tuple[torch.Tensor, KVCache]:
-    """Prefill the stack over embeds [B, S, D] into a FRESH cache (length 0).
+            positions: torch.Tensor, cache, seq_length: torch.Tensor, *,
+            start: int = 0, chunked: bool = False, kv_view: int | None = None):
+    """Prefill the stack over embeds [B, S, D], writing K/V at [start, start
+    + S) of a `KVCache` or `Int8KVCache` -> (post-norm hidden [B, S, D],
+    cache with length = start + seq_length).
 
     positions [B, S]; seq_length [B] valid tokens of `embeds` (the rest is
-    padding, masked by kv_length). Returns (post-norm hidden [B, S, D],
-    cache with k/v written at [0, S) and length = seq_length).
+    padding, masked by kv_length). Without `chunked` the block attends
+    within itself (K3 over its fresh K/V, bf16 even for an int8 cache);
+    with it, causally against the cache's first `kv_view` tokens (all of
+    them when None), this block included (K5).
     """
     b, s, _ = embeds.shape
     hq, hkv, dh = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
-    kv_length = seq_length.to(torch.int32)
+    kv_length = (start + seq_length).to(torch.int32)
+    view = cache.k.shape[3] if kv_view is None else kv_view
     x = embeds
     for i, p in enumerate(params["layers"]):
         h = rmsnorm(x, p["input_norm"], cfg.rms_eps)
         q, k, v = qkv_proj(h, p["attn"], b, s, hq, hkv, dh)
         q = rope(q, positions, cfg.rope_theta)
         k = rope(k, positions, cfg.rope_theta)
-        cache.k[i, :, :, :s] = k
-        cache.v[i, :, :, :s] = v
-        o = flash_attention(q, k, v, kv_length, causal=True)
+        _write_kv(cache, i, start, k, v)
+        if chunked:
+            kd, vd = _cache_view(cache, i, view, k.dtype)
+            o = _chunk_cache_attention(q, kd, vd, start, kv_length)
+        else:
+            o = flash_attention(q, k, v, kv_length, causal=True)
         x = x + _proj(o.transpose(1, 2).reshape(b, s, hq * dh), p["attn"]["o"])
         x = x + mlp_block(rmsnorm(x, p["post_norm"], cfg.rms_eps), p["mlp"])
     cache.length = kv_length.clone()
@@ -206,12 +282,56 @@ def embed_tokens(params: Params, token_ids: torch.Tensor) -> torch.Tensor:
 
 
 def prefill(params: Params, cfg: DecoderConfig, embeds: torch.Tensor,
-            cache: KVCache, seq_length: torch.Tensor
-            ) -> Tuple[torch.Tensor, KVCache]:
-    """One-shot prefill of a padded prompt -> (last-token logits [B, V], cache)."""
+            cache, seq_length: torch.Tensor) -> Tuple[torch.Tensor, Any]:
+    """One-shot prefill of a padded prompt into a fresh `KVCache` or
+    `Int8KVCache` -> (last-token logits [B, V], cache)."""
     b, s, _ = embeds.shape
     positions = torch.arange(s, device=embeds.device)[None].expand(b, s)
     hidden, cache = forward(params, cfg, embeds, positions, cache, seq_length)
     last = (seq_length.to(embeds.device).long() - 1)
     rows = hidden[torch.arange(b, device=embeds.device), last]      # [B, D]
+    return logits_from_hidden(params, cfg, rows[:, None])[:, 0], cache
+
+
+def prefill_chunked(params: Params, cfg: DecoderConfig, embeds: torch.Tensor, cache,
+                    seq_length: torch.Tensor, *, chunk: int = 4096) -> Tuple[torch.Tensor, Any]:
+    """Long-prompt prefill in `chunk`-token pieces -> (logits [B, V], cache),
+    as `streamchat_tpu.models.decoder.prefill_chunked`.
+
+    The cache must be fresh and hold the 128-padded prompt. The prompt is
+    padded to a 128 multiple (when the cache has room) and the final chunk
+    may be partial. Chunk 0 runs as a plain prefill; chunk `off` writes at
+    `off` and attends the cache's first off + width tokens (its causal
+    horizon). Only the reference's `reuse` branch is ported: every row's
+    last token must sit in the final chunk, which always holds at B = 1.
+    """
+    b, s, _ = embeds.shape
+    if s <= chunk:
+        return prefill(params, cfg, embeds, cache, seq_length)
+    lmax = cache.k.shape[3]
+    if lmax < s:
+        raise ValueError(f"prefill_chunked: cache Lmax={lmax} < prompt length {s}; "
+                         "size the cache to at least the (128-rounded) prompt length")
+    s128 = -(-s // 128) * 128
+    if s128 > s and lmax >= s128:
+        embeds = torch.nn.functional.pad(embeds, (0, 0, 0, s128 - s))
+        s = s128
+    offsets = list(range(0, s, chunk))
+    final_off = offsets[-1]
+    if int(seq_length.min()) - 1 < final_off:
+        raise NotImplementedError(
+            "prefill_chunked: a row whose last token is not in the final chunk needs "
+            "the reference's re-run branch, which comes with batched rows: ROADMAP "
+            "§A 5 'Batched captioning'")
+    dev = embeds.device
+    for off in offsets:
+        width = min(chunk, s - off)
+        positions = (off + torch.arange(width, device=dev))[None].expand(b, width)
+        hidden, cache = forward(
+            params, cfg, embeds[:, off:off + width], positions, cache,
+            torch.full((b,), width, dtype=torch.int32, device=dev), start=off,
+            chunked=off > 0, kv_view=off + width if off > 0 else None)
+    cache.length = seq_length.to(device=dev, dtype=torch.int32).clone()
+    last = seq_length.to(dev).long() - 1 - final_off
+    rows = hidden[torch.arange(b, device=dev), last]                 # [B, D]
     return logits_from_hidden(params, cfg, rows[:, None])[:, 0], cache

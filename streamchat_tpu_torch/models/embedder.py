@@ -103,7 +103,9 @@ class TextEmbedder:
     max_length: int = 256
 
     @classmethod
-    def init_random(cls, cfg: BertConfig | None = None, *, seed: int = 0, device="cpu"):
+    def init_random(cls, cfg: BertConfig | None = None, *, seed: int = 0, device="cuda"):
+        """Random weights (default: the tiny geometry) on `device`, the card
+        unless the caller asks for the CPU."""
         from streamchat_tpu_torch.models.tokenizer import ByteTokenizer
 
         cfg = cfg or BertConfig.tiny()

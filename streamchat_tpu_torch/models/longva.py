@@ -4,9 +4,11 @@
 One model serves the answerer and the captioner. `encode_images` runs the
 ViT (K1 per layer) and the projector (K2); `generate_with_image_embedding`
 splices the prompt's `<image>` markers with visual embeddings, pads to a
-128-token bucket and generates through the paged backend (K3 prefill, K4
-decode, or K6 over int8 pages with `kv_int8`). `quantize` switches the
-decoder to int8 / int4 weight-only storage (W8, K10, K11 at decode).
+128-token bucket and generates through the paged backend (K3 prefill, K5
+for the chunks of a prompt over 8192 tokens, K4 decode, or K6 over int8
+pages with `kv_int8`; K7 verify steps with `spec_tokens`). `quantize`
+switches the decoder to int8 / int4 weight-only storage (W8, K10, K11 at
+decode).
 Random draws come from the `torch.Generator` the facade holds (the JAX
 package's `KeySeq`).
 """
@@ -22,6 +24,7 @@ from streamchat_tpu_torch.config import DecoderConfig, ViTConfig
 from streamchat_tpu_torch.models import decoder, projector, vit
 from streamchat_tpu_torch.models.generate import pad_to_bucket
 from streamchat_tpu_torch.models.generate_paged import generate_paged
+from streamchat_tpu_torch.models.spec_decode import build_lookup_arrays
 from streamchat_tpu_torch.models.tokenizer import (
     IMAGE_TOKEN_INDEX,
     ByteTokenizer,
@@ -48,6 +51,11 @@ class LongVA:
     # bytes a decode step reads). A facade attribute, not a CLI flag, as in
     # the JAX package.
     kv_int8: bool = False
+    # Speculative decoding (models/spec_decode): draft tokens per verify
+    # step, 0 = off; the prompt's text tokens are the lookup corpus. Applied
+    # when top_p is unset; greedy output stays token-identical.
+    spec_tokens: int = 0
+    spec_ngram: int = 3
 
     @property
     def device(self) -> torch.device:
@@ -65,9 +73,10 @@ class LongVA:
     @classmethod
     def init_random(cls, vit_cfg: ViTConfig | None = None,
                     dec_cfg: DecoderConfig | None = None, *, seed: int = 0,
-                    device="cpu", dtype=torch.bfloat16) -> "LongVA":
+                    device="cuda", dtype=torch.bfloat16) -> "LongVA":
         """Random weights at the given geometry (default LongVA-7B), built
-        on `device` from a seeded generator."""
+        on `device` (the card unless the caller asks for the CPU) from a
+        seeded generator."""
         vit_cfg = vit_cfg or ViTConfig()
         dec_cfg = dec_cfg or DecoderConfig.qwen2_7b()
         g = torch.Generator(device=device).manual_seed(seed)
@@ -140,5 +149,16 @@ class LongVA:
             torch.tensor([length], dtype=torch.int32, device=self.device),
             self.generator, max_new_tokens=max_new_tokens, temperature=temperature,
             top_p=top_p, eos_ids=tuple(self.tokenizer.eos_ids), kv_int8=self.kv_int8,
-            stats=self.gen_stats)
+            stats=self.gen_stats, **self._spec_kwargs([prompt], top_p))
         return self.tokenizer.decode(toks[0][: int(count[0])].tolist()).strip()
+
+    def _spec_kwargs(self, prompts, top_p) -> dict:
+        """Speculative-decode kwargs for generate_paged, or {} when off (or
+        top_p is set). The lookup corpus is the prompts' text tokens, image
+        sentinels dropped, in a 256-token bucket."""
+        if self.spec_tokens <= 0 or top_p is not None:
+            return {}
+        rows = [[t for t in tokenize_with_image_token(p, self.tokenizer) if t >= 0]
+                for p in prompts]
+        return {"spec_tokens": self.spec_tokens, "spec_ngram": self.spec_ngram,
+                **build_lookup_arrays(rows)}

@@ -15,9 +15,9 @@ a decode step never copies a pool.
 scales (`kv_int8`): half the pool bytes, read by the K6 kernel
 (`ops.paged_attention.paged_decode_attention_seq_int8`) with the scales
 commuted out of both contractions. `from_contiguous_int8` quantizes and
-repages the dense bf16 prefill one layer at a time, so the int8 pool and
-one layer's transients are live beside the dense cache, never a second
-whole cache.
+repages a dense bf16 prefill one layer at a time, so the int8 pool and one
+layer's transients are live beside the dense cache, never a second whole
+cache; a long prompt's `decoder.Int8KVCache` is repaged as it is.
 """
 
 from __future__ import annotations
@@ -198,21 +198,27 @@ def _quantize_kv(x: torch.Tensor):
     return vals, scale
 
 
-def from_contiguous_int8(cache: decoder.KVCache, num_pages: int, max_pages_per_seq: int,
+def from_contiguous_int8(cache, num_pages: int, max_pages_per_seq: int,
                          page_size: int = 128) -> PagedKVCacheInt8:
     """Quantizing twin of `from_contiguous` (dense bf16 prefill -> int8 pages),
     one layer at a time: beside the dense cache, only the int8 pool and one
-    layer's f32 transients are live."""
+    layer's f32 transients are live. An already quantized
+    `decoder.Int8KVCache` (a long kv_int8 chunked prefill) is only repaged:
+    its values and scales move as they are."""
     l, b, hkv, lmax, dh = cache.k.shape
     ppr = _pages_per_row(cache, num_pages, max_pages_per_seq, page_size)
     dev = cache.k.device
+    pre_quantized = isinstance(cache, decoder.Int8KVCache)
     pages = {n: torch.zeros(l, num_pages, hkv, page_size, dh, dtype=torch.int8, device=dev)
              for n in ("k", "v")}
     scales = {n: torch.zeros(l, num_pages, hkv, page_size, dtype=torch.float32, device=dev)
               for n in ("k", "v")}
     for i in range(l):
         for n, dense in (("k", cache.k[i]), ("v", cache.v[i])):
-            vals, sc = _quantize_kv(dense)                   # [B, Hkv, Lmax(, Dh)]
+            if pre_quantized:
+                vals, sc = dense, getattr(cache, f"{n}_s")[i]
+            else:
+                vals, sc = _quantize_kv(dense)               # [B, Hkv, Lmax(, Dh)]
             pages[n][i, :b * ppr] = vals.reshape(b, hkv, ppr, page_size, dh).transpose(
                 1, 2).reshape(b * ppr, hkv, page_size, dh)
             scales[n][i, :b * ppr] = sc.reshape(b, hkv, ppr, page_size).transpose(

@@ -1,4 +1,5 @@
-"""Prefill attention (K3) for Hopper, its plain twin, and plain decode.
+"""Prefill attention (K3), chunk-vs-cache partial attention (K5) for
+Hopper, their plain twins, and plain decode.
 
 Counterpart of `streamchat_tpu/ops/attention.py`. Layouts as there:
 q [B, H, S, D], k/v [B, Hkv, S, D] (GQA: query head h reads kv head
@@ -8,14 +9,20 @@ h // (H / Hkv)), kv_length [B] masks keys at and past each row's length.
   tensor launches `csrc/flash_attention.cu` (bf16, head dim 64 or 128,
   any strides with a contiguous last dim); a CPU tensor runs
   `flash_attention_plain`. Rows that see no key output 0, like the TPU
-  kernel's `l == 0` guard. The decoder calls it for every prefill: the
-  port prefills every prompt in one pass.
+  kernel's `l == 0` guard. The decoder calls it for a one-pass prefill
+  and for chunk 0 of a chunked one.
+* `flash_attention_partial` — the same tile loop with GLOBAL causality
+  (`k_offset + col <= q_offset + row`) and an unnormalized f32 result
+  (acc, m, l): m is the running max in the scaled domain, clamped to
+  `neg_inf`, and a row that sees no key keeps acc 0 and l 0. The chunked
+  prefill (`models/decoder._chunk_cache_attention`) normalizes it.
 * `decode_attention` — one query token against a contiguous cache (plain
   PyTorch; the paged decode path uses ops/paged_attention).
 """
 
 from __future__ import annotations
 
+import ctypes
 import math
 
 import torch
@@ -48,6 +55,34 @@ def flash_attention_plain(q, k, v, kv_length=None, *, causal: bool = True):
     return o.to(q.dtype)
 
 
+def flash_attention_partial_plain(q, k, v, q_offset: int, k_offset: int, kv_length=None,
+                                  *, causal: bool = True, neg_inf: float = -1e30):
+    """Plain PyTorch twin of `flash_attention_partial` (same signature)."""
+    b, hq, sq, d = q.shape
+    hkv, sk = k.shape[1], k.shape[2]
+    if hq != hkv:
+        k = k.repeat_interleave(hq // hkv, dim=1)
+        v = v.repeat_interleave(hq // hkv, dim=1)
+    s = (q.float() @ k.float().transpose(-1, -2)) / math.sqrt(d)    # [B,H,Sq,Sk]
+    col = torch.arange(sk, device=q.device)
+    mask = torch.ones(sq, sk, dtype=torch.bool, device=q.device)
+    if causal:
+        row = torch.arange(sq, device=q.device)
+        mask = (k_offset + col[None, :]) <= (q_offset + row[:, None])
+    mask = mask[None, None]
+    if kv_length is not None:
+        mask = mask & (col[None, None, None, :]
+                       < kv_length.to(q.device)[:, None, None, None])
+    s = s.masked_fill(~mask, float("-inf"))
+    m = s.amax(-1).clamp_min(neg_inf)                               # [B,H,Sq]
+    p = torch.exp(s - m[..., None])
+    vf = v.float()
+    if kv_length is not None:       # 0 * garbage past the length stays 0
+        vf = torch.where(col[None, None, :, None]
+                         < kv_length.to(q.device)[:, None, None, None], vf, 0.0)
+    return p @ vf, m, p.sum(-1)
+
+
 def _strides(t: torch.Tensor, name: str):
     if t.stride(-1) != 1:
         raise ValueError(f"flash_attention {name}: last dim must be contiguous")
@@ -56,6 +91,27 @@ def _strides(t: torch.Tensor, name: str):
         raise ValueError(f"flash_attention {name}: strides {st} must be "
                          "16-byte multiples")
     return (st[0], st[1], st[2])
+
+
+def _checked(fn: str, q, k, v, kv_length):
+    """The kernels' input contract (CUDA bf16 q/k/v, head dim 64 or 128,
+    GQA, int32 kv_length [B] on the device) -> (ctypes stride arrays of q,
+    k, v; contiguous kv_length or None)."""
+    b, hq, _, d = q.shape
+    hkv = k.shape[1]
+    for name, t in (("q", q), ("k", k), ("v", v)):
+        if t.device.type != "cuda" or t.dtype != torch.bfloat16:
+            raise ValueError(f"{fn} {name}: expected CUDA bf16, got {t.device} {t.dtype}")
+    if d not in (64, 128) or hq % hkv or tuple(v.shape) != tuple(k.shape):
+        raise ValueError(f"{fn}: unsupported shapes q {tuple(q.shape)} k {tuple(k.shape)} "
+                         f"v {tuple(v.shape)}")
+    if kv_length is not None:
+        if (kv_length.device != q.device or kv_length.dtype != torch.int32
+                or tuple(kv_length.shape) != (b,)):
+            raise ValueError(f"{fn} kv_length: expected int32 [B] on the query's device")
+        kv_length = kv_length.contiguous()
+    strides = [(ctypes.c_int64 * 3)(*_strides(t, n)) for t, n in ((q, "q"), (k, "k"), (v, "v"))]
+    return strides, kv_length
 
 
 @counted
@@ -70,27 +126,11 @@ def flash_attention(q, k, v, kv_length=None, *, causal: bool = True):
     _, hkv, sk, _ = k.shape
     if q.device.type == "cpu":
         return flash_attention_plain(q, k, v, kv_length, causal=causal)
-    import ctypes
-
     from streamchat_tpu_torch.kernels.build import call
 
-    for name, t in (("q", q), ("k", k), ("v", v)):
-        if t.device.type != "cuda" or t.dtype != torch.bfloat16:
-            raise ValueError(f"flash_attention {name}: expected CUDA bf16, got "
-                             f"{t.device} {t.dtype}")
-    if d not in (64, 128) or hq % hkv or tuple(v.shape) != tuple(k.shape):
-        raise ValueError(f"flash_attention: unsupported shapes q {tuple(q.shape)}"
-                         f" k {tuple(k.shape)} v {tuple(v.shape)}")
-    if kv_length is not None:
-        if (kv_length.device != q.device or kv_length.dtype != torch.int32
-                or tuple(kv_length.shape) != (b,)):
-            raise ValueError("flash_attention kv_length: expected int32 [B] "
-                             "on the query's device")
-        kv_length = kv_length.contiguous()
+    (qs, ks, vs), kv_length = _checked("flash_attention", q, k, v, kv_length)
     out = torch.empty(b, sq, hq, d, dtype=q.dtype, device=q.device).transpose(1, 2)
-    arr = lambda st: (ctypes.c_int64 * 3)(*st)  # noqa: E731
-    qs, ks, vs, os_ = (arr(_strides(t, n)) for t, n in
-                       ((q, "q"), (k, "k"), (v, "v"), (out, "out")))
+    os_ = (ctypes.c_int64 * 3)(*_strides(out, "out"))
     call("sc_flash_attention", q.data_ptr(), qs, k.data_ptr(), ks,
          v.data_ptr(), vs, out.data_ptr(), os_,
          None if kv_length is None else kv_length.data_ptr(),
@@ -98,6 +138,37 @@ def flash_attention(q, k, v, kv_length=None, *, causal: bool = True):
          torch.cuda.current_stream().cuda_stream)
     flash_attention.launches += 1
     return out
+
+
+@counted
+def flash_attention_partial(q, k, v, q_offset: int, k_offset: int, kv_length=None,
+                            *, causal: bool = True, neg_inf: float = -1e30):
+    """Partial flash attention (K5), scores scaled by D^-0.5 -> (acc f32
+    [B, H, Sq, D] UNNORMALIZED, m f32 [B, H, Sq], l f32 [B, H, Sq]).
+
+    q_offset / k_offset are the global positions of q's and k's first rows
+    (host ints); causality is `k_offset + col <= q_offset + row`. The
+    normalized attention is acc / l where l > 0, and 0 where l == 0.
+    """
+    b, hq, sq, d = q.shape
+    _, hkv, sk, _ = k.shape
+    if q.device.type == "cpu":
+        return flash_attention_partial_plain(q, k, v, q_offset, k_offset, kv_length,
+                                             causal=causal, neg_inf=neg_inf)
+    from streamchat_tpu_torch.kernels.build import call
+
+    (qs, ks, vs), kv_length = _checked("flash_attention_partial", q, k, v, kv_length)
+    f32 = dict(dtype=torch.float32, device=q.device)
+    acc = torch.empty(b, hq, sq, d, **f32)
+    m = torch.empty(b, hq, sq, **f32)
+    l = torch.empty(b, hq, sq, **f32)
+    call("sc_flash_attention_partial", q.data_ptr(), qs, k.data_ptr(), ks,
+         v.data_ptr(), vs, acc.data_ptr(), m.data_ptr(), l.data_ptr(),
+         None if kv_length is None else kv_length.data_ptr(),
+         b, hq, hkv, sq, sk, d, int(causal), 1.0 / math.sqrt(d), int(q_offset),
+         int(k_offset), float(neg_inf), torch.cuda.current_stream().cuda_stream)
+    flash_attention_partial.launches += 1
+    return acc, m, l
 
 
 def decode_attention(q, k_cache, v_cache, length):

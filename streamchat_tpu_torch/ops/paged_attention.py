@@ -1,16 +1,20 @@
-"""Paged decode attention over a sequential pool, bf16 pages (K4) and int8
-pages (K6), with their plain twins.
+"""Attention over a sequential page pool, with their plain twins: one-token
+decode over bf16 pages (K4) and int8 pages (K6), and the multi-query
+partial form of both for the speculative verify step (K7).
 
 Counterparts of `streamchat_tpu/ops/paged_attention.py`
-`paged_decode_attention_pallas_seq` and `paged_decode_attention_pallas_seq_int8`:
-pages are in pool order — the identity table at B = 1, and at B > 1 a
+`paged_decode_attention_pallas_seq`, `paged_decode_attention_pallas_seq_int8`
+and `paged_seq_attention_partial{,_int8}`: pages are in pool order — the identity table at B = 1, and at B > 1 a
 statically partitioned pool where row b owns pages [b * row_pages,
 (b + 1) * row_pages), row_pages = num_pages // B — and `length` [B] masks
 each row's keys. Int8 pages carry per-(token, head) f32 scales that commute
 out of both contractions: s = (q . k_i8) * k_scale * D^-0.5 and
-o = sum_l p_l v_scale_l v_i8_l / sum_l p_l. A CUDA tensor launches
-`csrc/paged_decode.cu` (page-range split across blocks, then a merge
-kernel); a CPU tensor runs the plain twin.
+o = sum_l p_l v_scale_l v_i8_l / sum_l p_l. K7 takes T in-flight queries
+q [B, Hq, T, D] against the pool (length counts pool tokens, the block
+excluded) and returns the unnormalized f32 (acc [B, Hq, T, D], m, l
+[B, Hq, T]), m clamped to -1e30; a row with no live key gets acc 0 and
+l 0. A CUDA tensor launches `csrc/paged_decode.cu` (page-range split across
+blocks, then a merge kernel); a CPU tensor runs the plain twin.
 """
 
 from __future__ import annotations
@@ -22,7 +26,9 @@ from streamchat_tpu_torch.kernels import counted
 # Pages per block of the split page range: 4 pages of 128 tokens give ~180
 # blocks for a 23k-token context over 4 kv heads (132 SMs on the H100).
 PAGES_PER_CHUNK = 4
-_G_MAX = 8
+# Query rows per kv head a launch serves: g for K4 / K6, g * T for K7
+# (csrc/paged_decode.cu R_DECODE / R_PARTIAL).
+_ROWS_DECODE, _ROWS_PARTIAL = 8, 64
 
 
 def _rows(pages, b, row_pages):
@@ -80,50 +86,93 @@ def paged_decode_attention_seq_int8_plain(q, k_pages, v_pages, k_scale, v_scale,
     return o.reshape(b, hq, 1, d).to(q.dtype)
 
 
-def _launch(name, q, k_pages, v_pages, scales, length, page_dtype):
-    """Checks and one launch of the K4 / K6 entry point `name`."""
+def _seq_partial_plain(q, k_pages, v_pages, k_scale, v_scale, length):
+    """(acc, m, l) of q [B, Hq, T, D] against the pool; rows fold head-major
+    (row g_i * T + t_i is head hk * g + g_i at token t_i) as the kernel does."""
+    b, hq, t, d = q.shape
+    num_pages, hkv, ps, _ = k_pages.shape
+    if num_pages % b:
+        raise ValueError(f"pool of {num_pages} pages not divisible into {b} rows")
+    row_pages = num_pages // b
+    valid = (torch.arange(row_pages * ps, device=q.device)[None, None, :]
+             < length.to(q.device)[:, None, None])                      # [B, 1, L]
+    qg = q.reshape(b, hkv, hq // hkv * t, d).float()
+    s = torch.einsum("bhrd,bhld->bhrl", qg, _rows(k_pages, b, row_pages).float())
+    if k_scale is not None:
+        s = s * _rows(k_scale, b, row_pages)[:, :, None, :]
+    s = (s * d ** -0.5).masked_fill(~valid[:, :, None, :], float("-inf"))
+    m = s.amax(-1).clamp_min(-1e30)
+    p = torch.exp(s - m[..., None])
+    v = _rows(v_pages, b, row_pages).float()
+    if v_scale is not None:
+        v = v * _rows(v_scale, b, row_pages)[..., None]
+    acc = torch.einsum("bhrl,bhld->bhrd", p, torch.where(valid[..., None], v, 0.0))
+    return acc.reshape(b, hq, t, d), m.reshape(b, hq, t), p.sum(-1).reshape(b, hq, t)
+
+
+def paged_seq_attention_partial_plain(q, k_pages, v_pages, length):
+    """Plain twin of `paged_seq_attention_partial` (same signature)."""
+    return _seq_partial_plain(q, k_pages, v_pages, None, None, length)
+
+
+def paged_seq_attention_partial_int8_plain(q, k_pages, v_pages, k_scale, v_scale, length):
+    """Plain twin of `paged_seq_attention_partial_int8` (same signature);
+    slots at or past a row's length may hold any garbage."""
+    return _seq_partial_plain(q, k_pages, v_pages, k_scale, v_scale, length)
+
+
+def _launch(name, q, k_pages, v_pages, scales, length, page_dtype, partial=False):
+    """Checks and one launch of the K4 / K6 (normalized bf16 output) or, with
+    `partial`, the K7 (f32 acc, m, l) entry point `name`."""
     from streamchat_tpu_torch.kernels.build import call
 
-    b, hq, one, d = q.shape
+    b, hq, t, d = q.shape
     num_pages, hkv, ps, _ = k_pages.shape
     g = hq // hkv
     bf = torch.bfloat16
-    for t_name, t, dtype in (("q", q, bf), ("k_pages", k_pages, page_dtype),
+    for t_name, x, dtype in (("q", q, bf), ("k_pages", k_pages, page_dtype),
                              ("v_pages", v_pages, page_dtype)):
-        if t.device.type != "cuda" or t.dtype != dtype:
-            raise ValueError(f"paged decode {t_name}: expected CUDA {dtype}, got "
-                             f"{t.device} {t.dtype}")
+        if x.device.type != "cuda" or x.dtype != dtype:
+            raise ValueError(f"{name} {t_name}: expected CUDA {dtype}, got "
+                             f"{x.device} {x.dtype}")
     if not (k_pages.is_contiguous() and v_pages.is_contiguous()):
-        raise ValueError("paged decode: pages must be contiguous")
-    if (one != 1 or d not in (64, 128) or hq % hkv or g > _G_MAX
+        raise ValueError(f"{name}: pages must be contiguous")
+    if ((t != 1 and not partial) or d not in (64, 128) or hq % hkv
+            or g * t > (_ROWS_PARTIAL if partial else _ROWS_DECODE)
             or tuple(v_pages.shape) != tuple(k_pages.shape) or num_pages % b
             or q.stride(-1) != 1):
-        raise ValueError(f"paged decode: unsupported q {tuple(q.shape)} "
+        raise ValueError(f"{name}: unsupported q {tuple(q.shape)} "
                          f"pages {tuple(k_pages.shape)}")
-    for t in scales:
-        if (t.device != q.device or t.dtype != torch.float32 or not t.is_contiguous()
-                or tuple(t.shape) != (num_pages, hkv, ps)):
-            raise ValueError(f"paged decode scales: expected contiguous f32 "
+    for x in scales:
+        if (x.device != q.device or x.dtype != torch.float32 or not x.is_contiguous()
+                or tuple(x.shape) != (num_pages, hkv, ps)):
+            raise ValueError(f"{name} scales: expected contiguous f32 "
                              f"{(num_pages, hkv, ps)} on the query's device, got "
-                             f"{t.device} {t.dtype} {tuple(t.shape)}")
+                             f"{x.device} {x.dtype} {tuple(x.shape)}")
     if (length.device != q.device or length.dtype != torch.int32
             or tuple(length.shape) != (b,)):
-        raise ValueError("paged decode length: expected int32 [B] on the "
-                         "query's device")
+        raise ValueError(f"{name} length: expected int32 [B] on the query's device")
     length = length.contiguous()
     row_pages = num_pages // b
     nchunks = -(-row_pages // PAGES_PER_CHUNK)
     f32 = dict(dtype=torch.float32, device=q.device)
-    acc = torch.empty(b, hkv, nchunks, g, d, **f32)
-    m = torch.empty(b, hkv, nchunks, g, **f32)
-    l = torch.empty(b, hkv, nchunks, g, **f32)
-    out = torch.empty(b, hq, 1, d, dtype=bf, device=q.device)
-    call(name, q.data_ptr(), q.stride(0), q.stride(1), k_pages.data_ptr(),
-         v_pages.data_ptr(), *[t.data_ptr() for t in scales], length.data_ptr(),
-         b, hq, hkv, row_pages, ps, PAGES_PER_CHUNK, d, d ** -0.5,
-         acc.data_ptr(), m.data_ptr(), l.data_ptr(), out.data_ptr(),
-         torch.cuda.current_stream().cuda_stream)
-    return out
+    acc = torch.empty(b, hkv, nchunks, g * t, d, **f32)
+    m = torch.empty(b, hkv, nchunks, g * t, **f32)
+    l = torch.empty(b, hkv, nchunks, g * t, **f32)
+    geometry = (length.data_ptr(), b, hq, hkv, row_pages, ps, PAGES_PER_CHUNK, d, d ** -0.5,
+                acc.data_ptr(), m.data_ptr(), l.data_ptr())
+    pages = (k_pages.data_ptr(), v_pages.data_ptr(), *[x.data_ptr() for x in scales])
+    stream = torch.cuda.current_stream().cuda_stream
+    if not partial:
+        out = torch.empty(b, hq, 1, d, dtype=bf, device=q.device)
+        call(name, q.data_ptr(), q.stride(0), q.stride(1), *pages, *geometry, out.data_ptr(),
+             stream)
+        return out
+    res = (torch.empty(b, hq, t, d, **f32), torch.empty(b, hq, t, **f32),
+           torch.empty(b, hq, t, **f32))
+    call(name, q.data_ptr(), q.stride(0), q.stride(1), q.stride(2), t, *pages, *geometry,
+         *[x.data_ptr() for x in res], stream)
+    return res
 
 
 @counted
@@ -150,3 +199,29 @@ def paged_decode_attention_seq_int8(q, k_pages, v_pages, k_scale, v_scale, lengt
                   length, torch.int8)
     paged_decode_attention_seq_int8.launches += 1
     return out
+
+
+@counted
+def paged_seq_attention_partial(q, k_pages, v_pages, length):
+    """Multi-query partial attention (K7), scores scaled by D^-0.5: q
+    [B, Hq, T, D] (g * T <= 64) against one layer's bf16 pages, length [B]
+    int32 pool tokens -> (acc f32 [B, Hq, T, D] unnormalized, m, l f32
+    [B, Hq, T])."""
+    if q.device.type == "cpu":
+        return paged_seq_attention_partial_plain(q, k_pages, v_pages, length)
+    res = _launch("sc_paged_seq_partial", q, k_pages, v_pages, (), length, torch.bfloat16,
+                  partial=True)
+    paged_seq_attention_partial.launches += 1
+    return res
+
+
+@counted
+def paged_seq_attention_partial_int8(q, k_pages, v_pages, k_scale, v_scale, length):
+    """K7 over int8 pages with f32 scales [num_pages, Hkv, page_size]."""
+    if q.device.type == "cpu":
+        return paged_seq_attention_partial_int8_plain(q, k_pages, v_pages, k_scale, v_scale,
+                                                      length)
+    res = _launch("sc_paged_seq_partial_int8", q, k_pages, v_pages, (k_scale, v_scale),
+                  length, torch.int8, partial=True)
+    paged_seq_attention_partial_int8.launches += 1
+    return res

@@ -8,9 +8,10 @@ totals are host wall-clock windows that end in a device synchronize, so on
 a GPU they are true device-inclusive times.
 
 `--int8` (the default) and `--int4` quantize the decoder after it is built,
-as the JAX `main` does; `--bf16` keeps it bf16. Not ported yet, each
-raising NotImplementedError that names its ROADMAP item: --spec_tokens,
---mode on_line, --shard, --offload_chunks / --offload_residents, --ppl,
+as the JAX `main` does; `--bf16` keeps it bf16. `--spec_tokens N` turns on
+speculative decoding (`--spec_ngram` drafting) on the model, as the JAX
+`main` does. Not ported yet, each raising NotImplementedError that names
+its ROADMAP item: --mode on_line, --shard, --offload_chunks / --offload_residents, --ppl,
 --literal_kmeans, the uni-modal answer (no --multi_modal_memory) and
 checkpoint loading (--model_name / --embedding_model / --minilm_model).
 """
@@ -323,7 +324,6 @@ def parse_args(argv=None):
 
 
 _NOT_PORTED = (
-    ("spec_tokens", "--spec_tokens", "Speculative decode"),
     ("shard", "--shard", "Multi-GPU"),
     ("offload_chunks", "--offload_chunks", "Host offload"),
     ("offload_residents", "--offload_residents", "Host offload"),
@@ -369,6 +369,9 @@ def main(argv=None) -> None:
         pipeline.model.quantize(bits=4)
     elif args.int8:
         pipeline.model.quantize()
+    if args.spec_tokens:
+        pipeline.model.spec_tokens = args.spec_tokens
+        pipeline.model.spec_ngram = args.spec_ngram
     t0 = time.time()
     run_inference(pipeline, args)
     print(json.dumps({"seconds": round(time.time() - t0, 3),

@@ -1,0 +1,126 @@
+"""Hold this tree's kernels to another checkout's, on one GPU.
+
+    python -m streamchat_tpu_torch.utils.compare_tree OTHER_TREE
+
+OTHER_TREE is the root of another checkout of the repo (e.g. the parent
+commit unpacked with `git archive`). Its `streamchat_tpu_torch/csrc/` is
+built by its own `kernels/build.py` into its own library, beside this
+tree's. The kernels whose C entry points both trees export with the same
+signature (K1 `sc_fused_vit_layer`, K3 `sc_flash_attention`, K4
+`sc_paged_decode`, K6 `sc_paged_decode_int8`) run through this tree's
+wrappers on the same inputs at main-path shapes, once against each
+library: the script prints whether the outputs are equal bit for bit, and
+the device time per call of each (torch.profiler, as `chip_smoke.py`
+measures it) in turns: other, this, this, other.
+"""
+
+from __future__ import annotations
+
+import argparse
+import ctypes
+import importlib.util
+import json
+import os
+import subprocess
+
+import torch
+
+from streamchat_tpu_torch.utils.profiling import device_ms
+
+KERNELS = ("sc_fused_vit_layer", "sc_flash_attention", "sc_paged_decode",
+           "sc_paged_decode_int8")
+
+
+def _load_other(tree: str):
+    """The other tree's kernel library, built by its own build.py."""
+    path = os.path.join(tree, "streamchat_tpu_torch", "kernels", "build.py")
+    spec = importlib.util.spec_from_file_location("other_kernel_build", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    info = mod.build(force=True)
+    lib = ctypes.CDLL(mod.LIB_PATH)
+    for name in KERNELS:
+        fn = getattr(lib, name)
+        fn.argtypes = mod.SIGNATURES[name]
+        fn.restype = ctypes.c_int
+    return lib, info["seconds"]
+
+
+def _cases(g):
+    """name -> a call of this tree's wrapper at main-path shapes."""
+    from streamchat_tpu_torch.ops import attention, fused_vit, paged_attention
+
+    bf, dev = torch.bfloat16, "cuda"
+
+    def rnd(*shape, scale=1.0):
+        return (torch.randn(*shape, generator=g, device=dev) * scale).to(bf)
+
+    d, f = 1024, 4096
+    vit = (1 + rnd(d, scale=0.1), rnd(d, scale=0.1), rnd(d, 3 * d, scale=d ** -0.5),
+           rnd(3 * d, scale=0.1), rnd(d, d, scale=d ** -0.5), rnd(d, scale=0.1),
+           1 + rnd(d, scale=0.1), rnd(d, scale=0.1), rnd(d, f, scale=d ** -0.5),
+           rnd(f, scale=0.1), rnd(f, d, scale=f ** -0.5), rnd(d, scale=0.1))
+    x = rnd(16, 577, d)
+    q3, k3, v3 = rnd(1, 28, 4096, 128), rnd(1, 4, 4096, 128), rnd(1, 4, 4096, 128)
+    pages, length = 182, 23105
+    q = rnd(1, 28, 1, 128)
+    kp, vp = rnd(pages, 4, 128, 128), rnd(pages, 4, 128, 128)
+    ln = torch.tensor([length], dtype=torch.int32, device=dev)
+    kq, vq = (torch.randint(-127, 128, (pages, 4, 128, 128), generator=g, device=dev,
+                            dtype=torch.int8) for _ in range(2))
+    ks, vs = (torch.rand(pages, 4, 128, generator=g, device=dev) * 0.04 + 0.01
+              for _ in range(2))
+    return {
+        "sc_fused_vit_layer": lambda: fused_vit.fused_vit_layer(x, *vit, num_heads=16),
+        "sc_flash_attention": lambda: attention.flash_attention(q3, k3, v3, causal=True),
+        "sc_paged_decode": lambda: paged_attention.paged_decode_attention_seq(q, kp, vp, ln),
+        "sc_paged_decode_int8": lambda: paged_attention.paged_decode_attention_seq_int8(
+            q, kq, vq, ks, vs, ln),
+    }
+
+
+def main(argv=None) -> None:
+    p = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    p.add_argument("other_tree")
+    p.add_argument("--iters", type=int, default=50)
+    args = p.parse_args(argv)
+    if not torch.cuda.is_available():
+        raise SystemExit("compare_tree: no CUDA device")
+    from streamchat_tpu_torch.kernels import build
+
+    print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"],
+                         capture_output=True, text=True, check=True).stdout.strip())
+    build.library()
+    other, seconds = _load_other(os.path.abspath(args.other_tree))
+    print(f"other tree's kernels built in {seconds:.2f} s")
+    current = build.call
+
+    def call_into(lib):
+        def call(name, *a):
+            err = getattr(lib, name)(*a)
+            if err != 0:
+                raise RuntimeError(f"{name}: CUDA error {err}")
+        return call
+
+    cases = _cases(torch.Generator(device="cuda").manual_seed(7))
+    report = {}
+    try:
+        for name, fn in cases.items():
+            outs, times = {}, {"other": [], "this": []}
+            for which in ("other", "this", "this", "other"):
+                build.call = current if which == "this" else call_into(other)
+                outs[which] = fn()
+                times[which].append(device_ms(fn, args.iters))
+            report[name] = dict(bit_equal=bool(torch.equal(outs["this"], outs["other"])),
+                                ms_other=times["other"], ms_this=times["this"])
+            print(f"{name}: {json.dumps(report[name])}", flush=True)
+    finally:
+        build.call = current
+    if not all(r["bit_equal"] for r in report.values()):
+        raise SystemExit("compare_tree: outputs differ from the other tree's")
+    print(json.dumps(report))
+
+
+if __name__ == "__main__":
+    main()

@@ -1,16 +1,19 @@
 """Profile the slice's phases at full LongVA-7B width on one GPU.
 
     python -m streamchat_tpu_torch.utils.profile_slice [--weights bf16|int8|int4] [--kv_int8]
+        [--spec_tokens N]
 
 Random seeded weights, bf16; `--weights int8` / `int4` quantizes the
-decoder after the build (as the CLI's `--int8` / `--int4` do) and
-`--kv_int8` stores the KV pages as int8. Three profiled windows under `torch.profiler`
+decoder after the build (as the CLI's `--int8` / `--int4` do),
+`--kv_int8` stores the KV pages as int8 and `--spec_tokens N` decodes in
+verify steps of N drafts (the CLI's flag). Three profiled windows under `torch.profiler`
 (CPU + CUDA activities), each after a warm-up:
 
 * ingest: 64 frames of a 360x640 synthetic video (the padded 60-frame
   segment) through preprocess, ViT-L (23 layers) and the projector;
 * a chunk-40 caption (~23.4k-token prompt) with 1 new token, which is
-  the prefill and one logits row;
+  the prefill (in chunks: K3, then K5) and one logits row (with
+  `--spec_tokens`, one verify step);
 * the same caption with 33 new tokens, so the difference of the two is
   32 decode steps at a 23.4k context.
 
@@ -53,6 +56,7 @@ def main(argv=None) -> None:
     p = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     p.add_argument("--weights", choices=("bf16", "int8", "int4"), default="bf16")
     p.add_argument("--kv_int8", action="store_true")
+    p.add_argument("--spec_tokens", type=int, default=0)
     args = p.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("profile_slice: no CUDA device")
@@ -73,7 +77,8 @@ def main(argv=None) -> None:
     if args.weights != "bf16":
         m.quantize(bits=4 if args.weights == "int4" else 8)
     m.kv_int8 = args.kv_int8
-    print(f"weights {args.weights}, kv_int8 {args.kv_int8}")
+    m.spec_tokens = args.spec_tokens
+    print(f"weights {args.weights}, kv_int8 {args.kv_int8}, spec_tokens {args.spec_tokens}")
     activities = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
 
     reader = SyntheticVideoReader(total_frames=600, frame_rate=30, height=360, width=640)
@@ -108,7 +113,8 @@ def main(argv=None) -> None:
                                     temperature=0.1)
     gs = m.gen_stats
     print("unprofiled 129-token caption:", json.dumps(gs),
-          f"decode ms/step {1e3 * gs['decode_s'] / gs['decode_steps']:.3f}")
+          f"decode ms/step {1e3 * gs['decode_s'] / gs['decode_steps']:.3f}",
+          f"ms/emitted token {1e3 * gs['decode_s'] / gs.get('accepted_tokens', gs['decode_steps']):.3f}")
     print(f"peak GiB {torch.cuda.max_memory_allocated() / 2**30:.2f}")
 
 

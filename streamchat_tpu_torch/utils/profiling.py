@@ -7,6 +7,9 @@
 Host wall-clock per named phase. A phase that ends in device work measures
 the device only if the caller synchronises inside the window (the runner
 does, through `synchronize`, so phase totals are true on a GPU).
+
+`device_ms(fn, iters)` is the device time of a GPU call: the summed
+durations of the device events torch.profiler records.
 """
 
 from __future__ import annotations
@@ -36,3 +39,33 @@ class PhaseTimer:
 
     def summary(self) -> Dict[str, float]:
         return dict(self.totals)
+
+
+# Profiled windows device_ms measures before it gives up on a call.
+PROFILE_ATTEMPTS = 3
+
+
+def device_ms(fn: Callable[[], object], iters: int) -> float:
+    """Device time per call of `fn` on the GPU: the summed durations of the
+    device events (kernels and copies) torch.profiler records over `iters`
+    calls, after one warm-up call. For a kernel shorter than its wrapper's
+    host work this is the kernel's time, where CUDA events over
+    back-to-back calls would time the host's pace. The profiler now and
+    then hands back a window without a single device event; such a window
+    is measured again, PROFILE_ATTEMPTS windows at most, then this raises."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    for _ in range(PROFILE_ATTEMPTS):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        events = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+        if events:
+            return sum(e.time_range.elapsed_us() for e in events) / iters / 1e3
+    raise AssertionError(f"torch.profiler recorded no device event in "
+                         f"{PROFILE_ATTEMPTS} windows")

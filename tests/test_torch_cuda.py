@@ -11,7 +11,10 @@ neither jax nor the JAX package, so it runs on a GPU machine without jax:
 |kernel - plain| <= 3e-2 + 2e-2 |plain|, bf16 storage with f32
 accumulation in both, summed in a different order. The quantized GEMVs
 (W8, K10, K11) take ragged in / out edges and 1 or 8 rows; the int8-page
-decode (K6) takes pages and scales with NaN and inf past the length.
+decode (K6) takes pages and scales with NaN and inf past the length. The
+partial kernels (K5, K7) return (acc, m, l); they are compared normalized
+(acc / l, 0 where l == 0) under the same bound, m and l elementwise, and
+rows with no live key must give m = -1e30, l = 0, acc = 0.
 """
 
 import numpy as np
@@ -165,3 +168,63 @@ def test_cuda_paged_decode_int8(cuda, b, lengths, pages):
     assert torch.isfinite(got).all()
     _close(got, paged_attention.paged_decode_attention_seq_int8_plain(q, kp, vp, ks, vs, ln))
     assert paged_attention.paged_decode_attention_seq_int8.launches == 1
+
+
+def _close_partial(got, ref):
+    acc, m, l = got
+    racc, rm, rl = ref
+    assert torch.isfinite(acc).all() and torch.isfinite(m).all()
+    for a, b in ((m, rm), (l, rl)):
+        torch.testing.assert_close(a, b, atol=ATOL, rtol=RTOL)
+    norm = lambda a, n: a / torch.where(n == 0, torch.ones_like(n), n)[..., None]  # noqa: E731
+    _close(norm(acc, l), norm(racc, rl))
+    dead = rl == 0
+    assert (m[dead] == -1e30).all() and (l[dead] == 0).all() and (acc[dead] == 0).all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d,q_off,k_off,kv,causal", [
+    (128, 256, 0, (300, 511), True),      # a later chunk against a ragged cache
+    (128, 0, 100, None, True),            # q_offset < k_offset: rows 0-99 see no key
+    (64, 64, 0, (70, 330), False),
+])
+def test_cuda_flash_attention_partial(cuda, d, q_off, k_off, kv, causal):
+    q = _bf(1, cuda, 2, 4, 200, d)
+    k, v = _bf(2, cuda, 2, 2, 511, d), _bf(3, cuda, 2, 2, 511, d)
+    kl = None
+    if kv is not None:
+        kl = torch.tensor(kv, dtype=torch.int32, device=cuda)
+        for row, n in enumerate(kv):          # garbage past each row's length
+            v[row, :, n:] = float("nan")
+    got = attention.flash_attention_partial(q, k, v, q_off, k_off, kl, causal=causal)
+    _close_partial(got, attention.flash_attention_partial_plain(q, k, v, q_off, k_off, kl,
+                                                                causal=causal))
+    assert attention.flash_attention_partial.launches == 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("int8", [False, True])
+@pytest.mark.parametrize("b,lengths,pages,t", [(2, (1000, 0), 18, 5), (1, (2049,), 17, 8)])
+def test_cuda_paged_seq_partial(cuda, int8, b, lengths, pages, t):
+    """T in-flight queries (7 heads per kv head, as Qwen2-7B: 35 and 56
+    rows) against the pool; a row with no pool token."""
+    q = _bf(1, cuda, b, 14, t, 128)
+    ln = torch.tensor(lengths, dtype=torch.int32, device=cuda)
+    if int8:
+        rng = np.random.default_rng(5)
+        kp, vp = (torch.from_numpy(rng.integers(-127, 128, (pages, 2, 128, 128), dtype=np.int8)
+                                   ).to(cuda) for _ in range(2))
+        ks, vs = (torch.from_numpy(rng.uniform(0.005, 0.02, (pages, 2, 128)).astype(np.float32)
+                                   ).to(cuda) for _ in range(2))
+        args = (q, kp, vp, ks, vs, ln)
+        got = paged_attention.paged_seq_attention_partial_int8(*args)
+        ref = paged_attention.paged_seq_attention_partial_int8_plain(*args)
+        fn = paged_attention.paged_seq_attention_partial_int8
+    else:
+        kp, vp = _bf(2, cuda, pages, 2, 128, 128), _bf(3, cuda, pages, 2, 128, 128)
+        got = paged_attention.paged_seq_attention_partial(q, kp, vp, ln)
+        ref = paged_attention.paged_seq_attention_partial_plain(q, kp, vp, ln)
+        fn = paged_attention.paged_seq_attention_partial
+    assert got[0].shape == (b, 14, t, 128) and got[1].shape == (b, 14, t)
+    _close_partial(got, ref)
+    assert fn.launches == 1

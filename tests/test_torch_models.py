@@ -130,22 +130,27 @@ def test_decoder_prefill_matches_jax(jmodel, model):
 
 
 def test_one_shot_prefill_matches_jax_chunked_prefill(jmodel, model):
-    """The port prefills every prompt in one pass; the JAX package chunks
-    long prompts. Both must give the same logits and cache."""
+    """The JAX package chunks long prompts, and so does the port
+    (`decoder.prefill_chunked`): both chunked prefills give the same logits
+    and cache, and over a dense float cache so does the port's one-pass
+    prefill."""
     jcfg = jmodel.dec_cfg
     embeds, length = _prefill_inputs(jmodel, 384, 370, seed=5)
     jcache = jdec.KVCache.create(jcfg, 1, 384, dtype=jnp.float32)
     ref_logits, ref_cache = jdec.prefill_chunked(
         jmodel.dec_params, jcfg, jnp.asarray(embeds), jcache, jnp.asarray(length),
         chunk=128)
-    cache = decoder.KVCache.create(model.dec_cfg, 1, 384, dtype=torch.float32)
-    logits, cache = decoder.prefill(model.dec_params, model.dec_cfg,
-                                    torch.from_numpy(embeds), cache, torch.from_numpy(length))
-    np.testing.assert_allclose(logits.numpy(), np.asarray(ref_logits), atol=ATOL, rtol=0)
-    np.testing.assert_allclose(cache.k.numpy()[..., :370, :],
-                               np.asarray(ref_cache.k)[..., :370, :], atol=ATOL, rtol=0)
-    np.testing.assert_allclose(cache.v.numpy()[..., :370, :],
-                               np.asarray(ref_cache.v)[..., :370, :], atol=ATOL, rtol=0)
+    for chunked in (True, False):
+        cache = decoder.KVCache.create(model.dec_cfg, 1, 384, dtype=torch.float32)
+        prefill = (lambda *a: decoder.prefill_chunked(*a, chunk=128)) if chunked else \
+            decoder.prefill
+        logits, cache = prefill(model.dec_params, model.dec_cfg, torch.from_numpy(embeds),
+                                cache, torch.from_numpy(length))
+        np.testing.assert_allclose(logits.numpy(), np.asarray(ref_logits), atol=ATOL, rtol=0)
+        np.testing.assert_allclose(cache.k.numpy()[..., :370, :],
+                                   np.asarray(ref_cache.k)[..., :370, :], atol=ATOL, rtol=0)
+        np.testing.assert_allclose(cache.v.numpy()[..., :370, :],
+                                   np.asarray(ref_cache.v)[..., :370, :], atol=ATOL, rtol=0)
 
 
 @pytest.mark.parametrize("sequential_pages", [True, False])

@@ -174,7 +174,6 @@ BASE = ["--video_dir", "v", "--memory_basic_dir", "m", "--save_file", "s.json",
 
 
 @pytest.mark.parametrize("flags", [
-    ["--bf16", "--spec_tokens", "2"],
     ["--bf16", "--mode", "on_line"], ["--bf16", "--shard"],
     ["--bf16", "--offload_chunks"], ["--bf16", "--offload_residents"],
     ["--bf16", "--ppl"], ["--bf16", "--literal_kmeans"],
