@@ -7,7 +7,7 @@
 2. Builds every hand-written kernel from `streamchat_tpu_torch/csrc/` (one
    nvcc per source, in parallel) and prints the build seconds.
 3. Builds the pipeline at full LongVA-7B width on random weights (seeded).
-4. Holds each of the eleven kernels against its plain PyTorch twin at
+4. Holds each of the thirteen kernels against its plain PyTorch twin at
    main-path shapes, tolerance |kernel - plain| <= 3e-2 + 2e-2 |plain|
    (bf16 storage, f32 accumulation in both, different summation order),
    and times both (ms: device time per call, the summed device events
@@ -19,7 +19,12 @@
    triple, the gate/up pair), K6 paged decode over int8 pages, K5 partial
    flash attention (the last 3,072-token chunk of a 23,552-token caption
    prefill, global offset 20,480), K7 and K7-int8 (five in-flight queries
-   against 23,105 pool tokens, bf16 and int8 pages). All but K1 and K2 are
+   against 23,105 pool tokens, bf16 and int8 pages), K8 and K9 (one decode
+   token of three rows of 23,105, 11,905 and 1 tokens through a page table
+   over a shared 288-page pool in a seeded permutation, -1 past each
+   row's pages and once inside a row's length, NaN in the pages no slot
+   maps; ms_row0 times the 23,105-token row alone, beside K4). All but K1
+   and K2 are
    also held to a relative L2 error of 1e-2 per output row (the partial
    kernels through acc / l, and m and l elementwise), and planted faults
    must fail that same check: a key tile or a 4-page chunk zeroed, the
@@ -27,8 +32,10 @@
    weight zeroed, int4 nibble halves swapped, one group's scale ignored,
    int8 page scales replaced by 1, K5's offsets swapped or its m left
    unclamped, K7's row fold transposed or its pool length counting the
-   block. Keys, values and scales past the valid length hold large
-   garbage (NaN and inf for the int8 scales), as stale cache slots may.
+   block, K8 / K9's table ignored (pool order), -1 read as page 0, the
+   length ignored, one table entry off by one. Keys, values and scales past
+   the valid length hold large garbage (NaN and inf for the int8 scales),
+   as stale cache slots may.
    Each row carries the kernel's bound (the larger of its FLOPs at 989
    TFLOP/s and its bytes at 3.35 TB/s, each input read and each output
    written once) and, where one PyTorch call computes the same function,
@@ -41,25 +48,43 @@
    and of the int4 tree (K10/K11) each against the same step on its
    dequantized bf16 tree; and one 28-layer verify step of five
    teacher-forced tokens (K7, bf16 and int8 pages) against five vanilla
-   decode steps (K4 / K6). Logits are held to a relative L2 error of 5e-2
-   (one bf16 rounding difference per layer compounds through the stack).
+   decode steps (K4 / K6), and one of four tokens of each of two rows on a
+   partitioned pool against four vanilla steps at B = 2; one 28-layer
+   decode step of three rows on a shared pool through K8 and K9 against the
+   same step through the plain gather. Logits are held to a relative L2
+   error of 5e-2 (one bf16 rounding difference per layer compounds through
+   the stack).
 6. Times the chunk-40 caption prefill (23,441 tokens, bf16 weights) in one
    pass (K3 only, the port before chunked prefill) and through the chunked
    dispatch (K3 for chunk 0, K5 for chunks 1-5), in turns.
-7. Runs `StreamChatPipeline.process_video` (off-line, canonical v0.3
-   memory settings) on a 600-frame 360x640 synthetic video five times on
+7. Drives `generate_paged` on a caller-sized pool, the path of K8 and K9,
+   with the launch counters zeroed before it and read after it: two rows of
+   6,100 and 3,050 tokens, 64 new tokens, a 98-page pool that the allocator
+   fills mid-decode, bf16 pages (K8) and int8 pages (K9); the same rows on
+   the split path (K4 / K6) give the reference first-step logits (relative
+   L2 <= 5e-2) and greedy agreement, and a 97-page pool must raise
+   RuntimeError.
+8. Runs `StreamChatPipeline.process_video` (off-line, canonical v0.3
+   memory settings) on a 600-frame 360x640 synthetic video seven times on
    one model build, the launch counters zeroed before each run and read
    after it: (1) bf16 weights, breakpoint at 10 s; (2) int8 weights, the
    CLI default, breakpoints at 10 s and 20 s; (3) int4 weights with int8 KV
    pages, breakpoint at 10 s; (4) int8 weights with spec_tokens = 4,
    breakpoint at 10 s; (5) int4 weights, int8 KV pages and spec_tokens = 4,
-   breakpoint at 10 s (the run that drives K7-int8). Each quantized tree is
+   breakpoint at 10 s (the run that drives K7-int8); (6) int8 weights with
+   caption_batch = 2 and (7) int4 weights with int8 KV pages and
+   caption_batch = 2, each with its breakpoint at 10 s, whose two chunk
+   captions (23,441 and 11,921 tokens) form one 2-row group: the shorter
+   row's prefill takes the re-run branch and decode reads the partitioned
+   pool at B = 2 (K4 / K6). Each quantized tree is
    made from the bf16 tree and freed before the next. A run fails if one
    of its kernels was not launched, an answer is missing, no token was
-   generated or no caption prompt passed 23,000 tokens. Prints decode
-   ms/step and per emitted token, accepted tokens per verify step, peak
-   memory, and the weight and KV bytes a decode token reads.
-8. Prints the kernels JSON line, then the device JSON line last.
+   generated or no caption prompt passed 23,000 tokens, and runs 6 and 7
+   fail unless a 2-row group decoded at B = 2 with a re-run. Prints decode
+   ms/step and per emitted token, accepted tokens per verify step, caption
+   seconds per caption, peak memory, and the weight and KV bytes a decode
+   token reads.
+9. Prints the kernels JSON line, then the device JSON line last.
 
 Any failure raises: the script then exits non-zero and prints no result.
 """
@@ -98,6 +123,11 @@ RUNS = {
     "int4_kv_int8": PREFILL + ("paged_decode_attention_seq_int8",) + INT4,
     "int8_spec": PREFILL + ("paged_seq_attention_partial", "qmatvec_int8"),
     "int4_kv_int8_spec": PREFILL + ("paged_seq_attention_partial_int8",) + INT4,
+    "int8_cb2": PREFILL + ("paged_decode_attention_seq", "qmatvec_int8"),
+    "int4_kv_int8_cb2": PREFILL + ("paged_decode_attention_seq_int8",) + INT4,
+    # generate_paged on a caller-sized pool (the allocator maps pages mid-decode).
+    "caller_pool_bf16": ("paged_decode_attention_table",),
+    "caller_pool_kv_int8": ("paged_decode_attention_table_int8",),
 }
 SOURCES = {
     "fused_vit_layer": ("streamchat_tpu_torch/csrc/fused_vit.cu",
@@ -122,6 +152,10 @@ SOURCES = {
                                     "streamchat_tpu/ops/paged_attention.py:454"),
     "paged_seq_attention_partial_int8": ("streamchat_tpu_torch/csrc/paged_decode.cu",
                                          "streamchat_tpu/ops/paged_attention.py:485"),
+    "paged_decode_attention_table": ("streamchat_tpu_torch/csrc/paged_decode.cu",
+                                     "streamchat_tpu/ops/paged_attention.py:135"),
+    "paged_decode_attention_table_int8": ("streamchat_tpu_torch/csrc/paged_decode.cu",
+                                          "streamchat_tpu/ops/paged_attention.py:698"),
 }
 
 
@@ -711,47 +745,243 @@ def check_partial_kernels(model, g):
     return rows, planted
 
 
+def _shared_table(g, lengths, ps, maxp, pages, hole):
+    """A shared pool's table: row r's first ceil(length / ps) slots map pool
+    pages 1.. in a seeded permutation, -1 past them and at row 0's slot
+    `hole` (inside its length) -> (table [B, maxp] int32, mask of the pool
+    pages no slot maps, page 0 among them)."""
+    perm = 1 + torch.randperm(pages - 1, generator=g, device="cuda").to(torch.int32)
+    table = torch.full((len(lengths), maxp), -1, dtype=torch.int32, device="cuda")
+    i = 0
+    for r, n in enumerate(lengths):
+        need = -(-n // ps)
+        table[r, :need] = perm[i:i + need]
+        i += need
+    table[0, hole] = -1
+    free = torch.ones(pages, dtype=torch.bool, device="cuda")
+    free[table[table >= 0].long()] = False
+    return table, free
+
+
+def check_table_kernels(model, g):
+    """K8 and K9 against their plain twins on a shared pool -> (report rows,
+    planted faults): B = 3 rows of 23,105, 11,905 and 1 tokens in 128-token
+    pages spread over a 288-page pool by a seeded permutation, -1 past each
+    row's pages and at one slot inside row 0's length; NaN in the pages no
+    slot maps (NaN / inf scales for K9) and large values past each row's
+    length in its last page."""
+    from streamchat_tpu_torch.ops import paged_attention as pa
+
+    bf, dev = torch.bfloat16, "cuda"
+    hq, hkv = model.dec_cfg.num_heads, model.dec_cfg.num_kv_heads
+    lengths, ps, maxp, pages, hole = (23105, 11905, 1), 128, 184, 288, 50
+    table, free = _shared_table(g, lengths, ps, maxp, pages, hole)
+    ln = torch.tensor(lengths, dtype=torch.int32, device=dev)
+    q = torch.randn(3, hq, 1, 128, generator=g, device=dev).to(bf)
+    live = sum(lengths) - ps                 # the keys the kernel must read
+    rows, planted = {}, {}
+    for label, int8 in (("paged_decode_attention_table", False),
+                        ("paged_decode_attention_table_int8", True)):
+        if int8:
+            kp, vp = (torch.randint(-127, 128, (pages, hkv, ps, 128), generator=g, device=dev,
+                                    dtype=torch.int8) for _ in range(2))
+            ks, vs = (torch.rand(pages, hkv, ps, generator=g, device=dev) * 0.04 + 0.01
+                      for _ in range(2))
+            garbage = ((ks, float("nan")), (vs, float("inf")))
+            pool = (kp, vp, ks, vs)
+        else:
+            kp, vp = (torch.randn(pages, hkv, ps, 128, generator=g, device=dev).to(bf)
+                      for _ in range(2))
+            garbage = ((kp, 8.0), (vp, 100.0))
+            pool = (kp, vp)
+        for t, val in garbage:
+            t[free] = float("nan") if not int8 else val
+            for r, n in enumerate(lengths):
+                if n % ps:
+                    t[table[r, (n - 1) // ps].long(), :, n % ps:] = val
+        fn, plain = getattr(pa, label), getattr(pa, label + "_plain")
+        name = "K9" if int8 else "K8"
+        ref = plain(q, *pool, table, ln)
+        err, rel = _compare(f"{name} {label}", fn(q, *pool, table, ln), ref, row_rel=True)
+        ident = torch.arange(maxp, dtype=torch.int32, device=dev)[None].expand(3, maxp)
+        off = table.clone()
+        off[1, 10] = (off[1, 10] + 1) % pages
+        for fault, args in (
+                ("table ignored (pool order)", (ident.contiguous(), ln)),
+                ("-1 read as page 0", (table.clamp_min(0), ln)),
+                ("length ignored", (table, torch.full_like(ln, maxp * ps))),
+                ("one table entry off by one", (off, ln))):
+            planted[f"{name} {fault}"] = _planted(f"{name} {fault}", fn(q, *pool, *args), ref)
+        row_bytes = 128 + 4 if int8 else 2 * 128
+        rows[label] = dict(
+            shapes=f"q [3, 28, 1, 128] bf16, pool [288, 4, 128, 128] "
+                   + ("int8, scales [288, 4, 128] f32" if int8 else "bf16")
+                   + ", table [3, 184] int32 (a seeded permutation, one -1 inside row 0), "
+                     "lengths 23105 / 11905 / 1",
+            max_abs_err=err, max_row_rel_l2=rel,
+            **_timings(lambda: fn(q, *pool, table, ln), lambda: plain(q, *pool, table, ln),
+                       50, 5),
+            ms_row0=device_ms(lambda: fn(q[:1], *pool, table[:1], ln[:1]), 50),
+            **_bound(4 * hq * live * 128, live * hkv * 2 * row_bytes + 2 * _nbytes(q)
+                     + _nbytes(table, ln)),
+            library_ms=None, library="none (no PyTorch call reads a page table)")
+        rows[label]["gbs"] = _gbs(live * hkv * 2 * row_bytes, rows[label]["ms"])
+        del pool, ref
+    return rows, planted
+
+
 def check_composed_spec(model, g):
-    """One 28-layer verify step (K7) of five teacher-forced tokens against
-    five vanilla decode steps (K4 / K6) from one prefilled cache, bf16 and
-    int8 pages -> per mode the largest row relative L2 error of the logits
-    and the greedy agreement."""
+    """One 28-layer verify step (K7) of teacher-forced tokens against as many
+    vanilla decode steps (K4 / K6) from one prefilled, statically
+    partitioned pool, bf16 and int8 pages: five tokens of one row, and four
+    tokens of each of two rows -> per case the largest row relative L2
+    error of the logits and the greedy agreement."""
     from streamchat_tpu_torch.models import decoder, paged_kv, spec_decode
 
     dcfg, dp = model.dec_cfg, model.dec_params
-    s, valid, t = 256, 250, SPEC_TOKENS + 1
-    embeds = (torch.randn(1, s, dcfg.hidden_size, generator=g, device="cuda") * 0.02
-              ).to(torch.bfloat16)
-    length = torch.tensor([valid], dtype=torch.int32, device="cuda")
-    dense = decoder.KVCache.create(dcfg, 1, s, dtype=embeds.dtype, device="cuda")
-    logits, dense = decoder.prefill(dp, dcfg, embeds, dense, length)
     out = {}
-    for label, page, step in (("bf16", paged_kv.from_contiguous, paged_kv.decode_step_paged),
-                              ("int8", paged_kv.from_contiguous_int8,
-                               paged_kv.decode_step_paged_int8)):
-        caches = []
-        for _ in range(2):
-            c = page(dense, 3, 3)
-            c.page_table = torch.arange(3, dtype=torch.int32, device="cuda")[None]
-            caches.append(c)
-        vanilla, spec = caches
-        tokens, ref, lg = [], [], logits
-        for _ in range(t):
-            tokens.append(torch.argmax(lg, -1))
-            lg, vanilla = step(dp, dcfg, tokens[-1], vanilla)
-            ref.append(lg[0])
-        got, _ = spec_decode.decode_step_spec(
-            dp, dcfg, torch.stack(tokens, 1), spec,
-            valid + torch.arange(t, device="cuda")[None])
-        ref = torch.stack(ref)
-        got = got[0]
-        rel = ((got - ref).norm(dim=-1) / ref.norm(dim=-1)).max().item()
-        if not torch.isfinite(got).all() or rel > STEP_REL_L2:
-            raise AssertionError(f"verify step ({label} pages) vs {t} decode steps: row "
-                                 f"relative L2 error {rel} past {STEP_REL_L2}")
-        agree = int((got.argmax(-1) == ref.argmax(-1)).sum())
-        out[label] = {"row_rel_l2": rel, "greedy_agreement": f"{agree}/{t}"}
+    for lengths, t in (([250], SPEC_TOKENS + 1), ([250, 181], 4)):
+        b, s = len(lengths), 256
+        embeds = (torch.randn(b, s, dcfg.hidden_size, generator=g, device="cuda") * 0.02
+                  ).to(torch.bfloat16)
+        length = torch.tensor(lengths, dtype=torch.int32, device="cuda")
+        dense = decoder.KVCache.create(dcfg, b, s, dtype=embeds.dtype, device="cuda")
+        logits, dense = decoder.prefill(dp, dcfg, embeds, dense, length)
+        for label, page, step in (("bf16", paged_kv.from_contiguous,
+                                   paged_kv.decode_step_paged),
+                                  ("int8", paged_kv.from_contiguous_int8,
+                                   paged_kv.decode_step_paged_int8)):
+            vanilla, spec = (page(dense, 3 * b, 3, partitioned=True) for _ in range(2))
+            tokens, ref, lg = [], [], logits
+            for _ in range(t):
+                tokens.append(torch.argmax(lg, -1))
+                lg, vanilla = step(dp, dcfg, tokens[-1], vanilla, sequential_pages=True)
+                ref.append(lg)
+            got, _ = spec_decode.decode_step_spec(
+                dp, dcfg, torch.stack(tokens, 1), spec,
+                length[:, None] + torch.arange(t, device="cuda")[None])
+            ref = torch.stack(ref, 1)                            # [B, T, V]
+            rel = ((got - ref).norm(dim=-1) / ref.norm(dim=-1)).max().item()
+            case = f"{label}_b{b}_t{t}"
+            if not torch.isfinite(got).all() or rel > STEP_REL_L2:
+                raise AssertionError(f"verify step ({case}) vs {t} decode steps: row "
+                                     f"relative L2 error {rel} past {STEP_REL_L2}")
+            agree = int((got.argmax(-1) == ref.argmax(-1)).sum())
+            out[case] = {"row_rel_l2": rel, "greedy_agreement": f"{agree}/{b * t}"}
     return out
+
+
+def check_composed_table(model, g):
+    """One 28-layer decode step of three rows (250, 130 and 20 tokens, paged
+    with `from_contiguous` into a shared pool, so the rows' pages are not
+    their partitions) through K8 and K9 against the same step with the
+    plain twin gathering through the table -> per page type the relative L2
+    error of the logits and the launches."""
+    from streamchat_tpu_torch import kernels
+    from streamchat_tpu_torch.models import decoder, paged_kv
+    from streamchat_tpu_torch.ops import paged_attention as pa
+
+    dcfg, dp = model.dec_cfg, model.dec_params
+    s = 256
+    embeds = (torch.randn(3, s, dcfg.hidden_size, generator=g, device="cuda") * 0.02
+              ).to(torch.bfloat16)
+    length = torch.tensor([250, 130, 20], dtype=torch.int32, device="cuda")
+    dense = decoder.KVCache.create(dcfg, 3, s, dtype=embeds.dtype, device="cuda")
+    logits, dense = decoder.prefill(dp, dcfg, embeds, dense, length)
+    tok = torch.argmax(logits, -1)
+    out = {}
+    for label, page, step, append, name in (
+            ("bf16", paged_kv.from_contiguous, paged_kv.decode_step_paged,
+             paged_kv.append_token_kv, "paged_decode_attention_table"),
+            ("int8", paged_kv.from_contiguous_int8, paged_kv.decode_step_paged_int8,
+             paged_kv.append_token_kv_int8, "paged_decode_attention_table_int8")):
+        cache, twin = page(dense, 8, 4), page(dense, 8, 4)
+        kernels.reset_launch_counts()
+        got, _ = step(dp, dcfg, tok, cache)
+        launches = kernels.launch_counts()[name]
+        scales = (lambda i: (twin.k_scale[i], twin.v_scale[i])) if label == "int8" else (
+            lambda i: ())
+        plain = getattr(pa, name + "_plain")
+        ref, _ = paged_kv._decode_step(
+            dp, dcfg, tok, twin, append,
+            lambda q, i, ln: plain(q, twin.k_pages[i], twin.v_pages[i], *scales(i),
+                                   twin.page_table, ln))
+        rel = ((got - ref).norm() / ref.norm()).item()
+        if not torch.isfinite(got).all() or rel > STEP_REL_L2 or launches != dcfg.num_layers:
+            raise AssertionError(f"B = 3 decode step through {name} vs the plain gather: "
+                                 f"relative L2 error {rel} (limit {STEP_REL_L2}), "
+                                 f"{launches} launches")
+        out[label] = {"logits_rel_l2": rel, "launches": launches}
+    return out
+
+
+def drive_caller_pool(model, g, kv_int8: bool):
+    """`generate_paged` at full width on a caller-sized pool, the main path of
+    the table kernels: two rows of 6,100 and 3,050 valid tokens (6,144
+    padded), 64 new tokens, 98 pages of 128 tokens and 50 table slots per
+    row (the rows' prompts take 96 pages; each row crosses into one more
+    page mid-decode, mapped by the allocator). The launch counters are
+    zeroed before it and read after it. The same rows then run on the split
+    path (K4 / K6); the first decode step's logits are compared, greedy
+    agreement reported, and a 97-page pool must raise RuntimeError ->
+    (report, counts)."""
+    from streamchat_tpu_torch import kernels
+    from streamchat_tpu_torch.models import generate_paged as gp
+
+    dcfg, dp = model.dec_cfg, model.dec_params
+    lengths, s, new = [6100, 3050], 6144, 64
+    embeds = (torch.randn(2, s, dcfg.hidden_size, generator=g, device="cuda") * 0.02
+              ).to(torch.bfloat16)
+    ln = torch.tensor(lengths, dtype=torch.int32, device="cuda")
+    label = "caller_pool_kv_int8" if kv_int8 else "caller_pool_bf16"
+    step_name = "decode_step_paged_int8" if kv_int8 else "decode_step_paged"
+    step = getattr(gp, step_name)
+    first = []
+
+    def recording(*a, **kw):
+        logits, cache = step(*a, **kw)
+        if not first:
+            first.append(logits.float().clone())
+        return logits, cache
+
+    kw = dict(max_new_tokens=new, kv_int8=kv_int8)
+    setattr(gp, step_name, recording)
+    try:
+        stats = {}
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        kernels.reset_launch_counts()
+        t0 = time.perf_counter()
+        toks, _ = gp.generate_paged(dp, dcfg, embeds, ln, num_pages=98, max_pages_per_seq=50,
+                                    stats=stats, **kw)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        counts = kernels.launch_counts()
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        caller_first = first.pop()
+        ref_toks, _ = gp.generate_paged(dp, dcfg, embeds, ln, **kw)
+        split_first = first.pop()
+    finally:
+        setattr(gp, step_name, step)
+    try:
+        gp.generate_paged(dp, dcfg, embeds, ln, num_pages=97, max_pages_per_seq=50, **kw)
+    except RuntimeError as e:
+        undersized = str(e)[:60]
+    else:
+        raise AssertionError(f"{label}: a 97-page pool did not raise RuntimeError")
+    rel = ((caller_first - split_first).norm(dim=-1) / split_first.norm(dim=-1)).max().item()
+    report = dict(seconds=seconds, decode_ms_per_step=1e3 * stats["decode_s"]
+                  / stats["decode_steps"], prefill_s=stats["prefill_s"], peak_gib=peak,
+                  first_step_logits_rel_l2_vs_split=rel,
+                  greedy_agreement=f"{int((toks == ref_toks).sum())}/{toks.size}",
+                  undersized_pool_raised=undersized,
+                  launches={n: c for n, c in counts.items() if c})
+    print(f"generate_paged caller-sized pool [{label}]: {json.dumps(report)}", flush=True)
+    missing = [n for n in RUNS[label] if counts.get(n, 0) == 0]
+    if missing or not torch.isfinite(caller_first).all() or rel > STEP_REL_L2:
+        raise AssertionError(f"{label}: kernels never launched {missing}, or first-step "
+                             f"logits relative L2 {rel} past {STEP_REL_L2}")
+    return report, counts
 
 
 def compare_prefill(model, g):
@@ -830,9 +1060,11 @@ def check_composed_quant(model, g, label, expected):
     logits, dense = decoder.prefill(deq, dcfg, embeds, dense, length)
     tok = torch.argmax(logits, -1)
     kernels.reset_launch_counts()
-    got, _ = paged_kv.decode_step_paged(qp, dcfg, tok, paged_kv.from_contiguous(dense, 3, 3))
+    got, _ = paged_kv.decode_step_paged(qp, dcfg, tok, paged_kv.from_contiguous(dense, 3, 3),
+                                        sequential_pages=True)
     counts = kernels.launch_counts()
-    ref, _ = paged_kv.decode_step_paged(deq, dcfg, tok, paged_kv.from_contiguous(dense, 3, 3))
+    ref, _ = paged_kv.decode_step_paged(deq, dcfg, tok, paged_kv.from_contiguous(dense, 3, 3),
+                                        sequential_pages=True)
     del deq
     rel = ((got - ref).norm() / ref.norm()).item()
     if not torch.isfinite(got).all() or rel > STEP_REL_L2:
@@ -869,6 +1101,7 @@ def _kv_bytes_per_token(cfg, context: int, kv_int8: bool) -> int:
 def check_composed(model, g):
     """Small-input references for the composed ViT+projector and decode paths."""
     from streamchat_tpu_torch.models import decoder, paged_kv, vit
+    from streamchat_tpu_torch.ops import paged_attention
     from streamchat_tpu_torch.ops.fused_vit import fused_ln_mlp_plain, fused_vit_layer_plain
 
     cfg = model.vit_cfg
@@ -908,7 +1141,10 @@ def check_composed(model, g):
     twin = paged_kv.from_contiguous(dense, 3, 3)
     tok = torch.argmax(logits, -1)
     got, _ = paged_kv.decode_step_paged(dp, dcfg, tok, cache, sequential_pages=True)
-    ref, _ = paged_kv.decode_step_paged(dp, dcfg, tok, twin, sequential_pages=False)
+    ref, _ = paged_kv._decode_step(
+        dp, dcfg, tok, twin, paged_kv.append_token_kv,
+        lambda q, i, ln: paged_attention.paged_decode_attention_table_plain(
+            q, twin.k_pages[i], twin.v_pages[i], twin.page_table, ln))
     rel = ((got - ref).norm() / ref.norm()).item()
     if not torch.isfinite(got).all() or rel > 5e-2:
         raise AssertionError(f"decode step K4 vs page-table gather: relative L2 "
@@ -953,21 +1189,84 @@ def run_slice(pipe, breakpoints):
     return results, seconds, lengths
 
 
+@contextlib.contextmanager
+def _observed(pipe):
+    """Counts, for one run: captions made (`pipe._caption` and its batch
+    method), the most rows one K4 / K6 launch served, and the chunked
+    prefill's re-run windows. The kernel wrappers still count their own
+    launches."""
+    from streamchat_tpu_torch.models import decoder, paged_kv
+
+    seen = {"captions": 0, "max_decode_rows": 0, "reruns": 0}
+    cap, rerun = pipe._caption, decoder._rerun_last
+    seq = {n: getattr(paged_kv, n) for n in ("paged_decode_attention_seq",
+                                              "paged_decode_attention_seq_int8")}
+
+    def caption(chunk):
+        seen["captions"] += 1
+        return cap(chunk)
+
+    def caption_batch(chunks):
+        seen["captions"] += len(chunks)
+        return cap.batch(chunks)
+
+    def rows(fn):
+        def wrapped(q, *a):
+            seen["max_decode_rows"] = max(seen["max_decode_rows"], q.shape[0])
+            return fn(q, *a)
+        return wrapped
+
+    def counted_rerun(*a):
+        seen["reruns"] += 1
+        return rerun(*a)
+
+    caption.batch, caption.batch_size = caption_batch, cap.batch_size
+    pipe._caption, decoder._rerun_last = caption, counted_rerun
+    for n, fn in seq.items():
+        setattr(paged_kv, n, rows(fn))
+    try:
+        yield seen
+    finally:
+        pipe._caption, decoder._rerun_last = cap, rerun
+        for n, fn in seq.items():
+            setattr(paged_kv, n, fn)
+
+
+@contextlib.contextmanager
+def caption_batch(pipe, n):
+    """The pipeline with SamplingConfig.caption_batch = n for the block."""
+    import dataclasses
+
+    from streamchat_tpu_torch.pipeline.answer import make_captioner
+
+    cfg, cap = pipe.cfg, pipe._caption
+    pipe.cfg = cfg.replace(sampling=dataclasses.replace(cfg.sampling, caption_batch=n))
+    pipe._caption = make_captioner(pipe.model, pipe.cfg.sampling)
+    try:
+        yield
+    finally:
+        pipe.cfg, pipe._caption = cfg, cap
+
+
 def drive(pipe, label, breakpoints):
     """One process_video run with the launch counters zeroed before it and
-    read after it -> its report."""
+    read after it -> its report. A caption_batch run (label `*_cb2`) must
+    decode a 2-row caption group through K4 / K6 at B = 2 and take the
+    chunked prefill's re-run branch."""
     from streamchat_tpu_torch import kernels
 
     m = pipe.model
     m.gen_stats.clear()
     torch.cuda.reset_peak_memory_stats()
     kernels.reset_launch_counts()
-    results, seconds, lengths = run_slice(pipe, breakpoints)
+    with _observed(pipe) as seen:
+        results, seconds, lengths = run_slice(pipe, breakpoints)
     counts = kernels.launch_counts()
     gs = m.gen_stats
     # A vanilla step emits one token; a verify step emits accepted_tokens /
     # verify_steps on average.
     emitted = gs.get("accepted_tokens", gs["decode_steps"])
+    phases = pipe.last_phase_totals
     report = dict(
         seconds=seconds, answers=len(results), generated_tokens=gs["generated_tokens"],
         decode_ms_per_step=1e3 * gs["decode_s"] / gs["decode_steps"],
@@ -975,12 +1274,16 @@ def drive(pipe, label, breakpoints):
         accepted_tokens_per_verify_step=(gs["accepted_tokens"] / gs["verify_steps"]
                                          if "verify_steps" in gs else None),
         prefill_tokens_per_s=gs["prompt_tokens"] / gs["prefill_s"],
+        captions=seen["captions"], caption_s=phases.get("caption"),
+        caption_s_per_caption=phases.get("caption", 0.0) / max(seen["captions"], 1),
+        batched_rows=gs.get("batched_rows", 0), max_decode_rows=seen["max_decode_rows"],
+        prefill_reruns=seen["reruns"],
         peak_gib=torch.cuda.max_memory_allocated() / 2**30, prompt_lengths=lengths,
         weight_bytes_per_token=_decode_weight_bytes(m.dec_params),
         kv_bytes_per_token_at_max_prompt=_kv_bytes_per_token(m.dec_cfg, max(lengths),
                                                              m.kv_int8),
         launches={n: c for n, c in counts.items() if c},
-        phase_totals=pipe.last_phase_totals)
+        phase_totals=phases)
     print(f"process_video [{label}]: {json.dumps(report)}", flush=True)
     missing = [n for n in RUNS[label] if counts.get(n, 0) == 0]
     if missing:
@@ -990,6 +1293,11 @@ def drive(pipe, label, breakpoints):
     if max(lengths) <= CAPTION_TOKENS_MIN:
         raise AssertionError(f"run {label}: no chunk-40 caption prompt over "
                              f"{CAPTION_TOKENS_MIN} tokens: {lengths}")
+    if label.endswith("_cb2") and (report["batched_rows"] < 2 or seen["max_decode_rows"] < 2
+                                   or seen["reruns"] < 1):
+        raise AssertionError(f"run {label}: no 2-row caption group decoded at B = 2 through "
+                             f"the row-order kernel with a prefill re-run: {seen}, "
+                             f"batched rows {report['batched_rows']}")
     return report, counts
 
 
@@ -1028,6 +1336,10 @@ def main() -> None:
         prows, pplanted = check_partial_kernels(pipe.model, g)
     rows.update(prows)
     planted.update(pplanted)
+    with phase("kernel checks K8, K9"):
+        trows, tplanted = check_table_kernels(pipe.model, g)
+    rows.update(trows)
+    planted.update(tplanted)
     for name, row in rows.items():
         print(f"{name}: max_abs_err {row['max_abs_err']:.6g}  max_row_rel_l2 "
               f"{row.get('max_row_rel_l2')}  kernel {row['ms']:.4f} ms (wall "
@@ -1042,12 +1354,17 @@ def main() -> None:
     with phase("composed checks (bf16)"):
         composed = check_composed(pipe.model, g)
         composed["verify_step_vs_decode_steps"] = check_composed_spec(pipe.model, g)
+        composed["table_decode_step_b3"] = check_composed_table(pipe.model, g)
     with phase("chunk-40 caption prefill, one pass vs chunked"):
         prefill_cmp = compare_prefill(pipe.model, g)
     print(f"caption prefill one pass vs chunked: {json.dumps(prefill_cmp)}", flush=True)
 
     m = pipe.model
-    runs, counts = {}, {}
+    runs, counts, caller = {}, {}, {}
+    for kv_int8 in (False, True):
+        label = "caller_pool_kv_int8" if kv_int8 else "caller_pool_bf16"
+        with phase(f"generate_paged on a caller-sized pool ({label})"):
+            caller[label], counts[label] = drive_caller_pool(m, g, kv_int8)
     with phase("process_video bf16, 1 breakpoint"):
         runs["bf16"], counts["bf16"] = drive(pipe, "bf16", BREAKPOINTS[:1])
     bf16_tree = m.dec_params
@@ -1061,6 +1378,8 @@ def main() -> None:
         m.spec_tokens = SPEC_TOKENS
         runs["int8_spec"], counts["int8_spec"] = drive(pipe, "int8_spec", BREAKPOINTS[:1])
         m.spec_tokens = 0
+    with phase("process_video int8, caption_batch 2, 1 breakpoint"), caption_batch(pipe, 2):
+        runs["int8_cb2"], counts["int8_cb2"] = drive(pipe, "int8_cb2", BREAKPOINTS[:1])
     m.dec_params = bf16_tree                          # frees the int8 tree
     torch.cuda.empty_cache()
     with phase("quantize int4 + composed check"):
@@ -1075,6 +1394,11 @@ def main() -> None:
         m.spec_tokens = SPEC_TOKENS
         runs["int4_kv_int8_spec"], counts["int4_kv_int8_spec"] = drive(
             pipe, "int4_kv_int8_spec", BREAKPOINTS[:1])
+        m.spec_tokens = 0
+    with phase("process_video int4 + kv_int8, caption_batch 2, 1 breakpoint"), \
+            caption_batch(pipe, 2):
+        runs["int4_kv_int8_cb2"], counts["int4_kv_int8_cb2"] = drive(
+            pipe, "int4_kv_int8_cb2", BREAKPOINTS[:1])
     print(f"composed checks: {json.dumps(composed)}")
 
     report = []
@@ -1084,8 +1408,12 @@ def main() -> None:
                            launches=sum(by_run.values()), launches_by_run=by_run, **row))
     print(f"summary: kernel build {info['seconds']:.2f} s, process_video "
           + ", ".join(f"{k} {v['seconds']:.3f} s ({v['decode_ms_per_step']:.2f} ms/step, "
-                      f"{v['decode_ms_per_emitted_token']:.2f} ms/token)"
+                      f"{v['decode_ms_per_emitted_token']:.2f} ms/token, "
+                      f"{v['caption_s_per_caption']:.3f} caption s/caption)"
                       for k, v in runs.items())
+          + ", caller-sized pool " + ", ".join(
+              f"{k} {v['seconds']:.3f} s ({v['decode_ms_per_step']:.2f} ms/step)"
+              for k, v in caller.items())
           + f", planted faults rejected {len(planted)}, total "
           f"{time.perf_counter() - t_start:.1f} s")
     print(smi)

@@ -1,6 +1,7 @@
 // GQA attention over a sequential page pool: one-token decode over bf16 pages
 // (K4) or int8 pages with per-(token, head) f32 scales (K6), and the
-// multi-query partial form of both for the speculative verify step (K7).
+// multi-query partial form of both for the speculative verify step (K7); and
+// one-token decode through a page table over bf16 or int8 pages (K8, K9).
 //
 // Replaces the TPU kernels ops/paged_attention.py:paged_decode_attention_pallas_seq
 // (K4, _seq_decode_kernel), paged_decode_attention_pallas_seq_int8 (K6,
@@ -34,6 +35,22 @@
 // dequantized into memory and the page bytes read per token halve. Keys at or
 // past the row's length are never loaded, so garbage (NaN or inf) in stale
 // pages or scales cannot reach the accumulator.
+//
+// K8 and K9 replace ops/paged_attention.py:paged_decode_attention_pallas
+// (_paged_decode_kernel) and paged_decode_attention_pallas_int8
+// (_paged_decode_int8_kernel): a shared pool whose rows' pages are wherever
+// the allocator put them, read through page_table [B, maxp] (-1 = unmapped).
+// They are the same kernel with another addressing (the kTable template
+// parameter, so K4, K6 and K7 keep their compile-time code): the chunks split
+// a row's table slots [0, maxp), each block first loads its chunk's table
+// entries into shared memory, and the page of position pos is
+// table[b, pos / page_size] instead of b * row_pages + pos / page_size. As in
+// the TPU kernel, a slot that is unmapped or at or past the row's length
+// contributes no key, so its page is never read (NaN there cannot leak); a
+// chunk with no live key writes m = -inf and a row with none gets 0. Each
+// (page, head) row of page_size * D elements is one contiguous read. K9 reads
+// k_scale[page, hk, slot] directly where the TPU kernel selected the head's
+// scale row by a one-hot sum (a Mosaic workaround).
 #include <type_traits>
 
 #include "kernels.cuh"
@@ -52,15 +69,16 @@ __device__ __forceinline__ float page_val(int8_t v) { return static_cast<float>(
 // T is the page element type: __nv_bfloat16 (K4, K7) or int8_t (K6, K7-int8,
 // with the per-(page, head, slot) scales k_scale / v_scale; null otherwise).
 // The block's R = g * ntok query rows: row i is query head hk * g + i / ntok
-// at token i % ntok.
-template <int D, typename T, int R_MAX>
+// at token i % ntok. kTable (K8, K9): pages come from table [B, row_pages]
+// (row_pages is then the table's width maxp), else from the row's partition.
+template <int D, typename T, int R_MAX, bool kTable>
 __global__ void __launch_bounds__(THREADS)
 paged_partial_kernel(const __nv_bfloat16* __restrict__ q, int64_t qsb, int64_t qsh,
                      int64_t qst, int ntok, const T* __restrict__ k_pages,
                      const T* __restrict__ v_pages, const float* __restrict__ k_scale,
                      const float* __restrict__ v_scale, const int* __restrict__ length,
-                     int row_pages, int page_size, int pages_per_chunk, int nchunks, int g,
-                     int Hkv, float scale, float* __restrict__ acc_out,
+                     const int* __restrict__ table, int row_pages, int page_size,
+                     int pages_per_chunk, int nchunks, int g, int Hkv, float scale, float* __restrict__ acc_out,
                      float* __restrict__ m_out, float* __restrict__ l_out) {
   constexpr bool kInt8 = std::is_same<T, int8_t>::value;
   // K4 / K6 serve one token with compile-time layout strides; K7 sizes its
@@ -75,6 +93,7 @@ paged_partial_kernel(const __nv_bfloat16* __restrict__ q, int64_t qsb, int64_t q
   float* qs = sm;                          // [rs][D]
   float* sc = qs + rs * D;                 // [rs][chunk_keys]
   float* red = sc + rs * chunk_keys;       // [KG][rs][D]
+  int* pg = reinterpret_cast<int*>(red + rs * THREADS);  // [pages_per_chunk] (kTable)
 
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
   const int c = blockIdx.x, hk = blockIdx.y, b = blockIdx.z;
@@ -91,6 +110,12 @@ paged_partial_kernel(const __nv_bfloat16* __restrict__ q, int64_t qsb, int64_t q
     return;
   }
 
+  if constexpr (kTable) {
+    for (int j = tid; j < pages_per_chunk; j += THREADS) {
+      const int slot = c * pages_per_chunk + j;
+      pg[j] = slot < row_pages ? table[(int64_t)b * row_pages + slot] : -1;
+    }
+  }
   for (int i = tid; i < rows * D; i += THREADS) {
     const int r = i / D;
     const int hq = hk * g + r / nt;
@@ -103,7 +128,15 @@ paged_partial_kernel(const __nv_bfloat16* __restrict__ q, int64_t qsb, int64_t q
   const int64_t row_page0 = (int64_t)b * row_pages;
   for (int kk = warp; kk < nkeys; kk += NWARPS) {
     const int pos = key0 + kk;
-    const int64_t page = row_page0 + pos / page_size;
+    int64_t page = row_page0 + pos / page_size;
+    if constexpr (kTable) {
+      page = pg[kk / page_size];
+      if (page < 0) {                        // unmapped: no key
+        if (lane == 0)
+          for (int i = 0; i < rows; ++i) sc[i * chunk_keys + kk] = -INFINITY;
+        continue;
+      }
+    }
     const int64_t slot = (page * Hkv + hk) * page_size + pos % page_size;
     const T* kr = k_pages + slot * D + lane * E;
     float kv[E];
@@ -127,7 +160,8 @@ paged_partial_kernel(const __nv_bfloat16* __restrict__ q, int64_t qsb, int64_t q
     mx = warp_max(mx);
     float sum = 0.0f;
     for (int kk = lane; kk < nkeys; kk += 32) {
-      const float p = expf(sc[i * chunk_keys + kk] - mx);
+      float p = expf(sc[i * chunk_keys + kk] - mx);
+      if constexpr (kTable) p = mx == -INFINITY ? 0.0f : p;   // no mapped page
       sc[i * chunk_keys + kk] = p;
       sum += p;
     }
@@ -146,7 +180,11 @@ paged_partial_kernel(const __nv_bfloat16* __restrict__ q, int64_t qsb, int64_t q
   for (int i = 0; i < R_MAX; ++i) acc[i] = 0.0f;
   for (int kk = kg; kk < nkeys; kk += KG) {
     const int pos = key0 + kk;
-    const int64_t page = row_page0 + pos / page_size;
+    int64_t page = row_page0 + pos / page_size;
+    if constexpr (kTable) {
+      page = pg[kk / page_size];
+      if (page < 0) continue;
+    }
     const int64_t slot = (page * Hkv + hk) * page_size + pos % page_size;
     float vv = page_val(v_pages[slot * D + d]);
     if (kInt8) vv *= v_scale[slot];
@@ -210,8 +248,9 @@ __global__ void paged_merge_kernel(const float* __restrict__ acc, const float* _
 
 // Pointers of one launch. kp / vp: one layer's contiguous [num_pages, Hkv,
 // page_size, D] pages; ks / vs: [num_pages, Hkv, page_size] f32 scales (int8
-// only); acc / m / l: f32 scratch [B, Hkv, nchunks, R(, D)]; out (K4, K6)
-// or acc_o / m_o / l_o (K7): the result.
+// only); table: [B, maxp] int32 (K8, K9; null otherwise); acc / m / l: f32
+// scratch [B, Hkv, nchunks, R(, D)]; out (K4, K6, K8, K9) or acc_o / m_o /
+// l_o (K7): the result.
 struct Args {
   const void* q;
   int64_t qsb, qsh, qst;
@@ -220,6 +259,7 @@ struct Args {
   const float* ks;
   const float* vs;
   const int* length;
+  const int* table;
   float* acc;
   float* m;
   float* l;
@@ -229,21 +269,22 @@ struct Args {
   float* l_o;
 };
 
-template <int D, typename T, int R_MAX>
+template <int D, typename T, int R_MAX, bool kTable>
 cudaError_t launch(const Args& a, int ntok, int B, int Hq, int Hkv, int row_pages,
                    int page_size, int pages_per_chunk, float scale, cudaStream_t stream) {
   const int g = Hq / Hkv, rows = g * ntok;
   if (rows > R_MAX) return cudaErrorInvalidValue;
   const int nchunks = (row_pages + pages_per_chunk - 1) / pages_per_chunk;
   const size_t rs = R_MAX == R_DECODE ? R_MAX : rows;
-  const size_t bytes = sizeof(float) * rs * (D + pages_per_chunk * page_size + THREADS);
-  auto kernel = paged_partial_kernel<D, T, R_MAX>;
+  const size_t bytes = sizeof(float) * rs * (D + pages_per_chunk * page_size + THREADS) +
+                       (kTable ? sizeof(int) * pages_per_chunk : 0);
+  auto kernel = paged_partial_kernel<D, T, R_MAX, kTable>;
   cudaError_t err =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
   if (err != cudaSuccess) return err;
   kernel<<<dim3(nchunks, Hkv, B), THREADS, bytes, stream>>>(
       static_cast<const __nv_bfloat16*>(a.q), a.qsb, a.qsh, a.qst, ntok,
-      static_cast<const T*>(a.kp), static_cast<const T*>(a.vp), a.ks, a.vs, a.length,
+      static_cast<const T*>(a.kp), static_cast<const T*>(a.vp), a.ks, a.vs, a.length, a.table,
       row_pages, page_size, pages_per_chunk, nchunks, g, Hkv, scale, a.acc, a.m, a.l);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
@@ -257,17 +298,17 @@ cudaError_t launch(const Args& a, int ntok, int B, int Hq, int Hkv, int row_page
   return cudaGetLastError();
 }
 
-template <typename T, int R_MAX>
+template <typename T, int R_MAX, bool kTable>
 int dispatch(const Args& a, int ntok, int B, int Hq, int Hkv, int row_pages, int page_size,
              int pages_per_chunk, int D, float scale, void* stream) {
   auto st = static_cast<cudaStream_t>(stream);
   cudaError_t err;
   if (D == 64)
-    err = launch<64, T, R_MAX>(a, ntok, B, Hq, Hkv, row_pages, page_size, pages_per_chunk,
-                               scale, st);
+    err = launch<64, T, R_MAX, kTable>(a, ntok, B, Hq, Hkv, row_pages, page_size,
+                                       pages_per_chunk, scale, st);
   else if (D == 128)
-    err = launch<128, T, R_MAX>(a, ntok, B, Hq, Hkv, row_pages, page_size, pages_per_chunk,
-                                scale, st);
+    err = launch<128, T, R_MAX, kTable>(a, ntok, B, Hq, Hkv, row_pages, page_size,
+                                        pages_per_chunk, scale, st);
   else
     err = cudaErrorInvalidValue;
   return static_cast<int>(err);
@@ -284,10 +325,10 @@ extern "C" int sc_paged_decode(const void* q, int64_t qsb, int64_t qsh, const vo
                                int Hkv, int row_pages, int page_size, int pages_per_chunk,
                                int D, float scale, void* acc, void* m, void* l, void* out,
                                void* stream) {
-  const sc::Args a{q, qsb, qsh, 0, k_pages, v_pages, nullptr, nullptr, length,
+  const sc::Args a{q, qsb, qsh, 0, k_pages, v_pages, nullptr, nullptr, length, nullptr,
                    static_cast<float*>(acc), static_cast<float*>(m), static_cast<float*>(l),
                    static_cast<__nv_bfloat16*>(out), nullptr, nullptr, nullptr};
-  return sc::dispatch<__nv_bfloat16, sc::R_DECODE>(a, 1, B, Hq, Hkv, row_pages, page_size,
+  return sc::dispatch<__nv_bfloat16, sc::R_DECODE, false>(a, 1, B, Hq, Hkv, row_pages, page_size,
                                                    pages_per_chunk, D, scale, stream);
 }
 
@@ -300,10 +341,10 @@ extern "C" int sc_paged_decode_int8(const void* q, int64_t qsb, int64_t qsh,
                                     int page_size, int pages_per_chunk, int D, float scale,
                                     void* acc, void* m, void* l, void* out, void* stream) {
   const sc::Args a{q, qsb, qsh, 0, k_pages, v_pages, static_cast<const float*>(k_scale),
-                   static_cast<const float*>(v_scale), length, static_cast<float*>(acc),
-                   static_cast<float*>(m), static_cast<float*>(l),
+                   static_cast<const float*>(v_scale), length, nullptr,
+                   static_cast<float*>(acc), static_cast<float*>(m), static_cast<float*>(l),
                    static_cast<__nv_bfloat16*>(out), nullptr, nullptr, nullptr};
-  return sc::dispatch<int8_t, sc::R_DECODE>(a, 1, B, Hq, Hkv, row_pages, page_size,
+  return sc::dispatch<int8_t, sc::R_DECODE, false>(a, 1, B, Hq, Hkv, row_pages, page_size,
                                             pages_per_chunk, D, scale, stream);
 }
 
@@ -317,11 +358,11 @@ extern "C" int sc_paged_seq_partial(const void* q, int64_t qsb, int64_t qsh, int
                                     int page_size, int pages_per_chunk, int D, float scale,
                                     void* acc, void* m, void* l, void* acc_o, void* m_o,
                                     void* l_o, void* stream) {
-  const sc::Args a{q, qsb, qsh, qst, k_pages, v_pages, nullptr, nullptr, length,
+  const sc::Args a{q, qsb, qsh, qst, k_pages, v_pages, nullptr, nullptr, length, nullptr,
                    static_cast<float*>(acc), static_cast<float*>(m), static_cast<float*>(l),
                    nullptr, static_cast<float*>(acc_o), static_cast<float*>(m_o),
                    static_cast<float*>(l_o)};
-  return sc::dispatch<__nv_bfloat16, sc::R_PARTIAL>(a, ntok, B, Hq, Hkv, row_pages, page_size,
+  return sc::dispatch<__nv_bfloat16, sc::R_PARTIAL, false>(a, ntok, B, Hq, Hkv, row_pages, page_size,
                                                     pages_per_chunk, D, scale, stream);
 }
 
@@ -334,10 +375,41 @@ extern "C" int sc_paged_seq_partial_int8(const void* q, int64_t qsb, int64_t qsh
                                          int D, float scale, void* acc, void* m, void* l,
                                          void* acc_o, void* m_o, void* l_o, void* stream) {
   const sc::Args a{q, qsb, qsh, qst, k_pages, v_pages, static_cast<const float*>(k_scale),
-                   static_cast<const float*>(v_scale), length, static_cast<float*>(acc),
-                   static_cast<float*>(m), static_cast<float*>(l), nullptr,
-                   static_cast<float*>(acc_o), static_cast<float*>(m_o),
+                   static_cast<const float*>(v_scale), length, nullptr,
+                   static_cast<float*>(acc), static_cast<float*>(m), static_cast<float*>(l),
+                   nullptr, static_cast<float*>(acc_o), static_cast<float*>(m_o),
                    static_cast<float*>(l_o)};
-  return sc::dispatch<int8_t, sc::R_PARTIAL>(a, ntok, B, Hq, Hkv, row_pages, page_size,
+  return sc::dispatch<int8_t, sc::R_PARTIAL, false>(a, ntok, B, Hq, Hkv, row_pages, page_size,
                                              pages_per_chunk, D, scale, stream);
+}
+
+// K8: as sc_paged_decode over a shared pool read through table [B, maxp]
+// int32 (-1 = unmapped; every entry must be -1 or a page of the pool);
+// acc/m/l: f32 scratch of [B, Hkv, ceil(maxp / pages_per_chunk), g(, D)].
+extern "C" int sc_paged_decode_table(const void* q, int64_t qsb, int64_t qsh,
+                                     const void* k_pages, const void* v_pages, const int* table,
+                                     const int* length, int B, int Hq, int Hkv, int maxp,
+                                     int page_size, int pages_per_chunk, int D, float scale,
+                                     void* acc, void* m, void* l, void* out, void* stream) {
+  const sc::Args a{q, qsb, qsh, 0, k_pages, v_pages, nullptr, nullptr, length, table,
+                   static_cast<float*>(acc), static_cast<float*>(m), static_cast<float*>(l),
+                   static_cast<__nv_bfloat16*>(out), nullptr, nullptr, nullptr};
+  return sc::dispatch<__nv_bfloat16, sc::R_DECODE, true>(a, 1, B, Hq, Hkv, maxp, page_size,
+                                                         pages_per_chunk, D, scale, stream);
+}
+
+// K9: K8 over int8 pages with their f32 scales [num_pages, Hkv, page_size].
+extern "C" int sc_paged_decode_table_int8(const void* q, int64_t qsb, int64_t qsh,
+                                          const void* k_pages, const void* v_pages,
+                                          const void* k_scale, const void* v_scale,
+                                          const int* table, const int* length, int B, int Hq,
+                                          int Hkv, int maxp, int page_size, int pages_per_chunk,
+                                          int D, float scale, void* acc, void* m, void* l,
+                                          void* out, void* stream) {
+  const sc::Args a{q, qsb, qsh, 0, k_pages, v_pages, static_cast<const float*>(k_scale),
+                   static_cast<const float*>(v_scale), length, table,
+                   static_cast<float*>(acc), static_cast<float*>(m), static_cast<float*>(l),
+                   static_cast<__nv_bfloat16*>(out), nullptr, nullptr, nullptr};
+  return sc::dispatch<int8_t, sc::R_DECODE, true>(a, 1, B, Hq, Hkv, maxp, page_size,
+                                                  pages_per_chunk, D, scale, stream);
 }

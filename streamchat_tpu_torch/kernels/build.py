@@ -45,6 +45,10 @@ SIGNATURES = {
                         _I, _F, _P, _P, _P, _P, _P],
     "sc_paged_decode_int8": [_P, _I64, _I64, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
                              _I, _I, _F, _P, _P, _P, _P, _P],
+    "sc_paged_decode_table": [_P, _I64, _I64, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _F,
+                              _P, _P, _P, _P, _P],
+    "sc_paged_decode_table_int8": [_P, _I64, _I64, _P, _P, _P, _P, _P, _P] + [_I] * 7 + [_F]
+                                  + [_P] * 5,
     "sc_paged_seq_partial": [_P, _I64, _I64, _I64, _I, _P, _P, _P] + [_I] * 7 + [_F]
                             + [_P] * 7,
     "sc_paged_seq_partial_int8": [_P, _I64, _I64, _I64, _I, _P, _P, _P, _P, _P] + [_I] * 7

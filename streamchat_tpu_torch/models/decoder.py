@@ -15,10 +15,14 @@ called by `models/generate._prefill_inline` for prompts over
 `CHUNKED_PREFILL_THRESHOLD` tokens): chunk 0 attends within itself through
 K3 over its fresh K/V, every later chunk attends causally against the
 whole cache up to its horizon (`kv_view`) through the K5 kernel
-(`ops.attention.flash_attention_partial`). The cache is the dense bf16
-`KVCache` or, for int8 KV pages, the `Int8KVCache`: values are quantized
-on write and later chunks attend through a per-layer dequantized view, so
-the result is the JAX package's, not a bf16 prefill quantized afterwards.
+(`ops.attention.flash_attention_partial`). A row whose last token lies
+before the final chunk (a shorter row of a batch padded to a longer one)
+gets its next-token logits from a re-run of a chunk-sized window over the
+completed cache, whose K/V must not land in the cache (see `_rerun_last`).
+The cache is the dense bf16 `KVCache` or, for int8 KV pages, the
+`Int8KVCache`: values are quantized on write and later chunks attend
+through a per-layer dequantized view, so the result is the JAX package's,
+not a bf16 prefill quantized afterwards.
 """
 
 from __future__ import annotations
@@ -192,21 +196,23 @@ def _chunk_cache_attention(q: torch.Tensor, k_cache: torch.Tensor, v_cache: torc
     return (acc / l_safe[..., None]).to(q.dtype)
 
 
-def _write_kv(cache, i: int, start: int, k: torch.Tensor, v: torch.Tensor) -> None:
-    """Write a block's K/V [B, Hkv, S, Dh] into layer i at [start, start + S),
-    in place; an `Int8KVCache` quantizes them on the way."""
+def _write_kv(cache, i: int, start: int, k: torch.Tensor, v: torch.Tensor,
+              rows: slice = slice(None)) -> None:
+    """Write a block's K/V [B, Hkv, S, Dh] into layer i at [start, start + S)
+    of the cache's `rows`, in place; an `Int8KVCache` quantizes them on the
+    way."""
     s = k.shape[2]
     if isinstance(cache, Int8KVCache):
         from streamchat_tpu_torch.models.paged_kv import _quantize_kv
 
         vals, sc = _quantize_kv(torch.stack([k, v]))
-        cache.k[i, :, :, start:start + s] = vals[0]
-        cache.v[i, :, :, start:start + s] = vals[1]
-        cache.k_s[i, :, :, start:start + s] = sc[0]
-        cache.v_s[i, :, :, start:start + s] = sc[1]
+        cache.k[i, rows, :, start:start + s] = vals[0]
+        cache.v[i, rows, :, start:start + s] = vals[1]
+        cache.k_s[i, rows, :, start:start + s] = sc[0]
+        cache.v_s[i, rows, :, start:start + s] = sc[1]
     else:
-        cache.k[i, :, :, start:start + s] = k
-        cache.v[i, :, :, start:start + s] = v
+        cache.k[i, rows, :, start:start + s] = k
+        cache.v[i, rows, :, start:start + s] = v
 
 
 def _cache_view(cache, i: int, kv_view: int, dtype):
@@ -221,7 +227,7 @@ def _cache_view(cache, i: int, kv_view: int, dtype):
 
 def forward(params: Params, cfg: DecoderConfig, embeds: torch.Tensor,
             positions: torch.Tensor, cache, seq_length: torch.Tensor, *,
-            start: int = 0, chunked: bool = False, kv_view: int | None = None):
+            start: int | list = 0, chunked: bool = False, kv_view: int | None = None):
     """Prefill the stack over embeds [B, S, D], writing K/V at [start, start
     + S) of a `KVCache` or `Int8KVCache` -> (post-norm hidden [B, S, D],
     cache with length = start + seq_length).
@@ -230,11 +236,17 @@ def forward(params: Params, cfg: DecoderConfig, embeds: torch.Tensor,
     padding, masked by kv_length). Without `chunked` the block attends
     within itself (K3 over its fresh K/V, bf16 even for an int8 cache);
     with it, causally against the cache's first `kv_view` tokens (all of
-    them when None), this block included (K5).
+    them when None), this block included (K5). `start` may be a list of
+    per-row offsets (the re-run window of `prefill_chunked`): each row
+    writes at its own, and the causal offset of the block is row 0's, as
+    in the JAX package.
     """
     b, s, _ = embeds.shape
     hq, hkv, dh = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
-    kv_length = (start + seq_length).to(torch.int32)
+    per_row = isinstance(start, (list, tuple))
+    q_offset = start[0] if per_row else start
+    starts = torch.tensor(start, device=embeds.device) if per_row else start
+    kv_length = (starts + seq_length).to(torch.int32)
     view = cache.k.shape[3] if kv_view is None else kv_view
     x = embeds
     for i, p in enumerate(params["layers"]):
@@ -242,10 +254,14 @@ def forward(params: Params, cfg: DecoderConfig, embeds: torch.Tensor,
         q, k, v = qkv_proj(h, p["attn"], b, s, hq, hkv, dh)
         q = rope(q, positions, cfg.rope_theta)
         k = rope(k, positions, cfg.rope_theta)
-        _write_kv(cache, i, start, k, v)
+        if per_row:
+            for r, st in enumerate(start):
+                _write_kv(cache, i, st, k[r:r + 1], v[r:r + 1], slice(r, r + 1))
+        else:
+            _write_kv(cache, i, start, k, v)
         if chunked:
             kd, vd = _cache_view(cache, i, view, k.dtype)
-            o = _chunk_cache_attention(q, kd, vd, start, kv_length)
+            o = _chunk_cache_attention(q, kd, vd, q_offset, kv_length)
         else:
             o = flash_attention(q, k, v, kv_length, causal=True)
         x = x + _proj(o.transpose(1, 2).reshape(b, s, hq * dh), p["attn"]["o"])
@@ -302,8 +318,9 @@ def prefill_chunked(params: Params, cfg: DecoderConfig, embeds: torch.Tensor, ca
     padded to a 128 multiple (when the cache has room) and the final chunk
     may be partial. Chunk 0 runs as a plain prefill; chunk `off` writes at
     `off` and attends the cache's first off + width tokens (its causal
-    horizon). Only the reference's `reuse` branch is ported: every row's
-    last token must sit in the final chunk, which always holds at B = 1.
+    horizon). When every row's last token sits in the final chunk its
+    hidden state gives the logits; otherwise a chunk-sized window is re-run
+    over the completed cache (`_rerun_last`).
     """
     b, s, _ = embeds.shape
     if s <= chunk:
@@ -318,11 +335,6 @@ def prefill_chunked(params: Params, cfg: DecoderConfig, embeds: torch.Tensor, ca
         s = s128
     offsets = list(range(0, s, chunk))
     final_off = offsets[-1]
-    if int(seq_length.min()) - 1 < final_off:
-        raise NotImplementedError(
-            "prefill_chunked: a row whose last token is not in the final chunk needs "
-            "the reference's re-run branch, which comes with batched rows: ROADMAP "
-            "§A 5 'Batched captioning'")
     dev = embeds.device
     for off in offsets:
         width = min(chunk, s - off)
@@ -331,7 +343,40 @@ def prefill_chunked(params: Params, cfg: DecoderConfig, embeds: torch.Tensor, ca
             params, cfg, embeds[:, off:off + width], positions, cache,
             torch.full((b,), width, dtype=torch.int32, device=dev), start=off,
             chunked=off > 0, kv_view=off + width if off > 0 else None)
+    last = [int(n) - 1 for n in seq_length.tolist()]
+    if min(last) >= final_off:
+        rows = hidden[torch.arange(b, device=dev), torch.tensor(last, device=dev) - final_off]
+    else:
+        rows = _rerun_last(params, cfg, embeds, cache, last, chunk)
     cache.length = seq_length.to(device=dev, dtype=torch.int32).clone()
-    last = seq_length.to(dev).long() - 1 - final_off
-    rows = hidden[torch.arange(b, device=dev), last]                 # [B, D]
     return logits_from_hidden(params, cfg, rows[:, None])[:, 0], cache
+
+
+def _rerun_last(params: Params, cfg: DecoderConfig, embeds: torch.Tensor, cache,
+                last: list, chunk: int) -> torch.Tensor:
+    """Post-norm hidden state [B, D] of each row's last token (positions
+    `last`) from a re-run of the window win = min((last // chunk) * chunk,
+    S - chunk) over the completed cache: `chunk` tokens at win .. win +
+    chunk attend causally against the whole cache (K5).
+
+    The JAX package writes the window's K/V into a copy of the cache that
+    it drops. The port's `forward` writes in place, and the recomputed K/V
+    come from another chunking, so they are not bit-equal to the cache's:
+    each row's window of every layer is saved first and put back after, so
+    that the cache decode reads is the prefill's."""
+    b, s, _ = embeds.shape
+    dev = embeds.device
+    win = [min((p // chunk) * chunk, s - chunk) for p in last]
+    tensors = [cache.k, cache.v] + ([cache.k_s, cache.v_s] if isinstance(cache, Int8KVCache)
+                                    else [])
+    saved = [[t[:, r, :, w:w + chunk].clone() for t in tensors] for r, w in enumerate(win)]
+    blk = torch.stack([embeds[r, w:w + chunk] for r, w in enumerate(win)])
+    positions = torch.tensor(win, device=dev)[:, None] + torch.arange(chunk, device=dev)[None]
+    hidden, cache = forward(params, cfg, blk, positions, cache,
+                            torch.full((b,), chunk, dtype=torch.int32, device=dev), start=win,
+                            chunked=True)
+    for r, w in enumerate(win):
+        for t, keep in zip(tensors, saved[r]):
+            t[:, r, :, w:w + chunk] = keep
+    idx = torch.tensor([p - w for p, w in zip(last, win)], device=dev)
+    return hidden[torch.arange(b, device=dev), idx]

@@ -1,25 +1,39 @@
-"""Paged autoregressive generation, single row
-(`streamchat_tpu/models/generate_paged.py`, the B = 1 path of
-`_generate_paged_jit` / `_run_decode_loop`).
+"""Paged autoregressive generation (`streamchat_tpu/models/generate_paged.py`),
+single rows and batches.
 
-Prefill into a dense cache (`generate._prefill_inline`: one pass up to
-`CHUNKED_PREFILL_THRESHOLD` tokens, chunks beyond it), paged into an
-identity-mapped pool sized for prompt + max_new (+ spec_tokens) tokens (so
-it never overflows and needs no allocator), then a Python loop: sample ->
-write -> decode step through the K4 kernel. Finished rows emit the pad id;
-`count` is the number of tokens before the first EOS, as in the JAX loop.
+Prefill runs into a dense cache (`generate._prefill_inline`: one pass up
+to `CHUNKED_PREFILL_THRESHOLD` tokens, chunks beyond it), the pages go into
+a pool, then a Python loop: sample -> (allocate) -> write -> decode step.
+Finished rows emit the pad id; `count` is the number of tokens before the
+first EOS, as in the JAX loop. The dispatch is the JAX package's:
 
-kv_int8 stores the pool as int8 pages and decodes through the K6 kernel. A
-prompt over the threshold prefills into the int8 dense `Int8KVCache`
-(quantized on write, later chunks attend its dequantized view) and is then
-repaged as it is; a shorter one prefills bf16 and is quantized layer by
-layer when paged, as in the JAX package.
+* B > 1 rows and no caller-sized pool: the split path
+  (`_generate_paged_split`). Each row prefills alone (B = 1, so a short
+  row of a long batch takes the chunked prefill's re-run branch) and its
+  pages land in its slice of a statically partitioned pool, rounded to
+  whole `SEQ_POOL_BLOCK`s per row; then one batched decode loop reads the
+  pool in row order (K4 / K6, K7 for speculative steps). Rows may be a
+  list whose entries after the first are callables: a row is made only at
+  its prefill turn and dropped once its pages have landed.
+* Otherwise one program (`_generate_paged_one`). A single row on the
+  default pool (all its pages mapped in pool order), or a caller's pool
+  that is a static partition (num_pages == B * maxp, maxp a multiple of
+  8), reads the pool in row order as above. Any other caller-sized pool
+  (`num_pages`, `max_pages_per_seq`) prefills all rows densely, pages them
+  with `from_contiguous`, and maps pages as rows grow with the allocator
+  inside the decode loop; decode then reads through the page table (K8 /
+  K9). An exhausted pool or table raises `RuntimeError` before any step
+  reads another row's pages.
+
+kv_int8 stores the pool as int8 pages. A prompt over the threshold prefills
+into the int8 dense `Int8KVCache` and is repaged as it is; a shorter one
+prefills bf16 and is quantized when paged, as in the JAX package.
 
 spec_tokens > 0 runs the speculative verify loop instead
-(`models/spec_decode`, the K7 kernel): prompt-lookup drafts over
-`lookup_tokens` plus everything generated, exact greedy / rejection-sampled
-acceptance, top_p unsupported. Batched rows (`caption_batch > 1`) and H2O
-eviction are not ported yet (ROADMAP §A).
+(`models/spec_decode`, the K7 kernel) on a pool in row order: prompt-lookup
+drafts over `lookup_tokens` plus everything generated, exact greedy /
+rejection-sampled acceptance, top_p unsupported. H2O eviction is not
+ported yet (ROADMAP §A).
 """
 
 from __future__ import annotations
@@ -34,6 +48,12 @@ import torch
 from streamchat_tpu_torch.config import DecoderConfig
 from streamchat_tpu_torch.models import decoder, generate
 from streamchat_tpu_torch.models.paged_kv import (
+    PagedKVCache,
+    PagedKVCacheInt8,
+    _place,
+    _quantize_kv,
+    _row_table,
+    allocate_pages_checked,
     decode_step_paged,
     decode_step_paged_int8,
     from_contiguous,
@@ -42,60 +62,70 @@ from streamchat_tpu_torch.models.paged_kv import (
 from streamchat_tpu_torch.models.spec_decode import run_spec_decode_loop
 from streamchat_tpu_torch.ops.sampling import sample_token
 
+# Pages of a partitioned pool's row are rounded to a multiple of this (the
+# JAX package's TPU kernel block, `ops/paged_attention.SEQ_POOL_BLOCK`), so
+# that pools and tables equal the JAX package's element by element.
+SEQ_POOL_BLOCK = 32
 
-def generate_paged(params, cfg: DecoderConfig, prompt_embeds: torch.Tensor,
-                   seq_length: torch.Tensor, generator: torch.Generator | None = None,
-                   *, max_new_tokens: int, page_size: int = 128,
-                   temperature: float = 0.0, top_p: float | None = None,
-                   eos_ids: Sequence[int] | None = None, kv_int8: bool = False,
-                   spec_tokens: int = 0, spec_ngram: int = 3,
+_OVERFLOW_MSG = (
+    "paged KV allocator overflowed during decode: the page pool or a "
+    "row's page table ran out and H2O compression (if enabled) could "
+    "not free enough — output tokens would read another sequence's KV")
+
+
+def generate_paged(params, cfg: DecoderConfig, prompt_embeds, seq_length: torch.Tensor,
+                   generator: torch.Generator | None = None, *, max_new_tokens: int,
+                   page_size: int = 128, num_pages: int | None = None,
+                   max_pages_per_seq: int | None = None, temperature: float = 0.0,
+                   top_p: float | None = None, eos_ids: Sequence[int] | None = None,
+                   kv_int8: bool = False, spec_tokens: int = 0, spec_ngram: int = 3,
                    lookup_tokens: torch.Tensor | None = None,
                    lookup_len: torch.Tensor | None = None,
                    stats: Optional[dict] = None) -> Tuple[np.ndarray, np.ndarray]:
     """-> (tokens [B, max_new] int64, count [B]) as numpy arrays.
 
-    prompt_embeds [1, S, D] padded; seq_length [1] valid prompt tokens.
-    `stats`, when given, accumulates "prefill_s", "decode_s" (host
-    wall-clock, each ending in a device synchronize), "decode_steps" (decode
-    or verify forward passes), "prompt_tokens" (padded) and
-    "generated_tokens" (before EOS) in place; a speculative run adds
-    "verify_steps" and "accepted_tokens" (tokens its verify steps emitted).
+    prompt_embeds [B, S, D] padded, or a list of B [1, S, D] rows (entries
+    after the first may be callables that make the row; the list is
+    consumed); seq_length [B] valid prompt tokens. `num_pages` /
+    `max_pages_per_seq` size the pool (default: every row's prompt plus
+    max_new + spec_tokens tokens). `stats`, when given, accumulates
+    "prefill_s", "decode_s" (host wall-clock, each ending in a device
+    synchronize), "decode_steps" (decode or verify forward passes),
+    "prompt_tokens" (padded, all rows), "generated_tokens" (before EOS) and
+    "batched_rows" (rows of calls with B > 1) in place; a speculative run
+    adds "verify_steps" and "accepted_tokens" (tokens its verify steps
+    emitted).
     """
-    b, s, _ = prompt_embeds.shape
-    if b != 1:
-        raise NotImplementedError(
-            "batched paged generation (caption_batch > 1) is not ported yet: "
-            "ROADMAP §A 'Batched captioning'")
+    as_rows = isinstance(prompt_embeds, (list, tuple))
+    b = len(prompt_embeds) if as_rows else prompt_embeds.shape[0]
     if spec_tokens > 0 and top_p is not None:
         raise ValueError("speculative decode supports top_p=None only")
     if eos_ids is None:
         eos_ids = (cfg.eos_token_id,)
-    dev = prompt_embeds.device
-    threshold = generate.CHUNKED_PREFILL_THRESHOLD
-    # A chunked prefill needs the 128-padded prompt inside the dense cache.
-    align = math.lcm(page_size, 128) if s > threshold else page_size
-    s_pad = -(-s // align) * align
-    if s_pad > s:
-        prompt_embeds = torch.nn.functional.pad(prompt_embeds, (0, 0, 0, s_pad - s))
-    seq_length = seq_length.to(device=dev, dtype=torch.int32)
     t0 = time.perf_counter()
-    if kv_int8 and s_pad > threshold:
-        dense = decoder.Int8KVCache.create(cfg, b, s_pad, device=dev)
+    kw = dict(max_new_tokens=max_new_tokens, page_size=page_size, kv_int8=kv_int8,
+              spec_tokens=spec_tokens)
+    if b > 1 and num_pages is None and max_pages_per_seq is None:
+        cache, logits, s_pad = _generate_paged_split(params, cfg, prompt_embeds, seq_length,
+                                                     **kw)
+        row_order = True
     else:
-        dense = decoder.KVCache.create(cfg, b, s_pad, dtype=prompt_embeds.dtype, device=dev)
-    logits, dense = generate._prefill_inline(params, cfg, prompt_embeds, dense, seq_length)
-    # + spec_tokens: a verify step writes its whole block before acceptance.
-    maxp = -(-(s_pad + max_new_tokens + spec_tokens) // page_size)
-    if kv_int8:
-        cache = from_contiguous_int8(dense, maxp, maxp, page_size)
-        step_fn = decode_step_paged_int8
-    else:
-        cache = from_contiguous(dense, maxp, maxp, page_size)
-        step_fn = decode_step_paged
-    del dense
-    # The pool is identity-mapped and read in pool order: map every page,
-    # not only the prompt's, so an append past them lands where it is read.
-    cache.page_table = torch.arange(maxp, dtype=torch.int32, device=dev)[None]
+        if as_rows:
+            prompt_embeds = torch.cat([r() if callable(r) else r for r in prompt_embeds])
+        cache, logits, s_pad, row_order = _generate_paged_one(
+            params, cfg, prompt_embeds, seq_length, num_pages=num_pages,
+            max_pages_per_seq=max_pages_per_seq, **kw)
+    dev = logits.device
+    seq_length = seq_length.to(device=dev, dtype=torch.int32)
+    if spec_tokens > 0 and not (row_order or b == 1):
+        raise ValueError("speculative decode needs a row-ordered pool "
+                         "(batch 1 or the statically partitioned batched pool)")
+    if spec_tokens > 0 and not row_order:
+        # The verify step has no allocator: map every page the loop can touch.
+        cache, over = allocate_pages_checked(
+            cache, torch.full((b,), max_new_tokens + spec_tokens, device=dev))
+        if bool(over):
+            raise RuntimeError(_OVERFLOW_MSG)
     if stats is not None and dev.type == "cuda":
         torch.cuda.synchronize(dev)
     t1 = time.perf_counter()
@@ -111,26 +141,204 @@ def generate_paged(params, cfg: DecoderConfig, prompt_embeds: torch.Tensor,
             for k, v in (("verify_steps", step), ("accepted_tokens", emitted)):
                 stats[k] = stats.get(k, 0) + v
     else:
-        eos = torch.tensor(list(eos_ids), device=dev)
-        out = torch.full((b, max_new_tokens), cfg.pad_token_id, dtype=torch.int64,
-                         device=dev)
-        done = torch.zeros(b, dtype=torch.bool, device=dev)
-        step = 0
-        while step < max_new_tokens:
-            tok = sample_token(logits, generator, temperature=temperature, top_p=top_p)
-            tok = torch.where(done, torch.full_like(tok, cfg.pad_token_id), tok)
-            done = done | torch.isin(tok, eos)
-            out[:, step] = tok
-            logits, cache = step_fn(params, cfg, tok, cache)
-            step += 1
-            if bool(done.all()):
-                break
-        toks = out.cpu().numpy()
+        toks, step = _decode_loop(params, cfg, cache, logits, seq_length, generator,
+                                  row_order=row_order,
+                                  max_new_tokens=max_new_tokens, temperature=temperature,
+                                  top_p=top_p, eos_ids=eos_ids, kv_int8=kv_int8)
         before_eos = np.cumsum(np.isin(toks, list(eos_ids)), axis=1) == 0
         count = np.minimum(before_eos.sum(axis=1), step)
     if stats is not None:
         for k, v in (("prefill_s", t1 - t0), ("decode_s", time.perf_counter() - t1),
-                     ("decode_steps", step), ("prompt_tokens", s_pad),
-                     ("generated_tokens", int(count.sum()))):
+                     ("decode_steps", step), ("prompt_tokens", b * s_pad),
+                     ("generated_tokens", int(count.sum())),
+                     ("batched_rows", b if b > 1 else 0)):
             stats[k] = stats.get(k, 0) + v
     return toks, count
+
+
+def _decode_loop(params, cfg, cache, logits, seq_length, generator, *, row_order,
+                 max_new_tokens, temperature, top_p, eos_ids, kv_int8):
+    """Vanilla decode -> (tokens [B, max_new] numpy, steps taken).
+
+    `row_order`: every page is mapped and the pool is read in row order (K4
+    / K6). Otherwise pages are mapped as rows grow and read through the
+    table (K8 / K9): a row needs a new page when its length is a multiple
+    of the page size (the JAX loop's allocator call with ones is a no-op
+    otherwise), and lengths are tracked on the host, so only those steps
+    read the overflow flag back."""
+    b = seq_length.shape[0]
+    dev = logits.device
+    step_fn = decode_step_paged_int8 if kv_int8 else decode_step_paged
+    ps = cache.page_size
+    eos = torch.tensor(list(eos_ids), device=dev)
+    out = torch.full((b, max_new_tokens), cfg.pad_token_id, dtype=torch.int64, device=dev)
+    done = torch.zeros(b, dtype=torch.bool, device=dev)
+    lengths = seq_length.tolist()
+    ones = torch.ones(b, dtype=torch.int32, device=dev)
+    step = 0
+    while step < max_new_tokens:
+        tok = sample_token(logits, generator, temperature=temperature, top_p=top_p)
+        tok = torch.where(done, torch.full_like(tok, cfg.pad_token_id), tok)
+        done = done | torch.isin(tok, eos)
+        out[:, step] = tok
+        if not row_order and any(n % ps == 0 for n in lengths):
+            cache, over = allocate_pages_checked(cache, ones)
+            if bool(over):
+                raise RuntimeError(_OVERFLOW_MSG)
+        logits, cache = step_fn(params, cfg, tok, cache, sequential_pages=row_order)
+        lengths = [n + 1 for n in lengths]
+        step += 1
+        if bool(done.all()):
+            break
+    return out.cpu().numpy(), step
+
+
+def _padded_length(s: int, page_size: int) -> int:
+    """A chunked prefill needs the 128-padded prompt inside the dense cache."""
+    align = math.lcm(page_size, 128) if s > generate.CHUNKED_PREFILL_THRESHOLD else page_size
+    return -(-s // align) * align
+
+
+def _dense_cache(cfg, rows: int, s_pad: int, kv_int8: bool, dtype, device):
+    """A long kv_int8 prompt prefills straight into the int8 dense cache."""
+    if kv_int8 and s_pad > generate.CHUNKED_PREFILL_THRESHOLD:
+        return decoder.Int8KVCache.create(cfg, rows, s_pad, device=device)
+    return decoder.KVCache.create(cfg, rows, s_pad, dtype=dtype, device=device)
+
+
+def _empty_cache(cfg, b: int, maxp: int, page_size: int, kv_int8: bool, dtype, device):
+    """A statically partitioned pool of zero pages: row r owns pages
+    [r * maxp, (r + 1) * maxp), its table fully mapped."""
+    table, num_pages = _row_table(b, 0, maxp, True, device)
+    shape = (cfg.num_layers, num_pages, cfg.num_kv_heads, page_size, cfg.head_dim)
+    common = dict(page_table=table, length=torch.zeros(b, dtype=torch.int32, device=device),
+                  next_free=torch.tensor(num_pages, dtype=torch.int32, device=device))
+    if kv_int8:
+        return PagedKVCacheInt8(
+            k_pages=torch.zeros(shape, dtype=torch.int8, device=device),
+            v_pages=torch.zeros(shape, dtype=torch.int8, device=device),
+            k_scale=torch.zeros(shape[:4], dtype=torch.float32, device=device),
+            v_scale=torch.zeros(shape[:4], dtype=torch.float32, device=device), **common)
+    return PagedKVCache(k_pages=torch.zeros(shape, dtype=dtype, device=device),
+                        v_pages=torch.zeros(shape, dtype=dtype, device=device), **common)
+
+
+def _scatter_row_into_pools(cache, dense, ri: int, maxp: int) -> None:
+    """Copy ONE row's dense cache ([L, 1, Hkv, S(, Dh)]) into its partition
+    [ri * maxp, ri * maxp + S / page_size) of the pool, in place, one layer
+    at a time; a bf16 row bound for int8 pages is quantized on the way
+    (per-(token, head) scales, as `paged_kv._quantize_kv`)."""
+    ppr = dense.k.shape[3] // cache.page_size
+    int8_pool = isinstance(cache, PagedKVCacheInt8)
+    pools = {"k": cache.k_pages, "v": cache.v_pages}
+    if int8_pool:
+        pools.update(k_s=cache.k_scale, v_s=cache.v_scale)
+    for i in range(dense.k.shape[0]):
+        vals = {"k": dense.k[i], "v": dense.v[i]}              # [1, Hkv, S(, Dh)]
+        if isinstance(dense, decoder.Int8KVCache):
+            vals.update(k_s=dense.k_s[i], v_s=dense.v_s[i])
+        elif int8_pool:
+            (vals["k"], vals["k_s"]), (vals["v"], vals["v_s"]) = (
+                _quantize_kv(vals["k"]), _quantize_kv(vals["v"]))
+        for name, pool in pools.items():
+            _place(vals[name], pool[i, ri * maxp:(ri + 1) * maxp], ppr, ppr)
+
+
+def _prefill_rows(params, cfg, rows: list, seq_length, *, maxp: int, page_size: int,
+                  kv_int8: bool):
+    """Prefill the rows one at a time (B = 1 each) into a statically
+    partitioned pool -> (cache, first logits [B, V], padded length).
+
+    `rows` holds [1, S, D] tensors or (after the first) callables making
+    them; it is consumed, each entry dropped as its pages land."""
+    shape0 = rows[0].shape
+    if any(not callable(r) and r.shape != shape0 for r in rows):
+        raise ValueError("row list must hold equal-shape [1, S, D] rows")
+    b, s = len(rows), shape0[1]
+    s_pad = _padded_length(s, page_size)
+    dev, dtype = rows[0].device, rows[0].dtype
+    cache = _empty_cache(cfg, b, maxp, page_size, kv_int8, dtype, dev)
+    lengths = seq_length.to(device=dev, dtype=torch.int32)
+    logits = []
+    for r in range(b):
+        er, rows[r] = rows[r], None
+        if callable(er):
+            er = er()
+            if er.shape != shape0:
+                raise ValueError(f"lazy row {r} produced shape {tuple(er.shape)}, "
+                                 f"expected {tuple(shape0)}")
+        if s_pad > s:
+            er = torch.nn.functional.pad(er, (0, 0, 0, s_pad - s))
+        dense = _dense_cache(cfg, 1, s_pad, kv_int8, dtype, dev)
+        lg, dense = generate._prefill_inline(params, cfg, er, dense, lengths[r:r + 1])
+        del er
+        _scatter_row_into_pools(cache, dense, r, maxp)
+        logits.append(lg)
+        del dense
+    cache.length = lengths.clone()
+    return cache, torch.cat(logits), s_pad
+
+
+def _generate_paged_split(params, cfg, prompt_embeds, seq_length, *, max_new_tokens: int,
+                          page_size: int, kv_int8: bool, spec_tokens: int):
+    """Batched rows on the default pool -> (cache, first logits, padded
+    length): row-by-row prefill into a partitioned pool whose rows hold the
+    prompt, max_new_tokens and spec_tokens (a verify step writes its whole
+    block before acceptance), rounded up to whole SEQ_POOL_BLOCKs."""
+    if isinstance(prompt_embeds, (list, tuple)):
+        rows = prompt_embeds if isinstance(prompt_embeds, list) else list(prompt_embeds)
+    else:
+        rows = [prompt_embeds[r:r + 1] for r in range(prompt_embeds.shape[0])]
+    if callable(rows[0]):
+        rows[0] = rows[0]()
+    s_pad = _padded_length(rows[0].shape[1], page_size)
+    maxp = -(-(s_pad + max_new_tokens + spec_tokens) // page_size)
+    maxp = -(-maxp // SEQ_POOL_BLOCK) * SEQ_POOL_BLOCK
+    return _prefill_rows(params, cfg, rows, seq_length, maxp=maxp, page_size=page_size,
+                         kv_int8=kv_int8)
+
+
+def _generate_paged_one(params, cfg, prompt_embeds: torch.Tensor, seq_length, *,
+                        max_new_tokens: int, page_size: int, num_pages, max_pages_per_seq,
+                        kv_int8: bool, spec_tokens: int):
+    """One row, or rows on a caller-sized pool -> (cache, first logits,
+    padded length, row_order). `row_order`: the pool is read in row order
+    with no allocator, for a single row on the default pool (all its pages
+    mapped in pool order) or a static partition prefilled row by row.
+    Otherwise the rows prefill together and decode maps pages with the
+    allocator and reads them through the table; that includes a single row
+    on a caller-sized pool, where the allocator gives the slot after a
+    short row's length a fresh page past its padded prompt's pages (the
+    JAX package's row-order kernel would read that slot from the pool's
+    order; its CPU path, the reference, reads through the table)."""
+    b, s, _ = prompt_embeds.shape
+    s_pad = _padded_length(s, page_size)
+    identity = b == 1 and num_pages is None and max_pages_per_seq is None
+    if max_pages_per_seq is None:
+        max_pages_per_seq = -(-(s_pad + max_new_tokens + spec_tokens) // page_size)
+        if b > 1:
+            max_pages_per_seq = -(-max_pages_per_seq // SEQ_POOL_BLOCK) * SEQ_POOL_BLOCK
+    if num_pages is None:
+        num_pages = b * max_pages_per_seq
+    maxp, cap = max_pages_per_seq, max_pages_per_seq * page_size
+    if b > 1 and num_pages == b * maxp and maxp % 8 == 0 and s_pad <= cap:
+        if bool((seq_length + max_new_tokens + spec_tokens > cap).any()):
+            raise RuntimeError(_OVERFLOW_MSG)
+        rows = [prompt_embeds[r:r + 1] for r in range(b)]
+        cache, logits, s_pad = _prefill_rows(params, cfg, rows, seq_length, maxp=maxp,
+                                             page_size=page_size, kv_int8=kv_int8)
+        return cache, logits, s_pad, True
+    if s_pad > s:
+        prompt_embeds = torch.nn.functional.pad(prompt_embeds, (0, 0, 0, s_pad - s))
+    if s_pad > cap:
+        raise ValueError(f"prompt ({s_pad} tokens) exceeds the page pool ({cap}) and "
+                         "H2O compression is disabled (hh_size=0)")
+    dev = prompt_embeds.device
+    dense = _dense_cache(cfg, b, s_pad, kv_int8, prompt_embeds.dtype, dev)
+    logits, dense = generate._prefill_inline(params, cfg, prompt_embeds, dense,
+                                             seq_length.to(device=dev, dtype=torch.int32))
+    page = from_contiguous_int8 if kv_int8 else from_contiguous
+    cache = page(dense, num_pages, maxp, page_size)
+    if identity:
+        cache.page_table = torch.arange(maxp, dtype=torch.int32, device=dev)[None]
+    return cache, logits, s_pad, identity

@@ -8,7 +8,8 @@ splices the prompt's `<image>` markers with visual embeddings, pads to a
 for the chunks of a prompt over 8192 tokens, K4 decode, or K6 over int8
 pages with `kv_int8`; K7 verify steps with `spec_tokens`). `quantize`
 switches the decoder to int8 / int4 weight-only storage (W8, K10, K11 at
-decode).
+decode). `generate_with_image_embedding_batch` serves several prompts with
+one batched decode loop (batched captioning), each row prefilled alone.
 Random draws come from the `torch.Generator` the facade holds (the JAX
 package's `KeySeq`).
 """
@@ -132,11 +133,33 @@ class LongVA:
                 text_run.append(tid)
         flush_text()
         embeds = torch.cat(segments, dim=0)
-        length = min(embeds.shape[0], self.dec_cfg.max_position_embeddings)
-        padded = pad_to_bucket(length, PROMPT_BUCKET, minimum=PROMPT_BUCKET)
+        padded, length = self._bucketed(embeds.shape[0])
         out = torch.zeros(padded, embeds.shape[1], dtype=dtype, device=self.device)
         out[:length] = embeds[:length]
         return out[None], length
+
+    def _bucketed(self, total: int) -> Tuple[int, int]:
+        """(padded, valid) length of a spliced prompt of `total` tokens."""
+        length = min(total, self.dec_cfg.max_position_embeddings)
+        return pad_to_bucket(length, PROMPT_BUCKET, minimum=PROMPT_BUCKET), length
+
+    def _splice_length(self, prompt: str,
+                       image_embeddings: Optional[Sequence[torch.Tensor]]) -> Tuple[int, int]:
+        """(padded, valid) lengths `splice_prompt` would produce, from the
+        tokens and the blocks' shapes alone (no device work), so a batch can
+        size its rows and splice each one at its prefill turn."""
+        total, img_idx = 0, 0
+        for tid in tokenize_with_image_token(prompt, self.tokenizer):
+            if tid != IMAGE_TOKEN_INDEX:
+                total += 1
+                continue
+            if image_embeddings is None or img_idx >= len(image_embeddings):
+                raise ValueError("prompt has more <image> tokens than embeddings")
+            feats = image_embeddings[img_idx]
+            img_idx += 1
+            for blk in feats if isinstance(feats, (list, tuple)) else [feats]:
+                total += blk.numel() // blk.shape[-1]
+        return self._bucketed(total)
 
     def generate_with_image_embedding(
         self, prompt: str, image_embeddings: Optional[Sequence[torch.Tensor]] = None,
@@ -162,3 +185,35 @@ class LongVA:
                 for p in prompts]
         return {"spec_tokens": self.spec_tokens, "spec_ngram": self.spec_ngram,
                 **build_lookup_arrays(rows)}
+
+    def generate_with_image_embedding_batch(
+        self, prompts: Sequence[str],
+        image_embeddings: Sequence[Optional[Sequence[torch.Tensor]]], *,
+        max_new_tokens: int = 256, temperature: float = 0.0,
+        top_p: float | None = None) -> List[str]:
+        """Several prompts through one `generate_paged` call: ragged rows are
+        padded to the longest row's bucket, each row prefills alone into a
+        partitioned pool and one decode loop serves them all (the weights a
+        decode step reads serve every row). Rows after the first are made
+        lazily, at their prefill turn, so one spliced row at a time waits
+        for its pages."""
+        if not prompts:
+            return []
+        sizes = [self._splice_length(p, e) for p, e in zip(prompts, image_embeddings)]
+        max_pad = max(padded for padded, _ in sizes)
+
+        def make_row(p, embs):
+            e, _ = self.splice_prompt(p, embs)
+            return torch.nn.functional.pad(e, (0, 0, 0, max_pad - e.shape[1]))
+
+        rows = [make_row(prompts[0], image_embeddings[0])] + [
+            (lambda p=p, e=e: make_row(p, e))
+            for p, e in zip(prompts[1:], image_embeddings[1:])]
+        toks, count = generate_paged(
+            self.dec_params, self.dec_cfg, rows,
+            torch.tensor([n for _, n in sizes], dtype=torch.int32, device=self.device),
+            self.generator, max_new_tokens=max_new_tokens, temperature=temperature,
+            top_p=top_p, eos_ids=tuple(self.tokenizer.eos_ids), kv_int8=self.kv_int8,
+            stats=self.gen_stats, **self._spec_kwargs(prompts, top_p))
+        return [self.tokenizer.decode(toks[r][: int(count[r])].tolist()).strip()
+                for r in range(len(prompts))]

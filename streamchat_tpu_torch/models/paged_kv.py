@@ -1,23 +1,36 @@
-"""Paged KV cache and the paged decode step (`streamchat_tpu/models/paged_kv.py`).
+"""Paged KV cache, its page allocator and the paged decode step
+(`streamchat_tpu/models/paged_kv.py`).
 
 One pool per layer, [L, num_pages, Hkv, page_size, Dh], a per-row page
-table [B, max_pages] of pool indices (-1 = unmapped) and per-row lengths.
-Prefill runs on the dense `decoder.KVCache`; `from_contiguous` pages it.
-The port's generation keeps pools in row order (identity table at B = 1,
-statically partitioned rows at B > 1), which is what the K4 kernel
-(`ops.paged_attention.paged_decode_attention_seq`) reads.
+table [B, max_pages] of pool indices (-1 = unmapped), per-row lengths and
+`next_free`, the sequential allocator's next unclaimed page. Prefill runs
+on the dense `decoder.KVCache`; `from_contiguous` pages it, rows claiming
+pages in batch order, or with `partitioned=True` row r owning the static
+slice [r * max_pages, (r + 1) * max_pages) with its table fully mapped.
+`allocate_pages_checked` maps the pages a row's next tokens need, in batch
+order, and flags an exhausted pool or table.
+
+The decode step dispatches as the JAX package does: `sequential_pages=True`
+(an identity-mapped single row or a statically partitioned pool, pages in
+row order) runs the K4 kernel (`ops.paged_attention.paged_decode_attention_seq`),
+the default reads the pages through the table with K8
+(`paged_decode_attention_table`), the pool a caller sized and the allocator
+filled.
 
 Unlike the JAX package's immutable arrays, `append_token_kv` writes the
 pools IN PLACE: one position per row per call (a single indexed store), so
-a decode step never copies a pool.
+a decode step never copies a pool. The allocator returns a new cache object
+with a new table and `next_free` that shares the pools: a table a caller
+still holds is never changed under it.
 
 `PagedKVCacheInt8` stores the pages as int8 with per-(token, head) f32
 scales (`kv_int8`): half the pool bytes, read by the K6 kernel
-(`ops.paged_attention.paged_decode_attention_seq_int8`) with the scales
-commuted out of both contractions. `from_contiguous_int8` quantizes and
-repages a dense bf16 prefill one layer at a time, so the int8 pool and one
-layer's transients are live beside the dense cache, never a second whole
-cache; a long prompt's `decoder.Int8KVCache` is repaged as it is.
+(`ops.paged_attention.paged_decode_attention_seq_int8`) or through the
+table by K9, with the scales commuted out of both contractions.
+`from_contiguous_int8` quantizes and repages a dense bf16 prefill one layer
+at a time, so the int8 pool and one layer's transients are live beside the
+dense cache, never a second whole cache; a long prompt's
+`decoder.Int8KVCache` is repaged as it is.
 """
 
 from __future__ import annotations
@@ -30,6 +43,8 @@ from streamchat_tpu_torch.models import decoder
 from streamchat_tpu_torch.ops.paged_attention import (
     paged_decode_attention_seq,
     paged_decode_attention_seq_int8,
+    paged_decode_attention_table,
+    paged_decode_attention_table_int8,
 )
 
 
@@ -39,54 +54,135 @@ class PagedKVCache:
     v_pages: torch.Tensor
     page_table: torch.Tensor   # [B, max_pages] int32 (-1 = unmapped)
     length: torch.Tensor       # [B] int32 tokens stored per row
+    next_free: torch.Tensor    # [] int32 next unallocated pool page
 
     @property
     def page_size(self) -> int:
         return self.k_pages.shape[3]
 
+    @classmethod
+    def create(cls, cfg, batch: int, num_pages: int, max_pages_per_seq: int,
+               page_size: int = 128, dtype=torch.bfloat16, device="cpu") -> "PagedKVCache":
+        """An empty pool: zero pages, every table entry unmapped."""
+        shape = (cfg.num_layers, num_pages, cfg.num_kv_heads, page_size, cfg.head_dim)
+        return cls(k_pages=torch.zeros(shape, dtype=dtype, device=device),
+                   v_pages=torch.zeros(shape, dtype=dtype, device=device),
+                   page_table=torch.full((batch, max_pages_per_seq), -1, dtype=torch.int32,
+                                         device=device),
+                   length=torch.zeros(batch, dtype=torch.int32, device=device),
+                   next_free=torch.zeros((), dtype=torch.int32, device=device))
 
-def _pages_per_row(cache: decoder.KVCache, num_pages: int, max_pages_per_seq: int,
-                   page_size: int) -> int:
+
+def allocate_pages_checked(cache, tokens_per_seq: torch.Tensor):
+    """Map pool pages for length + tokens per row -> (cache, overflowed).
+
+    Sequential allocation: rows claim page ranges in batch order, starting
+    at `next_free`. `overflowed` is a bool tensor: True when the pool or a
+    row's table ran out; the table then holds entries past the pool, which
+    no decode step may read, so callers check it first. The returned cache
+    has a new table and `next_free` and shares the pools. Works on
+    `PagedKVCache` and `PagedKVCacheInt8`."""
+    b, max_pages = cache.page_table.shape
+    ps = cache.page_size
+    dev = cache.page_table.device
+    length = cache.length.to(dev)
+    have = (length + ps - 1) // ps
+    need = (length + tokens_per_seq.to(dev) + ps - 1) // ps
+    extra = need - have
+    starts = cache.next_free + torch.cumsum(extra, 0) - extra
+    slot = torch.arange(max_pages, device=dev)[None]
+    grow = (slot >= have[:, None]) & (slot < need[:, None])
+    table = torch.where(grow, starts[:, None] + slot - have[:, None],
+                        cache.page_table).to(torch.int32)
+    next_free = (cache.next_free + extra.sum()).to(torch.int32)
+    over = (next_free > cache.k_pages.shape[1]) | (need > max_pages).any()
+    return dataclasses.replace(cache, page_table=table, next_free=next_free), over
+
+
+def allocate_pages(cache, tokens_per_seq: torch.Tensor):
+    """`allocate_pages_checked` that raises ValueError on overflow."""
+    new_cache, over = allocate_pages_checked(cache, tokens_per_seq)
+    if bool(over):
+        raise ValueError(f"paged KV overflow: pool used {int(new_cache.next_free)}"
+                         f"/{cache.k_pages.shape[1]} pages "
+                         f"(max {cache.page_table.shape[1]} pages/seq)")
+    return new_cache
+
+
+# The JAX package's int8 names: the allocator works on either cache.
+allocate_pages_int8_checked = allocate_pages_checked
+allocate_pages_int8 = allocate_pages
+
+
+def has_overflowed(cache, need: torch.Tensor | None = None) -> bool:
+    """True when the pool or a row's page table has been exhausted."""
+    over = bool(cache.next_free > cache.k_pages.shape[1])
+    if need is None:
+        ps = cache.page_size
+        need = (cache.length + ps - 1) // ps
+    return over or bool((need > cache.page_table.shape[1]).any())
+
+
+def _pages_per_row(cache, num_pages: int, max_pages_per_seq: int, page_size: int,
+                   partitioned: bool) -> int:
     _, b, _, lmax, _ = cache.k.shape
     if lmax % page_size:
         raise ValueError(f"Lmax={lmax} not a multiple of page_size={page_size}")
     ppr = lmax // page_size
     if ppr > max_pages_per_seq:
         raise ValueError("max_pages_per_seq too small for the source cache")
+    if partitioned and num_pages != b * max_pages_per_seq:
+        raise ValueError(f"partitioned pool needs num_pages == B*max_pages_per_seq "
+                         f"({b}*{max_pages_per_seq}), got {num_pages}")
     if b * ppr > num_pages:
         raise ValueError("page pool too small for the source cache")
     return ppr
 
 
-def from_contiguous(cache: decoder.KVCache, num_pages: int, max_pages_per_seq: int,
-                    page_size: int = 128) -> PagedKVCache:
-    """Page a prefilled dense cache.
+def _row_table(b: int, ppr: int, max_pages_per_seq: int, partitioned: bool, dev):
+    """(table, next_free) of a paged prefill: rows claim pages sequentially
+    (row r: [r*ppr, (r+1)*ppr), the rest of its table unmapped), or with
+    `partitioned` row r owns [r*maxp, (r+1)*maxp), all of it mapped."""
+    rows = torch.arange(b, device=dev)[:, None]
+    if partitioned:
+        table = rows * max_pages_per_seq + torch.arange(max_pages_per_seq, device=dev)[None]
+        return table.to(torch.int32), b * max_pages_per_seq
+    table = torch.full((b, max_pages_per_seq), -1, dtype=torch.int64, device=dev)
+    table[:, :ppr] = rows * ppr + torch.arange(ppr, device=dev)[None]
+    return table.to(torch.int32), b * ppr
 
-    Rows claim pages sequentially (row r: [r*ppr, (r+1)*ppr), ppr =
-    Lmax / page_size); table entries past a row's pages are unmapped (-1).
-    """
+
+def _place(x: torch.Tensor, pages: torch.Tensor, ppr: int, stride: int) -> None:
+    """Write one layer's dense rows x [B, Hkv, Lmax(, Dh)] into its pool
+    `pages` [num_pages, Hkv, ps(, Dh)]: row r's pages at [r * stride,
+    r * stride + ppr)."""
+    b, hkv = x.shape[:2]
+    ps = pages.shape[2]
+    src = x.reshape(b, hkv, ppr, ps, *x.shape[3:]).transpose(1, 2)
+    pages[:b * stride].view(b, stride, *pages.shape[1:])[:, :ppr] = src
+
+
+def from_contiguous(cache: decoder.KVCache, num_pages: int, max_pages_per_seq: int,
+                    page_size: int = 128, partitioned: bool = False) -> PagedKVCache:
+    """Page a prefilled dense cache: rows claim pages sequentially, or with
+    `partitioned` (num_pages == B * max_pages_per_seq) row r owns the static
+    slice [r * max_pages_per_seq, (r + 1) * max_pages_per_seq), table fully
+    mapped, so decode needs no allocator and reads the pool in row order."""
     l, b, hkv, lmax, dh = cache.k.shape
-    ppr = _pages_per_row(cache, num_pages, max_pages_per_seq, page_size)
+    ppr = _pages_per_row(cache, num_pages, max_pages_per_seq, page_size, partitioned)
     dev = cache.k.device
+    stride = max_pages_per_seq if partitioned else ppr
 
     def repage(x):
         pages = torch.zeros(l, num_pages, hkv, page_size, dh, dtype=x.dtype, device=dev)
-        src = x.reshape(l, b, hkv, ppr, page_size, dh).transpose(2, 3)
-        pages[:, :b * ppr] = src.reshape(l, b * ppr, hkv, page_size, dh)
+        for i in range(l):
+            _place(x[i], pages[i], ppr, stride)
         return pages
 
-    return PagedKVCache(k_pages=repage(cache.k), v_pages=repage(cache.v),
-                        page_table=_row_table(b, ppr, max_pages_per_seq, dev),
-                        length=cache.length.clone())
-
-
-def _row_table(b: int, ppr: int, max_pages_per_seq: int, dev) -> torch.Tensor:
-    """Rows claim pages sequentially (row r: [r*ppr, (r+1)*ppr)); the rest
-    of each row's table is unmapped (-1)."""
-    table = torch.full((b, max_pages_per_seq), -1, dtype=torch.int64, device=dev)
-    table[:, :ppr] = (torch.arange(b, device=dev)[:, None] * ppr
-                      + torch.arange(ppr, device=dev)[None])
-    return table.to(torch.int32)
+    table, next_free = _row_table(b, ppr, max_pages_per_seq, partitioned, dev)
+    return PagedKVCache(k_pages=repage(cache.k), v_pages=repage(cache.v), page_table=table,
+                        length=cache.length.clone(),
+                        next_free=torch.tensor(next_free, dtype=torch.int32, device=dev))
 
 
 def append_token_kv(cache: PagedKVCache, layer: int, k: torch.Tensor,
@@ -104,28 +200,6 @@ def append_token_kv(cache: PagedKVCache, layer: int, k: torch.Tensor,
 
 def advance(cache: PagedKVCache, tokens: int = 1) -> None:
     cache.length = cache.length + tokens
-
-
-def paged_decode_attention(q, k_pages, v_pages, page_table, length):
-    """Single-token attention through the page table (plain PyTorch):
-    q [B, H, 1, Dh], one layer's pages [P, Hkv, ps, Dh] -> [B, H, 1, Dh]."""
-    b, hq, _, d = q.shape
-    hkv, ps = k_pages.shape[1], k_pages.shape[2]
-    safe = page_table.clamp_min(0).long()
-    maxp = page_table.shape[1]
-
-    def rows(pages):
-        g = pages[safe]                                   # [B, maxp, Hkv, ps, Dh]
-        return g.transpose(1, 2).reshape(b, hkv, maxp * ps, d).float()
-
-    qg = q.reshape(b, hkv, hq // hkv, d).float()
-    s = torch.einsum("bhgd,bhld->bhgl", qg, rows(k_pages)) * d ** -0.5
-    col = torch.arange(maxp * ps, device=q.device)
-    s = s.masked_fill(col[None, None, None, :] >= length[:, None, None, None],
-                      float("-inf"))
-    p = torch.softmax(s, dim=-1)
-    o = torch.einsum("bhgl,bhld->bhgd", p, rows(v_pages))
-    return o.reshape(b, hq, 1, d).to(q.dtype)
 
 
 def _decode_step(params, cfg, token_ids: torch.Tensor, cache, append, attend):
@@ -155,18 +229,19 @@ def _decode_step(params, cfg, token_ids: torch.Tensor, cache, append, attend):
 
 
 def decode_step_paged(params, cfg, token_ids: torch.Tensor, cache: PagedKVCache,
-                      sequential_pages: bool = True):
+                      sequential_pages: bool = False):
     """One decode step -> (logits [B, V] f32, cache), the cache updated in place.
 
-    Pages for the new token must be mapped. sequential_pages=True (the
-    generation path: identity / partitioned row-order pools) runs the K4
-    kernel wrapper; False gathers through the page table (plain PyTorch).
+    Pages for the new token must be mapped (`allocate_pages`). As in the JAX
+    package, sequential_pages=True is for a pool in row order (a single
+    identity-mapped row, or a statically partitioned pool) and runs the K4
+    kernel wrapper; the default reads the pages through the table (K8).
     """
     def attend(q, i, length):
         if sequential_pages:
             return paged_decode_attention_seq(q, cache.k_pages[i], cache.v_pages[i], length)
-        return paged_decode_attention(q, cache.k_pages[i], cache.v_pages[i],
-                                      cache.page_table, length)
+        return paged_decode_attention_table(q, cache.k_pages[i], cache.v_pages[i],
+                                            cache.page_table, length)
 
     return _decode_step(params, cfg, token_ids, cache, append_token_kv, attend)
 
@@ -184,6 +259,7 @@ class PagedKVCacheInt8:
     v_scale: torch.Tensor
     page_table: torch.Tensor   # [B, max_pages] int32 (-1 = unmapped)
     length: torch.Tensor       # [B] int32 tokens stored per row
+    next_free: torch.Tensor    # [] int32 next unallocated pool page
 
     @property
     def page_size(self) -> int:
@@ -199,15 +275,16 @@ def _quantize_kv(x: torch.Tensor):
 
 
 def from_contiguous_int8(cache, num_pages: int, max_pages_per_seq: int,
-                         page_size: int = 128) -> PagedKVCacheInt8:
-    """Quantizing twin of `from_contiguous` (dense bf16 prefill -> int8 pages),
-    one layer at a time: beside the dense cache, only the int8 pool and one
-    layer's f32 transients are live. An already quantized
-    `decoder.Int8KVCache` (a long kv_int8 chunked prefill) is only repaged:
-    its values and scales move as they are."""
+                         page_size: int = 128, partitioned: bool = False) -> PagedKVCacheInt8:
+    """Quantizing twin of `from_contiguous` (dense bf16 prefill -> int8 pages,
+    `partitioned` as there), one layer at a time: beside the dense cache,
+    only the int8 pool and one layer's f32 transients are live. An already
+    quantized `decoder.Int8KVCache` (a long kv_int8 chunked prefill) is only
+    repaged: its values and scales move as they are."""
     l, b, hkv, lmax, dh = cache.k.shape
-    ppr = _pages_per_row(cache, num_pages, max_pages_per_seq, page_size)
+    ppr = _pages_per_row(cache, num_pages, max_pages_per_seq, page_size, partitioned)
     dev = cache.k.device
+    stride = max_pages_per_seq if partitioned else ppr
     pre_quantized = isinstance(cache, decoder.Int8KVCache)
     pages = {n: torch.zeros(l, num_pages, hkv, page_size, dh, dtype=torch.int8, device=dev)
              for n in ("k", "v")}
@@ -219,14 +296,12 @@ def from_contiguous_int8(cache, num_pages: int, max_pages_per_seq: int,
                 vals, sc = dense, getattr(cache, f"{n}_s")[i]
             else:
                 vals, sc = _quantize_kv(dense)               # [B, Hkv, Lmax(, Dh)]
-            pages[n][i, :b * ppr] = vals.reshape(b, hkv, ppr, page_size, dh).transpose(
-                1, 2).reshape(b * ppr, hkv, page_size, dh)
-            scales[n][i, :b * ppr] = sc.reshape(b, hkv, ppr, page_size).transpose(
-                1, 2).reshape(b * ppr, hkv, page_size)
+            _place(vals, pages[n][i], ppr, stride)
+            _place(sc, scales[n][i], ppr, stride)
+    table, next_free = _row_table(b, ppr, max_pages_per_seq, partitioned, dev)
     return PagedKVCacheInt8(k_pages=pages["k"], v_pages=pages["v"], k_scale=scales["k"],
-                            v_scale=scales["v"],
-                            page_table=_row_table(b, ppr, max_pages_per_seq, dev),
-                            length=cache.length.clone())
+                            v_scale=scales["v"], page_table=table, length=cache.length.clone(),
+                            next_free=torch.tensor(next_free, dtype=torch.int32, device=dev))
 
 
 def append_token_kv_int8(cache: PagedKVCacheInt8, layer: int, k: torch.Tensor,
@@ -246,41 +321,16 @@ def append_token_kv_int8(cache: PagedKVCacheInt8, layer: int, k: torch.Tensor,
     cache.v_scale[layer][page_idx, :, offset] = sc[1]
 
 
-def paged_decode_attention_int8(q, k_pages, v_pages, k_scale, v_scale, page_table, length):
-    """Single-token attention over int8 pages through the page table (plain
-    PyTorch): q [B, H, 1, Dh], one layer's pages [P, Hkv, ps, Dh] int8 and
-    scales [P, Hkv, ps] f32 -> [B, H, 1, Dh]."""
-    b, hq, _, d = q.shape
-    hkv, ps = k_pages.shape[1], k_pages.shape[2]
-    safe = page_table.clamp_min(0).long()
-    maxp = page_table.shape[1]
-
-    def tokord(pages):                     # [B, maxp, Hkv, ps, ...] -> token order
-        g = pages[safe].transpose(1, 2)
-        return g.reshape(b, hkv, maxp * ps, *g.shape[4:])
-
-    qg = q.reshape(b, hkv, hq // hkv, d).float()
-    s = torch.einsum("bhgd,bhld->bhgl", qg, tokord(k_pages).float())
-    s = s * tokord(k_scale)[:, :, None, :] * d ** -0.5
-    col = torch.arange(maxp * ps, device=q.device)
-    s = s.masked_fill(col[None, None, None, :] >= length[:, None, None, None],
-                      float("-inf"))
-    p = torch.softmax(s, dim=-1)
-    o = torch.einsum("bhgl,bhld->bhgd", p * tokord(v_scale)[:, :, None, :],
-                     tokord(v_pages).float())
-    return o.reshape(b, hq, 1, d).to(q.dtype)
-
-
 def decode_step_paged_int8(params, cfg, token_ids: torch.Tensor, cache: PagedKVCacheInt8,
-                           sequential_pages: bool = True):
+                           sequential_pages: bool = False):
     """Int8-cache twin of `decode_step_paged`: sequential_pages=True runs the
-    K6 kernel wrapper; False gathers through the page table (plain PyTorch)."""
+    K6 kernel wrapper; the default reads the pages through the table (K9)."""
     def attend(q, i, length):
         scales = (cache.k_scale[i], cache.v_scale[i])
         if sequential_pages:
             return paged_decode_attention_seq_int8(q, cache.k_pages[i], cache.v_pages[i],
                                                    *scales, length)
-        return paged_decode_attention_int8(q, cache.k_pages[i], cache.v_pages[i], *scales,
-                                           cache.page_table, length)
+        return paged_decode_attention_table_int8(q, cache.k_pages[i], cache.v_pages[i],
+                                                 *scales, cache.page_table, length)
 
     return _decode_step(params, cfg, token_ids, cache, append_token_kv_int8, attend)

@@ -1,5 +1,6 @@
 """Speculative decoding over the paged KV pool with prompt-lookup drafting
-(`streamchat_tpu/models/spec_decode.py`), single row.
+(`streamchat_tpu/models/spec_decode.py`), for a single row or a batch of
+rows on a statically partitioned pool (ragged acceptance, per-row lengths).
 
 * Drafting (`ngram_propose`): the last n emitted tokens (n from `ngram`
   down to 2) are matched against a history (a lookup corpus, e.g. the
@@ -23,8 +24,10 @@
 
 The JAX `lax.while_loop` becomes a host loop of verify steps, one host
 sync per step, as the port's vanilla loop. Random draws come from a
-`torch.Generator`. Verify steps of T <= 8 rows keep the W8 / K10 / K11
-GEMVs; K7 serves g * T <= 64 query rows per kv head.
+`torch.Generator`. Verify steps of B * T <= 8 rows keep the W8 / K10 /
+K11 GEMVs (more rows than `quant.MAX_KERNEL_ROWS` take the dequantize-and-
+matmul path, as in the JAX package); K7 serves g * T <= 64 query rows per
+kv head.
 """
 
 from __future__ import annotations
@@ -113,27 +116,25 @@ def _spec_attention(q, pool_k, pool_v, scale_k, scale_v, length, fresh_k, fresh_
 def _commit_staged(cache, staged_k: torch.Tensor, staged_v: torch.Tensor,
                    staged_ks: Optional[torch.Tensor] = None,
                    staged_vs: Optional[torch.Tensor] = None) -> None:
-    """Write all T staged tokens ([L, 1, Hkv, T, Dh], post-RoPE; int8 with
-    scales [L, 1, Hkv, T] for an int8 pool) at slots length .. length + T - 1
-    of every layer, in place, one indexed store per tensor. `length` is not
-    advanced."""
-    b, t = staged_k.shape[1], staged_k.shape[3]
-    if b != 1:
-        raise NotImplementedError(
-            "speculative decode over batched rows is not ported yet: ROADMAP §A "
-            "'Batched captioning'")
+    """Write all T staged tokens of every row ([L, B, Hkv, T, Dh], post-RoPE;
+    int8 with scales [L, B, Hkv, T] for an int8 pool) at the row's slots
+    length .. length + T - 1 of every layer, in place, one indexed store per
+    tensor (rows own distinct pages). `length` is not advanced."""
+    l, b, hkv, t = staged_k.shape[:4]
     ps = cache.page_size
-    slot = cache.length[0].long() + torch.arange(t, device=staged_k.device)
-    page_idx = cache.page_table[0].long()[slot // ps]
-    off = slot % ps
-    # pages[:, page_idx, :, off] is [T, L, Hkv(, Dh)]: the indexed dims lead.
-    cache.k_pages[:, page_idx, :, off] = staged_k[:, 0].permute(2, 0, 1, 3).to(
-        cache.k_pages.dtype)
-    cache.v_pages[:, page_idx, :, off] = staged_v[:, 0].permute(2, 0, 1, 3).to(
-        cache.v_pages.dtype)
+    slot = cache.length.long()[:, None] + torch.arange(t, device=staged_k.device)[None]
+    page_idx = cache.page_table.long().gather(1, slot // ps).flatten()
+    off = (slot % ps).flatten()
+
+    def lead(x):     # [L, B, Hkv, T(, Dh)] -> [B * T, L, Hkv(, Dh)]
+        return x.permute(1, 3, 0, 2, *range(4, x.dim())).reshape(b * t, l, hkv, *x.shape[4:])
+
+    # pages[:, page_idx, :, off] is [B * T, L, Hkv(, Dh)]: the indexed dims lead.
+    cache.k_pages[:, page_idx, :, off] = lead(staged_k).to(cache.k_pages.dtype)
+    cache.v_pages[:, page_idx, :, off] = lead(staged_v).to(cache.v_pages.dtype)
     if staged_ks is not None:
-        cache.k_scale[:, page_idx, :, off] = staged_ks[:, 0].permute(2, 0, 1)
-        cache.v_scale[:, page_idx, :, off] = staged_vs[:, 0].permute(2, 0, 1)
+        cache.k_scale[:, page_idx, :, off] = lead(staged_ks)
+        cache.v_scale[:, page_idx, :, off] = lead(staged_vs)
 
 
 def decode_step_spec(params, cfg, token_ids: torch.Tensor, cache, positions: torch.Tensor):

@@ -1,6 +1,7 @@
 """Attention over a sequential page pool, with their plain twins: one-token
 decode over bf16 pages (K4) and int8 pages (K6), and the multi-query
-partial form of both for the speculative verify step (K7).
+partial form of both for the speculative verify step (K7); and one-token
+decode through a page table over bf16 pages (K8) and int8 pages (K9).
 
 Counterparts of `streamchat_tpu/ops/paged_attention.py`
 `paged_decode_attention_pallas_seq`, `paged_decode_attention_pallas_seq_int8`
@@ -13,7 +14,19 @@ o = sum_l p_l v_scale_l v_i8_l / sum_l p_l. K7 takes T in-flight queries
 q [B, Hq, T, D] against the pool (length counts pool tokens, the block
 excluded) and returns the unnormalized f32 (acc [B, Hq, T, D], m, l
 [B, Hq, T]), m clamped to -1e30; a row with no live key gets acc 0 and
-l 0. A CUDA tensor launches `csrc/paged_decode.cu` (page-range split across
+l 0.
+
+K8 / K9 (`paged_decode_attention_table{,_int8}`, counterparts of
+`paged_decode_attention_pallas{,_int8}`) read a shared pool through
+`page_table` [B, maxp] int32 (-1 = unmapped), as the allocator fills it
+(`models/paged_kv.allocate_pages_checked`). Their semantics are the Pallas
+kernels', not the XLA gather's: a table slot j with table[b, j] < 0 or
+j * page_size >= length[b] contributes no key (the gather reads page 0 for
+-1), and a row with no live key returns 0 (the gather averages uniformly).
+The two agree wherever every page below a row's length is mapped, which the
+allocator guarantees. Every table entry must be -1 or a page of the pool.
+
+A CUDA tensor launches `csrc/paged_decode.cu` (page-range split across
 blocks, then a merge kernel); a CPU tensor runs the plain twin.
 """
 
@@ -121,9 +134,61 @@ def paged_seq_attention_partial_int8_plain(q, k_pages, v_pages, k_scale, v_scale
     return _seq_partial_plain(q, k_pages, v_pages, k_scale, v_scale, length)
 
 
-def _launch(name, q, k_pages, v_pages, scales, length, page_dtype, partial=False):
+def _table_valid(page_table, length, ps):
+    """[B, maxp * ps] bool: the key at each table position is live (its slot
+    is mapped and it lies below the row's length)."""
+    b, maxp = page_table.shape
+    col = torch.arange(maxp * ps, device=page_table.device)[None]
+    return (col < length.to(page_table.device)[:, None]) & (
+        page_table >= 0).repeat_interleave(ps, dim=1)
+
+
+def _table_rows(pages, page_table):
+    """Pool [P, Hkv, ps, ...] through table [B, maxp] -> [B, Hkv, maxp * ps,
+    ...] (unmapped slots read page 0; the caller masks them)."""
+    b, maxp = page_table.shape
+    g = pages[page_table.clamp_min(0).long()].transpose(1, 2)
+    return g.reshape(b, pages.shape[1], maxp * pages.shape[2], *pages.shape[3:])
+
+
+def _table_decode_plain(q, k_pages, v_pages, k_scale, v_scale, page_table, length):
+    b, hq, _, d = q.shape
+    hkv, ps = k_pages.shape[1], k_pages.shape[2]
+    valid = _table_valid(page_table, length, ps)[:, None]                 # [B, 1, L]
+    qg = q.reshape(b, hkv, hq // hkv, d).float()
+    s = torch.einsum("bhgd,bhld->bhgl", qg, _table_rows(k_pages, page_table).float())
+    if k_scale is not None:
+        s = s * _table_rows(k_scale, page_table)[:, :, None, :]
+    s = (s * d ** -0.5).masked_fill(~valid[:, :, None, :], float("-inf"))
+    m = s.amax(-1, keepdim=True)
+    m = torch.where(torch.isinf(m), torch.zeros_like(m), m)
+    p = torch.exp(s - m)
+    l = p.sum(-1, keepdim=True)
+    v = _table_rows(v_pages, page_table).float()
+    if v_scale is not None:
+        v = v * _table_rows(v_scale, page_table)[..., None]
+    o = torch.einsum("bhgl,bhld->bhgd", p, torch.where(valid[..., None], v, 0.0))
+    o = o / torch.where(l == 0, torch.ones_like(l), l)
+    return o.reshape(b, hq, 1, d).to(q.dtype)
+
+
+def paged_decode_attention_table_plain(q, k_pages, v_pages, page_table, length):
+    """Plain twin of `paged_decode_attention_table` (same signature).
+    Unmapped pages and slots past a row's length may hold any garbage."""
+    return _table_decode_plain(q, k_pages, v_pages, None, None, page_table, length)
+
+
+def paged_decode_attention_table_int8_plain(q, k_pages, v_pages, k_scale, v_scale,
+                                            page_table, length):
+    """Plain twin of `paged_decode_attention_table_int8` (same signature)."""
+    return _table_decode_plain(q, k_pages, v_pages, k_scale, v_scale, page_table, length)
+
+
+def _launch(name, q, k_pages, v_pages, scales, length, page_dtype, partial=False,
+            table=None):
     """Checks and one launch of the K4 / K6 (normalized bf16 output) or, with
-    `partial`, the K7 (f32 acc, m, l) entry point `name`."""
+    `partial`, the K7 (f32 acc, m, l) entry point `name`; with a page `table`
+    [B, maxp] the K8 / K9 one."""
     from streamchat_tpu_torch.kernels.build import call
 
     b, hq, t, d = q.shape
@@ -139,8 +204,8 @@ def _launch(name, q, k_pages, v_pages, scales, length, page_dtype, partial=False
         raise ValueError(f"{name}: pages must be contiguous")
     if ((t != 1 and not partial) or d not in (64, 128) or hq % hkv
             or g * t > (_ROWS_PARTIAL if partial else _ROWS_DECODE)
-            or tuple(v_pages.shape) != tuple(k_pages.shape) or num_pages % b
-            or q.stride(-1) != 1):
+            or tuple(v_pages.shape) != tuple(k_pages.shape)
+            or (table is None and num_pages % b) or q.stride(-1) != 1):
         raise ValueError(f"{name}: unsupported q {tuple(q.shape)} "
                          f"pages {tuple(k_pages.shape)}")
     for x in scales:
@@ -153,7 +218,15 @@ def _launch(name, q, k_pages, v_pages, scales, length, page_dtype, partial=False
             or tuple(length.shape) != (b,)):
         raise ValueError(f"{name} length: expected int32 [B] on the query's device")
     length = length.contiguous()
-    row_pages = num_pages // b
+    row_pages, tab = num_pages // b, ()
+    if table is not None:
+        if (table.device != q.device or table.dtype != torch.int32 or table.dim() != 2
+                or table.shape[0] != b):
+            raise ValueError(f"{name} page_table: expected int32 [B, maxp] on the "
+                             f"query's device, got {table.device} {table.dtype} "
+                             f"{tuple(table.shape)}")
+        table = table.contiguous()
+        row_pages, tab = table.shape[1], (table.data_ptr(),)
     nchunks = -(-row_pages // PAGES_PER_CHUNK)
     f32 = dict(dtype=torch.float32, device=q.device)
     acc = torch.empty(b, hkv, nchunks, g * t, d, **f32)
@@ -161,7 +234,7 @@ def _launch(name, q, k_pages, v_pages, scales, length, page_dtype, partial=False
     l = torch.empty(b, hkv, nchunks, g * t, **f32)
     geometry = (length.data_ptr(), b, hq, hkv, row_pages, ps, PAGES_PER_CHUNK, d, d ** -0.5,
                 acc.data_ptr(), m.data_ptr(), l.data_ptr())
-    pages = (k_pages.data_ptr(), v_pages.data_ptr(), *[x.data_ptr() for x in scales])
+    pages = (k_pages.data_ptr(), v_pages.data_ptr(), *[x.data_ptr() for x in scales], *tab)
     stream = torch.cuda.current_stream().cuda_stream
     if not partial:
         out = torch.empty(b, hq, 1, d, dtype=bf, device=q.device)
@@ -198,6 +271,32 @@ def paged_decode_attention_seq_int8(q, k_pages, v_pages, k_scale, v_scale, lengt
     out = _launch("sc_paged_decode_int8", q, k_pages, v_pages, (k_scale, v_scale),
                   length, torch.int8)
     paged_decode_attention_seq_int8.launches += 1
+    return out
+
+
+@counted
+def paged_decode_attention_table(q, k_pages, v_pages, page_table, length):
+    """One-token decode attention through a page table (K8): q [B, Hq, 1, D],
+    one layer's pages [num_pages, Hkv, page_size, D], page_table [B, maxp]
+    int32 (-1 = unmapped), length [B] int32 -> [B, Hq, 1, D]."""
+    if q.device.type == "cpu":
+        return paged_decode_attention_table_plain(q, k_pages, v_pages, page_table, length)
+    out = _launch("sc_paged_decode_table", q, k_pages, v_pages, (), length, torch.bfloat16,
+                  table=page_table)
+    paged_decode_attention_table.launches += 1
+    return out
+
+
+@counted
+def paged_decode_attention_table_int8(q, k_pages, v_pages, k_scale, v_scale, page_table,
+                                      length):
+    """K8 over int8 pages with f32 scales [num_pages, Hkv, page_size] (K9)."""
+    if q.device.type == "cpu":
+        return paged_decode_attention_table_int8_plain(q, k_pages, v_pages, k_scale, v_scale,
+                                                       page_table, length)
+    out = _launch("sc_paged_decode_table_int8", q, k_pages, v_pages, (k_scale, v_scale),
+                  length, torch.int8, table=page_table)
+    paged_decode_attention_table_int8.launches += 1
     return out
 
 

@@ -3,8 +3,10 @@
 The multi-modal answer: tree retrieval by the question's colbert
 embedding, prompt assembly with the retrieved-dialogue history and the
 most fine-grained caption, and a spliced [short | retrieved levels]
-visual block at `<image>`. The uni-modal variant, label scoring (--ppl),
-batched captioning and the visual-token budget are not ported yet.
+visual block at `<image>`. The captioner also captions a group of chunks
+in one batched generate (`SamplingConfig.caption_batch`). The uni-modal
+variant, label scoring (--ppl) and the visual-token budget are not ported
+yet.
 """
 
 from __future__ import annotations
@@ -53,10 +55,9 @@ def answer_question(question: str, model, embed_query, short_memory: torch.Tenso
 
 def make_captioner(model, sampling: SamplingConfig):
     """Chunk features [T, P, D] -> caption (conv qwen_1_5_ego, 128 tokens,
-    caption_temperature, 128-token prompt bucket). One chunk per call."""
-    if sampling.caption_batch != 1:
-        raise NotImplementedError(
-            "caption_batch > 1 is not ported yet: ROADMAP §A 'Batched captioning'")
+    caption_temperature, 128-token prompt bucket). `caption.batch` captions
+    a list of chunks in one batched generate, in groups of
+    `caption.batch_size` (sampling.caption_batch) chosen by the caller."""
     prompt = prompts.build_caption_prompt()
 
     def caption(chunk_features: torch.Tensor) -> str:
@@ -65,6 +66,15 @@ def make_captioner(model, sampling: SamplingConfig):
             prompt, image_embeddings=[flat], max_new_tokens=sampling.max_caption_tokens,
             temperature=sampling.caption_temperature)
 
+    def caption_batch(chunks: List[torch.Tensor]) -> List[str]:
+        flats = [c.reshape(-1, c.shape[-1]) for c in chunks]
+        return model.generate_with_image_embedding_batch(
+            [prompt] * len(flats), [[f] for f in flats],
+            max_new_tokens=sampling.max_caption_tokens,
+            temperature=sampling.caption_temperature)
+
+    caption.batch = caption_batch
+    caption.batch_size = max(1, sampling.caption_batch)
     return caption
 
 

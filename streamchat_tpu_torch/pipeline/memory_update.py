@@ -6,8 +6,11 @@
 2. Long memory: the segment cut into `chunk_size` chunks; each RAW chunk is
    captioned, each full chunk is k-means reduced to `num_clusters` centroids
    for its tree node (the partial tail chunk stays raw), and the nodes enter
-   the tree. `cluster_full_chunks=False` (the reference's literal dead
-   guard) is not ported yet.
+   the tree. A captioner with a `.batch` method captions groups of its
+   `.batch_size` chunks in one call (a group of one goes to the captioner
+   itself); group size 1 is the reference's strictly sequential captioning.
+   `cluster_full_chunks=False` (the reference's literal dead guard) is not
+   ported yet.
 
 The JAX package's host offload of chunks and weights (`offload_chunks`,
 `offload_residents`, OFFLOAD_STATS) exists to fit a 16 GB chip; the H100's
@@ -69,6 +72,11 @@ def update_memory(features: torch.Tensor, tree: VisualMemoryTree, caption_fn: Ca
             "'Memory update'")
     short = build_short_memory(features, cfg, generator)
     raw_chunks, node_feats = chunk_and_cluster(features, cfg, generator)
-    captions = [caption_fn(c) for c in raw_chunks]
+    batch_fn = getattr(caption_fn, "batch", None)
+    size = getattr(caption_fn, "batch_size", 1) if batch_fn is not None else 1
+    captions: List[str] = []
+    for i in range(0, len(raw_chunks), size):
+        group = raw_chunks[i:i + size]
+        captions.extend([caption_fn(group[0])] if len(group) == 1 else batch_fn(group))
     tree.add_chunks(node_feats, captions)
     return tree, short

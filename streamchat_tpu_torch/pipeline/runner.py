@@ -5,7 +5,8 @@ Per video: reset the visual memory tree and open a dialogue memory bank;
 per breakpoint segment: ingest -> memory update (captions + tree) ->
 dialogue retrieval -> answer -> result append -> memory write-back. Phase
 totals are host wall-clock windows that end in a device synchronize, so on
-a GPU they are true device-inclusive times.
+a GPU they are true device-inclusive times; the "caption" phase times each
+caption call, a batched one (`SamplingConfig.caption_batch` > 1) included.
 
 `--int8` (the default) and `--int4` quantize the decoder after it is built,
 as the JAX `main` does; `--bf16` keeps it bf16. `--spec_tokens N` turns on
@@ -135,6 +136,13 @@ class StreamChatPipeline:
         def timed_caption(chunk):
             with timer.phase("caption"):
                 return self._caption(chunk)
+
+        def timed_batch(chunks):
+            with timer.phase("caption"):
+                return self._caption.batch(chunks)
+
+        timed_caption.batch = timed_batch
+        timed_caption.batch_size = self._caption.batch_size
 
         results = []
         with timer.phase("store"):

@@ -11,7 +11,10 @@ signature (K1 `sc_fused_vit_layer`, K3 `sc_flash_attention`, K4
 wrappers on the same inputs at main-path shapes, once against each
 library: the script prints whether the outputs are equal bit for bit, and
 the device time per call of each (torch.profiler, as `chip_smoke.py`
-measures it) in turns: other, this, this, other.
+measures it) in turns: other, this, this, other. The page-table decode
+kernels (K8 `sc_paged_decode_table`, K9 `sc_paged_decode_table_int8`, at
+the smoke's shared-pool shapes) join the comparison where the other tree
+exports them, and are otherwise timed in this tree alone.
 """
 
 from __future__ import annotations
@@ -29,21 +32,24 @@ from streamchat_tpu_torch.utils.profiling import device_ms
 
 KERNELS = ("sc_fused_vit_layer", "sc_flash_attention", "sc_paged_decode",
            "sc_paged_decode_int8")
+TABLE_KERNELS = ("sc_paged_decode_table", "sc_paged_decode_table_int8")
 
 
 def _load_other(tree: str):
-    """The other tree's kernel library, built by its own build.py."""
+    """The other tree's kernel library, built by its own build.py -> (library,
+    build seconds, the names of TABLE_KERNELS it exports)."""
     path = os.path.join(tree, "streamchat_tpu_torch", "kernels", "build.py")
     spec = importlib.util.spec_from_file_location("other_kernel_build", path)
     mod = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(mod)
     info = mod.build(force=True)
     lib = ctypes.CDLL(mod.LIB_PATH)
-    for name in KERNELS:
+    present = tuple(n for n in TABLE_KERNELS if n in mod.SIGNATURES)
+    for name in KERNELS + present:
         fn = getattr(lib, name)
         fn.argtypes = mod.SIGNATURES[name]
         fn.restype = ctypes.c_int
-    return lib, info["seconds"]
+    return lib, info["seconds"], present
 
 
 def _cases(g):
@@ -70,12 +76,33 @@ def _cases(g):
                             dtype=torch.int8) for _ in range(2))
     ks, vs = (torch.rand(pages, 4, 128, generator=g, device=dev) * 0.04 + 0.01
               for _ in range(2))
+    # K8 / K9: three rows of 23,105, 11,905 and 1 tokens over a 288-page
+    # pool in a seeded permutation (chip_smoke.check_table_kernels).
+    lengths, maxp, pool = (23105, 11905, 1), 184, 288
+    perm = torch.randperm(pool, generator=g, device=dev).to(torch.int32)
+    table = torch.full((3, maxp), -1, dtype=torch.int32, device=dev)
+    used = 0
+    for r, n in enumerate(lengths):
+        need = -(-n // 128)
+        table[r, :need] = perm[used:used + need]
+        used += need
+    lt = torch.tensor(lengths, dtype=torch.int32, device=dev)
+    q8 = rnd(3, 28, 1, 128)
+    kt, vt = rnd(pool, 4, 128, 128), rnd(pool, 4, 128, 128)
+    kqt, vqt = (torch.randint(-127, 128, (pool, 4, 128, 128), generator=g, device=dev,
+                              dtype=torch.int8) for _ in range(2))
+    kst, vst = (torch.rand(pool, 4, 128, generator=g, device=dev) * 0.04 + 0.01
+                for _ in range(2))
     return {
         "sc_fused_vit_layer": lambda: fused_vit.fused_vit_layer(x, *vit, num_heads=16),
         "sc_flash_attention": lambda: attention.flash_attention(q3, k3, v3, causal=True),
         "sc_paged_decode": lambda: paged_attention.paged_decode_attention_seq(q, kp, vp, ln),
         "sc_paged_decode_int8": lambda: paged_attention.paged_decode_attention_seq_int8(
             q, kq, vq, ks, vs, ln),
+        "sc_paged_decode_table": lambda: paged_attention.paged_decode_attention_table(
+            q8, kt, vt, table, lt),
+        "sc_paged_decode_table_int8": lambda: paged_attention.paged_decode_attention_table_int8(
+            q8, kqt, vqt, kst, vst, table, lt),
     }
 
 
@@ -92,7 +119,7 @@ def main(argv=None) -> None:
                           "--format=csv,noheader"],
                          capture_output=True, text=True, check=True).stdout.strip())
     build.library()
-    other, seconds = _load_other(os.path.abspath(args.other_tree))
+    other, seconds, present = _load_other(os.path.abspath(args.other_tree))
     print(f"other tree's kernels built in {seconds:.2f} s")
     current = build.call
 
@@ -107,6 +134,12 @@ def main(argv=None) -> None:
     report = {}
     try:
         for name, fn in cases.items():
+            if name in TABLE_KERNELS and name not in present:
+                build.call = current
+                report[name] = dict(other="absent", ms_this=[device_ms(fn, args.iters)
+                                                             for _ in range(2)])
+                print(f"{name}: {json.dumps(report[name])}", flush=True)
+                continue
             outs, times = {}, {"other": [], "this": []}
             for which in ("other", "this", "this", "other"):
                 build.call = current if which == "this" else call_into(other)
@@ -117,7 +150,7 @@ def main(argv=None) -> None:
             print(f"{name}: {json.dumps(report[name])}", flush=True)
     finally:
         build.call = current
-    if not all(r["bit_equal"] for r in report.values()):
+    if not all(r.get("bit_equal", True) for r in report.values()):
         raise SystemExit("compare_tree: outputs differ from the other tree's")
     print(json.dumps(report))
 

@@ -164,15 +164,6 @@ def test_int8_cache_created_with_unit_scales(tiny):
         np.testing.assert_array_equal(got, want)
 
 
-def test_prefill_chunked_needs_last_token_in_final_chunk(tiny):
-    """Only the reference's `reuse` branch is ported (ROADMAP §A 5)."""
-    cache = decoder.KVCache.create(tiny["cfg"], 1, 384, dtype=torch.float32)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        decoder.prefill_chunked(tiny["params"], tiny["cfg"],
-                                torch.from_numpy(_rand(8, 1, 384, tiny["cfg"].hidden_size)),
-                                cache, torch.tensor([200], dtype=torch.int32), chunk=128)
-
-
 def test_prefill_dispatch_follows_the_threshold(monkeypatch, tiny):
     """`_prefill_inline` prefills in one pass up to the threshold and in
     chunks of threshold // 2 beyond it."""

@@ -12,7 +12,9 @@ neither jax nor the JAX package, so it runs on a GPU machine without jax:
 accumulation in both, summed in a different order. The quantized GEMVs
 (W8, K10, K11) take ragged in / out edges and 1 or 8 rows; the int8-page
 decode (K6) takes pages and scales with NaN and inf past the length. The
-partial kernels (K5, K7) return (acc, m, l); they are compared normalized
+page-table decode (K8, K9) reads a shared pool through a permuted table
+with -1 past each row's pages and once inside a row's length, NaN in the
+pages no row maps. The partial kernels (K5, K7) return (acc, m, l); they are compared normalized
 (acc / l, 0 where l == 0) under the same bound, m and l elementwise, and
 rows with no live key must give m = -1e30, l = 0, acc = 0.
 """
@@ -168,6 +170,47 @@ def test_cuda_paged_decode_int8(cuda, b, lengths, pages):
     assert torch.isfinite(got).all()
     _close(got, paged_attention.paged_decode_attention_seq_int8_plain(q, kp, vp, ks, vs, ln))
     assert paged_attention.paged_decode_attention_seq_int8.launches == 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("int8", [False, True])
+def test_cuda_paged_decode_table(cuda, int8):
+    """B = 3 rows of 1000, 1 and 300 tokens over a 20-page pool (128-token
+    pages, 2 kv heads, 7 query heads each as Qwen2-7B) in a seeded
+    permutation; the pages and scales no row maps hold NaN / inf."""
+    rng = np.random.default_rng(7)
+    lengths, ps, maxp, pages = (1000, 1, 300), 128, 9, 20
+    perm = rng.permutation(pages)
+    table = np.full((3, maxp), -1, np.int32)
+    i = 0
+    for r, n in enumerate(lengths):
+        need = -(-n // ps)
+        table[r, :need] = perm[i:i + need]
+        i += need
+    table[0, 2] = -1                             # a page skipped inside row 0's length
+    free = [p for p in range(pages) if p not in set(table[table >= 0].tolist())]
+    q = _bf(1, cuda, 3, 14, 1, 128)
+    tab = torch.from_numpy(table).to(cuda)
+    ln = torch.tensor(lengths, dtype=torch.int32, device=cuda)
+    if int8:
+        kp, vp = (torch.from_numpy(rng.integers(-127, 128, (pages, 2, ps, 128), dtype=np.int8)
+                                   ).to(cuda) for _ in range(2))
+        ks, vs = (torch.from_numpy(rng.uniform(0.005, 0.02, (pages, 2, ps)).astype(np.float32)
+                                   ).to(cuda) for _ in range(2))
+        ks[free], vs[free] = float("nan"), float("inf")
+        args = (q, kp, vp, ks, vs, tab, ln)
+        fn = paged_attention.paged_decode_attention_table_int8
+        ref = paged_attention.paged_decode_attention_table_int8_plain(*args)
+    else:
+        kp, vp = _bf(2, cuda, pages, 2, ps, 128), _bf(3, cuda, pages, 2, ps, 128)
+        kp[free], vp[free] = float("nan"), float("nan")
+        args = (q, kp, vp, tab, ln)
+        fn = paged_attention.paged_decode_attention_table
+        ref = paged_attention.paged_decode_attention_table_plain(*args)
+    got = fn(*args)
+    assert torch.isfinite(got).all()
+    _close(got, ref)
+    assert fn.launches == 1
 
 
 def _close_partial(got, ref):

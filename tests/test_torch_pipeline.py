@@ -214,7 +214,6 @@ def test_cli_weight_storage_flags_quantize(monkeypatch, flags, key):
 @pytest.mark.parametrize("change", [
     dict(paths=config.ModelPaths(longva="ckpt")),
     dict(multi_modal_memory=False),
-    dict(sampling=config.SamplingConfig(caption_batch=2)),
 ])
 def test_unported_pipeline_settings_raise(change):
     cfg = config.PipelineConfig(**change)

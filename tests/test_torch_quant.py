@@ -240,10 +240,10 @@ def test_int8_pages_twin_matches_jax_kernel_single_row(no_launches, dcfg):
     out = paged_attention.paged_decode_attention_seq_int8(torch.from_numpy(q), *args,
                                                           torch.from_numpy(length))
     np.testing.assert_allclose(out.numpy(), np.asarray(ref), atol=2e-5, rtol=0)
-    gather = paged_kv.paged_decode_attention_int8(
+    table = paged_attention.paged_decode_attention_table_int8(
         torch.from_numpy(q), *args, torch.from_numpy(np.array(cache.page_table)),
         torch.from_numpy(length))
-    np.testing.assert_allclose(gather.numpy(), np.asarray(ref), atol=2e-5, rtol=0)
+    np.testing.assert_allclose(table.numpy(), np.asarray(ref), atol=2e-5, rtol=0)
 
 
 def test_int8_pages_twin_matches_jax_kernel_partitioned(no_launches, dcfg):
