@@ -7,7 +7,7 @@
 2. Builds every hand-written kernel from `streamchat_tpu_torch/csrc/` (one
    nvcc per source, in parallel) and prints the build seconds.
 3. Builds the pipeline at full LongVA-7B width on random weights (seeded).
-4. Holds each of the thirteen kernels against its plain PyTorch twin at
+4. Holds each of the sixteen kernels against its plain PyTorch twin at
    main-path shapes, tolerance |kernel - plain| <= 3e-2 + 2e-2 |plain|
    (bf16 storage, f32 accumulation in both, different summation order),
    and times both (ms: device time per call, the summed device events
@@ -23,24 +23,33 @@
    token of three rows of 23,105, 11,905 and 1 tokens through a page table
    over a shared 288-page pool in a seeded permutation, -1 past each
    row's pages and once inside a row's length, NaN in the pages no slot
-   maps; ms_row0 times the 23,105-token row alone, beside K4). All but K1
-   and K2 are
-   also held to a relative L2 error of 1e-2 per output row (the partial
-   kernels through acc / l, and m and l elementwise), and planted faults
-   must fail that same check: a key tile or a 4-page chunk zeroed, the
+   maps; ms_row0 times the 23,105-token row alone, beside K4), K12
+   scene-change dedup (frame descriptors [60, 3584] f32, every third
+   frame a near-repeat; similarities within 1e-5 of the twin and equal
+   keep masks), K13 the LN-attention half of ViT layer 0 (x [16, 577,
+   1024], clamp and exact softmax, unfolded and folded with the one-pass
+   LayerNorm) and K14 non-causal ViT attention ([16, 16, 577, 64]). All
+   but K1, K2 and K12 are also held to a relative L2 error of 1e-2 per
+   output row (the partial kernels through acc / l, and m and l
+   elementwise), and planted faults must fail that same check (K12's its
+   own): a key tile or a 4-page chunk zeroed, the
    valid length ignored or 128 past its end, a 128-row slice of an int8
    weight zeroed, int4 nibble halves swapped, one group's scale ignored,
    int8 page scales replaced by 1, K5's offsets swapped or its m left
    unclamped, K7's row fold transposed or its pool length counting the
    block, K8 / K9's table ignored (pool order), -1 read as page 0, the
-   length ignored, one table entry off by one. Keys, values and scales past
+   length ignored, one table entry off by one, K12's roll reversed or its
+   rows left unnormalized, K13 without the residual, K14 with its last key
+   masked. Keys, values and scales past
    the valid length hold large garbage (NaN and inf for the int8 scales),
    as stale cache slots may.
    Each row carries the kernel's bound (the larger of its FLOPs at 989
-   TFLOP/s and its bytes at 3.35 TB/s, each input read and each output
-   written once) and, where one PyTorch call computes the same function,
-   that call's device time (`library_ms`: SDPA for K3 and K5, a bf16
-   matmul on the dequantized weight for W8, K10 and K11).
+   TFLOP/s, 67 for K12's f32 arithmetic, and its bytes at 3.35 TB/s, each
+   input read and each output written once) and, where one PyTorch call
+   computes the same function, that call's device time (`library_ms`:
+   SDPA for K3, K5 and K14, a bf16 matmul on the dequantized weight for
+   W8, K10 and K11, `F.cosine_similarity` against the rolled rows for
+   K12).
 5. Checks the composed paths on small inputs: two frames through ViT +
    projector against the plain twins (per-token cosine >= 0.99 after 23
    bf16 layers); one 28-layer decode step through K4 against the
@@ -76,7 +85,8 @@
    caption_batch = 2, each with its breakpoint at 10 s, whose two chunk
    captions (23,441 and 11,921 tokens) form one 2-row group: the shorter
    row's prefill takes the re-run branch and decode reads the partitioned
-   pool at B = 2 (K4 / K6). Each quantized tree is
+   pool at B = 2 (K4 / K6). Runs 1 and 3-7 answer in at most 64 tokens
+   (run 2 and the on-line runs in the default 256). Each quantized tree is
    made from the bf16 tree and freed before the next. A run fails if one
    of its kernels was not launched, an answer is missing, no token was
    generated or no caption prompt passed 23,000 tokens, and runs 6 and 7
@@ -84,7 +94,18 @@
    ms/step and per emitted token, accepted tokens per verify step, caption
    seconds per caption, peak memory, and the weight and KV bytes a decode
    token reads.
-9. Prints the kernels JSON line, then the device JSON line last.
+9. Runs `process_video_online` (`--mode on_line`: a worker thread captions
+   while the caller ingests, a short-term FIFO across the stream) twice on
+   the int8 tree, counters zeroed before each: over both breakpoints, where
+   it must make as many captions as the off-line int8 run, and with
+   `dedup_threshold` set to the median scene-change score of the first
+   segment's frames over the first breakpoint, where K12 must run, drop
+   some frames and keep others, and one caption must be made per 40 kept
+   frames of the segment, rounded up. Both must launch K1-K5, W8 and K4.
+   Prints each ask's seconds, the worker's caption seconds and the seconds
+   in which they overlapped the caller's ingest (host clock, measured from
+   outside: the on-line path times no phases), and peak memory.
+10. Prints the kernels JSON line, then the device JSON line last.
 
 Any failure raises: the script then exits non-zero and prints no result.
 """
@@ -109,9 +130,16 @@ ROW_REL_L2 = 1e-2
 STEP_REL_L2 = 5e-2
 CAPTION_TOKENS_MIN = 23000
 
-# Published peaks of one H100 SXM (dense bf16 tensor cores, HBM3).
-PEAK_FLOPS, PEAK_BYTES = 989e12, 3.35e12
+# Published peaks of one H100 SXM (dense bf16 tensor cores, f32 outside the
+# tensor cores, HBM3).
+PEAK_FLOPS, PEAK_F32, PEAK_BYTES = 989e12, 67e12, 3.35e12
 SPEC_TOKENS = 4
+# The earlier slices' one-breakpoint runs answer in 64 tokens, not the
+# default 256 (decode depth cut to keep the script short; their captions
+# keep their 128): the two-breakpoint int8 run and the on-line runs keep 256.
+SHORT_ANSWER = dict(max_answer_tokens=64)
+# K12's similarities (f32 descriptors) are held to their twin's within this.
+SIM_ATOL = 1e-5
 
 # Kernels each process_video run must launch (wrapper names): every run
 # prefills its 23k-token captions in chunks (K3 + K5).
@@ -125,6 +153,10 @@ RUNS = {
     "int4_kv_int8_spec": PREFILL + ("paged_seq_attention_partial_int8",) + INT4,
     "int8_cb2": PREFILL + ("paged_decode_attention_seq", "qmatvec_int8"),
     "int4_kv_int8_cb2": PREFILL + ("paged_decode_attention_seq_int8",) + INT4,
+    # process_video_online (--mode on_line), and with dedup (K12).
+    "online_int8": PREFILL + ("paged_decode_attention_seq", "qmatvec_int8"),
+    "online_int8_dedup": PREFILL + ("paged_decode_attention_seq", "qmatvec_int8",
+                                    "select_changed_frames"),
     # generate_paged on a caller-sized pool (the allocator maps pages mid-decode).
     "caller_pool_bf16": ("paged_decode_attention_table",),
     "caller_pool_kv_int8": ("paged_decode_attention_table_int8",),
@@ -156,6 +188,12 @@ SOURCES = {
                                      "streamchat_tpu/ops/paged_attention.py:135"),
     "paged_decode_attention_table_int8": ("streamchat_tpu_torch/csrc/paged_decode.cu",
                                           "streamchat_tpu/ops/paged_attention.py:698"),
+    "select_changed_frames": ("streamchat_tpu_torch/csrc/dedup.cu",
+                              "streamchat_tpu/ops/dedup.py:39"),
+    "fused_ln_attn": ("streamchat_tpu_torch/csrc/fused_vit.cu",
+                      "streamchat_tpu/ops/fused_vit.py:442"),
+    "vit_attention": ("streamchat_tpu_torch/csrc/flash_attention.cu",
+                      "streamchat_tpu/ops/vit_attention.py:67"),
 }
 
 
@@ -206,11 +244,12 @@ def _gbs(nbytes, ms):
     return nbytes / (ms * 1e-3) / 1e9
 
 
-def _bound(flops, nbytes):
+def _bound(flops, nbytes, peak=PEAK_FLOPS):
     """The least time the card could take: the larger of the FLOPs at the
-    bf16 tensor-core peak and the bytes (each input read once, each output
-    written once) at the memory rate."""
-    t_ops, t_bytes = flops / PEAK_FLOPS, nbytes / PEAK_BYTES
+    peak of their type (the bf16 tensor cores unless `peak` says otherwise)
+    and the bytes (each input read once, each output written once) at the
+    memory rate."""
+    t_ops, t_bytes = flops / peak, nbytes / PEAK_BYTES
     return dict(bound_ms=1e3 * max(t_ops, t_bytes),
                 bound_by="operations" if t_ops >= t_bytes else "bytes",
                 flops=flops, bytes=nbytes)
@@ -1098,6 +1137,112 @@ def _kv_bytes_per_token(cfg, context: int, kv_int8: bool) -> int:
     return context * cfg.num_layers * cfg.num_kv_heads * 2 * row
 
 
+def _sim_check(name, got, ref, planted=False):
+    """K12: max |sim - plain sim| within SIM_ATOL (and finite); a planted
+    fault must fail it -> the max error."""
+    torch.cuda.synchronize()
+    err = (got.float() - ref.float()).abs().max().item()
+    ok = bool(torch.isfinite(got).all()) and err <= SIM_ATOL
+    if ok == planted:
+        raise AssertionError(f"{'planted fault ' if planted else ''}{name}: max |sim - plain| "
+                             f"{err} (limit {SIM_ATOL})")
+    return err
+
+
+def check_vit_kernels(model, g):
+    """K12, K13 and K14 against their plain twins at main-path shapes ->
+    report rows and planted faults."""
+    from streamchat_tpu_torch.ops import dedup, fused_vit, vit_attention
+
+    bf, dev = torch.bfloat16, model.device
+    rows, planted = {}, {}
+
+    # K12: one segment's frame descriptors, [60, 3584] f32, every third frame
+    # a near-repeat of the one before it (1 - sim ~ 1e-3 there, ~1 elsewhere).
+    n, d, thr = 60, model.dec_cfg.hidden_size, 0.18
+    x = torch.randn(n, d, generator=g, device=dev)
+    x[1::3] = x[0::3] + 0.05 * torch.randn(n // 3, d, generator=g, device=dev)
+    keep, sim = dedup.select_changed_frames(x, threshold=thr, return_similarity=True)
+    pkeep, psim = dedup.select_changed_frames_plain(x, threshold=thr, return_similarity=True)
+    err = _sim_check("K12 select_changed_frames", sim, psim)
+    if not torch.equal(keep, pkeep) or not 0 < int(keep.sum()) < n:
+        raise AssertionError(f"K12 keep mask {keep.tolist()} vs plain {pkeep.tolist()}")
+    _, rev = dedup.select_changed_frames(x.flip(0), threshold=thr, return_similarity=True)
+    planted["K12 roll reversed (row i against i + 1)"] = _sim_check(
+        "K12 roll reversed", rev.flip(0), psim, planted=True)
+    norms = x.norm(dim=1)
+    planted["K12 unnormalized (dot products)"] = _sim_check(
+        "K12 unnormalized", sim * norms * norms.roll(1, 0), psim, planted=True)
+    k12 = lambda: dedup.select_changed_frames(x, threshold=thr)  # noqa: E731
+    p12 = lambda: dedup.select_changed_frames_plain(x, threshold=thr)  # noqa: E731
+    t12 = _timings(k12, p12, 50, 20)
+    t12.update(wrapper_ms=t12["ms"], ms=device_ms(k12, 50, kernel="dedup_kernel"))
+    rows["select_changed_frames"] = dict(
+        shapes=f"descriptors [{n}, {d}] f32, threshold {thr}, {int(keep.sum())} kept",
+        max_abs_err=err, **t12,
+        **_bound(6 * n * d, _nbytes(x) + 4 * n, peak=PEAK_F32),
+        library_ms=device_ms(lambda: torch.nn.functional.cosine_similarity(
+            x, x.roll(1, 0)), 50),
+        library="F.cosine_similarity(x, x.roll(1, 0)); ms is the kernel alone, "
+                "wrapper_ms adds the keep mask's two small torch ops")
+
+    # K13: the attention half of ViT layer 0 over an ingest batch of 16
+    # frames, both softmax modes, unfolded and folded (exp2, one-pass LN).
+    p = model.vit_params["layers"][0]
+    heads, dm = model.vit_cfg.num_heads, model.vit_cfg.hidden_size
+    s, dh = model.vit_cfg.num_patches + 1, dm // heads
+    xs = torch.randn(16, s, dm, generator=g, device=dev).to(bf)
+    w = [p["ln1"]["scale"], p["ln1"]["bias"], p["attn"]["wqkv"], p["attn"]["bqkv"],
+         p["attn"]["o"]["w"], p["attn"]["o"]["b"]]
+    fw, fb = fused_vit.fold_vit_attn_params(*w[:4], num_heads=heads)
+    wf = [w[0], w[1], fw, fb, w[4], w[5]]
+    cases, errs = {}, []
+    for mode in ("clamp", "exact"):
+        for folded in (False, True):
+            args = wf if folded else w
+            kw = dict(num_heads=heads, softmax_mode=mode, folded=folded, ln_onepass=folded)
+            k13 = lambda args=args, kw=kw: fused_vit.fused_ln_attn(xs, *args, **kw)  # noqa: E731
+            ref = fused_vit.fused_ln_attn_plain(xs, *args, **kw)
+            label = f"{mode}{', folded + ln_onepass' if folded else ''}"
+            e, rel = _compare(f"K13 fused_ln_attn {label}", k13(), ref, row_rel=True)
+            errs.append(e)
+            cases[label] = dict(max_abs_err=e, max_row_rel_l2=rel, ms=device_ms(k13, 20))
+            if (mode, folded) == ("clamp", False):
+                planted["K13 without the residual"] = _planted(
+                    "K13 without the residual", k13() - xs, ref)
+                timed = _timings(k13, lambda: fused_vit.fused_ln_attn_plain(xs, *w, **kw), 20, 5)
+                rel0 = rel
+            del ref
+    qa, ka, va = (torch.randn(16, heads, s, dh, generator=g, device=dev).to(bf)
+                  for _ in range(3))
+    rows["fused_ln_attn"] = dict(
+        shapes=f"x [16, {s}, {dm}] bf16, ViT layer 0's attention half; timed: clamp, "
+               "unfolded (the default)",
+        max_abs_err=max(errs), max_row_rel_l2=rel0, cases=cases, **timed,
+        **_bound(2 * 16 * s * dm * 4 * dm + 4 * 16 * heads * s * s * dh,
+                 _nbytes(*w) + 2 * _nbytes(xs)),
+        library_ms=None, library="none for LN + QKV + attention + O; attention_library_ms: "
+        f"SDPA of its attention alone, q/k/v [16, {heads}, {s}, {dh}]",
+        attention_library_ms=device_ms(lambda: _sdpa(qa, ka, va), 20))
+
+    # K14: non-causal ViT attention, [16, 16, 577, 64] bf16 at ViT-L, no pad.
+    k14 = lambda: vit_attention.vit_attention(qa, ka, va)  # noqa: E731
+    p14 = lambda: vit_attention.vit_attention_plain(qa, ka, va)  # noqa: E731
+    ref = p14()
+    err, rel = _compare("K14 vit_attention", k14(), ref, row_rel=True)
+    planted[f"K14 key {s - 1} masked"] = _planted(
+        "K14 last key masked", vit_attention.vit_attention(qa, ka[:, :, :-1], va[:, :, :-1]),
+        ref)
+    del ref
+    rows["vit_attention"] = dict(
+        shapes=f"q/k/v [16, {heads}, {s}, {dh}] bf16, non-causal", max_abs_err=err,
+        max_row_rel_l2=rel, **_timings(k14, p14, 20, 5),
+        **_bound(4 * 16 * heads * s * s * dh, 4 * _nbytes(qa)),
+        library_ms=device_ms(lambda: _sdpa(qa, ka, va), 20),
+        library="F.scaled_dot_product_attention (non-causal) on the same q/k/v")
+    return rows, planted
+
+
 def check_composed(model, g):
     """Small-input references for the composed ViT+projector and decode paths."""
     from streamchat_tpu_torch.models import decoder, paged_kv, vit
@@ -1160,9 +1305,16 @@ BREAKPOINTS = [
 ]
 
 
-def run_slice(pipe, breakpoints):
-    """The off-line main path at full width -> (results, seconds, prompt lengths)."""
+def _video():
     from streamchat_tpu_torch.video.reader import SyntheticVideoReader
+
+    return SyntheticVideoReader(total_frames=600, frame_rate=30, height=360, width=640)
+
+
+def run_slice(pipe, breakpoints, online=False):
+    """The off-line main path (`process_video`), or with `online` the
+    on-line one (`process_video_online`), at full width -> (results,
+    seconds, prompt lengths)."""
     from streamchat_tpu_torch.memory.bank import MemoryBank
 
     lengths = []
@@ -1174,12 +1326,12 @@ def run_slice(pipe, breakpoints):
         return embeds, n
 
     pipe.model.splice_prompt = recording_splice
-    reader = SyntheticVideoReader(total_frames=600, frame_rate=30, height=360, width=640)
+    process = pipe.process_video_online if online else pipe.process_video
     with tempfile.TemporaryDirectory() as d:
         bank = MemoryBank(os.path.join(d, "memory.json"), pipe.bank_embed)
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        results = pipe.process_video(reader, breakpoints, bank, user_name="User")
+        results = process(_video(), breakpoints, bank, user_name="User")
         torch.cuda.synchronize()
         seconds = time.perf_counter() - t0
     pipe.model.splice_prompt = splice
@@ -1192,15 +1344,29 @@ def run_slice(pipe, breakpoints):
 @contextlib.contextmanager
 def _observed(pipe):
     """Counts, for one run: captions made (`pipe._caption` and its batch
-    method), the most rows one K4 / K6 launch served, and the chunked
-    prefill's re-run windows. The kernel wrappers still count their own
-    launches."""
+    method) with each call's host-clock span, the most rows one K4 / K6
+    launch served, the chunked prefill's re-run windows, the host-clock span
+    of each `encode_segment` call (ingest), each dedup's frames in and out,
+    and each on-line `ask`'s seconds. The kernel wrappers still count their
+    own launches."""
     from streamchat_tpu_torch.models import decoder, paged_kv
+    from streamchat_tpu_torch.pipeline import runner
 
-    seen = {"captions": 0, "max_decode_rows": 0, "reruns": 0}
+    seen = {"captions": 0, "max_decode_rows": 0, "reruns": 0, "caption_spans": [],
+            "ingest_spans": [], "dedup": [], "ask_s": []}
     cap, rerun = pipe._caption, decoder._rerun_last
+    encode, dedup, session = runner.encode_segment, runner.dedup_segment, runner.StreamingSession
     seq = {n: getattr(paged_kv, n) for n in ("paged_decode_attention_seq",
                                               "paged_decode_attention_seq_int8")}
+
+    def spanned(fn, spans):
+        def wrapped(*a, **kw):
+            t0 = time.perf_counter()
+            try:
+                return fn(*a, **kw)
+            finally:
+                spans.append((t0, time.perf_counter()))
+        return wrapped
 
     def caption(chunk):
         seen["captions"] += 1
@@ -1220,27 +1386,53 @@ def _observed(pipe):
         seen["reruns"] += 1
         return rerun(*a)
 
-    caption.batch, caption.batch_size = caption_batch, cap.batch_size
-    pipe._caption, decoder._rerun_last = caption, counted_rerun
+    def counted_dedup(features, threshold):
+        out = dedup(features, threshold)
+        seen["dedup"].append((int(features.shape[0]), int(out.shape[0])))
+        return out
+
+    class TimedSession(session):
+        def ask(self, answer_fn):
+            t0 = time.perf_counter()
+            try:
+                return super().ask(answer_fn)
+            finally:
+                seen["ask_s"].append(time.perf_counter() - t0)
+
+    timed = spanned(caption, seen["caption_spans"])
+    timed.batch = spanned(caption_batch, seen["caption_spans"])
+    timed.batch_size = cap.batch_size
+    pipe._caption, decoder._rerun_last = timed, counted_rerun
+    runner.encode_segment = spanned(encode, seen["ingest_spans"])
+    runner.dedup_segment, runner.StreamingSession = counted_dedup, TimedSession
     for n, fn in seq.items():
         setattr(paged_kv, n, rows(fn))
     try:
         yield seen
     finally:
         pipe._caption, decoder._rerun_last = cap, rerun
+        runner.encode_segment, runner.dedup_segment = encode, dedup
+        runner.StreamingSession = session
         for n, fn in seq.items():
             setattr(paged_kv, n, fn)
 
 
+def _overlap_s(spans_a, spans_b):
+    """Seconds in which a span of one list overlaps a span of the other."""
+    return sum(max(0.0, min(a1, b1) - max(a0, b0))
+               for a0, a1 in spans_a for b0, b1 in spans_b)
+
+
 @contextlib.contextmanager
-def caption_batch(pipe, n):
-    """The pipeline with SamplingConfig.caption_batch = n for the block."""
+def sampling(pipe, **changes):
+    """The pipeline with these SamplingConfig fields changed for the block
+    (`caption_batch=2`, `max_answer_tokens=...`)."""
     import dataclasses
 
     from streamchat_tpu_torch.pipeline.answer import make_captioner
 
     cfg, cap = pipe.cfg, pipe._caption
-    pipe.cfg = cfg.replace(sampling=dataclasses.replace(cfg.sampling, caption_batch=n))
+    pipe.cfg = cfg.replace(sampling=dataclasses.replace(cfg.sampling, **changes))
     pipe._caption = make_captioner(pipe.model, pipe.cfg.sampling)
     try:
         yield
@@ -1248,11 +1440,42 @@ def caption_batch(pipe, n):
         pipe.cfg, pipe._caption = cfg, cap
 
 
-def drive(pipe, label, breakpoints):
-    """One process_video run with the launch counters zeroed before it and
-    read after it -> its report. A caption_batch run (label `*_cb2`) must
-    decode a 2-row caption group through K4 / K6 at B = 2 and take the
-    chunked prefill's re-run branch."""
+@contextlib.contextmanager
+def dedup_threshold(pipe, threshold):
+    """The pipeline with VideoConfig.dedup_threshold = threshold for the block."""
+    import dataclasses
+
+    cfg = pipe.cfg
+    pipe.cfg = cfg.replace(video=dataclasses.replace(cfg.video, dedup_threshold=threshold))
+    try:
+        yield
+    finally:
+        pipe.cfg = cfg
+
+
+def measure_dedup(pipe, end_s):
+    """The first segment's scene-change scores 1 - sim (K12 on its frame
+    descriptors) -> (the median of frames 1.., the scores): as a threshold
+    it drops some of the segment's frames and keeps others."""
+    from streamchat_tpu_torch.ops.dedup import frame_descriptors, select_changed_frames
+    from streamchat_tpu_torch.pipeline.ingest import encode_segment
+
+    feats = encode_segment(pipe.model, _video(), 0, end_s, pipe.cfg.video,
+                           pipe.cfg.memory.chunk_size)
+    _, sim = select_changed_frames(frame_descriptors(feats), return_similarity=True)
+    change = (1.0 - sim[1:]).float().cpu()
+    return float(change.median()), change.tolist()
+
+
+def drive(pipe, label, breakpoints, online=False, captions=None):
+    """One process_video run (`online`: process_video_online) with the
+    launch counters zeroed before it and read after it -> its report. A
+    caption_batch run (label `*_cb2`) must decode a 2-row caption group
+    through K4 / K6 at B = 2 and take the chunked prefill's re-run branch;
+    an on-line run must make `captions` captions where given (the off-line
+    run's over the same breakpoints), and a dedup run (label `*_dedup`)
+    must drop some frames and keep others and make one caption per
+    chunk_size kept frames of each segment, rounded up."""
     from streamchat_tpu_torch import kernels
 
     m = pipe.model
@@ -1260,13 +1483,16 @@ def drive(pipe, label, breakpoints):
     torch.cuda.reset_peak_memory_stats()
     kernels.reset_launch_counts()
     with _observed(pipe) as seen:
-        results, seconds, lengths = run_slice(pipe, breakpoints)
+        results, seconds, lengths = run_slice(pipe, breakpoints, online)
     counts = kernels.launch_counts()
     gs = m.gen_stats
     # A vanilla step emits one token; a verify step emits accepted_tokens /
     # verify_steps on average.
     emitted = gs.get("accepted_tokens", gs["decode_steps"])
     phases = pipe.last_phase_totals
+    # The on-line path times no phases: its captions are timed from outside.
+    caption_span_s = sum(t1 - t0 for t0, t1 in seen["caption_spans"])
+    caption_s = phases.get("caption", caption_span_s)
     report = dict(
         seconds=seconds, answers=len(results), generated_tokens=gs["generated_tokens"],
         decode_ms_per_step=1e3 * gs["decode_s"] / gs["decode_steps"],
@@ -1274,8 +1500,8 @@ def drive(pipe, label, breakpoints):
         accepted_tokens_per_verify_step=(gs["accepted_tokens"] / gs["verify_steps"]
                                          if "verify_steps" in gs else None),
         prefill_tokens_per_s=gs["prompt_tokens"] / gs["prefill_s"],
-        captions=seen["captions"], caption_s=phases.get("caption"),
-        caption_s_per_caption=phases.get("caption", 0.0) / max(seen["captions"], 1),
+        captions=seen["captions"], caption_s=caption_s,
+        caption_s_per_caption=caption_s / max(seen["captions"], 1),
         batched_rows=gs.get("batched_rows", 0), max_decode_rows=seen["max_decode_rows"],
         prefill_reruns=seen["reruns"],
         peak_gib=torch.cuda.max_memory_allocated() / 2**30, prompt_lengths=lengths,
@@ -1284,15 +1510,31 @@ def drive(pipe, label, breakpoints):
                                                              m.kv_int8),
         launches={n: c for n, c in counts.items() if c},
         phase_totals=phases)
-    print(f"process_video [{label}]: {json.dumps(report)}", flush=True)
+    if online:
+        report.update(
+            ask_s=seen["ask_s"], worker_caption_s=caption_span_s,
+            ingest_s=sum(t1 - t0 for t0, t1 in seen["ingest_spans"]),
+            caption_ingest_overlap_s=_overlap_s(seen["caption_spans"], seen["ingest_spans"]),
+            dedup_frames_in_out=seen["dedup"])
+    print(f"{'process_video_online' if online else 'process_video'} [{label}]: "
+          f"{json.dumps(report)}", flush=True)
     missing = [n for n in RUNS[label] if counts.get(n, 0) == 0]
     if missing:
         raise AssertionError(f"run {label}: kernels never launched: {missing}")
     if gs["generated_tokens"] == 0:
         raise AssertionError(f"run {label}: the main path generated no token")
-    if max(lengths) <= CAPTION_TOKENS_MIN:
+    if label.endswith("_dedup"):
+        kept = [k for _, k in seen["dedup"]]
+        total = sum(n for n, _ in seen["dedup"])
+        chunk = pipe.cfg.memory.chunk_size
+        if not 0 < sum(kept) < total:
+            raise AssertionError(f"run {label}: dedup kept {kept} of {total} frames")
+        captions = sum(-(-k // chunk) for k in kept)
+    elif max(lengths) <= CAPTION_TOKENS_MIN:
         raise AssertionError(f"run {label}: no chunk-40 caption prompt over "
                              f"{CAPTION_TOKENS_MIN} tokens: {lengths}")
+    if captions is not None and seen["captions"] != captions:
+        raise AssertionError(f"run {label}: {seen['captions']} captions, expected {captions}")
     if label.endswith("_cb2") and (report["batched_rows"] < 2 or seen["max_decode_rows"] < 2
                                    or seen["reruns"] < 1):
         raise AssertionError(f"run {label}: no 2-row caption group decoded at B = 2 through "
@@ -1340,6 +1582,10 @@ def main() -> None:
         trows, tplanted = check_table_kernels(pipe.model, g)
     rows.update(trows)
     planted.update(tplanted)
+    with phase("kernel checks K12, K13, K14"):
+        vrows, vplanted = check_vit_kernels(pipe.model, g)
+    rows.update(vrows)
+    planted.update(vplanted)
     for name, row in rows.items():
         print(f"{name}: max_abs_err {row['max_abs_err']:.6g}  max_row_rel_l2 "
               f"{row.get('max_row_rel_l2')}  kernel {row['ms']:.4f} ms (wall "
@@ -1348,9 +1594,10 @@ def main() -> None:
               f"({row['bound_by']})  library {row['library_ms']}  [{row['shapes']}]")
         for label, case in row.get("cases", {}).items():
             print(f"    {label}: {json.dumps(case)}")
-    for name, rel in planted.items():
-        print(f"planted fault rejected: {name}: max row relative L2 err {rel:.6g} "
-              f"(limit {ROW_REL_L2})")
+    for name, err in planted.items():
+        metric, limit = (("max |sim - plain sim|", SIM_ATOL) if name.startswith("K12")
+                         else ("max row relative L2 err", ROW_REL_L2))
+        print(f"planted fault rejected: {name}: {metric} {err:.6g} (limit {limit})")
     with phase("composed checks (bf16)"):
         composed = check_composed(pipe.model, g)
         composed["verify_step_vs_decode_steps"] = check_composed_spec(pipe.model, g)
@@ -1365,7 +1612,7 @@ def main() -> None:
         label = "caller_pool_kv_int8" if kv_int8 else "caller_pool_bf16"
         with phase(f"generate_paged on a caller-sized pool ({label})"):
             caller[label], counts[label] = drive_caller_pool(m, g, kv_int8)
-    with phase("process_video bf16, 1 breakpoint"):
+    with phase("process_video bf16, 1 breakpoint"), sampling(pipe, **SHORT_ANSWER):
         runs["bf16"], counts["bf16"] = drive(pipe, "bf16", BREAKPOINTS[:1])
     bf16_tree = m.dec_params
     with phase("quantize int8 + composed check"):
@@ -1374,11 +1621,24 @@ def main() -> None:
             m, g, "int8", ("qmatvec_int8",))
     with phase("process_video int8, 2 breakpoints"):
         runs["int8"], counts["int8"] = drive(pipe, "int8", BREAKPOINTS)
-    with phase(f"process_video int8, spec_tokens {SPEC_TOKENS}, 1 breakpoint"):
+    with phase("process_video_online int8, 2 breakpoints"):
+        runs["online_int8"], counts["online_int8"] = drive(
+            pipe, "online_int8", BREAKPOINTS, online=True, captions=runs["int8"]["captions"])
+    with phase("dedup threshold from the first segment"):
+        threshold, change = measure_dedup(pipe, BREAKPOINTS[0]["time"])
+    print(f"dedup threshold {threshold!r} (median 1 - sim of the first segment's frames "
+          f"1..; min {min(change)!r}, max {max(change)!r}, {len(change) + 1} frames)")
+    with phase("process_video_online int8 + dedup, 1 breakpoint"), \
+            dedup_threshold(pipe, threshold):
+        runs["online_int8_dedup"], counts["online_int8_dedup"] = drive(
+            pipe, "online_int8_dedup", BREAKPOINTS[:1], online=True)
+    with phase(f"process_video int8, spec_tokens {SPEC_TOKENS}, 1 breakpoint"), \
+            sampling(pipe, **SHORT_ANSWER):
         m.spec_tokens = SPEC_TOKENS
         runs["int8_spec"], counts["int8_spec"] = drive(pipe, "int8_spec", BREAKPOINTS[:1])
         m.spec_tokens = 0
-    with phase("process_video int8, caption_batch 2, 1 breakpoint"), caption_batch(pipe, 2):
+    with phase("process_video int8, caption_batch 2, 1 breakpoint"), \
+            sampling(pipe, caption_batch=2, **SHORT_ANSWER):
         runs["int8_cb2"], counts["int8_cb2"] = drive(pipe, "int8_cb2", BREAKPOINTS[:1])
     m.dec_params = bf16_tree                          # frees the int8 tree
     torch.cuda.empty_cache()
@@ -1387,16 +1647,17 @@ def main() -> None:
         m.kv_int8 = True
         composed["int4_step_logits_rel_l2_err"] = check_composed_quant(
             m, g, "int4", ("qmatvec_int4", "qmatvec_int4_fused", "qmatvec_int8"))
-    with phase("process_video int4 + kv_int8, 1 breakpoint"):
+    with phase("process_video int4 + kv_int8, 1 breakpoint"), sampling(pipe, **SHORT_ANSWER):
         runs["int4_kv_int8"], counts["int4_kv_int8"] = drive(pipe, "int4_kv_int8",
                                                              BREAKPOINTS[:1])
-    with phase(f"process_video int4 + kv_int8, spec_tokens {SPEC_TOKENS}, 1 breakpoint"):
+    with phase(f"process_video int4 + kv_int8, spec_tokens {SPEC_TOKENS}, 1 breakpoint"), \
+            sampling(pipe, **SHORT_ANSWER):
         m.spec_tokens = SPEC_TOKENS
         runs["int4_kv_int8_spec"], counts["int4_kv_int8_spec"] = drive(
             pipe, "int4_kv_int8_spec", BREAKPOINTS[:1])
         m.spec_tokens = 0
     with phase("process_video int4 + kv_int8, caption_batch 2, 1 breakpoint"), \
-            caption_batch(pipe, 2):
+            sampling(pipe, caption_batch=2, **SHORT_ANSWER):
         runs["int4_kv_int8_cb2"], counts["int4_kv_int8_cb2"] = drive(
             pipe, "int4_kv_int8_cb2", BREAKPOINTS[:1])
     print(f"composed checks: {json.dumps(composed)}")
@@ -1406,7 +1667,7 @@ def main() -> None:
         by_run = {label: c.get(n, 0) for label, c in counts.items()}
         report.append(dict(name=n, route="cuda", source=SOURCES[n][0], replaces=SOURCES[n][1],
                            launches=sum(by_run.values()), launches_by_run=by_run, **row))
-    print(f"summary: kernel build {info['seconds']:.2f} s, process_video "
+    print(f"summary: kernel build {info['seconds']:.2f} s, runs "
           + ", ".join(f"{k} {v['seconds']:.3f} s ({v['decode_ms_per_step']:.2f} ms/step, "
                       f"{v['decode_ms_per_emitted_token']:.2f} ms/token, "
                       f"{v['caption_s_per_caption']:.3f} caption s/caption)"

@@ -1,11 +1,23 @@
-// Online-softmax (flash) attention for prefill and the ViT layer (K3), and its
-// partial variant for chunked prefill (K5).
+// Online-softmax (flash) attention for prefill and the ViT layer (K3), its
+// partial variant for chunked prefill (K5), and the ViT attention (K14).
 //
 // K3 replaces the TPU kernel ops/attention.py:flash_attention (_flash_kernel):
 // causal or non-causal GQA attention with a per-row kv_length mask and a
 // normalized output. It also serves as the attention inside
-// ops/fused_vit.py:fused_vit_layer (_attn_body: non-causal, 16 heads of 64,
-// 577 tokens).
+// ops/fused_vit.py:fused_vit_layer and fused_ln_attn (K13) (_attn_body:
+// non-causal, 16 heads of 64, 577 tokens), there with the TPU kernel's
+// softmax modes: "exact" is this max-subtracting loop, "clamp" (kClamp) keeps
+// m fixed at 0 and takes p = exp(min(x, 80)) with no rescale, then divides
+// by max(l, 1e-30): logits above 80 flatten to equal weights and a row whose
+// logits all sit below about -87 underflows to a zero output, as there. The
+// folded (exp2) form is the same loop with scale = ln 2.
+//
+// K14 replaces ops/vit_attention.py:vit_attention (_kernel): non-causal
+// attention over [N, H, S, D] with one shared length, which the TPU kernel
+// padded to 128 and masked. Here it is this tile loop with causal = 0,
+// Hq = Hkv = H and kv_length = S (ragged tiles masked in the loop), so no
+// pad is needed; sc_vit_attention is its own entry point so that K3's and
+// K14's launches are counted apart.
 //
 // K5 replaces ops/attention.py:flash_attention_partial (_flash_partial_kernel):
 // the same tile loop with GLOBAL causality (k_off + col <= q_off + row, the
@@ -80,8 +92,9 @@ struct Partial {
 };
 
 // kPartial = false is K3 (normalized bf16 store through o's strides, called
-// with q_off = k_off = 0); true is K5 (the Partial outputs).
-template <int D, bool kPartial>
+// with q_off = k_off = 0); true is K5 (the Partial outputs). kClamp is the
+// clamp softmax of K13 (never with kPartial).
+template <int D, bool kPartial, bool kClamp>
 __global__ void __launch_bounds__(THREADS)
 flash_kernel(const __nv_bfloat16* __restrict__ q, int64_t qsb, int64_t qsh, int64_t qss,
              const __nv_bfloat16* __restrict__ k, int64_t ksb, int64_t ksh, int64_t kss,
@@ -160,19 +173,27 @@ flash_kernel(const __nv_bfloat16* __restrict__ q, int64_t qsb, int64_t qsh, int6
         ok[c] = kpos < kvlen && (!causal || ko + kpos <= qo + qpos);
         x[c] = ok[c] ? Ss[row * S_LD + lane + 32 * c] * scale : -INFINITY;
       }
-      const float m_old = m_row[row];
-      const float m_new = fmaxf(m_old, warp_max(fmaxf(x[0], x[1])));
       float p[2] = {0.0f, 0.0f};
       float alpha = 1.0f;
-      if (m_new != -INFINITY) {
+      float m_new = 0.0f;
+      if constexpr (kClamp) {
 #pragma unroll
-        for (int c = 0; c < 2; ++c) p[c] = ok[c] ? expf(x[c] - m_new) : 0.0f;
-        alpha = expf(m_old - m_new);
+        for (int c = 0; c < 2; ++c) p[c] = ok[c] ? expf(fminf(x[c], 80.0f)) : 0.0f;
+      } else {
+        const float m_old = m_row[row];
+        m_new = fmaxf(m_old, warp_max(fmaxf(x[0], x[1])));
+        if (m_new != -INFINITY) {
+#pragma unroll
+          for (int c = 0; c < 2; ++c) p[c] = ok[c] ? expf(x[c] - m_new) : 0.0f;
+          alpha = expf(m_old - m_new);
+        }
       }
       const float psum = warp_sum(p[0] + p[1]);
       Ps[row * P_LD + lane] = __float2bfloat16(p[0]);
       Ps[row * P_LD + lane + 32] = __float2bfloat16(p[1]);
-      for (int d = lane; d < D; d += 32) Os[row * L::O_LD + d] *= alpha;
+      if constexpr (!kClamp) {
+        for (int d = lane; d < D; d += 32) Os[row * L::O_LD + d] *= alpha;
+      }
       __syncwarp();
       if (lane == 0) {
         m_row[row] = m_new;
@@ -219,30 +240,46 @@ flash_kernel(const __nv_bfloat16* __restrict__ q, int64_t qsb, int64_t qsh, int6
       const int row = warp * 16 + r;
       if (q0 + row >= Sq) break;
       const float l = l_row[row];
-      const float inv = l > 0.0f ? 1.0f / l : 0.0f;
+      const float inv = kClamp ? 1.0f / fmaxf(l, 1e-30f) : (l > 0.0f ? 1.0f / l : 0.0f);
       for (int d = lane; d < D; d += 32)
         ob[(int64_t)(q0 + row) * oss + d] = __float2bfloat16(Os[row * L::O_LD + d] * inv);
     }
   }
 }
 
-template <int D, bool kPartial>
+template <int D, bool kPartial, bool kClamp = false>
 cudaError_t launch(const __nv_bfloat16* q, const int64_t* qs, const __nv_bfloat16* k,
                    const int64_t* ks, const __nv_bfloat16* v, const int64_t* vs,
                    __nv_bfloat16* o, const int64_t* os, Partial part, const int* kv_len,
                    int B, int Hq, int Hkv, int Sq, int Sk, int causal, float scale, int q_off,
                    int k_off, cudaStream_t stream) {
   constexpr size_t bytes = Smem<D>::bytes;
-  cudaError_t err = cudaFuncSetAttribute(
-      flash_kernel<D, kPartial>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+  cudaError_t err = cudaFuncSetAttribute(flash_kernel<D, kPartial, kClamp>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         (int)bytes);
   if (err != cudaSuccess) return err;
   dim3 grid((Sq + BQ - 1) / BQ, Hq, B);
   const int64_t no[3] = {0, 0, 0};
   if (!os) os = no;
-  flash_kernel<D, kPartial><<<grid, THREADS, bytes, stream>>>(
+  flash_kernel<D, kPartial, kClamp><<<grid, THREADS, bytes, stream>>>(
       q, qs[0], qs[1], qs[2], k, ks[0], ks[1], ks[2], v, vs[0], vs[1], vs[2], o, os[0],
       os[1], os[2], part, kv_len, Hq, Hkv, Sq, Sk, causal, scale, q_off, k_off);
   return cudaGetLastError();
+}
+
+template <int D>
+cudaError_t launch_normalized(const __nv_bfloat16* q, const int64_t* qs,
+                              const __nv_bfloat16* k, const int64_t* ks,
+                              const __nv_bfloat16* v, const int64_t* vs, __nv_bfloat16* o,
+                              const int64_t* os, const int* kv_len, int B, int Hq, int Hkv,
+                              int Sq, int Sk, int causal, float scale, int clamp,
+                              cudaStream_t stream) {
+  const Partial none{nullptr, nullptr, nullptr, 0.0f};
+  if (clamp)
+    return launch<D, false, true>(q, qs, k, ks, v, vs, o, os, none, kv_len, B, Hq, Hkv, Sq,
+                                  Sk, causal, scale, 0, 0, stream);
+  return launch<D, false>(q, qs, k, ks, v, vs, o, os, none, kv_len, B, Hq, Hkv, Sq, Sk,
+                          causal, scale, 0, 0, stream);
 }
 
 }  // namespace
@@ -251,14 +288,13 @@ cudaError_t launch_flash(const __nv_bfloat16* q, const int64_t* qs, const __nv_b
                          const int64_t* ks, const __nv_bfloat16* v, const int64_t* vs,
                          __nv_bfloat16* o, const int64_t* os, const int* kv_len, int B,
                          int Hq, int Hkv, int Sq, int Sk, int D, int causal, float scale,
-                         cudaStream_t stream) {
-  const Partial none{nullptr, nullptr, nullptr, 0.0f};
+                         int clamp, cudaStream_t stream) {
   if (D == 64)
-    return launch<64, false>(q, qs, k, ks, v, vs, o, os, none, kv_len, B, Hq, Hkv, Sq, Sk,
-                             causal, scale, 0, 0, stream);
+    return launch_normalized<64>(q, qs, k, ks, v, vs, o, os, kv_len, B, Hq, Hkv, Sq, Sk,
+                                 causal, scale, clamp, stream);
   if (D == 128)
-    return launch<128, false>(q, qs, k, ks, v, vs, o, os, none, kv_len, B, Hq, Hkv, Sq, Sk,
-                              causal, scale, 0, 0, stream);
+    return launch_normalized<128>(q, qs, k, ks, v, vs, o, os, kv_len, B, Hq, Hkv, Sq, Sk,
+                                  causal, scale, clamp, stream);
   return cudaErrorInvalidValue;
 }
 
@@ -275,7 +311,23 @@ extern "C" int sc_flash_attention(const void* q, const int64_t* q_strides, const
       static_cast<const __nv_bfloat16*>(q), q_strides, static_cast<const __nv_bfloat16*>(k),
       k_strides, static_cast<const __nv_bfloat16*>(v), v_strides,
       static_cast<__nv_bfloat16*>(o), o_strides, kv_len, B, Hq, Hkv, Sq, Sk, D, causal,
-      scale, static_cast<cudaStream_t>(stream));
+      scale, /*clamp=*/0, static_cast<cudaStream_t>(stream));
+  return static_cast<int>(err);
+}
+
+// K14: non-causal attention over q [N, H, Sq, D], k / v [N, H, Sk, D]
+// (strides: three int64 (image, head, seq) per input, in elements) into a
+// contiguous o [N, H, Sq, D]; every key of every image is valid.
+extern "C" int sc_vit_attention(const void* q, const int64_t* q_strides, const void* k,
+                                const int64_t* k_strides, const void* v,
+                                const int64_t* v_strides, void* o, int N, int H, int Sq,
+                                int Sk, int D, float scale, void* stream) {
+  const int64_t o_strides[3] = {(int64_t)H * Sq * D, (int64_t)Sq * D, D};
+  cudaError_t err = sc::launch_flash(
+      static_cast<const __nv_bfloat16*>(q), q_strides, static_cast<const __nv_bfloat16*>(k),
+      k_strides, static_cast<const __nv_bfloat16*>(v), v_strides,
+      static_cast<__nv_bfloat16*>(o), o_strides, /*kv_len=*/nullptr, N, H, H, Sq, Sk, D,
+      /*causal=*/0, scale, /*clamp=*/0, static_cast<cudaStream_t>(stream));
   return static_cast<int>(err);
 }
 

@@ -1,8 +1,9 @@
-// The ViT layer (K1) and the LN-MLP (K2) composed from the hand-written
-// kernels of this library.
+// The ViT layer (K1), the LN-MLP (K2) and the LN-attention half (K13)
+// composed from the hand-written kernels of this library.
 //
-// Replaces the TPU kernels ops/fused_vit.py:fused_vit_layer (_layer_kernel)
-// and ops/fused_vit.py:fused_ln_mlp (_mlp_kernel). On the TPU each was ONE
+// Replaces the TPU kernels ops/fused_vit.py:fused_vit_layer (_layer_kernel),
+// ops/fused_vit.py:fused_ln_mlp (_mlp_kernel) and ops/fused_vit.py:
+// fused_ln_attn (_attn_kernel). On the TPU each was ONE
 // Pallas kernel that kept a frame tile, every intermediate and all weights
 // in VMEM. A Hopper block has at most 227 KB of shared memory, far below one
 // frame's [577, 4096] MLP intermediate, so the layer runs as a sequence of
@@ -33,19 +34,20 @@ extern "C" int sc_fused_vit_layer(const void* x, const void* ln1_s, const void* 
   auto mid = static_cast<bf*>(ws_mid);
 
   sc::launch_layernorm(x, sc::kBF16, static_cast<const bf*>(ln1_s),
-                       static_cast<const bf*>(ln1_b), h, M, D, eps, st);
+                       static_cast<const bf*>(ln1_b), h, M, D, eps, /*onepass=*/0, st);
   sc::launch_gemm(h, D, static_cast<const bf*>(wqkv), static_cast<const bf*>(bqkv), nullptr,
                   sc::kBF16, 0, qkv, sc::kBF16, 3 * D, M, 3 * D, D, sc::kActNone, st);
   const int64_t qkv_strides[3] = {(int64_t)S * 3 * D, dh, 3 * D};
   const int64_t o_strides[3] = {(int64_t)S * D, dh, D};
   cudaError_t err = sc::launch_flash(qkv, qkv_strides, qkv + D, qkv_strides, qkv + 2 * D,
                                      qkv_strides, attn, o_strides, nullptr, N, H, H, S, S,
-                                     dh, /*causal=*/0, 1.0f / sqrtf((float)dh), st);
+                                     dh, /*causal=*/0, 1.0f / sqrtf((float)dh),
+                                     /*clamp=*/0, st);
   if (err != cudaSuccess) return static_cast<int>(err);
   sc::launch_gemm(attn, D, static_cast<const bf*>(wo), static_cast<const bf*>(bo), x,
                   sc::kBF16, D, ws_mid_x, sc::kF32, D, M, D, D, sc::kActNone, st);
   sc::launch_layernorm(ws_mid_x, sc::kF32, static_cast<const bf*>(ln2_s),
-                       static_cast<const bf*>(ln2_b), h, M, D, eps, st);
+                       static_cast<const bf*>(ln2_b), h, M, D, eps, /*onepass=*/0, st);
   sc::launch_gemm(h, D, static_cast<const bf*>(w1), static_cast<const bf*>(b1), nullptr,
                   sc::kBF16, 0, mid, sc::kBF16, Dmid, M, Dmid, D, sc::kActQuickGelu, st);
   sc::launch_gemm(mid, Dmid, static_cast<const bf*>(w2), static_cast<const bf*>(b2),
@@ -66,7 +68,7 @@ extern "C" int sc_fused_ln_mlp(const void* x, const void* ln_s, const void* ln_b
   if (layernorm) {
     sc::launch_layernorm(x, sc::kBF16, static_cast<const bf*>(ln_s),
                          static_cast<const bf*>(ln_b), static_cast<bf*>(ws_h), T, Din, eps,
-                         st);
+                         /*onepass=*/0, st);
     h = static_cast<const bf*>(ws_h);
   }
   sc::launch_gemm(h, Din, static_cast<const bf*>(w1), static_cast<const bf*>(b1), nullptr,
@@ -74,6 +76,44 @@ extern "C" int sc_fused_ln_mlp(const void* x, const void* ln_s, const void* ln_b
   sc::launch_gemm(static_cast<const bf*>(ws_mid), Dmid, static_cast<const bf*>(w2),
                   static_cast<const bf*>(b2), residual ? x : nullptr, sc::kBF16, Din, out,
                   sc::kBF16, Dout, T, Dout, Dmid, sc::kActNone, st);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// K13, out = x + O(attn(QKV(LN x))): K1's launch sequence without the MLP
+// half, the O GEMM's epilogue adding bo and the residual x and storing bf16.
+// clamp selects the TPU kernel's clamp softmax (else exact); folded means the
+// LN affine and the q scale dh^-0.5 * log2(e) live in wqkv / bqkv (ln_s /
+// ln_b unused), so the scores are in log2 units and the flash loop runs with
+// scale ln 2 (exp(s ln 2) = exp2(s), and the clamp at 80 in natural units is
+// the TPU kernel's 80 log2(e) in log2 units); onepass selects the one-pass LN
+// statistics. x, out: [N * S, D] bf16; ws_h [N*S, D], ws_qkv [N*S, 3D],
+// ws_attn [N*S, D] bf16.
+extern "C" int sc_fused_ln_attn(const void* x, const void* ln_s, const void* ln_b,
+                                const void* wqkv, const void* bqkv, const void* wo,
+                                const void* bo, void* out, void* ws_h, void* ws_qkv,
+                                void* ws_attn, int N, int S, int D, int H, float eps,
+                                int clamp, int folded, int onepass, void* stream) {
+  using bf = __nv_bfloat16;
+  auto st = static_cast<cudaStream_t>(stream);
+  const int M = N * S;
+  const int dh = D / H;
+  auto h = static_cast<bf*>(ws_h);
+  auto qkv = static_cast<bf*>(ws_qkv);
+  auto attn = static_cast<bf*>(ws_attn);
+  sc::launch_layernorm(x, sc::kBF16, folded ? nullptr : static_cast<const bf*>(ln_s),
+                       folded ? nullptr : static_cast<const bf*>(ln_b), h, M, D, eps, onepass,
+                       st);
+  sc::launch_gemm(h, D, static_cast<const bf*>(wqkv), static_cast<const bf*>(bqkv), nullptr,
+                  sc::kBF16, 0, qkv, sc::kBF16, 3 * D, M, 3 * D, D, sc::kActNone, st);
+  const int64_t qkv_strides[3] = {(int64_t)S * 3 * D, dh, 3 * D};
+  const int64_t o_strides[3] = {(int64_t)S * D, dh, D};
+  const float scale = folded ? 0.69314718055994531f : 1.0f / sqrtf((float)dh);
+  cudaError_t err = sc::launch_flash(qkv, qkv_strides, qkv + D, qkv_strides, qkv + 2 * D,
+                                     qkv_strides, attn, o_strides, nullptr, N, H, H, S, S,
+                                     dh, /*causal=*/0, scale, clamp, st);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  sc::launch_gemm(attn, D, static_cast<const bf*>(wo), static_cast<const bf*>(bo), x,
+                  sc::kBF16, D, out, sc::kBF16, D, M, D, D, sc::kActNone, st);
   return static_cast<int>(cudaGetLastError());
 }
 

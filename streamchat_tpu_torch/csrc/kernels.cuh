@@ -1,6 +1,7 @@
 // Host-side launchers shared across the translation units of the kernel
-// library. fused_vit.cu composes the ViT layer (K1) and the LN-MLP (K2) from
-// these; each launcher only enqueues work on `stream`.
+// library. fused_vit.cu composes the ViT layer (K1), the LN-MLP (K2) and the
+// LN-attention half (K13) from these; each launcher only enqueues work on
+// `stream`.
 #pragma once
 
 #include "common.cuh"
@@ -17,18 +18,22 @@ void launch_gemm(const __nv_bfloat16* A, int64_t lda, const __nv_bfloat16* B,
                  int64_t ldr, void* out, int out_dtype, int64_t ldc, int M, int N,
                  int K, int act, cudaStream_t stream);
 
-// Row LayerNorm with f32 statistics: out = (x - mu) * rsqrt(var + eps) * g + b.
+// Row LayerNorm with f32 statistics: out = (x - mu) * rsqrt(var + eps) * g + b
+// (no affine when gamma is null); onepass takes var = E[x^2] - mu^2.
 void launch_layernorm(const void* x, int in_dtype, const __nv_bfloat16* gamma,
                       const __nv_bfloat16* beta, __nv_bfloat16* out, int rows, int D,
-                      float eps, cudaStream_t stream);
+                      float eps, int onepass, cudaStream_t stream);
 
 // Online-softmax attention; q/k/v/o are [B, H, S, D] addressed through
-// element strides (batch, head, seq); the last dim is contiguous.
+// element strides (batch, head, seq); the last dim is contiguous. clamp = 0
+// subtracts the running max (exact); clamp = 1 is the TPU ViT kernel's
+// "clamp" softmax, p = exp(min(x, 80)) with no running max and the output
+// divided by max(l, 1e-30).
 cudaError_t launch_flash(const __nv_bfloat16* q, const int64_t* qs,
                          const __nv_bfloat16* k, const int64_t* ks,
                          const __nv_bfloat16* v, const int64_t* vs, __nv_bfloat16* o,
                          const int64_t* os, const int* kv_len, int B, int Hq, int Hkv,
-                         int Sq, int Sk, int D, int causal, float scale,
+                         int Sq, int Sk, int D, int causal, float scale, int clamp,
                          cudaStream_t stream);
 
 // Second pass of a split-K GEMV: y[i] = (sum_s partial[s][i]) (* scale[i % O])

@@ -1,18 +1,21 @@
 """Kernel library loader and the launch counters of the kernel wrappers.
 
-Each wrapper of a hand-written kernel is registered with `counted`; it adds
-one to its `launches` attribute where it launches its kernel on a CUDA
-tensor, and nowhere else (the CPU branch runs the plain PyTorch version and
-does not count). `launch_counts()` reads every counter and
-`reset_launch_counts()` zeroes them, so a run can show that its main path
-went through the kernels.
+Each wrapper of a hand-written kernel is registered with `counted`; it calls
+`launched` where it launches its kernel on a CUDA tensor, and nowhere else
+(the CPU branch runs the plain PyTorch version and does not count), which
+adds one to its `launches` attribute under a lock: the on-line session
+launches from a worker thread and the main thread at once.
+`launch_counts()` reads every counter and `reset_launch_counts()` zeroes
+them, so a run can show that its main path went through the kernels.
 """
 
 from __future__ import annotations
 
+import threading
 from typing import Callable, Dict
 
 _WRAPPERS: Dict[str, Callable] = {}
+_LOCK = threading.Lock()
 
 
 def counted(fn: Callable) -> Callable:
@@ -22,10 +25,18 @@ def counted(fn: Callable) -> Callable:
     return fn
 
 
+def launched(fn: Callable) -> None:
+    """Count one launch of `fn`'s kernel (atomic across threads)."""
+    with _LOCK:
+        fn.launches += 1
+
+
 def launch_counts() -> Dict[str, int]:
-    return {name: fn.launches for name, fn in _WRAPPERS.items()}
+    with _LOCK:
+        return {name: fn.launches for name, fn in _WRAPPERS.items()}
 
 
 def reset_launch_counts() -> None:
-    for fn in _WRAPPERS.values():
-        fn.launches = 0
+    with _LOCK:
+        for fn in _WRAPPERS.values():
+            fn.launches = 0

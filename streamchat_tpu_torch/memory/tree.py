@@ -9,6 +9,14 @@ greedily by caption-embedding cosine similarity and ranks the leftover
 depth-0 roots once; the reference's "index 0 unless some similarity
 strictly beats 0" rule is kept. Scoring runs on the host in numpy, as in
 the JAX package; node centroids stay on the device.
+
+`to_state` / `from_state` persist a tree (the runner's `--save_tree_dir`):
+the state is plain Python with each node's centroids as a CPU tensor in
+its own dtype (bf16 centroids have no numpy dtype without ml_dtypes, so
+they are not turned into numpy) and the caption embedding as numpy;
+pickling it needs torch and numpy only, and `from_state` moves the
+centroids to the caller's device, bit for bit. `token_emb` (the MaxSim
+token embeddings of the JAX package) is not ported and stays None.
 """
 
 from __future__ import annotations
@@ -138,3 +146,44 @@ class VisualMemoryTree:
 
     def __len__(self) -> int:
         return len(self.roots)
+
+    def all_nodes(self) -> List[MemoryTreeNode]:
+        """Every node, each root followed by its subtree (depth first)."""
+        out: List[MemoryTreeNode] = []
+
+        def walk(n: MemoryTreeNode) -> None:
+            out.append(n)
+            for c in n.children:
+                walk(c)
+
+        for r in self.roots:
+            walk(r)
+        return out
+
+    def to_state(self) -> dict:
+        """Picklable snapshot: {"roots": [node dicts]}, centroids as CPU
+        tensors in their own dtype."""
+
+        def pack(n: MemoryTreeNode) -> dict:
+            return {"centroids": n.centroids.detach().to("cpu", copy=True), "text": n.text,
+                    "depth": n.depth, "emb": None if n.emb is None else np.asarray(n.emb),
+                    "token_emb": None, "children": [pack(c) for c in n.children]}
+
+        return {"roots": [pack(r) for r in self.roots]}
+
+    @classmethod
+    def from_state(cls, state: dict, num_clusters: int, interval: int, embed_fn: EmbedFn,
+                   summarize_fn: SummarizeFn, merge_fn: MergeFn, *,
+                   device=None) -> "VisualMemoryTree":
+        """The tree `to_state` saved, its centroids on `device` (default: as
+        saved, on the CPU)."""
+        tree = cls(num_clusters, interval, embed_fn, summarize_fn, merge_fn)
+
+        def unpack(d: dict) -> MemoryTreeNode:
+            c = d["centroids"]
+            return MemoryTreeNode(centroids=c if device is None else c.to(device),
+                                  text=d["text"], depth=d["depth"], emb=d["emb"],
+                                  children=[unpack(x) for x in d["children"]])
+
+        tree.roots = [unpack(r) for r in state["roots"]]
+        return tree

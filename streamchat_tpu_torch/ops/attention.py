@@ -27,7 +27,7 @@ import math
 
 import torch
 
-from streamchat_tpu_torch.kernels import counted
+from streamchat_tpu_torch.kernels import counted, launched
 
 
 def flash_attention_plain(q, k, v, kv_length=None, *, causal: bool = True):
@@ -136,7 +136,7 @@ def flash_attention(q, k, v, kv_length=None, *, causal: bool = True):
          None if kv_length is None else kv_length.data_ptr(),
          b, hq, hkv, sq, sk, d, int(causal), 1.0 / math.sqrt(d),
          torch.cuda.current_stream().cuda_stream)
-    flash_attention.launches += 1
+    launched(flash_attention)
     return out
 
 
@@ -167,7 +167,7 @@ def flash_attention_partial(q, k, v, q_offset: int, k_offset: int, kv_length=Non
          None if kv_length is None else kv_length.data_ptr(),
          b, hq, hkv, sq, sk, d, int(causal), 1.0 / math.sqrt(d), int(q_offset),
          int(k_offset), float(neg_inf), torch.cuda.current_stream().cuda_stream)
-    flash_attention_partial.launches += 1
+    launched(flash_attention_partial)
     return acc, m, l
 
 

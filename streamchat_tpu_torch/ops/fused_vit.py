@@ -12,6 +12,13 @@ Counterparts of `streamchat_tpu/ops/fused_vit.py`:
 * `fused_ln_mlp` — out = [x +] fc2(act(fc1([LN] x))), act one of
   quick_gelu / erf-GELU / none (the projector runs it with LN off, no
   residual and erf-GELU). CUDA: `sc_fused_ln_mlp`; CPU: `fused_ln_mlp_plain`.
+* `fused_ln_attn` (K13) — out = x + O(attn(QKV(LN x))), the attention half
+  of the block with the TPU kernel's options: softmax "clamp" (default;
+  p = exp(min(s, 80)), no max subtraction, the sum floored at 1e-30) or
+  "exact"; `folded` weights from `fold_vit_attn_params` (LN affine and the
+  q scale dh^-0.5 * log2 e in wqkv / bqkv, exp2 softmax); `ln_onepass`
+  statistics. CUDA: `sc_fused_ln_attn`; CPU: `fused_ln_attn_plain`, which
+  follows the TPU kernel's `_attn_body` option by option.
 
 Numerics follow the TPU kernels: LayerNorm statistics in f32, products of
 the storage dtype with f32 accumulation, the mid-layer residual kept in
@@ -22,12 +29,15 @@ what the kernels' f32 accumulation computes up to summation order.
 
 from __future__ import annotations
 
+import math
+
 import torch
 
-from streamchat_tpu_torch.kernels import counted
+from streamchat_tpu_torch.kernels import counted, launched
 from streamchat_tpu_torch.ops.attention import flash_attention_plain
 
 ACTIVATIONS = {"none": 0, "quick_gelu": 1, "gelu": 2}
+_LOG2E = math.log2(math.e)
 
 
 def _mm(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -35,10 +45,18 @@ def _mm(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return a.float() @ b.float()
 
 
-def _ln_f32(x32, scale, bias, eps):
+def _ln_f32(x32, scale, bias, eps, *, onepass: bool = False):
+    """LayerNorm in f32; `onepass` takes var = E[x^2] - E[x]^2, and
+    scale None skips the affine (folded weights)."""
     mu = x32.mean(-1, keepdim=True)
-    var = (x32 - mu).square().mean(-1, keepdim=True)
-    return (x32 - mu) * torch.rsqrt(var + eps) * scale.float() + bias.float()
+    if onepass:
+        var = (x32 * x32).mean(-1, keepdim=True) - mu * mu
+    else:
+        var = (x32 - mu).square().mean(-1, keepdim=True)
+    y = (x32 - mu) * torch.rsqrt(var + eps)
+    if scale is None:
+        return y
+    return y * scale.float() + bias.float()
 
 
 def _activate(h32, activation: str):
@@ -131,7 +149,7 @@ def fused_vit_layer(x, ln1_scale, ln1_bias, wqkv, bqkv, wo, bo,
         x, ln1_scale, ln1_bias, wqkv, bqkv, wo, bo, ln2_scale, ln2_bias,
         w1, b1, w2, b2, out, ws_h, ws_qkv, ws_attn, ws_mid_x, ws_mid)]
     call("sc_fused_vit_layer", *ptrs, n, s, d, dmid, num_heads, eps, _stream())
-    fused_vit_layer.launches += 1
+    launched(fused_vit_layer)
     return out
 
 
@@ -188,5 +206,104 @@ def fused_ln_mlp(x, ln_scale, ln_bias, w1, b1, w2, b2, *,
          ptr(ln_bias if layernorm else None), ptr(w1), ptr(b1), ptr(w2), ptr(b2),
          ptr(out), ptr(ws_h), ptr(ws_mid), t, din, dmid, dout,
          ACTIVATIONS[activation], int(layernorm), int(residual), eps, _stream())
-    fused_ln_mlp.launches += 1
+    launched(fused_ln_mlp)
+    return out
+
+
+def _check_softmax_mode(softmax_mode):
+    if softmax_mode not in ("clamp", "exact"):
+        raise ValueError(f"softmax_mode={softmax_mode!r}: expected 'clamp' or 'exact'")
+
+
+def _check_ln_attn(n, frame_tile, softmax_mode):
+    if n % frame_tile:
+        raise ValueError(f"N={n} not a multiple of frame_tile={frame_tile}")
+    _check_softmax_mode(softmax_mode)
+
+
+def fold_vit_attn_params(ln_scale, ln_bias, wqkv, bqkv, *, num_heads: int):
+    """Fold the pre-attention LN affine and the q scale dh^-0.5 * log2(e)
+    into wqkv / bqkv (y @ W + b with y = n * g + c is n @ (g * W) + (c @ W
+    + b)), in f32, rounded back to the weights' dtype -> (wqkv', bqkv') for
+    `fused_ln_attn(..., folded=True)`, which then ignores ln_scale / ln_bias."""
+    d = wqkv.shape[0]
+    dh = d // num_heads
+    w = wqkv.float()
+    b = bqkv.float() + ln_bias.float() @ w
+    w = w * ln_scale.float()[:, None]
+    qscale = (dh ** -0.5) * _LOG2E
+    w[:, :d] *= qscale
+    b[:d] *= qscale
+    return w.to(wqkv.dtype), b.to(bqkv.dtype)
+
+
+def fused_ln_attn_plain(x, ln_scale, ln_bias, wqkv, bqkv, wo, bo, *, num_heads: int,
+                        eps: float = 1e-5, frame_tile: int = 1, softmax_mode: str = "clamp",
+                        folded: bool = False, ln_onepass: bool = False):
+    """Plain PyTorch twin of `fused_ln_attn` (same signature): the TPU
+    kernel's `_attn_body`, all heads at once."""
+    n, s, d = x.shape
+    _check_ln_attn(n, frame_tile, softmax_mode)
+    dt = x.dtype
+    dh = d // num_heads
+    x32 = x.float()
+    affine = (None, None) if folded else (ln_scale, ln_bias)
+    h = _ln_f32(x32, *affine, eps, onepass=ln_onepass).to(dt)
+    qkv = (_mm(h, wqkv) + bqkv.float()).to(dt)
+    q, k, v = qkv.view(n, s, 3, num_heads, dh).permute(2, 0, 3, 1, 4)   # [n, H, s, dh]
+    if not folded:
+        q = q * torch.tensor(dh ** -0.5, dtype=dt)
+    scores = _mm(q, k.transpose(-1, -2))          # [n, H, s, s], log2 units when folded
+    exp = torch.exp2 if folded else torch.exp
+    if softmax_mode == "exact":
+        p = exp(scores - scores.amax(-1, keepdim=True))
+    else:
+        p = exp(scores.clamp_max(80.0 * _LOG2E if folded else 80.0))
+    p = p.to(dt)
+    l_inv = 1.0 / p.float().sum(-1, keepdim=True).clamp_min(1e-30)
+    attn = (_mm(p, v) * l_inv).to(dt).transpose(1, 2).reshape(n, s, d)
+    return (_mm(attn, wo) + bo.float() + x32).to(dt)
+
+
+@counted
+def fused_ln_attn(x, ln_scale, ln_bias, wqkv, bqkv, wo, bo, *, num_heads: int,
+                  eps: float = 1e-5, frame_tile: int = 1, softmax_mode: str = "clamp",
+                  folded: bool = False, ln_onepass: bool = False):
+    """out = x + O(attention(QKV(LN x))) over x [N, S, D] (K13).
+
+    wqkv is the merged [D, 3D] q|k|v projection. `frame_tile` is the TPU
+    kernel's frame tiling: N must be a multiple of it, and it has no other
+    effect here. CPU tensors run the plain twin; CUDA tensors launch the
+    kernel (bf16, D a multiple of 128, head dim 64 or 128) or raise.
+    """
+    n, s, d = x.shape
+    _check_ln_attn(n, frame_tile, softmax_mode)
+    if x.device.type == "cpu":
+        return fused_ln_attn_plain(
+            x, ln_scale, ln_bias, wqkv, bqkv, wo, bo, num_heads=num_heads, eps=eps,
+            frame_tile=frame_tile, softmax_mode=softmax_mode, folded=folded,
+            ln_onepass=ln_onepass)
+    from streamchat_tpu_torch.kernels.build import call
+
+    dh = d // num_heads
+    if d % 128 or dh * num_heads != d or dh not in (64, 128):
+        raise ValueError(f"fused_ln_attn: unsupported D={d}, heads={num_heads}")
+    bf = torch.bfloat16
+    checks = [("x", x, (n, s, d)), ("wqkv", wqkv, (d, 3 * d)), ("bqkv", bqkv, (3 * d,)),
+              ("wo", wo, (d, d)), ("bo", bo, (d,))]
+    if not folded:
+        checks += [("ln_scale", ln_scale, (d,)), ("ln_bias", ln_bias, (d,))]
+    for name, t, shape in checks:
+        _check_cuda(f"fused_ln_attn {name}", t, bf, shape)
+    m = n * s
+    out = torch.empty_like(x)
+    ws_h = torch.empty(m, d, dtype=bf, device=x.device)
+    ws_qkv = torch.empty(m, 3 * d, dtype=bf, device=x.device)
+    ws_attn = torch.empty(m, d, dtype=bf, device=x.device)
+    ln = (None, None) if folded else (ln_scale.data_ptr(), ln_bias.data_ptr())
+    call("sc_fused_ln_attn", x.data_ptr(), *ln, wqkv.data_ptr(), bqkv.data_ptr(),
+         wo.data_ptr(), bo.data_ptr(), out.data_ptr(), ws_h.data_ptr(), ws_qkv.data_ptr(),
+         ws_attn.data_ptr(), n, s, d, num_heads, eps, int(softmax_mode == "clamp"),
+         int(folded), int(ln_onepass), _stream())
+    launched(fused_ln_attn)
     return out

@@ -17,7 +17,7 @@ from __future__ import annotations
 
 import torch
 
-from streamchat_tpu_torch.kernels import counted
+from streamchat_tpu_torch.kernels import counted, launched
 from streamchat_tpu_torch.ops.quant import MAX_KERNEL_ROWS, TARGET_BLOCKS, unpack_int4
 
 GROUP = 128
@@ -95,7 +95,7 @@ def qmatvec_int4(x, w_i4p, scale, out_dtype=torch.float32):
         return qmatvec_int4_plain(x, w_i4p, scale, out_dtype)
     _check(x, [(w_i4p, scale)], out_dtype, "qmatvec_int4")
     y = _launch(x, [(w_i4p, scale)], out_dtype)
-    qmatvec_int4.launches += 1
+    launched(qmatvec_int4)
     return y
 
 
@@ -113,7 +113,7 @@ def qmatvec_int4_fused(x, *flat, out_dtype=torch.float32):
                          f"{len(flat)} tensors")
     _check(x, parts, out_dtype, "qmatvec_int4_fused")
     y = _launch(x, parts, out_dtype)
-    qmatvec_int4_fused.launches += 1
+    launched(qmatvec_int4_fused)
     outs, off = [], 0
     for w, _ in parts:
         outs.append(y[:, off:off + 2 * w.shape[1]])

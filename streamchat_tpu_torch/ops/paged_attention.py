@@ -34,7 +34,7 @@ from __future__ import annotations
 
 import torch
 
-from streamchat_tpu_torch.kernels import counted
+from streamchat_tpu_torch.kernels import counted, launched
 
 # Pages per block of the split page range: 4 pages of 128 tokens give ~180
 # blocks for a 23k-token context over 4 kv heads (132 SMs on the H100).
@@ -256,7 +256,7 @@ def paged_decode_attention_seq(q, k_pages, v_pages, length):
     if q.device.type == "cpu":
         return paged_decode_attention_seq_plain(q, k_pages, v_pages, length)
     out = _launch("sc_paged_decode", q, k_pages, v_pages, (), length, torch.bfloat16)
-    paged_decode_attention_seq.launches += 1
+    launched(paged_decode_attention_seq)
     return out
 
 
@@ -270,7 +270,7 @@ def paged_decode_attention_seq_int8(q, k_pages, v_pages, k_scale, v_scale, lengt
                                                      v_scale, length)
     out = _launch("sc_paged_decode_int8", q, k_pages, v_pages, (k_scale, v_scale),
                   length, torch.int8)
-    paged_decode_attention_seq_int8.launches += 1
+    launched(paged_decode_attention_seq_int8)
     return out
 
 
@@ -283,7 +283,7 @@ def paged_decode_attention_table(q, k_pages, v_pages, page_table, length):
         return paged_decode_attention_table_plain(q, k_pages, v_pages, page_table, length)
     out = _launch("sc_paged_decode_table", q, k_pages, v_pages, (), length, torch.bfloat16,
                   table=page_table)
-    paged_decode_attention_table.launches += 1
+    launched(paged_decode_attention_table)
     return out
 
 
@@ -296,7 +296,7 @@ def paged_decode_attention_table_int8(q, k_pages, v_pages, k_scale, v_scale, pag
                                                        page_table, length)
     out = _launch("sc_paged_decode_table_int8", q, k_pages, v_pages, (k_scale, v_scale),
                   length, torch.int8, table=page_table)
-    paged_decode_attention_table_int8.launches += 1
+    launched(paged_decode_attention_table_int8)
     return out
 
 
@@ -310,7 +310,7 @@ def paged_seq_attention_partial(q, k_pages, v_pages, length):
         return paged_seq_attention_partial_plain(q, k_pages, v_pages, length)
     res = _launch("sc_paged_seq_partial", q, k_pages, v_pages, (), length, torch.bfloat16,
                   partial=True)
-    paged_seq_attention_partial.launches += 1
+    launched(paged_seq_attention_partial)
     return res
 
 
@@ -322,5 +322,5 @@ def paged_seq_attention_partial_int8(q, k_pages, v_pages, k_scale, v_scale, leng
                                                       length)
     res = _launch("sc_paged_seq_partial_int8", q, k_pages, v_pages, (k_scale, v_scale),
                   length, torch.int8, partial=True)
-    paged_seq_attention_partial_int8.launches += 1
+    launched(paged_seq_attention_partial_int8)
     return res

@@ -24,7 +24,7 @@ from typing import Any, Dict, Sequence
 
 import torch
 
-from streamchat_tpu_torch.kernels import counted
+from streamchat_tpu_torch.kernels import counted, launched
 
 Params = Dict[str, Any]
 
@@ -148,7 +148,7 @@ def qmatvec_int8(x, w_i8, scale, out_dtype=None):
     call("sc_w8a16_gemv", x.data_ptr(), w_i8.data_ptr(), scale.data_ptr(), n, kin, out,
          slice_rows, nsplit, partial.data_ptr(), y.data_ptr(),
          int(out_dtype == torch.float32), torch.cuda.current_stream().cuda_stream)
-    qmatvec_int8.launches += 1
+    launched(qmatvec_int8)
     return y
 
 

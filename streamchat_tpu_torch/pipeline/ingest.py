@@ -1,5 +1,5 @@
-"""Frame ingest: decode -> preprocess -> batched ViT encode
-(`streamchat_tpu/pipeline/ingest.py`)."""
+"""Frame ingest: decode -> preprocess -> batched ViT encode, then the
+optional scene-change dedup (`streamchat_tpu/pipeline/ingest.py`)."""
 
 from __future__ import annotations
 
@@ -7,6 +7,7 @@ import numpy as np
 import torch
 
 from streamchat_tpu_torch.config import VideoConfig
+from streamchat_tpu_torch.ops.dedup import frame_descriptors, select_changed_frames
 from streamchat_tpu_torch.video.reader import sample_frame_indices
 from streamchat_tpu_torch.pipeline.preprocess import preprocess_frames
 
@@ -47,9 +48,10 @@ def encode_segment(model, reader, start_s: float, end_s: float, cfg: VideoConfig
 
 
 def dedup_segment(features: torch.Tensor, threshold: float) -> torch.Tensor:
-    """Selective frame stacking; threshold 0 (the v0.3 path) passes through."""
+    """Selective frame stacking: keep the frames [N, P, D] whose descriptor
+    changed by more than `threshold` from the frame before (K12); frame 0
+    is always kept. Threshold 0 (the v0.3 path) passes through."""
     if threshold <= 0.0 or features.shape[0] == 0:
         return features
-    raise NotImplementedError(
-        "dedup_threshold > 0 needs the select_changed_frames kernel, not "
-        "ported yet: ROADMAP §B 'ops/dedup.py select_changed_frames'")
+    keep = select_changed_frames(frame_descriptors(features), threshold=threshold)
+    return features[torch.nonzero(keep).flatten()]

@@ -9,8 +9,9 @@
    the tree. A captioner with a `.batch` method captions groups of its
    `.batch_size` chunks in one call (a group of one goes to the captioner
    itself); group size 1 is the reference's strictly sequential captioning.
-   `cluster_full_chunks=False` (the reference's literal dead guard) is not
-   ported yet.
+   `cluster_full_chunks=False` (`--literal_kmeans`) reproduces the
+   reference's literal guard, which never clusters a chunk: every node then
+   keeps its raw chunk.
 
 The JAX package's host offload of chunks and weights (`offload_chunks`,
 `offload_residents`, OFFLOAD_STATS) exists to fit a 16 GB chip; the H100's
@@ -45,7 +46,8 @@ def build_short_memory(features: torch.Tensor, cfg: MemoryConfig,
 
 
 def chunk_and_cluster(features: torch.Tensor, cfg: MemoryConfig,
-                      generator: torch.Generator | None = None
+                      generator: torch.Generator | None = None,
+                      cluster_full_chunks: bool = True
                       ) -> Tuple[List[torch.Tensor], List[torch.Tensor]]:
     """Split [N, P, D] into chunk_size chunks -> (raw_chunks, node_features)."""
     raw: List[torch.Tensor] = []
@@ -53,7 +55,8 @@ def chunk_and_cluster(features: torch.Tensor, cfg: MemoryConfig,
     for i in range(0, features.shape[0], cfg.chunk_size):
         chunk = features[i: i + cfg.chunk_size]
         raw.append(chunk)
-        if chunk.shape[0] >= cfg.chunk_size and chunk.shape[0] > cfg.num_clusters:
+        if (cluster_full_chunks and chunk.shape[0] >= cfg.chunk_size
+                and chunk.shape[0] > cfg.num_clusters):
             centroids, _ = weighted_kmeans_feature(chunk, cfg.num_clusters,
                                                    generator=generator)
             node.append(centroids)
@@ -63,7 +66,8 @@ def chunk_and_cluster(features: torch.Tensor, cfg: MemoryConfig,
 
 
 def update_memory(features: torch.Tensor, tree: VisualMemoryTree, caption_fn: CaptionFn,
-                  cfg: MemoryConfig, generator: torch.Generator | None = None
+                  cfg: MemoryConfig, generator: torch.Generator | None = None,
+                  cluster_full_chunks: bool = True
                   ) -> Tuple[VisualMemoryTree, torch.Tensor]:
     """One segment's memory update -> (tree, short_memory [R, P, D])."""
     if cfg.compress_rate > 1:
@@ -71,7 +75,8 @@ def update_memory(features: torch.Tensor, tree: VisualMemoryTree, caption_fn: Ca
             "compress_rate > 1 (spatial pooling) is not ported yet: ROADMAP §A "
             "'Memory update'")
     short = build_short_memory(features, cfg, generator)
-    raw_chunks, node_feats = chunk_and_cluster(features, cfg, generator)
+    raw_chunks, node_feats = chunk_and_cluster(features, cfg, generator,
+                                               cluster_full_chunks)
     batch_fn = getattr(caption_fn, "batch", None)
     size = getattr(caption_fn, "batch_size", 1) if batch_fn is not None else 1
     captions: List[str] = []

@@ -1,19 +1,28 @@
-"""Streaming pipeline and CLI (`streamchat_tpu/pipeline/runner.py`), off-line
-multi-modal path.
+"""Streaming pipeline and CLI (`streamchat_tpu/pipeline/runner.py`),
+multi-modal path, off-line and on-line.
 
 Per video: reset the visual memory tree and open a dialogue memory bank;
-per breakpoint segment: ingest -> memory update (captions + tree) ->
-dialogue retrieval -> answer -> result append -> memory write-back. Phase
-totals are host wall-clock windows that end in a device synchronize, so on
-a GPU they are true device-inclusive times; the "caption" phase times each
-caption call, a batched one (`SamplingConfig.caption_batch` > 1) included.
+per breakpoint segment: ingest -> dedup (when `VideoConfig.dedup_threshold`
+> 0) -> memory update (captions + tree) -> dialogue retrieval -> answer ->
+result append -> memory write-back. `process_video` (off-line, the v0.3
+benchmark path) updates memory segment by segment and resets the short
+memory at each breakpoint; its phase totals are host wall-clock windows
+that end in a device synchronize, so on a GPU they are true
+device-inclusive times; the "caption" phase times each caption call, a
+batched one (`SamplingConfig.caption_batch` > 1) included.
+`process_video_online` (`--mode on_line`) pushes each segment into a
+`StreamingSession`, whose worker thread captions chunks while the next
+segment is ingested, and keeps the short memory as a FIFO across the
+stream; it times no phases, as in the JAX package.
 
 `--int8` (the default) and `--int4` quantize the decoder after it is built,
 as the JAX `main` does; `--bf16` keeps it bf16. `--spec_tokens N` turns on
-speculative decoding (`--spec_ngram` drafting) on the model, as the JAX
-`main` does. Not ported yet, each raising NotImplementedError that names
-its ROADMAP item: --mode on_line, --shard, --offload_chunks / --offload_residents, --ppl,
---literal_kmeans, the uni-modal answer (no --multi_modal_memory) and
+speculative decoding (`--spec_ngram` drafting) on the model,
+`--literal_kmeans` keeps every chunk's raw features in its tree node, and
+`--save_tree_dir` pickles each video's tree state, as the JAX `main` does.
+Not ported yet, each raising NotImplementedError that names its ROADMAP
+item: --shard, --offload_chunks / --offload_residents, --ppl,
+--compress_rate > 1, the uni-modal answer (no --multi_modal_memory) and
 checkpoint loading (--model_name / --embedding_model / --minilm_model).
 """
 
@@ -23,6 +32,8 @@ import argparse
 import dataclasses
 import json
 import os
+import pickle
+import threading
 import time
 from typing import Optional
 
@@ -54,6 +65,7 @@ from streamchat_tpu_torch.pipeline.answer import (
 )
 from streamchat_tpu_torch.pipeline.ingest import dedup_segment, encode_segment, segment_indices
 from streamchat_tpu_torch.pipeline.memory_update import update_memory
+from streamchat_tpu_torch.pipeline.streaming import StreamingSession
 from streamchat_tpu_torch.utils.profiling import PhaseTimer
 
 
@@ -80,6 +92,12 @@ class StreamChatPipeline:
         self._caption = make_captioner(model, cfg.sampling)
         self._summarize = make_summarizer(model, cfg.sampling)
         self.generator = torch.Generator(device=model.device).manual_seed(cfg.seed)
+        # Held around every draw from `generator` that the on-line session's
+        # worker may make at the same time as the caller.
+        self._generator_lock = threading.Lock()
+        # False (--literal_kmeans) keeps every chunk's raw features in its
+        # tree node (pipeline/memory_update.py).
+        self.cluster_full_chunks = True
         self._q_emb_cache = {}
         self.last_tree = None
         self.last_phase_totals = {}
@@ -87,7 +105,8 @@ class StreamChatPipeline:
 
     def new_tree(self) -> VisualMemoryTree:
         def merge(combined, k):
-            return weighted_kmeans_feature(combined, k, generator=self.generator)[0]
+            with self._generator_lock:
+                return weighted_kmeans_feature(combined, k, generator=self.generator)[0]
 
         return VisualMemoryTree(
             num_clusters=self.cfg.memory.num_clusters, interval=self.cfg.memory.interval,
@@ -168,7 +187,7 @@ class StreamChatPipeline:
                     with timer.phase("memory_update"):
                         tree, short_memory = update_memory(
                             features, tree, timed_caption, self.cfg.memory,
-                            self.generator)
+                            self.generator, self.cluster_full_chunks)
                     features = None
                 if short_memory is None:
                     continue    # an empty first segment has nothing to answer from
@@ -190,6 +209,49 @@ class StreamChatPipeline:
         self.last_tree = tree
         self.last_phase_totals = {k: round(v, 3) for k, v in timer.summary().items()}
         self.last_phase_counts = dict(timer.counts)
+        return results
+
+    def process_video_online(self, reader, breakpoints, bank: MemoryBank, user_name: str,
+                             save_file: Optional[str] = None):
+        """on_line mode: memory updates run in a `StreamingSession` worker
+        while the next segment is ingested; the short memory is a FIFO
+        across the stream. As in the JAX package the frames are read without
+        a PrefetchReader, and a breakpoint is skipped only when no frame has
+        arrived yet (after `sync()`, so a worker error still surfaces)."""
+        session = StreamingSession(
+            self.new_tree(), self._caption, self.cfg.memory, self.generator,
+            self.cluster_full_chunks, generator_lock=self._generator_lock,
+            device=self.model.device)
+        memory_index = bank.enter_name(user_name)
+        self._prewarm_question_embeddings(breakpoints, bank)
+        results = []
+        frame_line = [0] + [int(q["time"]) for q in breakpoints]
+        try:
+            for q, start_s, end_s in zip(breakpoints, frame_line[:-1], frame_line[1:]):
+                features = encode_segment(self.model, reader, start_s, end_s, self.cfg.video,
+                                          self.cfg.memory.chunk_size)
+                features = dedup_segment(features, self.cfg.video.dedup_threshold)
+                if features.shape[0] > 0:
+                    session.push(features)
+                session.flush()
+                features = None
+                history_prompt = self._history_prompt(memory_index, q["question"])
+                if len(session.short_term) == 0:
+                    session.sync()
+                    continue
+
+                def answer(short, tree, question=q["question"], history=history_prompt):
+                    return answer_question(question, self.model, self.embed_query, short, tree,
+                                           history, self.cfg.sampling, self.cfg.conv_mode)
+
+                res = session.ask(answer)
+                memory_index = self._record_and_store(
+                    results, q, end_s, res, bank, user_name, save_file)
+        finally:
+            session.close()
+        self.last_tree = session.tree
+        self.last_phase_totals = {}
+        self.last_phase_counts = {}
         return results
 
     def _history_prompt(self, memory_index, question: str):
@@ -244,11 +306,17 @@ def run_inference(pipeline: StreamChatPipeline, args) -> None:
         if not os.path.exists(video_path):
             continue
         reader = open_video(video_path)
+        process = (pipeline.process_video_online if args.mode == "on_line"
+                   else pipeline.process_video)
         try:
-            pipeline.process_video(reader, anno["breakpoint"], bank, user_name="User",
-                                   save_file=args.save_file)
+            process(reader, anno["breakpoint"], bank, user_name="User",
+                    save_file=args.save_file)
         finally:
             reader.close()
+        if args.save_tree_dir:
+            os.makedirs(args.save_tree_dir, exist_ok=True)
+            with open(os.path.join(args.save_tree_dir, f"tree_{count}.pkl"), "wb") as f:
+                pickle.dump(pipeline.last_tree.to_state(), f)
 
 
 GEOMETRIES = ("tiny", "longva7b")
@@ -336,8 +404,6 @@ _NOT_PORTED = (
     ("offload_chunks", "--offload_chunks", "Host offload"),
     ("offload_residents", "--offload_residents", "Host offload"),
     ("ppl", "--ppl", "Uni-modal answer and --ppl"),
-    ("literal_kmeans", "--literal_kmeans", "Memory update"),
-    ("save_tree_dir", "--save_tree_dir", "Memory update"),
 )
 
 
@@ -345,9 +411,6 @@ def config_from_args(args) -> PipelineConfig:
     for attr, flag, item in _NOT_PORTED:
         if getattr(args, attr):
             raise NotImplementedError(f"{flag} is not ported yet: ROADMAP §A '{item}'")
-    if args.mode != "off_line":
-        raise NotImplementedError(
-            f"--mode {args.mode} is not ported yet: ROADMAP §A 'On-line mode'")
     return PipelineConfig(
         memory=MemoryConfig(
             chunk_size=args.chunk_size, num_clusters=args.num_clusters,
@@ -380,6 +443,8 @@ def main(argv=None) -> None:
     if args.spec_tokens:
         pipeline.model.spec_tokens = args.spec_tokens
         pipeline.model.spec_ngram = args.spec_ngram
+    if args.literal_kmeans:
+        pipeline.cluster_full_chunks = False
     t0 = time.time()
     run_inference(pipeline, args)
     print(json.dumps({"seconds": round(time.time() - t0, 3),

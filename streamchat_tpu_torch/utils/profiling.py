@@ -8,7 +8,7 @@ Host wall-clock per named phase. A phase that ends in device work measures
 the device only if the caller synchronises inside the window (the runner
 does, through `synchronize`, so phase totals are true on a GPU).
 
-`device_ms(fn, iters)` is the device time of a GPU call: the summed
+`device_ms(fn, iters[, kernel])` is the device time of a GPU call: the summed
 durations of the device events torch.profiler records.
 """
 
@@ -45,11 +45,13 @@ class PhaseTimer:
 PROFILE_ATTEMPTS = 3
 
 
-def device_ms(fn: Callable[[], object], iters: int) -> float:
+def device_ms(fn: Callable[[], object], iters: int, kernel: Optional[str] = None) -> float:
     """Device time per call of `fn` on the GPU: the summed durations of the
     device events (kernels and copies) torch.profiler records over `iters`
-    calls, after one warm-up call. For a kernel shorter than its wrapper's
-    host work this is the kernel's time, where CUDA events over
+    calls, after one warm-up call; with `kernel`, only the events whose name
+    contains it (one kernel of a wrapper that also runs small torch ops).
+    For a kernel shorter than its wrapper's host work this is the kernel's
+    time, where CUDA events over
     back-to-back calls would time the host's pace. The profiler now and
     then hands back a window without a single device event; such a window
     is measured again, PROFILE_ATTEMPTS windows at most, then this raises."""
@@ -64,7 +66,8 @@ def device_ms(fn: Callable[[], object], iters: int) -> float:
             for _ in range(iters):
                 fn()
             torch.cuda.synchronize()
-        events = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+        events = [e for e in prof.events() if e.device_type == DeviceType.CUDA
+                  and (kernel is None or kernel in e.name)]
         if events:
             return sum(e.time_range.elapsed_us() for e in events) / iters / 1e3
     raise AssertionError(f"torch.profiler recorded no device event in "

@@ -16,7 +16,10 @@ page-table decode (K8, K9) reads a shared pool through a permuted table
 with -1 past each row's pages and once inside a row's length, NaN in the
 pages no row maps. The partial kernels (K5, K7) return (acc, m, l); they are compared normalized
 (acc / l, 0 where l == 0) under the same bound, m and l elementwise, and
-rows with no live key must give m = -1e30, l = 0, acc = 0.
+rows with no live key must give m = -1e30, l = 0, acc = 0. K12's similarities
+are held within 1e-5; K13 runs both softmax modes, the folded form and the
+one-pass LayerNorm, and the clamp softmax's two edges; K14 is counted apart
+from K3.
 """
 
 import numpy as np
@@ -24,7 +27,8 @@ import pytest
 import torch
 
 from streamchat_tpu_torch import kernels
-from streamchat_tpu_torch.ops import attention, fused_vit, int4_matmul, paged_attention, quant
+from streamchat_tpu_torch.ops import (attention, dedup, fused_vit, int4_matmul, paged_attention,
+                                      quant, vit_attention)
 
 ATOL, RTOL = 3e-2, 2e-2
 
@@ -271,3 +275,97 @@ def test_cuda_paged_seq_partial(cuda, int8, b, lengths, pages, t):
     assert got[0].shape == (b, 14, t, 128) and got[1].shape == (b, 14, t)
     _close_partial(got, ref)
     assert fn.launches == 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,d,dtype", [(60, 3584, torch.float32), (1, 100, torch.float32),
+                                       (7, 1030, torch.bfloat16)])
+def test_cuda_select_changed_frames(cuda, n, d, dtype):
+    """K12: the similarity of each row with the one before (row 0 with row
+    N - 1) within 1e-5 of the twin; the keep masks agree wherever the score
+    is not within 1e-4 of the threshold."""
+    x = np.random.default_rng(n).standard_normal((n, d)).astype(np.float32)
+    for i in range(1, n, 3):
+        x[i] = x[i - 1] + 0.05 * np.random.default_rng(i).standard_normal(d)
+    x = torch.from_numpy(x).to(cuda, dtype)
+    keep, sim = dedup.select_changed_frames(x, threshold=0.18, return_similarity=True)
+    pkeep, psim = dedup.select_changed_frames_plain(x, threshold=0.18, return_similarity=True)
+    torch.testing.assert_close(sim, psim, atol=1e-5, rtol=0)
+    clear = ((1 - psim) - 0.18).abs() > 1e-4
+    assert keep[0] and torch.equal(keep[clear], pkeep[clear])
+    assert dedup.select_changed_frames.launches == 1
+
+
+def _attn_args(dev, d, seed=20):
+    ln_s, ln_b = 1 + _bf(seed, dev, d, scale=0.1), _bf(seed + 1, dev, d, scale=0.1)
+    wqkv, bqkv = _bf(seed + 2, dev, d, 3 * d, scale=d ** -0.5), _bf(seed + 3, dev, 3 * d,
+                                                                     scale=0.1)
+    wo, bo = _bf(seed + 4, dev, d, d, scale=d ** -0.5), _bf(seed + 5, dev, d, scale=0.1)
+    return [ln_s, ln_b, wqkv, bqkv, wo, bo]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d,heads", [(128, 2), (256, 2)])
+@pytest.mark.parametrize("mode,folded,onepass", [
+    ("clamp", False, False), ("exact", False, False), ("clamp", True, True),
+    ("exact", True, False),
+])
+def test_cuda_fused_ln_attn(cuda, d, heads, mode, folded, onepass):
+    """K13 against its twin: both softmax modes, the folded (exp2) form and
+    the one-pass LayerNorm, head dims 64 and 128, 2 x 77 rows (ragged
+    tiles)."""
+    args = _attn_args(cuda, d)
+    if folded:
+        args[2], args[3] = fused_vit.fold_vit_attn_params(*args[:4], num_heads=heads)
+    x = _bf(30, cuda, 2, 77, d)
+    kw = dict(num_heads=heads, softmax_mode=mode, folded=folded, ln_onepass=onepass)
+    _close(fused_vit.fused_ln_attn(x, *args, **kw), fused_vit.fused_ln_attn_plain(x, *args, **kw))
+    assert fused_vit.fused_ln_attn.launches == 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("center", [-200.0, 140.0])
+@pytest.mark.parametrize("folded", [False, True])
+def test_cuda_fused_ln_attn_clamp_edges(cuda, center, folded):
+    """The clamp softmax's edges on the card (tests/test_fused_vit.py,
+    TestSoftmaxModes): every logit near `center`; below the underflow floor
+    the output is x + bo, above 80 a uniform average, finite either way."""
+    d, heads, dh, c = 128, 2, 64, 8.0
+    rng = np.random.default_rng(3)
+    wqkv = np.zeros((d, 3 * d), np.float32)
+    bqkv = np.zeros(3 * d, np.float32)
+    for h in range(heads):
+        bqkv[h * dh] = c
+        wqkv[:, d + h * dh] = rng.normal(0, 1, d) * (8.0 * dh ** 0.5 / (c * d ** 0.5))
+        bqkv[d + h * dh] = center * dh ** 0.5 / c
+    wqkv[:, 2 * d:] = np.eye(d)
+    to = lambda a: torch.from_numpy(a.astype(np.float32)).to(cuda, torch.bfloat16)  # noqa: E731
+    ln_s, ln_b = torch.ones(d, device=cuda, dtype=torch.bfloat16), torch.zeros(
+        d, device=cuda, dtype=torch.bfloat16)
+    wqkv, bqkv = to(wqkv), to(bqkv)
+    if folded:
+        wqkv, bqkv = fused_vit.fold_vit_attn_params(ln_s, ln_b, wqkv, bqkv, num_heads=heads)
+    wo, bo = _bf(4, cuda, d, d, scale=d ** -0.5), _bf(5, cuda, d, scale=0.1)
+    x = _bf(6, cuda, 2, 40, d)
+    kw = dict(num_heads=heads, softmax_mode="clamp", folded=folded, ln_onepass=folded)
+    got = fused_vit.fused_ln_attn(x, ln_s, ln_b, wqkv, bqkv, wo, bo, **kw)
+    assert torch.isfinite(got).all()
+    _close(got, fused_vit.fused_ln_attn_plain(x, ln_s, ln_b, wqkv, bqkv, wo, bo, **kw))
+    if center < 0:
+        _close(got, x.float() + bo.float())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(6, 4, 77, 64), (2, 2, 130, 128)])
+def test_cuda_vit_attention(cuda, shape):
+    """K14 over [N, H, S, D] with no pad; counted apart from K3, whose tile
+    loop it launches."""
+    q, k, v = (_bf(40 + i, cuda, *shape) for i in range(3))
+    _close(vit_attention.vit_attention(q, k, v), vit_attention.vit_attention_plain(q, k, v))
+    _close(vit_attention.vit_attention(q, k, v, sm_scale=0.05),
+           vit_attention.vit_attention_plain(q, k, v, sm_scale=0.05))
+    assert vit_attention.vit_attention.launches == 2
+    assert attention.flash_attention.launches == 0
+    with pytest.raises(ValueError, match="unsupported"):
+        vit_attention.vit_attention(q[..., :32].contiguous(), k[..., :32].contiguous(),
+                                    v[..., :32].contiguous())

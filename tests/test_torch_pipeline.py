@@ -7,12 +7,16 @@ num_clusters, fewer than `interval` tree nodes), and their result records
 must agree field by field: with bf16-free float32 weights, and with each
 package quantizing its own copy to int8, to int4, and to int4 with int8 KV
 pages. Also: the port imports and runs with jax and the JAX package
-blocked, every CLI option that is not ported raises, and the CLI's weight
-storage flags quantize the model as the JAX `main` does.
+blocked (off-line, then on-line with dedup), every CLI option that is not
+ported raises, `--mode on_line`, `--literal_kmeans` and `--save_tree_dir`
+run through `main` at tiny geometry, and the CLI's weight storage flags
+quantize the model as the JAX `main` does.
 """
 
 import dataclasses
+import json
 import os
+import pickle
 import subprocess
 import sys
 import textwrap
@@ -32,6 +36,7 @@ from streamchat_tpu.pipeline.runner import StreamChatPipeline as JPipeline
 from streamchat_tpu.video.reader import SyntheticVideoReader
 from streamchat_tpu_torch import config, convert
 from streamchat_tpu_torch.memory.bank import MemoryBank
+from streamchat_tpu_torch.memory.tree import VisualMemoryTree
 from streamchat_tpu_torch.models import longva as port_longva
 from streamchat_tpu_torch.models.embedder import TextEmbedder
 from streamchat_tpu_torch.models.longva import LongVA
@@ -138,8 +143,10 @@ def test_slice_parity_with_jax_pipeline(tmp_path, monkeypatch, bits, kv_int8):
 
 def test_port_runs_with_jax_blocked(tmp_path):
     """The port imports neither jax nor the JAX package, and a tiny
-    process_video runs on the CPU without them."""
+    process_video, then process_video_online with dedup, run on the CPU
+    without them."""
     code = textwrap.dedent(f"""
+        import dataclasses
         import sys
         sys.modules["jax"] = None
         sys.modules["streamchat_tpu"] = None
@@ -155,11 +162,26 @@ def test_port_runs_with_jax_blocked(tmp_path):
                                     max_summary_tokens=4))
         pipe = build_pipeline(cfg, device="cpu", geometry="tiny", dtype=torch.float32)
         bank = MemoryBank({str(tmp_path / "m.json")!r}, pipe.bank_embed)
-        res = pipe.process_video(
-            SyntheticVideoReader(total_frames=150, frame_rate=30, height=56, width=56),
-            [{{"question": "q1", "time": 2}}, {{"question": "q2", "time": 5}}],
-            bank, "User")
+        reader = SyntheticVideoReader(total_frames=150, frame_rate=30, height=56, width=56)
+        bps = [{{"question": "q1", "time": 2}}, {{"question": "q2", "time": 5}}]
+        res = pipe.process_video(reader, bps, bank, "User")
         assert len(res) == 2 and len(pipe.last_tree) > 0
+        # On-line with dedup, the threshold at the median 1 - cos score of the
+        # first segment so that K12's twin drops frames and keeps others.
+        from streamchat_tpu_torch.ops.dedup import frame_descriptors, select_changed_frames
+        from streamchat_tpu_torch.pipeline import runner
+        from streamchat_tpu_torch.pipeline.ingest import encode_segment
+        feats = encode_segment(pipe.model, reader, 0, 2, pipe.cfg.video, 4)
+        _, sim = select_changed_frames(frame_descriptors(feats), return_similarity=True)
+        thr = float((1 - sim[1:]).median())
+        pipe.cfg = pipe.cfg.replace(video=dataclasses.replace(pipe.cfg.video,
+                                                              dedup_threshold=thr))
+        seen = []
+        dedup = runner.dedup_segment
+        runner.dedup_segment = lambda f, t: seen.append((len(f), len(dedup(f, t)))) or dedup(f, t)
+        res = pipe.process_video_online(reader, bps, bank, "User")
+        assert len(res) == 2 and len(pipe.last_tree) > 0
+        assert any(k < n for n, k in seen) and all(k > 0 for n, k in seen), seen
         print("OK")
     """)
     env = dict(os.environ, PYTHONPATH=REPO)
@@ -174,14 +196,88 @@ BASE = ["--video_dir", "v", "--memory_basic_dir", "m", "--save_file", "s.json",
 
 
 @pytest.mark.parametrize("flags", [
-    ["--bf16", "--mode", "on_line"], ["--bf16", "--shard"],
+    ["--bf16", "--shard"],
     ["--bf16", "--offload_chunks"], ["--bf16", "--offload_residents"],
-    ["--bf16", "--ppl"], ["--bf16", "--literal_kmeans"],
-    ["--bf16", "--save_tree_dir", "t"],
+    ["--bf16", "--ppl"],
 ])
 def test_unported_cli_options_raise(flags):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         runner.config_from_args(runner.parse_args(BASE + flags))
+
+
+def _cli_run(tmp_path, monkeypatch, flags):
+    """`main` over a one-video annotation file at tiny geometry on the CPU
+    (the synthetic reader in place of the codec, 4-token generations) ->
+    (the pipeline it built, the saved results)."""
+    (tmp_path / "videos" / "cls").mkdir(parents=True)
+    (tmp_path / "videos" / "cls" / "v.mp4").write_bytes(b"")
+    anno = [{"info": {"video_path": "v.mp4", "class_1": "cls"},
+             "breakpoint": [{"question": "What do I see?", "answer": "a", "class": "c",
+                             "time": 2},
+                            {"question": "What changed?", "answer": "b", "class": "c",
+                             "time": 5}]}]
+    (tmp_path / "a.json").write_text(json.dumps(anno))
+    built, config_from_args, build = [], runner.config_from_args, runner.build_pipeline
+
+    def short(args):
+        cfg = config_from_args(args)
+        return cfg.replace(sampling=dataclasses.replace(
+            cfg.sampling, max_answer_tokens=4, max_caption_tokens=4, max_summary_tokens=4))
+
+    def recording_build(*a, **kw):
+        built.append(build(*a, **kw))
+        return built[-1]
+
+    monkeypatch.setattr(runner, "config_from_args", short)
+    monkeypatch.setattr(runner, "build_pipeline", recording_build)
+    monkeypatch.setattr(runner, "open_video", lambda path: SyntheticVideoReader(
+        total_frames=150, frame_rate=30, height=56, width=56))
+    runner.main(["--video_dir", str(tmp_path / "videos"), "--memory_basic_dir",
+                 str(tmp_path / "m"), "--save_file", str(tmp_path / "s.json"),
+                 "--annotations", str(tmp_path / "a.json"), "--multi_modal_memory",
+                 "--device", "cpu", "--geometry", "tiny", "--bf16", "--chunk_size", "4",
+                 "--num_clusters", "2", "--interval", "3"] + flags)
+    return built[0], json.loads((tmp_path / "s.json").read_text())
+
+
+@pytest.mark.parametrize("flags", [
+    ["--mode", "on_line"], ["--literal_kmeans"], ["--save_tree_dir", "TREES"],
+    ["--mode", "on_line", "--literal_kmeans", "--save_tree_dir", "TREES"],
+])
+def test_online_cli_flags_run_on_cpu(tmp_path, monkeypatch, flags):
+    """--mode on_line, --literal_kmeans and --save_tree_dir parse and run:
+    two answers per video, the tree pickled per video when asked, and under
+    --literal_kmeans every node keeps its raw chunk."""
+    flags = [str(tmp_path / "trees") if f == "TREES" else f for f in flags]
+    calls = []
+    for name in ("process_video", "process_video_online"):
+        fn = getattr(runner.StreamChatPipeline, name)
+        monkeypatch.setattr(runner.StreamChatPipeline, name,
+                            lambda self, *a, _fn=fn, _n=name, **kw:
+                            calls.append(_n) or _fn(self, *a, **kw))
+    pipe, saved = _cli_run(tmp_path, monkeypatch, flags)
+    assert calls == ["process_video_online" if "on_line" in flags else "process_video"]
+    assert [r["time"] for r in saved] == [2, 5] and all(isinstance(r["predict"], str)
+                                                        for r in saved)
+    literal = "--literal_kmeans" in flags
+    assert pipe.cluster_full_chunks is not literal
+    if literal:
+        assert all(n.centroids.shape[0] in (1, 2, 3, 4) for n in pipe.last_tree.all_nodes())
+        assert max(n.centroids.shape[0] for n in pipe.last_tree.all_nodes()) > 2
+    if "--save_tree_dir" in flags:
+        with open(tmp_path / "trees" / "tree_0.pkl", "rb") as f:
+            state = pickle.load(f)
+        back = VisualMemoryTree.from_state(state, 2, 3, None, None, None)
+        assert [n.text for n in back.all_nodes()] == [n.text for n in pipe.last_tree.all_nodes()]
+        for a, b in zip(back.all_nodes(), pipe.last_tree.all_nodes()):
+            assert torch.equal(a.centroids, b.centroids)
+    else:
+        assert not (tmp_path / "trees").exists()
+
+
+def test_cli_compress_rate_still_raises(tmp_path, monkeypatch):
+    with pytest.raises(NotImplementedError, match="compress_rate > 1.*ROADMAP"):
+        _cli_run(tmp_path, monkeypatch, ["--compress_rate", "2"])
 
 
 @pytest.mark.parametrize("flags,key", [
