@@ -7,13 +7,15 @@
 2. Builds every hand-written kernel from `streamchat_tpu_torch/csrc/` (one
    nvcc per source, in parallel) and prints the build seconds.
 3. Builds the pipeline at full LongVA-7B width on random weights (seeded).
-4. Holds each of the sixteen kernels against its plain PyTorch twin at
+4. Holds each of the nineteen kernels against its plain PyTorch twin at
    main-path shapes, tolerance |kernel - plain| <= 3e-2 + 2e-2 |plain|
    (bf16 storage, f32 accumulation in both, different summation order),
    and times both (ms: device time per call, the summed device events
    torch.profiler records; wall_ms: back-to-back calls timed with CUDA
    events, which for a kernel shorter than its wrapper's host work is the
-   host's pace): K1 ViT layer, K2 projector MLP, K3 flash attention, K4
+   host's pace): K1 ViT layer (the ingest's folded, one-pass, clamp form,
+   timed; the exact unfolded form, folded + exact, and erf-GELU), K2
+   projector MLP, K3 flash attention, K4
    paged decode, W8 int8 GEMV (gate, down, and the lm_head with f32
    output), K10 int4 GEMV (gate, down), K11 fused int4 GEMV (the q/k/v
    triple, the gate/up pair), K6 paged decode over int8 pages, K5 partial
@@ -28,8 +30,12 @@
    frame a near-repeat; similarities within 1e-5 of the twin and equal
    keep masks), K13 the LN-attention half of ViT layer 0 (x [16, 577,
    1024], clamp and exact softmax, unfolded and folded with the one-pass
-   LayerNorm) and K14 non-causal ViT attention ([16, 16, 577, 64]). All
-   but K1, K2 and K12 are also held to a relative L2 error of 1e-2 per
+   LayerNorm), K14 non-causal ViT attention ([16, 16, 577, 64]), and the
+   probe kernels: K15 the int4 GEMV probe (3584 x 18944, n = 1; its five
+   variants at block_out 1024, gpb 16, and cur / xor32 / xor8 at the nine
+   sweep points; dma exactly), K16 the ViT-layer probe (its five variants
+   at [128, 577, 1024]) and K17 the dot probe (qk64, qk128, pv64, pv128).
+   All but K1, K2, K12 and K16 are also held to a relative L2 error of 1e-2 per
    output row (the partial kernels through acc / l, and m and l
    elementwise), and planted faults must fail that same check (K12's its
    own): a key tile or a 4-page chunk zeroed, the
@@ -40,7 +46,9 @@
    block, K8 / K9's table ignored (pool order), -1 read as page 0, the
    length ignored, one table entry off by one, K12's roll reversed or its
    rows left unnormalized, K13 without the residual, K14 with its last key
-   masked. Keys, values and scales past
+   masked, K15's xor algebra without its -8 sum(x_g) term and its cur
+   unpack on swapped nibbles, K16's folded weights run unfolded, K17 with
+   one dot dropped (qk64, pv64). Keys, values and scales past
    the valid length hold large garbage (NaN and inf for the int8 scales),
    as stale cache slots may.
    Each row carries the kernel's bound (the larger of its FLOPs at 989
@@ -48,11 +56,15 @@
    input read and each output written once) and, where one PyTorch call
    computes the same function, that call's device time (`library_ms`:
    SDPA for K3, K5 and K14, a bf16 matmul on the dequantized weight for
-   W8, K10 and K11, `F.cosine_similarity` against the rolled rows for
-   K12).
-5. Checks the composed paths on small inputs: two frames through ViT +
-   projector against the plain twins (per-token cosine >= 0.99 after 23
-   bf16 layers); one 28-layer decode step through K4 against the
+   W8, K10, K11 and K15, `F.cosine_similarity` against the rolled rows for
+   K12, one matmul for K17's qk kinds and a matmul and a sum for its pv
+   kinds).
+5. Checks the composed paths on small inputs: two frames through
+   `encode_images` (the fused tower, folded on that first call) against
+   the plain twin chain of the same form and against the exact unfolded
+   chain (per-token cosine >= 0.99 after 23 bf16 layers), the random
+   tower's attention logit bounds inside the clamp softmax's domain
+   (-87, 80]; one 28-layer decode step through K4 against the
    page-table gather path; one 28-layer decode step of the int8 tree (W8)
    and of the int4 tree (K10/K11) each against the same step on its
    dequantized bf16 tree; and one 28-layer verify step of five
@@ -66,7 +78,13 @@
 6. Times the chunk-40 caption prefill (23,441 tokens, bf16 weights) in one
    pass (K3 only, the port before chunked prefill) and through the chunked
    dispatch (K3 for chunk 0, K5 for chunks 1-5), in turns.
-7. Drives `generate_paged` on a caller-sized pool, the path of K8 and K9,
+7. Runs the probes, the main paths of K15-K17, with the launch
+   counters zeroed before and read after: `utils.probe_vit_variants.main`
+   (the five layer variants chained at [128, 577, 1024], then the four dot
+   kinds) and `utils.probe_int4.main` (the five variants, then the
+   nine-point sweep on the fastest unpack). Each must launch its kernel in
+   every variant or kind.
+   Then drives `generate_paged` on a caller-sized pool, the path of K8 and K9,
    with the launch counters zeroed before it and read after it: two rows of
    6,100 and 3,050 tokens, 64 new tokens, a 98-page pool that the allocator
    fills mid-decode, bf16 pages (K8) and int8 pages (K9); the same rows on
@@ -90,7 +108,9 @@
    made from the bf16 tree and freed before the next. A run fails if one
    of its kernels was not launched, an answer is missing, no token was
    generated or no caption prompt passed 23,000 tokens, and runs 6 and 7
-   fail unless a 2-row group decoded at B = 2 with a re-run. Prints decode
+   fail unless a 2-row group decoded at B = 2 with a re-run. Every run's
+   K1 launches must all be of the ingest's form (folded, one-pass LN,
+   clamp softmax; `kernels.launch_modes`). Prints decode
    ms/step and per emitted token, accepted tokens per verify step, caption
    seconds per caption, peak memory, and the weight and KV bytes a decode
    token reads.
@@ -123,6 +143,7 @@ import time
 
 import torch
 
+from streamchat_tpu_torch.ops.fused_vit import layer_mode
 from streamchat_tpu_torch.utils.profiling import device_ms
 
 ATOL, RTOL = 3e-2, 2e-2
@@ -140,6 +161,8 @@ SPEC_TOKENS = 4
 SHORT_ANSWER = dict(max_answer_tokens=64)
 # K12's similarities (f32 descriptors) are held to their twin's within this.
 SIM_ATOL = 1e-5
+# The form every pipeline run's ingest launches K1 in (ops/fused_vit.layer_mode).
+INGEST_K1_MODE = layer_mode("clamp", folded=True, ln_onepass=True, activation="quick_gelu")
 
 # Kernels each process_video run must launch (wrapper names): every run
 # prefills its 23k-token captions in chunks (K3 + K5).
@@ -194,6 +217,10 @@ SOURCES = {
                       "streamchat_tpu/ops/fused_vit.py:442"),
     "vit_attention": ("streamchat_tpu_torch/csrc/flash_attention.cu",
                       "streamchat_tpu/ops/vit_attention.py:67"),
+    "matvec": ("streamchat_tpu_torch/csrc/int4_probe.cu", "scripts/probe_int4_kernel.py:101"),
+    "probe_layer": ("streamchat_tpu_torch/csrc/fused_vit.cu",
+                    "scripts/probe_vit_variants.py:142"),
+    "dotk": ("streamchat_tpu_torch/csrc/dotk.cu", "scripts/probe_vit_variants.py:259"),
 }
 
 
@@ -318,23 +345,43 @@ def check_kernels(model, g):
     bf, dev = torch.bfloat16, "cuda"
     rows = {}
 
-    # K1: one ViT-L layer over an ingest batch of 16 frames.
+    # K1: one ViT-L layer over an ingest batch of 16 frames, in the
+    # ingest's form (folded, one-pass LN, clamp softmax: timed), the exact
+    # unfolded form, folded + exact, and with the erf-GELU activation.
     p = model.vit_params["layers"][0]
-    args = (p["ln1"]["scale"], p["ln1"]["bias"], p["attn"]["wqkv"], p["attn"]["bqkv"],
+    heads = model.vit_cfg.num_heads
+    args = [p["ln1"]["scale"], p["ln1"]["bias"], p["attn"]["wqkv"], p["attn"]["bqkv"],
             p["attn"]["o"]["w"], p["attn"]["o"]["b"], p["ln2"]["scale"], p["ln2"]["bias"],
             p["mlp"]["fc1"]["w"], p["mlp"]["fc1"]["b"], p["mlp"]["fc2"]["w"],
-            p["mlp"]["fc2"]["b"])
-    heads = model.vit_cfg.num_heads
+            p["mlp"]["fc2"]["b"]]
+    fargs = list(args)
+    fargs[2], fargs[3], fargs[8], fargs[9] = fused_vit.fold_vit_layer_params(
+        *(args[i] for i in (0, 1, 2, 3, 6, 7, 8, 9)), num_heads=heads)
     x = torch.randn(16, 577, 1024, generator=g, device=dev).to(bf)
-    k1 = lambda: fused_vit.fused_vit_layer(x, *args, num_heads=heads)  # noqa: E731
-    p1 = lambda: fused_vit.fused_vit_layer_plain(x, *args, num_heads=heads)  # noqa: E731
+    cases, errs = {}, []
+    for label, a, kw in (
+            ("ingest: clamp, folded, one-pass", fargs,
+             dict(folded=True, ln_onepass=True)),
+            ("exact, unfolded", args, dict(softmax_mode="exact")),
+            ("exact, folded", fargs, dict(softmax_mode="exact", folded=True)),
+            ("clamp, unfolded, erf-GELU", args, dict(activation="gelu"))):
+        kw = dict(num_heads=heads, frame_tile=4, **kw)
+        k1 = lambda a=a, kw=kw: fused_vit.fused_vit_layer(x, *a, **kw)  # noqa: E731
+        e = _compare(f"K1 fused_vit_layer {label}", k1(),
+                     fused_vit.fused_vit_layer_plain(x, *a, **kw))[0]
+        errs.append(e)
+        cases[label] = dict(max_abs_err=e, ms=device_ms(k1, 20))
+        if label.startswith("ingest"):
+            timed = _timings(k1, lambda a=a, kw=kw: fused_vit.fused_vit_layer_plain(x, *a, **kw),
+                             20, 5)
+    del fargs
     n, dm, ff, dh = 16 * 577, 1024, 4096, 1024 // heads
     qa, ka, va = (torch.randn(16, heads, 577, dh, generator=g, device=dev).to(bf)
                   for _ in range(3))
     rows["fused_vit_layer"] = dict(
-        shapes="x [16, 577, 1024] bf16, ViT-L layer",
-        max_abs_err=_compare("K1 fused_vit_layer", k1(), p1())[0],
-        **_timings(k1, p1, 20, 5),
+        shapes="x [16, 577, 1024] bf16, ViT-L layer; timed: the ingest's form (clamp, "
+               "folded, one-pass)",
+        max_abs_err=max(errs), cases=cases, **timed,
         **_bound(2 * n * (4 * dm * dm + 2 * dm * ff) + 4 * 16 * heads * 577 * 577 * dh,
                  _nbytes(*args) + 2 * _nbytes(x)),
         library_ms=None, library="none for the whole layer; attention_library_ms: "
@@ -1243,37 +1290,226 @@ def check_vit_kernels(model, g):
     return rows, planted
 
 
+def _xor_without_sum_term(got, x, scale):
+    """A K15 xor32 / xor8 output as if the kernel had dropped the -8 sum(x_g)
+    term of the low half: y_lo + 8 sum_g scale[g, 0] sum(x_g)."""
+    oh = scale.shape[2]
+    sx = x.float().reshape(x.shape[0], scale.shape[0], -1).sum(-1)       # [n, g]
+    bad = got.clone()
+    bad[:, :oh] += 8.0 * sx @ scale[:, 0]
+    return bad
+
+
+def check_probe_kernels(g):
+    """K15, K16 and K17 against their plain twins at the probes' shapes ->
+    report rows and planted faults."""
+    from streamchat_tpu_torch.ops import quant
+    from streamchat_tpu_torch.utils import probe_int4, probe_vit_variants as pvv
+
+    bf, dev = torch.bfloat16, "cuda"
+    rows, planted = {}, {}
+
+    # K15: the five variants at (1024, 16) and the nine sweep points of the
+    # three unpacks, 3584 x 18944, n = 1; timed over three weight copies.
+    weights, wd = probe_int4.make_weights(g)
+    x = torch.randn(1, probe_int4.DIN, generator=g, device=dev).to(bf)
+    w0, s0 = weights[0]
+    cases, errs, rels = {}, [], []
+    for variant in probe_int4.VARIANTS:
+        for bo, gpb in ((1024, 16),) + (probe_int4.SWEEP if variant in probe_int4.UNPACKS
+                                        else ()):
+            got = probe_int4.matvec(x, w0, s0, variant=variant, block_out=bo, gpb=gpb)
+            ref = probe_int4.matvec_plain(x, w0, s0, variant, bo, gpb)
+            if variant == "dma":
+                torch.cuda.synchronize()
+                if not torch.equal(got, ref):
+                    raise AssertionError("K15 dma: the byte sums differ from the twin's")
+                e = 0.0
+            else:
+                e, rel = _compare(f"K15 matvec {variant} {bo}x{gpb}", got, ref, row_rel=True)
+                rels.append(rel)
+            errs.append(e)
+            if (bo, gpb) == (1024, 16):
+                fn = probe_int4._rotating(x, weights, variant=variant)
+                cases[variant] = dict(max_abs_err=e, ms=device_ms(fn, 40))
+                cases[variant]["gbs"] = _gbs(_int4_bytes({"w_i4p": w0, "scale": s0}),
+                                             cases[variant]["ms"])
+    got = probe_int4.matvec(x, w0, s0, variant="xor32")
+    ref = probe_int4.matvec_plain(x, w0, s0, "xor32")
+    planted["K15 xor32 without the -8 sum(x_g) term"] = _planted(
+        "K15 xor32 without the -8 sum(x_g) term", _xor_without_sum_term(got, x, s0), ref)
+    ref = probe_int4.matvec_plain(x, w0, s0, "cur")
+    planted["K15 cur, nibble halves swapped"] = _planted(
+        "K15 cur, nibble halves swapped",
+        probe_int4.matvec(x, _swap_nibbles(w0), s0, variant="cur"), ref)
+    t = _timings(probe_int4._rotating(x, weights, variant="cur"),
+                 lambda: probe_int4.matvec_plain(x, w0, s0, "cur"), 40, 5)
+    kin, kout = w0.shape[0], 2 * w0.shape[1]
+    rows["matvec"] = dict(
+        shapes=f"x [1, {kin}] bf16, packed w [{kin}, {kout // 2}], {s0.shape[0]} groups, "
+               "f32 out; "
+               "timed: cur at block_out 1024, gpb 16; checked: 5 variants at (1024, 16) and "
+               "cur / xor32 / xor8 at the 9 sweep points",
+        max_abs_err=max(errs), max_row_rel_l2=max(rels), cases=cases, **t,
+        gbs=_gbs(_int4_bytes({"w_i4p": w0, "scale": s0}), t["ms"]),
+        **_bound(4 * kin * kout // 2, _int4_bytes({"w_i4p": w0, "scale": s0}) + _nbytes(x)
+                 + 4 * kout, peak=PEAK_F32),
+        library_ms=device_ms(lambda: torch.matmul(x, wd), 40),
+        library="torch.matmul(x, W) on the dequantized bf16 weight")
+    del weights, wd
+
+    # K16: the five layer variants at [128, 577, 1024]; timed: combo.
+    heads, s, d, dmid = pvv.HEADS, pvv.S, pvv.D, pvv.DMID
+    xs = (torch.randn(pvv.N, s, d, generator=g, device=dev) * 0.5).to(bf)
+    cases, errs = {}, []
+    for name, opt in pvv.VARIANTS.items():
+        params = pvv.make_params(g, opt)
+        k16 = lambda params=params, opt=opt: pvv.probe_layer(xs, params, opt)  # noqa: E731
+        ref = pvv.probe_layer_plain(xs, params, opt)
+        e = _compare(f"K16 probe_layer {name}", k16(), ref)[0]
+        errs.append(e)
+        cases[name] = dict(max_abs_err=e, ms=device_ms(k16, 5))
+        if name == "wfold":
+            planted["K16 wfold weights without the fold flag"] = _planted(
+                "K16 wfold weights without the fold flag",
+                pvv.probe_layer(xs, params, pvv.VARIANTS["base"]), ref)
+        if name == "combo":
+            t = _timings(k16, lambda params=params, opt=opt: pvv.probe_layer_plain(
+                xs, params, opt), 5, 1)
+            nbytes = _nbytes(*params) + 2 * _nbytes(xs)
+        del ref
+    qa, ka, va = (torch.randn(pvv.N, heads, s, d // heads, generator=g, device=dev).to(bf)
+                  for _ in range(3))
+    rows["probe_layer"] = dict(
+        shapes=f"x [{pvv.N}, {s}, {d}] bf16, ViT-L block, clamp softmax; timed: combo "
+               "(wfold + ln1p, the ingest's form)",
+        max_abs_err=max(errs), cases=cases, **t,
+        **_bound(pvv.N * (2 * s * (4 * d * d + 2 * d * dmid) + 4 * heads * s * s * (d // heads)),
+                 nbytes),
+        library_ms=None, library="none for the whole layer; attention_library_ms: SDPA of its "
+        f"attention alone, q/k/v [{pvv.N}, {heads}, {s}, {d // heads}]",
+        attention_library_ms=device_ms(lambda: _sdpa(qa, ka, va), 5))
+    del xs, qa, ka, va
+
+    # K17: the four dot kinds; timed: qk64.
+    cases, errs = {}, []
+    for kind in pvv.DOT_KINDS:
+        a, b = pvv.make_dot_inputs(kind, g)
+        ref = pvv.dotk_plain(a, b)
+        e, rel = _compare(f"K17 dotk {kind}", pvv.dotk(a, b), ref, row_rel=True)
+        errs.append(e)
+        pv = kind.startswith("pv")
+        if kind in ("qk64", "pv64"):
+            planted[f"K17 {kind}, one dot dropped"] = _planted(
+                f"K17 {kind}, one dot dropped",
+                pvv.dotk(a, b[:-1]) if pv else pvv.dotk(a[:-1], b), ref)
+        if pv:
+            library = lambda a=a, b=b: torch.matmul(a, b).sum(0)  # noqa: E731
+        else:
+            a2 = a.permute(1, 0, 2).reshape(s, -1).contiguous()
+            b2 = b.repeat(a.shape[0], 1)
+            library = lambda a2=a2, b2=b2: torch.matmul(a2, b2)  # noqa: E731
+        k17 = lambda a=a, b=b: pvv.dotk(a, b)  # noqa: E731
+        ms = device_ms(k17, 50)
+        cases[kind] = dict(max_abs_err=e, max_row_rel_l2=rel, ms=ms,
+                           tflops=pvv.dot_flops() / (ms * 1e-3) / 1e12,
+                           library_ms=device_ms(library, 50),
+                           **_bound(pvv.dot_flops(), _nbytes(a, b, ref)))
+        if kind == "qk64":
+            timed = dict(**_timings(k17, lambda a=a, b=b: pvv.dotk_plain(a, b), 50, 10),
+                         **{k: cases[kind][k] for k in ("bound_ms", "bound_by", "flops",
+                                                        "bytes", "library_ms")})
+        del ref
+    rows["dotk"] = dict(
+        shapes="qk64 96 x [577, 64] @ [64, 577], qk128 48 x [577, 128] @ [128, 577], pv64 "
+               "[577, 577] @ 96 x [577, 64], pv128 [577, 577] @ 48 x [577, 128], each summed "
+               "in f32 (4.09 GFLOP); timed: qk64",
+        max_abs_err=max(errs), max_row_rel_l2=cases["qk64"]["max_row_rel_l2"], cases=cases,
+        **timed,
+        library="qk: one torch.matmul of [577, n dh] by [n dh, 577]; pv: torch.matmul(a, b) "
+                "and the sum over n (two calls)")
+    return rows, planted
+
+
+def drive_probes():
+    """The probes' main paths (K16 / K17's `probe_vit_variants`, K15's
+    `probe_int4`), the launch counters zeroed before and read after ->
+    (their results, counts)."""
+    from streamchat_tpu_torch import kernels
+    from streamchat_tpu_torch.utils import probe_int4, probe_vit_variants
+
+    kernels.reset_launch_counts()
+    results = {"probe_vit_variants": probe_vit_variants.main([]),
+               "probe_int4": probe_int4.main([])}
+    counts = kernels.launch_counts()
+    modes = kernels.launch_modes()
+    missing = [n for n in ("matvec", "probe_layer", "dotk") if counts.get(n, 0) == 0]
+    if missing:
+        raise AssertionError(f"probes: kernels never launched: {missing}")
+    want = {"probe_layer": {probe_vit_variants.variant_mode(o)
+                            for o in probe_vit_variants.VARIANTS.values()},
+            "dotk": set(probe_vit_variants.DOT_KINDS)}
+    for wrapper, kinds in want.items():
+        if set(modes.get(wrapper, {})) != kinds:
+            raise AssertionError(f"probes: {wrapper} ran {modes.get(wrapper)}, "
+                                 f"expected {sorted(kinds)}")
+    if {m.split()[0] for m in modes.get("matvec", {})} != set(probe_int4.VARIANTS):
+        raise AssertionError(f"probes: matvec ran {modes.get('matvec')}")
+    print(f"probes: launches {json.dumps({n: c for n, c in counts.items() if c})}, "
+          f"modes {json.dumps(modes)}", flush=True)
+    return results, counts
+
+
 def check_composed(model, g):
     """Small-input references for the composed ViT+projector and decode paths."""
     from streamchat_tpu_torch.models import decoder, paged_kv, vit
     from streamchat_tpu_torch.ops import paged_attention
     from streamchat_tpu_torch.ops.fused_vit import fused_ln_mlp_plain, fused_vit_layer_plain
 
+    # encode_images runs the fused tower (folded once on its first call,
+    # one-pass LN, clamp softmax): held to the twin chain of the same form
+    # and to the exact unfolded chain; the clamp's domain checked on the
+    # random tower's logits.
     cfg = model.vit_cfg
     pixels = torch.randn(2, 3, cfg.image_size, cfg.image_size, generator=g, device="cuda")
     got = model.encode_images(pixels).float()
     vp = model.vit_params
-    x = vit._embed_patches(pixels, vp["patch_embed"]["w"], cfg)
-    cls = vp["class_embed"][None, None, :].expand(x.shape[0], 1, cfg.hidden_size)
-    x = vit._layernorm(torch.cat([cls, x], 1) + vp["pos_embed"][None],
-                       vp["pre_ln"]["scale"], vp["pre_ln"]["bias"], cfg.layernorm_eps)
-    for p in vp["layers"][: cfg.num_layers + 1 + cfg.select_layer]:
-        x = fused_vit_layer_plain(
-            x, p["ln1"]["scale"], p["ln1"]["bias"], p["attn"]["wqkv"], p["attn"]["bqkv"],
-            p["attn"]["o"]["w"], p["attn"]["o"]["b"], p["ln2"]["scale"], p["ln2"]["bias"],
-            p["mlp"]["fc1"]["w"], p["mlp"]["fc1"]["b"], p["mlp"]["fc2"]["w"],
-            p["mlp"]["fc2"]["b"], num_heads=cfg.num_heads, eps=cfg.layernorm_eps)
-    feats = x[:, 1:].reshape(-1, cfg.hidden_size)
+    if not all("fused" in p for p in vp["layers"]):
+        raise AssertionError("encode_images did not fold the tower's weights")
     pp = model.proj_params
-    ref = fused_ln_mlp_plain(feats, None, None, pp["fc1"]["w"], pp["fc1"]["b"],
-                             pp["fc2"]["w"], pp["fc2"]["b"], activation="gelu",
-                             layernorm=False, residual=False).float()
-    got = got.reshape(ref.shape)
-    if got.shape != (2 * cfg.num_patches, model.dec_cfg.hidden_size):
-        raise AssertionError(f"encode_images shape {tuple(got.shape)}")
-    cos = torch.nn.functional.cosine_similarity(got, ref, dim=-1).min().item()
-    if not torch.isfinite(got).all() or cos < 0.99:
-        raise AssertionError(f"ViT+projector vs plain: min token cosine {cos}")
+    out = {}
+    for label, folded in (("folded_clamp", True), ("exact", False)):
+        x = vit._embedded(vp, pixels, cfg)
+        for p in vp["layers"][: cfg.num_layers + 1 + cfg.select_layer]:
+            f = p["fused"] if folded else {"wqkv": p["attn"]["wqkv"], "bqkv": p["attn"]["bqkv"],
+                                           "w1": p["mlp"]["fc1"]["w"], "b1": p["mlp"]["fc1"]["b"]}
+            x = fused_vit_layer_plain(
+                x, p["ln1"]["scale"], p["ln1"]["bias"], f["wqkv"], f["bqkv"],
+                p["attn"]["o"]["w"], p["attn"]["o"]["b"], p["ln2"]["scale"], p["ln2"]["bias"],
+                f["w1"], f["b1"], p["mlp"]["fc2"]["w"], p["mlp"]["fc2"]["b"],
+                num_heads=cfg.num_heads, eps=cfg.layernorm_eps,
+                softmax_mode="clamp" if folded else "exact", folded=folded,
+                ln_onepass=folded)
+        feats = x[:, 1:].reshape(-1, cfg.hidden_size)
+        ref = fused_ln_mlp_plain(feats, None, None, pp["fc1"]["w"], pp["fc1"]["b"],
+                                 pp["fc2"]["w"], pp["fc2"]["b"], activation="gelu",
+                                 layernorm=False, residual=False).float()
+        got = got.reshape(ref.shape)
+        if got.shape != (2 * cfg.num_patches, model.dec_cfg.hidden_size):
+            raise AssertionError(f"encode_images shape {tuple(got.shape)}")
+        cos = torch.nn.functional.cosine_similarity(got, ref, dim=-1).min().item()
+        if not torch.isfinite(got).all() or cos < 0.99:
+            raise AssertionError(f"fused ViT+projector vs plain ({label}): min token "
+                                 f"cosine {cos}")
+        out[f"vit_projector_min_cosine_{label}"] = cos
+    bounds = vit.attention_logit_bounds(vp, pixels, cfg)
+    lo, hi = bounds[:, 0].min().item(), bounds[:, 1].max().item()
+    print(f"attention logit bounds of the random tower, per layer [min, max]: "
+          f"{json.dumps(bounds.tolist())}", flush=True)
+    if not (torch.isfinite(bounds).all() and -87.0 < lo and hi <= 80.0):
+        raise AssertionError(f"attention logits [{lo}, {hi}] leave the clamp softmax's "
+                             "domain (-87, 80]")
+    out["attention_logit_bounds"] = [lo, hi]
 
     dcfg, dp = model.dec_cfg, model.dec_params
     s = 256
@@ -1294,7 +1530,7 @@ def check_composed(model, g):
     if not torch.isfinite(got).all() or rel > 5e-2:
         raise AssertionError(f"decode step K4 vs page-table gather: relative L2 "
                              f"error {rel} past 5e-2")
-    return {"vit_projector_min_cosine": cos, "decode_logits_rel_l2_err": rel}
+    return {**out, "decode_logits_rel_l2_err": rel}
 
 
 BREAKPOINTS = [
@@ -1485,6 +1721,7 @@ def drive(pipe, label, breakpoints, online=False, captions=None):
     with _observed(pipe) as seen:
         results, seconds, lengths = run_slice(pipe, breakpoints, online)
     counts = kernels.launch_counts()
+    k1_modes = kernels.launch_modes().get("fused_vit_layer", {})
     gs = m.gen_stats
     # A vanilla step emits one token; a verify step emits accepted_tokens /
     # verify_steps on average.
@@ -1508,7 +1745,7 @@ def drive(pipe, label, breakpoints, online=False, captions=None):
         weight_bytes_per_token=_decode_weight_bytes(m.dec_params),
         kv_bytes_per_token_at_max_prompt=_kv_bytes_per_token(m.dec_cfg, max(lengths),
                                                              m.kv_int8),
-        launches={n: c for n, c in counts.items() if c},
+        launches={n: c for n, c in counts.items() if c}, k1_modes=k1_modes,
         phase_totals=phases)
     if online:
         report.update(
@@ -1521,6 +1758,9 @@ def drive(pipe, label, breakpoints, online=False, captions=None):
     missing = [n for n in RUNS[label] if counts.get(n, 0) == 0]
     if missing:
         raise AssertionError(f"run {label}: kernels never launched: {missing}")
+    if k1_modes != {INGEST_K1_MODE: counts["fused_vit_layer"]}:
+        raise AssertionError(f"run {label}: ingest launched K1 as {k1_modes}, not only as "
+                             f"{INGEST_K1_MODE}")
     if gs["generated_tokens"] == 0:
         raise AssertionError(f"run {label}: the main path generated no token")
     if label.endswith("_dedup"):
@@ -1586,6 +1826,11 @@ def main() -> None:
         vrows, vplanted = check_vit_kernels(pipe.model, g)
     rows.update(vrows)
     planted.update(vplanted)
+    with phase("kernel checks K15, K16, K17"):
+        brows, bplanted = check_probe_kernels(g)
+    rows.update(brows)
+    planted.update(bplanted)
+    torch.cuda.empty_cache()
     for name, row in rows.items():
         print(f"{name}: max_abs_err {row['max_abs_err']:.6g}  max_row_rel_l2 "
               f"{row.get('max_row_rel_l2')}  kernel {row['ms']:.4f} ms (wall "
@@ -1608,6 +1853,9 @@ def main() -> None:
 
     m = pipe.model
     runs, counts, caller = {}, {}, {}
+    with phase("probes (K15 probe_int4, K16 / K17 probe_vit_variants)"):
+        probes, counts["probes"] = drive_probes()
+    torch.cuda.empty_cache()
     for kv_int8 in (False, True):
         label = "caller_pool_kv_int8" if kv_int8 else "caller_pool_bf16"
         with phase(f"generate_paged on a caller-sized pool ({label})"):
@@ -1661,6 +1909,7 @@ def main() -> None:
         runs["int4_kv_int8_cb2"], counts["int4_kv_int8_cb2"] = drive(
             pipe, "int4_kv_int8_cb2", BREAKPOINTS[:1])
     print(f"composed checks: {json.dumps(composed)}")
+    print(f"probe results: {json.dumps(probes)}")
 
     report = []
     for n, row in rows.items():
@@ -1675,6 +1924,10 @@ def main() -> None:
           + ", caller-sized pool " + ", ".join(
               f"{k} {v['seconds']:.3f} s ({v['decode_ms_per_step']:.2f} ms/step)"
               for k, v in caller.items())
+          + ", probes: K16 combo "
+          f"{probes['probe_vit_variants']['combo']['ms_per_layer_call']:.3f} ms/layer, K17 "
+          f"qk64 {probes['probe_vit_variants']['dotk']['qk64']['us_per_call']:.2f} us, K15 "
+          f"sweep on {probes['probe_int4']['sweep_variant']}"
           + f", planted faults rejected {len(planted)}, total "
           f"{time.perf_counter() - t_start:.1f} s")
     print(smi)

@@ -6,7 +6,10 @@ never imports jax.
 The decoder, projector and BERT trees have the same layout in both
 packages. The ViT differs in one place: the port stores each layer's
 merged q|k|v projection (`attn.wqkv`, `attn.bqkv`) that its K1 kernel
-reads, so the concatenation happens here, once.
+reads, so the concatenation happens here, once. A JAX tree that has been
+through `vit.fold_params` keeps its per-layer "fused" leaves (wqkv, bqkv,
+w1, b1, already merged and folded), so both packages' fused blocks read the
+same folded weights.
 """
 
 from __future__ import annotations
@@ -41,13 +44,16 @@ def vit_params(jax_vit: dict) -> dict:
 
     layers = []
     for p in jax_vit["layers"]:
-        layers.append({
+        layer = {
             "ln1": to_torch(p["ln1"]),
             "attn": {"wqkv": merged(p["attn"], "w", 1), "bqkv": merged(p["attn"], "b", 0),
                      "o": to_torch(p["attn"]["o"])},
             "ln2": to_torch(p["ln2"]),
             "mlp": to_torch(p["mlp"]),
-        })
+        }
+        if "fused" in p:
+            layer["fused"] = to_torch(p["fused"])
+        layers.append(layer)
     return {
         "patch_embed": to_torch(jax_vit["patch_embed"]),
         "class_embed": to_torch(jax_vit["class_embed"]),

@@ -10,7 +10,12 @@
 // m fixed at 0 and takes p = exp(min(x, 80)) with no rescale, then divides
 // by max(l, 1e-30): logits above 80 flatten to equal weights and a row whose
 // logits all sit below about -87 underflows to a zero output, as there. The
-// folded (exp2) form is the same loop with scale = ln 2.
+// folded (exp2) form is the same loop with scale = ln 2. kBf16S (clamp only)
+// is the bf16s variant of the layer probe (scripts/probe_vit_variants.py
+// _attn_mlp_body, K16): each f32 score is rounded to bf16 after the MMA, and
+// min(s, 80) and the exp are taken on that bf16 value with p rounded to bf16
+// (H100 tensor cores have no bf16-accumulating MMA, so the rounding is of the
+// f32 sum, as the TPU's bf16-output dot rounds its f32 accumulator).
 //
 // K14 replaces ops/vit_attention.py:vit_attention (_kernel): non-causal
 // attention over [N, H, S, D] with one shared length, which the TPU kernel
@@ -93,8 +98,8 @@ struct Partial {
 
 // kPartial = false is K3 (normalized bf16 store through o's strides, called
 // with q_off = k_off = 0); true is K5 (the Partial outputs). kClamp is the
-// clamp softmax of K13 (never with kPartial).
-template <int D, bool kPartial, bool kClamp>
+// clamp softmax of K13 (never with kPartial); kBf16S adds K16's bf16 scores.
+template <int D, bool kPartial, bool kClamp, bool kBf16S>
 __global__ void __launch_bounds__(THREADS)
 flash_kernel(const __nv_bfloat16* __restrict__ q, int64_t qsb, int64_t qsh, int64_t qss,
              const __nv_bfloat16* __restrict__ k, int64_t ksb, int64_t ksh, int64_t kss,
@@ -176,7 +181,13 @@ flash_kernel(const __nv_bfloat16* __restrict__ q, int64_t qsb, int64_t qsh, int6
       float p[2] = {0.0f, 0.0f};
       float alpha = 1.0f;
       float m_new = 0.0f;
-      if constexpr (kClamp) {
+      if constexpr (kClamp && kBf16S) {
+#pragma unroll
+        for (int c = 0; c < 2; ++c) {
+          const float s = __bfloat162float(__float2bfloat16(x[c]));
+          p[c] = ok[c] ? __bfloat162float(__float2bfloat16(expf(fminf(s, 80.0f)))) : 0.0f;
+        }
+      } else if constexpr (kClamp) {
 #pragma unroll
         for (int c = 0; c < 2; ++c) p[c] = ok[c] ? expf(fminf(x[c], 80.0f)) : 0.0f;
       } else {
@@ -247,21 +258,21 @@ flash_kernel(const __nv_bfloat16* __restrict__ q, int64_t qsb, int64_t qsh, int6
   }
 }
 
-template <int D, bool kPartial, bool kClamp = false>
+template <int D, bool kPartial, bool kClamp = false, bool kBf16S = false>
 cudaError_t launch(const __nv_bfloat16* q, const int64_t* qs, const __nv_bfloat16* k,
                    const int64_t* ks, const __nv_bfloat16* v, const int64_t* vs,
                    __nv_bfloat16* o, const int64_t* os, Partial part, const int* kv_len,
                    int B, int Hq, int Hkv, int Sq, int Sk, int causal, float scale, int q_off,
                    int k_off, cudaStream_t stream) {
   constexpr size_t bytes = Smem<D>::bytes;
-  cudaError_t err = cudaFuncSetAttribute(flash_kernel<D, kPartial, kClamp>,
+  cudaError_t err = cudaFuncSetAttribute(flash_kernel<D, kPartial, kClamp, kBf16S>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          (int)bytes);
   if (err != cudaSuccess) return err;
   dim3 grid((Sq + BQ - 1) / BQ, Hq, B);
   const int64_t no[3] = {0, 0, 0};
   if (!os) os = no;
-  flash_kernel<D, kPartial, kClamp><<<grid, THREADS, bytes, stream>>>(
+  flash_kernel<D, kPartial, kClamp, kBf16S><<<grid, THREADS, bytes, stream>>>(
       q, qs[0], qs[1], qs[2], k, ks[0], ks[1], ks[2], v, vs[0], vs[1], vs[2], o, os[0],
       os[1], os[2], part, kv_len, Hq, Hkv, Sq, Sk, causal, scale, q_off, k_off);
   return cudaGetLastError();
@@ -275,6 +286,9 @@ cudaError_t launch_normalized(const __nv_bfloat16* q, const int64_t* qs,
                               int Sq, int Sk, int causal, float scale, int clamp,
                               cudaStream_t stream) {
   const Partial none{nullptr, nullptr, nullptr, 0.0f};
+  if (clamp == 2)
+    return launch<D, false, true, true>(q, qs, k, ks, v, vs, o, os, none, kv_len, B, Hq, Hkv,
+                                        Sq, Sk, causal, scale, 0, 0, stream);
   if (clamp)
     return launch<D, false, true>(q, qs, k, ks, v, vs, o, os, none, kv_len, B, Hq, Hkv, Sq,
                                   Sk, causal, scale, 0, 0, stream);

@@ -3,12 +3,15 @@
 //
 // Replaces the TPU kernels ops/fused_vit.py:fused_vit_layer (_layer_kernel),
 // ops/fused_vit.py:fused_ln_mlp (_mlp_kernel) and ops/fused_vit.py:
-// fused_ln_attn (_attn_kernel). On the TPU each was ONE
+// fused_ln_attn (_attn_kernel), and the layer of the variant probe
+// scripts/probe_vit_variants.py:make_layer (_attn_mlp_body, K16: the same
+// block with the clamp softmax, through sc_fused_vit_layer with its flags).
+// On the TPU each was ONE
 // Pallas kernel that kept a frame tile, every intermediate and all weights
 // in VMEM. A Hopper block has at most 227 KB of shared memory, far below one
 // frame's [577, 4096] MLP intermediate, so the layer runs as a sequence of
 // launches on one stream: LayerNorm -> QKV GEMM -> flash attention ->
-// O GEMM + residual -> LayerNorm -> fc1 GEMM + quick_gelu -> fc2 GEMM +
+// O GEMM + residual -> LayerNorm -> fc1 GEMM + activation -> fc2 GEMM +
 // residual. The GEMM epilogues fuse bias, activation and residual, and the
 // mid-layer residual stays f32 as in the TPU kernel; the intermediates round
 // trip device memory in workspaces the Python wrapper allocates. The layer is
@@ -17,13 +20,21 @@
 
 // x, out: [N * S, D] bf16; ws_h: [N*S, D] bf16; ws_qkv: [N*S, 3D]
 // bf16; ws_attn: [N*S, D] bf16; ws_mid_x: [N*S, D] f32; ws_mid: [N*S, Dmid] bf16.
+// The TPU kernel's options, as in sc_fused_ln_attn below: softmax 0 is
+// "exact", 1 "clamp" (2 is clamp with bf16 scores, the layer probe's bf16s
+// variant, K16); folded means both LN affines and the q scale dh^-0.5 *
+// log2(e) live in wqkv / bqkv / w1 / b1 (ln*_s / ln*_b unused: both
+// LayerNorms run without affine, LN2 on the f32 mid-layer residual) and the
+// flash loop runs with scale ln 2; onepass selects the one-pass LN statistics
+// for both LayerNorms; act is the fc1 epilogue's activation (sc::Act).
 extern "C" int sc_fused_vit_layer(const void* x, const void* ln1_s, const void* ln1_b,
                                   const void* wqkv, const void* bqkv, const void* wo,
                                   const void* bo, const void* ln2_s, const void* ln2_b,
                                   const void* w1, const void* b1, const void* w2,
                                   const void* b2, void* out, void* ws_h, void* ws_qkv,
                                   void* ws_attn, void* ws_mid_x, void* ws_mid, int N, int S,
-                                  int D, int Dmid, int H, float eps, void* stream) {
+                                  int D, int Dmid, int H, float eps, int softmax, int folded,
+                                  int onepass, int act, void* stream) {
   using bf = __nv_bfloat16;
   auto st = static_cast<cudaStream_t>(stream);
   const int M = N * S;
@@ -32,24 +43,24 @@ extern "C" int sc_fused_vit_layer(const void* x, const void* ln1_s, const void* 
   auto qkv = static_cast<bf*>(ws_qkv);
   auto attn = static_cast<bf*>(ws_attn);
   auto mid = static_cast<bf*>(ws_mid);
+  auto affine = [folded](const void* p) { return folded ? nullptr : static_cast<const bf*>(p); };
 
-  sc::launch_layernorm(x, sc::kBF16, static_cast<const bf*>(ln1_s),
-                       static_cast<const bf*>(ln1_b), h, M, D, eps, /*onepass=*/0, st);
+  sc::launch_layernorm(x, sc::kBF16, affine(ln1_s), affine(ln1_b), h, M, D, eps, onepass, st);
   sc::launch_gemm(h, D, static_cast<const bf*>(wqkv), static_cast<const bf*>(bqkv), nullptr,
                   sc::kBF16, 0, qkv, sc::kBF16, 3 * D, M, 3 * D, D, sc::kActNone, st);
   const int64_t qkv_strides[3] = {(int64_t)S * 3 * D, dh, 3 * D};
   const int64_t o_strides[3] = {(int64_t)S * D, dh, D};
+  const float scale = folded ? 0.69314718055994531f : 1.0f / sqrtf((float)dh);
   cudaError_t err = sc::launch_flash(qkv, qkv_strides, qkv + D, qkv_strides, qkv + 2 * D,
                                      qkv_strides, attn, o_strides, nullptr, N, H, H, S, S,
-                                     dh, /*causal=*/0, 1.0f / sqrtf((float)dh),
-                                     /*clamp=*/0, st);
+                                     dh, /*causal=*/0, scale, softmax, st);
   if (err != cudaSuccess) return static_cast<int>(err);
   sc::launch_gemm(attn, D, static_cast<const bf*>(wo), static_cast<const bf*>(bo), x,
                   sc::kBF16, D, ws_mid_x, sc::kF32, D, M, D, D, sc::kActNone, st);
-  sc::launch_layernorm(ws_mid_x, sc::kF32, static_cast<const bf*>(ln2_s),
-                       static_cast<const bf*>(ln2_b), h, M, D, eps, /*onepass=*/0, st);
+  sc::launch_layernorm(ws_mid_x, sc::kF32, affine(ln2_s), affine(ln2_b), h, M, D, eps, onepass,
+                       st);
   sc::launch_gemm(h, D, static_cast<const bf*>(w1), static_cast<const bf*>(b1), nullptr,
-                  sc::kBF16, 0, mid, sc::kBF16, Dmid, M, Dmid, D, sc::kActQuickGelu, st);
+                  sc::kBF16, 0, mid, sc::kBF16, Dmid, M, Dmid, D, act, st);
   sc::launch_gemm(mid, Dmid, static_cast<const bf*>(w2), static_cast<const bf*>(b2),
                   ws_mid_x, sc::kF32, D, out, sc::kBF16, D, M, D, Dmid, sc::kActNone, st);
   return static_cast<int>(cudaGetLastError());

@@ -28,7 +28,8 @@ void launch_layernorm(const void* x, int in_dtype, const __nv_bfloat16* gamma,
 // element strides (batch, head, seq); the last dim is contiguous. clamp = 0
 // subtracts the running max (exact); clamp = 1 is the TPU ViT kernel's
 // "clamp" softmax, p = exp(min(x, 80)) with no running max and the output
-// divided by max(l, 1e-30).
+// divided by max(l, 1e-30); clamp = 2 is the same with each score rounded to
+// bf16 before the clamp and p rounded to bf16 (the layer probe's bf16s).
 cudaError_t launch_flash(const __nv_bfloat16* q, const int64_t* qs,
                          const __nv_bfloat16* k, const int64_t* ks,
                          const __nv_bfloat16* v, const int64_t* vs, __nv_bfloat16* o,

@@ -2,7 +2,8 @@
 (`streamchat_tpu/models/longva.py`).
 
 One model serves the answerer and the captioner. `encode_images` runs the
-ViT (K1 per layer) and the projector (K2); `generate_with_image_embedding`
+ViT (K1 per layer, folded, one-pass and clamp on the card) and the
+projector (K2); `generate_with_image_embedding`
 splices the prompt's `<image>` markers with visual embeddings, pads to a
 128-token bucket and generates through the paged backend (K3 prefill, K5
 for the chunks of a prompt over 8192 tokens, K4 decode, or K6 over int8
@@ -17,6 +18,7 @@ package's `KeySeq`).
 from __future__ import annotations
 
 import dataclasses
+import os
 from typing import List, Optional, Sequence, Tuple
 
 import torch
@@ -90,7 +92,16 @@ class LongVA:
             tokenizer=ByteTokenizer(), generator=g)
 
     def encode_images(self, pixels: torch.Tensor) -> torch.Tensor:
-        """[N, 3, H, W] -> [N, P, lm_hidden] (tower -> projector)."""
+        """[N, 3, H, W] -> [N, P, lm_hidden] (tower -> projector).
+
+        Where the tower runs fused (weights on the card), the first call
+        folds its weights once (`vit.fold_params`, ~350 MB at ViT-L), as the
+        JAX package does; SC_NO_VIT_FOLD=1 opts out, and the fused block then
+        folds inside each call (the same result)."""
+        if (vit._use_fused(None, self.vit_params["patch_embed"]["w"].device)
+                and not os.environ.get("SC_NO_VIT_FOLD")
+                and "fused" not in self.vit_params["layers"][0]):
+            self.vit_params = vit.fold_params(self.vit_params, self.vit_cfg)
         feats = vit.encode(self.vit_params, pixels, self.vit_cfg)
         return projector.apply(self.proj_params, feats)
 

@@ -2,13 +2,18 @@
 
 Counterparts of `streamchat_tpu/ops/fused_vit.py`:
 
-* `fused_vit_layer` — one pre-LN CLIP block,
-  out = y + fc2(quick_gelu(fc1(LN2(y)))),  y = x + O(attn(QKV(LN1(x)))),
-  the unfolded form of the TPU kernel with the exact (max-subtracting)
-  softmax. On a CUDA tensor it launches `csrc/fused_vit.cu`
+* `fused_vit_layer` (K1) — one pre-LN CLIP block,
+  out = y + fc2(act(fc1(LN2(y)))),  y = x + O(attn(QKV(LN1(x)))),
+  with the TPU kernel's options and defaults: softmax "clamp" (default) or
+  "exact"; `folded` weights from `fold_vit_layer_params` (both LN affines
+  and the q scale in wqkv / bqkv / w1 / b1, exp2 softmax); `ln_onepass`
+  statistics for both LayerNorms; the fc1 activation. The ingest runs it
+  folded, one-pass and clamp (models/vit `_block_fused`), as the JAX
+  package does on its chip. On a CUDA tensor it launches `csrc/fused_vit.cu`
   (`sc_fused_vit_layer`: LayerNorm, tensor-core GEMMs with fused epilogues
   and the flash-attention kernel on one stream); on a CPU tensor it runs
-  `fused_vit_layer_plain`.
+  `fused_vit_layer_plain`, which follows the TPU kernel's `_layer_kernel`
+  option by option.
 * `fused_ln_mlp` — out = [x +] fc2(act(fc1([LN] x))), act one of
   quick_gelu / erf-GELU / none (the projector runs it with LN off, no
   residual and erf-GELU). CUDA: `sc_fused_ln_mlp`; CPU: `fused_ln_mlp_plain`.
@@ -34,7 +39,6 @@ import math
 import torch
 
 from streamchat_tpu_torch.kernels import counted, launched
-from streamchat_tpu_torch.ops.attention import flash_attention_plain
 
 ACTIVATIONS = {"none": 0, "quick_gelu": 1, "gelu": 2}
 _LOG2E = math.log2(math.e)
@@ -86,58 +90,104 @@ def _stream() -> int:
     return torch.cuda.current_stream().cuda_stream
 
 
-def fused_vit_layer_plain(x, ln1_scale, ln1_bias, wqkv, bqkv, wo, bo,
-                          ln2_scale, ln2_bias, w1, b1, w2, b2, *,
-                          num_heads: int, eps: float = 1e-5):
-    """Plain PyTorch twin of `fused_vit_layer` (same signature)."""
-    dt = x.dtype
-    n, s, d = x.shape
+SOFTMAX = {"exact": 0, "clamp": 1}
+# The flash loop's clamp softmax with bf16 scores (the layer probe's bf16s
+# variant, utils/probe_vit_variants); no K1 caller reaches it.
+SOFTMAX_CLAMP_BF16 = 2
+
+
+def layer_mode(softmax_mode: str, folded: bool, ln_onepass: bool, activation: str) -> str:
+    """The name a K1 launch is tallied under (kernels.launch_modes)."""
+    return "+".join([softmax_mode] + ["folded"] * folded + ["onepass"] * ln_onepass
+                    + [activation])
+
+
+def _check_layer(n, frame_tile, softmax_mode, activation):
+    if n % frame_tile:
+        raise ValueError(f"N={n} not a multiple of frame_tile={frame_tile}")
+    _check_softmax_mode(softmax_mode)
+    if activation not in ACTIVATIONS:
+        raise ValueError(f"unknown activation: {activation}")
+
+
+def _attention_plain(qkv, num_heads, *, folded, softmax_mode, bf16_scores=False):
+    """Merged q|k|v [n, s, 3d] in the storage dtype -> [n, s, d]: the TPU
+    kernels' `_attn_body` attention, all heads at once. `bf16_scores` is
+    the layer probe's bf16s variant: scores rounded to bf16, then min(s, 80)
+    and the (natural) exp in bf16."""
+    n, s, d3 = qkv.shape
+    dt, d = qkv.dtype, d3 // 3
     dh = d // num_heads
+    q, k, v = qkv.view(n, s, 3, num_heads, dh).permute(2, 0, 3, 1, 4)   # [n, H, s, dh]
+    if not folded:
+        q = q * torch.tensor(dh ** -0.5, dtype=dt)
+    scores = _mm(q, k.transpose(-1, -2))          # [n, H, s, s], log2 units when folded
+    exp = torch.exp2 if folded else torch.exp
+    if bf16_scores:
+        p = torch.exp(scores.to(torch.bfloat16).clamp_max(80.0))
+    elif softmax_mode == "exact":
+        p = exp(scores - scores.amax(-1, keepdim=True))
+    else:
+        p = exp(scores.clamp_max(80.0 * _LOG2E if folded else 80.0))
+    p = p.to(dt)
+    l_inv = 1.0 / p.float().sum(-1, keepdim=True).clamp_min(1e-30)
+    return (_mm(p, v) * l_inv).to(dt).transpose(1, 2).reshape(n, s, d)
+
+
+def _layer_plain(x, ln1_scale, ln1_bias, wqkv, bqkv, wo, bo, ln2_scale, ln2_bias, w1, b1,
+                 w2, b2, *, num_heads, eps, activation, softmax_mode, folded, ln_onepass,
+                 bf16_scores=False):
+    """The TPU kernel's `_layer_kernel` body over every frame at once."""
+    dt = x.dtype
     x32 = x.float()
-    h = _ln_f32(x32, ln1_scale, ln1_bias, eps).to(dt)
-    qkv = (_mm(h, wqkv) + bqkv.float()).to(dt)                # [n, s, 3d]
-    heads = qkv.view(n, s, 3, num_heads, dh).permute(2, 0, 3, 1, 4)
-    attn = flash_attention_plain(heads[0], heads[1], heads[2],
-                                 causal=False)              # [n, H, s, dh]
-    attn = attn.transpose(1, 2).reshape(n, s, d)
+    aff1 = (None, None) if folded else (ln1_scale, ln1_bias)
+    aff2 = (None, None) if folded else (ln2_scale, ln2_bias)
+    h = _ln_f32(x32, *aff1, eps, onepass=ln_onepass).to(dt)
+    qkv = (_mm(h, wqkv) + bqkv.float()).to(dt)
+    attn = _attention_plain(qkv, num_heads, folded=folded, softmax_mode=softmax_mode,
+                            bf16_scores=bf16_scores)
     mid_x = _mm(attn, wo) + bo.float() + x32
-    h = _ln_f32(mid_x, ln2_scale, ln2_bias, eps).to(dt)
-    mid = _activate(_mm(h, w1) + b1.float(), "quick_gelu").to(dt)
+    h = _ln_f32(mid_x, *aff2, eps, onepass=ln_onepass).to(dt)
+    mid = _activate(_mm(h, w1) + b1.float(), activation).to(dt)
     return (_mm(mid, w2) + b2.float() + mid_x).to(dt)
 
 
-@counted
-def fused_vit_layer(x, ln1_scale, ln1_bias, wqkv, bqkv, wo, bo,
-                    ln2_scale, ln2_bias, w1, b1, w2, b2, *,
-                    num_heads: int, eps: float = 1e-5):
-    """One pre-LN CLIP block over x [N, S, D] -> [N, S, D] (K1).
+def fused_vit_layer_plain(x, ln1_scale, ln1_bias, wqkv, bqkv, wo, bo,
+                          ln2_scale, ln2_bias, w1, b1, w2, b2, *,
+                          num_heads: int, eps: float = 1e-5, activation: str = "quick_gelu",
+                          frame_tile: int = 2, softmax_mode: str = "clamp",
+                          folded: bool = False, ln_onepass: bool = False):
+    """Plain PyTorch twin of `fused_vit_layer` (same signature)."""
+    _check_layer(x.shape[0], frame_tile, softmax_mode, activation)
+    return _layer_plain(x, ln1_scale, ln1_bias, wqkv, bqkv, wo, bo, ln2_scale, ln2_bias,
+                        w1, b1, w2, b2, num_heads=num_heads, eps=eps, activation=activation,
+                        softmax_mode=softmax_mode, folded=folded, ln_onepass=ln_onepass)
 
-    Weights are [in, out]; wqkv is the merged [D, 3D] q|k|v projection.
-    CPU tensors run the plain twin; CUDA tensors launch the kernel (bf16,
-    D and the MLP width multiples of 128, head dim 64 or 128) or raise.
-    """
-    if x.device.type == "cpu":
-        return fused_vit_layer_plain(
-            x, ln1_scale, ln1_bias, wqkv, bqkv, wo, bo, ln2_scale, ln2_bias,
-            w1, b1, w2, b2, num_heads=num_heads, eps=eps)
+
+def launch_layer(x, ln1_scale, ln1_bias, wqkv, bqkv, wo, bo, ln2_scale, ln2_bias, w1, b1,
+                 w2, b2, *, num_heads, eps, activation, softmax, folded, ln_onepass,
+                 name="fused_vit_layer"):
+    """One `sc_fused_vit_layer` launch sequence on CUDA tensors -> out.
+
+    `softmax` is the kernel's code (SOFTMAX, or SOFTMAX_CLAMP_BF16). The
+    caller counts the launch. Raises on what the kernel does not take (bf16,
+    D and the MLP width multiples of 128, head dim 64 or 128)."""
     from streamchat_tpu_torch.kernels.build import call
 
     n, s, d = x.shape
     dmid = w1.shape[1]
     dh = d // num_heads
     if d % 128 or dmid % 128 or dh * num_heads != d or dh not in (64, 128):
-        raise ValueError(f"fused_vit_layer: unsupported D={d}, MLP={dmid}, "
-                         f"heads={num_heads}")
+        raise ValueError(f"{name}: unsupported D={d}, MLP={dmid}, heads={num_heads}")
     bf = torch.bfloat16
-    for name, t, shape in (
-        ("x", x, (n, s, d)), ("ln1_scale", ln1_scale, (d,)),
-        ("ln1_bias", ln1_bias, (d,)), ("wqkv", wqkv, (d, 3 * d)),
-        ("bqkv", bqkv, (3 * d,)), ("wo", wo, (d, d)), ("bo", bo, (d,)),
-        ("ln2_scale", ln2_scale, (d,)), ("ln2_bias", ln2_bias, (d,)),
-        ("w1", w1, (d, dmid)), ("b1", b1, (dmid,)), ("w2", w2, (dmid, d)),
-        ("b2", b2, (d,)),
-    ):
-        _check_cuda(f"fused_vit_layer {name}", t, bf, shape)
+    checks = [("x", x, (n, s, d)), ("wqkv", wqkv, (d, 3 * d)), ("bqkv", bqkv, (3 * d,)),
+              ("wo", wo, (d, d)), ("bo", bo, (d,)), ("w1", w1, (d, dmid)),
+              ("b1", b1, (dmid,)), ("w2", w2, (dmid, d)), ("b2", b2, (d,))]
+    if not folded:
+        checks += [("ln1_scale", ln1_scale, (d,)), ("ln1_bias", ln1_bias, (d,)),
+                   ("ln2_scale", ln2_scale, (d,)), ("ln2_bias", ln2_bias, (d,))]
+    for label, t, shape in checks:
+        _check_cuda(f"{name} {label}", t, bf, shape)
     m = n * s
     out = torch.empty_like(x)
     ws_h = torch.empty(m, d, dtype=bf, device=x.device)
@@ -145,11 +195,40 @@ def fused_vit_layer(x, ln1_scale, ln1_bias, wqkv, bqkv, wo, bo,
     ws_attn = torch.empty(m, d, dtype=bf, device=x.device)
     ws_mid_x = torch.empty(m, d, dtype=torch.float32, device=x.device)
     ws_mid = torch.empty(m, dmid, dtype=bf, device=x.device)
-    ptrs = [t.data_ptr() for t in (
-        x, ln1_scale, ln1_bias, wqkv, bqkv, wo, bo, ln2_scale, ln2_bias,
-        w1, b1, w2, b2, out, ws_h, ws_qkv, ws_attn, ws_mid_x, ws_mid)]
-    call("sc_fused_vit_layer", *ptrs, n, s, d, dmid, num_heads, eps, _stream())
-    launched(fused_vit_layer)
+    ln = (ln1_scale, ln1_bias, ln2_scale, ln2_bias)
+    ln = [None] * 4 if folded else [t.data_ptr() for t in ln]
+    ptrs = [t.data_ptr() for t in (x, wqkv, bqkv, wo, bo, w1, b1, w2, b2, out, ws_h, ws_qkv,
+                                   ws_attn, ws_mid_x, ws_mid)]
+    call("sc_fused_vit_layer", ptrs[0], ln[0], ln[1], *ptrs[1:5], ln[2], ln[3], *ptrs[5:],
+         n, s, d, dmid, num_heads, eps, softmax, int(folded), int(ln_onepass),
+         ACTIVATIONS[activation], _stream())
+    return out
+
+
+@counted
+def fused_vit_layer(x, ln1_scale, ln1_bias, wqkv, bqkv, wo, bo,
+                    ln2_scale, ln2_bias, w1, b1, w2, b2, *,
+                    num_heads: int, eps: float = 1e-5, activation: str = "quick_gelu",
+                    frame_tile: int = 2, softmax_mode: str = "clamp",
+                    folded: bool = False, ln_onepass: bool = False):
+    """One pre-LN CLIP block over x [N, S, D] -> [N, S, D] (K1).
+
+    Weights are [in, out]; wqkv is the merged [D, 3D] q|k|v projection.
+    The keyword arguments and defaults are the TPU kernel's: `frame_tile`
+    must divide N and has no other effect here; with `folded` the ln*
+    operands are ignored (pass what `fold_vit_layer_params` returned for
+    wqkv / bqkv / w1 / b1). CPU tensors run the plain twin; CUDA tensors
+    launch the kernel (bf16, D and the MLP width multiples of 128, head dim
+    64 or 128) or raise.
+    """
+    _check_layer(x.shape[0], frame_tile, softmax_mode, activation)
+    kw = dict(num_heads=num_heads, eps=eps, activation=activation, folded=folded,
+              ln_onepass=ln_onepass)
+    args = (x, ln1_scale, ln1_bias, wqkv, bqkv, wo, bo, ln2_scale, ln2_bias, w1, b1, w2, b2)
+    if x.device.type == "cpu":
+        return _layer_plain(*args, softmax_mode=softmax_mode, **kw)
+    out = launch_layer(*args, softmax=SOFTMAX[softmax_mode], **kw)
+    launched(fused_vit_layer, layer_mode(softmax_mode, folded, ln_onepass, activation))
     return out
 
 
@@ -237,6 +316,19 @@ def fold_vit_attn_params(ln_scale, ln_bias, wqkv, bqkv, *, num_heads: int):
     return w.to(wqkv.dtype), b.to(bqkv.dtype)
 
 
+def fold_vit_layer_params(ln1_scale, ln1_bias, wqkv, bqkv, ln2_scale, ln2_bias, w1, b1, *,
+                          num_heads: int):
+    """Fold both LN affines and the q scale into the projections ->
+    (wqkv', bqkv', w1', b1') for `fused_vit_layer(..., folded=True)`: the
+    attention half is `fold_vit_attn_params`, and the LN2 affine commutes
+    into fc1 the same way (in f32, rounded back to the weights' dtype)."""
+    w, b = fold_vit_attn_params(ln1_scale, ln1_bias, wqkv, bqkv, num_heads=num_heads)
+    w1f = w1.float()
+    b1f = b1.float() + ln2_bias.float() @ w1f
+    w1f = w1f * ln2_scale.float()[:, None]
+    return w, b, w1f.to(w1.dtype), b1f.to(b1.dtype)
+
+
 def fused_ln_attn_plain(x, ln_scale, ln_bias, wqkv, bqkv, wo, bo, *, num_heads: int,
                         eps: float = 1e-5, frame_tile: int = 1, softmax_mode: str = "clamp",
                         folded: bool = False, ln_onepass: bool = False):
@@ -245,23 +337,11 @@ def fused_ln_attn_plain(x, ln_scale, ln_bias, wqkv, bqkv, wo, bo, *, num_heads: 
     n, s, d = x.shape
     _check_ln_attn(n, frame_tile, softmax_mode)
     dt = x.dtype
-    dh = d // num_heads
     x32 = x.float()
     affine = (None, None) if folded else (ln_scale, ln_bias)
     h = _ln_f32(x32, *affine, eps, onepass=ln_onepass).to(dt)
     qkv = (_mm(h, wqkv) + bqkv.float()).to(dt)
-    q, k, v = qkv.view(n, s, 3, num_heads, dh).permute(2, 0, 3, 1, 4)   # [n, H, s, dh]
-    if not folded:
-        q = q * torch.tensor(dh ** -0.5, dtype=dt)
-    scores = _mm(q, k.transpose(-1, -2))          # [n, H, s, s], log2 units when folded
-    exp = torch.exp2 if folded else torch.exp
-    if softmax_mode == "exact":
-        p = exp(scores - scores.amax(-1, keepdim=True))
-    else:
-        p = exp(scores.clamp_max(80.0 * _LOG2E if folded else 80.0))
-    p = p.to(dt)
-    l_inv = 1.0 / p.float().sum(-1, keepdim=True).clamp_min(1e-30)
-    attn = (_mm(p, v) * l_inv).to(dt).transpose(1, 2).reshape(n, s, d)
+    attn = _attention_plain(qkv, num_heads, folded=folded, softmax_mode=softmax_mode)
     return (_mm(attn, wo) + bo.float() + x32).to(dt)
 
 
@@ -303,7 +383,7 @@ def fused_ln_attn(x, ln_scale, ln_bias, wqkv, bqkv, wo, bo, *, num_heads: int,
     ln = (None, None) if folded else (ln_scale.data_ptr(), ln_bias.data_ptr())
     call("sc_fused_ln_attn", x.data_ptr(), *ln, wqkv.data_ptr(), bqkv.data_ptr(),
          wo.data_ptr(), bo.data_ptr(), out.data_ptr(), ws_h.data_ptr(), ws_qkv.data_ptr(),
-         ws_attn.data_ptr(), n, s, d, num_heads, eps, int(softmax_mode == "clamp"),
+         ws_attn.data_ptr(), n, s, d, num_heads, eps, SOFTMAX[softmax_mode],
          int(folded), int(ln_onepass), _stream())
     launched(fused_ln_attn)
     return out

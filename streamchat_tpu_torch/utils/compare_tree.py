@@ -6,15 +6,16 @@ OTHER_TREE is the root of another checkout of the repo (e.g. the parent
 commit unpacked with `git archive`). Its `streamchat_tpu_torch/csrc/` is
 built by its own `kernels/build.py` into its own library, beside this
 tree's. The kernels whose C entry points both trees export with the same
-signature (K1 `sc_fused_vit_layer`, K3 `sc_flash_attention`, K4
-`sc_paged_decode`, K6 `sc_paged_decode_int8`) run through this tree's
-wrappers on the same inputs at main-path shapes, once against each
-library: the script prints whether the outputs are equal bit for bit, and
-the device time per call of each (torch.profiler, as `chip_smoke.py`
-measures it) in turns: other, this, this, other. The page-table decode
-kernels (K8 `sc_paged_decode_table`, K9 `sc_paged_decode_table_int8`, at
-the smoke's shared-pool shapes) join the comparison where the other tree
-exports them, and are otherwise timed in this tree alone.
+signature (K1 `sc_fused_vit_layer` in its exact form, K3
+`sc_flash_attention`, K4 `sc_paged_decode`, K6 `sc_paged_decode_int8`, and
+the page-table decode kernels K8 `sc_paged_decode_table` and K9
+`sc_paged_decode_table_int8` at the smoke's shared-pool shapes) run through
+this tree's wrappers on the same inputs at main-path shapes, once against
+each library: the script prints whether the outputs are equal bit for bit,
+and the device time per call of each (torch.profiler, as `chip_smoke.py`
+measures it) in turns: other, this, this, other. A kernel the other tree
+does not export, or exports with another C signature (K1 before it took
+the TPU kernel's options), is timed in this tree alone.
 """
 
 from __future__ import annotations
@@ -31,21 +32,23 @@ import torch
 from streamchat_tpu_torch.utils.profiling import device_ms
 
 KERNELS = ("sc_fused_vit_layer", "sc_flash_attention", "sc_paged_decode",
-           "sc_paged_decode_int8")
-TABLE_KERNELS = ("sc_paged_decode_table", "sc_paged_decode_table_int8")
+           "sc_paged_decode_int8", "sc_paged_decode_table", "sc_paged_decode_table_int8")
 
 
 def _load_other(tree: str):
     """The other tree's kernel library, built by its own build.py -> (library,
-    build seconds, the names of TABLE_KERNELS it exports)."""
+    build seconds, the names of KERNELS it exports with this tree's C
+    signature)."""
+    from streamchat_tpu_torch.kernels.build import SIGNATURES
+
     path = os.path.join(tree, "streamchat_tpu_torch", "kernels", "build.py")
     spec = importlib.util.spec_from_file_location("other_kernel_build", path)
     mod = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(mod)
     info = mod.build(force=True)
     lib = ctypes.CDLL(mod.LIB_PATH)
-    present = tuple(n for n in TABLE_KERNELS if n in mod.SIGNATURES)
-    for name in KERNELS + present:
+    present = tuple(n for n in KERNELS if mod.SIGNATURES.get(n) == SIGNATURES[n])
+    for name in present:
         fn = getattr(lib, name)
         fn.argtypes = mod.SIGNATURES[name]
         fn.restype = ctypes.c_int
@@ -94,7 +97,8 @@ def _cases(g):
     kst, vst = (torch.rand(pool, 4, 128, generator=g, device=dev) * 0.04 + 0.01
                 for _ in range(2))
     return {
-        "sc_fused_vit_layer": lambda: fused_vit.fused_vit_layer(x, *vit, num_heads=16),
+        "sc_fused_vit_layer": lambda: fused_vit.fused_vit_layer(
+            x, *vit, num_heads=16, frame_tile=1, softmax_mode="exact"),
         "sc_flash_attention": lambda: attention.flash_attention(q3, k3, v3, causal=True),
         "sc_paged_decode": lambda: paged_attention.paged_decode_attention_seq(q, kp, vp, ln),
         "sc_paged_decode_int8": lambda: paged_attention.paged_decode_attention_seq_int8(
@@ -134,10 +138,10 @@ def main(argv=None) -> None:
     report = {}
     try:
         for name, fn in cases.items():
-            if name in TABLE_KERNELS and name not in present:
+            if name not in present:
                 build.call = current
-                report[name] = dict(other="absent", ms_this=[device_ms(fn, args.iters)
-                                                             for _ in range(2)])
+                report[name] = dict(other="absent or another signature",
+                                    ms_this=[device_ms(fn, args.iters) for _ in range(2)])
                 print(f"{name}: {json.dumps(report[name])}", flush=True)
                 continue
             outs, times = {}, {"other": [], "this": []}

@@ -19,7 +19,9 @@ pages no row maps. The partial kernels (K5, K7) return (acc, m, l); they are com
 rows with no live key must give m = -1e30, l = 0, acc = 0. K12's similarities
 are held within 1e-5; K13 runs both softmax modes, the folded form and the
 one-pass LayerNorm, and the clamp softmax's two edges; K14 is counted apart
-from K3.
+from K3. K1 runs in the TPU kernel's options; the probe kernels K15 (five
+int4 unpack variants; dma exactly), K16 (five layer variants) and K17 (four
+dot kinds, f32 outputs held to 1e-3) run at small shapes.
 """
 
 import numpy as np
@@ -61,8 +63,9 @@ def test_cuda_vit_layer_and_mlp(cuda):
     w2, b2 = _bf(11, cuda, f, d, scale=f ** -0.5), _bf(12, cuda, d, scale=0.1)
     args = (ln1_s, ln1_b, wqkv, bqkv, wo, bo, ln2_s, ln2_b, w1, b1, w2, b2)
     x = _bf(13, cuda, 2, 33, d)           # 66 rows: a ragged GEMM edge
-    _close(fused_vit.fused_vit_layer(x, *args, num_heads=2),
-           fused_vit.fused_vit_layer_plain(x, *args, num_heads=2))
+    exact = dict(num_heads=2, frame_tile=1, softmax_mode="exact")
+    _close(fused_vit.fused_vit_layer(x, *args, **exact),
+           fused_vit.fused_vit_layer_plain(x, *args, **exact))
     flat = x.reshape(-1, d)
     mlp = (ln2_s, ln2_b, w1, b1, w2, b2)
     for act in ("quick_gelu", "gelu", "none"):
@@ -369,3 +372,86 @@ def test_cuda_vit_attention(cuda, shape):
     with pytest.raises(ValueError, match="unsupported"):
         vit_attention.vit_attention(q[..., :32].contiguous(), k[..., :32].contiguous(),
                                     v[..., :32].contiguous())
+
+
+def _vit_weights(dev, d, f):
+    return (1 + _bf(1, dev, d, scale=0.1), _bf(2, dev, d, scale=0.1),
+            _bf(3, dev, d, 3 * d, scale=d ** -0.5), _bf(4, dev, 3 * d, scale=0.1),
+            _bf(5, dev, d, d, scale=d ** -0.5), _bf(6, dev, d, scale=0.1),
+            1 + _bf(7, dev, d, scale=0.1), _bf(8, dev, d, scale=0.1),
+            _bf(9, dev, d, f, scale=d ** -0.5), _bf(10, dev, f, scale=0.1),
+            _bf(11, dev, f, d, scale=f ** -0.5), _bf(12, dev, d, scale=0.1))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode,folded,onepass,act", [
+    ("clamp", True, True, "quick_gelu"),      # the ingest's form
+    ("exact", True, False, "gelu"),
+    ("clamp", False, True, "none"),
+    ("clamp", False, False, "quick_gelu"),    # the defaults
+])
+def test_cuda_vit_layer_options(cuda, mode, folded, onepass, act):
+    """K1 in the TPU kernel's options, folded weights from
+    fold_vit_layer_params; each launch is tallied under its mode."""
+    d, f, heads = 128, 256, 2
+    w = list(_vit_weights(cuda, d, f))
+    if folded:
+        w[2], w[3], w[8], w[9] = fused_vit.fold_vit_layer_params(
+            *(w[i] for i in (0, 1, 2, 3, 6, 7, 8, 9)), num_heads=heads)
+    x = _bf(13, cuda, 4, 33, d)
+    kw = dict(num_heads=heads, activation=act, softmax_mode=mode, folded=folded,
+              ln_onepass=onepass)
+    _close(fused_vit.fused_vit_layer(x, *w, **kw), fused_vit.fused_vit_layer_plain(x, *w, **kw))
+    assert kernels.launch_modes() == {
+        "fused_vit_layer": {fused_vit.layer_mode(mode, folded, onepass, act): 1}}
+
+
+@pytest.mark.cuda
+def test_cuda_probe_layer_variants(cuda):
+    """K16: each variant of the layer probe at D = 1024 against its twin."""
+    from streamchat_tpu_torch.utils import probe_vit_variants as pvv
+
+    g = torch.Generator(device="cuda").manual_seed(0)
+    x = (torch.randn(2, 33, pvv.D, generator=g, device=cuda) * 0.5).to(torch.bfloat16)
+    for opt in pvv.VARIANTS.values():
+        params = pvv.make_params(g, opt)
+        _close(pvv.make_layer(opt)(x, params), pvv.probe_layer_plain(x, params, opt))
+    assert pvv.probe_layer.launches == len(pvv.VARIANTS)
+    assert fused_vit.fused_vit_layer.launches == 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["qk64", "qk128", "pv64", "pv128"])
+@pytest.mark.parametrize("s,n", [(100, 5), (577, 3)])
+def test_cuda_dotk(cuda, kind, s, n):
+    """K17 over ragged S (not a multiple of the 64-row tile), split over the
+    dots or not."""
+    from streamchat_tpu_torch.utils import probe_vit_variants as pvv
+
+    dh = int(kind[2:])
+    shapes = ((s, s), (n, s, dh)) if kind.startswith("pv") else ((n, s, dh), (dh, s))
+    a, b = (_bf(50 + i, cuda, *shp, scale=0.1) for i, shp in enumerate(shapes))
+    got = pvv.dotk(a, b)
+    assert got.dtype == torch.float32 and got.shape == (s, dh if kind.startswith("pv") else s)
+    torch.testing.assert_close(got, pvv.dotk_plain(a, b), atol=1e-3, rtol=1e-3)
+    assert pvv.dotk.launches == 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [1, 3])
+@pytest.mark.parametrize("block_out,gpb", [(256, 2), (256, 3), (128, 8)])
+def test_cuda_int4_probe(cuda, n, block_out, gpb):
+    """K15's five variants against their twin; dma sums whole bytes, so it
+    is exact."""
+    from streamchat_tpu_torch.utils import probe_int4
+
+    w, s = _int4(7, cuda, 512, 1024)
+    x = _bf(8, cuda, n, 512)
+    for variant in probe_int4.VARIANTS:
+        got = probe_int4.matvec(x, w, s, variant=variant, block_out=block_out, gpb=gpb)
+        ref = probe_int4.matvec_plain(x, w, s, variant, block_out, gpb)
+        if variant == "dma":
+            assert torch.equal(got, ref)
+        else:
+            torch.testing.assert_close(got, ref, atol=1e-4 * ref.abs().max().item(), rtol=0)
+    assert probe_int4.matvec.launches == len(probe_int4.VARIANTS)

@@ -78,7 +78,8 @@ def test_vit_layer_matches_jax_kernel_and_block(no_launches, n, heads):
     }
     ref_block = jvit._block(jnp.asarray(x), jax.tree.map(jnp.asarray, lp), cfg)
     out = fused_vit.fused_vit_layer(torch.from_numpy(x), *map(torch.from_numpy, args),
-                                    num_heads=heads, eps=cfg.layernorm_eps)
+                                    num_heads=heads, eps=cfg.layernorm_eps, frame_tile=1,
+                                    softmax_mode="exact")
     np.testing.assert_allclose(out.numpy(), np.asarray(ref_kernel), atol=ATOL, rtol=0)
     np.testing.assert_allclose(out.numpy(), np.asarray(ref_block), atol=ATOL, rtol=0)
 
