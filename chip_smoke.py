@@ -15,7 +15,9 @@
    events, which for a kernel shorter than its wrapper's host work is the
    host's pace): K1 ViT layer (the ingest's folded, one-pass, clamp form,
    timed; the exact unfolded form, folded + exact, and erf-GELU), K2
-   projector MLP, K3 flash attention, K4
+   projector MLP, K3 flash attention (causal at S = 23,168 with a ragged
+   kv_length, timed, at S = 4,096 with its own bound and library time, and
+   at S = 300), K4
    paged decode, W8 int8 GEMV (gate, down, and the lm_head with f32
    output), K10 int4 GEMV (gate, down), K11 fused int4 GEMV (the q/k/v
    triple, the gate/up pair), K6 paged decode over int8 pages, K5 partial
@@ -41,9 +43,11 @@
    own): a key tile or a 4-page chunk zeroed, the
    valid length ignored or 128 past its end, a 128-row slice of an int8
    weight zeroed, int4 nibble halves swapped, one group's scale ignored,
-   int8 page scales replaced by 1, K5's offsets swapped or its m left
-   unclamped, K7's row fold transposed or its pool length counting the
-   block, K8 / K9's table ignored (pool order), -1 read as page 0, the
+   int8 page scales replaced by 1, K3 run non-causal on the causal S = 300
+   case, K5's offsets swapped, its q_offset shifted by 37 on the
+   rows-without-keys case or its m left unclamped, K7's row fold
+   transposed or its pool length counting the block, K8 / K9's table
+   ignored (pool order), -1 read as page 0, the
    length ignored, one table entry off by one, K12's roll reversed or its
    rows left unnormalized, K13 without the residual, K14 with its last key
    masked, K15's xor algebra without its -8 sum(x_g) term and its cur
@@ -58,7 +62,9 @@
    SDPA for K3, K5 and K14, a bf16 matmul on the dequantized weight for
    W8, K10, K11 and K15, `F.cosine_similarity` against the rolled rows for
    K12, one matmul for K17's qk kinds and a matmul and a sum for its pv
-   kinds).
+   kinds). The Hopper prefill kernel's rows (K3, K5) also carry their
+   share of the bound and the compiled kernel's registers, spill bytes and
+   shared bytes (`sc_flash_prefill_attributes`).
 5. Checks the composed paths on small inputs: two frames through
    `encode_images` (the fused tower, folded on that first call) against
    the plain twin chain of the same form and against the exact unfolded
@@ -189,7 +195,7 @@ SOURCES = {
                         "streamchat_tpu/ops/fused_vit.py:358"),
     "fused_ln_mlp": ("streamchat_tpu_torch/csrc/fused_vit.cu",
                      "streamchat_tpu/ops/fused_vit.py:159"),
-    "flash_attention": ("streamchat_tpu_torch/csrc/flash_attention.cu",
+    "flash_attention": ("streamchat_tpu_torch/csrc/flash_prefill.cu",
                         "streamchat_tpu/ops/attention.py:173"),
     "paged_decode_attention_seq": ("streamchat_tpu_torch/csrc/paged_decode.cu",
                                    "streamchat_tpu/ops/paged_attention.py:382"),
@@ -201,7 +207,7 @@ SOURCES = {
                            "streamchat_tpu/ops/int4_matmul.py:203"),
     "paged_decode_attention_seq_int8": ("streamchat_tpu_torch/csrc/paged_decode.cu",
                                         "streamchat_tpu/ops/paged_attention.py:423"),
-    "flash_attention_partial": ("streamchat_tpu_torch/csrc/flash_attention.cu",
+    "flash_attention_partial": ("streamchat_tpu_torch/csrc/flash_prefill.cu",
                                 "streamchat_tpu/ops/attention.py:470"),
     "paged_seq_attention_partial": ("streamchat_tpu_torch/csrc/paged_decode.cu",
                                     "streamchat_tpu/ops/paged_attention.py:454"),
@@ -338,6 +344,21 @@ def _garbage_tail(k, v, valid, seq_dim):
     v.narrow(seq_dim, valid, v.shape[seq_dim] - valid).fill_(100.0)
 
 
+def prefill_attributes(partial: bool, d: int = 128) -> dict:
+    """The compiled K3 / K5 kernel's registers per thread, local (spill)
+    bytes per thread and shared bytes (cudaFuncGetAttributes)."""
+    import ctypes
+
+    from streamchat_tpu_torch.kernels.build import library
+
+    out = (ctypes.c_int * 4)()
+    err = library().sc_flash_prefill_attributes(d, int(partial), out)
+    if err:
+        raise RuntimeError(f"sc_flash_prefill_attributes: CUDA error {err}")
+    return dict(num_regs=out[0], local_bytes=out[1], static_shared_bytes=out[2],
+                dynamic_shared_bytes=out[3])
+
+
 def check_kernels(model, g):
     """K1-K4 against their plain twins at main-path shapes -> report rows."""
     from streamchat_tpu_torch.ops import attention, fused_vit, paged_attention
@@ -407,12 +428,13 @@ def check_kernels(model, g):
         library_ms=None, library="none (two GEMMs and a GELU are three calls)")
 
     # K3: causal GQA prefill, 28 query heads over 4 kv heads, dh 128, at
-    # S = 4096 and at the chunk-40 caption bucket S = 23168 with a ragged
-    # kv_length. The plain twin runs one head at a time so S^2 scores fit.
-    # Every row is compared, those past kv_length included.
+    # S = 4096 (chunk 0 of every chunked prefill) and at the chunk-40
+    # caption bucket S = 23168 with a ragged kv_length. The plain twin runs
+    # one head at a time so S^2 scores fit. Every row is compared, those
+    # past kv_length included.
     hq, hkv = model.dec_cfg.num_heads, model.dec_cfg.num_kv_heads
     grp = hq // hkv
-    errs, rels, times, planted = [], [], {}, {}
+    errs, rels, times, bounds, library, planted = [], [], {}, {}, {}, {}
     for s, valid in ((4096, None), (23168, 23105)):
         q = torch.randn(1, hq, s, 128, generator=g, device=dev).to(bf)
         k = torch.randn(1, hkv, s, 128, generator=g, device=dev).to(bf)
@@ -446,16 +468,33 @@ def check_kernels(model, g):
         del ref
         times[s] = _timings(lambda: attention.flash_attention(q, k, v, kl, causal=True),
                             plain_heads, 5, 1)
-    # q, k, v, kl are the S = 23168 case. SDPA's is_causal masks keys past
-    # kv_length for every row but the 63 padding rows at and past it.
+        bounds[s] = _bound(4 * 128 * hq * _causal_pairs(s, 0, valid or s), 2 * _nbytes(q, k))
+        # SDPA's is_causal masks keys past kv_length for every row but the
+        # 63 padding rows at and past it.
+        library[s] = device_ms(lambda: _sdpa(q, k, v, is_causal=True, enable_gqa=True), 5)
+    # A causal S = 300 case (two query tiles, the second crossing the
+    # diagonal mid-tile) run non-causal must fail: the boundary tiles mask.
+    qc, kc, vc = (torch.randn(1, h_, 300, 128, generator=g, device=dev).to(bf)
+                  for h_ in (hq, hkv, hkv))
+    ref = attention.flash_attention_plain(qc, kc, vc, None, causal=True)
+    err, rel = _compare("K3 flash_attention S=300", attention.flash_attention(qc, kc, vc),
+                        ref, row_rel=True)
+    errs.append(err)
+    rels.append(rel)
+    planted["K3 run non-causal (S=300)"] = _planted(
+        "K3 run non-causal", attention.flash_attention(qc, kc, vc, None, causal=False), ref)
+    del qc, kc, vc, ref
     rows["flash_attention"] = dict(
         shapes="q [1, 28, S, 128], k/v [1, 4, S, 128] bf16 causal; S=23168 "
-               "with kv_length 23105 (timed) and S=4096",
-        max_abs_err=max(errs), max_row_rel_l2=max(rels), **times[23168],
+               "with kv_length 23105 (timed), S=4096 (own bound and library call) and S=300",
+        max_abs_err=max(errs), max_row_rel_l2=max(rels), **times[23168], **bounds[23168],
+        share_of_bound=bounds[23168]["bound_ms"] / times[23168]["ms"],
+        library_ms=library[23168],
+        library="F.scaled_dot_product_attention(is_causal, enable_gqa) on the same q/k/v",
         ms_s4096=times[4096]["ms"], plain_ms_s4096=times[4096]["plain_ms"],
-        **_bound(4 * 128 * hq * _causal_pairs(23168, 0, 23105), 2 * _nbytes(q, k)),
-        library_ms=device_ms(lambda: _sdpa(q, k, v, is_causal=True, enable_gqa=True), 5),
-        library="F.scaled_dot_product_attention(is_causal, enable_gqa) on the same q/k/v")
+        bound_ms_s4096=bounds[4096]["bound_ms"], library_ms_s4096=library[4096],
+        share_of_bound_s4096=bounds[4096]["bound_ms"] / times[4096]["ms"],
+        attributes=prefill_attributes(partial=False))
 
     # K4: one decode token against a 23,105-token context (one layer's pool
     # of 182 pages; the last valid page is partly filled).
@@ -765,6 +804,8 @@ def check_partial_kernels(model, g):
     acc, m, l = got
     planted["K5 m left unclamped"] = _planted_partial(
         "K5 m left unclamped", (acc, torch.where(m <= -1e30, float("-inf"), m), l), ref)
+    planted["K5 q_offset + 37 (rows without keys)"] = _planted_partial(
+        "K5 q_offset + 37", attention.flash_attention_partial(qs, ks, vs, 37, 256, kls), ref)
     xk, xv = k.repeat_interleave(grp, 1), v.repeat_interleave(grp, 1)
     bias = causal_lower_right(width, sk)
     rows["flash_attention_partial"] = dict(
@@ -776,7 +817,10 @@ def check_partial_kernels(model, g):
                  _nbytes(q, k, v) + hq * width * (128 + 2) * 4),
         library_ms=device_ms(lambda: _sdpa(q, xk, xv, attn_mask=bias), 5),
         library="F.scaled_dot_product_attention with causal_lower_right (offset 20480) over "
-                "K/V expanded to 28 heads beforehand; normalized output")
+                "K/V expanded to 28 heads beforehand; normalized output",
+        attributes=prefill_attributes(partial=True))
+    row = rows["flash_attention_partial"]
+    row["share_of_bound"] = row["bound_ms"] / row["ms"]
     del q, k, v, xk, xv, qs, ks, vs
 
     # K7: five in-flight queries against a 23,105-token pool (182 pages),
@@ -1839,6 +1883,10 @@ def main() -> None:
               f"({row['bound_by']})  library {row['library_ms']}  [{row['shapes']}]")
         for label, case in row.get("cases", {}).items():
             print(f"    {label}: {json.dumps(case)}")
+        extra = {k: v for k, v in row.items() if k.startswith(("share_of_bound", "attributes"))
+                 or k.endswith("_s4096")}
+        if extra:
+            print(f"    {json.dumps(extra)}")
     for name, err in planted.items():
         metric, limit = (("max |sim - plain sim|", SIM_ATOL) if name.startswith("K12")
                          else ("max row relative L2 err", ROW_REL_L2))

@@ -1,53 +1,38 @@
-// Online-softmax (flash) attention for prefill and the ViT layer (K3), its
-// partial variant for chunked prefill (K5), and the ViT attention (K14).
+// Online-softmax (flash) attention for the ViT: the attention inside K1
+// (ops/fused_vit.py:fused_vit_layer), K13 (fused_ln_attn) and K16 (the layer
+// probe), and K14 (vit_attention). The decoder's prefill kernels K3 and K5
+// are csrc/flash_prefill.cu.
 //
-// K3 replaces the TPU kernel ops/attention.py:flash_attention (_flash_kernel):
-// causal or non-causal GQA attention with a per-row kv_length mask and a
-// normalized output. It also serves as the attention inside
-// ops/fused_vit.py:fused_vit_layer and fused_ln_attn (K13) (_attn_body:
-// non-causal, 16 heads of 64, 577 tokens), there with the TPU kernel's
-// softmax modes: "exact" is this max-subtracting loop, "clamp" (kClamp) keeps
-// m fixed at 0 and takes p = exp(min(x, 80)) with no rescale, then divides
-// by max(l, 1e-30): logits above 80 flatten to equal weights and a row whose
-// logits all sit below about -87 underflows to a zero output, as there. The
-// folded (exp2) form is the same loop with scale = ln 2. kBf16S (clamp only)
-// is the bf16s variant of the layer probe (scripts/probe_vit_variants.py
-// _attn_mlp_body, K16): each f32 score is rounded to bf16 after the MMA, and
-// min(s, 80) and the exp are taken on that bf16 value with p rounded to bf16
-// (H100 tensor cores have no bf16-accumulating MMA, so the rounding is of the
-// f32 sum, as the TPU's bf16-output dot rounds its f32 accumulator).
+// K1 / K13 replace the TPU kernels' _attn_body (ops/fused_vit.py): non-causal,
+// 16 heads of 64, 577 tokens, with the TPU kernel's softmax modes: "exact"
+// is this max-subtracting loop, "clamp" (kClamp) keeps m fixed at 0 and
+// takes p = exp(min(x, 80)) with no rescale, then divides by max(l, 1e-30):
+// logits above 80 flatten to equal weights and a row whose logits all sit
+// below about -87 underflows to a zero output, as there. The folded (exp2)
+// form is the same loop with scale = ln 2. kBf16S (clamp only) is the bf16s
+// variant of the layer probe (scripts/probe_vit_variants.py _attn_mlp_body,
+// K16): each f32 score is rounded to bf16 after the MMA, and min(s, 80) and
+// the exp are taken on that bf16 value with p rounded to bf16 (H100 tensor
+// cores have no bf16-accumulating MMA, so the rounding is of the f32 sum, as
+// the TPU's bf16-output dot rounds its f32 accumulator).
 //
 // K14 replaces ops/vit_attention.py:vit_attention (_kernel): non-causal
 // attention over [N, H, S, D] with one shared length, which the TPU kernel
 // padded to 128 and masked. Here it is this tile loop with causal = 0,
 // Hq = Hkv = H and kv_length = S (ragged tiles masked in the loop), so no
-// pad is needed; sc_vit_attention is its own entry point so that K3's and
-// K14's launches are counted apart.
+// pad is needed; sc_vit_attention is its own entry point so that its
+// launches are counted apart.
 //
-// K5 replaces ops/attention.py:flash_attention_partial (_flash_partial_kernel):
-// the same tile loop with GLOBAL causality (k_off + col <= q_off + row, the
-// offsets being the global positions of q's and k's first rows) and an
-// epilogue that writes the unnormalized f32 accumulator with the running max
-// m (scaled domain, clamped to neg_inf) and the exponent sum l, for a caller
-// that merges or normalizes. The chunked prefill sends a 4096-row chunk of a
-// long prompt against the (dequantized) cache up to its causal horizon.
-//
-// On the H100 a long causal prefill (up to ~23k tokens, 28 query heads over 4
-// kv heads, dh 128) is bound by tensor-core throughput; what must not happen
-// is an [S, S] score matrix in device memory. Each block owns one
-// (batch, head, 64-row query tile) and loops over 64-key tiles: S = Q K^T and
-// O += P V run as nvcuda::wmma bf16 16x16x16 products with f32 accumulation,
-// the running max / sum live in shared memory, and the f32 output tile is
-// rescaled in shared memory before each P V product accumulates on top of it.
-// Tiles past kv_length and tiles wholly above the (global) causal diagonal are
-// never loaded. V rows past kv_length are zero-filled on load (0 * NaN would
-// survive p == 0, the trap of attention.py:143-149 and :435-439); masked
-// scores are -inf and a row whose running max is still -inf takes p = 0, so a
-// row with every key masked accumulates nothing (the exp(DMV - DMV) = 1 trap
-// of attention.py:421-430 cannot arise): K3 writes 0 for it, K5 acc 0, l 0 and
-// m = neg_inf. The softmax subtracts the running max (exact for every logit
-// range). Query heads read kv head h / (Hq / Hkv) (GQA) from strided q/k/v, so
-// the ViT's merged [rows, 3*D] QKV buffer and a cache view are read in place.
+// Each block owns one (batch, head, 64-row query tile) and loops over
+// 64-key tiles: S = Q K^T and O += P V run as nvcuda::wmma bf16 16x16x16
+// products with f32 accumulation, the running max / sum live in shared
+// memory, and the f32 output tile is rescaled in shared memory before each
+// P V product accumulates on top of it. Tiles past kv_length (and, causal,
+// wholly above the diagonal) are never loaded. V rows past kv_length are
+// zero-filled on load (0 * NaN would survive p == 0); masked scores are -inf
+// and a row whose running max is still -inf takes p = 0, so a row with every
+// key masked writes 0. Query heads read kv head h / (Hq / Hkv) from strided
+// q/k/v, so the ViT's merged [rows, 3*D] QKV buffer is read in place.
 #include "kernels.cuh"
 
 namespace sc {
@@ -87,26 +72,15 @@ __device__ __forceinline__ void load_rows(__nv_bfloat16* dst, const __nv_bfloat1
   }
 }
 
-// The partial outputs of K5: contiguous f32 acc [B, Hq, Sq, D], m and l
-// [B, Hq, Sq]; unused (null) for K3.
-struct Partial {
-  float* acc;
-  float* m;
-  float* l;
-  float neg_inf;
-};
-
-// kPartial = false is K3 (normalized bf16 store through o's strides, called
-// with q_off = k_off = 0); true is K5 (the Partial outputs). kClamp is the
-// clamp softmax of K13 (never with kPartial); kBf16S adds K16's bf16 scores.
-template <int D, bool kPartial, bool kClamp, bool kBf16S>
+// kClamp is the clamp softmax of K1 / K13; kBf16S adds K16's bf16 scores.
+template <int D, bool kClamp, bool kBf16S>
 __global__ void __launch_bounds__(THREADS)
 flash_kernel(const __nv_bfloat16* __restrict__ q, int64_t qsb, int64_t qsh, int64_t qss,
              const __nv_bfloat16* __restrict__ k, int64_t ksb, int64_t ksh, int64_t kss,
              const __nv_bfloat16* __restrict__ v, int64_t vsb, int64_t vsh, int64_t vss,
              __nv_bfloat16* __restrict__ o, int64_t osb, int64_t osh, int64_t oss,
-             Partial part, const int* __restrict__ kv_len, int Hq, int Hkv, int Sq, int Sk,
-             int causal, float scale, int q_off, int k_off) {
+             const int* __restrict__ kv_len, int Hq, int Hkv, int Sq, int Sk, int causal,
+             float scale) {
   extern __shared__ __align__(128) unsigned char smem[];
   using L = Smem<D>;
   __nv_bfloat16* Qs = reinterpret_cast<__nv_bfloat16*>(smem + L::q);
@@ -131,11 +105,10 @@ flash_kernel(const __nv_bfloat16* __restrict__ q, int64_t qsb, int64_t qsh, int6
     l_row[i] = 0.0f;
   }
 
-  // Keys past the tile's last row's causal horizon (global positions) or
-  // past kv_length are never loaded. K3's offsets are the constant 0.
-  const int qo = kPartial ? q_off : 0, ko = kPartial ? k_off : 0;
+  // Keys past the tile's last row's causal horizon or past kv_length are
+  // never loaded.
   int kend = kvlen;
-  if (causal) kend = min(kend, qo - ko + q0 + BQ);
+  if (causal) kend = min(kend, q0 + BQ);
   const int ntiles = kend > 0 ? (kend + BKV - 1) / BKV : 0;
   const __nv_bfloat16* kb = k + b * ksb + hk * ksh;
   const __nv_bfloat16* vb = v + b * vsb + hk * vsh;
@@ -175,7 +148,7 @@ flash_kernel(const __nv_bfloat16* __restrict__ q, int64_t qsb, int64_t qsh, int6
 #pragma unroll
       for (int c = 0; c < 2; ++c) {
         const int kpos = k0 + lane + 32 * c;
-        ok[c] = kpos < kvlen && (!causal || ko + kpos <= qo + qpos);
+        ok[c] = kpos < kvlen && (!causal || kpos <= qpos);
         x[c] = ok[c] ? Ss[row * S_LD + lane + 32 * c] * scale : -INFINITY;
       }
       float p[2] = {0.0f, 0.0f};
@@ -234,47 +207,31 @@ flash_kernel(const __nv_bfloat16* __restrict__ q, int64_t qsb, int64_t qsh, int6
   cp_async_wait<0>();  // the Q load when no key tile ran
   __syncthreads();
 
-  if constexpr (kPartial) {
-    const int64_t row0 = (int64_t)(b * Hq + h) * Sq + q0;
-    for (int r = 0; r < 16; ++r) {
-      const int row = warp * 16 + r;
-      if (q0 + row >= Sq) break;
-      for (int d = lane; d < D; d += 32) part.acc[(row0 + row) * D + d] = Os[row * L::O_LD + d];
-      if (lane == 0) {
-        part.m[row0 + row] = fmaxf(m_row[row], part.neg_inf);
-        part.l[row0 + row] = l_row[row];
-      }
-    }
-  } else {
-    __nv_bfloat16* ob = o + b * osb + h * osh;
-    for (int r = 0; r < 16; ++r) {
-      const int row = warp * 16 + r;
-      if (q0 + row >= Sq) break;
-      const float l = l_row[row];
-      const float inv = kClamp ? 1.0f / fmaxf(l, 1e-30f) : (l > 0.0f ? 1.0f / l : 0.0f);
-      for (int d = lane; d < D; d += 32)
-        ob[(int64_t)(q0 + row) * oss + d] = __float2bfloat16(Os[row * L::O_LD + d] * inv);
-    }
+  __nv_bfloat16* ob = o + b * osb + h * osh;
+  for (int r = 0; r < 16; ++r) {
+    const int row = warp * 16 + r;
+    if (q0 + row >= Sq) break;
+    const float l = l_row[row];
+    const float inv = kClamp ? 1.0f / fmaxf(l, 1e-30f) : (l > 0.0f ? 1.0f / l : 0.0f);
+    for (int d = lane; d < D; d += 32)
+      ob[(int64_t)(q0 + row) * oss + d] = __float2bfloat16(Os[row * L::O_LD + d] * inv);
   }
 }
 
-template <int D, bool kPartial, bool kClamp = false, bool kBf16S = false>
+template <int D, bool kClamp = false, bool kBf16S = false>
 cudaError_t launch(const __nv_bfloat16* q, const int64_t* qs, const __nv_bfloat16* k,
                    const int64_t* ks, const __nv_bfloat16* v, const int64_t* vs,
-                   __nv_bfloat16* o, const int64_t* os, Partial part, const int* kv_len,
-                   int B, int Hq, int Hkv, int Sq, int Sk, int causal, float scale, int q_off,
-                   int k_off, cudaStream_t stream) {
+                   __nv_bfloat16* o, const int64_t* os, const int* kv_len, int B, int Hq,
+                   int Hkv, int Sq, int Sk, int causal, float scale, cudaStream_t stream) {
   constexpr size_t bytes = Smem<D>::bytes;
-  cudaError_t err = cudaFuncSetAttribute(flash_kernel<D, kPartial, kClamp, kBf16S>,
+  cudaError_t err = cudaFuncSetAttribute(flash_kernel<D, kClamp, kBf16S>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          (int)bytes);
   if (err != cudaSuccess) return err;
   dim3 grid((Sq + BQ - 1) / BQ, Hq, B);
-  const int64_t no[3] = {0, 0, 0};
-  if (!os) os = no;
-  flash_kernel<D, kPartial, kClamp, kBf16S><<<grid, THREADS, bytes, stream>>>(
+  flash_kernel<D, kClamp, kBf16S><<<grid, THREADS, bytes, stream>>>(
       q, qs[0], qs[1], qs[2], k, ks[0], ks[1], ks[2], v, vs[0], vs[1], vs[2], o, os[0],
-      os[1], os[2], part, kv_len, Hq, Hkv, Sq, Sk, causal, scale, q_off, k_off);
+      os[1], os[2], kv_len, Hq, Hkv, Sq, Sk, causal, scale);
   return cudaGetLastError();
 }
 
@@ -285,15 +242,14 @@ cudaError_t launch_normalized(const __nv_bfloat16* q, const int64_t* qs,
                               const int64_t* os, const int* kv_len, int B, int Hq, int Hkv,
                               int Sq, int Sk, int causal, float scale, int clamp,
                               cudaStream_t stream) {
-  const Partial none{nullptr, nullptr, nullptr, 0.0f};
   if (clamp == 2)
-    return launch<D, false, true, true>(q, qs, k, ks, v, vs, o, os, none, kv_len, B, Hq, Hkv,
-                                        Sq, Sk, causal, scale, 0, 0, stream);
+    return launch<D, true, true>(q, qs, k, ks, v, vs, o, os, kv_len, B, Hq, Hkv, Sq, Sk,
+                                 causal, scale, stream);
   if (clamp)
-    return launch<D, false, true>(q, qs, k, ks, v, vs, o, os, none, kv_len, B, Hq, Hkv, Sq,
-                                  Sk, causal, scale, 0, 0, stream);
-  return launch<D, false>(q, qs, k, ks, v, vs, o, os, none, kv_len, B, Hq, Hkv, Sq, Sk,
-                          causal, scale, 0, 0, stream);
+    return launch<D, true>(q, qs, k, ks, v, vs, o, os, kv_len, B, Hq, Hkv, Sq, Sk, causal,
+                           scale, stream);
+  return launch<D>(q, qs, k, ks, v, vs, o, os, kv_len, B, Hq, Hkv, Sq, Sk, causal, scale,
+                   stream);
 }
 
 }  // namespace
@@ -314,21 +270,6 @@ cudaError_t launch_flash(const __nv_bfloat16* q, const int64_t* qs, const __nv_b
 
 }  // namespace sc
 
-// strides: three int64 (batch, head, seq) per tensor, in elements.
-extern "C" int sc_flash_attention(const void* q, const int64_t* q_strides, const void* k,
-                                  const int64_t* k_strides, const void* v,
-                                  const int64_t* v_strides, void* o,
-                                  const int64_t* o_strides, const int* kv_len, int B,
-                                  int Hq, int Hkv, int Sq, int Sk, int D, int causal,
-                                  float scale, void* stream) {
-  cudaError_t err = sc::launch_flash(
-      static_cast<const __nv_bfloat16*>(q), q_strides, static_cast<const __nv_bfloat16*>(k),
-      k_strides, static_cast<const __nv_bfloat16*>(v), v_strides,
-      static_cast<__nv_bfloat16*>(o), o_strides, kv_len, B, Hq, Hkv, Sq, Sk, D, causal,
-      scale, /*clamp=*/0, static_cast<cudaStream_t>(stream));
-  return static_cast<int>(err);
-}
-
 // K14: non-causal attention over q [N, H, Sq, D], k / v [N, H, Sk, D]
 // (strides: three int64 (image, head, seq) per input, in elements) into a
 // contiguous o [N, H, Sq, D]; every key of every image is valid.
@@ -342,34 +283,5 @@ extern "C" int sc_vit_attention(const void* q, const int64_t* q_strides, const v
       k_strides, static_cast<const __nv_bfloat16*>(v), v_strides,
       static_cast<__nv_bfloat16*>(o), o_strides, /*kv_len=*/nullptr, N, H, H, Sq, Sk, D,
       /*causal=*/0, scale, /*clamp=*/0, static_cast<cudaStream_t>(stream));
-  return static_cast<int>(err);
-}
-
-// K5. strides: three int64 (batch, head, seq) per input, in elements; acc
-// [B, Hq, Sq, D], m and l [B, Hq, Sq]: contiguous f32.
-extern "C" int sc_flash_attention_partial(const void* q, const int64_t* q_strides,
-                                          const void* k, const int64_t* k_strides,
-                                          const void* v, const int64_t* v_strides, void* acc,
-                                          void* m, void* l, const int* kv_len, int B, int Hq,
-                                          int Hkv, int Sq, int Sk, int D, int causal,
-                                          float scale, int q_off, int k_off, float neg_inf,
-                                          void* stream) {
-  const sc::Partial part{static_cast<float*>(acc), static_cast<float*>(m),
-                         static_cast<float*>(l), neg_inf};
-  auto qp = static_cast<const __nv_bfloat16*>(q);
-  auto kp = static_cast<const __nv_bfloat16*>(k);
-  auto vp = static_cast<const __nv_bfloat16*>(v);
-  auto st = static_cast<cudaStream_t>(stream);
-  cudaError_t err;
-  if (D == 64)
-    err = sc::launch<64, true>(qp, q_strides, kp, k_strides, vp, v_strides, nullptr, nullptr,
-                               part, kv_len, B, Hq, Hkv, Sq, Sk, causal, scale, q_off, k_off,
-                               st);
-  else if (D == 128)
-    err = sc::launch<128, true>(qp, q_strides, kp, k_strides, vp, v_strides, nullptr, nullptr,
-                                part, kv_len, B, Hq, Hkv, Sq, Sk, causal, scale, q_off, k_off,
-                                st);
-  else
-    err = cudaErrorInvalidValue;
   return static_cast<int>(err);
 }

@@ -6,8 +6,8 @@ q [B, H, S, D], k/v [B, Hkv, S, D] (GQA: query head h reads kv head
 h // (H / Hkv)), kv_length [B] masks keys at and past each row's length.
 
 * `flash_attention` — causal or non-causal online-softmax attention. A CUDA
-  tensor launches `csrc/flash_attention.cu` (bf16, head dim 64 or 128,
-  any strides with a contiguous last dim); a CPU tensor runs
+  tensor launches `csrc/flash_prefill.cu` (bf16, head dim 64 or 128,
+  any strides with a contiguous last dim, read by TMA); a CPU tensor runs
   `flash_attention_plain`. Rows that see no key output 0, like the TPU
   kernel's `l == 0` guard. The decoder calls it for a one-pass prefill
   and for chunk 0 of a chunked one.
@@ -15,7 +15,9 @@ h // (H / Hkv)), kv_length [B] masks keys at and past each row's length.
   (`k_offset + col <= q_offset + row`) and an unnormalized f32 result
   (acc, m, l): m is the running max in the scaled domain, clamped to
   `neg_inf`, and a row that sees no key keeps acc 0 and l 0. The chunked
-  prefill (`models/decoder._chunk_cache_attention`) normalizes it.
+  prefill (`models/decoder._chunk_cache_attention`) normalizes it. The
+  same Hopper kernel template as `flash_attention`, with the partial
+  epilogue.
 * `decode_attention` — one query token against a contiguous cache (plain
   PyTorch; the paged decode path uses ops/paged_attention).
 """

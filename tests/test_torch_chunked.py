@@ -50,14 +50,18 @@ def no_launches():
         "a CPU tensor must run the plain twin, never count a launch"
 
 
-@pytest.mark.parametrize("q_off,k_off,lengths,causal,block", [
-    (0, 0, None, True, 128),
-    (256, 0, [300, 384], True, 128),       # a later chunk against the cache
-    (0, 128, [384, 200], True, 256),       # q_offset < k_offset: rows 0-127 see no key
-    (128, 0, [384, 256], False, 256),
-], ids=["aligned", "chunk-vs-cache", "fully-masked-rows", "non-causal"])
-def test_partial_twin_matches_jax_kernel(no_launches, q_off, k_off, lengths, causal, block):
-    q, k, v = _rand(1, 2, 4, 256, 32), _rand(2, 2, 2, 384, 32), _rand(3, 2, 2, 384, 32)
+@pytest.mark.parametrize("q_off,k_off,lengths,causal,block,heads,sq", [
+    (0, 0, None, True, 128, (4, 2), 256),
+    (256, 0, [300, 384], True, 128, (4, 2), 256),    # a later chunk against the cache
+    (0, 128, [384, 200], True, 256, (4, 2), 256),    # q_offset < k_offset: rows 0-127 see no key
+    (128, 0, [384, 256], False, 256, (4, 2), 256),
+    (37, 5, [291], True, 128, (7, 1), 128),          # offsets off the tile grid, 7 heads a kv head
+], ids=["aligned", "chunk-vs-cache", "fully-masked-rows", "non-causal", "odd-offsets-gqa7"])
+def test_partial_twin_matches_jax_kernel(no_launches, q_off, k_off, lengths, causal, block,
+                                         heads, sq):
+    b = 2 if lengths is None else len(lengths)
+    q = _rand(1, b, heads[0], sq, 32)
+    k, v = _rand(2, b, heads[1], 384, 32), _rand(3, b, heads[1], 384, 32)
     kl = None if lengths is None else np.asarray(lengths, np.int32)
     if kl is not None:                    # large garbage past each row's length
         for row, n in enumerate(lengths):

@@ -79,17 +79,33 @@ def test_cuda_vit_layer_and_mlp(cuda):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("d,causal,kv", [
-    (64, True, None),
-    (64, False, (0, 70)),           # row 0 sees no key -> 0
-    (128, True, (37, 100)),         # the decoder's head dim, ragged lengths
+@pytest.mark.parametrize("d,causal,kv,s,hq,hkv", [
+    (64, True, None, 100, 4, 2),
+    (64, False, (0, 70), 100, 4, 2),            # row 0 sees no key -> 0
+    (128, True, (37, 100), 100, 4, 2),          # the decoder's head dim, ragged lengths
+    (128, True, None, 1, 28, 4),                # LongVA's 28 / 4 heads, one row
+    (64, True, None, 127, 28, 4),
+    (128, True, None, 128, 28, 4),              # exactly one 128-row tile
+    (128, False, (129, 1), 129, 4, 2),          # one key past a tile
+    (128, True, (128, 129), 300, 28, 4),        # kv_length at and past a tile edge
+    (64, False, (128, 129), 300, 28, 4),
+    (128, True, (300, 211), 300, 28, 4),
 ])
-def test_cuda_flash_attention(cuda, d, causal, kv):
-    q = _bf(1, cuda, 2, 4, 100, d)
-    k, v = _bf(2, cuda, 2, 2, 100, d), _bf(3, cuda, 2, 2, 100, d)
+def test_cuda_flash_attention(cuda, d, causal, kv, s, hq, hkv):
+    """Keys and values past each row's kv_length hold NaN for the kernel
+    and zeros for the twin: masked keys must not reach the output."""
+    q = _bf(1, cuda, 2, hq, s, d)
+    k, v = _bf(2, cuda, 2, hkv, s, d), _bf(3, cuda, 2, hkv, s, d)
     kl = None if kv is None else torch.tensor(kv, dtype=torch.int32, device=cuda)
-    _close(attention.flash_attention(q, k, v, kl, causal=causal),
-           attention.flash_attention_plain(q, k, v, kl, causal=causal))
+    kn, vn = k.clone(), v.clone()
+    for row, n in enumerate(kv or ()):
+        kn[row, :, n:] = float("nan")
+        vn[row, :, n:] = float("nan")
+        k[row, :, n:] = 0
+        v[row, :, n:] = 0
+    got = attention.flash_attention(q, kn, vn, kl, causal=causal)
+    assert got.shape == (2, hq, s, d) and torch.isfinite(got).all()
+    _close(got, attention.flash_attention_plain(q, k, v, kl, causal=causal))
     assert attention.flash_attention.launches == 1
 
 
@@ -233,18 +249,22 @@ def _close_partial(got, ref):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("d,q_off,k_off,kv,causal", [
-    (128, 256, 0, (300, 511), True),      # a later chunk against a ragged cache
-    (128, 0, 100, None, True),            # q_offset < k_offset: rows 0-99 see no key
-    (64, 64, 0, (70, 330), False),
+@pytest.mark.parametrize("d,q_off,k_off,kv,causal,sq,sk,hq,hkv", [
+    (128, 256, 0, (300, 511), True, 200, 511, 4, 2),   # a later chunk, ragged cache
+    (128, 0, 100, None, True, 200, 511, 4, 2),         # q_offset < k_offset: rows 0-99 see no key
+    (64, 64, 0, (70, 330), False, 200, 511, 4, 2),
+    (128, 4133, 5, (4300, 4000), True, 129, 4300, 28, 4),   # offsets off the tile grid
+    (64, 100, 250, (511, 400), True, 200, 511, 28, 4),      # rows 0-149 see no key
+    (128, 37, 5, None, True, 1, 300, 28, 4),
 ])
-def test_cuda_flash_attention_partial(cuda, d, q_off, k_off, kv, causal):
-    q = _bf(1, cuda, 2, 4, 200, d)
-    k, v = _bf(2, cuda, 2, 2, 511, d), _bf(3, cuda, 2, 2, 511, d)
+def test_cuda_flash_attention_partial(cuda, d, q_off, k_off, kv, causal, sq, sk, hq, hkv):
+    q = _bf(1, cuda, 2, hq, sq, d)
+    k, v = _bf(2, cuda, 2, hkv, sk, d), _bf(3, cuda, 2, hkv, sk, d)
     kl = None
     if kv is not None:
         kl = torch.tensor(kv, dtype=torch.int32, device=cuda)
         for row, n in enumerate(kv):          # garbage past each row's length
+            k[row, :, n:] = float("nan")
             v[row, :, n:] = float("nan")
     got = attention.flash_attention_partial(q, k, v, q_off, k_off, kl, causal=causal)
     _close_partial(got, attention.flash_attention_partial_plain(q, k, v, q_off, k_off, kl,

@@ -109,10 +109,12 @@ def test_ln_mlp_matches_jax_kernel(no_launches, activation, layernorm, residual)
     (1, 2, 2, 130, 16, False, None),           # non-causal (the ViT's form)
     (2, 4, 2, 200, 32, True, (150, 90)),       # kv_length < S
     (2, 2, 2, 100, 16, False, (0, 77)),        # row 0 sees no key -> 0
+    (1, 7, 1, (128, 384), 32, False, (291,)),  # Sq 128 vs Sk 384, 7 heads a kv head
 ])
 def test_flash_attention_matches_jax_kernel(no_launches, b, hq, hkv, s, d, causal,
                                             kv_length):
-    q, k, v = _rand(1, b, hq, s, d), _rand(2, b, hkv, s, d), _rand(3, b, hkv, s, d)
+    sq, sk = s if isinstance(s, tuple) else (s, s)
+    q, k, v = _rand(1, b, hq, sq, d), _rand(2, b, hkv, sk, d), _rand(3, b, hkv, sk, d)
     kl = None if kv_length is None else np.asarray(kv_length, np.int32)
     ref = j_flash(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
                   None if kl is None else jnp.asarray(kl), causal=causal,
