@@ -14,7 +14,10 @@
    torch.profiler records; wall_ms: back-to-back calls timed with CUDA
    events, which for a kernel shorter than its wrapper's host work is the
    host's pace): K1 ViT layer (the ingest's folded, one-pass, clamp form,
-   timed; the exact unfolded form, folded + exact, and erf-GELU), K2
+   timed, with the device time of each of its seven launches; the exact
+   unfolded form, folded + exact, and erf-GELU; its four products through
+   the wgmma GEMM on its own at K1's shapes and epilogues, with the four
+   torch.matmul calls at those shapes timed beside them), K2
    projector MLP, K3 flash attention (causal at S = 23,168 with a ragged
    kv_length, timed, at S = 4,096 with its own bound and library time, and
    at S = 300), K4
@@ -50,7 +53,8 @@
    ignored (pool order), -1 read as page 0, the
    length ignored, one table entry off by one, K12's roll reversed or its
    rows left unnormalized, K13 without the residual, K14 with its last key
-   masked, K15's xor algebra without its -8 sum(x_g) term and its cur
+   masked or its last key tile (keys 512-576) dropped, K1's GEMM with its
+   last 64-deep k-slab skipped or its residual dropped, K15's xor algebra without its -8 sum(x_g) term and its cur
    unpack on swapped nibbles, K16's folded weights run unfolded, K17 with
    one dot dropped (qk64, pv64). Keys, values and scales past
    the valid length hold large garbage (NaN and inf for the int8 scales),
@@ -62,9 +66,10 @@
    SDPA for K3, K5 and K14, a bf16 matmul on the dequantized weight for
    W8, K10, K11 and K15, `F.cosine_similarity` against the rolled rows for
    K12, one matmul for K17's qk kinds and a matmul and a sum for its pv
-   kinds). The Hopper prefill kernel's rows (K3, K5) also carry their
-   share of the bound and the compiled kernel's registers, spill bytes and
-   shared bytes (`sc_flash_prefill_attributes`).
+   kinds). The Hopper kernels' rows (K3, K5, and since the ViT runs them
+   K1, K2, K13, K14, K16) also carry their share of the bound and the
+   compiled kernels' registers, spill bytes and shared bytes
+   (`sc_flash_prefill_attributes`, `sc_gemm_attributes`).
 5. Checks the composed paths on small inputs: two frames through
    `encode_images` (the fused tower, folded on that first call) against
    the plain twin chain of the same form and against the exact unfolded
@@ -149,8 +154,8 @@ import time
 
 import torch
 
-from streamchat_tpu_torch.ops.fused_vit import layer_mode
-from streamchat_tpu_torch.utils.profiling import device_ms
+from streamchat_tpu_torch.ops.fused_vit import SOFTMAX, SOFTMAX_CLAMP_BF16, layer_mode
+from streamchat_tpu_torch.utils.profiling import device_launches, device_ms
 
 ATOL, RTOL = 3e-2, 2e-2
 ROW_REL_L2 = 1e-2
@@ -169,6 +174,10 @@ SHORT_ANSWER = dict(max_answer_tokens=64)
 SIM_ATOL = 1e-5
 # The form every pipeline run's ingest launches K1 in (ops/fused_vit.layer_mode).
 INGEST_K1_MODE = layer_mode("clamp", folded=True, ln_onepass=True, activation="quick_gelu")
+# K1's launch sequence (csrc/fused_vit.cu sc_fused_vit_layer), in order.
+K1_LAUNCHES = ("LN1", "QKV GEMM", "attention", "O GEMM + residual", "LN2",
+               "fc1 GEMM + activation", "fc2 GEMM + residual")
+K1_GEMMS = ("QKV GEMM", "O GEMM + residual", "fc1 GEMM + activation", "fc2 GEMM + residual")
 
 # Kernels each process_video run must launch (wrapper names): every run
 # prefills its 23k-token captions in chunks (K3 + K5).
@@ -221,7 +230,7 @@ SOURCES = {
                               "streamchat_tpu/ops/dedup.py:39"),
     "fused_ln_attn": ("streamchat_tpu_torch/csrc/fused_vit.cu",
                       "streamchat_tpu/ops/fused_vit.py:442"),
-    "vit_attention": ("streamchat_tpu_torch/csrc/flash_attention.cu",
+    "vit_attention": ("streamchat_tpu_torch/csrc/flash_prefill.cu",
                       "streamchat_tpu/ops/vit_attention.py:67"),
     "matvec": ("streamchat_tpu_torch/csrc/int4_probe.cu", "scripts/probe_int4_kernel.py:101"),
     "probe_layer": ("streamchat_tpu_torch/csrc/fused_vit.cu",
@@ -344,19 +353,45 @@ def _garbage_tail(k, v, valid, seq_dim):
     v.narrow(seq_dim, valid, v.shape[seq_dim] - valid).fill_(100.0)
 
 
-def prefill_attributes(partial: bool, d: int = 128) -> dict:
-    """The compiled K3 / K5 kernel's registers per thread, local (spill)
-    bytes per thread and shared bytes (cudaFuncGetAttributes)."""
+def prefill_attributes(partial: bool, d: int = 128, softmax: int = SOFTMAX["exact"]) -> dict:
+    """The compiled attention kernel's registers per thread, local (spill)
+    bytes per thread and shared bytes (cudaFuncGetAttributes): K3 / K5, or
+    the ViT's attention in softmax mode `softmax` (partial False)."""
     import ctypes
 
     from streamchat_tpu_torch.kernels.build import library
 
     out = (ctypes.c_int * 4)()
-    err = library().sc_flash_prefill_attributes(d, int(partial), out)
+    err = library().sc_flash_prefill_attributes(d, int(partial), softmax, out)
     if err:
         raise RuntimeError(f"sc_flash_prefill_attributes: CUDA error {err}")
     return dict(num_regs=out[0], local_bytes=out[1], static_shared_bytes=out[2],
                 dynamic_shared_bytes=out[3])
+
+
+def _gemm_attributes(bn: int, m: int = 0, n: int = 128) -> dict:
+    import ctypes
+
+    from streamchat_tpu_torch.kernels.build import library
+
+    out = (ctypes.c_int * 5)()
+    err = library().sc_gemm_attributes(bn, m, n, out)
+    if err:
+        raise RuntimeError(f"sc_gemm_attributes: CUDA error {err}")
+    return dict(num_regs=out[0], local_bytes=out[1], static_shared_bytes=out[2],
+                dynamic_shared_bytes=out[3], tile_n=out[4])
+
+
+def gemm_tile(m: int, n: int) -> int:
+    """The tile width the GEMM picks for an [m, n] output (128 or 256)."""
+    return _gemm_attributes(128, m, n)["tile_n"]
+
+
+def gemm_attributes() -> dict:
+    """The compiled GEMM kernel's registers per thread, local (spill) bytes
+    per thread and shared bytes at each tile width (sc_gemm_attributes)."""
+    return {f"bn{bn}": {k: v for k, v in _gemm_attributes(bn).items() if k != "tile_n"}
+            for bn in (128, 256)}
 
 
 def check_kernels(model, g):
@@ -379,7 +414,7 @@ def check_kernels(model, g):
     fargs[2], fargs[3], fargs[8], fargs[9] = fused_vit.fold_vit_layer_params(
         *(args[i] for i in (0, 1, 2, 3, 6, 7, 8, 9)), num_heads=heads)
     x = torch.randn(16, 577, 1024, generator=g, device=dev).to(bf)
-    cases, errs = {}, []
+    cases, errs, planted = {}, [], {}
     for label, a, kw in (
             ("ingest: clamp, folded, one-pass", fargs,
              dict(folded=True, ln_onepass=True)),
@@ -395,19 +430,70 @@ def check_kernels(model, g):
         if label.startswith("ingest"):
             timed = _timings(k1, lambda a=a, kw=kw: fused_vit.fused_vit_layer_plain(x, *a, **kw),
                              20, 5)
+            launches = device_launches(k1, 20)
     del fargs
     n, dm, ff, dh = 16 * 577, 1024, 4096, 1024 // heads
+    if len(launches) != len(K1_LAUNCHES):
+        raise AssertionError(f"K1: {len(launches)} device launches per call, expected "
+                             f"{len(K1_LAUNCHES)}: {[name for name, _ in launches]}")
+    launch_ms = {label: ms for label, (_, ms) in zip(K1_LAUNCHES, launches)}
+
+    # K1's four products through the GEMM on its own, at K1's shapes and
+    # epilogues, against the twin; two planted faults (the last 64-deep
+    # k-slab skipped, the residual dropped); and the four torch.matmul calls
+    # at the same shapes, timed and never used.
+    h = torch.randn(n, dm, generator=g, device=dev).to(bf)
+    mid = (torch.randn(n, ff, generator=g, device=dev) * 0.5).to(bf)
+    products = {
+        "QKV GEMM": (h, args[2], args[3], None, "none", bf),
+        "O GEMM + residual": (h, args[4], args[5], x.reshape(n, dm), "none", torch.float32),
+        "fc1 GEMM + activation": (h, args[8], args[9], None, "quick_gelu", bf),
+        "fc2 GEMM + residual": (mid, args[10], args[11],
+                                torch.randn(n, dm, generator=g, device=dev), "none", bf),
+    }
+    gemm_cases, gemm_flops = {}, 0
+    for label, (a, w, b, r, act, odt) in products.items():
+        kw = dict(activation=act, out_dtype=odt)
+        ref = fused_vit.gemm_plain(a, w, b, r, **kw)
+        e, rel = _compare(f"K1 {label} (fused_vit.gemm)", fused_vit.gemm(a, w, b, r, **kw), ref,
+                          row_rel=True)
+        errs.append(e)
+        gemm_flops += 2 * n * w.shape[0] * w.shape[1]
+        gemm_cases[label] = dict(max_abs_err=e, max_row_rel_l2=rel,
+                                 tile_n=gemm_tile(n, w.shape[1]), ms=launch_ms[label])
+        if label == "fc2 GEMM + residual":
+            planted["K1 GEMM last k-slab skipped (fc2, K 4096)"] = _planted(
+                "K1 GEMM last k-slab skipped", fused_vit.gemm(a[:, :-64], w[:-64], b, r, **kw),
+                ref)
+        if label == "O GEMM + residual":
+            planted["K1 GEMM residual dropped (O)"] = _planted(
+                "K1 GEMM residual dropped", fused_vit.gemm(a, w, b, None, **kw), ref)
+        del ref
+    gemm_ms = sum(launch_ms[label] for label in K1_GEMMS)
+    gemm_library_ms = device_ms(lambda: [torch.matmul(a, w) for a, w, *_ in products.values()],
+                                20)
+    del h, mid, products
     qa, ka, va = (torch.randn(16, heads, 577, dh, generator=g, device=dev).to(bf)
                   for _ in range(3))
+    bound = _bound(2 * n * (4 * dm * dm + 2 * dm * ff) + 4 * 16 * heads * 577 * 577 * dh,
+                   _nbytes(*args) + 2 * _nbytes(x))
+    attention_library_ms = device_ms(lambda: _sdpa(qa, ka, va), 20)
     rows["fused_vit_layer"] = dict(
         shapes="x [16, 577, 1024] bf16, ViT-L layer; timed: the ingest's form (clamp, "
                "folded, one-pass)",
-        max_abs_err=max(errs), cases=cases, **timed,
-        **_bound(2 * n * (4 * dm * dm + 2 * dm * ff) + 4 * 16 * heads * 577 * 577 * dh,
-                 _nbytes(*args) + 2 * _nbytes(x)),
+        max_abs_err=max(errs), cases=cases, **timed, **bound,
+        share_of_bound=bound["bound_ms"] / timed["ms"],
         library_ms=None, library="none for the whole layer; attention_library_ms: "
-        "SDPA of its attention alone, q/k/v [16, 16, 577, 64]",
-        attention_library_ms=device_ms(lambda: _sdpa(qa, ka, va), 20))
+        "SDPA of its attention alone, q/k/v [16, 16, 577, 64]; gemm_library_ms: its four "
+        "products as four torch.matmul calls",
+        launch_ms=launch_ms, launch_kernels=[name for name, _ in launches],
+        gemm_ms=gemm_ms, gemm_tflops=gemm_flops / (gemm_ms * 1e-3) / 1e12,
+        gemm_bound_ms=1e3 * gemm_flops / PEAK_FLOPS, gemm_library_ms=gemm_library_ms,
+        gemm_cases=gemm_cases, attention_ms=launch_ms["attention"],
+        attention_bound_ms=_bound(4 * 16 * heads * 577 * 577 * dh, 4 * _nbytes(qa))["bound_ms"],
+        attention_library_ms=attention_library_ms,
+        attributes=dict(gemm=gemm_attributes(),
+                        attention=prefill_attributes(False, dh, SOFTMAX["clamp"])))
     del qa, ka, va
 
     # K2: the projector over 16 frames of patch features.
@@ -425,7 +511,10 @@ def check_kernels(model, g):
         **_bound(2 * 9216 * (1024 * 3584 + 3584 * 3584),
                  _nbytes(f, pp["fc1"]["w"], pp["fc1"]["b"], pp["fc2"]["w"], pp["fc2"]["b"])
                  + 9216 * 3584 * 2),
-        library_ms=None, library="none (two GEMMs and a GELU are three calls)")
+        library_ms=None, library="none (two GEMMs and a GELU are three calls)",
+        attributes=dict(gemm=gemm_attributes(), tile_n=gemm_tile(9216, 3584)))
+    rows["fused_ln_mlp"]["share_of_bound"] = (rows["fused_ln_mlp"]["bound_ms"]
+                                              / rows["fused_ln_mlp"]["ms"])
 
     # K3: causal GQA prefill, 28 query heads over 4 kv heads, dh 128, at
     # S = 4096 (chunk 0 of every chunked prefill) and at the chunk-40
@@ -434,7 +523,7 @@ def check_kernels(model, g):
     # past kv_length included.
     hq, hkv = model.dec_cfg.num_heads, model.dec_cfg.num_kv_heads
     grp = hq // hkv
-    errs, rels, times, bounds, library, planted = [], [], {}, {}, {}, {}
+    errs, rels, times, bounds, library = [], [], {}, {}, {}
     for s, valid in ((4096, None), (23168, 23105)):
         q = torch.randn(1, hq, s, 128, generator=g, device=dev).to(bf)
         k = torch.randn(1, hkv, s, 128, generator=g, device=dev).to(bf)
@@ -1314,7 +1403,12 @@ def check_vit_kernels(model, g):
                  _nbytes(*w) + 2 * _nbytes(xs)),
         library_ms=None, library="none for LN + QKV + attention + O; attention_library_ms: "
         f"SDPA of its attention alone, q/k/v [16, {heads}, {s}, {dh}]",
-        attention_library_ms=device_ms(lambda: _sdpa(qa, ka, va), 20))
+        attention_library_ms=device_ms(lambda: _sdpa(qa, ka, va), 20),
+        attributes=dict(gemm=gemm_attributes(),
+                        attention_clamp=prefill_attributes(False, dh, SOFTMAX["clamp"]),
+                        attention_exact=prefill_attributes(False, dh, SOFTMAX["exact"])))
+    rows["fused_ln_attn"]["share_of_bound"] = (rows["fused_ln_attn"]["bound_ms"]
+                                               / rows["fused_ln_attn"]["ms"])
 
     # K14: non-causal ViT attention, [16, 16, 577, 64] bf16 at ViT-L, no pad.
     k14 = lambda: vit_attention.vit_attention(qa, ka, va)  # noqa: E731
@@ -1324,13 +1418,19 @@ def check_vit_kernels(model, g):
     planted[f"K14 key {s - 1} masked"] = _planted(
         "K14 last key masked", vit_attention.vit_attention(qa, ka[:, :, :-1], va[:, :, :-1]),
         ref)
+    planted[f"K14 last key tile (keys 512-{s - 1}) dropped"] = _planted(
+        "K14 last key tile dropped",
+        vit_attention.vit_attention(qa, ka[:, :, :512], va[:, :, :512]), ref)
     del ref
     rows["vit_attention"] = dict(
         shapes=f"q/k/v [16, {heads}, {s}, {dh}] bf16, non-causal", max_abs_err=err,
         max_row_rel_l2=rel, **_timings(k14, p14, 20, 5),
         **_bound(4 * 16 * heads * s * s * dh, 4 * _nbytes(qa)),
         library_ms=device_ms(lambda: _sdpa(qa, ka, va), 20),
-        library="F.scaled_dot_product_attention (non-causal) on the same q/k/v")
+        library="F.scaled_dot_product_attention (non-causal) on the same q/k/v",
+        attributes=prefill_attributes(False, dh, SOFTMAX["exact"]))
+    rows["vit_attention"]["share_of_bound"] = (rows["vit_attention"]["bound_ms"]
+                                               / rows["vit_attention"]["ms"])
     return rows, planted
 
 
@@ -1432,7 +1532,13 @@ def check_probe_kernels(g):
                  nbytes),
         library_ms=None, library="none for the whole layer; attention_library_ms: SDPA of its "
         f"attention alone, q/k/v [{pvv.N}, {heads}, {s}, {d // heads}]",
-        attention_library_ms=device_ms(lambda: _sdpa(qa, ka, va), 5))
+        attention_library_ms=device_ms(lambda: _sdpa(qa, ka, va), 5),
+        attributes=dict(gemm=gemm_attributes(),
+                        attention_clamp=prefill_attributes(False, d // heads, SOFTMAX["clamp"]),
+                        attention_bf16s=prefill_attributes(False, d // heads,
+                                                           SOFTMAX_CLAMP_BF16)))
+    rows["probe_layer"]["share_of_bound"] = (rows["probe_layer"]["bound_ms"]
+                                             / rows["probe_layer"]["ms"])
     del xs, qa, ka, va
 
     # K17: the four dot kinds; timed: qk64.
@@ -1883,8 +1989,9 @@ def main() -> None:
               f"({row['bound_by']})  library {row['library_ms']}  [{row['shapes']}]")
         for label, case in row.get("cases", {}).items():
             print(f"    {label}: {json.dumps(case)}")
-        extra = {k: v for k, v in row.items() if k.startswith(("share_of_bound", "attributes"))
-                 or k.endswith("_s4096")}
+        extra = {k: v for k, v in row.items() if k.startswith(
+            ("share_of_bound", "attributes", "launch_ms", "gemm_", "attention_"))
+            or k.endswith("_s4096")}
         if extra:
             print(f"    {json.dumps(extra)}")
     for name, err in planted.items():

@@ -19,6 +19,9 @@ enum DType : int { kBF16 = 0, kF32 = 1 };
 // GEMM epilogue activations (ops/fused_vit._activate).
 enum Act : int { kActNone = 0, kActQuickGelu = 1, kActGelu = 2 };
 
+// The ViT attention's softmax modes (ops/fused_vit.SOFTMAX).
+enum Softmax : int { kSoftmaxExact = 0, kSoftmaxClamp = 1, kSoftmaxBf16S = 2 };
+
 __device__ __forceinline__ float load_as_float(const void* p, int dtype, int64_t i) {
   return dtype == kF32 ? static_cast<const float*>(p)[i]
                        : __bfloat162float(static_cast<const __nv_bfloat16*>(p)[i]);

@@ -1,5 +1,7 @@
-// Prefill attention for Hopper: K3 flash_attention and K5
-// flash_attention_partial as one warp-specialised kernel template.
+// Attention for Hopper: the prefill kernels K3 flash_attention and K5
+// flash_attention_partial, and the ViT's non-causal attention (K14
+// vit_attention, and the attention step of K1, K13 and K16), as one
+// warp-specialised kernel template.
 //
 // K3 replaces the TPU kernel streamchat_tpu/ops/attention.py:flash_attention
 // (_flash_kernel, pallas_call :269): causal or non-causal GQA attention with
@@ -9,6 +11,29 @@
 // writing the unnormalized f32 accumulator, the running max m (natural
 // scaled domain, clamped to neg_inf) and the exponent sum l; a row that sees
 // no key keeps acc 0, l 0 and m = neg_inf.
+//
+// The ViT's attention replaces ops/vit_attention.py:vit_attention (_kernel,
+// :98; K14) and the _attn_body of ops/fused_vit.py's fused_vit_layer (:411,
+// K1) and fused_ln_attn (:476, K13), and the bf16-score variant of
+// scripts/probe_vit_variants.py (K16): non-causal, every key valid (577
+// tokens, 16 heads of 64; the TPU padded S to 128 and masked, here the
+// ragged last tiles are masked in the loop and TMA's per-frame maps give
+// zeros past S, never the next frame's tokens). Its softmax modes are a
+// template parameter: kSoftmaxExact is the online softmax below (the only
+// mode of K3 / K5); kSoftmaxClamp keeps m fixed at 0 and takes
+// p = exp(min(x, 80)) as exp2(min(x log2 e, 80 log2 e)), with no max
+// reduction and no rescale of O, then divides by max(l, 1e-30): logits above
+// 80 flatten to equal weights and a row whose logits all sit below about -87
+// underflows to a zero output, as on the TPU. The folded (exp2) form is the
+// same loop with scale ln 2, scale_log2 exactly 1. kSoftmaxBf16S (K16's
+// bf16s) rounds x = s * scale to bf16, then takes p = bf16(exp(min(x, 80))).
+// Masked scores are -inf before the exponent, so they give p = 0 in every
+// mode. Q, K and V of the ViT are read in place from the merged [N S, 3 D]
+// QKV buffer through the maps' strides. Its bound at [16, 16, 577, 64] is
+// its bytes (0.0226 ms) just above its 21.8 GFLOP; at D = 64 the
+// exponentials (one per score) take as many SFU cycles as the products
+// take tensor-core cycles, and a warpgroup's softmax does not overlap its
+// own products.
 //
 // What bounds them on the H100: operations. The smoke's shapes (28 query
 // heads over 4 kv heads, dh 128) need 3.85 TFLOP for a causal 23,168-token
@@ -72,9 +97,12 @@ struct Params {
   float* m;
   float* l;
   float neg_inf;
+  float scale;  // natural units, for kSoftmaxBf16S
 };
 
-template <int D, bool kPartial>
+constexpr float CLAMP_LOG2 = 80.0f * LOG2E;  // the clamp at 80, in exp2's domain
+
+template <int D, bool kPartial, int kSoftmax>
 __global__ void __launch_bounds__(THREADS, 1)
     flash_prefill_kernel(__grid_constant__ const CUtensorMap qmap,
                          __grid_constant__ const CUtensorMap kmap,
@@ -191,28 +219,42 @@ __global__ void __launch_bounds__(THREADS, 1)
         }
     }
 
-    float mx[2] = {-INFINITY, -INFINITY};
+    if constexpr (kSoftmax == kSoftmaxExact) {
+      float mx[2] = {-INFINITY, -INFINITY};
 #pragma unroll
-    for (int i = 0; i < 64; ++i) mx[(i >> 1) & 1] = fmaxf(mx[(i >> 1) & 1], sc[i]);
-    float alpha[2], mneg[2];
+      for (int i = 0; i < 64; ++i) mx[(i >> 1) & 1] = fmaxf(mx[(i >> 1) & 1], sc[i]);
+      float alpha[2], mneg[2];
 #pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
-      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
-      const float m_new = fmaxf(m2[r], mx[r] * p.scale_log2);
-      alpha[r] = m_new == -INFINITY ? 1.0f : exp2f(m2[r] - m_new);
-      mneg[r] = m_new == -INFINITY ? 0.0f : -m_new;
-      m2[r] = m_new;
-      lsum[r] *= alpha[r];
+      for (int r = 0; r < 2; ++r) {
+        mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+        mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+        const float m_new = fmaxf(m2[r], mx[r] * p.scale_log2);
+        alpha[r] = m_new == -INFINITY ? 1.0f : exp2f(m2[r] - m_new);
+        mneg[r] = m_new == -INFINITY ? 0.0f : -m_new;
+        m2[r] = m_new;
+        lsum[r] *= alpha[r];
+      }
+#pragma unroll
+      for (int i = 0; i < 64; ++i) {
+        const int r = (i >> 1) & 1;
+        sc[i] = exp2f(fmaf(sc[i], p.scale_log2, mneg[r]));
+        lsum[r] += sc[i];
+      }
+#pragma unroll
+      for (int i = 0; i < D / 2; ++i) o[i] *= alpha[(i >> 1) & 1];
+    } else {
+      // The clamp softmax: m fixed at 0, so no max and no rescale of O.
+#pragma unroll
+      for (int i = 0; i < 64; ++i) {
+        if constexpr (kSoftmax == kSoftmaxClamp) {
+          sc[i] = exp2f(fminf(sc[i] * p.scale_log2, CLAMP_LOG2));
+        } else {
+          const float x = __bfloat162float(__float2bfloat16(sc[i] * p.scale));
+          sc[i] = __bfloat162float(__float2bfloat16(expf(fminf(x, 80.0f))));
+        }
+        lsum[(i >> 1) & 1] += sc[i];
+      }
     }
-#pragma unroll
-    for (int i = 0; i < 64; ++i) {
-      const int r = (i >> 1) & 1;
-      sc[i] = exp2f(fmaf(sc[i], p.scale_log2, mneg[r]));
-      lsum[r] += sc[i];
-    }
-#pragma unroll
-    for (int i = 0; i < D / 2; ++i) o[i] *= alpha[(i >> 1) & 1];
 
     // O += P V: P's accumulator fragment for keys 16 ks .. + 15 is wgmma's
     // register A fragment for that k-step.
@@ -266,7 +308,11 @@ __global__ void __launch_bounds__(THREADS, 1)
     // Normalize, round to bf16 and stage the warpgroup's 64 rows in its own
     // (swizzled) rows of the Q tile, then write 16-byte rows through o's
     // strides.
-    const float inv[2] = {l[0] > 0.0f ? 1.0f / l[0] : 0.0f, l[1] > 0.0f ? 1.0f / l[1] : 0.0f};
+    float inv[2];
+#pragma unroll
+    for (int r = 0; r < 2; ++r)
+      inv[r] = kSoftmax == kSoftmaxExact ? (l[r] > 0.0f ? 1.0f / l[r] : 0.0f)
+                                         : 1.0f / fmaxf(l[r], 1e-30f);
     uint8_t* stage = smem + L::q + wg * 64 * 128;
 #pragma unroll
     for (int j = 0; j < D / 8; ++j)
@@ -290,7 +336,7 @@ __global__ void __launch_bounds__(THREADS, 1)
   }
 }
 
-template <int D, bool kPartial>
+template <int D, bool kPartial, int kSoftmax>
 cudaError_t launch(const void* q, const int64_t* qs, const void* k, const int64_t* ks,
                    const void* v, const int64_t* vs, Params p, int B, cudaStream_t stream) {
   CUtensorMap qm, km, vm;
@@ -299,21 +345,21 @@ cudaError_t launch(const void* q, const int64_t* qs, const void* k, const int64_
   if (err == cudaSuccess) err = make_map_bf16(&vm, v, vs, B, p.Hkv, p.Sk, D, BKV);
   if (err != cudaSuccess) return err;
   constexpr int bytes = Layout<D>::bytes;
-  err = cudaFuncSetAttribute(flash_prefill_kernel<D, kPartial>,
+  err = cudaFuncSetAttribute(flash_prefill_kernel<D, kPartial, kSoftmax>,
                              cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
   if (err != cudaSuccess) return err;
   p.nq = (p.Sq + BQ - 1) / BQ;
   const dim3 grid(B * p.Hq, p.nq);
-  flash_prefill_kernel<D, kPartial><<<grid, THREADS, bytes, stream>>>(qm, km, vm, p);
+  flash_prefill_kernel<D, kPartial, kSoftmax><<<grid, THREADS, bytes, stream>>>(qm, km, vm, p);
   return cudaGetLastError();
 }
 
-template <bool kPartial>
+template <bool kPartial, int kSoftmax = kSoftmaxExact>
 cudaError_t launch_d(const void* q, const int64_t* qs, const void* k, const int64_t* ks,
                      const void* v, const int64_t* vs, const Params& p, int B, int D,
                      cudaStream_t stream) {
-  if (D == 64) return launch<64, kPartial>(q, qs, k, ks, v, vs, p, B, stream);
-  if (D == 128) return launch<128, kPartial>(q, qs, k, ks, v, vs, p, B, stream);
+  if (D == 64) return launch<64, kPartial, kSoftmax>(q, qs, k, ks, v, vs, p, B, stream);
+  if (D == 128) return launch<128, kPartial, kSoftmax>(q, qs, k, ks, v, vs, p, B, stream);
   return cudaErrorInvalidValue;
 }
 
@@ -329,10 +375,48 @@ Params params(const int* kv_len, int Hq, int Hkv, int Sq, int Sk, int causal, fl
   p.q_off = q_off;
   p.k_off = k_off;
   p.scale_log2 = scale * LOG2E;
+  p.scale = scale;
   return p;
 }
 
+template <int D>
+cudaError_t attributes(int partial, int softmax, cudaFuncAttributes* a) {
+  if (partial)
+    return softmax == kSoftmaxExact
+               ? cudaFuncGetAttributes(a, flash_prefill_kernel<D, true, kSoftmaxExact>)
+               : cudaErrorInvalidValue;
+  if (softmax == kSoftmaxExact)
+    return cudaFuncGetAttributes(a, flash_prefill_kernel<D, false, kSoftmaxExact>);
+  if (softmax == kSoftmaxClamp)
+    return cudaFuncGetAttributes(a, flash_prefill_kernel<D, false, kSoftmaxClamp>);
+  if (softmax == kSoftmaxBf16S)
+    return cudaFuncGetAttributes(a, flash_prefill_kernel<D, false, kSoftmaxBf16S>);
+  return cudaErrorInvalidValue;
+}
+
 }  // namespace
+
+cudaError_t launch_vit_attention(const __nv_bfloat16* q, const int64_t* qs,
+                                 const __nv_bfloat16* k, const int64_t* ks,
+                                 const __nv_bfloat16* v, const int64_t* vs, __nv_bfloat16* o,
+                                 const int64_t* os, int B, int H, int Sq, int Sk, int D,
+                                 float scale, float scale_log2, int softmax,
+                                 cudaStream_t stream) {
+  Params p = params(/*kv_len=*/nullptr, H, H, Sq, Sk, /*causal=*/0, scale, 0, 0);
+  p.scale_log2 = scale_log2;
+  p.o = o;
+  p.osb = os[0];
+  p.osh = os[1];
+  p.oss = os[2];
+  if (softmax == kSoftmaxExact)
+    return launch_d<false, kSoftmaxExact>(q, qs, k, ks, v, vs, p, B, D, stream);
+  if (softmax == kSoftmaxClamp)
+    return launch_d<false, kSoftmaxClamp>(q, qs, k, ks, v, vs, p, B, D, stream);
+  if (softmax == kSoftmaxBf16S)
+    return launch_d<false, kSoftmaxBf16S>(q, qs, k, ks, v, vs, p, B, D, stream);
+  return cudaErrorInvalidValue;
+}
+
 }  // namespace sc
 
 // K3. strides: three int64 (batch, head, seq) per tensor, in elements; o is
@@ -370,21 +454,32 @@ extern "C" int sc_flash_attention_partial(const void* q, const int64_t* q_stride
                                              D, static_cast<cudaStream_t>(stream)));
 }
 
-// Compiled attributes of the K3 / K5 kernel for head dim D (partial = 0 for
-// K3): out[0] registers per thread, out[1] local (spill) bytes per thread,
-// out[2] static shared bytes, out[3] the dynamic shared bytes it launches
-// with.
-extern "C" int sc_flash_prefill_attributes(int D, int partial, int* out) {
+// K14: non-causal attention over q [N, H, Sq, D], k / v [N, H, Sk, D]
+// (strides: three int64 (image, head, seq) per input, in elements) into a
+// contiguous o [N, H, Sq, D]; every key of every image is valid. Its own
+// entry point, so that its launches are counted apart from K3's.
+extern "C" int sc_vit_attention(const void* q, const int64_t* q_strides, const void* k,
+                                const int64_t* k_strides, const void* v,
+                                const int64_t* v_strides, void* o, int N, int H, int Sq,
+                                int Sk, int D, float scale, void* stream) {
+  const int64_t o_strides[3] = {(int64_t)H * Sq * D, (int64_t)Sq * D, D};
+  return static_cast<int>(sc::launch_vit_attention(
+      static_cast<const __nv_bfloat16*>(q), q_strides, static_cast<const __nv_bfloat16*>(k),
+      k_strides, static_cast<const __nv_bfloat16*>(v), v_strides,
+      static_cast<__nv_bfloat16*>(o), o_strides, N, H, Sq, Sk, D, scale, scale * sc::LOG2E,
+      sc::kSoftmaxExact, static_cast<cudaStream_t>(stream)));
+}
+
+// Compiled attributes of the kernel for head dim D: K3 (partial = 0,
+// softmax 0), K5 (partial = 1) or the ViT's attention in softmax mode
+// `softmax` (sc::Softmax): out[0] registers per thread, out[1] local
+// (spill) bytes per thread, out[2] static shared bytes, out[3] the dynamic
+// shared bytes it launches with.
+extern "C" int sc_flash_prefill_attributes(int D, int partial, int softmax, int* out) {
   cudaFuncAttributes a{};
-  cudaError_t err;
-  if (D == 64)
-    err = partial ? cudaFuncGetAttributes(&a, sc::flash_prefill_kernel<64, true>)
-                  : cudaFuncGetAttributes(&a, sc::flash_prefill_kernel<64, false>);
-  else if (D == 128)
-    err = partial ? cudaFuncGetAttributes(&a, sc::flash_prefill_kernel<128, true>)
-                  : cudaFuncGetAttributes(&a, sc::flash_prefill_kernel<128, false>);
-  else
-    return static_cast<int>(cudaErrorInvalidValue);
+  cudaError_t err = D == 64    ? sc::attributes<64>(partial, softmax, &a)
+                    : D == 128 ? sc::attributes<128>(partial, softmax, &a)
+                               : cudaErrorInvalidValue;
   if (err != cudaSuccess) return static_cast<int>(err);
   out[0] = a.numRegs;
   out[1] = static_cast<int>(a.localSizeBytes);

@@ -10,13 +10,37 @@
 // Pallas kernel that kept a frame tile, every intermediate and all weights
 // in VMEM. A Hopper block has at most 227 KB of shared memory, far below one
 // frame's [577, 4096] MLP intermediate, so the layer runs as a sequence of
-// launches on one stream: LayerNorm -> QKV GEMM -> flash attention ->
-// O GEMM + residual -> LayerNorm -> fc1 GEMM + activation -> fc2 GEMM +
-// residual. The GEMM epilogues fuse bias, activation and residual, and the
+// launches on one stream: LayerNorm -> QKV GEMM -> attention -> O GEMM +
+// residual -> LayerNorm -> fc1 GEMM + activation -> fc2 GEMM + residual. The
+// GEMMs are gemm.cu's wgmma kernel, whose epilogues fuse bias, activation and
+// residual; the attention is flash_prefill.cu's wgmma loop in the layer's
+// softmax mode, reading q, k and v in place from the merged QKV buffer. The
 // mid-layer residual stays f32 as in the TPU kernel; the intermediates round
 // trip device memory in workspaces the Python wrapper allocates. The layer is
 // bound by tensor-core throughput in the GEMMs (about 95% of its FLOPs).
 #include "kernels.cuh"
+
+namespace {
+
+using bf = __nv_bfloat16;
+
+// The attention step of K1, K13 and K16: H heads of dh = D / H over the
+// merged qkv [N S, 3 D] (q | k | v, head-major inside each) into attn
+// [N S, D]. Folded weights carry the q scale dh^-0.5 * log2(e), so their
+// scores are in log2 units: scale ln 2 (exactly 1 in exp2's domain).
+cudaError_t attention_step(const bf* qkv, bf* attn, int N, int S, int D, int H, int softmax,
+                           int folded, cudaStream_t st) {
+  const int dh = D / H;
+  const int64_t qkv_strides[3] = {(int64_t)S * 3 * D, dh, 3 * D};
+  const int64_t o_strides[3] = {(int64_t)S * D, dh, D};
+  const float scale = folded ? 0.69314718055994531f : 1.0f / sqrtf((float)dh);
+  const float scale_log2 = folded ? 1.0f : scale * 1.4426950408889634f;
+  return sc::launch_vit_attention(qkv, qkv_strides, qkv + D, qkv_strides, qkv + 2 * D,
+                                  qkv_strides, attn, o_strides, N, H, S, S, dh, scale,
+                                  scale_log2, softmax, st);
+}
+
+}  // namespace
 
 // x, out: [N * S, D] bf16; ws_h: [N*S, D] bf16; ws_qkv: [N*S, 3D]
 // bf16; ws_attn: [N*S, D] bf16; ws_mid_x: [N*S, D] f32; ws_mid: [N*S, Dmid] bf16.
@@ -35,10 +59,8 @@ extern "C" int sc_fused_vit_layer(const void* x, const void* ln1_s, const void* 
                                   void* ws_attn, void* ws_mid_x, void* ws_mid, int N, int S,
                                   int D, int Dmid, int H, float eps, int softmax, int folded,
                                   int onepass, int act, void* stream) {
-  using bf = __nv_bfloat16;
   auto st = static_cast<cudaStream_t>(stream);
   const int M = N * S;
-  const int dh = D / H;
   auto h = static_cast<bf*>(ws_h);
   auto qkv = static_cast<bf*>(ws_qkv);
   auto attn = static_cast<bf*>(ws_attn);
@@ -46,23 +68,23 @@ extern "C" int sc_fused_vit_layer(const void* x, const void* ln1_s, const void* 
   auto affine = [folded](const void* p) { return folded ? nullptr : static_cast<const bf*>(p); };
 
   sc::launch_layernorm(x, sc::kBF16, affine(ln1_s), affine(ln1_b), h, M, D, eps, onepass, st);
-  sc::launch_gemm(h, D, static_cast<const bf*>(wqkv), static_cast<const bf*>(bqkv), nullptr,
-                  sc::kBF16, 0, qkv, sc::kBF16, 3 * D, M, 3 * D, D, sc::kActNone, st);
-  const int64_t qkv_strides[3] = {(int64_t)S * 3 * D, dh, 3 * D};
-  const int64_t o_strides[3] = {(int64_t)S * D, dh, D};
-  const float scale = folded ? 0.69314718055994531f : 1.0f / sqrtf((float)dh);
-  cudaError_t err = sc::launch_flash(qkv, qkv_strides, qkv + D, qkv_strides, qkv + 2 * D,
-                                     qkv_strides, attn, o_strides, nullptr, N, H, H, S, S,
-                                     dh, /*causal=*/0, scale, softmax, st);
+  cudaError_t err = sc::launch_gemm(h, D, static_cast<const bf*>(wqkv),
+                                    static_cast<const bf*>(bqkv), nullptr, sc::kBF16, 0, qkv,
+                                    sc::kBF16, 3 * D, M, 3 * D, D, sc::kActNone, st);
+  if (err == cudaSuccess) err = attention_step(qkv, attn, N, S, D, H, softmax, folded, st);
+  if (err == cudaSuccess)
+    err = sc::launch_gemm(attn, D, static_cast<const bf*>(wo), static_cast<const bf*>(bo), x,
+                          sc::kBF16, D, ws_mid_x, sc::kF32, D, M, D, D, sc::kActNone, st);
   if (err != cudaSuccess) return static_cast<int>(err);
-  sc::launch_gemm(attn, D, static_cast<const bf*>(wo), static_cast<const bf*>(bo), x,
-                  sc::kBF16, D, ws_mid_x, sc::kF32, D, M, D, D, sc::kActNone, st);
   sc::launch_layernorm(ws_mid_x, sc::kF32, affine(ln2_s), affine(ln2_b), h, M, D, eps, onepass,
                        st);
-  sc::launch_gemm(h, D, static_cast<const bf*>(w1), static_cast<const bf*>(b1), nullptr,
-                  sc::kBF16, 0, mid, sc::kBF16, Dmid, M, Dmid, D, act, st);
-  sc::launch_gemm(mid, Dmid, static_cast<const bf*>(w2), static_cast<const bf*>(b2),
-                  ws_mid_x, sc::kF32, D, out, sc::kBF16, D, M, D, Dmid, sc::kActNone, st);
+  err = sc::launch_gemm(h, D, static_cast<const bf*>(w1), static_cast<const bf*>(b1), nullptr,
+                        sc::kBF16, 0, mid, sc::kBF16, Dmid, M, Dmid, D, act, st);
+  if (err == cudaSuccess)
+    err = sc::launch_gemm(mid, Dmid, static_cast<const bf*>(w2), static_cast<const bf*>(b2),
+                          ws_mid_x, sc::kF32, D, out, sc::kBF16, D, M, D, Dmid, sc::kActNone,
+                          st);
+  if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -73,7 +95,6 @@ extern "C" int sc_fused_ln_mlp(const void* x, const void* ln_s, const void* ln_b
                                void* out, void* ws_h, void* ws_mid, int T, int Din, int Dmid,
                                int Dout, int act, int layernorm, int residual, float eps,
                                void* stream) {
-  using bf = __nv_bfloat16;
   auto st = static_cast<cudaStream_t>(stream);
   const bf* h = static_cast<const bf*>(x);
   if (layernorm) {
@@ -82,11 +103,14 @@ extern "C" int sc_fused_ln_mlp(const void* x, const void* ln_s, const void* ln_b
                          /*onepass=*/0, st);
     h = static_cast<const bf*>(ws_h);
   }
-  sc::launch_gemm(h, Din, static_cast<const bf*>(w1), static_cast<const bf*>(b1), nullptr,
-                  sc::kBF16, 0, ws_mid, sc::kBF16, Dmid, T, Dmid, Din, act, st);
-  sc::launch_gemm(static_cast<const bf*>(ws_mid), Dmid, static_cast<const bf*>(w2),
-                  static_cast<const bf*>(b2), residual ? x : nullptr, sc::kBF16, Din, out,
-                  sc::kBF16, Dout, T, Dout, Dmid, sc::kActNone, st);
+  cudaError_t err = sc::launch_gemm(h, Din, static_cast<const bf*>(w1),
+                                    static_cast<const bf*>(b1), nullptr, sc::kBF16, 0, ws_mid,
+                                    sc::kBF16, Dmid, T, Dmid, Din, act, st);
+  if (err == cudaSuccess)
+    err = sc::launch_gemm(static_cast<const bf*>(ws_mid), Dmid, static_cast<const bf*>(w2),
+                          static_cast<const bf*>(b2), residual ? x : nullptr, sc::kBF16, Din,
+                          out, sc::kBF16, Dout, T, Dout, Dmid, sc::kActNone, st);
+  if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -104,27 +128,22 @@ extern "C" int sc_fused_ln_attn(const void* x, const void* ln_s, const void* ln_
                                 const void* bo, void* out, void* ws_h, void* ws_qkv,
                                 void* ws_attn, int N, int S, int D, int H, float eps,
                                 int clamp, int folded, int onepass, void* stream) {
-  using bf = __nv_bfloat16;
   auto st = static_cast<cudaStream_t>(stream);
   const int M = N * S;
-  const int dh = D / H;
   auto h = static_cast<bf*>(ws_h);
   auto qkv = static_cast<bf*>(ws_qkv);
   auto attn = static_cast<bf*>(ws_attn);
   sc::launch_layernorm(x, sc::kBF16, folded ? nullptr : static_cast<const bf*>(ln_s),
                        folded ? nullptr : static_cast<const bf*>(ln_b), h, M, D, eps, onepass,
                        st);
-  sc::launch_gemm(h, D, static_cast<const bf*>(wqkv), static_cast<const bf*>(bqkv), nullptr,
-                  sc::kBF16, 0, qkv, sc::kBF16, 3 * D, M, 3 * D, D, sc::kActNone, st);
-  const int64_t qkv_strides[3] = {(int64_t)S * 3 * D, dh, 3 * D};
-  const int64_t o_strides[3] = {(int64_t)S * D, dh, D};
-  const float scale = folded ? 0.69314718055994531f : 1.0f / sqrtf((float)dh);
-  cudaError_t err = sc::launch_flash(qkv, qkv_strides, qkv + D, qkv_strides, qkv + 2 * D,
-                                     qkv_strides, attn, o_strides, nullptr, N, H, H, S, S,
-                                     dh, /*causal=*/0, scale, clamp, st);
+  cudaError_t err = sc::launch_gemm(h, D, static_cast<const bf*>(wqkv),
+                                    static_cast<const bf*>(bqkv), nullptr, sc::kBF16, 0, qkv,
+                                    sc::kBF16, 3 * D, M, 3 * D, D, sc::kActNone, st);
+  if (err == cudaSuccess) err = attention_step(qkv, attn, N, S, D, H, clamp, folded, st);
+  if (err == cudaSuccess)
+    err = sc::launch_gemm(attn, D, static_cast<const bf*>(wo), static_cast<const bf*>(bo), x,
+                          sc::kBF16, D, out, sc::kBF16, D, M, D, D, sc::kActNone, st);
   if (err != cudaSuccess) return static_cast<int>(err);
-  sc::launch_gemm(attn, D, static_cast<const bf*>(wo), static_cast<const bf*>(bo), x,
-                  sc::kBF16, D, out, sc::kBF16, D, M, D, D, sc::kActNone, st);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -63,7 +63,9 @@ SIGNATURES = {
     "sc_select_changed_frames": [_P, _I, _P, _I, _I, _P],
     "sc_dotk": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
     "sc_int4_probe": [_P, _I, _I, _P, _P, _I, _I, _I, _I, _I, _P, _P, ctypes.c_uint, _P, _P],
-    "sc_flash_prefill_attributes": [_I, _I, ctypes.POINTER(ctypes.c_int)],
+    "sc_flash_prefill_attributes": [_I, _I, _I, ctypes.POINTER(ctypes.c_int)],
+    "sc_gemm": [_P, _I64, _P, _P, _P, _I, _I64, _P, _I, _I64, _I, _I, _I, _I, _P],
+    "sc_gemm_attributes": [_I, _I, _I, ctypes.POINTER(ctypes.c_int)],
 }
 
 

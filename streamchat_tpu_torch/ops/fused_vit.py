@@ -13,10 +13,18 @@ Counterparts of `streamchat_tpu/ops/fused_vit.py`:
   (`sc_fused_vit_layer`: LayerNorm, tensor-core GEMMs with fused epilogues
   and the flash-attention kernel on one stream); on a CPU tensor it runs
   `fused_vit_layer_plain`, which follows the TPU kernel's `_layer_kernel`
-  option by option.
+  option by option. The GEMMs are `csrc/gemm.cu` (wgmma, TMA, epilogue in
+  registers), the attention `csrc/flash_prefill.cu` in the layer's softmax
+  mode.
 * `fused_ln_mlp` — out = [x +] fc2(act(fc1([LN] x))), act one of
   quick_gelu / erf-GELU / none (the projector runs it with LN off, no
   residual and erf-GELU). CUDA: `sc_fused_ln_mlp`; CPU: `fused_ln_mlp_plain`.
+* `gemm` — out = act(a @ b + bias) (+ residual), the wgmma GEMM with its
+  fused epilogue that K1, K2, K13 and K16 launch inside their sequences, on
+  its own (no path calls it; the card tests and the smoke hold it to
+  `gemm_plain`). `gemm_guard` is its contract as a pure function of shapes,
+  strides and dtypes: every wrapper here checks each of its products with
+  it and raises `GemmShapeError` before any launch.
 * `fused_ln_attn` (K13) — out = x + O(attn(QKV(LN x))), the attention half
   of the block with the TPU kernel's options: softmax "clamp" (default;
   p = exp(min(s, 80)), no max subtraction, the sum floored at 1e-30) or
@@ -88,6 +96,106 @@ def _check_cuda(name, t, dtype, shape=None):
 
 def _stream() -> int:
     return torch.cuda.current_stream().cuda_stream
+
+
+class GemmShapeError(ValueError):
+    """A product the Hopper GEMM (`csrc/gemm.cu`) does not take. The
+    wrappers raise it before any launch; nothing falls back to another
+    kernel or to `torch.matmul`."""
+
+
+def gemm_guard(m, n, k, *, lda=None, a_dtype=torch.bfloat16, b_dtype=torch.bfloat16, ldr=None,
+               res_dtype=None, ldc=None, out_dtype=torch.bfloat16):
+    """The GEMM's contract, with its TMA maps', as a pure function of shapes,
+    strides (in elements) and dtypes; raises GemmShapeError outside it.
+
+    A [m, k] with rows `lda` apart (default k) and B [k, n] row-major, both
+    bf16; k a positive multiple of 64 (the k-slab), n a positive multiple of
+    128 (the tile width); lda >= k and a multiple of 8 (TMA's 16-byte row
+    stride); the residual (res_dtype None: none) and the output bf16 or f32
+    with leading dims `ldr` / `ldc` (default n) >= n and even (the
+    epilogue's paired loads and stores). m is free: rows past it are
+    masked."""
+    lda = k if lda is None else lda
+    if a_dtype != torch.bfloat16 or b_dtype != torch.bfloat16:
+        raise GemmShapeError(f"gemm: A and B must be bf16, got {a_dtype} and {b_dtype}")
+    if m < 0:
+        raise GemmShapeError(f"gemm: M={m} is negative")
+    if k <= 0 or k % 64:
+        raise GemmShapeError(f"gemm: K={k} is not a positive multiple of 64")
+    if n <= 0 or n % 128:
+        raise GemmShapeError(f"gemm: N={n} is not a positive multiple of 128")
+    if lda < k or lda % 8:
+        raise GemmShapeError(f"gemm: lda={lda} must be >= K={k} and a multiple of 8 "
+                             "(TMA's 16-byte row stride)")
+    for name, ld, dt in (("residual", ldr, res_dtype), ("out", ldc, out_dtype)):
+        if dt is None:
+            continue
+        if dt not in (torch.bfloat16, torch.float32):
+            raise GemmShapeError(f"gemm: {name} must be bf16 or f32, got {dt}")
+        ld = n if ld is None else ld
+        if ld < n or ld % 2:
+            raise GemmShapeError(f"gemm: {name} leading dim {ld} must be >= N={n} and even")
+
+
+def gemm_plain(a, b, bias=None, residual=None, *, activation="none", out_dtype=None):
+    """Plain PyTorch twin of `gemm` (same signature): the product in f32 from
+    the rounded operands, then bias, activation, residual, one rounding."""
+    out = _mm(a, b)
+    if bias is not None:
+        out = out + bias.float()
+    out = _activate(out, activation)
+    if residual is not None:
+        out = out + residual.float()
+    return out.to(out_dtype or a.dtype)
+
+
+@counted
+def gemm(a, b, bias=None, residual=None, *, activation="none", out_dtype=None):
+    """out [M, N] = act(a @ b + bias) (+ residual) with a [M, K] (rows may
+    be strided), b [K, N], bias [N] bf16 and residual [M, N] bf16 or f32;
+    out in `out_dtype` (default a's). CPU tensors run `gemm_plain`; CUDA
+    tensors launch `sc_gemm` or raise (GemmShapeError outside
+    `gemm_guard`)."""
+    if activation not in ACTIVATIONS:
+        raise ValueError(f"unknown activation: {activation}")
+    if a.device.type == "cpu":
+        return gemm_plain(a, b, bias, residual, activation=activation, out_dtype=out_dtype)
+    from streamchat_tpu_torch.kernels.build import call
+
+    (m, k), n = a.shape, b.shape[1]
+    out_dtype = out_dtype or a.dtype
+    if a.stride(1) != 1 or tuple(b.shape) != (k, n) or not b.is_contiguous():
+        raise GemmShapeError(f"gemm: a {tuple(a.shape)} (stride {a.stride()}) and b "
+                             f"{tuple(b.shape)} must be row-major [M, K] and [K, N]")
+    if residual is not None and (tuple(residual.shape) != (m, n) or residual.stride(1) != 1):
+        raise GemmShapeError(f"gemm: residual {tuple(residual.shape)} must be row-major "
+                             f"[{m}, {n}]")
+    gemm_guard(m, n, k, lda=a.stride(0), a_dtype=a.dtype, b_dtype=b.dtype,
+               ldr=None if residual is None else residual.stride(0),
+               res_dtype=None if residual is None else residual.dtype, out_dtype=out_dtype)
+    for name, t in (("a", a), ("b", b), ("bias", bias), ("residual", residual)):
+        if t is not None and (t.device != a.device or t.data_ptr() % 16):
+            raise ValueError(f"gemm {name}: expected a 16-byte aligned tensor on {a.device}")
+    if bias is not None:
+        _check_cuda("gemm bias", bias, torch.bfloat16, (n,))
+    out = torch.empty(m, n, dtype=out_dtype, device=a.device)
+    dtype_code = {torch.bfloat16: 0, torch.float32: 1}
+    call("sc_gemm", a.data_ptr(), a.stride(0), b.data_ptr(),
+         None if bias is None else bias.data_ptr(),
+         None if residual is None else residual.data_ptr(),
+         0 if residual is None else dtype_code[residual.dtype],
+         0 if residual is None else residual.stride(0), out.data_ptr(), dtype_code[out_dtype],
+         n, m, n, k, ACTIVATIONS[activation], _stream())
+    launched(gemm)
+    return out
+
+
+def _guard_products(m, *kn):
+    """gemm_guard over each (K, N) product of a wrapper's launch sequence,
+    its A contiguous."""
+    for k, n in kn:
+        gemm_guard(m, n, k)
 
 
 SOFTMAX = {"exact": 0, "clamp": 1}
@@ -189,6 +297,7 @@ def launch_layer(x, ln1_scale, ln1_bias, wqkv, bqkv, wo, bo, ln2_scale, ln2_bias
     for label, t, shape in checks:
         _check_cuda(f"{name} {label}", t, bf, shape)
     m = n * s
+    _guard_products(m, (d, 3 * d), (d, d), (d, dmid), (dmid, d))
     out = torch.empty_like(x)
     ws_h = torch.empty(m, d, dtype=bf, device=x.device)
     ws_qkv = torch.empty(m, 3 * d, dtype=bf, device=x.device)
@@ -253,8 +362,9 @@ def fused_ln_mlp(x, ln_scale, ln_bias, w1, b1, w2, b2, *,
     """out = [x +] fc2(act(fc1([LN] x))) over x [T, Din] (K2).
 
     ln_scale / ln_bias may be None when layernorm is False. CPU tensors
-    run the plain twin; CUDA tensors launch the kernel (bf16, Din % 32 == 0,
-    MLP and output widths multiples of 128) or raise.
+    run the plain twin; CUDA tensors launch the kernel (bf16, Din % 64 == 0,
+    MLP and output widths multiples of 128) or raise (GemmShapeError for a
+    width the GEMM does not take).
     """
     t, din = x.shape
     dmid, dout = w1.shape[1], w2.shape[1]
@@ -268,8 +378,7 @@ def fused_ln_mlp(x, ln_scale, ln_bias, w1, b1, w2, b2, *,
             activation=activation, layernorm=layernorm, residual=residual)
     from streamchat_tpu_torch.kernels.build import call
 
-    if din % 32 or dmid % 128 or dout % 128:
-        raise ValueError(f"fused_ln_mlp: unsupported widths {din}->{dmid}->{dout}")
+    _guard_products(t, (din, dmid), (dmid, dout))
     bf = torch.bfloat16
     checks = [("x", x, (t, din)), ("w1", w1, (din, dmid)), ("b1", b1, (dmid,)),
               ("w2", w2, (dmid, dout)), ("b2", b2, (dout,))]
@@ -376,6 +485,7 @@ def fused_ln_attn(x, ln_scale, ln_bias, wqkv, bqkv, wo, bo, *, num_heads: int,
     for name, t, shape in checks:
         _check_cuda(f"fused_ln_attn {name}", t, bf, shape)
     m = n * s
+    _guard_products(m, (d, 3 * d), (d, d))
     out = torch.empty_like(x)
     ws_h = torch.empty(m, d, dtype=bf, device=x.device)
     ws_qkv = torch.empty(m, 3 * d, dtype=bf, device=x.device)

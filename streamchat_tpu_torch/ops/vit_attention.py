@@ -3,10 +3,12 @@
 
 q [N, H, Sq, D] against k / v [N, H, Sk, D] (Sq = Sk = S in the ViT: 577
 tokens, 16 heads of 64), every key valid. The TPU kernel padded S to the
-128 tile and masked the pad; `csrc/flash_attention.cu` masks ragged tiles
-itself, so nothing is padded here. A CUDA tensor launches
-`sc_vit_attention` (K3's tile loop, causal off, one kv head per query
-head); a CPU tensor runs `vit_attention_plain`.
+128 tile and masked the pad; `csrc/flash_prefill.cu` masks the ragged last
+tiles itself and its TMA maps give zeros past each image's S, so nothing is
+padded here. A CUDA tensor launches `sc_vit_attention` (the wgmma / TMA
+loop K3 runs, causal off, one kv head per query head, the exact softmax;
+K1's attention is the same loop in the clamp mode); a CPU tensor runs
+`vit_attention_plain`.
 """
 
 from __future__ import annotations

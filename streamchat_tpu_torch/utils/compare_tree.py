@@ -5,22 +5,20 @@
 OTHER_TREE is the root of another checkout of the repo (e.g. the parent
 commit unpacked with `git archive`). Its `streamchat_tpu_torch/csrc/` is
 built by its own `kernels/build.py` into its own library, beside this
-tree's. The kernels whose C entry points both trees export with the same
-signature (K1 `sc_fused_vit_layer` in its exact form, K3
-`sc_flash_attention`, K5 `sc_flash_attention_partial` (the smoke's last
-chunk of a caption prefill), K4 `sc_paged_decode`, K6
-`sc_paged_decode_int8`, and the page-table decode kernels K8
-`sc_paged_decode_table` and K9 `sc_paged_decode_table_int8` at the smoke's
-shared-pool shapes) run through this tree's wrappers on the same inputs at
-main-path shapes, once against each library, and the device time per call
-of each (torch.profiler, as `chip_smoke.py` measures it) is taken in turns:
-other, this, this, other. K1, K4, K6, K8 and K9 must be equal bit for bit.
-K3 and K5 may sum in another order (a kernel redesign changes it), so they
-are held to the other tree's output within the smoke's tolerance instead:
-|a - b| <= 3e-2 + 2e-2 |b| and a row relative L2 error <= 1e-2 (K5 through
-acc / l, with m and l elementwise). A kernel the other tree does not
-export, or exports with another C signature (K1 before it took the TPU
-kernel's options), is timed in this tree alone.
+tree's. Every kernel whose C entry point both trees export with the same
+signature runs through this tree's wrapper on the same inputs at main-path
+shapes (`CASES`: K1 in the ingest's and the exact form, K2-K17, K7′ and W8;
+K16 is K1's entry with the bf16-score softmax), once against each library,
+and the device time per call of each (torch.profiler, as `chip_smoke.py`
+measures it; for K1's ingest form also launch by launch) is taken in
+turns: other, this, this, other. A case must be
+equal bit for bit unless `CASES` names a tolerance for it: the ViT kernels
+K1, K2, K13, K14 and K16 (wgmma GEMM and attention since the Hopper
+redesign, another summation order) are held to the other tree's output
+within the smoke's tolerance instead, |a - b| <= 3e-2 + 2e-2 |b|, and for
+K13 and K14 also a row relative L2 error <= 1e-2. A kernel the other tree
+does not export, or exports with another C signature, is timed in this
+tree alone.
 """
 
 from __future__ import annotations
@@ -34,13 +32,34 @@ import subprocess
 
 import torch
 
-from streamchat_tpu_torch.utils.profiling import device_ms
+from streamchat_tpu_torch.utils.profiling import device_launches, device_ms
 
-KERNELS = ("sc_fused_vit_layer", "sc_flash_attention", "sc_flash_attention_partial",
-           "sc_paged_decode", "sc_paged_decode_int8", "sc_paged_decode_table",
-           "sc_paged_decode_table_int8")
-# Held within tolerance of the other tree's output, not bit for bit.
-TOLERANT = ("sc_flash_attention", "sc_flash_attention_partial")
+# Cases whose device time is also reported launch by launch.
+BY_LAUNCH = ("K1 ingest form",)
+# case -> (its C entry point, its tolerance against the other tree: None for
+# bit for bit, "elementwise", or "rows" for elementwise and row relative L2).
+CASES = {
+    "K1 ingest form": ("sc_fused_vit_layer", "elementwise"),
+    "K1 exact form": ("sc_fused_vit_layer", "elementwise"),
+    "K2": ("sc_fused_ln_mlp", "elementwise"),
+    "K3": ("sc_flash_attention", None),
+    "K4": ("sc_paged_decode", None),
+    "K5": ("sc_flash_attention_partial", None),
+    "K6": ("sc_paged_decode_int8", None),
+    "K7": ("sc_paged_seq_partial", None),
+    "K7′": ("sc_paged_seq_partial_int8", None),
+    "K8": ("sc_paged_decode_table", None),
+    "K9": ("sc_paged_decode_table_int8", None),
+    "K10": ("sc_int4_gemv", None),
+    "K11": ("sc_int4_gemv", None),
+    "K12": ("sc_select_changed_frames", None),
+    "K13": ("sc_fused_ln_attn", "rows"),
+    "K14": ("sc_vit_attention", "rows"),
+    "K15": ("sc_int4_probe", None),
+    "K16": ("sc_fused_vit_layer", "elementwise"),
+    "K17": ("sc_dotk", None),
+    "W8": ("sc_w8a16_gemv", None),
+}
 ATOL, RTOL, ROW_REL_L2 = 3e-2, 2e-2, 1e-2
 
 
@@ -71,9 +90,15 @@ def _within(got, ref, rows: bool = True) -> dict:
     return dict(max_abs_err=err.max().item(), max_row_rel_l2=rel, within=ok)
 
 
+def _equal(a, b) -> bool:
+    if isinstance(a, tuple):
+        return len(a) == len(b) and all(_equal(x, y) for x, y in zip(a, b))
+    return bool(torch.equal(a, b))
+
+
 def _load_other(tree: str):
     """The other tree's kernel library, built by its own build.py -> (library,
-    build seconds, the names of KERNELS it exports with this tree's C
+    build seconds, the C entries of CASES it exports with this tree's C
     signature)."""
     from streamchat_tpu_torch.kernels.build import SIGNATURES
 
@@ -83,7 +108,7 @@ def _load_other(tree: str):
     spec.loader.exec_module(mod)
     info = mod.build(force=True)
     lib = ctypes.CDLL(mod.LIB_PATH)
-    present = tuple(n for n in KERNELS if mod.SIGNATURES.get(n) == SIGNATURES[n])
+    present = tuple({n for n, _ in CASES.values() if mod.SIGNATURES.get(n) == SIGNATURES[n]})
     for name in present:
         fn = getattr(lib, name)
         fn.argtypes = mod.SIGNATURES[name]
@@ -92,8 +117,11 @@ def _load_other(tree: str):
 
 
 def _cases(g):
-    """name -> a call of this tree's wrapper at main-path shapes."""
-    from streamchat_tpu_torch.ops import attention, fused_vit, paged_attention
+    """case -> a call of this tree's wrapper at main-path shapes."""
+    from streamchat_tpu_torch.ops import (attention, dedup, fused_vit, int4_matmul,
+                                          paged_attention, quant, vit_attention)
+    from streamchat_tpu_torch.utils import probe_int4
+    from streamchat_tpu_torch.utils import probe_vit_variants as pvv
 
     bf, dev = torch.bfloat16, "cuda"
 
@@ -106,6 +134,17 @@ def _cases(g):
            1 + rnd(d, scale=0.1), rnd(d, scale=0.1), rnd(d, f, scale=d ** -0.5),
            rnd(f, scale=0.1), rnd(f, d, scale=f ** -0.5), rnd(d, scale=0.1))
     x = rnd(16, 577, d)
+    folded = list(vit)
+    folded[2], folded[3], folded[8], folded[9] = fused_vit.fold_vit_layer_params(
+        *(vit[i] for i in (0, 1, 2, 3, 6, 7, 8, 9)), num_heads=16)
+    # K2: the projector over 16 frames; K13 / K14: ViT layer shapes.
+    f2 = rnd(16 * 576, d)
+    proj = (rnd(d, 3584, scale=d ** -0.5), rnd(3584, scale=0.1),
+            rnd(3584, 3584, scale=3584 ** -0.5), rnd(3584, scale=0.1))
+    q14, k14, v14 = rnd(16, 16, 577, 64), rnd(16, 16, 577, 64), rnd(16, 16, 577, 64)
+    # K16: the layer probe's bf16s variant at its [128, 577, 1024].
+    x16 = rnd(pvv.N, pvv.S, pvv.D, scale=0.5)
+    p16 = pvv.make_params(g, pvv.VARIANTS["bf16s"])
     q3, k3, v3 = rnd(1, 28, 4096, 128), rnd(1, 4, 4096, 128), rnd(1, 4, 4096, 128)
     # K5: the last 3,072-row chunk of a 23,552-token prefill (chip_smoke).
     q5, k5, v5 = rnd(1, 28, 3072, 128), rnd(1, 4, 23552, 128), rnd(1, 4, 23552, 128)
@@ -134,19 +173,45 @@ def _cases(g):
                               dtype=torch.int8) for _ in range(2))
     kst, vst = (torch.rand(pool, 4, 128, generator=g, device=dev) * 0.04 + 0.01
                 for _ in range(2))
+    # K7 / K7′: five in-flight queries (spec decode) against the K4 pool.
+    q7 = rnd(1, 28, 5, 128)
+    # W8, K10, K11: one decode row against Qwen2-7B's gate / up width.
+    xg = rnd(1, 3584)
+    w8 = quant.quantize_weight(rnd(3584, 18944, scale=0.02))
+    w4, w4b = (quant.quantize_weight_int4(rnd(3584, 18944, scale=0.02)) for _ in range(2))
+    # K12: one segment's frame descriptors; K15: the int4 probe's weight;
+    # K17: the dot probe's qk64 operands.
+    x12 = torch.randn(60, 3584, generator=g, device=dev)
+    w15, s15 = probe_int4.make_weights(g, copies=1)[0][0]
+    x15 = rnd(1, probe_int4.DIN)
+    a17, b17 = pvv.make_dot_inputs("qk64", g)
     return {
-        "sc_fused_vit_layer": lambda: fused_vit.fused_vit_layer(
+        "K1 ingest form": lambda: fused_vit.fused_vit_layer(
+            x, *folded, num_heads=16, frame_tile=1, folded=True, ln_onepass=True),
+        "K1 exact form": lambda: fused_vit.fused_vit_layer(
             x, *vit, num_heads=16, frame_tile=1, softmax_mode="exact"),
-        "sc_flash_attention": lambda: attention.flash_attention(q3, k3, v3, causal=True),
-        "sc_flash_attention_partial": lambda: attention.flash_attention_partial(
-            q5, k5, v5, 20480, 0),
-        "sc_paged_decode": lambda: paged_attention.paged_decode_attention_seq(q, kp, vp, ln),
-        "sc_paged_decode_int8": lambda: paged_attention.paged_decode_attention_seq_int8(
-            q, kq, vq, ks, vs, ln),
-        "sc_paged_decode_table": lambda: paged_attention.paged_decode_attention_table(
-            q8, kt, vt, table, lt),
-        "sc_paged_decode_table_int8": lambda: paged_attention.paged_decode_attention_table_int8(
+        "K2": lambda: fused_vit.fused_ln_mlp(f2, None, None, *proj, activation="gelu",
+                                             layernorm=False, residual=False),
+        "K3": lambda: attention.flash_attention(q3, k3, v3, causal=True),
+        "K4": lambda: paged_attention.paged_decode_attention_seq(q, kp, vp, ln),
+        "K5": lambda: attention.flash_attention_partial(q5, k5, v5, 20480, 0),
+        "K6": lambda: paged_attention.paged_decode_attention_seq_int8(q, kq, vq, ks, vs, ln),
+        "K7": lambda: paged_attention.paged_seq_attention_partial(q7, kp, vp, ln),
+        "K7′": lambda: paged_attention.paged_seq_attention_partial_int8(q7, kq, vq, ks, vs, ln),
+        "K8": lambda: paged_attention.paged_decode_attention_table(q8, kt, vt, table, lt),
+        "K9": lambda: paged_attention.paged_decode_attention_table_int8(
             q8, kqt, vqt, kst, vst, table, lt),
+        "K10": lambda: int4_matmul.qmatvec_int4(xg, w4["w_i4p"], w4["scale"]),
+        "K11": lambda: int4_matmul.qmatvec_int4_fused(xg, w4["w_i4p"], w4["scale"],
+                                                      w4b["w_i4p"], w4b["scale"]),
+        "K12": lambda: dedup.select_changed_frames(x12, threshold=0.18,
+                                                   return_similarity=True),
+        "K13": lambda: fused_vit.fused_ln_attn(x, *vit[:6], num_heads=16),
+        "K14": lambda: vit_attention.vit_attention(q14, k14, v14),
+        "K15": lambda: probe_int4.matvec(x15, w15, s15, variant="cur"),
+        "K16": lambda: pvv.probe_layer(x16, p16, pvv.VARIANTS["bf16s"]),
+        "K17": lambda: pvv.dotk(a17, b17),
+        "W8": lambda: quant.qmatvec_int8(xg, w8["w_i8"], w8["scale"]),
     }
 
 
@@ -178,22 +243,29 @@ def main(argv=None) -> None:
     report = {}
     try:
         for name, fn in cases.items():
-            if name not in present:
+            entry, tolerance = CASES[name]
+            if entry not in present:
                 build.call = current
                 report[name] = dict(other="absent or another signature",
                                     ms_this=[device_ms(fn, args.iters) for _ in range(2)])
                 print(f"{name}: {json.dumps(report[name])}", flush=True)
                 continue
             outs, times = {}, {"other": [], "this": []}
+            launches = {"other": [], "this": []}
             for which in ("other", "this", "this", "other"):
                 build.call = current if which == "this" else call_into(other)
                 outs[which] = fn()
                 times[which].append(device_ms(fn, args.iters))
-            if name in TOLERANT:
-                report[name] = _within(outs["this"], outs["other"])
+                if name in BY_LAUNCH:
+                    launches[which].append([ms for _, ms in device_launches(fn, args.iters)])
+            if tolerance:
+                report[name] = _within(outs["this"], outs["other"], rows=tolerance == "rows")
             else:
-                report[name] = dict(bit_equal=bool(torch.equal(outs["this"], outs["other"])))
+                report[name] = dict(bit_equal=_equal(outs["this"], outs["other"]))
             report[name].update(ms_other=times["other"], ms_this=times["this"])
+            if name in BY_LAUNCH:
+                report[name].update(launch_ms_other=launches["other"],
+                                    launch_ms_this=launches["this"])
             print(f"{name}: {json.dumps(report[name])}", flush=True)
     finally:
         build.call = current

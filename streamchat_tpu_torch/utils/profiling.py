@@ -9,7 +9,9 @@ the device only if the caller synchronises inside the window (the runner
 does, through `synchronize`, so phase totals are true on a GPU).
 
 `device_ms(fn, iters[, kernel])` is the device time of a GPU call: the summed
-durations of the device events torch.profiler records.
+durations of the device events torch.profiler records. `device_launches(fn,
+iters)` splits it by launch: (kernel name, ms) for each device event of one
+call, in launch order, averaged over the calls.
 """
 
 from __future__ import annotations
@@ -45,16 +47,11 @@ class PhaseTimer:
 PROFILE_ATTEMPTS = 3
 
 
-def device_ms(fn: Callable[[], object], iters: int, kernel: Optional[str] = None) -> float:
-    """Device time per call of `fn` on the GPU: the summed durations of the
-    device events (kernels and copies) torch.profiler records over `iters`
-    calls, after one warm-up call; with `kernel`, only the events whose name
-    contains it (one kernel of a wrapper that also runs small torch ops).
-    For a kernel shorter than its wrapper's host work this is the kernel's
-    time, where CUDA events over
-    back-to-back calls would time the host's pace. The profiler now and
-    then hands back a window without a single device event; such a window
-    is measured again, PROFILE_ATTEMPTS windows at most, then this raises."""
+def _device_events(fn: Callable[[], object], iters: int, kernel: Optional[str] = None):
+    """The device events torch.profiler records over `iters` calls of `fn`
+    (after one warm-up call), in start order; with `kernel`, only those
+    whose name contains it. A window without a single device event is
+    measured again, PROFILE_ATTEMPTS windows at most, then this raises."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -69,6 +66,32 @@ def device_ms(fn: Callable[[], object], iters: int, kernel: Optional[str] = None
         events = [e for e in prof.events() if e.device_type == DeviceType.CUDA
                   and (kernel is None or kernel in e.name)]
         if events:
-            return sum(e.time_range.elapsed_us() for e in events) / iters / 1e3
+            return sorted(events, key=lambda e: e.time_range.start)
     raise AssertionError(f"torch.profiler recorded no device event in "
                          f"{PROFILE_ATTEMPTS} windows")
+
+
+def device_launches(fn: Callable[[], object], iters: int):
+    """[(kernel name, ms)] for each device event of one call of `fn`, in
+    launch order, each averaged over `iters` calls; raises if the calls did
+    not record the same number of events."""
+    events = _device_events(fn, iters)
+    if len(events) % iters:
+        raise AssertionError(f"{len(events)} device events over {iters} calls")
+    per = len(events) // iters
+    return [(events[i].name, sum(e.time_range.elapsed_us() for e in events[i::per])
+             / iters / 1e3) for i in range(per)]
+
+
+def device_ms(fn: Callable[[], object], iters: int, kernel: Optional[str] = None) -> float:
+    """Device time per call of `fn` on the GPU: the summed durations of the
+    device events (kernels and copies) torch.profiler records over `iters`
+    calls, after one warm-up call; with `kernel`, only the events whose name
+    contains it (one kernel of a wrapper that also runs small torch ops).
+    For a kernel shorter than its wrapper's host work this is the kernel's
+    time, where CUDA events over
+    back-to-back calls would time the host's pace. The profiler now and
+    then hands back a window without a single device event; such a window
+    is measured again, PROFILE_ATTEMPTS windows at most, then this raises."""
+    events = _device_events(fn, iters, kernel)
+    return sum(e.time_range.elapsed_us() for e in events) / iters / 1e3

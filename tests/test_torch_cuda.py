@@ -21,7 +21,10 @@ are held within 1e-5; K13 runs both softmax modes, the folded form and the
 one-pass LayerNorm, and the clamp softmax's two edges; K14 is counted apart
 from K3. K1 runs in the TPU kernel's options; the probe kernels K15 (five
 int4 unpack variants; dma exactly), K16 (five layer variants) and K17 (four
-dot kinds, f32 outputs held to 1e-3) run at small shapes.
+dot kinds, f32 outputs held to 1e-3) run at small shapes. The wgmma GEMM
+that K1, K2, K13 and K16 launch runs on its own (`fused_vit.gemm`) at
+ragged M (66 and 2 x 577 rows) in every epilogue, raises GemmShapeError on
+the shapes it does not take, and repeats itself bit for bit.
 """
 
 import numpy as np
@@ -379,10 +382,12 @@ def test_cuda_fused_ln_attn_clamp_edges(cuda, center, folded):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("shape", [(6, 4, 77, 64), (2, 2, 130, 128)])
+@pytest.mark.parametrize("shape", [(6, 4, 77, 64), (2, 2, 130, 128), (16, 16, 577, 64),
+                                   (2, 4, 577, 128)])
 def test_cuda_vit_attention(cuda, shape):
-    """K14 over [N, H, S, D] with no pad; counted apart from K3, whose tile
-    loop it launches."""
+    """K14 over [N, H, S, D] with no pad (ViT-L's [16, 16, 577, 64] among
+    them: the last 128-row tiles hold 65 queries and 65 keys); counted apart
+    from K3, whose tile loop it launches."""
     q, k, v = (_bf(40 + i, cuda, *shape) for i in range(3))
     _close(vit_attention.vit_attention(q, k, v), vit_attention.vit_attention_plain(q, k, v))
     _close(vit_attention.vit_attention(q, k, v, sm_scale=0.05),
@@ -424,6 +429,94 @@ def test_cuda_vit_layer_options(cuda, mode, folded, onepass, act):
     _close(fused_vit.fused_vit_layer(x, *w, **kw), fused_vit.fused_vit_layer_plain(x, *w, **kw))
     assert kernels.launch_modes() == {
         "fused_vit_layer": {fused_vit.layer_mode(mode, folded, onepass, act): 1}}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("softmax", ["clamp", "exact", "bf16s"])
+def test_cuda_vit_layer_577_tokens(cuda, softmax):
+    """K1 at the ViT's 577 tokens (ragged last q and key tiles in every
+    frame) in the ingest's folded, one-pass form, each softmax mode of the
+    attention loop; bf16s (K16's bf16 scores, softmax code 2) through
+    `launch_layer` as the layer probe's bf16s variant launches it
+    (unfolded: its twin takes the natural exp of the scores)."""
+    d, f, heads = 128, 256, 2
+    w = list(_vit_weights(cuda, d, f))
+    folded = softmax != "bf16s"
+    if folded:
+        w[2], w[3], w[8], w[9] = fused_vit.fold_vit_layer_params(
+            *(w[i] for i in (0, 1, 2, 3, 6, 7, 8, 9)), num_heads=heads)
+    x = _bf(14, cuda, 2, 577, d)
+    kw = dict(num_heads=heads, eps=1e-5, activation="quick_gelu", folded=folded,
+              ln_onepass=folded)
+    if softmax == "bf16s":
+        got = fused_vit.launch_layer(x, *w, softmax=fused_vit.SOFTMAX_CLAMP_BF16, **kw)
+        ref = fused_vit._layer_plain(x, *w, softmax_mode="clamp", bf16_scores=True, **kw)
+    else:
+        got = fused_vit.fused_vit_layer(x, *w, frame_tile=1, softmax_mode=softmax, **kw)
+        ref = fused_vit.fused_vit_layer_plain(x, *w, frame_tile=1, softmax_mode=softmax, **kw)
+    assert torch.isfinite(got).all()
+    _close(got, ref)
+
+
+def _gemm_operands(dev, m, k, n, seed=60):
+    """A as the first K columns of an [m, K + 64] buffer (lda > K), B, bias,
+    and a bf16 residual with a leading dim of n + 128."""
+    a = _bf(seed, dev, m, k + 64)[:, :k]
+    b = _bf(seed + 1, dev, k, n, scale=k ** -0.5)
+    bias = _bf(seed + 2, dev, n, scale=0.1)
+    res = _bf(seed + 3, dev, m, n + 128)[:, :n]
+    return a, b, bias, res
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m", [66, 2 * 577])
+@pytest.mark.parametrize("k,n", [(1024, 128), (1024, 3072), (4096, 128), (4096, 3072)])
+def test_cuda_gemm(cuda, m, k, n):
+    """The wgmma GEMM against its twin at ragged M, in each activation, with
+    no / bf16 / f32 residual and bf16 / f32 output (A and the residual
+    strided; 2 x 577 rows at N 3072 take the 256-wide tiles)."""
+    a, b, bias, res = _gemm_operands(cuda, m, k, n)
+    calls = 0
+    for act in ("none", "quick_gelu", "gelu"):
+        for residual in (None, res, res.float()):
+            for out_dtype in (torch.bfloat16, torch.float32):
+                kw = dict(activation=act, out_dtype=out_dtype)
+                got = fused_vit.gemm(a, b, bias, residual, **kw)
+                assert got.dtype == out_dtype and got.shape == (m, n)
+                _close(got, fused_vit.gemm_plain(a, b, bias, residual, **kw))
+                calls += 1
+    assert fused_vit.gemm(a, b).shape == (m, n)       # no bias, no residual
+    assert fused_vit.gemm.launches == calls + 1
+
+
+@pytest.mark.cuda
+def test_cuda_gemm_rejects_shapes(cuda):
+    """K % 64, N % 128, a misaligned row stride and an odd residual leading
+    dim raise GemmShapeError before any launch."""
+    a = _bf(70, cuda, 66, 1024)
+    b = _bf(71, cuda, 1024, 256)
+    bad = [(a[:, :96], _bf(72, cuda, 96, 256), None),         # K = 96
+           (a, b[:, :192].contiguous(), None),                 # N = 192
+           (_bf(73, cuda, 66, 1028)[:, :1024], b, None),       # lda = 1028
+           (a, b, _bf(74, cuda, 66, 257)[:, :256])]            # ldr = 257
+    for aa, bb, res in bad:
+        with pytest.raises(fused_vit.GemmShapeError):
+            fused_vit.gemm(aa, bb, None, res)
+    with pytest.raises(fused_vit.GemmShapeError):
+        fused_vit.fused_ln_mlp(_bf(75, cuda, 8, 96), None, None, _bf(76, cuda, 96, 128),
+                               _bf(77, cuda, 128), _bf(78, cuda, 128, 128), _bf(79, cuda, 128),
+                               layernorm=False, residual=False)
+    assert fused_vit.gemm.launches == 0 and fused_vit.fused_ln_mlp.launches == 0
+
+
+@pytest.mark.cuda
+def test_cuda_gemm_is_deterministic(cuda):
+    """No split-K: two calls on the same inputs are equal bit for bit."""
+    a, b, bias, res = _gemm_operands(cuda, 2 * 577, 4096, 3072, seed=80)
+    first = fused_vit.gemm(a, b, bias, res.float(), activation="quick_gelu",
+                           out_dtype=torch.float32)
+    assert torch.equal(first, fused_vit.gemm(a, b, bias, res.float(), activation="quick_gelu",
+                                             out_dtype=torch.float32))
 
 
 @pytest.mark.cuda

@@ -89,6 +89,21 @@ def test_vit_layer_options_match_jax_kernel(no_launches, softmax_mode, folded, l
     np.testing.assert_array_equal(plain.numpy(), out.numpy())
 
 
+def test_vit_layer_ingest_form_at_577_tokens_matches_jax(no_launches):
+    """The ingest's form (folded, one-pass, clamp) at the ViT's 577 tokens:
+    the ragged 577-token edges the card kernels mask (a 128-row tile of 65
+    queries and one of 65 keys in each frame)."""
+    n, s, d, f, heads = 2, 577, 128, 256, 2
+    w = _folded(_layer_weights(d, f, seed=5), heads, lambda *a, **k: tuple(
+        np.asarray(t) for t in jfv.fold_vit_layer_params(*map(jnp.asarray, a), **k)))
+    x = _rand(8, n, s, d)
+    kw = dict(num_heads=heads, eps=1e-5, activation="quick_gelu", frame_tile=2,
+              softmax_mode="clamp", folded=True, ln_onepass=True)
+    ref = jfv.fused_vit_layer(jnp.asarray(x), *map(jnp.asarray, w), interpret=True, **kw)
+    out = fused_vit.fused_vit_layer_plain(torch.from_numpy(x), *map(torch.from_numpy, w), **kw)
+    np.testing.assert_allclose(out.numpy(), np.asarray(ref), atol=ATOL, rtol=0)
+
+
 def test_vit_layer_checks_its_options(no_launches):
     w = [torch.from_numpy(t) for t in _layer_weights(64, 128, seed=1)]
     x = torch.from_numpy(_rand(2, 3, 5, 64))

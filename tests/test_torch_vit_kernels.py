@@ -259,7 +259,8 @@ def test_fused_ln_attn_option_errors():
 
 # --- K14 vit_attention ----------------------------------------------------------
 
-@pytest.mark.parametrize("shape,sm_scale", [((6, 4, 77, 32), None), ((2, 2, 17, 64), 0.3)])
+@pytest.mark.parametrize("shape,sm_scale", [((6, 4, 77, 32), None), ((2, 2, 17, 64), 0.3),
+                                            ((1, 2, 577, 64), None)])
 def test_vit_attention_matches_jax(no_launches, shape, sm_scale):
     q, k, v = (_rand(10 + i, *shape) for i in range(3))
     ref = j_vit_attention(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), sm_scale=sm_scale,
