@@ -54,9 +54,12 @@
    length ignored, one table entry off by one, K12's roll reversed or its
    rows left unnormalized, K13 without the residual, K14 with its last key
    masked or its last key tile (keys 512-576) dropped, K1's GEMM with its
-   last 64-deep k-slab skipped or its residual dropped, K15's xor algebra without its -8 sum(x_g) term and its cur
-   unpack on swapped nibbles, K16's folded weights run unfolded, K17 with
-   one dot dropped (qk64, pv64). Keys, values and scales past
+   last 64-deep k-slab skipped or its residual dropped, K15's xor algebra
+   without its -8 sum(x_g) term and its cur unpack on swapped nibbles or
+   the last row range or column sub-tile of its card split dropped, K16's
+   folded weights run unfolded, K17 with one dot dropped or the last
+   column of the operand its threads load into shared memory skipped
+   (qk64, pv64). Keys, values and scales past
    the valid length hold large garbage (NaN and inf for the int8 scales),
    as stale cache slots may.
    Each row carries the kernel's bound (the larger of its FLOPs at 989
@@ -67,9 +70,12 @@
    W8, K10, K11 and K15, `F.cosine_similarity` against the rolled rows for
    K12, one matmul for K17's qk kinds and a matmul and a sum for its pv
    kinds). The Hopper kernels' rows (K3, K5, and since the ViT runs them
-   K1, K2, K13, K14, K16) also carry their share of the bound and the
-   compiled kernels' registers, spill bytes and shared bytes
-   (`sc_flash_prefill_attributes`, `sc_gemm_attributes`).
+   K1, K2, K13, K14, K16; K15 and K17) also carry their share of the bound
+   and the compiled kernels' registers, spill bytes and shared bytes
+   (`sc_flash_prefill_attributes`, `sc_gemm_attributes`,
+   `sc_int4_probe_attributes`, `sc_dotk_attributes`); K15's row the blocks
+   each sweep point launches and its dma-to-cur time ratio, K17's each
+   kind's blocks.
 5. Checks the composed paths on small inputs: two frames through
    `encode_images` (the fused tower, folded on that first call) against
    the plain twin chain of the same form and against the exact unfolded
@@ -1486,6 +1492,17 @@ def check_probe_kernels(g):
     planted["K15 cur, nibble halves swapped"] = _planted(
         "K15 cur, nibble halves swapped",
         probe_int4.matvec(x, _swap_nibbles(w0), s0, variant="cur"), ref)
+    # The card's split at (1024, 16): the last block's row range (groups) and
+    # column sub-tile, each dropped (their packed bytes read as zeros).
+    oh, groups = w0.shape[1], s0.shape[0]
+    _, (c0, c1), (g0, g1) = probe_int4.card_blocks(oh, groups, 16)[-1]
+    for label, rows_, cols_ in (("row range", slice(g0 * probe_int4.GROUP, g1 * probe_int4.GROUP),
+                                 slice(None)), ("column sub-tile", slice(None), slice(c0, c1))):
+        dropped = w0.clone()
+        dropped[rows_, cols_] = 0
+        name = f"K15 cur, last {label} of the card's split dropped"
+        planted[name] = _planted(name, probe_int4.matvec(x, dropped, s0, variant="cur"), ref)
+        del dropped
     t = _timings(probe_int4._rotating(x, weights, variant="cur"),
                  lambda: probe_int4.matvec_plain(x, w0, s0, "cur"), 40, 5)
     kin, kout = w0.shape[0], 2 * w0.shape[1]
@@ -1499,7 +1516,18 @@ def check_probe_kernels(g):
         **_bound(4 * kin * kout // 2, _int4_bytes({"w_i4p": w0, "scale": s0}) + _nbytes(x)
                  + 4 * kout, peak=PEAK_F32),
         library_ms=device_ms(lambda: torch.matmul(x, wd), 40),
-        library="torch.matmul(x, W) on the dequantized bf16 weight")
+        library="torch.matmul(x, W) on the dequantized bf16 weight",
+        dma_to_cur=cases["cur"]["ms"] / cases["dma"]["ms"],
+        blocks={f"{bo}x{gpb}": probe_int4.card_grid(kout // 2, kin // probe_int4.GROUP,
+                                                    gpb)["blocks"]
+                for bo, gpb in ((1024, 16),) + probe_int4.SWEEP},
+        attributes={v: probe_int4.attributes(v, 1, kout // 2) for v in probe_int4.VARIANTS})
+    rows["matvec"]["share_of_bound"] = rows["matvec"]["bound_ms"] / rows["matvec"]["ms"]
+    # cur's device time by launch: the probe kernel, then the slices' reduce.
+    rows["matvec"]["launch_ms"] = [t for _, t in device_launches(
+        probe_int4._rotating(x, weights, variant="cur"), 20)]
+    for case in cases.values():
+        case["share_of_bound"] = rows["matvec"]["bound_ms"] / case["ms"]
     del weights, wd
 
     # K16: the five layer variants at [128, 577, 1024]; timed: combo.
@@ -1553,6 +1581,13 @@ def check_probe_kernels(g):
             planted[f"K17 {kind}, one dot dropped"] = _planted(
                 f"K17 {kind}, one dot dropped",
                 pvv.dotk(a, b[:-1]) if pv else pvv.dotk(a[:-1], b), ref)
+            # The operand the threads load into shared memory (qk: b [dh, S];
+            # pv: a [S, S]) without its last column.
+            cut = (a if pv else b).clone()
+            cut[:, -1] = 0
+            name = f"K17 {kind}, last column of the shared operand skipped"
+            planted[name] = _planted(name, pvv.dotk(cut, b) if pv else pvv.dotk(a, cut), ref)
+            del cut
         if pv:
             library = lambda a=a, b=b: torch.matmul(a, b).sum(0)  # noqa: E731
         else:
@@ -1564,7 +1599,10 @@ def check_probe_kernels(g):
         cases[kind] = dict(max_abs_err=e, max_row_rel_l2=rel, ms=ms,
                            tflops=pvv.dot_flops() / (ms * 1e-3) / 1e12,
                            library_ms=device_ms(library, 50),
-                           **_bound(pvv.dot_flops(), _nbytes(a, b, ref)))
+                           **_bound(pvv.dot_flops(), _nbytes(a, b, ref)),
+                           attributes=pvv.dot_attributes(kind),
+                           launch_ms=[t for _, t in device_launches(k17, 20)])
+        cases[kind]["share_of_bound"] = cases[kind]["bound_ms"] / ms
         if kind == "qk64":
             timed = dict(**_timings(k17, lambda a=a, b=b: pvv.dotk_plain(a, b), 50, 10),
                          **{k: cases[kind][k] for k in ("bound_ms", "bound_by", "flops",
@@ -1578,6 +1616,7 @@ def check_probe_kernels(g):
         **timed,
         library="qk: one torch.matmul of [577, n dh] by [n dh, 577]; pv: torch.matmul(a, b) "
                 "and the sum over n (two calls)")
+    rows["dotk"]["share_of_bound"] = rows["dotk"]["bound_ms"] / rows["dotk"]["ms"]
     return rows, planted
 
 
@@ -1990,7 +2029,8 @@ def main() -> None:
         for label, case in row.get("cases", {}).items():
             print(f"    {label}: {json.dumps(case)}")
         extra = {k: v for k, v in row.items() if k.startswith(
-            ("share_of_bound", "attributes", "launch_ms", "gemm_", "attention_"))
+            ("share_of_bound", "attributes", "launch_ms", "gemm_", "attention_", "dma_to_cur",
+             "blocks"))
             or k.endswith("_s4096")}
         if extra:
             print(f"    {json.dumps(extra)}")

@@ -6,210 +6,335 @@
 // 2 * 577^2 * 64 * 96 = 4.09 GFLOP:
 //   qk (dh 64 or 128): out[S, S]  = sum_i a[i] @ b, a [n, S, dh], b [dh, S];
 //   pv (dh 64 or 128): out[S, dh] = sum_i a @ b[i], a [S, S], b [n, S, dh].
-// On the H100 the question becomes the tensor-core rate of small mma.sync
-// tiles at these depths, so the kernel runs the flash loop's tile loop
-// (nvcuda::wmma bf16 16x16x16, issued as mma.sync m16n8k16, f32 accumulators
-// in registers) over every dot: nothing sums the operands first. It is bound
-// by tensor-core throughput (4.1 us at 989 TFLOP/s; the bytes, at most
-// 8.5 MB, take 2.5 us). The TPU ran the dots in order on one core; here a
-// block owns one 64-row output tile (by 64 columns for qk, all dh columns for
-// pv) and a slice of the dots. The operand every dot of the block shares (b's
-// column tile for qk, a's row tile for pv) is loaded into shared memory once;
-// the other streams through a two-stage cp.async ring; the slices' f32
-// partials are summed by the split-K reduce in a fixed order. The output has
-// no pad columns (the TPU probe's 128-lane pad was Mosaic's). A row of S bf16
-// (1154 bytes at S = 577) is not 16-byte aligned, so the shared operand is
-// loaded element by element, once per block.
+// Nothing sums the operands before the products: every dot runs.
+//
+// What bounds it on the H100: operations (4.1 us at 989 TFLOP/s; the bytes,
+// at most 8.5 MB, take 2.5 us), and only wgmma reaches the tensor cores'
+// rate. On the card the probe's question becomes whether a 64-deep wgmma
+// step costs what a 128-deep one does. The design, on the wgmma / TMA /
+// mbarrier machinery of flash_prefill.cu and gemm.cu (hopper.cuh):
+// - A block owns one output tile and a slice of the dots, with three
+//   warpgroups: a producer whose one thread issues TMA loads into a ring
+//   with a "full" and an "empty" mbarrier per stage, and two consumer
+//   warpgroups of 64 output rows each; setmaxnreg moves registers from the
+//   producer (24) to the consumers (240). The slices' f32 partials are
+//   summed by the split-K reduce in slice order (no atomics: two launches
+//   give equal bits).
+// - qk: 128 x 128 output tiles (5 x 5 at S = 577), the dots split so that
+//   about 132 blocks run. The streaming operand a[i]'s 128-row tile [128,
+//   dh] arrives by TMA (K-major A, 128-byte swizzle, 4 stages); the shared
+//   operand b [dh, S] is an MN-major B whose rows of S bf16 (1,154 bytes at
+//   S = 577) are not 16-byte aligned, so TMA cannot map it: the block's
+//   threads load its 128-column tile once, into the layout the TMA would
+//   have written (chunk_sw128), eight elements to a 16-byte chunk, while the
+//   ring's first TMA loads are in flight. Each dot is dh / 16 wgmma
+//   m64n128k16 steps.
+// - pv: 128-row tiles x all dh columns (5 at S = 577), the dots split about
+//   26 ways. The shared operand, a's row tile [128, S] (K-major A, rows not
+//   16-byte aligned), is loaded once by the threads in 64-deep boxes (160 KB
+//   at S = 577, ceil(S / 64) boxes); the streaming operand b[i] [S, dh] is an
+//   MN-major B, as V is in flash_prefill.cu, arriving by TMA in 64-row slabs
+//   (3 stages). Each slab is four wgmma m64n{dh}k16 steps.
+// - Rows and columns past S are zero in shared memory before wgmma reads
+//   them: the manual loads write zeros and fence them to the async proxy,
+//   TMA fills rows past S of its per-dot map with zeros (never the next
+//   dot's rows). 0 x NaN is NaN in the tensor core. Stores are masked.
+// One slab's products stay in flight while the next are issued; a stage is
+// released once its products have retired.
+#include "hopper.cuh"
 #include "kernels.cuh"
 
 namespace sc {
 namespace {
 
-using namespace nvcuda;
-
-constexpr int BM = 64, BN = 64, BK = 64, THREADS = 128;   // 4 warps, 16 rows each
-
+using namespace hopper;
 using bf = __nv_bfloat16;
 
-// Streams rows [row0, row0 + 64) of a [rows, DH] bf16 matrix into dst
-// (leading dim DH + 8), zero-filling rows at and past `rows`.
+constexpr int CONSUMERS = 2, THREADS = (CONSUMERS + 1) * 128;
+constexpr int BM = 128, BN = 128, BK = 64;
+constexpr int BOX = 128 * 128;   // [128 rows][64 bf16], 128-byte swizzle
+constexpr int SLAB_BOX = BK * 128;   // [64 rows][64 bf16]
+constexpr int MAX_SMEM = 232448;
+
 template <int DH>
-__device__ __forceinline__ void load_tile(bf* dst, const bf* src, int row0, int rows, int tid) {
-  constexpr int CH = DH / 8, LD = DH + 8;
-  for (int c = tid; c < 64 * CH; c += THREADS) {
-    const int r = c / CH, col = (c % CH) * 8;
-    const bool ok = row0 + r < rows;
-    cp_async16(dst + r * LD + col, ok ? src + (int64_t)(row0 + r) * DH + col : src, ok ? 16 : 0);
-  }
+struct QkLayout {
+  static constexpr int STAGES = 4;
+  static constexpr int B_BOX = DH * 128;           // [dh][64 columns] of b's tile
+  static constexpr int A_TILE = (DH / 64) * BOX;   // [128, dh] of a[i]
+  static constexpr int ring = 2 * B_BOX;
+  static constexpr int bars = ring + STAGES * A_TILE;
+  static constexpr int bytes = bars + 8 * 2 * STAGES + 1024;   // + alignment slack
+};
+
+template <int DH>
+struct PvLayout {
+  static constexpr int STAGES = 3;
+  static constexpr int B_STAGE = (DH / 64) * SLAB_BOX;   // [64 rows, dh] of b[i]
+  // a's row tile [128, ceil(S / 64) 64] first, then the ring, then the barriers.
+  __host__ __device__ static int ring(int S) { return ((S + BK - 1) / BK) * BOX; }
+  __host__ __device__ static int bars(int S) { return ring(S) + STAGES * B_STAGE; }
+  __host__ __device__ static int bytes(int S) { return bars(S) + 8 * 2 * STAGES + 1024; }
+};
+
+__device__ __forceinline__ uint8_t* aligned_smem(uint8_t* raw) {
+  return reinterpret_cast<uint8_t*>((reinterpret_cast<uintptr_t>(raw) + 1023) &
+                                    ~uintptr_t(1023));
 }
 
-// One warp's 16 x (16 * NF) accumulators -> out rows [gr0, gr0 + 16), columns
-// [gc0, ...), masked to rows < S and columns < ncols (ldo = ncols).
-template <int NF>
-__device__ __forceinline__ void store_acc(wmma::fragment<wmma::accumulator, 16, 16, 16, float>* acc,
-                                          float* st, float* out, int gr0, int gc0, int S,
-                                          int ncols, int lane) {
-#pragma unroll
-  for (int j = 0; j < NF; ++j) {
-    wmma::store_matrix_sync(st, acc[j], 16, wmma::mem_row_major);
-    __syncwarp();
-#pragma unroll
-    for (int t = 0; t < 8; ++t) {
-      const int e = t * 32 + lane, gr = gr0 + e / 16, gc = gc0 + j * 16 + e % 16;
-      if (gr < S && gc < ncols) out[(int64_t)gr * ncols + gc] = st[e];
+template <int NSTAGES>
+__device__ __forceinline__ void init_ring(uint64_t* full, uint64_t* empty) {
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < NSTAGES; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], CONSUMERS * 4);   // one arrival per consumer warp
     }
-    __syncwarp();
+    mbar_init_fence();
   }
 }
 
 // qk: block (column tile x, row tile y, dot slice z).
 template <int DH>
-__global__ void __launch_bounds__(THREADS)
-dotk_qk_kernel(const bf* __restrict__ a, const bf* __restrict__ b, float* __restrict__ out,
-               int S, int ndots, int dots_per_split) {
-  constexpr int A_LD = DH + 8, B_LD = BN + 8;
-  extern __shared__ __align__(128) unsigned char smem[];
-  __shared__ __align__(32) float stage[THREADS / 32][16 * 16];
-  bf* Bs = reinterpret_cast<bf*>(smem);          // [DH][B_LD], b's column tile
-  bf* As = Bs + DH * B_LD;                       // [2][BM][A_LD], a[i]'s row tile
-  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+__global__ void __launch_bounds__(THREADS, 1)
+    dotk_qk_kernel(__grid_constant__ const CUtensorMap amap, const bf* __restrict__ b,
+                   float* __restrict__ out, int S, int ndots, int per) {
+  using L = QkLayout<DH>;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* smem = aligned_smem(smem_raw);
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + L::bars);
+  uint64_t* empty = full + L::STAGES;
   const int c0 = blockIdx.x * BN, r0 = blockIdx.y * BM;
-  const int i0 = blockIdx.z * dots_per_split, i1 = min(ndots, i0 + dots_per_split);
+  const int i0 = blockIdx.z * per, nd = max(0, min(ndots, i0 + per) - i0);
+  const int wg = threadIdx.x / 128;
 
-  for (int e = tid; e < DH * BN; e += THREADS) {
-    const int k = e / BN, c = e % BN;
-    Bs[k * B_LD + c] = c0 + c < S ? b[(int64_t)k * S + c0 + c] : __float2bfloat16(0.0f);
+  // The ring's first loads start before the shared operand is in place.
+  init_ring<L::STAGES>(full, empty);
+  __syncthreads();
+  auto load_a = [&](int t) {
+    const int s = t % L::STAGES;
+    mbar_expect_tx(&full[s], L::A_TILE);
+    for (int hf = 0; hf < DH / 64; ++hf)
+      tma_load_4d(smem + L::ring + s * L::A_TILE + hf * BOX, &amap, &full[s], 64 * hf, r0,
+                  i0 + t, 0);
+  };
+  const bool producer = threadIdx.x == CONSUMERS * 128;
+  if (producer) {
+    tma_prefetch_map(&amap);
+    for (int t = 0; t < min(nd, L::STAGES); ++t) load_a(t);
   }
-  wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[BN / 16];
-#pragma unroll
-  for (int j = 0; j < BN / 16; ++j) wmma::fill_fragment(acc[j], 0.0f);
+  // b's column tile [dh, 128] in 16-byte chunks, zeros past column S.
+#pragma unroll 4
+  for (int e = threadIdx.x; e < DH * (BN / 8); e += THREADS) {
+    const int k = e / (BN / 8), c = (e % (BN / 8)) * 8;
+    *chunk_sw128(smem, L::B_BOX, k, c) = load8_bf16(b + (int64_t)k * S + c0 + c, S - c0 - c);
+  }
+  fence_proxy_async();
+  __syncthreads();
 
-  if (i0 < i1) {
-    load_tile<DH>(As, a + (int64_t)i0 * S * DH, r0, S, tid);
-    cp_async_commit();
-  }
-  for (int i = i0; i < i1; ++i) {
-    const int buf = (i - i0) & 1;
-    if (i + 1 < i1) {
-      load_tile<DH>(As + (buf ^ 1) * BM * A_LD, a + (int64_t)(i + 1) * S * DH, r0, S, tid);
-      cp_async_commit();
-      cp_async_wait<1>();
-    } else {
-      cp_async_wait<0>();
-    }
-    __syncthreads();
-    const bf* at = As + (buf * BM + warp * 16) * A_LD;
-#pragma unroll
-    for (int kk = 0; kk < DH / 16; ++kk) {
-      wmma::fragment<wmma::matrix_a, 16, 16, 16, bf, wmma::row_major> fa;
-      wmma::load_matrix_sync(fa, at + kk * 16, A_LD);
-#pragma unroll
-      for (int j = 0; j < BN / 16; ++j) {
-        wmma::fragment<wmma::matrix_b, 16, 16, 16, bf, wmma::row_major> fb;
-        wmma::load_matrix_sync(fb, Bs + kk * 16 * B_LD + j * 16, B_LD);
-        wmma::mma_sync(acc[j], fa, fb, acc[j]);
+  if (wg == CONSUMERS) {
+    setmaxnreg_dec<24>();
+    if (producer) {
+      for (int t = L::STAGES; t < nd; ++t) {
+        const int s = t % L::STAGES;
+        mbar_wait(&empty[s], ((t / L::STAGES) - 1) & 1);
+        load_a(t);
       }
     }
-    __syncthreads();
+    return;
   }
-  store_acc<BN / 16>(acc, stage[warp], out + (int64_t)blockIdx.z * S * S, r0 + warp * 16, c0,
-                     S, S, lane);
+
+  // Consumers: this thread holds rows rr and rr + 8 of the warpgroup's 64 at
+  // columns 8 j + c2 + {0, 1} (wgmma's accumulator layout).
+  setmaxnreg_inc<240>();
+  const int tid = threadIdx.x % 128, warp = tid / 32, lane = tid % 32;
+  float acc[64];
+#pragma unroll
+  for (int i = 0; i < 64; ++i) acc[i] = 0.0f;
+  const uint32_t bs = smem_addr(smem);
+  for (int t = 0; t < nd; ++t) {
+    const int s = t % L::STAGES;
+    mbar_wait(&full[s], (t / L::STAGES) & 1);
+    const uint32_t a = smem_addr(smem + L::ring + s * L::A_TILE) + wg * 64 * 128;
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < DH / 16; ++kk)
+      wgmma_ss_n128_tb(acc, desc_sw128(a + (kk / 4) * BOX + (kk % 4) * 32, 16, 1024),
+                       desc_sw128(bs + kk * 16 * 128, L::B_BOX, 1024), 1);
+    wgmma_commit();
+    wgmma_wait<1>();
+    fence_regs(acc);
+    if (t > 0) {
+      __syncwarp();
+      if (lane == 0) mbar_arrive(&empty[(t - 1) % L::STAGES]);
+    }
+  }
+  wgmma_wait<0>();
+  fence_regs(acc);
+
+  const int rr = 16 * warp + lane / 4, c2 = 2 * (lane % 4);
+  float* o = out + (int64_t)blockIdx.z * S * S;
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int row = r0 + 64 * wg + rr + 8 * r;
+    if (row >= S) continue;
+#pragma unroll
+    for (int j = 0; j < BN / 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int col = c0 + 8 * j + c2 + e;
+        if (col < S) o[(int64_t)row * S + col] = acc[4 * j + 2 * r + e];
+      }
+  }
 }
 
-// pv: block (row tile x, -, dot slice z); a's row tile is padded to kp columns.
+// pv: block (row tile x, -, dot slice z).
 template <int DH>
-__global__ void __launch_bounds__(THREADS)
-dotk_pv_kernel(const bf* __restrict__ a, const bf* __restrict__ b, float* __restrict__ out,
-               int S, int kp, int ndots, int dots_per_split) {
-  constexpr int B_LD = DH + 8;
-  const int A_LD = kp + 8;
-  extern __shared__ __align__(128) unsigned char smem[];
-  __shared__ __align__(32) float stage[THREADS / 32][16 * 16];
-  bf* As = reinterpret_cast<bf*>(smem);          // [BM][A_LD], a's row tile
-  bf* Bs = As + BM * A_LD;                       // [2][BK][B_LD], a k-chunk of b[i]
-  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+__global__ void __launch_bounds__(THREADS, 1)
+    dotk_pv_kernel(const bf* __restrict__ a, __grid_constant__ const CUtensorMap bmap,
+                   float* __restrict__ out, int S, int ndots, int per) {
+  using L = PvLayout<DH>;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* smem = aligned_smem(smem_raw);
+  const int kslabs = (S + BK - 1) / BK;
+  const int ring = L::ring(S);
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + L::bars(S));
+  uint64_t* empty = full + L::STAGES;
   const int r0 = blockIdx.x * BM;
-  const int i0 = blockIdx.z * dots_per_split, i1 = min(ndots, i0 + dots_per_split);
-  const int nk = kp / BK;
+  const int i0 = blockIdx.z * per, nd = max(0, min(ndots, i0 + per) - i0);
+  const int wg = threadIdx.x / 128;
 
-  for (int e = tid; e < BM * kp; e += THREADS) {
-    const int r = e / kp, k = e % kp;
-    As[r * A_LD + k] = r0 + r < S && k < S ? a[(int64_t)(r0 + r) * S + k]
-                                           : __float2bfloat16(0.0f);
-  }
-  wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[DH / 16];
-#pragma unroll
-  for (int j = 0; j < DH / 16; ++j) wmma::fill_fragment(acc[j], 0.0f);
-
-  // Step t is chunk t % nk of dot i0 + t / nk.
-  auto load_b = [&](int buf, int t) {
-    load_tile<DH>(Bs + buf * BK * B_LD, b + (int64_t)(i0 + t / nk) * S * DH, (t % nk) * BK, S,
-                  tid);
+  // The ring's first loads start before the shared operand is in place.
+  init_ring<L::STAGES>(full, empty);
+  __syncthreads();
+  const int steps = nd * kslabs;   // step t: slab t % kslabs of dot i0 + t / kslabs
+  auto load_b = [&](int t) {
+    const int s = t % L::STAGES;
+    mbar_expect_tx(&full[s], L::B_STAGE);
+    for (int hf = 0; hf < DH / 64; ++hf)
+      tma_load_4d(smem + ring + s * L::B_STAGE + hf * SLAB_BOX, &bmap, &full[s], 64 * hf,
+                  (t % kslabs) * BK, i0 + t / kslabs, 0);
   };
-  const int steps = max(0, i1 - i0) * nk;
-  if (steps > 0) {
-    load_b(0, 0);
-    cp_async_commit();
+  const bool producer = threadIdx.x == CONSUMERS * 128;
+  if (producer) {
+    tma_prefetch_map(&bmap);
+    for (int t = 0; t < min(steps, L::STAGES); ++t) load_b(t);
   }
-  for (int t = 0; t < steps; ++t) {
-    const int buf = t & 1;
-    if (t + 1 < steps) {
-      load_b(buf ^ 1, t + 1);
-      cp_async_commit();
-      cp_async_wait<1>();
-    } else {
-      cp_async_wait<0>();
-    }
-    __syncthreads();
-    const bf* at = As + warp * 16 * A_LD + (t % nk) * BK;
-    const bf* bt = Bs + buf * BK * B_LD;
-#pragma unroll
-    for (int kk = 0; kk < BK / 16; ++kk) {
-      wmma::fragment<wmma::matrix_a, 16, 16, 16, bf, wmma::row_major> fa;
-      wmma::load_matrix_sync(fa, at + kk * 16, A_LD);
-#pragma unroll
-      for (int j = 0; j < DH / 16; ++j) {
-        wmma::fragment<wmma::matrix_b, 16, 16, 16, bf, wmma::row_major> fb;
-        wmma::load_matrix_sync(fb, bt + kk * 16 * B_LD + j * 16, B_LD);
-        wmma::mma_sync(acc[j], fa, fb, acc[j]);
+  // a's row tile [128, kslabs 64] in 16-byte chunks, zeros past row S and
+  // column S.
+  const int row_chunks = kslabs * (BK / 8);
+#pragma unroll 4
+  for (int e = threadIdx.x; e < BM * row_chunks; e += THREADS) {
+    const int r = e / row_chunks, k = (e % row_chunks) * 8;
+    *chunk_sw128(smem, BOX, r, k) =
+        load8_bf16(a + (int64_t)(r0 + r) * S + k, r0 + r < S ? S - k : 0);
+  }
+  fence_proxy_async();
+  __syncthreads();
+
+  if (wg == CONSUMERS) {
+    setmaxnreg_dec<24>();
+    if (producer) {
+      for (int t = L::STAGES; t < steps; ++t) {
+        mbar_wait(&empty[t % L::STAGES], ((t / L::STAGES) - 1) & 1);
+        load_b(t);
       }
     }
-    __syncthreads();
+    return;
   }
-  store_acc<DH / 16>(acc, stage[warp], out + (int64_t)blockIdx.z * S * DH, r0 + warp * 16, 0, S,
-                     DH, lane);
+
+  setmaxnreg_inc<240>();
+  const int tid = threadIdx.x % 128, warp = tid / 32, lane = tid % 32;
+  float acc[DH / 2];
+#pragma unroll
+  for (int i = 0; i < DH / 2; ++i) acc[i] = 0.0f;
+  const uint32_t as = smem_addr(smem) + wg * 64 * 128;
+  for (int t = 0; t < steps; ++t) {
+    const int s = t % L::STAGES;
+    mbar_wait(&full[s], (t / L::STAGES) & 1);
+    const uint32_t at = as + (t % kslabs) * BOX;
+    const uint32_t bt = smem_addr(smem + ring + s * L::B_STAGE);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < BK / 16; ++kk) {
+      const uint64_t da = desc_sw128(at + kk * 32, 16, 1024);
+      const uint64_t db = desc_sw128(bt + kk * 16 * 128, SLAB_BOX, 1024);
+      if constexpr (DH == 128)
+        wgmma_ss_n128_tb(acc, da, db, 1);
+      else
+        wgmma_ss_n64_tb(acc, da, db, 1);
+    }
+    wgmma_commit();
+    wgmma_wait<1>();
+    fence_regs(acc);
+    if (t > 0) {
+      __syncwarp();
+      if (lane == 0) mbar_arrive(&empty[(t - 1) % L::STAGES]);
+    }
+  }
+  wgmma_wait<0>();
+  fence_regs(acc);
+
+  const int rr = 16 * warp + lane / 4, c2 = 2 * (lane % 4);
+  float* o = out + (int64_t)blockIdx.z * S * DH;
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int row = r0 + 64 * wg + rr + 8 * r;
+    if (row >= S) continue;
+#pragma unroll
+    for (int j = 0; j < DH / 8; ++j)
+      *reinterpret_cast<float2*>(o + (int64_t)row * DH + 8 * j + c2) =
+          make_float2(acc[4 * j + 2 * r], acc[4 * j + 2 * r + 1]);
+  }
 }
 
 template <int DH>
 cudaError_t launch_dotk(const bf* a, const bf* b, float* out, int pv, int S, int ndots,
-                        int dots_per_split, int nsplit, cudaStream_t stream) {
+                        int per, int nsplit, cudaStream_t stream) {
   const int tiles = (S + BM - 1) / BM;
+  CUtensorMap map;
+  const int64_t strides[3] = {0, (int64_t)S * DH, DH};
   if (pv) {
-    const int kp = tiles * BK;
-    const size_t bytes = (size_t)(BM * (kp + 8) + 2 * BK * (DH + 8)) * sizeof(bf);
-    cudaError_t err = cudaFuncSetAttribute(
-        dotk_pv_kernel<DH>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+    const int bytes = PvLayout<DH>::bytes(S);
+    if (bytes > MAX_SMEM) return cudaErrorInvalidValue;
+    cudaError_t err = make_map_bf16(&map, b, strides, 1, ndots, S, DH, BK);
     if (err != cudaSuccess) return err;
-    dotk_pv_kernel<DH><<<dim3(tiles, 1, nsplit), THREADS, bytes, stream>>>(
-        a, b, out, S, kp, ndots, dots_per_split);
+    static const cudaError_t attr = cudaFuncSetAttribute(
+        dotk_pv_kernel<DH>, cudaFuncAttributeMaxDynamicSharedMemorySize, MAX_SMEM);
+    if (attr != cudaSuccess) return attr;
+    dotk_pv_kernel<DH><<<dim3(tiles, 1, nsplit), THREADS, bytes, stream>>>(a, map, out, S,
+                                                                           ndots, per);
   } else {
-    const size_t bytes = (size_t)(DH * (BN + 8) + 2 * BM * (DH + 8)) * sizeof(bf);
-    cudaError_t err = cudaFuncSetAttribute(
-        dotk_qk_kernel<DH>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+    constexpr int bytes = QkLayout<DH>::bytes;
+    cudaError_t err = make_map_bf16(&map, a, strides, 1, ndots, S, DH, BM);
     if (err != cudaSuccess) return err;
-    dotk_qk_kernel<DH><<<dim3((S + BN - 1) / BN, tiles, nsplit), THREADS, bytes, stream>>>(
-        a, b, out, S, ndots, dots_per_split);
+    static const cudaError_t attr = cudaFuncSetAttribute(
+        dotk_qk_kernel<DH>, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+    if (attr != cudaSuccess) return attr;
+    dotk_qk_kernel<DH><<<dim3(tiles, tiles, nsplit), THREADS, bytes, stream>>>(map, b, out, S,
+                                                                               ndots, per);
   }
   return cudaGetLastError();
+}
+
+template <typename F>
+cudaError_t kernel_attributes(F kernel, int dynamic_bytes, int* out) {
+  cudaFuncAttributes at{};
+  cudaError_t err = cudaFuncGetAttributes(&at, kernel);
+  if (err != cudaSuccess) return err;
+  out[0] = at.numRegs;
+  out[1] = static_cast<int>(at.localSizeBytes);
+  out[2] = static_cast<int>(at.sharedSizeBytes);
+  out[3] = dynamic_bytes;
+  return cudaSuccess;
 }
 
 }  // namespace
 }  // namespace sc
 
 // pv = 0: a [ndots, S, dh], b [dh, S] -> y [S, S]; pv = 1: a [S, S], b
-// [ndots, S, dh] -> y [S, dh]. Contiguous bf16 inputs, f32 y. The dots are
-// cut into nsplit slices of dots_per_split; with nsplit > 1, partial is f32
-// [nsplit, rows of y, columns of y] scratch.
+// [ndots, S, dh] -> y [S, dh]. Contiguous bf16 inputs (16-byte aligned), f32
+// y; pv needs ceil(S / 64) 16 KB + 3 dh 128 bytes of shared memory (S <= 704
+// at dh 128). The dots are cut into nsplit slices of dots_per_split; with
+// nsplit > 1, partial is f32 [nsplit, rows of y, columns of y] scratch.
 extern "C" int sc_dotk(const void* a, const void* b, void* y, void* partial, int pv, int S,
                        int dh, int ndots, int dots_per_split, int nsplit, void* stream) {
   auto ap = static_cast<const __nv_bfloat16*>(a);
@@ -217,7 +342,9 @@ extern "C" int sc_dotk(const void* a, const void* b, void* y, void* partial, int
   auto st = static_cast<cudaStream_t>(stream);
   float* out = static_cast<float*>(nsplit > 1 ? partial : y);
   cudaError_t err;
-  if (dh == 64)
+  if (S < 1 || ndots < 1)
+    err = cudaErrorInvalidValue;
+  else if (dh == 64)
     err = sc::launch_dotk<64>(ap, bp, out, pv, S, ndots, dots_per_split, nsplit, st);
   else if (dh == 128)
     err = sc::launch_dotk<128>(ap, bp, out, pv, S, ndots, dots_per_split, nsplit, st);
@@ -227,4 +354,22 @@ extern "C" int sc_dotk(const void* a, const void* b, void* y, void* partial, int
   const int cols = pv ? dh : S;
   return static_cast<int>(sc::launch_splitk_reduce(static_cast<const float*>(partial), nsplit,
                                                    S, cols, nullptr, y, /*out_f32=*/1, st));
+}
+
+// Compiled attributes of the qk (pv = 0) or pv kernel at head dim dh: out[0]
+// registers per thread, out[1] local (spill) bytes per thread, out[2] static
+// shared bytes, out[3] the dynamic shared bytes it launches with at S.
+extern "C" int sc_dotk_attributes(int pv, int dh, int S, int* out) {
+  cudaError_t err;
+  if (pv && dh == 64)
+    err = sc::kernel_attributes(sc::dotk_pv_kernel<64>, sc::PvLayout<64>::bytes(S), out);
+  else if (pv && dh == 128)
+    err = sc::kernel_attributes(sc::dotk_pv_kernel<128>, sc::PvLayout<128>::bytes(S), out);
+  else if (dh == 64)
+    err = sc::kernel_attributes(sc::dotk_qk_kernel<64>, sc::QkLayout<64>::bytes, out);
+  else if (dh == 128)
+    err = sc::kernel_attributes(sc::dotk_qk_kernel<128>, sc::QkLayout<128>::bytes, out);
+  else
+    err = cudaErrorInvalidValue;
+  return static_cast<int>(err);
 }

@@ -219,6 +219,46 @@ __device__ __forceinline__ void wgmma_ss_n256_tb(float (&d)[128], uint64_t da, u
       : "l"(da), "l"(db), "r"(scale_d));
 }
 
+// d (+)= A * B, m64n64k16: A [64 x 16] K-major and B [16 x 64] MN-major
+// (transpose-B bit set), both in shared memory (128-byte swizzle
+// descriptors); scale_d = 0 overwrites d.
+__device__ __forceinline__ void wgmma_ss_n64_tb(float (&d)[32], uint64_t da, uint64_t db,
+                                              int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}"
+      ", %32, %33, p, 1, 1, 0, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
+        "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]),
+        "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
+// The 16-byte chunk holding columns col .. col + 7 (col % 8 == 0) of row
+// `row` of a tile kept as the TMA would write it: boxes of `box_bytes`
+// holding 64 columns each, rows of 128 bytes, chunks swizzled by row % 8
+// (128-byte swizzle, 1024-byte aligned boxes). For operands whose rows TMA
+// cannot address (not 16-byte aligned).
+__device__ __forceinline__ uint4* chunk_sw128(uint8_t* tile, int box_bytes, int row, int col) {
+  return reinterpret_cast<uint4*>(tile + (col / 64) * box_bytes + row * 128 +
+                                  ((((col % 64) / 8) ^ (row % 8)) * 16));
+}
+
+// Eight bf16 from src (2-byte aligned) as one 16-byte chunk; elements at and
+// past `valid` are zero and not read.
+__device__ __forceinline__ uint4 load8_bf16(const __nv_bfloat16* src, int valid) {
+  const unsigned short* p = reinterpret_cast<const unsigned short*>(src);
+  unsigned v[8];
+#pragma unroll
+  for (int i = 0; i < 8; ++i) v[i] = i < valid ? __ldg(p + i) : 0u;
+  return make_uint4(v[0] | (v[1] << 16), v[2] | (v[3] << 16), v[4] | (v[5] << 16),
+                    v[6] | (v[7] << 16));
+}
+
 // d += A * B, m64n128k16: A [64 x 16] bf16 from registers (the
 // accumulator-shaped fragment), B [16 x 128] MN-major in shared memory
 // (transpose-B bit set).

@@ -66,6 +66,8 @@ SIGNATURES = {
     "sc_flash_prefill_attributes": [_I, _I, _I, ctypes.POINTER(ctypes.c_int)],
     "sc_gemm": [_P, _I64, _P, _P, _P, _I, _I64, _P, _I, _I64, _I, _I, _I, _I, _P],
     "sc_gemm_attributes": [_I, _I, _I, ctypes.POINTER(ctypes.c_int)],
+    "sc_int4_probe_attributes": [_I, _I, _I, ctypes.POINTER(ctypes.c_int)],
+    "sc_dotk_attributes": [_I, _I, _I, ctypes.POINTER(ctypes.c_int)],
 }
 
 

@@ -8,8 +8,12 @@ MLP-up shape (x [1, 3584] bf16, packed w [3584, 9472], scale [28, 2, 9472]
     python -m streamchat_tpu_torch.utils.probe_int4
 
 `matvec(x, w_i4p, scale, variant, block_out, gpb)` launches
-`csrc/int4_probe.cu`: `block_out` packed columns per block (a multiple of
-128, at most 2048) over k-slices of `gpb` groups of 128 rows. Variants:
+`csrc/int4_probe.cu`. `block_out` (a multiple of 128, at most 2048) and
+`gpb` keep the TPU probe's meaning: its block of packed columns, and the
+k-slices of `gpb` groups of 128 rows whose partial sums it kept. The card's
+grid (`card_grid`) follows neither: 128-packed-column sub-tiles of each
+k-slice, each slice split into a cluster of row ranges until two waves of
+the H100's 132 SMs are busy. Variants:
 dma (every packed byte loaded, y_lo = the sum over k-slices of each slice's
 first n rows as signed bytes, y_hi = 0), cast (bytes as signed values, no
 bit operations; lo and hi are the same dot under the two scales), cur (K10's
@@ -17,9 +21,11 @@ unpack), xor32 (one xor, then lo = d_u - 8 sum(x_g), hi = (d_b - d_u) / 16)
 and xor8 (the xor32 algebra on the four bytes of a 32-bit word at once).
 `matvec_plain` is the twin of every variant.
 
-`main` runs the five variants at block_out 1024, gpb 16, then the
+`main` runs the five variants at block_out 1024, gpb 16, prints cur's time
+over dma's (the unpack's cost over the bytes' on the card), then the
 nine-point sweep {512, 1024, 2048} x {8, 16, 32} on the fastest of cur,
-xor32 and xor8, and prints per point the device time per call
+xor32 and xor8, and prints per point the card blocks and the device time
+per call
 (torch.profiler, over calls that rotate through three weight copies so one
 call's 34 MB of packed bytes are not in the 50 MB L2 from the call before),
 the effective GB/s of the packed bytes and, for cur / xor32 / xor8, the
@@ -46,6 +52,9 @@ DIN, DOUT = 3584, 18944
 VARIANTS = ("dma", "cast", "cur", "xor32", "xor8")
 UNPACKS = ("cur", "xor32", "xor8")
 SWEEP = tuple((bo, gpb) for gpb in (8, 16, 32) for bo in (512, 1024, 2048))
+# The card's grid (csrc/int4_probe.cu): packed columns per block, the blocks
+# that keep two waves of the H100's 132 SMs busy, the largest cluster.
+SUB, TARGET_BLOCKS, MAX_CLUSTER = 128, 2 * 132, 8
 # Any value: the dma variant stores a flag (never read) when the xor of its
 # loaded words equals it, which keeps every load in the compiled kernel.
 _SENTINEL = 0x9E3779B9
@@ -63,6 +72,38 @@ def _geometry(w_i4p, scale, variant, block_out, gpb):
     oh, groups = w_i4p.shape[1], scale.shape[0]
     gpb = min(gpb, groups)
     return min(block_out, -(-oh // 128) * 128), gpb, -(-groups // gpb)
+
+
+def card_grid(oh: int, groups: int, gpb: int) -> dict:
+    """The card's grid for a packed width `oh`, `groups` groups and `gpb`
+    groups per k-slice (clamped as `_geometry` clamps it), as
+    `sc_int4_probe` computes it: `tiles` sub-tiles of SUB packed columns,
+    `slices` k-slices, each cut into `cluster` row ranges of
+    `groups_per_range` whole groups (the last ones may be short or empty),
+    `blocks` = tiles x cluster x slices."""
+    gpb = min(gpb, groups)
+    tiles, slices = -(-oh // SUB), -(-groups // gpb)
+    c = 1
+    while c < MAX_CLUSTER and 2 * c <= gpb and tiles * slices * c < TARGET_BLOCKS:
+        c *= 2
+    return dict(tiles=tiles, slices=slices, cluster=c, groups_per_range=-(-gpb // c),
+                blocks=tiles * c * slices)
+
+
+def card_blocks(oh: int, groups: int, gpb: int):
+    """Every card block of `card_grid` -> [(slice, packed columns (start,
+    stop), groups (start, stop))], in launch order (the cluster's ranks
+    fastest)."""
+    grid = card_grid(oh, groups, gpb)
+    gpb, q = min(gpb, groups), grid["groups_per_range"]
+    out = []
+    for sl in range(grid["slices"]):
+        s0, s1 = sl * gpb, min(groups, (sl + 1) * gpb)
+        for t in range(grid["tiles"]):
+            for rank in range(grid["cluster"]):
+                g0 = min(s1, s0 + rank * q)
+                out.append((sl, (t * SUB, min(oh, (t + 1) * SUB)), (g0, min(s1, g0 + q))))
+    return out
 
 
 def matvec_plain(x, w_i4p, scale, variant="cur", block_out=1024, gpb=16):
@@ -126,6 +167,22 @@ def matvec(x, w_i4p, scale, variant="cur", block_out=1024, gpb=16):
     return y
 
 
+def attributes(variant: str, n: int = 1, oh: int = DOUT // 2) -> dict:
+    """The compiled K15 kernel that `matvec` launches for `variant` at n rows
+    and packed width oh: registers and local (spill) bytes per thread,
+    static shared bytes, packed columns a thread loads at once."""
+    import ctypes
+
+    from streamchat_tpu_torch.kernels.build import library
+
+    out = (ctypes.c_int * 4)()
+    err = library().sc_int4_probe_attributes(VARIANTS.index(variant), n, oh, out)
+    if err:
+        raise RuntimeError(f"sc_int4_probe_attributes: CUDA error {err}")
+    return dict(num_regs=out[0], local_bytes=out[1], static_shared_bytes=out[2],
+                columns_per_load=out[3])
+
+
 def make_weights(generator: torch.Generator, copies: int = _WEIGHT_COPIES, device="cuda"):
     """`copies` int4 weights of the probe's shape (N(0, 1) * 0.02, quantized
     as K10's are) -> [(w_i4p, scale)], and the first one dequantized to bf16."""
@@ -176,15 +233,18 @@ def main(argv=None) -> dict:
             rel = ((got - ref).abs().max() / ref.abs().max()).item()
         ms = bench(x, weights, variant, 1024, 16, args.iters)
         row = {"variant": variant, "ms": ms, "eff_gbps": packed_gb() / ms * 1e3,
-               "max_rel_err": rel}
+               "max_rel_err": rel, "blocks": card_grid(DOUT // 2, DIN // GROUP, 16)["blocks"]}
         results["variants"][variant] = row
         print(json.dumps(row), flush=True)
+    results["dma_to_cur"] = results["variants"]["cur"]["ms"] / results["variants"]["dma"]["ms"]
+    print(json.dumps({"dma_to_cur": results["dma_to_cur"]}), flush=True)
     best = min(UNPACKS, key=lambda v: results["variants"][v]["ms"])
     results["sweep_variant"] = best
     print(json.dumps({"sweep_variant": best}), flush=True)
     for bo, gpb in SWEEP:
         ms = bench(x, weights, best, bo, gpb, args.iters)
-        row = {"gpb": gpb, "bo": bo, "ms": ms, "eff_gbps": packed_gb() / ms * 1e3}
+        row = {"gpb": gpb, "bo": bo, "ms": ms, "eff_gbps": packed_gb() / ms * 1e3,
+               "blocks": card_grid(DOUT // 2, DIN // GROUP, gpb)["blocks"]}
         results["sweep"].append(row)
         print(json.dumps(row), flush=True)
     return results

@@ -57,8 +57,24 @@ VARIANTS = {
 }
 N_DOTS = 96
 DOT_KINDS = ("qk64", "qk128", "pv64", "pv128")
-# One wave of blocks on the H100's 132 SMs: the dot slices per output tile.
+# K17's output tiles are 128 rows (by 128 columns for qk); the dots are split
+# so that at most one wave of the H100's 132 SMs runs.
 TARGET_BLOCKS = 132
+DOT_TILE = 128
+# pv keeps a's 128-row tile (ceil(S / 64) boxes of 16 KB) and a 3-stage ring
+# of 64-row slabs of b[i] in shared memory (csrc/dotk.cu PvLayout).
+_SMEM_MAX = 232448
+
+
+class DotShapeError(ValueError):
+    """A dotk shape the kernel does not take (raised before any launch)."""
+
+
+def dot_split(pv: bool, s: int, n: int):
+    """-> (dots per slice, slices) of a dotk launch over n dots at S = s."""
+    tiles = -(-s // DOT_TILE) * (1 if pv else -(-s // DOT_TILE))
+    per = -(-n // min(n, max(1, TARGET_BLOCKS // tiles)))
+    return per, -(-n // per)
 
 
 def variant_mode(opt) -> str:
@@ -179,7 +195,7 @@ def dotk(a, b):
     sum_i a @ b[i] [S, dh] (pv); dh 64 or 128.
 
     CPU tensors run the plain twin; CUDA tensors (contiguous bf16) launch
-    `csrc/dotk.cu` or raise."""
+    `csrc/dotk.cu` or raise (DotShapeError for a shape it does not take)."""
     if a.device.type == "cpu":
         return dotk_plain(a, b)
     from streamchat_tpu_torch.kernels.build import call
@@ -190,10 +206,12 @@ def dotk(a, b):
     for name, t, shape in (("a", a, want_a), ("b", b, want_b)):
         fused_vit._check_cuda(f"dotk {name}", t, torch.bfloat16, shape)
     if dh not in (64, 128):
-        raise ValueError(f"dotk: head dim {dh}, expected 64 or 128")
-    tiles = -(-s // 64) * (1 if pv else -(-s // 64))
-    per = -(-n // min(n, -(-TARGET_BLOCKS // tiles)))
-    nsplit = -(-n // per)
+        raise DotShapeError(f"dotk: head dim {dh}, expected 64 or 128")
+    if pv and -(-s // 64) * 16384 + 3 * dh * 128 + 48 + 1024 > _SMEM_MAX:
+        raise DotShapeError(f"dotk: pv at S = {s} needs more shared memory than a block has")
+    if (b if pv else a).data_ptr() % 16:
+        raise DotShapeError("dotk: the operand TMA reads must be 16-byte aligned")
+    per, nsplit = dot_split(pv, s, n)
     y = torch.empty(s, dh if pv else s, dtype=torch.float32, device=a.device)
     partial = torch.empty(nsplit, *y.shape, dtype=torch.float32, device=a.device) \
         if nsplit > 1 else y
@@ -201,6 +219,25 @@ def dotk(a, b):
          dh, n, per, nsplit, fused_vit._stream())
     launched(dotk, f"{'pv' if pv else 'qk'}{dh}")
     return y
+
+
+def dot_attributes(kind: str, s: int = S) -> dict:
+    """The compiled K17 kernel of `kind` (registers and local (spill) bytes
+    per thread, static and dynamic shared bytes at S = s), and the blocks a
+    launch at the probe's n runs."""
+    import ctypes
+
+    from streamchat_tpu_torch.kernels.build import library
+
+    pv, dh = kind.startswith("pv"), int(kind[2:])
+    out = (ctypes.c_int * 4)()
+    err = library().sc_dotk_attributes(int(pv), dh, s, out)
+    if err:
+        raise RuntimeError(f"sc_dotk_attributes: CUDA error {err}")
+    tiles = -(-s // DOT_TILE) * (1 if pv else -(-s // DOT_TILE))
+    return dict(num_regs=out[0], local_bytes=out[1], static_shared_bytes=out[2],
+                dynamic_shared_bytes=out[3],
+                blocks=tiles * dot_split(pv, s, N_DOTS * 64 // dh)[1])
 
 
 def make_dot_inputs(kind: str, generator: torch.Generator, device="cuda"):

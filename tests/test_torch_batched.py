@@ -11,7 +11,8 @@ tiny geometry in float32. Tolerances:
   1e-4.
 - `prefill_chunked` when a row's last token lies before the final chunk
   (the re-run branch): logits to atol 1e-4; the cache after prefill to atol
-  1e-4 (f32), or int8 values exactly with scales to rtol 1e-5.
+  1e-4 (f32), or int8 values equal but at rounding ties with scales to
+  rtol 1e-5 (1e-3 downstream of a tie; see test_torch_chunked).
 - `generate_paged` at B = 3 (split path, caller-sized pool, caller-given
   partition), B = 2 speculative decode, `generate_with_image_embedding_batch`
   and `process_video` with caption_batch 2: greedy tokens identical.
@@ -49,6 +50,7 @@ from streamchat_tpu_torch.models.generate_paged import generate_paged
 from streamchat_tpu_torch.models.longva import LongVA
 from streamchat_tpu_torch.models.tokenizer import ByteTokenizer
 from streamchat_tpu_torch.ops import paged_attention
+from tests.test_torch_chunked import assert_int8_cache_matches_up_to_ties, record_prequant_ratios
 
 ATOL = 1e-4
 
@@ -293,18 +295,14 @@ def test_prefill_chunked_rerun_matches_jax(no_launches, tiny, monkeypatch, int8,
     monkeypatch.setattr(decoder, "_rerun_last", lambda *a: reruns.append(1) or rerun(*a))
     cache = (decoder.Int8KVCache.create(cfg, 2, 384) if int8 else
              decoder.KVCache.create(cfg, 2, 384, dtype=torch.float32))
+    ratios = record_prequant_ratios(monkeypatch, cache) if int8 else None
     logits, cache = decoder.prefill_chunked(tiny["params"], cfg, torch.from_numpy(embeds),
                                             cache, torch.from_numpy(length), chunk=128)
     assert reruns == [1]
     np.testing.assert_allclose(logits.numpy(), np.asarray(jlogits), atol=ATOL, rtol=0)
     assert cache.length.tolist() == lengths
     if int8:
-        for name in ("k", "v"):
-            np.testing.assert_array_equal(getattr(cache, name).numpy(),
-                                          np.asarray(getattr(jcache, name)))
-        for name in ("k_s", "v_s"):
-            np.testing.assert_allclose(getattr(cache, name).numpy(),
-                                       np.asarray(getattr(jcache, name)), rtol=1e-5, atol=0)
+        assert_int8_cache_matches_up_to_ties(cache, jcache, ratios)
     else:
         for name in ("k", "v"):
             np.testing.assert_allclose(getattr(cache, name).numpy(),

@@ -7,8 +7,9 @@ tiny geometry in float32. Tolerances:
   up to 384 exponentials, in another order), m to atol 1e-5; a row that
   sees no key gives m = -1e30, l = 0 and acc = 0 in both, exactly.
 - `prefill_chunked` (chunk 128, 384 tokens): logits and bf16-free cache
-  values to atol 1e-4; into an `Int8KVCache`, the int8 values exactly and
-  the scales to rtol 1e-5 (one f32 ulp). A one-pass prefill quantized
+  values to atol 1e-4; into an `Int8KVCache`, the int8 values equal but at
+  rounding ties and the scales to rtol 1e-5 (one f32 ulp), both to 1e-3
+  downstream of a tie (`assert_int8_cache_matches_up_to_ties`). A one-pass prefill quantized
   afterwards (the port before chunked prefill) misses both bounds.
 - `generate_paged` with `CHUNKED_PREFILL_THRESHOLD` lowered in both
   packages: greedy tokens identical.
@@ -36,10 +37,82 @@ from streamchat_tpu_torch.models.generate_paged import generate_paged
 from streamchat_tpu_torch.ops import attention
 
 LOGITS_ATOL = 1e-4
+# The f32 K/V of XLA's and torch's matmuls differ in their last bits (~3e-6
+# relative after the tiny decoder's layers), so a code whose x / scale lies
+# that close to a half-integer may round either way, depending on the host's
+# CPU path. Such ties are rare: at most MAX_TIE_SHARE of the codes. A code
+# that rounded apart moves what later tokens of its row attend to by one
+# step, so their K/V in later layers differ by more (5e-5 relative seen):
+# there the ties and the scales are held to DOWNSTREAM_RTOL.
+TIE_RTOL = 1e-5
+SCALE_RTOL = 1e-5
+DOWNSTREAM_RTOL = 1e-3
+MAX_TIE_SHARE = 2e-4
 
 
 def _rand(seed, *shape, scale=1.0):
     return (np.random.default_rng(seed).standard_normal(shape) * scale).astype(np.float32)
+
+
+def record_prequant_ratios(monkeypatch, cache):
+    """Patch `decoder._write_kv` so that each int8 write of `cache` also keeps
+    the port's pre-rounding x / scale per code -> {"k", "v"}: float64 arrays
+    shaped as cache.k / cache.v (NaN where nothing was written). The first
+    write of a position is kept: the re-run window of `prefill_chunked`
+    writes again and then restores the prefill's codes."""
+    ratios = {n: torch.full(getattr(cache, n).shape, float("nan"), dtype=torch.float64)
+              for n in ("k", "v")}
+    write = decoder._write_kv
+
+    def recording(c, i, start, k, v, rows=slice(None)):
+        write(c, i, start, k, v, rows)
+        if c is not cache:
+            return
+        s = k.shape[2]
+        for name, x in (("k", k), ("v", v)):
+            scale = getattr(c, f"{name}_s")[i, rows, :, start:start + s]
+            r = torch.div(x.float(), scale[..., None]).double()
+            dst = ratios[name][i, rows, :, start:start + s]
+            ratios[name][i, rows, :, start:start + s] = torch.where(dst.isnan(), r, dst)
+
+    monkeypatch.setattr(decoder, "_write_kv", recording)
+    return ratios
+
+
+def assert_int8_cache_matches_up_to_ties(cache, jcache, ratios):
+    """The port's int8 codes equal JAX's, except codes off by exactly one
+    where the port's pre-rounding x / scale (`ratios`, from
+    `record_prequant_ratios`) lies within TIE_RTOL of a half-integer and the
+    two codes are its two neighbours; such ties are at most MAX_TIE_SHARE of
+    the codes. The scales agree to SCALE_RTOL (one f32 ulp). Downstream of a
+    tie (its row, later layers, positions at and after it) both bounds are
+    DOWNSTREAM_RTOL."""
+    codes = {n: (getattr(cache, n).numpy().astype(np.int64),
+                 np.asarray(getattr(jcache, n)).astype(np.int64)) for n in ("k", "v")}
+    n_layers, b, _, s = cache.k_s.shape
+    downstream = np.zeros((n_layers, b, 1, s), bool)
+    for got, want in codes.values():
+        for layer, row, _, pos, _ in np.argwhere(got != want):
+            downstream[layer + 1:, row, 0, pos:] = True
+    n_off = 0
+    for name, (got, want) in codes.items():
+        off = got != want
+        n_off += off.sum()
+        r = ratios[name].numpy()[off]
+        assert not np.isnan(r).any(), "a mismatching code was never written"
+        half = np.floor(r) + 0.5
+        rtol = np.where(np.broadcast_to(downstream[..., None], off.shape)[off],
+                        DOWNSTREAM_RTOL, TIE_RTOL)
+        at_tie = np.abs(r - half) <= rtol * np.abs(half)
+        assert at_tie.all(), f"{name}: codes off away from a rounding tie: x/scale {r[~at_tie]}"
+        np.testing.assert_array_equal(np.minimum(got[off], want[off]), np.floor(r))
+        np.testing.assert_array_equal(np.abs(got[off] - want[off]), 1)
+    assert n_off <= MAX_TIE_SHARE * 2 * cache.k.numel(), f"{n_off} ties"
+    for name in ("k_s", "v_s"):
+        got, want = getattr(cache, name).numpy(), np.asarray(getattr(jcache, name))
+        mask = np.broadcast_to(downstream, got.shape)
+        np.testing.assert_allclose(got[~mask], want[~mask], rtol=SCALE_RTOL, atol=0)
+        np.testing.assert_allclose(got[mask], want[mask], rtol=DOWNSTREAM_RTOL, atol=0)
 
 
 @pytest.fixture
@@ -105,7 +178,9 @@ def tiny():
                 params=convert.to_torch(jax.tree.map(np.asarray, jparams)))
 
 
-def _both_chunked(tiny, int8, s=384, valid=370, seed=5):
+def _both_chunked(tiny, int8, s=384, valid=370, seed=5, monkeypatch=None):
+    """Both packages' chunked prefill; with `monkeypatch` the port's
+    pre-rounding ratios of an int8 cache are recorded (4th item, else None)."""
     embeds, length = _rand(seed, 1, s, tiny["jcfg"].hidden_size, scale=0.5), np.asarray(
         [valid], np.int32)
     jcache = (jdec.Int8KVCache.create(tiny["jcfg"], 1, s) if int8 else
@@ -114,15 +189,16 @@ def _both_chunked(tiny, int8, s=384, valid=370, seed=5):
                                            jcache, jnp.asarray(length), chunk=128)
     cache = (decoder.Int8KVCache.create(tiny["cfg"], 1, s) if int8 else
              decoder.KVCache.create(tiny["cfg"], 1, s, dtype=torch.float32))
+    ratios = record_prequant_ratios(monkeypatch, cache) if monkeypatch else None
     logits, cache = decoder.prefill_chunked(tiny["params"], tiny["cfg"],
                                             torch.from_numpy(embeds), cache,
                                             torch.from_numpy(length), chunk=128)
-    return (np.asarray(jlogits), jcache), (logits.numpy(), cache), (embeds, length)
+    return (np.asarray(jlogits), jcache), (logits.numpy(), cache), (embeds, length), ratios
 
 
 def test_prefill_chunked_matches_jax(no_launches, tiny):
     """Three 128-token chunks into a dense f32 KVCache."""
-    (jlogits, jcache), (logits, cache), _ = _both_chunked(tiny, int8=False)
+    (jlogits, jcache), (logits, cache), _, _ = _both_chunked(tiny, int8=False)
     np.testing.assert_allclose(logits, jlogits, atol=LOGITS_ATOL, rtol=0)
     for name in ("k", "v"):
         np.testing.assert_allclose(getattr(cache, name).numpy()[..., :370, :],
@@ -131,23 +207,27 @@ def test_prefill_chunked_matches_jax(no_launches, tiny):
     assert int(cache.length[0]) == int(jcache.length[0]) == 370
 
 
-def test_prefill_chunked_int8_matches_jax_and_one_pass_does_not(no_launches, tiny):
-    """Into an Int8KVCache: the int8 values equal JAX's, the scales within one
-    ulp, the logits within LOGITS_ATOL; the int8 pool paged from it (a pure
-    layout shuffle) equals JAX's pool. A one-pass f32 prefill quantized when
-    paged (what the port did before) misses the same bounds."""
-    (jlogits, jcache), (logits, cache), (embeds, length) = _both_chunked(tiny, int8=True)
+def test_prefill_chunked_int8_matches_jax_and_one_pass_does_not(no_launches, tiny,
+                                                                monkeypatch):
+    """Into an Int8KVCache: the int8 values equal JAX's but at rounding ties,
+    the scales within one ulp (`assert_int8_cache_matches_up_to_ties`), the
+    logits within LOGITS_ATOL; the int8 pool paged from it is exactly its
+    layout shuffle, with JAX's pool's scales. A one-pass f32 prefill
+    quantized when paged (what the port did before) misses the same
+    bounds."""
+    (jlogits, jcache), (logits, cache), (embeds, length), ratios = _both_chunked(
+        tiny, int8=True, monkeypatch=monkeypatch)
     np.testing.assert_allclose(logits, jlogits, atol=LOGITS_ATOL, rtol=0)
     assert cache.k.dtype == torch.int8 and cache.k_s.dtype == torch.float32
-    for name in ("k", "v"):
-        np.testing.assert_array_equal(getattr(cache, name).numpy(),
-                                      np.asarray(getattr(jcache, name)))
-    for name in ("k_s", "v_s"):
-        np.testing.assert_allclose(getattr(cache, name).numpy(),
-                                   np.asarray(getattr(jcache, name)), rtol=1e-5, atol=0)
+    assert_int8_cache_matches_up_to_ties(cache, jcache, ratios)
     jpool = jpkv.from_contiguous_int8(jcache, 3, 3, page_size=128)
     pool = paged_kv.from_contiguous_int8(cache, 3, 3, page_size=128)
-    np.testing.assert_array_equal(pool.k_pages.numpy(), np.asarray(jpool.k_pages))
+    n_layers, _, hkv, _, dh = cache.k.shape
+    for pages, dense in ((pool.k_pages, cache.k), (pool.v_pages, cache.v),
+                         (pool.k_scale, cache.k_s[..., None]),
+                         (pool.v_scale, cache.v_s[..., None])):
+        paged_from = dense[:, 0].reshape(n_layers, hkv, 3, 128, -1).transpose(1, 2)
+        torch.testing.assert_close(pages, paged_from.reshape(pages.shape), atol=0, rtol=0)
     np.testing.assert_allclose(pool.v_scale.numpy(), np.asarray(jpool.v_scale), rtol=1e-5,
                                atol=0)
 

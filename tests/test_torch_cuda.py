@@ -20,8 +20,12 @@ rows with no live key must give m = -1e30, l = 0, acc = 0. K12's similarities
 are held within 1e-5; K13 runs both softmax modes, the folded form and the
 one-pass LayerNorm, and the clamp softmax's two edges; K14 is counted apart
 from K3. K1 runs in the TPU kernel's options; the probe kernels K15 (five
-int4 unpack variants; dma exactly), K16 (five layer variants) and K17 (four
-dot kinds, f32 outputs held to 1e-3) run at small shapes. The wgmma GEMM
+int4 unpack variants at n = 1, 3, 8, packed widths 512, 496 and 500, gpb
+dividing the groups, not dividing them and above them, block_out 128 to
+2048, and once at the probe's full shape; dma exactly), K16 (five layer
+variants) and K17 (four dot kinds at S = 64, 100, 577 over 1, 3 and 96
+dots, f32 outputs held to 1e-3; refused shapes raise before a launch) run,
+and K15 and K17 repeat themselves bit for bit. The wgmma GEMM
 that K1, K2, K13 and K16 launch runs on its own (`fused_vit.gemm`) at
 ragged M (66 and 2 x 577 rows) in every epilogue, raises GemmShapeError on
 the shapes it does not take, and repeats itself bit for bit.
@@ -535,10 +539,11 @@ def test_cuda_probe_layer_variants(cuda):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("kind", ["qk64", "qk128", "pv64", "pv128"])
-@pytest.mark.parametrize("s,n", [(100, 5), (577, 3)])
+@pytest.mark.parametrize("s", [64, 100, 577])
+@pytest.mark.parametrize("n", [1, 3, 96])
 def test_cuda_dotk(cuda, kind, s, n):
-    """K17 over ragged S (not a multiple of the 64-row tile), split over the
-    dots or not."""
+    """K17 over S on and off the 128-row tile, one dot, a few, and the
+    probe's 96 (split over the dots), f32 outputs held to 1e-3."""
     from streamchat_tpu_torch.utils import probe_vit_variants as pvv
 
     dh = int(kind[2:])
@@ -551,15 +556,35 @@ def test_cuda_dotk(cuda, kind, s, n):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("n", [1, 3])
-@pytest.mark.parametrize("block_out,gpb", [(256, 2), (256, 3), (128, 8)])
-def test_cuda_int4_probe(cuda, n, block_out, gpb):
+def test_cuda_dotk_rejects_shapes(cuda):
+    """A head dim other than 64 / 128, or a pv row tile past the shared
+    memory, raises DotShapeError before any launch."""
+    from streamchat_tpu_torch.utils import probe_vit_variants as pvv
+
+    with pytest.raises(pvv.DotShapeError):
+        pvv.dotk(_bf(1, cuda, 2, 100, 96), _bf(2, cuda, 96, 100))
+    with pytest.raises(pvv.DotShapeError):
+        pvv.dotk(_bf(1, cuda, 800, 800), _bf(2, cuda, 2, 800, 128))
+    assert pvv.dotk.launches == 0
+
+
+_PROBE_SHAPES = {"even": (512, 1024), "ragged-tile": (512, 992), "ragged-4": (640, 1000)}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [1, 3, 8])
+@pytest.mark.parametrize("block_out,gpb", [(256, 2), (256, 3), (128, 8), (2048, 4)])
+@pytest.mark.parametrize("shape", list(_PROBE_SHAPES))
+def test_cuda_int4_probe(cuda, n, block_out, gpb, shape):
     """K15's five variants against their twin; dma sums whole bytes, so it
-    is exact."""
+    is exact. 4 (or 5) groups: gpb 3 does not divide them, 8 is above them,
+    4 puts the slice in one cluster of 4 row ranges; packed widths 512, 496
+    (a ragged last sub-tile) and 500 (not a multiple of 16: 4-byte loads)."""
     from streamchat_tpu_torch.utils import probe_int4
 
-    w, s = _int4(7, cuda, 512, 1024)
-    x = _bf(8, cuda, n, 512)
+    kin, out = _PROBE_SHAPES[shape]
+    w, s = _int4(7, cuda, kin, out)
+    x = _bf(8, cuda, n, kin)
     for variant in probe_int4.VARIANTS:
         got = probe_int4.matvec(x, w, s, variant=variant, block_out=block_out, gpb=gpb)
         ref = probe_int4.matvec_plain(x, w, s, variant, block_out, gpb)
@@ -568,3 +593,44 @@ def test_cuda_int4_probe(cuda, n, block_out, gpb):
         else:
             torch.testing.assert_close(got, ref, atol=1e-4 * ref.abs().max().item(), rtol=0)
     assert probe_int4.matvec.launches == len(probe_int4.VARIANTS)
+
+
+@pytest.mark.cuda
+def test_cuda_int4_probe_full_shape(cuda):
+    """K15 at the probe's shape (3584 x 18944, n = 1), at (1024, 16) and the
+    sweep's gpb 32 (one slice, a cluster of 4 row ranges): every variant
+    against its twin, dma exactly."""
+    from streamchat_tpu_torch.utils import probe_int4
+
+    g = torch.Generator(device="cuda").manual_seed(3)
+    (w, s), = probe_int4.make_weights(g, copies=1)[0]
+    x = torch.randn(1, probe_int4.DIN, generator=g, device=cuda).to(torch.bfloat16)
+    for bo, gpb in ((1024, 16), (512, 32)):
+        for variant in probe_int4.VARIANTS:
+            got = probe_int4.matvec(x, w, s, variant=variant, block_out=bo, gpb=gpb)
+            ref = probe_int4.matvec_plain(x, w, s, variant, bo, gpb)
+            if variant == "dma":
+                assert torch.equal(got, ref)
+            else:
+                torch.testing.assert_close(got, ref, atol=1e-4 * ref.abs().max().item(), rtol=0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [1, 8])
+def test_cuda_probes_repeat_bit_for_bit(cuda, n):
+    """K15 (row ranges in a cluster, slices by the split-K reduce) and K17
+    (dot slices by the split-K reduce) sum in a fixed order: two launches on
+    the same inputs are equal bit for bit."""
+    from streamchat_tpu_torch.utils import probe_int4
+    from streamchat_tpu_torch.utils import probe_vit_variants as pvv
+
+    w, s = _int4(9, cuda, 640, 1024)
+    x = _bf(10, cuda, n, 640)
+    for variant in probe_int4.VARIANTS:
+        for gpb in (3, 5):
+            first = probe_int4.matvec(x, w, s, variant=variant, gpb=gpb)
+            assert torch.equal(first, probe_int4.matvec(x, w, s, variant=variant, gpb=gpb))
+    for kind in pvv.DOT_KINDS:
+        a, b = (t.to(cuda) for t in pvv.make_dot_inputs(kind, torch.Generator().manual_seed(n),
+                                                      device="cpu"))
+        assert torch.equal(pvv.dotk(a, b), pvv.dotk(a, b))

@@ -165,6 +165,27 @@ def test_int4_probe_unpacks_match_the_dequantized_matmul(no_launches, int4_case)
         probe_int4.matvec(x, w, scale, variant="xor16")
 
 
+@pytest.mark.parametrize("block_out,gpb", probe_int4.SWEEP + ((1024, 16),))
+def test_int4_probe_card_grid_covers_once_and_fills_the_card(block_out, gpb):
+    """K15's card grid at the probe's shape (9472 packed columns, 28 groups):
+    every (packed column, group) pair is covered by exactly one card block,
+    each block's groups lie in its k-slice, the slices are the TPU probe's
+    (gpb groups each, the last one short), and at least two waves of the
+    H100's 132 SMs are busy."""
+    oh, groups = probe_int4.DOUT // 2, probe_int4.DIN // probe_int4.GROUP
+    _, gpb_c, nk = probe_int4._geometry(torch.empty(1, oh, dtype=torch.int8),
+                                        torch.empty(groups, 2, oh), "cur", block_out, gpb)
+    grid = probe_int4.card_grid(oh, groups, gpb_c)
+    blocks = probe_int4.card_blocks(oh, groups, gpb_c)
+    assert grid["slices"] == nk and len(blocks) == grid["blocks"] >= 2 * 132
+    assert grid["cluster"] in (1, 2, 4, 8)
+    cover = np.zeros((groups, oh), np.int64)
+    for sl, (c0, c1), (g0, g1) in blocks:
+        assert sl * gpb_c <= g0 <= g1 <= min(groups, (sl + 1) * gpb_c)
+        cover[g0:g1, c0:c1] += 1
+    assert (cover == 1).all()
+
+
 # --- K17 ----------------------------------------------------------------------
 
 def _numpy_kern(a, b):
@@ -202,3 +223,17 @@ def test_dot_inputs_have_the_probe_shapes():
         a, b = probe_vit_variants.make_dot_inputs(kind, g, device="cpu")
         assert (tuple(a.shape), tuple(b.shape)) == shapes and a.dtype == torch.bfloat16
     assert probe_vit_variants.dot_flops() == 2 * 577 * 577 * 64 * 96
+
+
+@pytest.mark.parametrize("kind", probe_vit_variants.DOT_KINDS)
+def test_dot_split_fills_one_wave(kind):
+    """K17's dot slices: every dot in exactly one slice, and the tiles times
+    the slices within one wave of the H100's 132 SMs (5 x 5 tiles and 5
+    slices for qk, 5 row tiles and 24 slices for pv)."""
+    pv, dh = kind.startswith("pv"), int(kind[2:])
+    n, s = probe_vit_variants.N_DOTS * 64 // dh, probe_vit_variants.S
+    per, nsplit = probe_vit_variants.dot_split(pv, s, n)
+    assert (nsplit - 1) * per < n <= nsplit * per
+    tiles = 5 if pv else 25
+    assert nsplit == (24 if pv else 5) and tiles * nsplit <= 132
+
