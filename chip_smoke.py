@@ -21,7 +21,9 @@
    projector MLP, K3 flash attention (causal at S = 23,168 with a ragged
    kv_length, timed, at S = 4,096 with its own bound and library time, and
    at S = 300), K4
-   paged decode, W8 int8 GEMV (gate, down, and the lm_head with f32
+   paged decode (timed over four pools in turn, so that each call reads
+   its 47.7 MB cold from HBM, and at B = 2 on a 364-page partitioned
+   pool), W8 int8 GEMV (gate, down, and the lm_head with f32
    output), K10 int4 GEMV (gate, down), K11 fused int4 GEMV (the q/k/v
    triple, the gate/up pair), K6 paged decode over int8 pages, K5 partial
    flash attention (the last 3,072-token chunk of a 23,552-token caption
@@ -49,7 +51,10 @@
    int8 page scales replaced by 1, K3 run non-causal on the causal S = 300
    case, K5's offsets swapped, its q_offset shifted by 37 on the
    rows-without-keys case or its m left unclamped, K7's row fold
-   transposed or its pool length counting the block, K8 / K9's table
+   transposed or its pool length counting the block, K4 without the last
+   page of one split range, K4 and K7 with NaN in V past the length and
+   V's rows there not zeroed before P V (the kernels are also held to
+   their twins on that NaN pool), K8 / K9's table
    ignored (pool order), -1 read as page 0, the
    length ignored, one table entry off by one, K12's roll reversed or its
    rows left unnormalized, K13 without the residual, K14 with its last key
@@ -73,9 +78,11 @@
    K1, K2, K13, K14, K16; K15 and K17) also carry their share of the bound
    and the compiled kernels' registers, spill bytes and shared bytes
    (`sc_flash_prefill_attributes`, `sc_gemm_attributes`,
-   `sc_int4_probe_attributes`, `sc_dotk_attributes`); K15's row the blocks
-   each sweep point launches and its dma-to-cur time ratio, K17's each
-   kind's blocks.
+   `sc_int4_probe_attributes`, `sc_dotk_attributes`,
+   `sc_paged_decode_attributes` for K4 and K7 with their resident blocks
+   per SM); K15's row the blocks each sweep point launches and its
+   dma-to-cur time ratio, K17's each kind's blocks, K4's and K7's their
+   split (`paged_split`), GB/s and the wrapper's host time per call.
 5. Checks the composed paths on small inputs: two frames through
    `encode_images` (the fused tower, folded on that first call) against
    the plain twin chain of the same form and against the exact unfolded
@@ -161,7 +168,7 @@ import time
 import torch
 
 from streamchat_tpu_torch.ops.fused_vit import SOFTMAX, SOFTMAX_CLAMP_BF16, layer_mode
-from streamchat_tpu_torch.utils.profiling import device_launches, device_ms
+from streamchat_tpu_torch.utils.profiling import device_launches, device_ms, host_us
 
 ATOL, RTOL = 3e-2, 2e-2
 ROW_REL_L2 = 1e-2
@@ -357,6 +364,33 @@ def _garbage_tail(k, v, valid, seq_dim):
     values: a kernel that reads past the valid length shows it."""
     k.narrow(seq_dim, valid, k.shape[seq_dim] - valid).fill_(8.0)
     v.narrow(seq_dim, valid, v.shape[seq_dim] - valid).fill_(100.0)
+
+
+def _pool_tail(kp, vp, length, k_val, v_val):
+    """K and V of a one-row pool [pages, Hkv, page_size, D] set to k_val /
+    v_val at and past `length` (the last valid page is partly filled)."""
+    ps = kp.shape[2]
+    for t, val in ((kp, k_val), (vp, v_val)):
+        t[length // ps, :, length % ps:] = val
+        t[length // ps + 1:] = val
+
+
+def _v_unzeroed(q, kp, vp, length):
+    """(acc, m, l) of q [1, Hq, T, D] against a one-row pool with its keys
+    at and past `length` masked but V's rows there left as they are, as a
+    kernel that skipped the zeroing of its boundary tile would compute:
+    P V then meets 0 * NaN wherever NaN sits there."""
+    _, hq, t, d = q.shape
+    hkv = kp.shape[1]
+    k = kp.transpose(0, 1).reshape(hkv, -1, d).float()
+    v = vp.transpose(0, 1).reshape(hkv, -1, d).float()
+    s = torch.einsum("hrd,hld->hrl", q.reshape(hkv, -1, d).float(), k) * d ** -0.5
+    s[..., length:] = float("-inf")
+    m = s.amax(-1)
+    p = torch.exp(s - m[..., None])
+    acc = torch.einsum("hrl,hld->hrd", p, v)
+    return (acc.reshape(1, hq, t, d), m.clamp_min(-1e30).reshape(1, hq, t),
+            p.sum(-1).reshape(1, hq, t))
 
 
 def prefill_attributes(partial: bool, d: int = 128, softmax: int = SOFTMAX["exact"]) -> dict:
@@ -592,31 +626,89 @@ def check_kernels(model, g):
         attributes=prefill_attributes(partial=False))
 
     # K4: one decode token against a 23,105-token context (one layer's pool
-    # of 182 pages; the last valid page is partly filled).
+    # of 182 pages; the last valid page is partly filled), timed over four
+    # pools in turn so that one call's 47.7 MB are not in L2 (50 MB) from
+    # the call before, as in a decode step over 28 layers; the check and the
+    # planted faults on the first pool.
     pages, length, ps = -(-(23168 + 128) // 128), 23105, 128
     q = torch.randn(1, hq, 1, 128, generator=g, device=dev).to(bf)
-    kp = torch.randn(pages, hkv, ps, 128, generator=g, device=dev).to(bf)
-    vp = torch.randn(pages, hkv, ps, 128, generator=g, device=dev).to(bf)
-    for t, val in ((kp, 8.0), (vp, 100.0)):
-        t[length // ps, :, length % ps:] = val
-        t[length // ps + 1:] = val
+    pools = []
+    for _ in range(4):
+        kp = torch.randn(pages, hkv, ps, 128, generator=g, device=dev).to(bf)
+        vp = torch.randn(pages, hkv, ps, 128, generator=g, device=dev).to(bf)
+        _pool_tail(kp, vp, length, 8.0, 100.0)
+        pools.append((kp, vp))
+    kp, vp = pools[0]
     ln = torch.tensor([length], dtype=torch.int32, device=dev)
-    k4 = lambda: paged_attention.paged_decode_attention_seq(q, kp, vp, ln)  # noqa: E731
-    p4 = lambda: paged_attention.paged_decode_attention_seq_plain(q, kp, vp, ln)  # noqa: E731
-    ref = p4()
-    err, rel = _compare("K4 paged_decode_attention_seq", k4(), ref, row_rel=True)
-    planted["K4 length + 128"] = _planted(
-        "K4 length + 128", paged_attention.paged_decode_attention_seq(q, kp, vp, ln + 128), ref)
+    k4, p4 = (paged_attention.paged_decode_attention_seq,
+              paged_attention.paged_decode_attention_seq_plain)
+    ref = p4(q, kp, vp, ln)
+    err, rel = _compare("K4 paged_decode_attention_seq", k4(q, kp, vp, ln), ref, row_rel=True)
+    planted["K4 length + 128"] = _planted("K4 length + 128", k4(q, kp, vp, ln + 128), ref)
     k0, v0 = kp.clone(), vp.clone()
     k0[80:84] = 0
     v0[80:84] = 0
-    planted["K4 pages 80:84 zeroed"] = _planted(
-        "K4 4-page chunk zeroed", paged_attention.paged_decode_attention_seq(q, k0, v0, ln), ref)
+    planted["K4 pages 80:84 zeroed"] = _planted("K4 4-page chunk zeroed", k4(q, k0, v0, ln), ref)
+    # The last page of the split range that holds page 80 dropped: the
+    # kernel's output over the pool without that page (all of whose keys are
+    # live).
+    drop = next(end for _, _, first, end in paged_attention.paged_blocks(1, hkv, pages)
+                if first <= 80 < end) - 1
+    keep = torch.arange(pages, device=dev) != drop
+    planted["K4 last page of a split range dropped"] = _planted(
+        "K4 last page of a split range dropped", k4(q, kp[keep], vp[keep], ln - ps), ref)
+    # NaN in K and V at and past the length: the kernel masks the keys and
+    # zeroes V's rows there before P V; without the zeroing, 0 * NaN reaches
+    # every row.
+    k0.copy_(kp)
+    v0.copy_(vp)
+    _pool_tail(k0, v0, length, float("nan"), float("nan"))
+    err_n, rel_n = _compare("K4 NaN past the length", k4(q, k0, v0, ln), ref, row_rel=True)
+    acc, _, l = _v_unzeroed(q, k0, v0, length)
+    planted["K4 V past the length not zeroed (NaN there)"] = _planted(
+        "K4 V past the length not zeroed", (acc / l[..., None]).to(bf), ref)
+    del k0, v0, keep, acc, l
+    args = [(q, *pool, ln) for pool in pools]
+    t = _timings(_rotating(k4, args), _rotating(p4, args), 50, 10)
+    nbytes = length * hkv * 128 * 2 * 2
     rows["paged_decode_attention_seq"] = dict(
-        shapes="q [1, 28, 1, 128], pages [182, 4, 128, 128] bf16, length 23105",
-        max_abs_err=err, max_row_rel_l2=rel, **_timings(k4, p4, 50, 10),
-        **_bound(4 * hq * length * 128, length * hkv * 128 * 2 * 2 + 2 * _nbytes(q)),
+        shapes="q [1, 28, 1, 128], pages [182, 4, 128, 128] bf16, length 23105 (4 pools in "
+               "turn); B = 2: pages [364, 4, 128, 128], lengths 23105 and 22000",
+        max_abs_err=max(err, err_n), max_row_rel_l2=max(rel, rel_n), **t,
+        **_bound(4 * hq * length * 128, nbytes + 2 * _nbytes(q)),
+        gbs=_gbs(nbytes, t["ms"]), plain_gbs=_gbs(nbytes, t["plain_ms"]),
+        host_us=host_us(_rotating(k4, args), 100),
+        blocks=paged_attention.paged_split(1, hkv, pages),
+        launch_ms=[ms for _, ms in device_launches(_rotating(k4, args), 50)],
+        attributes=paged_attention.attributes(128, partial=False),
         library_ms=None, library="none (no PyTorch call reads a page pool)")
+    rows["paged_decode_attention_seq"]["share_of_bound"] = (
+        rows["paged_decode_attention_seq"]["bound_ms"] / t["ms"])
+    del pools, args
+    # B = 2 on a partitioned pool of twice the pages (the caption_batch 2
+    # decode), four pools in turn.
+    lengths = (length, 22000)
+    q2 = torch.randn(2, hq, 1, 128, generator=g, device=dev).to(bf)
+    ln2 = torch.tensor(lengths, dtype=torch.int32, device=dev)
+    args = []
+    for _ in range(4):
+        kp = torch.randn(2 * pages, hkv, ps, 128, generator=g, device=dev).to(bf)
+        vp = torch.randn(2 * pages, hkv, ps, 128, generator=g, device=dev).to(bf)
+        for r, n in enumerate(lengths):
+            _pool_tail(kp[r * pages:(r + 1) * pages], vp[r * pages:(r + 1) * pages], n,
+                       8.0, 100.0)
+        args.append((q2, kp, vp, ln2))
+    err2, rel2 = _compare("K4 B = 2", k4(*args[0]), p4(*args[0]), row_rel=True)
+    t2 = _timings(_rotating(k4, args), _rotating(p4, args), 50, 5)
+    nbytes2 = sum(lengths) * hkv * 128 * 2 * 2
+    row = rows["paged_decode_attention_seq"]
+    row.update(max_abs_err=max(row["max_abs_err"], err2),
+               max_row_rel_l2=max(row["max_row_rel_l2"], rel2),
+               b2_ms=t2["ms"], b2_plain_ms=t2["plain_ms"], b2_wall_ms=t2["wall_ms"],
+               b2_bound_ms=_bound(4 * hq * sum(lengths) * 128,
+                                  nbytes2 + 2 * _nbytes(q2))["bound_ms"],
+               b2_blocks=paged_attention.paged_split(2, hkv, pages))
+    del args
     return rows, planted
 
 
@@ -942,9 +1034,7 @@ def check_partial_kernels(model, g):
             else:
                 kp, vp = (torch.randn(pages, hkv, ps, 128, generator=g, device=dev).to(bf)
                           for _ in range(2))
-                for x, val in ((kp, 8.0), (vp, 100.0)):
-                    x[length // ps, :, length % ps:] = val
-                    x[length // ps + 1:] = val
+                _pool_tail(kp, vp, length, 8.0, 100.0)
                 pools.append((kp, vp))
         fn = getattr(paged_attention, label)
         plain = getattr(paged_attention, label + "_plain")
@@ -955,6 +1045,24 @@ def check_partial_kernels(model, g):
             f"{name} row fold transposed", fn(q_tm, *pools[0], ln), ref)
         planted[f"{name} pool length counts the block"] = _planted_partial(
             f"{name} pool length counts the block", fn(q, *pools[0], ln + t), ref)
+        extra = {}
+        if not int8:
+            # NaN in K and V at and past the length: the kernel masks the
+            # keys and zeroes V's rows there; without the zeroing, 0 * NaN.
+            kn, vn = (x.clone() for x in pools[0])
+            _pool_tail(kn, vn, length, float("nan"), float("nan"))
+            err_n, rel_n = _compare_partial(f"{name} NaN past the length", fn(q, kn, vn, ln),
+                                            ref)
+            err, rel = max(err, err_n), max(rel, rel_n)
+            planted[f"{name} V past the length not zeroed (NaN there)"] = _planted_partial(
+                f"{name} V past the length not zeroed", _v_unzeroed(q, kn, vn, length), ref)
+            del kn, vn
+            extra = dict(blocks=paged_attention.paged_split(1, hkv, pages),
+                         launch_ms=[ms for _, ms in device_launches(
+                             _rotating(fn, [(q,) + pool + (ln,) for pool in pools]), 50)],
+                         attributes=paged_attention.attributes(128, partial=True),
+                         host_us=host_us(_rotating(fn, [(q,) + pool + (ln,)
+                                                        for pool in pools]), 100))
         args = [(q,) + pool + (ln,) for pool in pools]
         row_bytes = 128 + 4 if int8 else 2 * 128
         rows[label] = dict(
@@ -964,8 +1072,9 @@ def check_partial_kernels(model, g):
             **_timings(_rotating(fn, args), _rotating(plain, args), 50, 10),
             **_bound(4 * hq * t * length * 128,
                      length * hkv * 2 * row_bytes + _nbytes(q) + hq * t * (128 + 2) * 4),
-            library_ms=None, library="none (no PyTorch call reads a page pool)")
+            library_ms=None, library="none (no PyTorch call reads a page pool)", **extra)
         rows[label]["gbs"] = _gbs(length * hkv * 2 * row_bytes, rows[label]["ms"])
+        rows[label]["share_of_bound"] = rows[label]["bound_ms"] / rows[label]["ms"]
         del pools, args
     return rows, planted
 
@@ -2030,7 +2139,7 @@ def main() -> None:
             print(f"    {label}: {json.dumps(case)}")
         extra = {k: v for k, v in row.items() if k.startswith(
             ("share_of_bound", "attributes", "launch_ms", "gemm_", "attention_", "dma_to_cur",
-             "blocks"))
+             "blocks", "gbs", "host_us", "b2_"))
             or k.endswith("_s4096")}
         if extra:
             print(f"    {json.dumps(extra)}")

@@ -68,6 +68,7 @@ SIGNATURES = {
     "sc_gemm_attributes": [_I, _I, _I, ctypes.POINTER(ctypes.c_int)],
     "sc_int4_probe_attributes": [_I, _I, _I, ctypes.POINTER(ctypes.c_int)],
     "sc_dotk_attributes": [_I, _I, _I, ctypes.POINTER(ctypes.c_int)],
+    "sc_paged_decode_attributes": [_I, _I, ctypes.POINTER(ctypes.c_int)],
 }
 
 

@@ -26,8 +26,11 @@ j * page_size >= length[b] contributes no key (the gather reads page 0 for
 The two agree wherever every page below a row's length is mapped, which the
 allocator guarantees. Every table entry must be -1 or a page of the pool.
 
-A CUDA tensor launches `csrc/paged_decode.cu` (page-range split across
-blocks, then a merge kernel); a CPU tensor runs the plain twin.
+A CUDA tensor launches `csrc/paged_decode.cu` (page ranges split across
+blocks, then a merge kernel); a CPU tensor runs the plain twin. K4 and K7
+run its Hopper kernel (TMA ring, wgmma) over the ranges of `paged_split`;
+K6, K7-int8, K8 and K9 its first kernel over chunks of PAGES_PER_CHUNK
+pages.
 """
 
 from __future__ import annotations
@@ -36,12 +39,53 @@ import torch
 
 from streamchat_tpu_torch.kernels import counted, launched
 
-# Pages per block of the split page range: 4 pages of 128 tokens give ~180
-# blocks for a 23k-token context over 4 kv heads (132 SMs on the H100).
+# K6, K7-int8, K8, K9: pages per block of the split page range (4 pages of
+# 128 tokens give ~180 blocks for a 23k-token context over 4 kv heads).
 PAGES_PER_CHUNK = 4
+# K4, K7: the H100's SMs, and the kernel's blocks resident on each
+# (csrc/paged_decode.cu paged_tc_kernel: 128 threads, 97 KB of shared memory).
+SMS, RESIDENT_BLOCKS = 132, 2
 # Query rows per kv head a launch serves: g for K4 / K6, g * T for K7
 # (csrc/paged_decode.cu R_DECODE / R_PARTIAL).
 _ROWS_DECODE, _ROWS_PARTIAL = 8, 64
+
+
+def paged_split(b: int, hkv: int, row_pages: int) -> dict:
+    """The grid of K4 / K7 over a partitioned pool of `b` rows of `row_pages`
+    pages and `hkv` kv heads, as `csrc/paged_decode.cu` walks it: each row's
+    pages cut into `ranges` ranges of whole pages, range r holding pages
+    [r * row_pages // ranges, (r + 1) * row_pages // ranges) (sizes differ
+    by at most one), one block per (range, kv head, row). It depends on the
+    static `row_pages` only, never on the lengths (on the device): one wave
+    of SMS x RESIDENT_BLOCKS blocks, all resident at once, or a block per
+    page where the pool has fewer pages than that."""
+    heads = b * hkv
+    ranges = max(1, min(row_pages, SMS * RESIDENT_BLOCKS // heads))
+    return dict(ranges=ranges, blocks=heads * ranges)
+
+
+def paged_blocks(b: int, hkv: int, row_pages: int):
+    """Every block of `paged_split` -> [(row, kv head, first page, end page)]
+    in pool pages, in launch order (ranges fastest)."""
+    n = paged_split(b, hkv, row_pages)["ranges"]
+    return [(r, h, r * row_pages + i * row_pages // n, r * row_pages + (i + 1) * row_pages // n)
+            for r in range(b) for h in range(hkv) for i in range(n)]
+
+
+def attributes(d: int = 128, partial: bool = False) -> dict:
+    """K4's (or, with `partial`, K7's) compiled kernel: registers and local
+    (spill) bytes per thread, static and dynamic shared bytes, blocks
+    resident on one SM (sc_paged_decode_attributes)."""
+    import ctypes
+
+    from streamchat_tpu_torch.kernels.build import library
+
+    out = (ctypes.c_int * 5)()
+    err = library().sc_paged_decode_attributes(d, int(partial), out)
+    if err:
+        raise RuntimeError(f"sc_paged_decode_attributes: CUDA error {err}")
+    return dict(num_regs=out[0], local_bytes=out[1], static_shared_bytes=out[2],
+                dynamic_shared_bytes=out[3], resident_blocks=out[4])
 
 
 def _rows(pages, b, row_pages):
@@ -184,6 +228,10 @@ def paged_decode_attention_table_int8_plain(q, k_pages, v_pages, k_scale, v_scal
     return _table_decode_plain(q, k_pages, v_pages, k_scale, v_scale, page_table, length)
 
 
+# The entry points that run the Hopper kernel over `paged_split`'s ranges.
+_HOPPER = ("sc_paged_decode", "sc_paged_seq_partial")
+
+
 def _launch(name, q, k_pages, v_pages, scales, length, page_dtype, partial=False,
             table=None):
     """Checks and one launch of the K4 / K6 (normalized bf16 output) or, with
@@ -227,13 +275,19 @@ def _launch(name, q, k_pages, v_pages, scales, length, page_dtype, partial=False
                              f"{tuple(table.shape)}")
         table = table.contiguous()
         row_pages, tab = table.shape[1], (table.data_ptr(),)
-    nchunks = -(-row_pages // PAGES_PER_CHUNK)
+    # K6 / K8 / K9: chunks of PAGES_PER_CHUNK pages; K4 / K7: paged_split's
+    # number of ranges, passed in the same argument.
+    per, nchunks = PAGES_PER_CHUNK, -(-row_pages // PAGES_PER_CHUNK)
+    if name in _HOPPER:
+        if ps % 64:
+            raise ValueError(f"{name}: page_size {ps} is not a multiple of 64")
+        per = nchunks = paged_split(b, hkv, row_pages)["ranges"]
+    rows = b * hkv * nchunks * g * t                     # query rows of every chunk
     f32 = dict(dtype=torch.float32, device=q.device)
-    acc = torch.empty(b, hkv, nchunks, g * t, d, **f32)
-    m = torch.empty(b, hkv, nchunks, g * t, **f32)
-    l = torch.empty(b, hkv, nchunks, g * t, **f32)
-    geometry = (length.data_ptr(), b, hq, hkv, row_pages, ps, PAGES_PER_CHUNK, d, d ** -0.5,
-                acc.data_ptr(), m.data_ptr(), l.data_ptr())
+    scratch = torch.empty(rows * (d + 2), **f32)          # their acc, m and l
+    base = scratch.data_ptr()
+    geometry = (length.data_ptr(), b, hq, hkv, row_pages, ps, per, d, d ** -0.5,
+                base, base + 4 * rows * d, base + 4 * rows * (d + 1))
     pages = (k_pages.data_ptr(), v_pages.data_ptr(), *[x.data_ptr() for x in scales], *tab)
     stream = torch.cuda.current_stream().cuda_stream
     if not partial:
@@ -241,11 +295,13 @@ def _launch(name, q, k_pages, v_pages, scales, length, page_dtype, partial=False
         call(name, q.data_ptr(), q.stride(0), q.stride(1), *pages, *geometry, out.data_ptr(),
              stream)
         return out
-    res = (torch.empty(b, hq, t, d, **f32), torch.empty(b, hq, t, **f32),
-           torch.empty(b, hq, t, **f32))
+    n = b * hq * t
+    res = torch.empty(n * (d + 2), **f32)
+    acc, m, l = res[:n * d].view(b, hq, t, d), res[n * d:n * (d + 1)].view(b, hq, t), \
+        res[n * (d + 1):].view(b, hq, t)
     call(name, q.data_ptr(), q.stride(0), q.stride(1), q.stride(2), t, *pages, *geometry,
-         *[x.data_ptr() for x in res], stream)
-    return res
+         acc.data_ptr(), m.data_ptr(), l.data_ptr(), stream)
+    return acc, m, l
 
 
 @counted

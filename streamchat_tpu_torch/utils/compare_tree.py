@@ -11,16 +11,21 @@ shapes (`CASES`: K1 in the ingest's and the exact form, K2-K17, K7′ and W8;
 K16 is K1's entry with the bf16-score softmax), once against each library,
 and the device time per call of each (torch.profiler, as `chip_smoke.py`
 measures it; for K1's ingest form also launch by launch) is taken in
-turns: other, this, this, other. A case must be
+turns: other, this, this, other. The page-pool kernels (K4, K6-K9) run
+through each tree's own `ops/paged_attention.py` wrapper, so that each
+library gets the split and the scratch its tree gives it; K4 and K7 are
+timed over four pools in turn (each call reads its pool cold from HBM),
+and their wrappers' host time per call is reported too. A case must be
 equal bit for bit unless `CASES` names a tolerance for it: the ViT kernels
 K1, K2, K13, K14 and K16 (wgmma GEMM and attention since the Hopper
-redesign, another summation order) and the probes K15 (row ranges summed
-in a cluster) and K17 (wgmma, other dot slices) are held to the other
+redesign, another summation order), the probes K15 (row ranges summed
+in a cluster) and K17 (wgmma, other dot slices), and K4 and K7 (split-K
+over the pool on wgmma since their Hopper redesign) are held to the other
 tree's output within the smoke's tolerance instead, |a - b| <= 3e-2 +
-2e-2 |b|, and for K13, K14, K15 and K17 also a row relative L2 error
-<= 1e-2. A kernel the other tree
-does not export, or exports with another C signature, is timed in this
-tree alone.
+2e-2 |b|, and for K4, K7, K13, K14, K15 and K17 also a row relative L2
+error <= 1e-2 (K7 through acc / l, m and l elementwise). A kernel the
+other tree does not export, or exports with another C signature, is
+timed in this tree alone.
 """
 
 from __future__ import annotations
@@ -28,13 +33,14 @@ from __future__ import annotations
 import argparse
 import ctypes
 import importlib.util
+import itertools
 import json
 import os
 import subprocess
 
 import torch
 
-from streamchat_tpu_torch.utils.profiling import device_launches, device_ms
+from streamchat_tpu_torch.utils.profiling import device_launches, device_ms, host_us
 
 # Cases whose device time is also reported launch by launch.
 BY_LAUNCH = ("K1 ingest form",)
@@ -45,10 +51,10 @@ CASES = {
     "K1 exact form": ("sc_fused_vit_layer", "elementwise"),
     "K2": ("sc_fused_ln_mlp", "elementwise"),
     "K3": ("sc_flash_attention", None),
-    "K4": ("sc_paged_decode", None),
+    "K4": ("sc_paged_decode", "rows"),
     "K5": ("sc_flash_attention_partial", None),
     "K6": ("sc_paged_decode_int8", None),
-    "K7": ("sc_paged_seq_partial", None),
+    "K7": ("sc_paged_seq_partial", "rows"),
     "K7′": ("sc_paged_seq_partial_int8", None),
     "K8": ("sc_paged_decode_table", None),
     "K9": ("sc_paged_decode_table_int8", None),
@@ -98,16 +104,23 @@ def _equal(a, b) -> bool:
     return bool(torch.equal(a, b))
 
 
+def _load_module(tree: str, name: str, rel: str):
+    """The module at `rel` (a path inside the tree's package) of `tree`,
+    loaded under `name`."""
+    path = os.path.join(tree, "streamchat_tpu_torch", rel)
+    spec = importlib.util.spec_from_file_location(name, path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
 def _load_other(tree: str):
     """The other tree's kernel library, built by its own build.py -> (library,
     build seconds, the C entries of CASES it exports with this tree's C
     signature)."""
     from streamchat_tpu_torch.kernels.build import SIGNATURES
 
-    path = os.path.join(tree, "streamchat_tpu_torch", "kernels", "build.py")
-    spec = importlib.util.spec_from_file_location("other_kernel_build", path)
-    mod = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(mod)
+    mod = _load_module(tree, "other_kernel_build", os.path.join("kernels", "build.py"))
     info = mod.build(force=True)
     lib = ctypes.CDLL(mod.LIB_PATH)
     present = tuple({n for n, _ in CASES.values() if mod.SIGNATURES.get(n) == SIGNATURES[n]})
@@ -118,10 +131,13 @@ def _load_other(tree: str):
     return lib, info["seconds"], present
 
 
-def _cases(g):
-    """case -> a call of this tree's wrapper at main-path shapes."""
-    from streamchat_tpu_torch.ops import (attention, dedup, fused_vit, int4_matmul,
-                                          paged_attention, quant, vit_attention)
+def _cases(g, paged):
+    """-> (case -> a call of this tree's wrapper at main-path shapes, case ->
+    the call to time where it differs: K4 and K7 over four pools in turn).
+    The page-pool cases call the wrapper module in paged["mod"] (this
+    tree's, or the other tree's while its library runs)."""
+    from streamchat_tpu_torch.ops import (attention, dedup, fused_vit, int4_matmul, quant,
+                                          vit_attention)
     from streamchat_tpu_torch.utils import probe_int4
     from streamchat_tpu_torch.utils import probe_vit_variants as pvv
 
@@ -175,8 +191,15 @@ def _cases(g):
                               dtype=torch.int8) for _ in range(2))
     kst, vst = (torch.rand(pool, 4, 128, generator=g, device=dev) * 0.04 + 0.01
                 for _ in range(2))
-    # K7 / K7′: five in-flight queries (spec decode) against the K4 pool.
+    # K7 / K7′: five in-flight queries (spec decode) against the K4 pool;
+    # K4 and K7 timed over it and three more.
     q7 = rnd(1, 28, 5, 128)
+    pools = [(kp, vp)] + [(rnd(pages, 4, 128, 128), rnd(pages, 4, 128, 128)) for _ in range(3)]
+
+    def rotating(fn_name, qq):
+        it = itertools.cycle(pools)
+        return lambda: getattr(paged["mod"], fn_name)(qq, *next(it), ln)
+
     # W8, K10, K11: one decode row against Qwen2-7B's gate / up width.
     xg = rnd(1, 3584)
     w8 = quant.quantize_weight(rnd(3584, 18944, scale=0.02))
@@ -187,6 +210,8 @@ def _cases(g):
     w15, s15 = probe_int4.make_weights(g, copies=1)[0][0]
     x15 = rnd(1, probe_int4.DIN)
     a17, b17 = pvv.make_dot_inputs("qk64", g)
+    timed = {"K4": rotating("paged_decode_attention_seq", q),
+             "K7": rotating("paged_seq_attention_partial", q7)}
     return {
         "K1 ingest form": lambda: fused_vit.fused_vit_layer(
             x, *folded, num_heads=16, frame_tile=1, folded=True, ln_onepass=True),
@@ -195,13 +220,13 @@ def _cases(g):
         "K2": lambda: fused_vit.fused_ln_mlp(f2, None, None, *proj, activation="gelu",
                                              layernorm=False, residual=False),
         "K3": lambda: attention.flash_attention(q3, k3, v3, causal=True),
-        "K4": lambda: paged_attention.paged_decode_attention_seq(q, kp, vp, ln),
+        "K4": lambda: paged["mod"].paged_decode_attention_seq(q, kp, vp, ln),
         "K5": lambda: attention.flash_attention_partial(q5, k5, v5, 20480, 0),
-        "K6": lambda: paged_attention.paged_decode_attention_seq_int8(q, kq, vq, ks, vs, ln),
-        "K7": lambda: paged_attention.paged_seq_attention_partial(q7, kp, vp, ln),
-        "K7′": lambda: paged_attention.paged_seq_attention_partial_int8(q7, kq, vq, ks, vs, ln),
-        "K8": lambda: paged_attention.paged_decode_attention_table(q8, kt, vt, table, lt),
-        "K9": lambda: paged_attention.paged_decode_attention_table_int8(
+        "K6": lambda: paged["mod"].paged_decode_attention_seq_int8(q, kq, vq, ks, vs, ln),
+        "K7": lambda: paged["mod"].paged_seq_attention_partial(q7, kp, vp, ln),
+        "K7′": lambda: paged["mod"].paged_seq_attention_partial_int8(q7, kq, vq, ks, vs, ln),
+        "K8": lambda: paged["mod"].paged_decode_attention_table(q8, kt, vt, table, lt),
+        "K9": lambda: paged["mod"].paged_decode_attention_table_int8(
             q8, kqt, vqt, kst, vst, table, lt),
         "K10": lambda: int4_matmul.qmatvec_int4(xg, w4["w_i4p"], w4["scale"]),
         "K11": lambda: int4_matmul.qmatvec_int4_fused(xg, w4["w_i4p"], w4["scale"],
@@ -214,7 +239,7 @@ def _cases(g):
         "K16": lambda: pvv.probe_layer(x16, p16, pvv.VARIANTS["bf16s"]),
         "K17": lambda: pvv.dotk(a17, b17),
         "W8": lambda: quant.qmatvec_int8(xg, w8["w_i8"], w8["scale"]),
-    }
+    }, timed
 
 
 def main(argv=None) -> None:
@@ -230,9 +255,14 @@ def main(argv=None) -> None:
                           "--format=csv,noheader"],
                          capture_output=True, text=True, check=True).stdout.strip())
     build.library()
-    other, seconds, present = _load_other(os.path.abspath(args.other_tree))
+    tree = os.path.abspath(args.other_tree)
+    other, seconds, present = _load_other(tree)
     print(f"other tree's kernels built in {seconds:.2f} s")
     current = build.call
+    from streamchat_tpu_torch.ops import paged_attention as this_pa
+
+    other_pa = _load_module(tree, "other_paged_attention",
+                            os.path.join("ops", "paged_attention.py"))
 
     def call_into(lib):
         def call(name, *a):
@@ -241,23 +271,29 @@ def main(argv=None) -> None:
                 raise RuntimeError(f"{name}: CUDA error {err}")
         return call
 
-    cases = _cases(torch.Generator(device="cuda").manual_seed(7))
+    paged = {"mod": this_pa}
+    cases, timed = _cases(torch.Generator(device="cuda").manual_seed(7), paged)
     report = {}
     try:
         for name, fn in cases.items():
             entry, tolerance = CASES[name]
+            clock = timed.get(name, fn)
             if entry not in present:
-                build.call = current
+                build.call, paged["mod"] = current, this_pa
                 report[name] = dict(other="absent or another signature",
-                                    ms_this=[device_ms(fn, args.iters) for _ in range(2)])
+                                    ms_this=[device_ms(clock, args.iters) for _ in range(2)])
                 print(f"{name}: {json.dumps(report[name])}", flush=True)
                 continue
             outs, times = {}, {"other": [], "this": []}
             launches = {"other": [], "this": []}
+            host = {"other": [], "this": []}
             for which in ("other", "this", "this", "other"):
                 build.call = current if which == "this" else call_into(other)
+                paged["mod"] = this_pa if which == "this" else other_pa
                 outs[which] = fn()
-                times[which].append(device_ms(fn, args.iters))
+                times[which].append(device_ms(clock, args.iters))
+                if name in timed:
+                    host[which].append(host_us(clock, args.iters))
                 if name in BY_LAUNCH:
                     launches[which].append([ms for _, ms in device_launches(fn, args.iters)])
             if tolerance:
@@ -265,12 +301,14 @@ def main(argv=None) -> None:
             else:
                 report[name] = dict(bit_equal=_equal(outs["this"], outs["other"]))
             report[name].update(ms_other=times["other"], ms_this=times["this"])
+            if name in timed:
+                report[name].update(host_us_other=host["other"], host_us_this=host["this"])
             if name in BY_LAUNCH:
                 report[name].update(launch_ms_other=launches["other"],
                                     launch_ms_this=launches["this"])
             print(f"{name}: {json.dumps(report[name])}", flush=True)
     finally:
-        build.call = current
+        build.call, paged["mod"] = current, this_pa
     if not all(r.get("bit_equal", True) and r.get("within", True) for r in report.values()):
         raise SystemExit("compare_tree: outputs differ from the other tree's")
     print(json.dumps(report))

@@ -50,14 +50,17 @@ PROFILE_ATTEMPTS = 3
 def _device_events(fn: Callable[[], object], iters: int, kernel: Optional[str] = None):
     """The device events torch.profiler records over `iters` calls of `fn`
     (after one warm-up call), in start order; with `kernel`, only those
-    whose name contains it. A window without a single device event is
-    measured again, PROFILE_ATTEMPTS windows at most, then this raises."""
+    whose name contains it. A window that lost events (none at all, or a
+    count that is not a whole number per call, which the profiler now and
+    then hands back) is measured again, PROFILE_ATTEMPTS windows at most;
+    then the last window with events is taken, and none at all raises."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
+    found = None
     for _ in range(PROFILE_ATTEMPTS):
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             for _ in range(iters):
@@ -66,7 +69,11 @@ def _device_events(fn: Callable[[], object], iters: int, kernel: Optional[str] =
         events = [e for e in prof.events() if e.device_type == DeviceType.CUDA
                   and (kernel is None or kernel in e.name)]
         if events:
-            return sorted(events, key=lambda e: e.time_range.start)
+            found = sorted(events, key=lambda e: e.time_range.start)
+            if len(events) % iters == 0:
+                return found
+    if found:
+        return found
     raise AssertionError(f"torch.profiler recorded no device event in "
                          f"{PROFILE_ATTEMPTS} windows")
 
@@ -91,7 +98,23 @@ def device_ms(fn: Callable[[], object], iters: int, kernel: Optional[str] = None
     For a kernel shorter than its wrapper's host work this is the kernel's
     time, where CUDA events over
     back-to-back calls would time the host's pace. The profiler now and
-    then hands back a window without a single device event; such a window
-    is measured again, PROFILE_ATTEMPTS windows at most, then this raises."""
+    then hands back a window that lost device events; such a window is
+    measured again (`_device_events`)."""
     events = _device_events(fn, iters, kernel)
     return sum(e.time_range.elapsed_us() for e in events) / iters / 1e3
+
+
+def host_us(fn: Callable[[], object], iters: int) -> float:
+    """Host time per call of `iters` back-to-back calls of `fn` that queue on
+    the device without a synchronise (a wrapper's checks, allocations and
+    launches), after one warm-up call."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        fn()
+    us = (time.perf_counter() - t0) / iters * 1e6
+    torch.cuda.synchronize()
+    return us

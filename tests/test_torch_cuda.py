@@ -12,7 +12,12 @@ neither jax nor the JAX package, so it runs on a GPU machine without jax:
 accumulation in both, summed in a different order. The quantized GEMVs
 (W8, K10, K11) take ragged in / out edges and 1 or 8 rows; the int8-page
 decode (K6) takes pages and scales with NaN and inf past the length. The
-page-table decode (K8, K9) reads a shared pool through a permuted table
+paged decode K4 and its partial form K7 (bf16 pages) run at Qwen2-7B's 28 / 4
+heads, head dims 64 and 128, lengths at the edges of pages and 64-key tiles
+up to the smoke's 23,105 tokens, B = 2 partitioned pools with a row of
+length 0, T = 1, 2, 5 and 9 in-flight queries for K7 (up to 63 rows),
+NaN in the K and V pages past each length, and repeat themselves bit for
+bit. The page-table decode (K8, K9) reads a shared pool through a permuted table
 with -1 past each row's pages and once inside a row's length, NaN in the
 pages no row maps. The partial kernels (K5, K7) return (acc, m, l); they are compared normalized
 (acc / l, 0 where l == 0) under the same bound, m and l elementwise, and
@@ -116,15 +121,48 @@ def test_cuda_flash_attention(cuda, d, causal, kv, s, hq, hkv):
     assert attention.flash_attention.launches == 1
 
 
+# (B, lengths, pool pages) of the Hopper K4 / K7 kernel: lengths at and
+# around a page's and a 64-key tile's edges, the smoke's 23,105 tokens on its
+# 182-page pool, and partitioned pools at B = 2 with ragged lengths and a
+# row of length 0.
+_POOLS = [(1, (1,), 1), (1, (127,), 1), (1, (128,), 1), (1, (129,), 2), (1, (2049,), 17),
+          (1, (23105,), 182), (2, (1000, 3), 18), (2, (129, 0), 4), (2, (23105, 0), 364)]
+
+
+def _pool(seed, dev, b, lengths, pages, d, hkv=4):
+    """bf16 K / V pages of a partitioned pool -> (k, v) with NaN at and past
+    each row's length (for the kernel) and (k, v) with zeros there (for the
+    twin, whose bf16 K4 does not zero V)."""
+    k, v = _bf(seed, dev, pages, hkv, 128, d), _bf(seed + 1, dev, pages, hkv, 128, d)
+    kz, vz = k.clone(), v.clone()
+    rp = pages // b
+    for row, n in enumerate(lengths):
+        first = row * rp + n // 128
+        for x, val in ((k, float("nan")), (v, float("nan")), (kz, 0.0), (vz, 0.0)):
+            if n // 128 < rp:
+                x[first, :, n % 128:] = val
+            x[first + 1:(row + 1) * rp] = val
+    return k, v, kz, vz
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("b,lengths,pages", [(2, (1000, 3), 18), (1, (2049,), 17)])
-def test_cuda_paged_decode(cuda, b, lengths, pages):
-    q = _bf(1, cuda, b, 8, 1, 128)
-    kp, vp = _bf(2, cuda, pages, 2, 128, 128), _bf(3, cuda, pages, 2, 128, 128)
+@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("b,lengths,pages", _POOLS)
+def test_cuda_paged_decode(cuda, d, b, lengths, pages):
+    """K4 at Qwen2-7B's 28 / 4 heads: NaN in the K and V pages past each
+    row's length must not reach the output, a row of length 0 gives zeros,
+    and two launches give equal bits."""
+    q = _bf(1, cuda, b, 28, 1, d)
+    kp, vp, kz, vz = _pool(2, cuda, b, lengths, pages, d)
     ln = torch.tensor(lengths, dtype=torch.int32, device=cuda)
-    _close(paged_attention.paged_decode_attention_seq(q, kp, vp, ln),
-           paged_attention.paged_decode_attention_seq_plain(q, kp, vp, ln))
-    assert paged_attention.paged_decode_attention_seq.launches == 1
+    got = paged_attention.paged_decode_attention_seq(q, kp, vp, ln)
+    assert torch.isfinite(got).all()
+    _close(got, paged_attention.paged_decode_attention_seq_plain(q, kz, vz, ln))
+    for row, n in enumerate(lengths):
+        if n == 0:
+            assert (got[row] == 0).all()
+    assert torch.equal(got, paged_attention.paged_decode_attention_seq(q, kp, vp, ln))
+    assert paged_attention.paged_decode_attention_seq.launches == 2
 
 
 def _int4(seed, dev, kin, out):
@@ -280,12 +318,16 @@ def test_cuda_flash_attention_partial(cuda, d, q_off, k_off, kv, causal, sq, sk,
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("int8", [False, True])
-@pytest.mark.parametrize("b,lengths,pages,t", [(2, (1000, 0), 18, 5), (1, (2049,), 17, 8)])
-def test_cuda_paged_seq_partial(cuda, int8, b, lengths, pages, t):
-    """T in-flight queries (7 heads per kv head, as Qwen2-7B: 35 and 56
-    rows) against the pool; a row with no pool token."""
-    q = _bf(1, cuda, b, 14, t, 128)
+@pytest.mark.parametrize("int8,b,lengths,pages,t,d", [
+    (True, 2, (1000, 0), 18, 5, 128), (True, 1, (2049,), 17, 8, 128)] + [
+    (False, b, lengths, pages, t, d) for b, lengths, pages in _POOLS for t in (1, 2, 5, 9)
+    for d in (64, 128)])
+def test_cuda_paged_seq_partial(cuda, int8, b, lengths, pages, t, d):
+    """T in-flight queries (7 heads per kv head, as Qwen2-7B: up to 63 rows
+    folded head-major) against the pool; rows with no pool token give acc 0,
+    l 0, m -1e30. bf16 pages (K7) hold NaN past each row's length for the
+    kernel, zeros for the twin, and two launches give equal bits."""
+    q = _bf(1, cuda, b, 28 if not int8 else 14, t, d)
     ln = torch.tensor(lengths, dtype=torch.int32, device=cuda)
     if int8:
         rng = np.random.default_rng(5)
@@ -297,14 +339,16 @@ def test_cuda_paged_seq_partial(cuda, int8, b, lengths, pages, t):
         got = paged_attention.paged_seq_attention_partial_int8(*args)
         ref = paged_attention.paged_seq_attention_partial_int8_plain(*args)
         fn = paged_attention.paged_seq_attention_partial_int8
+        assert fn.launches == 1
     else:
-        kp, vp = _bf(2, cuda, pages, 2, 128, 128), _bf(3, cuda, pages, 2, 128, 128)
-        got = paged_attention.paged_seq_attention_partial(q, kp, vp, ln)
-        ref = paged_attention.paged_seq_attention_partial_plain(q, kp, vp, ln)
+        kp, vp, kz, vz = _pool(2, cuda, b, lengths, pages, d)
         fn = paged_attention.paged_seq_attention_partial
-    assert got[0].shape == (b, 14, t, 128) and got[1].shape == (b, 14, t)
+        got = fn(q, kp, vp, ln)
+        ref = paged_attention.paged_seq_attention_partial_plain(q, kz, vz, ln)
+        again = fn(q, kp, vp, ln)
+        assert all(torch.equal(x, y) for x, y in zip(got, again)) and fn.launches == 2
+    assert got[0].shape == q.shape and got[1].shape == q.shape[:3]
     _close_partial(got, ref)
-    assert fn.launches == 1
 
 
 @pytest.mark.cuda
