@@ -25,10 +25,13 @@
    its 47.7 MB cold from HBM, and at B = 2 on a 364-page partitioned
    pool), W8 int8 GEMV (gate, down, and the lm_head with f32
    output), K10 int4 GEMV (gate, down), K11 fused int4 GEMV (the q/k/v
-   triple, the gate/up pair), K6 paged decode over int8 pages, K5 partial
-   flash attention (the last 3,072-token chunk of a 23,552-token caption
-   prefill, global offset 20,480), K7 and K7-int8 (five in-flight queries
-   against 23,105 pool tokens, bf16 and int8 pages), K8 and K9 (one decode
+   triple, the gate/up pair), K6 paged decode over int8 pages (timed over
+   four pools in turn, and at 1,444 tokens beside K4's), K5 partial flash
+   attention (the last 3,072-token
+   chunk of a 23,552-token caption prefill, global offset 20,480), K7 and
+   K7′ (five in-flight queries against 23,105 pool tokens, bf16 and int8
+   pages, four pools in turn; and ten, 70 folded rows a kv head in two
+   64-row tiles, checked and timed with their own bound), K8 and K9 (one decode
    token of three rows of 23,105, 11,905 and 1 tokens through a page table
    over a shared 288-page pool in a seeded permutation, -1 past each
    row's pages and once inside a row's length, NaN in the pages no slot
@@ -54,7 +57,10 @@
    transposed or its pool length counting the block, K4 without the last
    page of one split range, K4 and K7 with NaN in V past the length and
    V's rows there not zeroed before P V (the kernels are also held to
-   their twins on that NaN pool), K8 / K9's table
+   their twins on that NaN pool), K6 and K7′ with the int8 V past the
+   length not zeroed (its inf scale multiplied into p = 0) or k_scale
+   applied after the mask (-inf times a NaN scale), K7 and K7′ at T 10
+   with the second row tile dropped, K8 / K9's table
    ignored (pool order), -1 read as page 0, the
    length ignored, one table entry off by one, K12's roll reversed or its
    rows left unnormalized, K13 without the residual, K14 with its last key
@@ -79,10 +85,11 @@
    and the compiled kernels' registers, spill bytes and shared bytes
    (`sc_flash_prefill_attributes`, `sc_gemm_attributes`,
    `sc_int4_probe_attributes`, `sc_dotk_attributes`,
-   `sc_paged_decode_attributes` for K4 and K7 with their resident blocks
-   per SM); K15's row the blocks each sweep point launches and its
-   dma-to-cur time ratio, K17's each kind's blocks, K4's and K7's their
-   split (`paged_split`), GB/s and the wrapper's host time per call.
+   `sc_paged_decode_attributes` for K4 / K7 and K6 / K7′ with their
+   resident blocks per SM); K15's row the blocks each sweep point launches
+   and its dma-to-cur time ratio, K17's each kind's blocks, K4's, K6's,
+   K7's and K7′'s their split (`paged_split`), the device time of each of
+   their two launches, GB/s and the wrapper's host time per call.
 5. Checks the composed paths on small inputs: two frames through
    `encode_images` (the fused tower, folded on that first call) against
    the plain twin chain of the same form and against the exact unfolded
@@ -114,7 +121,12 @@
    fills mid-decode, bf16 pages (K8) and int8 pages (K9); the same rows on
    the split path (K4 / K6) give the reference first-step logits (relative
    L2 <= 5e-2) and greedy agreement, and a 97-page pool must raise
-   RuntimeError.
+   RuntimeError. Then `generate_paged` with spec_tokens 9 over int8 pages
+   (one 3,050-token row, 32 new tokens, counters zeroed before and read
+   after): K7′ must launch, every time with 70 folded rows a kv head (two
+   row tiles), and the first verify step's logits are held to ten vanilla
+   int8 decode steps (K6) teacher-forced with its tokens from a copy of the
+   pool it started from (relative L2 <= 5e-2).
 8. Runs `StreamChatPipeline.process_video` (off-line, canonical v0.3
    memory settings) on a 600-frame 360x640 synthetic video seven times on
    one model build, the launch counters zeroed before each run and read
@@ -122,7 +134,7 @@
    CLI default, breakpoints at 10 s and 20 s; (3) int4 weights with int8 KV
    pages, breakpoint at 10 s; (4) int8 weights with spec_tokens = 4,
    breakpoint at 10 s; (5) int4 weights, int8 KV pages and spec_tokens = 4,
-   breakpoint at 10 s (the run that drives K7-int8); (6) int8 weights with
+   breakpoint at 10 s (the run that drives K7′); (6) int8 weights with
    caption_batch = 2 and (7) int4 weights with int8 KV pages and
    caption_batch = 2, each with its breakpoint at 10 s, whose two chunk
    captions (23,441 and 11,921 tokens) form one 2-row group: the shorter
@@ -211,6 +223,8 @@ RUNS = {
     # generate_paged on a caller-sized pool (the allocator maps pages mid-decode).
     "caller_pool_bf16": ("paged_decode_attention_table",),
     "caller_pool_kv_int8": ("paged_decode_attention_table_int8",),
+    # generate_paged with spec_tokens 9 over int8 pages (two row tiles).
+    "spec9_kv_int8": ("paged_seq_attention_partial_int8",),
 }
 SOURCES = {
     "fused_vit_layer": ("streamchat_tpu_torch/csrc/fused_vit.cu",
@@ -391,6 +405,65 @@ def _v_unzeroed(q, kp, vp, length):
     acc = torch.einsum("hrl,hld->hrd", p, v)
     return (acc.reshape(1, hq, t, d), m.clamp_min(-1e30).reshape(1, hq, t),
             p.sum(-1).reshape(1, hq, t))
+
+
+def _int8_pool(g, pages, hkv, length):
+    """A one-row int8 pool [pages, Hkv, 128, 128] with f32 scales -> (k, v,
+    k_scale, v_scale): random int8 values everywhere, scales NaN (k) and inf
+    (v) at and past `length`, as stale slots may hold."""
+    kp, vp = (torch.randint(-127, 128, (pages, hkv, 128, 128), generator=g, device="cuda",
+                            dtype=torch.int8) for _ in range(2))
+    ks, vs = (torch.rand(pages, hkv, 128, generator=g, device="cuda") * 0.04 + 0.01
+              for _ in range(2))
+    for t, bad in ((ks, float("nan")), (vs, float("inf"))):
+        t[length // 128, :, length % 128:] = bad
+        t[length // 128 + 1:] = bad
+    return kp, vp, ks, vs
+
+
+# Faults of an int8-page kernel, emulated by `_int8_faulty`.
+_INT8_FAULTS = {"v_scale": "V past the length not zeroed, its inf scale multiplied",
+                "k_scale": "k_scale applied after the mask"}
+
+
+def _int8_faulty(q, kp, vp, ks, vs, length, fault):
+    """(acc, m, l) of q [1, Hq, T, D] against a one-row int8 pool as a kernel
+    with `fault` would compute them: "v_scale" multiplies p (0 past the
+    length) by V's values and scales there (inf) instead of selecting 0;
+    "k_scale" masks the keys before it scales them (-inf times a NaN
+    scale)."""
+    _, hq, t, d = q.shape
+    hkv = kp.shape[1]
+    k, v = (x.transpose(0, 1).reshape(hkv, -1, d).float() for x in (kp, vp))
+    ksc, vsc = (x.transpose(0, 1).reshape(hkv, -1) for x in (ks, vs))
+    s = torch.einsum("hrd,hld->hrl", q.reshape(hkv, -1, d).float(), k) * d ** -0.5
+    if fault == "k_scale":
+        s[..., length:] = float("-inf")
+        s = s * ksc[:, None, :]
+    else:
+        s = s * ksc[:, None, :]
+        s[..., length:] = float("-inf")
+    m = s.amax(-1)
+    p = torch.exp(s - m[..., None])
+    v = v * vsc[..., None]
+    if fault != "v_scale":
+        v[:, length:] = 0.0
+    acc = torch.einsum("hrl,hld->hrd", p, v)
+    return (acc.reshape(1, hq, t, d), m.clamp_min(-1e30).reshape(1, hq, t),
+            p.sum(-1).reshape(1, hq, t))
+
+
+def _second_tile_dropped(res, g, t):
+    """(acc, m, l) of [1, Hq, T] queries with the folded rows of each kv head
+    past the first 64-row tile (row g_i * T + t_i) left as a block with no
+    key writes them (acc 0, m -1e30, l 0): a kernel that served one tile."""
+    acc, m, l = (x.clone() for x in res)
+    hq = acc.shape[1]
+    fold = (torch.arange(hq, device=acc.device) % g)[:, None] * t + torch.arange(
+        t, device=acc.device)[None]
+    past = fold >= 64                                               # [Hq, T]
+    acc[0][past], m[0][past], l[0][past] = 0.0, -1e30, 0.0
+    return acc, m, l
 
 
 def prefill_attributes(partial: bool, d: int = 128, softmax: int = SOFTMAX["exact"]) -> dict:
@@ -652,7 +725,7 @@ def check_kernels(model, g):
     # The last page of the split range that holds page 80 dropped: the
     # kernel's output over the pool without that page (all of whose keys are
     # live).
-    drop = next(end for _, _, first, end in paged_attention.paged_blocks(1, hkv, pages)
+    drop = next(end for _, _, first, end, _, _ in paged_attention.paged_blocks(1, hkv, pages)
                 if first <= 80 < end) - 1
     keep = torch.arange(pages, device=dev) != drop
     planted["K4 last page of a split range dropped"] = _planted(
@@ -678,12 +751,14 @@ def check_kernels(model, g):
         **_bound(4 * hq * length * 128, nbytes + 2 * _nbytes(q)),
         gbs=_gbs(nbytes, t["ms"]), plain_gbs=_gbs(nbytes, t["plain_ms"]),
         host_us=host_us(_rotating(k4, args), 100),
-        blocks=paged_attention.paged_split(1, hkv, pages),
+        blocks=paged_attention.paged_split(1, hkv, pages, hq // hkv),
         launch_ms=[ms for _, ms in device_launches(_rotating(k4, args), 50)],
-        attributes=paged_attention.attributes(128, partial=False),
+        attributes=paged_attention.attributes(128),
         library_ms=None, library="none (no PyTorch call reads a page pool)")
     rows["paged_decode_attention_seq"]["share_of_bound"] = (
         rows["paged_decode_attention_seq"]["bound_ms"] / t["ms"])
+    rows["paged_decode_attention_seq"]["ms_length_1444"] = device_ms(
+        _rotating(k4, [(q, *pool, torch.full_like(ln, 1444)) for pool in pools]), 50)
     del pools, args
     # B = 2 on a partitioned pool of twice the pages (the caption_batch 2
     # decode), four pools in turn.
@@ -707,7 +782,7 @@ def check_kernels(model, g):
                b2_ms=t2["ms"], b2_plain_ms=t2["plain_ms"], b2_wall_ms=t2["wall_ms"],
                b2_bound_ms=_bound(4 * hq * sum(lengths) * 128,
                                   nbytes2 + 2 * _nbytes(q2))["bound_ms"],
-               b2_blocks=paged_attention.paged_split(2, hkv, pages))
+               b2_blocks=paged_attention.paged_split(2, hkv, pages, hq // hkv))
     del args
     return rows, planted
 
@@ -867,18 +942,9 @@ def check_quant_kernels(model, g):
     hq, hkv = model.dec_cfg.num_heads, model.dec_cfg.num_kv_heads
     pages, length, ps = -(-(23168 + 128) // 128), 23105, 128
     q = torch.randn(1, hq, 1, 128, generator=g, device=dev).to(bf)
-    pools = []
-    for _ in range(4):
-        kp, vp = (torch.randint(-127, 128, (pages, hkv, ps, 128), generator=g, device=dev,
-                                dtype=torch.int8) for _ in range(2))
-        ks, vs = (torch.rand(pages, hkv, ps, generator=g, device=dev) * 0.04 + 0.01
-                  for _ in range(2))
-        for t, bad in ((ks, float("nan")), (vs, float("inf"))):
-            t[length // ps, :, length % ps:] = bad
-            t[length // ps + 1:] = bad
-        pools.append((q, kp, vp, ks, vs))
+    pools = [_int8_pool(g, pages, hkv, length) for _ in range(4)]
     ln = torch.tensor([length], dtype=torch.int32, device=dev)
-    _, kp, vp, ks, vs = pools[0]
+    kp, vp, ks, vs = pools[0]
     k6, p6 = (paged_attention.paged_decode_attention_seq_int8,
               paged_attention.paged_decode_attention_seq_int8_plain)
     ref = p6(q, kp, vp, ks, vs, ln)
@@ -894,16 +960,29 @@ def check_quant_kernels(model, g):
     planted["K6 scales replaced by 1"] = _planted(
         "K6 scales replaced by 1", k6(q, kp, vp, torch.ones_like(ks), torch.ones_like(vs), ln),
         ref)
-    args = [pool + (ln,) for pool in pools]
+    for fault, label in _INT8_FAULTS.items():
+        acc, _, l = _int8_faulty(q, kp, vp, ks, vs, length, fault)
+        planted[f"K6 {label}"] = _planted(f"K6 {label}", (acc / l[..., None]).to(bf), ref)
+    args = [(q,) + pool + (ln,) for pool in pools]
     t = _timings(_rotating(k6, args), _rotating(p6, args), 50, 10)
     nbytes = length * hkv * 2 * (128 + 4)
     rows["paged_decode_attention_seq_int8"] = dict(
         shapes="q [1, 28, 1, 128] bf16, pages [182, 4, 128, 128] int8, scales "
-               "[182, 4, 128] f32, length 23105",
+               "[182, 4, 128] f32, length 23105 (4 pools in turn)",
         max_abs_err=err, max_row_rel_l2=rel, **t,
         gbs=_gbs(nbytes, t["ms"]), plain_gbs=_gbs(nbytes, t["plain_ms"]),
         **_bound(4 * hq * length * 128, nbytes + 2 * _nbytes(q)),
+        host_us=host_us(_rotating(k6, args), 100),
+        blocks=paged_attention.paged_split(1, hkv, pages, hq // hkv),
+        launch_ms=[ms for _, ms in device_launches(_rotating(k6, args), 50)],
+        attributes=paged_attention.attributes(128, int8=True),
         library_ms=None, library="none (no PyTorch call reads int8 pages with scales)")
+    rows["paged_decode_attention_seq_int8"]["share_of_bound"] = (
+        rows["paged_decode_attention_seq_int8"]["bound_ms"] / t["ms"])
+    # The same pools at 1,444 tokens (12 pages: 5 of the 66 ranges a head
+    # hold keys): the time a block's steps take, beside the bytes'.
+    rows["paged_decode_attention_seq_int8"]["ms_length_1444"] = device_ms(
+        _rotating(k6, [(q,) + pool + (torch.full_like(ln, 1444),) for pool in pools]), 50)
     return rows, planted
 
 
@@ -943,7 +1022,7 @@ def _planted_partial(name, got, ref):
 
 
 def check_partial_kernels(model, g):
-    """K5, K7 and K7-int8 against their plain twins at main-path shapes ->
+    """K5, K7 and K7′ against their plain twins at main-path shapes ->
     (report rows, planted faults)."""
     from torch.nn.attention.bias import causal_lower_right
 
@@ -1011,10 +1090,12 @@ def check_partial_kernels(model, g):
     del q, k, v, xk, xv, qs, ks, vs
 
     # K7: five in-flight queries against a 23,105-token pool (182 pages),
-    # bf16 and int8 pages, four pools in turn for the timing.
+    # bf16 and int8 pages, four pools in turn for the timing; then ten (70
+    # folded rows a kv head: two row tiles) on the first pool, also timed.
     t, pages, length, ps = SPEC_TOKENS + 1, -(-(23168 + 128) // 128), 23105, 128
     ln = torch.tensor([length], dtype=torch.int32, device=dev)
     q = torch.randn(1, hq, t, 128, generator=g, device=dev).to(bf)
+    q10 = torch.randn(1, hq, 10, 128, generator=g, device=dev).to(bf)
     # The same queries folded token-major (row t_i * g + g_i) where the
     # kernel folds head-major (row g_i * T + t_i).
     q_tm = q.reshape(1, hkv, grp, t, 128).transpose(2, 3).reshape(1, hq, t, 128)
@@ -1023,14 +1104,7 @@ def check_partial_kernels(model, g):
         pools = []
         for _ in range(4):
             if int8:
-                kp, vp = (torch.randint(-127, 128, (pages, hkv, ps, 128), generator=g,
-                                        device=dev, dtype=torch.int8) for _ in range(2))
-                sc = [torch.rand(pages, hkv, ps, generator=g, device=dev) * 0.04 + 0.01
-                      for _ in range(2)]
-                for x, bad in zip(sc, (float("nan"), float("inf"))):
-                    x[length // ps, :, length % ps:] = bad
-                    x[length // ps + 1:] = bad
-                pools.append((kp, vp, *sc))
+                pools.append(_int8_pool(g, pages, hkv, length))
             else:
                 kp, vp = (torch.randn(pages, hkv, ps, 128, generator=g, device=dev).to(bf)
                           for _ in range(2))
@@ -1038,15 +1112,18 @@ def check_partial_kernels(model, g):
                 pools.append((kp, vp))
         fn = getattr(paged_attention, label)
         plain = getattr(paged_attention, label + "_plain")
-        name = "K7-int8" if int8 else "K7"
+        name = "K7′" if int8 else "K7"
         ref = plain(q, *pools[0], ln)
         err, rel = _compare_partial(f"{name} {label}", fn(q, *pools[0], ln), ref)
         planted[f"{name} row fold transposed"] = _planted_partial(
             f"{name} row fold transposed", fn(q_tm, *pools[0], ln), ref)
         planted[f"{name} pool length counts the block"] = _planted_partial(
             f"{name} pool length counts the block", fn(q, *pools[0], ln + t), ref)
-        extra = {}
-        if not int8:
+        if int8:
+            for fault, text in _INT8_FAULTS.items():
+                planted[f"{name} {text}"] = _planted_partial(
+                    f"{name} {text}", _int8_faulty(q, *pools[0], length, fault), ref)
+        else:
             # NaN in K and V at and past the length: the kernel masks the
             # keys and zeroes V's rows there; without the zeroing, 0 * NaN.
             kn, vn = (x.clone() for x in pools[0])
@@ -1057,25 +1134,39 @@ def check_partial_kernels(model, g):
             planted[f"{name} V past the length not zeroed (NaN there)"] = _planted_partial(
                 f"{name} V past the length not zeroed", _v_unzeroed(q, kn, vn, length), ref)
             del kn, vn
-            extra = dict(blocks=paged_attention.paged_split(1, hkv, pages),
-                         launch_ms=[ms for _, ms in device_launches(
-                             _rotating(fn, [(q,) + pool + (ln,) for pool in pools]), 50)],
-                         attributes=paged_attention.attributes(128, partial=True),
-                         host_us=host_us(_rotating(fn, [(q,) + pool + (ln,)
-                                                        for pool in pools]), 100))
+        # T 10: 70 rows a kv head, two 64-row tiles.
+        ref10 = plain(q10, *pools[0], ln)
+        got10 = fn(q10, *pools[0], ln)
+        err10, rel10 = _compare_partial(f"{name} T 10 (70 rows)", got10, ref10)
+        planted[f"{name} T 10, second row tile dropped"] = _planted_partial(
+            f"{name} T 10, second row tile dropped", _second_tile_dropped(got10, grp, 10), ref10)
         args = [(q,) + pool + (ln,) for pool in pools]
         row_bytes = 128 + 4 if int8 else 2 * 128
+        kv_bytes = length * hkv * 2 * row_bytes
         rows[label] = dict(
             shapes=f"q [1, 28, {t}, 128] bf16, pages [182, 4, 128, 128] "
-                   + ("int8, scales [182, 4, 128] f32" if int8 else "bf16") + ", length 23105",
-            max_abs_err=err, max_row_rel_l2=rel,
+                   + ("int8, scales [182, 4, 128] f32" if int8 else "bf16")
+                   + ", length 23105 (4 pools in turn); T 10 on the first pool",
+            max_abs_err=max(err, err10), max_row_rel_l2=max(rel, rel10),
             **_timings(_rotating(fn, args), _rotating(plain, args), 50, 10),
             **_bound(4 * hq * t * length * 128,
-                     length * hkv * 2 * row_bytes + _nbytes(q) + hq * t * (128 + 2) * 4),
-            library_ms=None, library="none (no PyTorch call reads a page pool)", **extra)
-        rows[label]["gbs"] = _gbs(length * hkv * 2 * row_bytes, rows[label]["ms"])
-        rows[label]["share_of_bound"] = rows[label]["bound_ms"] / rows[label]["ms"]
-        del pools, args
+                     kv_bytes + _nbytes(q) + hq * t * (128 + 2) * 4),
+            blocks=paged_attention.paged_split(1, hkv, pages, grp * t),
+            launch_ms=[ms for _, ms in device_launches(_rotating(fn, args), 50)],
+            attributes=paged_attention.attributes(128, int8=int8),
+            host_us=host_us(_rotating(fn, args), 100),
+            library_ms=None, library="none (no PyTorch call reads a page pool)")
+        row = rows[label]
+        row["gbs"] = _gbs(kv_bytes, row["ms"])
+        row["share_of_bound"] = row["bound_ms"] / row["ms"]
+        # T 10 over the four pools in turn; its bound reads each pool once,
+        # though both row tiles' blocks read it.
+        t10 = device_ms(_rotating(fn, [(q10,) + pool + (ln,) for pool in pools]), 50)
+        b10 = _bound(4 * hq * 10 * length * 128,
+                     kv_bytes + _nbytes(q10) + hq * 10 * (128 + 2) * 4)["bound_ms"]
+        row.update(t10_ms=t10, t10_bound_ms=b10, t10_share_of_bound=b10 / t10,
+                   t10_blocks=paged_attention.paged_split(1, hkv, pages, grp * 10))
+        del pools, args, ref10, got10
     return rows, planted
 
 
@@ -1247,6 +1338,83 @@ def check_composed_table(model, g):
                                  f"{launches} launches")
         out[label] = {"logits_rel_l2": rel, "launches": launches}
     return out
+
+
+def drive_spec_rows(model, g):
+    """`generate_paged` with spec_tokens 9 over int8 pages at full width, the
+    path that needs more than one 64-row tile (7 query heads x 10 tokens =
+    70 folded rows a kv head): one 3,050-token prompt (3,072 padded), 32
+    new tokens, greedy, the launch counters zeroed before it and read after
+    it. K7' must launch, every time with 70 rows; the first verify step's
+    logits are held against ten vanilla int8 decode steps (K6),
+    teacher-forced with its tokens from a copy of the pool it started from
+    (row relative L2 <= STEP_REL_L2) -> (report, counts)."""
+    import dataclasses
+
+    from streamchat_tpu_torch import kernels
+    from streamchat_tpu_torch.models import generate_paged as gp
+    from streamchat_tpu_torch.models import paged_kv, spec_decode
+
+    dcfg, dp = model.dec_cfg, model.dec_params
+    spec, length, s = 9, 3050, 3072
+    embeds = (torch.randn(1, s, dcfg.hidden_size, generator=g, device="cuda") * 0.02
+              ).to(torch.bfloat16)
+    ln = torch.tensor([length], dtype=torch.int32, device="cuda")
+    step, partial = spec_decode.decode_step_spec, spec_decode.paged_seq_attention_partial_int8
+    first, rows = [], []
+
+    def recording_step(params, cfg, token_ids, cache, positions):
+        if not first:
+            pool = dataclasses.replace(cache, **{
+                f.name: getattr(cache, f.name).clone() for f in dataclasses.fields(cache)})
+            first.append((token_ids.clone(), pool))
+        logits, cache = step(params, cfg, token_ids, cache, positions)
+        if len(first) == 1:
+            first.append(logits.float().clone())
+        return logits, cache
+
+    def recording_partial(q, *a):
+        rows.append(q.shape[1] // a[0].shape[1] * q.shape[2])
+        return partial(q, *a)
+
+    spec_decode.decode_step_spec = recording_step
+    spec_decode.paged_seq_attention_partial_int8 = recording_partial
+    try:
+        stats = {}
+        kernels.reset_launch_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        toks, count = gp.generate_paged(dp, dcfg, embeds, ln, max_new_tokens=32, kv_int8=True,
+                                        spec_tokens=spec, stats=stats)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        counts = kernels.launch_counts()
+    finally:
+        spec_decode.decode_step_spec = step
+        spec_decode.paged_seq_attention_partial_int8 = partial
+    (tokens, pool), got = first[0], first[1]
+    ref = []
+    for i in range(spec + 1):
+        lg, pool = paged_kv.decode_step_paged_int8(dp, dcfg, tokens[:, i], pool,
+                                                   sequential_pages=True)
+        ref.append(lg.float())
+    ref = torch.stack(ref, 1)                                        # [1, T, V]
+    rel = ((got - ref).norm(dim=-1) / ref.norm(dim=-1)).max().item()
+    report = dict(seconds=seconds, verify_steps=stats["verify_steps"],
+                  accepted_tokens=stats["accepted_tokens"],
+                  generated_tokens=stats["generated_tokens"],
+                  decode_ms_per_step=1e3 * stats["decode_s"] / stats["decode_steps"],
+                  k7_int8_rows=sorted(set(rows)), first_step_logits_rel_l2=rel,
+                  greedy_agreement=f"{int((got.argmax(-1) == ref.argmax(-1)).sum())}/{spec + 1}",
+                  launches={n: c for n, c in counts.items() if c})
+    print(f"generate_paged spec_tokens {spec} [kv_int8]: {json.dumps(report)}", flush=True)
+    want = dcfg.num_heads // dcfg.num_kv_heads * (spec + 1)
+    if (counts.get("paged_seq_attention_partial_int8", 0) == 0 or set(rows) != {want}
+            or not torch.isfinite(got).all() or rel > STEP_REL_L2 or int(count.sum()) == 0):
+        raise AssertionError(f"spec_tokens {spec} over int8 pages: K7' rows {set(rows)} "
+                             f"(want {want}), first-step logits relative L2 {rel} past "
+                             f"{STEP_REL_L2}, or no token")
+    return report, counts
 
 
 def drive_caller_pool(model, g, kv_int8: bool):
@@ -2112,7 +2280,7 @@ def main() -> None:
         qrows, qplanted = check_quant_kernels(pipe.model, g)
     rows.update(qrows)
     planted.update(qplanted)
-    with phase("kernel checks K5, K7, K7-int8"):
+    with phase("kernel checks K5, K7, K7′"):
         prows, pplanted = check_partial_kernels(pipe.model, g)
     rows.update(prows)
     planted.update(pplanted)
@@ -2139,7 +2307,7 @@ def main() -> None:
             print(f"    {label}: {json.dumps(case)}")
         extra = {k: v for k, v in row.items() if k.startswith(
             ("share_of_bound", "attributes", "launch_ms", "gemm_", "attention_", "dma_to_cur",
-             "blocks", "gbs", "host_us", "b2_"))
+             "blocks", "gbs", "host_us", "b2_", "t10_", "ms_length"))
             or k.endswith("_s4096")}
         if extra:
             print(f"    {json.dumps(extra)}")
@@ -2164,6 +2332,8 @@ def main() -> None:
         label = "caller_pool_kv_int8" if kv_int8 else "caller_pool_bf16"
         with phase(f"generate_paged on a caller-sized pool ({label})"):
             caller[label], counts[label] = drive_caller_pool(m, g, kv_int8)
+    with phase("generate_paged, spec_tokens 9, kv_int8 (70 rows a kv head)"):
+        spec_rows, counts["spec9_kv_int8"] = drive_spec_rows(m, g)
     with phase("process_video bf16, 1 breakpoint"), sampling(pipe, **SHORT_ANSWER):
         runs["bf16"], counts["bf16"] = drive(pipe, "bf16", BREAKPOINTS[:1])
     bf16_tree = m.dec_params
@@ -2213,6 +2383,7 @@ def main() -> None:
         runs["int4_kv_int8_cb2"], counts["int4_kv_int8_cb2"] = drive(
             pipe, "int4_kv_int8_cb2", BREAKPOINTS[:1])
     print(f"composed checks: {json.dumps(composed)}")
+    print(f"spec_tokens 9 over int8 pages: {json.dumps(spec_rows)}")
     print(f"probe results: {json.dumps(probes)}")
 
     report = []

@@ -1,6 +1,6 @@
 // Hopper building blocks written in PTX (sm_90a): mbarriers, TMA tensor
-// loads, wgmma shared-memory descriptors and products, register rebalancing,
-// and the host-side encoding of a TMA tensor map.
+// loads and bulk copies, wgmma shared-memory descriptors and products,
+// register rebalancing, and the host-side encoding of a TMA tensor map.
 //
 // The tensor map is encoded by cuTensorMapEncodeTiled, looked up at first use
 // through the runtime (cudaGetDriverEntryPoint), so the library links nothing
@@ -59,6 +59,17 @@ __device__ __forceinline__ void tma_load_4d(void* dst, const CUtensorMap* map, u
       "[%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(smem_addr(dst)),
       "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_addr(bar)), "r"(c0), "r"(c1), "r"(c2),
       "r"(c3)
+      : "memory");
+}
+
+// A contiguous copy of `bytes` (a multiple of 16; both addresses 16-byte
+// aligned) from global to shared memory, completing on `bar`.
+__device__ __forceinline__ void bulk_load(void* dst, const void* src, uint32_t bytes,
+                                          uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n" ::"r"(
+          smem_addr(dst)),
+      "l"(reinterpret_cast<uint64_t>(src)), "r"(bytes), "r"(smem_addr(bar))
       : "memory");
 }
 
@@ -349,12 +360,14 @@ inline EncodeTiledFn encode_tiled() {
   return fn;
 }
 
-// A TMA map of a bf16 tensor [B, H, S, D] addressed through element strides
-// (batch, head, seq; the last dim contiguous), loaded in boxes of 64 columns
-// by `box_rows` rows with 128-byte swizzle; rows past S arrive as zeros.
-// A dimension of extent 1 gets a packed stride (its stride is never used).
-inline cudaError_t make_map_bf16(CUtensorMap* map, const void* base, const int64_t* strides,
-                                 int B, int H, int S, int D, int box_rows) {
+// A TMA map of a tensor [B, H, S, D] of `elem`-byte elements addressed
+// through element strides (batch, head, seq; the last dim contiguous),
+// loaded in boxes of `box_cols` columns by `box_rows` rows; rows past S
+// arrive as zeros. A dimension of extent 1 gets a packed stride (its stride
+// is never used).
+inline cudaError_t make_map_4d(CUtensorMap* map, CUtensorMapDataType type, int elem,
+                               const void* base, const int64_t* strides, int B, int H, int S,
+                               int D, int box_cols, int box_rows, CUtensorMapSwizzle swizzle) {
   EncodeTiledFn encode = encode_tiled();
   if (!encode) return cudaErrorNotSupported;
   int64_t ss = strides[2], sh = strides[1], sb = strides[0];
@@ -362,14 +375,32 @@ inline cudaError_t make_map_bf16(CUtensorMap* map, const void* base, const int64
   if (H == 1) sh = ss * S;
   if (B == 1) sb = sh * H;
   const cuuint64_t dims[4] = {(cuuint64_t)D, (cuuint64_t)S, (cuuint64_t)H, (cuuint64_t)B};
-  const cuuint64_t bytes[3] = {(cuuint64_t)ss * 2, (cuuint64_t)sh * 2, (cuuint64_t)sb * 2};
-  const cuuint32_t box[4] = {64, (cuuint32_t)box_rows, 1, 1};
-  const cuuint32_t elem[4] = {1, 1, 1, 1};
-  CUresult r = encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(base), dims,
-                      bytes, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
-                      CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-                      CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  const cuuint64_t bytes[3] = {(cuuint64_t)(ss * elem), (cuuint64_t)(sh * elem),
+                               (cuuint64_t)(sb * elem)};
+  const cuuint32_t box[4] = {(cuuint32_t)box_cols, (cuuint32_t)box_rows, 1, 1};
+  const cuuint32_t one[4] = {1, 1, 1, 1};
+  CUresult r = encode(map, type, 4, const_cast<void*>(base), dims, bytes, box, one,
+                      CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
+                      CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
+}
+
+// A bf16 tensor [B, H, S, D] in boxes of 64 columns by `box_rows` rows with
+// 128-byte swizzle.
+inline cudaError_t make_map_bf16(CUtensorMap* map, const void* base, const int64_t* strides,
+                                 int B, int H, int S, int D, int box_rows) {
+  return make_map_4d(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, base, strides, B, H, S, D, 64,
+                     box_rows, CU_TENSOR_MAP_SWIZZLE_128B);
+}
+
+// An int8 tensor [B, H, S, D] (D 64 or 128) in boxes of whole rows by
+// `box_rows` rows: D 128 gives 128-byte rows with 128-byte swizzle (chunk c
+// of row r at chunk c ^ (r % 8)), D 64 plain 64-byte rows.
+inline cudaError_t make_map_i8(CUtensorMap* map, const void* base, const int64_t* strides,
+                               int B, int H, int S, int D, int box_rows) {
+  if (D != 64 && D != 128) return cudaErrorInvalidValue;
+  return make_map_4d(map, CU_TENSOR_MAP_DATA_TYPE_UINT8, 1, base, strides, B, H, S, D, D,
+                     box_rows, D == 128 ? CU_TENSOR_MAP_SWIZZLE_128B : CU_TENSOR_MAP_SWIZZLE_NONE);
 }
 
 }  // namespace hopper

@@ -27,61 +27,111 @@ The two agree wherever every page below a row's length is mapped, which the
 allocator guarantees. Every table entry must be -1 or a page of the pool.
 
 A CUDA tensor launches `csrc/paged_decode.cu` (page ranges split across
-blocks, then a merge kernel); a CPU tensor runs the plain twin. K4 and K7
-run its Hopper kernel (TMA ring, wgmma) over the ranges of `paged_split`;
-K6, K7-int8, K8 and K9 its first kernel over chunks of PAGES_PER_CHUNK
-pages.
+blocks, then a merge kernel); a CPU tensor runs the plain twin. K4, K6, K7
+and K7' run its Hopper kernels (TMA, wgmma; int8 tiles converted to bf16
+in shared memory) over the ranges and row tiles of `paged_split`, for any
+g * T; K8 and K9 its first kernel over chunks of PAGES_PER_CHUNK pages. The
+wrappers' geometry checks are `launch_plan`, which needs no tensor.
 """
 
 from __future__ import annotations
+
+from typing import Optional
 
 import torch
 
 from streamchat_tpu_torch.kernels import counted, launched
 
-# K6, K7-int8, K8, K9: pages per block of the split page range (4 pages of
-# 128 tokens give ~180 blocks for a 23k-token context over 4 kv heads).
+# K8, K9: pages per block of the split table (4 pages of 128 tokens give
+# ~180 blocks for a 23k-token context over 4 kv heads).
 PAGES_PER_CHUNK = 4
-# K4, K7: the H100's SMs, and the kernel's blocks resident on each
-# (csrc/paged_decode.cu paged_tc_kernel: 128 threads, 97 KB of shared memory).
+# K4, K6, K7, K7': the H100's SMs, and the Hopper kernels' blocks resident
+# on each (csrc/paged_decode.cu paged_tc_kernel / paged_tc_i8_kernel: 128
+# threads and 97 KB / 99 KB of shared memory).
 SMS, RESIDENT_BLOCKS = 132, 2
-# Query rows per kv head a launch serves: g for K4 / K6, g * T for K7
-# (csrc/paged_decode.cu R_DECODE / R_PARTIAL).
-_ROWS_DECODE, _ROWS_PARTIAL = 8, 64
+# Query rows of one block of the Hopper kernels (one wgmma M tile), their
+# keys per tile (a page size must be a multiple of it), and the query heads
+# per kv head K8 / K9 serve (csrc/paged_decode.cu ROWS, KEYS, R_TABLE).
+TILE_ROWS, KEY_TILE, TABLE_HEADS = 64, 64, 8
 
 
-def paged_split(b: int, hkv: int, row_pages: int) -> dict:
-    """The grid of K4 / K7 over a partitioned pool of `b` rows of `row_pages`
-    pages and `hkv` kv heads, as `csrc/paged_decode.cu` walks it: each row's
-    pages cut into `ranges` ranges of whole pages, range r holding pages
-    [r * row_pages // ranges, (r + 1) * row_pages // ranges) (sizes differ
-    by at most one), one block per (range, kv head, row). It depends on the
-    static `row_pages` only, never on the lengths (on the device): one wave
-    of SMS x RESIDENT_BLOCKS blocks, all resident at once, or a block per
-    page where the pool has fewer pages than that."""
-    heads = b * hkv
+def row_tiles(rows: int):
+    """A kv head's `rows` folded query rows (g for K4 / K6, g * T for K7 /
+    K7') as the Hopper kernels cut them -> [(first, end)] row tiles of
+    TILE_ROWS rows, the last one ragged."""
+    return [(r, min(r + TILE_ROWS, rows)) for r in range(0, rows, TILE_ROWS)]
+
+
+def paged_split(b: int, hkv: int, row_pages: int, rows: int = 1) -> dict:
+    """The grid of K4 / K6 / K7 / K7' over a partitioned pool of `b` rows of
+    `row_pages` pages, `hkv` kv heads and `rows` query rows per kv head, as
+    `csrc/paged_decode.cu` walks it: each row's pages cut into `ranges`
+    ranges of whole pages, range r holding pages [r * row_pages // ranges,
+    (r + 1) * row_pages // ranges) (sizes differ by at most one), one block
+    per (range, row tile, kv head, row). It depends on the static
+    `row_pages` and `rows` only, never on the lengths (on the device): one
+    wave of SMS x RESIDENT_BLOCKS blocks, all resident at once, or a block
+    per page and row tile where the pool has fewer pages than that."""
+    tiles = len(row_tiles(rows))
+    heads = b * hkv * tiles
     ranges = max(1, min(row_pages, SMS * RESIDENT_BLOCKS // heads))
-    return dict(ranges=ranges, blocks=heads * ranges)
+    return dict(ranges=ranges, row_tiles=tiles, blocks=heads * ranges)
 
 
-def paged_blocks(b: int, hkv: int, row_pages: int):
-    """Every block of `paged_split` -> [(row, kv head, first page, end page)]
-    in pool pages, in launch order (ranges fastest)."""
-    n = paged_split(b, hkv, row_pages)["ranges"]
-    return [(r, h, r * row_pages + i * row_pages // n, r * row_pages + (i + 1) * row_pages // n)
-            for r in range(b) for h in range(hkv) for i in range(n)]
+def paged_blocks(b: int, hkv: int, row_pages: int, rows: int = 1):
+    """Every block of `paged_split` -> [(row, kv head, first page, end page,
+    first query row, end query row)], pages in the pool, in launch order
+    (row tiles fastest, then ranges)."""
+    n = paged_split(b, hkv, row_pages, rows)["ranges"]
+    return [(r, h, r * row_pages + i * row_pages // n, r * row_pages + (i + 1) * row_pages // n,
+             first, end)
+            for r in range(b) for h in range(hkv) for i in range(n)
+            for first, end in row_tiles(rows)]
 
 
-def attributes(d: int = 128, partial: bool = False) -> dict:
-    """K4's (or, with `partial`, K7's) compiled kernel: registers and local
-    (spill) bytes per thread, static and dynamic shared bytes, blocks
-    resident on one SM (sc_paged_decode_attributes)."""
+def launch_plan(b: int, hq: int, hkv: int, t: int, d: int, num_pages: int, page_size: int, *,
+                partial: bool = False, maxp: Optional[int] = None) -> dict:
+    """The geometry checks of one launch and its grid, from shapes alone:
+    q [b, hq, t, d] against a pool of `num_pages` pages of `page_size`
+    slots; `partial` for K7 / K7' (any t), else one token (K4 / K6); `maxp`
+    the page table's width for K8 / K9 (None: the partitioned pool). Raises
+    ValueError on what the kernels do not take -> dict(row_pages, ranges
+    (K8 / K9: chunks of PAGES_PER_CHUNK pages), rows per kv head, row_tiles
+    (as `row_tiles`), blocks of the attention kernel)."""
+    bad = f"unsupported q {(b, hq, t, d)} pages {(num_pages, hkv, page_size, d)}"
+    if (b < 1 or t < 1 or hkv < 1 or hq % hkv or d not in (64, 128)
+            or (t != 1 and not partial)):
+        raise ValueError(bad)
+    g = hq // hkv
+    rows = g * t
+    if maxp is not None:
+        if g > TABLE_HEADS or partial:
+            raise ValueError(f"{bad}: the table kernel serves one token of at most "
+                             f"{TABLE_HEADS} query heads per kv head")
+        chunks = -(-maxp // PAGES_PER_CHUNK)
+        return dict(row_pages=maxp, ranges=chunks, rows=rows, row_tiles=[(0, rows)],
+                    blocks=b * hkv * chunks)
+    if num_pages % b:
+        raise ValueError(f"{bad}: pool of {num_pages} pages not divisible into {b} rows")
+    if page_size % KEY_TILE:
+        raise ValueError(f"{bad}: page_size {page_size} is not a multiple of {KEY_TILE}")
+    row_pages = num_pages // b
+    split = paged_split(b, hkv, row_pages, rows)
+    return dict(row_pages=row_pages, ranges=split["ranges"], rows=rows,
+                row_tiles=row_tiles(rows), blocks=split["blocks"])
+
+
+def attributes(d: int = 128, int8: bool = False) -> dict:
+    """The Hopper page kernel over bf16 pages (K4, K7) or, with `int8`,
+    int8 pages (K6, K7'): registers and local (spill) bytes per thread,
+    static and dynamic shared bytes, blocks resident on one SM
+    (sc_paged_decode_attributes)."""
     import ctypes
 
     from streamchat_tpu_torch.kernels.build import library
 
     out = (ctypes.c_int * 5)()
-    err = library().sc_paged_decode_attributes(d, int(partial), out)
+    err = library().sc_paged_decode_attributes(d, int(int8), out)
     if err:
         raise RuntimeError(f"sc_paged_decode_attributes: CUDA error {err}")
     return dict(num_regs=out[0], local_bytes=out[1], static_shared_bytes=out[2],
@@ -228,45 +278,37 @@ def paged_decode_attention_table_int8_plain(q, k_pages, v_pages, k_scale, v_scal
     return _table_decode_plain(q, k_pages, v_pages, k_scale, v_scale, page_table, length)
 
 
-# The entry points that run the Hopper kernel over `paged_split`'s ranges.
-_HOPPER = ("sc_paged_decode", "sc_paged_seq_partial")
-
-
 def _launch(name, q, k_pages, v_pages, scales, length, page_dtype, partial=False,
             table=None):
     """Checks and one launch of the K4 / K6 (normalized bf16 output) or, with
-    `partial`, the K7 (f32 acc, m, l) entry point `name`; with a page `table`
-    [B, maxp] the K8 / K9 one."""
+    `partial`, the K7 / K7' (f32 acc, m, l) entry point `name`; with a page
+    `table` [B, maxp] the K8 / K9 one."""
     from streamchat_tpu_torch.kernels.build import call
 
     b, hq, t, d = q.shape
     num_pages, hkv, ps, _ = k_pages.shape
-    g = hq // hkv
     bf = torch.bfloat16
     for t_name, x, dtype in (("q", q, bf), ("k_pages", k_pages, page_dtype),
                              ("v_pages", v_pages, page_dtype)):
         if x.device.type != "cuda" or x.dtype != dtype:
             raise ValueError(f"{name} {t_name}: expected CUDA {dtype}, got "
                              f"{x.device} {x.dtype}")
-    if not (k_pages.is_contiguous() and v_pages.is_contiguous()):
-        raise ValueError(f"{name}: pages must be contiguous")
-    if ((t != 1 and not partial) or d not in (64, 128) or hq % hkv
-            or g * t > (_ROWS_PARTIAL if partial else _ROWS_DECODE)
-            or tuple(v_pages.shape) != tuple(k_pages.shape)
-            or (table is None and num_pages % b) or q.stride(-1) != 1):
+    if not (k_pages.is_contiguous() and v_pages.is_contiguous()) or (
+            k_pages.data_ptr() % 16 or v_pages.data_ptr() % 16):
+        raise ValueError(f"{name}: pages must be contiguous and 16-byte aligned")
+    if tuple(v_pages.shape) != tuple(k_pages.shape) or q.stride(-1) != 1 or k_pages.shape[3] != d:
         raise ValueError(f"{name}: unsupported q {tuple(q.shape)} "
                          f"pages {tuple(k_pages.shape)}")
     for x in scales:
         if (x.device != q.device or x.dtype != torch.float32 or not x.is_contiguous()
-                or tuple(x.shape) != (num_pages, hkv, ps)):
-            raise ValueError(f"{name} scales: expected contiguous f32 "
+                or tuple(x.shape) != (num_pages, hkv, ps) or x.data_ptr() % 16):
+            raise ValueError(f"{name} scales: expected contiguous 16-byte aligned f32 "
                              f"{(num_pages, hkv, ps)} on the query's device, got "
                              f"{x.device} {x.dtype} {tuple(x.shape)}")
     if (length.device != q.device or length.dtype != torch.int32
             or tuple(length.shape) != (b,)):
         raise ValueError(f"{name} length: expected int32 [B] on the query's device")
-    length = length.contiguous()
-    row_pages, tab = num_pages // b, ()
+    length, tab = length.contiguous(), ()
     if table is not None:
         if (table.device != q.device or table.dtype != torch.int32 or table.dim() != 2
                 or table.shape[0] != b):
@@ -274,19 +316,17 @@ def _launch(name, q, k_pages, v_pages, scales, length, page_dtype, partial=False
                              f"query's device, got {table.device} {table.dtype} "
                              f"{tuple(table.shape)}")
         table = table.contiguous()
-        row_pages, tab = table.shape[1], (table.data_ptr(),)
-    # K6 / K8 / K9: chunks of PAGES_PER_CHUNK pages; K4 / K7: paged_split's
+        tab = (table.data_ptr(),)
+    plan = launch_plan(b, hq, hkv, t, d, num_pages, ps, partial=partial,
+                       maxp=None if table is None else table.shape[1])
+    # K8 / K9: chunks of PAGES_PER_CHUNK pages; K4, K6, K7, K7': paged_split's
     # number of ranges, passed in the same argument.
-    per, nchunks = PAGES_PER_CHUNK, -(-row_pages // PAGES_PER_CHUNK)
-    if name in _HOPPER:
-        if ps % 64:
-            raise ValueError(f"{name}: page_size {ps} is not a multiple of 64")
-        per = nchunks = paged_split(b, hkv, row_pages)["ranges"]
-    rows = b * hkv * nchunks * g * t                     # query rows of every chunk
+    per = PAGES_PER_CHUNK if table is not None else plan["ranges"]
+    rows = b * hkv * plan["ranges"] * plan["rows"]       # query rows of every range
     f32 = dict(dtype=torch.float32, device=q.device)
     scratch = torch.empty(rows * (d + 2), **f32)          # their acc, m and l
     base = scratch.data_ptr()
-    geometry = (length.data_ptr(), b, hq, hkv, row_pages, ps, per, d, d ** -0.5,
+    geometry = (length.data_ptr(), b, hq, hkv, plan["row_pages"], ps, per, d, d ** -0.5,
                 base, base + 4 * rows * d, base + 4 * rows * (d + 1))
     pages = (k_pages.data_ptr(), v_pages.data_ptr(), *[x.data_ptr() for x in scales], *tab)
     stream = torch.cuda.current_stream().cuda_stream
@@ -359,7 +399,7 @@ def paged_decode_attention_table_int8(q, k_pages, v_pages, k_scale, v_scale, pag
 @counted
 def paged_seq_attention_partial(q, k_pages, v_pages, length):
     """Multi-query partial attention (K7), scores scaled by D^-0.5: q
-    [B, Hq, T, D] (g * T <= 64) against one layer's bf16 pages, length [B]
+    [B, Hq, T, D] (any T) against one layer's bf16 pages, length [B]
     int32 pool tokens -> (acc f32 [B, Hq, T, D] unnormalized, m, l f32
     [B, Hq, T])."""
     if q.device.type == "cpu":
@@ -372,7 +412,7 @@ def paged_seq_attention_partial(q, k_pages, v_pages, length):
 
 @counted
 def paged_seq_attention_partial_int8(q, k_pages, v_pages, k_scale, v_scale, length):
-    """K7 over int8 pages with f32 scales [num_pages, Hkv, page_size]."""
+    """K7 over int8 pages with f32 scales [num_pages, Hkv, page_size] (K7')."""
     if q.device.type == "cpu":
         return paged_seq_attention_partial_int8_plain(q, k_pages, v_pages, k_scale, v_scale,
                                                       length)

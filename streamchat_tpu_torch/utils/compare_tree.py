@@ -13,17 +13,18 @@ and the device time per call of each (torch.profiler, as `chip_smoke.py`
 measures it; for K1's ingest form also launch by launch) is taken in
 turns: other, this, this, other. The page-pool kernels (K4, K6-K9) run
 through each tree's own `ops/paged_attention.py` wrapper, so that each
-library gets the split and the scratch its tree gives it; K4 and K7 are
-timed over four pools in turn (each call reads its pool cold from HBM),
-and their wrappers' host time per call is reported too. A case must be
+library gets the split and the scratch its tree gives it; K4, K6, K7 and
+K7′ are timed over four pools in turn (each call reads its pool cold from
+HBM), and their wrappers' host time per call is reported too. A case must be
 equal bit for bit unless `CASES` names a tolerance for it: the ViT kernels
 K1, K2, K13, K14 and K16 (wgmma GEMM and attention since the Hopper
 redesign, another summation order), the probes K15 (row ranges summed
-in a cluster) and K17 (wgmma, other dot slices), and K4 and K7 (split-K
-over the pool on wgmma since their Hopper redesign) are held to the other
-tree's output within the smoke's tolerance instead, |a - b| <= 3e-2 +
-2e-2 |b|, and for K4, K7, K13, K14, K15 and K17 also a row relative L2
-error <= 1e-2 (K7 through acc / l, m and l elementwise). A kernel the
+in a cluster) and K17 (wgmma, other dot slices), and K4, K6, K7 and K7′
+(split-K over the pool on wgmma since their Hopper redesign) are held to
+the other tree's output within the smoke's tolerance instead, |a - b| <=
+3e-2 + 2e-2 |b|, and for K4, K6, K7, K7′, K13, K14, K15 and K17 also a row
+relative L2 error <= 1e-2 (K7 / K7′ through acc / l, m and l
+elementwise). A kernel the
 other tree does not export, or exports with another C signature, is
 timed in this tree alone.
 """
@@ -53,9 +54,9 @@ CASES = {
     "K3": ("sc_flash_attention", None),
     "K4": ("sc_paged_decode", "rows"),
     "K5": ("sc_flash_attention_partial", None),
-    "K6": ("sc_paged_decode_int8", None),
+    "K6": ("sc_paged_decode_int8", "rows"),
     "K7": ("sc_paged_seq_partial", "rows"),
-    "K7′": ("sc_paged_seq_partial_int8", None),
+    "K7′": ("sc_paged_seq_partial_int8", "rows"),
     "K8": ("sc_paged_decode_table", None),
     "K9": ("sc_paged_decode_table_int8", None),
     "K10": ("sc_int4_gemv", None),
@@ -133,7 +134,8 @@ def _load_other(tree: str):
 
 def _cases(g, paged):
     """-> (case -> a call of this tree's wrapper at main-path shapes, case ->
-    the call to time where it differs: K4 and K7 over four pools in turn).
+    the call to time where it differs: K4, K6, K7 and K7′ over four pools in
+    turn).
     The page-pool cases call the wrapper module in paged["mod"] (this
     tree's, or the other tree's while its library runs)."""
     from streamchat_tpu_torch.ops import (attention, dedup, fused_vit, int4_matmul, quant,
@@ -170,10 +172,14 @@ def _cases(g, paged):
     q = rnd(1, 28, 1, 128)
     kp, vp = rnd(pages, 4, 128, 128), rnd(pages, 4, 128, 128)
     ln = torch.tensor([length], dtype=torch.int32, device=dev)
-    kq, vq = (torch.randint(-127, 128, (pages, 4, 128, 128), generator=g, device=dev,
-                            dtype=torch.int8) for _ in range(2))
-    ks, vs = (torch.rand(pages, 4, 128, generator=g, device=dev) * 0.04 + 0.01
-              for _ in range(2))
+
+    def int8_pool():
+        return tuple(torch.randint(-127, 128, (pages, 4, 128, 128), generator=g, device=dev,
+                                   dtype=torch.int8) for _ in range(2)) + tuple(
+            torch.rand(pages, 4, 128, generator=g, device=dev) * 0.04 + 0.01 for _ in range(2))
+
+    int8_pools = [int8_pool() for _ in range(4)]
+    kq, vq, ks, vs = int8_pools[0]
     # K8 / K9: three rows of 23,105, 11,905 and 1 tokens over a 288-page
     # pool in a seeded permutation (chip_smoke.check_table_kernels).
     lengths, maxp, pool = (23105, 11905, 1), 184, 288
@@ -196,8 +202,8 @@ def _cases(g, paged):
     q7 = rnd(1, 28, 5, 128)
     pools = [(kp, vp)] + [(rnd(pages, 4, 128, 128), rnd(pages, 4, 128, 128)) for _ in range(3)]
 
-    def rotating(fn_name, qq):
-        it = itertools.cycle(pools)
+    def rotating(fn_name, qq, arg_sets=pools):
+        it = itertools.cycle(arg_sets)
         return lambda: getattr(paged["mod"], fn_name)(qq, *next(it), ln)
 
     # W8, K10, K11: one decode row against Qwen2-7B's gate / up width.
@@ -211,7 +217,9 @@ def _cases(g, paged):
     x15 = rnd(1, probe_int4.DIN)
     a17, b17 = pvv.make_dot_inputs("qk64", g)
     timed = {"K4": rotating("paged_decode_attention_seq", q),
-             "K7": rotating("paged_seq_attention_partial", q7)}
+             "K6": rotating("paged_decode_attention_seq_int8", q, int8_pools),
+             "K7": rotating("paged_seq_attention_partial", q7),
+             "K7′": rotating("paged_seq_attention_partial_int8", q7, int8_pools)}
     return {
         "K1 ingest form": lambda: fused_vit.fused_vit_layer(
             x, *folded, num_heads=16, frame_tile=1, folded=True, ln_onepass=True),

@@ -10,14 +10,15 @@ neither jax nor the JAX package, so it runs on a GPU machine without jax:
 (`--noconftest` skips tests/conftest.py, which sets up jax.) Tolerance:
 |kernel - plain| <= 3e-2 + 2e-2 |plain|, bf16 storage with f32
 accumulation in both, summed in a different order. The quantized GEMVs
-(W8, K10, K11) take ragged in / out edges and 1 or 8 rows; the int8-page
-decode (K6) takes pages and scales with NaN and inf past the length. The
-paged decode K4 and its partial form K7 (bf16 pages) run at Qwen2-7B's 28 / 4
-heads, head dims 64 and 128, lengths at the edges of pages and 64-key tiles
-up to the smoke's 23,105 tokens, B = 2 partitioned pools with a row of
-length 0, T = 1, 2, 5 and 9 in-flight queries for K7 (up to 63 rows),
-NaN in the K and V pages past each length, and repeat themselves bit for
-bit. The page-table decode (K8, K9) reads a shared pool through a permuted table
+(W8, K10, K11) take ragged in / out edges and 1 or 8 rows. The paged
+decode K4 / K6 and its partial form K7 / K7' (bf16 / int8 pages) run at
+Qwen2-7B's 28 / 4 heads, head dims 64 and 128, lengths at the edges of
+pages and 64-key tiles up to the smoke's 23,105 tokens, B = 2 partitioned
+pools with a row of length 0, T = 1, 2, 5, 9, 10 and 16 in-flight queries
+for K7 / K7' (up to 112 folded rows: two 64-row tiles) and T = 16 at 4
+query heads per kv head, K6 also at 4 and 16, NaN in the bf16 K and V
+pages and NaN / inf in the int8 scales past each length, and repeat
+themselves bit for bit. The page-table decode (K8, K9) reads a shared pool through a permuted table
 with -1 past each row's pages and once inside a row's length, NaN in the
 pages no row maps. The partial kernels (K5, K7) return (acc, m, l); they are compared normalized
 (acc / l, 0 where l == 0) under the same bound, m and l elementwise, and
@@ -218,26 +219,42 @@ def test_cuda_int4_gemv_fused(cuda, n, widths):
     assert int4_matmul.qmatvec_int4_fused.launches == 1
 
 
+def _int8_pool(seed, dev, b, lengths, pages, d, hkv=4):
+    """int8 K / V pages of a partitioned pool with f32 scales -> (k, v,
+    k_scale, v_scale), the scales NaN (k) and inf (v) at and past each row's
+    length, as stale slots may hold."""
+    rng = np.random.default_rng(seed)
+    kp, vp = (torch.from_numpy(rng.integers(-127, 128, (pages, hkv, 128, d), dtype=np.int8)
+                               ).to(dev) for _ in range(2))
+    ks, vs = (torch.from_numpy(rng.uniform(0.005, 0.02, (pages, hkv, 128)).astype(np.float32)
+                               ).to(dev) for _ in range(2))
+    rp = pages // b
+    for row, n in enumerate(lengths):
+        stale = torch.arange(n, rp * 128, device=dev)     # row positions at and past n
+        for x, bad in ((ks, float("nan")), (vs, float("inf"))):
+            x[row * rp + stale // 128, :, stale % 128] = bad
+    return kp, vp, ks, vs
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("b,lengths,pages", [(2, (1000, 3), 18), (1, (2049,), 17)])
-def test_cuda_paged_decode_int8(cuda, b, lengths, pages):
-    q = _bf(1, cuda, b, 8, 1, 128)
-    rng = np.random.default_rng(4)
-    kp, vp = (torch.from_numpy(rng.integers(-127, 128, (pages, 2, 128, 128), dtype=np.int8)
-                               ).to(cuda) for _ in range(2))
-    ks, vs = (torch.from_numpy(rng.uniform(0.005, 0.02, (pages, 2, 128)).astype(np.float32)
-                               ).to(cuda) for _ in range(2))
-    row = pages // b
-    for r, n in enumerate(lengths):              # garbage past each row's length
-        for t, bad in ((ks, float("nan")), (vs, float("inf"))):
-            flat = t[r * row:(r + 1) * row].transpose(0, 1).reshape(2, -1)
-            flat[:, n:] = bad
-            t[r * row:(r + 1) * row] = flat.reshape(2, row, 128).transpose(0, 1)
+@pytest.mark.parametrize("hq", [28, 16, 64])
+@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("b,lengths,pages", _POOLS)
+def test_cuda_paged_decode_int8(cuda, hq, d, b, lengths, pages):
+    """K6 at g 7 (Qwen2-7B), 4 (the judge) and 16 query heads per kv head:
+    NaN / inf scales past each row's length must not reach the output, a
+    row of length 0 gives zeros, and two launches give equal bits."""
+    q = _bf(1, cuda, b, hq, 1, d)
+    kp, vp, ks, vs = _int8_pool(4, cuda, b, lengths, pages, d)
     ln = torch.tensor(lengths, dtype=torch.int32, device=cuda)
-    got = paged_attention.paged_decode_attention_seq_int8(q, kp, vp, ks, vs, ln)
+    fn = paged_attention.paged_decode_attention_seq_int8
+    got = fn(q, kp, vp, ks, vs, ln)
     assert torch.isfinite(got).all()
     _close(got, paged_attention.paged_decode_attention_seq_int8_plain(q, kp, vp, ks, vs, ln))
-    assert paged_attention.paged_decode_attention_seq_int8.launches == 1
+    for row, n in enumerate(lengths):
+        if n == 0:
+            assert (got[row] == 0).all()
+    assert torch.equal(got, fn(q, kp, vp, ks, vs, ln)) and fn.launches == 2
 
 
 @pytest.mark.cuda
@@ -318,35 +335,32 @@ def test_cuda_flash_attention_partial(cuda, d, q_off, k_off, kv, causal, sq, sk,
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("int8,b,lengths,pages,t,d", [
-    (True, 2, (1000, 0), 18, 5, 128), (True, 1, (2049,), 17, 8, 128)] + [
-    (False, b, lengths, pages, t, d) for b, lengths, pages in _POOLS for t in (1, 2, 5, 9)
-    for d in (64, 128)])
-def test_cuda_paged_seq_partial(cuda, int8, b, lengths, pages, t, d):
-    """T in-flight queries (7 heads per kv head, as Qwen2-7B: up to 63 rows
-    folded head-major) against the pool; rows with no pool token give acc 0,
+@pytest.mark.parametrize("int8", [False, True])
+@pytest.mark.parametrize("hq,t,d", [(28, t, d) for t in (1, 2, 5, 9, 10, 16) for d in (64, 128)]
+                         + [(16, 16, 64), (16, 16, 128)])
+@pytest.mark.parametrize("b,lengths,pages", _POOLS)
+def test_cuda_paged_seq_partial(cuda, int8, hq, t, d, b, lengths, pages):
+    """T in-flight queries against the pool, folded head-major: 7 heads per
+    kv head as Qwen2-7B (T 10 and 16 give 70 and 112 rows, two 64-row tiles)
+    and 4 as the judge (T 16: 64 rows); rows with no pool token give acc 0,
     l 0, m -1e30. bf16 pages (K7) hold NaN past each row's length for the
-    kernel, zeros for the twin, and two launches give equal bits."""
-    q = _bf(1, cuda, b, 28 if not int8 else 14, t, d)
+    kernel, zeros for the twin; int8 pages (K7') NaN / inf scales there for
+    both. Two launches give equal bits."""
+    q = _bf(1, cuda, b, hq, t, d)
     ln = torch.tensor(lengths, dtype=torch.int32, device=cuda)
     if int8:
-        rng = np.random.default_rng(5)
-        kp, vp = (torch.from_numpy(rng.integers(-127, 128, (pages, 2, 128, 128), dtype=np.int8)
-                                   ).to(cuda) for _ in range(2))
-        ks, vs = (torch.from_numpy(rng.uniform(0.005, 0.02, (pages, 2, 128)).astype(np.float32)
-                                   ).to(cuda) for _ in range(2))
-        args = (q, kp, vp, ks, vs, ln)
-        got = paged_attention.paged_seq_attention_partial_int8(*args)
-        ref = paged_attention.paged_seq_attention_partial_int8_plain(*args)
+        pool = _int8_pool(5, cuda, b, lengths, pages, d)
         fn = paged_attention.paged_seq_attention_partial_int8
-        assert fn.launches == 1
+        got = fn(q, *pool, ln)
+        ref = paged_attention.paged_seq_attention_partial_int8_plain(q, *pool, ln)
     else:
         kp, vp, kz, vz = _pool(2, cuda, b, lengths, pages, d)
+        pool = (kp, vp)
         fn = paged_attention.paged_seq_attention_partial
-        got = fn(q, kp, vp, ln)
+        got = fn(q, *pool, ln)
         ref = paged_attention.paged_seq_attention_partial_plain(q, kz, vz, ln)
-        again = fn(q, kp, vp, ln)
-        assert all(torch.equal(x, y) for x, y in zip(got, again)) and fn.launches == 2
+    again = fn(q, *pool, ln)
+    assert all(torch.equal(x, y) for x, y in zip(got, again)) and fn.launches == 2
     assert got[0].shape == q.shape and got[1].shape == q.shape[:3]
     _close_partial(got, ref)
 

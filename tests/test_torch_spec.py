@@ -4,8 +4,9 @@ Inputs are numpy arrays made from a seed and handed to both packages, at
 tiny geometry in float32. Tolerances:
 - `ngram_propose`: the same drafts, exactly.
 - K7's twins (`paged_seq_attention_partial{,_int8}_plain`) against the JAX
-  Pallas kernels in interpret mode: acc and l to atol 1e-4, m to atol
-  1e-5; a row with no live key gives m = -1e30, l = 0, acc = 0 exactly.
+  Pallas kernels in interpret mode, 16 and 80 folded rows a kv head: acc
+  and l to atol 1e-4, m to atol 1e-5; a row with no live key gives
+  m = -1e30, l = 0, acc = 0 exactly.
 - `_spec_attention` and a verify step (`decode_step_spec`) against JAX's:
   outputs and logits to atol 1e-4 (1e-3 over int8 pages, one quantization
   step); the committed pool to atol 1e-5, or int8 values to one step and
@@ -83,12 +84,17 @@ def _pool(b, maxp, hkv, ps, d, seed):
 
 
 @pytest.mark.parametrize("int8", [False, True], ids=["bf16_pages", "int8_pages"])
-@pytest.mark.parametrize("lengths", [[37], [37, 0], [64, 5]],
-                         ids=["one-row", "row-without-keys", "partitioned"])
-def test_partial_twins_match_jax_kernels(no_launches, int8, lengths):
-    """q [B, 8, 4, 32] over a 4-page-per-row pool (page 16), head-major row
-    fold; lengths exclude the block."""
-    b, hq, hkv, t, d, ps, maxp = len(lengths), 8, 2, 4, 32, 16, 4
+@pytest.mark.parametrize("lengths,hq,hkv,t", [
+    pytest.param([37], 8, 2, 4, id="one-row"),
+    pytest.param([37, 0], 8, 2, 4, id="row-without-keys"),
+    pytest.param([64, 5], 8, 2, 4, id="partitioned"),
+    pytest.param([37, 50], 16, 1, 5, id="80-rows"),
+])
+def test_partial_twins_match_jax_kernels(no_launches, int8, lengths, hq, hkv, t):
+    """q [B, hq, T, 32] over a 4-page-per-row pool (page 16), head-major row
+    fold (g * T rows a kv head: 16, and 80 past the card kernel's 64-row
+    tile); lengths exclude the block."""
+    b, d, ps, maxp = len(lengths), 32, 16, 4
     q = _rand(1, b, hq, t, d)
     kd, vd = _pool(b, maxp, hkv, ps, d, seed=2)
     length = np.asarray(lengths, np.int32)
