@@ -24,8 +24,9 @@
    paged decode (timed over four pools in turn, so that each call reads
    its 47.7 MB cold from HBM, and at B = 2 on a 364-page partitioned
    pool), W8 int8 GEMV (gate, down, and the lm_head with f32
-   output), K10 int4 GEMV (gate, down), K11 fused int4 GEMV (the q/k/v
-   triple, the gate/up pair), K6 paged decode over int8 pages (timed over
+   output), K10 int4 GEMV (o and down), K11 fused int4 GEMV (the q/k/v
+   triple, the gate/up pair), K10 and K11 each at 1 and 5 rows over enough
+   layers' weights in turn to read them cold, K6 paged decode over int8 pages (timed over
    four pools in turn, and at 1,444 tokens beside K4's), K5 partial flash
    attention (the last 3,072-token
    chunk of a 23,552-token caption prefill, global offset 20,480), K7 and
@@ -51,6 +52,8 @@
    own): a key tile or a 4-page chunk zeroed, the
    valid length ignored or 128 past its end, a 128-row slice of an int8
    weight zeroed, int4 nibble halves swapped, one group's scale ignored,
+   K10 / K11 with the last block's last warp range of groups, one cluster
+   rank's whole range or (q/k/v) the k part's last column tile zeroed,
    int8 page scales replaced by 1, K3 run non-causal on the causal S = 300
    case, K5's offsets swapped, its q_offset shifted by 37 on the
    rows-without-keys case or its m left unclamped, K7's row fold
@@ -81,9 +84,10 @@
    W8, K10, K11 and K15, `F.cosine_similarity` against the rolled rows for
    K12, one matmul for K17's qk kinds and a matmul and a sum for its pv
    kinds). The Hopper kernels' rows (K3, K5, and since the ViT runs them
-   K1, K2, K13, K14, K16; K15 and K17) also carry their share of the bound
+   K1, K2, K13, K14, K16; K15 and K17; K10 and K11, each case with its
+   blocks, GB/s and host time per call) also carry their share of the bound
    and the compiled kernels' registers, spill bytes and shared bytes
-   (`sc_flash_prefill_attributes`, `sc_gemm_attributes`,
+   (`sc_flash_prefill_attributes`, `sc_gemm_attributes`, `sc_int4_gemv_attributes`,
    `sc_int4_probe_attributes`, `sc_dotk_attributes`,
    `sc_paged_decode_attributes` for K4 / K7 and K6 / K7′ with their
    resident blocks per SM); K15's row the blocks each sweep point launches
@@ -806,10 +810,94 @@ def _swap_nibbles(p):
     return torch.where(b >= 128, b - 256, b).to(torch.int8)
 
 
+def _layer_weight(p, name):
+    """A decoder layer's bf16 weight of projection `name`."""
+    return p["attn"][name]["w"] if name in ("q", "k", "v", "o") else p["mlp"][name]
+
+
+def _int4_case(kernel, label, n, qs, g):
+    """K10 (`qmatvec_int4`) or K11 (`qmatvec_int4_fused`) at one path
+    shape: qs holds each layer's quantized parts. The first layer's call is
+    held to the plain twin; calls over the layers in turn are timed (cold
+    weights) beside the twin and one torch.matmul on the dequantized bf16
+    weight -> (report case, planted faults: for K10 nibble halves swapped
+    and one group's scale ignored (n = 1); the last warp's group range of
+    the last block, one cluster rank's whole range, and for K11 at q/k/v the
+    k part's last column tile, each zeroed in the weight: n = 1)."""
+    from streamchat_tpu_torch.ops import int4_matmul, quant
+
+    bf = torch.bfloat16
+    kin = qs[0][0]["w_i4p"].shape[0]
+    widths = tuple(q["w_i4p"].shape[1] for q in qs[0])
+    x = torch.randn(n, kin, generator=g, device="cuda").to(bf)
+    fused = kernel == "qmatvec_int4_fused"
+    k_fn, p_fn = ((int4_matmul.qmatvec_int4_fused, int4_matmul.qmatvec_int4_fused_plain)
+                  if fused else (int4_matmul.qmatvec_int4, int4_matmul.qmatvec_int4_plain))
+
+    def run(fn, parts):
+        flat = [t for q in parts for t in (q["w_i4p"], q["scale"])]
+        out = fn(x, *flat, out_dtype=bf)
+        return torch.cat(out, 1) if fused else out
+
+    name = f"{'K11' if fused else 'K10'} {label} n{n}"
+    ref = run(p_fn, qs[0])
+    err, rel = _compare(name, run(k_fn, qs[0]), ref, row_rel=True)
+    faults = {}
+
+    def plant(fault, parts):
+        faults[f"{name}: {fault}"] = _planted(f"{name}: {fault}", run(k_fn, parts), ref)
+
+    plan = int4_matmul.launch_plan(n, kin, widths)
+    blocks = int4_matmul.plan_blocks(n, kin, widths)
+    if n == 1:
+        def zeroed(part, cols, groups):
+            parts = [dict(q) for q in qs[0]]
+            w = parts[part]["w_i4p"].clone()
+            w[groups[0] * 128:groups[1] * 128, cols[0]:cols[1]] = 0
+            parts[part]["w_i4p"] = w
+            return parts
+
+        part, (c0, c1), _, warps = blocks[-1]
+        h0, h1 = warps[-1]
+        plant(f"the last block's last warp range (groups {h0}:{h1}, packed columns "
+              f"{c0}:{c1}) dropped", zeroed(part, (c0, c1), (h0, h1)))
+        rank = min(3, plan.cluster - 1)
+        part, cols, groups, _ = blocks[rank]
+        plant(f"cluster rank {rank} of the first tile (groups {groups[0]}:{groups[1]}) "
+              "skipped", zeroed(part, cols, groups))
+        if label == "qkv":
+            _, cols, _, _ = [b for b in blocks if b[0] == 1][-1]
+            plant(f"the k part's last column tile ({cols[0]}:{cols[1]}) dropped",
+                  zeroed(1, cols, (0, plan.groups)))
+        if not fused:
+            swapped = [dict(qs[0][0], w_i4p=_swap_nibbles(qs[0][0]["w_i4p"]))]
+            plant("nibble halves swapped", swapped)
+            one = qs[0][0]["scale"].clone()
+            one[5] = 1.0
+            plant("group 5's scale ignored", [dict(qs[0][0], scale=one)])
+    t = _timings(_rotating(lambda *p: run(k_fn, p), qs), _rotating(lambda *p: run(p_fn, p), qs),
+                 40, 5)
+    deq = [torch.cat([quant.dequantize_weight_int4(q, bf) for q in parts], 1)
+           for parts in qs[:3]]
+    library_ms = device_ms(_rotating(lambda w: torch.matmul(x, w), [(w,) for w in deq]), 40)
+    del deq
+    nbytes = sum(_int4_bytes(q) for q in qs[0])
+    kout = 2 * sum(widths)
+    case = dict(shape=[kin, kout], n=n, max_abs_err=err, max_row_rel_l2=rel, **t,
+                gbs=_gbs(nbytes, t["ms"]), plain_gbs=_gbs(nbytes, t["plain_ms"]),
+                **_bound(2 * n * kin * kout, nbytes + _nbytes(x) + 2 * n * kout),
+                library_ms=library_ms,
+                host_us=host_us(_rotating(lambda *p: run(k_fn, p), qs), 100),
+                blocks=dict(blocks=plan.blocks, cluster=plan.cluster, wave=plan.wave),
+                attributes=int4_matmul.attributes(all(w % 16 == 0 for w in widths)))
+    case["share_of_bound"] = case["bound_ms"] / case["ms"]
+    return case, faults
+
+
 def check_quant_kernels(model, g):
     """W8, K10, K11 and K6 against their plain twins at main-path shapes ->
     (report rows, planted faults). Weights are the model's, quantized."""
-    from streamchat_tpu_torch.ops import int4_matmul, paged_attention, quant
+    from streamchat_tpu_torch.ops import paged_attention, quant
 
     bf, dev = torch.bfloat16, "cuda"
     layers = model.dec_params["layers"]
@@ -858,83 +946,38 @@ def check_quant_kernels(model, g):
         **{k: cases["gate"][k] for k in _GATE_KEYS}, cases=cases,
         library="torch.matmul(x, W) on the dequantized bf16 weight")
 
-    # K10: int4 gate and down (148 groups).
-    cases = {}
-    for label, ws in (("gate", [p["mlp"]["gate"] for p in layers[:4]]),
-                      ("down", [p["mlp"]["down"] for p in layers[:4]])):
-        qs = [quant.quantize_weight_int4(w) for w in ws]
-        q0, x = qs[0], x_for(ws[0].shape[0])
-        ref = int4_matmul.qmatvec_int4_plain(x, q0["w_i4p"], q0["scale"])
-        err, rel = _compare(f"K10 qmatvec_int4 {label}",
-                            int4_matmul.qmatvec_int4(x, q0["w_i4p"], q0["scale"]), ref,
-                            row_rel=True)
-        name = f"K10 {label} nibble halves swapped"
-        planted[name] = _planted(name, int4_matmul.qmatvec_int4(
-            x, _swap_nibbles(q0["w_i4p"]), q0["scale"]), ref)
-        one = q0["scale"].clone()
-        g5 = min(5, one.shape[0] - 1)
-        one[g5] = 1.0
-        name = f"K10 {label} group {g5} scale ignored"
-        planted[name] = _planted(name, int4_matmul.qmatvec_int4(x, q0["w_i4p"], one), ref)
-        args = [(x, q["w_i4p"], q["scale"]) for q in qs]
-        t = _timings(_rotating(int4_matmul.qmatvec_int4, args),
-                     _rotating(int4_matmul.qmatvec_int4_plain, args), 40, 5)
-        kin, kout = q0["w_i4p"].shape[0], 2 * q0["w_i4p"].shape[1]
-        deq = [(x, quant.dequantize_weight_int4(q, bf)) for q in qs]
-        cases[label] = dict(shape=list(q0["w_i4p"].shape), groups=q0["scale"].shape[0],
-                            max_abs_err=err, max_row_rel_l2=rel, **t,
-                            gbs=_gbs(_int4_bytes(q0), t["ms"]),
-                            plain_gbs=_gbs(_int4_bytes(q0), t["plain_ms"]),
-                            **_bound(2 * kin * kout, _int4_bytes(q0) + _nbytes(x) + 4 * kout),
-                            library_ms=device_ms(_rotating(torch.matmul, deq), 40))
-        del qs, args, deq
-    rows["qmatvec_int4"] = dict(
-        shapes="x [1, in] bf16, packed gate [3584, 9472] / down [18944, 1792] (148 groups), "
-               "f32 out; ms = gate",
-        max_abs_err=max(c["max_abs_err"] for c in cases.values()),
-        max_row_rel_l2=max(c["max_row_rel_l2"] for c in cases.values()),
-        **{k: cases["gate"][k] for k in _GATE_KEYS}, cases=cases,
-        library="torch.matmul(x, W) on the dequantized bf16 weight")
-
-    # K11: the q/k/v triple (timed over 8 layers) and the gate/up pair (4).
-    cases = {}
-    for label, names, n_layers in (("qkv", ("q", "k", "v"), 8), ("gate_up", ("gate", "up"), 4)):
-        flats, nbytes, deq = [], 0, []
-        x = x_for(model.dec_cfg.hidden_size)
-        for p in layers[:n_layers]:
-            src = p["attn"] if label == "qkv" else p["mlp"]
-            parts = [quant.quantize_weight_int4(src[n]["w"] if label == "qkv" else src[n])
-                     for n in names]
-            flats.append([t for q in parts for t in (q["w_i4p"], q["scale"])])
-            nbytes = sum(_int4_bytes(q) for q in parts)
-            deq.append((x, torch.cat([quant.dequantize_weight_int4(q, bf) for q in parts], 1)))
-        kout = deq[0][1].shape[1]
-        got = int4_matmul.qmatvec_int4_fused(x, *flats[0], out_dtype=bf)
-        ref = int4_matmul.qmatvec_int4_fused_plain(x, *flats[0], out_dtype=bf)
-        errs = [_compare(f"K11 qmatvec_int4_fused {label} part {i}", a, b, row_rel=True)
-                for i, (a, b) in enumerate(zip(got, ref))]
-
-        def fused(*flat):
-            return int4_matmul.qmatvec_int4_fused(x, *flat, out_dtype=bf)
-
-        def fused_plain(*flat):
-            return int4_matmul.qmatvec_int4_fused_plain(x, *flat, out_dtype=bf)
-
-        t = _timings(_rotating(fused, flats), _rotating(fused_plain, flats), 40, 5)
-        cases[label] = dict(widths=[2 * f.shape[1] for f in flats[0][::2]],
-                            max_abs_err=max(e[0] for e in errs),
-                            max_row_rel_l2=max(e[1] for e in errs), **t,
-                            gbs=_gbs(nbytes, t["ms"]), plain_gbs=_gbs(nbytes, t["plain_ms"]),
-                            **_bound(2 * 3584 * kout, nbytes + _nbytes(x) + 2 * kout),
-                            library_ms=device_ms(_rotating(torch.matmul, deq), 40))
-        del flats, deq
-    rows["qmatvec_int4_fused"] = dict(
-        shapes="x [1, 3584] bf16; q/k/v (3584 -> 3584, 512, 512) and gate/up "
-               "(3584 -> 18944 x 2), bf16 out; ms = gate/up",
-        max_abs_err=max(c["max_abs_err"] for c in cases.values()),
-        max_row_rel_l2=max(c["max_row_rel_l2"] for c in cases.values()),
-        **{k: cases["gate_up"][k] for k in _GATE_KEYS}, cases=cases,
-        library="torch.matmul(x, W) on the parts' dequantized bf16 weights, concatenated")
+    # K10 at its path's shapes, o (3584 -> 3584, timed over 10 layers: 68 MB
+    # past the 50 MB L2) and down (18944 -> 3584, 148 groups; 3 layers), and
+    # K11 at q/k/v (3584 -> 3584 + 512 + 512; 8 layers) and gate/up (3584 ->
+    # 18944 x 2; 2 layers), each at 1 row (decode) and 5 (a spec-4 verify
+    # step), bf16 out as the decoder calls them.
+    for kernel, shapes in (("qmatvec_int4", (("o", ("o",), 10), ("down", ("down",), 3))),
+                           ("qmatvec_int4_fused", (("qkv", ("q", "k", "v"), 8),
+                                                   ("gate_up", ("gate", "up"), 2)))):
+        cases = {}
+        for label, names, n_layers in shapes:
+            qs = [[quant.quantize_weight_int4(_layer_weight(p, name)) for name in names]
+                  for p in layers[:n_layers]]
+            for n in (1, 5):
+                case, faults = _int4_case(kernel, label, n, qs, g)
+                cases[f"{label} n{n}"] = case
+                planted.update(faults)
+            del qs
+            torch.cuda.empty_cache()
+        head = cases["down n1" if kernel == "qmatvec_int4" else "gate_up n1"]
+        rows[kernel] = dict(
+            shapes=("x [n, in] bf16, bf16 out, n 1 and 5; " + (
+                "packed o [3584, 1792] and down [18944, 1792] (148 groups); ms = down n1"
+                if kernel == "qmatvec_int4" else
+                "q/k/v (3584 -> 3584, 512, 512) and gate/up (3584 -> 18944 x 2); "
+                "ms = gate/up n1")),
+            max_abs_err=max(c["max_abs_err"] for c in cases.values()),
+            max_row_rel_l2=max(c["max_row_rel_l2"] for c in cases.values()),
+            **{k: head[k] for k in _GATE_KEYS + ("share_of_bound", "host_us", "blocks",
+                                                "attributes")},
+            cases=cases,
+            library="torch.matmul(x, W) on the dequantized bf16 weight"
+                    + ("" if kernel == "qmatvec_int4" else "s, concatenated"))
 
     # K6: one decode token over int8 pages, 23,105 valid tokens of 182 pages
     # (4 pools in turn for the timing); past the length, random int8 pages

@@ -54,8 +54,8 @@ SIGNATURES = {
     "sc_paged_seq_partial_int8": [_P, _I64, _I64, _I64, _I, _P, _P, _P, _P, _P] + [_I] * 7
                                  + [_F] + [_P] * 7,
     "sc_w8a16_gemv": [_P, _P, _P, _I, _I, _I, _I, _I, _P, _P, _I, _P],
-    "sc_int4_gemv": [_P, _I, _I, _I, _P, _P, _I, _P, _P, _I, _P, _P, _I, _I, _I, _P,
-                     _P, _I, _P],
+    "sc_int4_gemv": [_P, _I, _I, _I, _P, _P, _I, _P, _P, _I, _P, _P, _I, _I, _P, _I, _P],
+    "sc_int4_gemv_attributes": [_I, ctypes.POINTER(ctypes.c_int)],
     "sc_fused_vit_layer": [_P] * 19 + [_I, _I, _I, _I, _I, _F, _I, _I, _I, _I, _P],
     "sc_fused_ln_mlp": [_P] * 10 + [_I, _I, _I, _I, _I, _I, _I, _F, _P],
     "sc_fused_ln_attn": [_P] * 11 + [_I, _I, _I, _I, _F, _I, _I, _I, _P],

@@ -12,21 +12,26 @@ K16 is K1's entry with the bf16-score softmax), once against each library,
 and the device time per call of each (torch.profiler, as `chip_smoke.py`
 measures it; for K1's ingest form also launch by launch) is taken in
 turns: other, this, this, other. The page-pool kernels (K4, K6-K9) run
-through each tree's own `ops/paged_attention.py` wrapper, so that each
-library gets the split and the scratch its tree gives it; K4, K6, K7 and
-K7′ are timed over four pools in turn (each call reads its pool cold from
-HBM), and their wrappers' host time per call is reported too. A case must be
+through each tree's own `ops/paged_attention.py` wrapper, and the int4
+GEMVs (K10 at o and down, K11 at q/k/v and gate/up, each at 1 and 5 rows)
+through each tree's own `ops/int4_matmul.py`, so that each library gets the
+grid, the split and the scratch its tree gives it (and its own C
+signature); K4, K6, K7 and K7′ are timed over four pools in turn (each call
+reads its pool cold from HBM), K10 and K11 over enough layers' weights in
+turn to exceed the 50 MB L2, and their wrappers' host time per call is
+reported too. A case must be
 equal bit for bit unless `CASES` names a tolerance for it: the ViT kernels
 K1, K2, K13, K14 and K16 (wgmma GEMM and attention since the Hopper
 redesign, another summation order), the probes K15 (row ranges summed
-in a cluster) and K17 (wgmma, other dot slices), and K4, K6, K7 and K7′
-(split-K over the pool on wgmma since their Hopper redesign) are held to
+in a cluster) and K17 (wgmma, other dot slices), K4, K6, K7 and K7′
+(split-K over the pool on wgmma since their Hopper redesign) and K10 / K11
+(tensor cores, ranges summed in a cluster, since theirs) are held to
 the other tree's output within the smoke's tolerance instead, |a - b| <=
-3e-2 + 2e-2 |b|, and for K4, K6, K7, K7′, K13, K14, K15 and K17 also a row
+3e-2 + 2e-2 |b|, and for K4, K6, K7, K7′, K10, K11, K13, K14, K15 and K17 also a row
 relative L2 error <= 1e-2 (K7 / K7′ through acc / l, m and l
 elementwise). A kernel the
-other tree does not export, or exports with another C signature, is
-timed in this tree alone.
+other tree does not export, or exports with another C signature and is
+not reached through each tree's own wrapper, is timed in this tree alone.
 """
 
 from __future__ import annotations
@@ -59,8 +64,9 @@ CASES = {
     "K7′": ("sc_paged_seq_partial_int8", "rows"),
     "K8": ("sc_paged_decode_table", None),
     "K9": ("sc_paged_decode_table_int8", None),
-    "K10": ("sc_int4_gemv", None),
-    "K11": ("sc_int4_gemv", None),
+    **{f"K10 {shape} n{n}": ("sc_int4_gemv", "rows") for shape in ("o", "down") for n in (1, 5)},
+    **{f"K11 {shape} n{n}": ("sc_int4_gemv", "rows")
+       for shape in ("qkv", "gate_up") for n in (1, 5)},
     "K12": ("sc_select_changed_frames", None),
     "K13": ("sc_fused_ln_attn", "rows"),
     "K14": ("sc_vit_attention", "rows"),
@@ -70,6 +76,17 @@ CASES = {
     "W8": ("sc_w8a16_gemv", None),
 }
 ATOL, RTOL, ROW_REL_L2 = 3e-2, 2e-2, 1e-2
+# C entries each tree reaches through its own wrapper module (MODULES, the
+# keys of `mods` in `_cases`), compared whatever their C signatures.
+OWN_WRAPPER = frozenset({"sc_paged_decode", "sc_paged_decode_int8", "sc_paged_seq_partial",
+                         "sc_paged_seq_partial_int8", "sc_paged_decode_table",
+                         "sc_paged_decode_table_int8", "sc_int4_gemv"})
+MODULES = {"paged": os.path.join("ops", "paged_attention.py"),
+           "int4": os.path.join("ops", "int4_matmul.py")}
+# LongVA-7B's int4 decode launches: (in, out of each part, layers' weights
+# timed in turn so that one call's bytes are not in L2 from the call before).
+INT4_SHAPES = {"o": (3584, (3584,), 10), "down": (18944, (3584,), 3),
+               "qkv": (3584, (3584, 512, 512), 8), "gate_up": (3584, (18944, 18944), 2)}
 
 
 def _within(got, ref, rows: bool = True) -> dict:
@@ -118,13 +135,15 @@ def _load_module(tree: str, name: str, rel: str):
 def _load_other(tree: str):
     """The other tree's kernel library, built by its own build.py -> (library,
     build seconds, the C entries of CASES it exports with this tree's C
-    signature)."""
+    signature, or at all for an entry reached through its own wrapper)."""
     from streamchat_tpu_torch.kernels.build import SIGNATURES
 
     mod = _load_module(tree, "other_kernel_build", os.path.join("kernels", "build.py"))
     info = mod.build(force=True)
     lib = ctypes.CDLL(mod.LIB_PATH)
-    present = tuple({n for n, _ in CASES.values() if mod.SIGNATURES.get(n) == SIGNATURES[n]})
+    present = tuple({n for n, _ in CASES.values()
+                     if mod.SIGNATURES.get(n) == SIGNATURES[n]
+                     or (n in OWN_WRAPPER and n in mod.SIGNATURES)})
     for name in present:
         fn = getattr(lib, name)
         fn.argtypes = mod.SIGNATURES[name]
@@ -132,13 +151,14 @@ def _load_other(tree: str):
     return lib, info["seconds"], present
 
 
-def _cases(g, paged):
+def _cases(g, mods):
     """-> (case -> a call of this tree's wrapper at main-path shapes, case ->
     the call to time where it differs: K4, K6, K7 and K7′ over four pools in
-    turn).
-    The page-pool cases call the wrapper module in paged["mod"] (this
-    tree's, or the other tree's while its library runs)."""
-    from streamchat_tpu_torch.ops import (attention, dedup, fused_vit, int4_matmul, quant,
+    turn, K10 and K11 over INT4_SHAPES' layers in turn).
+    The page-pool and int4 cases call the wrapper module in mods["paged"] /
+    mods["int4"] (this tree's, or the other tree's while its library
+    runs)."""
+    from streamchat_tpu_torch.ops import (attention, dedup, fused_vit, quant,
                                           vit_attention)
     from streamchat_tpu_torch.utils import probe_int4
     from streamchat_tpu_torch.utils import probe_vit_variants as pvv
@@ -204,19 +224,36 @@ def _cases(g, paged):
 
     def rotating(fn_name, qq, arg_sets=pools):
         it = itertools.cycle(arg_sets)
-        return lambda: getattr(paged["mod"], fn_name)(qq, *next(it), ln)
+        return lambda: getattr(mods["paged"], fn_name)(qq, *next(it), ln)
 
-    # W8, K10, K11: one decode row against Qwen2-7B's gate / up width.
+    # W8: one decode row against Qwen2-7B's gate width.
     xg = rnd(1, 3584)
     w8 = quant.quantize_weight(rnd(3584, 18944, scale=0.02))
-    w4, w4b = (quant.quantize_weight_int4(rnd(3584, 18944, scale=0.02)) for _ in range(2))
+    # K10 / K11 at their path's shapes, 1 and 5 rows, bf16 out (the decoder's).
+    int4_cases, int4_timed = {}, {}
+    for shape, (kin, outs, layers) in INT4_SHAPES.items():
+        qs = [[quant.quantize_weight_int4(rnd(kin, out, scale=0.02)) for out in outs]
+              for _ in range(layers)]
+        flats = [[t for q in parts for t in (q["w_i4p"], q["scale"])] for parts in qs]
+        kernel, fn = ("K10", "qmatvec_int4") if len(outs) == 1 else ("K11", "qmatvec_int4_fused")
+        for n in (1, 5):
+            x4 = rnd(n, kin)
+
+            def call(flat, x4=x4, fn=fn):
+                out = getattr(mods["int4"], fn)(x4, *flat, out_dtype=bf)
+                return torch.cat(out, 1) if isinstance(out, tuple) else out
+
+            it = itertools.cycle(flats)
+            name = f"{kernel} {shape} n{n}"
+            int4_cases[name] = lambda call=call, flat=flats[0]: call(flat)
+            int4_timed[name] = lambda call=call, it=it: call(next(it))
     # K12: one segment's frame descriptors; K15: the int4 probe's weight;
     # K17: the dot probe's qk64 operands.
     x12 = torch.randn(60, 3584, generator=g, device=dev)
     w15, s15 = probe_int4.make_weights(g, copies=1)[0][0]
     x15 = rnd(1, probe_int4.DIN)
     a17, b17 = pvv.make_dot_inputs("qk64", g)
-    timed = {"K4": rotating("paged_decode_attention_seq", q),
+    timed = {**int4_timed, "K4": rotating("paged_decode_attention_seq", q),
              "K6": rotating("paged_decode_attention_seq_int8", q, int8_pools),
              "K7": rotating("paged_seq_attention_partial", q7),
              "K7′": rotating("paged_seq_attention_partial_int8", q7, int8_pools)}
@@ -228,17 +265,15 @@ def _cases(g, paged):
         "K2": lambda: fused_vit.fused_ln_mlp(f2, None, None, *proj, activation="gelu",
                                              layernorm=False, residual=False),
         "K3": lambda: attention.flash_attention(q3, k3, v3, causal=True),
-        "K4": lambda: paged["mod"].paged_decode_attention_seq(q, kp, vp, ln),
+        "K4": lambda: mods["paged"].paged_decode_attention_seq(q, kp, vp, ln),
         "K5": lambda: attention.flash_attention_partial(q5, k5, v5, 20480, 0),
-        "K6": lambda: paged["mod"].paged_decode_attention_seq_int8(q, kq, vq, ks, vs, ln),
-        "K7": lambda: paged["mod"].paged_seq_attention_partial(q7, kp, vp, ln),
-        "K7′": lambda: paged["mod"].paged_seq_attention_partial_int8(q7, kq, vq, ks, vs, ln),
-        "K8": lambda: paged["mod"].paged_decode_attention_table(q8, kt, vt, table, lt),
-        "K9": lambda: paged["mod"].paged_decode_attention_table_int8(
+        "K6": lambda: mods["paged"].paged_decode_attention_seq_int8(q, kq, vq, ks, vs, ln),
+        "K7": lambda: mods["paged"].paged_seq_attention_partial(q7, kp, vp, ln),
+        "K7′": lambda: mods["paged"].paged_seq_attention_partial_int8(q7, kq, vq, ks, vs, ln),
+        "K8": lambda: mods["paged"].paged_decode_attention_table(q8, kt, vt, table, lt),
+        "K9": lambda: mods["paged"].paged_decode_attention_table_int8(
             q8, kqt, vqt, kst, vst, table, lt),
-        "K10": lambda: int4_matmul.qmatvec_int4(xg, w4["w_i4p"], w4["scale"]),
-        "K11": lambda: int4_matmul.qmatvec_int4_fused(xg, w4["w_i4p"], w4["scale"],
-                                                      w4b["w_i4p"], w4b["scale"]),
+        **int4_cases,
         "K12": lambda: dedup.select_changed_frames(x12, threshold=0.18,
                                                    return_similarity=True),
         "K13": lambda: fused_vit.fused_ln_attn(x, *vit[:6], num_heads=16),
@@ -267,10 +302,10 @@ def main(argv=None) -> None:
     other, seconds, present = _load_other(tree)
     print(f"other tree's kernels built in {seconds:.2f} s")
     current = build.call
-    from streamchat_tpu_torch.ops import paged_attention as this_pa
+    from streamchat_tpu_torch.ops import int4_matmul, paged_attention
 
-    other_pa = _load_module(tree, "other_paged_attention",
-                            os.path.join("ops", "paged_attention.py"))
+    this_mods = {"paged": paged_attention, "int4": int4_matmul}
+    other_mods = {key: _load_module(tree, f"other_{key}", rel) for key, rel in MODULES.items()}
 
     def call_into(lib):
         def call(name, *a):
@@ -279,15 +314,16 @@ def main(argv=None) -> None:
                 raise RuntimeError(f"{name}: CUDA error {err}")
         return call
 
-    paged = {"mod": this_pa}
-    cases, timed = _cases(torch.Generator(device="cuda").manual_seed(7), paged)
+    mods = dict(this_mods)
+    cases, timed = _cases(torch.Generator(device="cuda").manual_seed(7), mods)
     report = {}
     try:
         for name, fn in cases.items():
             entry, tolerance = CASES[name]
             clock = timed.get(name, fn)
             if entry not in present:
-                build.call, paged["mod"] = current, this_pa
+                build.call = current
+                mods.update(this_mods)
                 report[name] = dict(other="absent or another signature",
                                     ms_this=[device_ms(clock, args.iters) for _ in range(2)])
                 print(f"{name}: {json.dumps(report[name])}", flush=True)
@@ -297,7 +333,7 @@ def main(argv=None) -> None:
             host = {"other": [], "this": []}
             for which in ("other", "this", "this", "other"):
                 build.call = current if which == "this" else call_into(other)
-                paged["mod"] = this_pa if which == "this" else other_pa
+                mods.update(this_mods if which == "this" else other_mods)
                 outs[which] = fn()
                 times[which].append(device_ms(clock, args.iters))
                 if name in timed:
@@ -316,7 +352,8 @@ def main(argv=None) -> None:
                                     launch_ms_this=launches["this"])
             print(f"{name}: {json.dumps(report[name])}", flush=True)
     finally:
-        build.call, paged["mod"] = current, this_pa
+        build.call = current
+        mods.update(this_mods)
     if not all(r.get("bit_equal", True) and r.get("within", True) for r in report.values()):
         raise SystemExit("compare_tree: outputs differ from the other tree's")
     print(json.dumps(report))

@@ -21,7 +21,9 @@ For each window it prints the host wall time (from before the first launch
 to after a device synchronize), the device time (the sum of the durations
 of every device event the profiler recorded, kernels and copies; the slice
 runs on one stream, so they do not overlap), the idle share 1 - device
-time / wall, and the kernels with the largest device time. Last, an unprofiled 129-token
+time / wall, the kernels with the largest device time, and the device time
+and share of the int4 GEMVs (K10 / K11: the `int4_gemv` kernels). Last, an
+unprofiled 129-token
 caption gives decode ms per step without the profiler's host overhead,
 and the peak device memory.
 """
@@ -50,6 +52,10 @@ def summarize(prof, wall: float, label: str, rows: int = 18) -> None:
         by[name] = (t + e.time_range.elapsed_us() / 1e6, n + 1)
     for name, (t, n) in sorted(by.items(), key=lambda kv: -kv[1][0])[:rows]:
         print(f"   {t:9.4f} s  {100 * t / busy:5.1f}%  n={n:6d}  {name}")
+    gemv = [e for e in kern if "int4_gemv" in e.name]
+    t = sum(e.time_range.elapsed_us() for e in gemv) / 1e6
+    print(f"   K10/K11 (int4_gemv): {t:.6f} s, {100 * t / max(busy, 1e-12):.1f}% of device "
+          f"time, {len(gemv)} launches")
 
 
 def main(argv=None) -> None:

@@ -10,7 +10,10 @@ neither jax nor the JAX package, so it runs on a GPU machine without jax:
 (`--noconftest` skips tests/conftest.py, which sets up jax.) Tolerance:
 |kernel - plain| <= 3e-2 + 2e-2 |plain|, bf16 storage with f32
 accumulation in both, summed in a different order. The quantized GEMVs
-(W8, K10, K11) take ragged in / out edges and 1 or 8 rows. The paged
+(W8, K10, K11) take ragged in / out edges and 1 or 8 rows; K10 / K11 also 2
+and 5 rows, widths that are not a multiple of 16 or 8, LongVA-7B's o, down,
+q/k/v and gate/up at full width, bf16 and f32 outputs, repeat themselves
+bit for bit, and refuse the shapes they do not take before a launch. The paged
 decode K4 / K6 and its partial form K7 / K7' (bf16 / int8 pages) run at
 Qwen2-7B's 28 / 4 heads, head dims 64 and 128, lengths at the edges of
 pages and 64-key tiles up to the smoke's 23,105 tokens, B = 2 partitioned
@@ -168,8 +171,8 @@ def test_cuda_paged_decode(cuda, d, b, lengths, pages):
 
 def _int4(seed, dev, kin, out):
     q = quant.quantize_weight_int4(torch.from_numpy(
-        np.random.default_rng(seed).standard_normal((kin, out)).astype(np.float32) * 0.1))
-    return q["w_i4p"].to(dev), q["scale"].to(dev)
+        np.random.default_rng(seed).standard_normal((kin, out)).astype(np.float32) * 0.1).to(dev))
+    return q["w_i4p"], q["scale"]
 
 
 @pytest.mark.cuda
@@ -189,34 +192,66 @@ def test_cuda_w8a16_gemv(cuda, n, kin, out):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("n", [1, 8])
-@pytest.mark.parametrize("kin,out", [(384, 200), (3584, 512), (128, 520)])
+@pytest.mark.parametrize("n", [1, 8, 2, 5])
+@pytest.mark.parametrize("kin,out", [(384, 200), (3584, 512), (128, 520), (3584, 3584),
+                                     (18944, 3584), (384, 1032), (896, 48)])
 def test_cuda_int4_gemv(cuda, n, kin, out):
-    """Group ranges that do not split evenly and packed widths that are not
-    a multiple of the 128-column tile."""
+    """Group ranges that do not split evenly, packed widths that are not a
+    multiple of the 64-column tile or of 8 (4-byte loads), the o and down
+    shapes; bf16 and f32 outputs; a second launch gives equal bits."""
     w, s = _int4(kin + out, cuda, kin, out)
     x = _bf(2, cuda, n, kin)
-    got = int4_matmul.qmatvec_int4(x, w, s)
-    assert got.dtype == torch.float32 and got.shape == (n, out)
-    _close(got, int4_matmul.qmatvec_int4_plain(x, w, s))
-    assert int4_matmul.qmatvec_int4.launches == 1
+    for dt in (torch.float32, torch.bfloat16):
+        got = int4_matmul.qmatvec_int4(x, w, s, dt)
+        assert got.dtype == dt and got.shape == (n, out)
+        _close(got, int4_matmul.qmatvec_int4_plain(x, w, s, dt))
+        assert torch.equal(got, int4_matmul.qmatvec_int4(x, w, s, dt))
+    assert int4_matmul.qmatvec_int4.launches == 4
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("n", [1, 8])
-@pytest.mark.parametrize("widths", [(512, 128, 128), (1024, 1032)])
+@pytest.mark.parametrize("n", [1, 8, 2, 5])
+@pytest.mark.parametrize("widths", [(512, 128, 128), (1024, 1032), (3584, 512, 512),
+                                    (18944, 18944), (200, 48, 8)])
 def test_cuda_int4_gemv_fused(cuda, n, widths):
-    """k/v parts narrower than one column tile; two and three parts."""
-    parts = [_int4(10 + i, cuda, 384, w) for i, w in enumerate(widths)]
+    """k/v parts narrower than one column tile, widths that are not a
+    multiple of 16 or 8, two and three parts; LongVA-7B's q/k/v and gate/up
+    at full width (in 3584); bf16 and f32 outputs; equal bits twice."""
+    kin = 3584 if max(widths) >= 3584 else 384
+    parts = [_int4(10 + i, cuda, kin, w) for i, w in enumerate(widths)]
     flat = [t for part in parts for t in part]
-    x = _bf(3, cuda, n, 384)
-    got = int4_matmul.qmatvec_int4_fused(x, *flat, out_dtype=torch.bfloat16)
-    want = int4_matmul.qmatvec_int4_fused_plain(x, *flat, out_dtype=torch.bfloat16)
-    assert len(got) == len(widths)
-    for g, w, width in zip(got, want, widths):
-        assert g.shape == (n, width)
-        _close(g, w)
-    assert int4_matmul.qmatvec_int4_fused.launches == 1
+    x = _bf(3, cuda, n, kin)
+    for dt in (torch.bfloat16, torch.float32):
+        got = int4_matmul.qmatvec_int4_fused(x, *flat, out_dtype=dt)
+        want = int4_matmul.qmatvec_int4_fused_plain(x, *flat, out_dtype=dt)
+        assert len(got) == len(widths)
+        for g, w, width in zip(got, want, widths):
+            assert g.shape == (n, width) and g.dtype == dt
+            _close(g, w)
+        again = int4_matmul.qmatvec_int4_fused(x, *flat, out_dtype=dt)
+        assert all(torch.equal(a, b) for a, b in zip(got, again))
+    assert int4_matmul.qmatvec_int4_fused.launches == 4
+
+
+@pytest.mark.cuda
+def test_cuda_int4_gemv_rejects_shapes(cuda):
+    """Shapes the kernel does not take raise ValueError before any launch:
+    9 rows, in not a multiple of 128, a packed width not a multiple of 4,
+    x not 16-byte aligned, one part for the fused form."""
+    w, s = _int4(1, cuda, 384, 512)
+    with pytest.raises(ValueError):
+        int4_matmul.qmatvec_int4(_bf(1, cuda, 9, 384), w, s)
+    with pytest.raises(ValueError):
+        int4_matmul.qmatvec_int4(_bf(1, cuda, 1, 320), w[:320].contiguous(), s[:2].contiguous())
+    w6 = torch.zeros(384, 6, dtype=torch.int8, device=cuda)
+    with pytest.raises(ValueError):
+        int4_matmul.qmatvec_int4(_bf(1, cuda, 1, 384), w6, torch.ones(3, 2, 6, device=cuda))
+    with pytest.raises(ValueError):
+        int4_matmul.qmatvec_int4(_bf(1, cuda, 1, 385)[:, 1:], w, s)
+    with pytest.raises(ValueError):
+        int4_matmul.qmatvec_int4_fused(_bf(1, cuda, 1, 384), w, s)
+    assert int4_matmul.qmatvec_int4.launches == 0
+    assert int4_matmul.qmatvec_int4_fused.launches == 0
 
 
 def _int8_pool(seed, dev, b, lengths, pages, d, hkv=4):
