@@ -36,7 +36,9 @@
    token of three rows of 23,105, 11,905 and 1 tokens through a page table
    over a shared 288-page pool in a seeded permutation, -1 past each
    row's pages and once inside a row's length, NaN in the pages no slot
-   maps; ms_row0 times the 23,105-token row alone, beside K4), K12
+   maps; ms_row0 times the 23,105-token row alone, beside K4; and at the
+   caller pool's shape, two rows of 6,100 and 3,050 tokens on a 98-page
+   pool through 50 slots, timed over four pools in turn), K12
    scene-change dedup (frame descriptors [60, 3584] f32, every third
    frame a near-repeat; similarities within 1e-5 of the twin and equal
    keep masks), K13 the LN-attention half of ViT layer 0 (x [16, 577,
@@ -65,7 +67,10 @@
    applied after the mask (-inf times a NaN scale), K7 and K7′ at T 10
    with the second row tile dropped, K8 / K9's table
    ignored (pool order), -1 read as page 0, the
-   length ignored, one table entry off by one, K12's roll reversed or its
+   length ignored, one table entry off by one, a hole inside a row's
+   length walked as a key (its page read as zeros, as TMA reads page -1),
+   the last live page taken as full, V's rows past the length not zeroed
+   (NaN there on bf16 pages, an inf scale on int8), K12's roll reversed or its
    rows left unnormalized, K13 without the residual, K14 with its last key
    masked or its last key tile (keys 512-576) dropped, K1's GEMM with its
    last 64-deep k-slab skipped or its residual dropped, K15's xor algebra
@@ -89,11 +94,12 @@
    and the compiled kernels' registers, spill bytes and shared bytes
    (`sc_flash_prefill_attributes`, `sc_gemm_attributes`, `sc_int4_gemv_attributes`,
    `sc_int4_probe_attributes`, `sc_dotk_attributes`,
-   `sc_paged_decode_attributes` for K4 / K7 and K6 / K7′ with their
+   `sc_paged_decode_attributes` for K4 / K7, K6 / K7′, K8 and K9 with their
    resident blocks per SM); K15's row the blocks each sweep point launches
    and its dma-to-cur time ratio, K17's each kind's blocks, K4's, K6's,
-   K7's and K7′'s their split (`paged_split`), the device time of each of
-   their two launches, GB/s and the wrapper's host time per call.
+   K7's, K7′'s, K8's and K9's their split (`paged_split`), the device time
+   of each of their two launches, GB/s and the wrapper's host time per call
+   (K8 and K9 at both shapes).
 5. Checks the composed paths on small inputs: two frames through
    `encode_images` (the fused tower, folded on that first call) against
    the plain twin chain of the same form and against the exact unfolded
@@ -1231,13 +1237,69 @@ def _shared_table(g, lengths, ps, maxp, pages, hole):
     return table, free
 
 
+def _table_v_unzeroed(q, kp, vp, ks, vs, table, length):
+    """K8 / K9's output (ks / vs None for K8) with V's rows past each row's
+    length in its last 64-key tile left as they are, as a kernel that
+    skipped their zeroing would compute: 0 * NaN (0 * inf for an int8 scale)
+    reaches the row."""
+    from streamchat_tpu_torch.ops import paged_attention as pa
+
+    b, hq, _, d = q.shape
+    hkv, ps = kp.shape[1], kp.shape[2]
+    valid = pa._table_valid(table, length, ps)[:, None]
+    read = pa._table_valid(table, (length + 63) // 64 * 64, ps)[:, None]
+    s = torch.einsum("bhgd,bhld->bhgl", q.reshape(b, hkv, hq // hkv, d).float(),
+                     pa._table_rows(kp, table).float())
+    if ks is not None:
+        s = s * pa._table_rows(ks, table)[:, :, None, :]
+    s = (s * d ** -0.5).masked_fill(~valid[:, :, None, :], float("-inf"))
+    p = torch.exp(s - s.amax(-1, keepdim=True))
+    v = pa._table_rows(vp, table).float()
+    if vs is not None:
+        v = v * pa._table_rows(vs, table)[..., None]
+    o = torch.einsum("bhgl,bhld->bhgd", p, torch.where(read[..., None], v, 0.0))
+    return (o / p.sum(-1, keepdim=True)).reshape(b, hq, 1, d).to(q.dtype)
+
+
+def _caller_pools(g, hkv, int8, lengths, n=4):
+    """`n` one-layer pools [98, Hkv, 128, 128] laid out as `generate_paged`
+    pages drive_caller_pool's rows (row r: pages [48 r, 48 r + 48)): large
+    values past each row's length in its last page (NaN / inf scales on
+    int8 pages), NaN (NaN / inf scales) in every later page of the row and
+    in pages 96-97, which no slot maps."""
+    pools = []
+    for _ in range(n):
+        if int8:
+            pool = tuple(torch.randint(-127, 128, (98, hkv, 128, 128), generator=g,
+                                       device="cuda", dtype=torch.int8) for _ in range(2)) + tuple(
+                torch.rand(98, hkv, 128, generator=g, device="cuda") * 0.04 + 0.01
+                for _ in range(2))
+            tails = ((pool[2], float("nan"), float("nan")), (pool[3], float("inf"), float("inf")))
+        else:
+            pool = tuple(torch.randn(98, hkv, 128, 128, generator=g, device="cuda"
+                                     ).to(torch.bfloat16) for _ in range(2))
+            tails = ((pool[0], 8.0, float("nan")), (pool[1], 100.0, float("nan")))
+        for t, tail, stale in tails:
+            for r, length in enumerate(lengths):
+                last = 48 * r + length // 128
+                t[last, :, length % 128:] = tail
+                t[last + 1:48 * r + 48] = stale
+            t[96:] = stale
+        pools.append(pool)
+    return pools
+
+
 def check_table_kernels(model, g):
-    """K8 and K9 against their plain twins on a shared pool -> (report rows,
-    planted faults): B = 3 rows of 23,105, 11,905 and 1 tokens in 128-token
-    pages spread over a 288-page pool by a seeded permutation, -1 past each
-    row's pages and at one slot inside row 0's length; NaN in the pages no
-    slot maps (NaN / inf scales for K9) and large values past each row's
-    length in its last page."""
+    """K8 and K9 against their plain twins -> (report rows, planted faults).
+    At the smoke's shape: B = 3 rows of 23,105, 11,905 and 1 tokens in
+    128-token pages spread over a 288-page pool by a seeded permutation, -1
+    past each row's pages and at one slot inside row 0's length; NaN in the
+    pages no slot maps (NaN / inf scales for K9) and large values past each
+    row's length in its last page. At the caller pool's shape
+    (drive_caller_pool's first decode step, one layer): two rows of 6,100
+    and 3,050 tokens on a 98-page pool, 50 slots (`_caller_pools`), timed
+    over four pools in turn, and with a hole inside row 1's length (cut to
+    300 tokens)."""
     from streamchat_tpu_torch.ops import paged_attention as pa
 
     bf, dev = torch.bfloat16, "cuda"
@@ -1247,6 +1309,11 @@ def check_table_kernels(model, g):
     ln = torch.tensor(lengths, dtype=torch.int32, device=dev)
     q = torch.randn(3, hq, 1, 128, generator=g, device=dev).to(bf)
     live = sum(lengths) - ps                 # the keys the kernel must read
+    cl = (6100, 3050)
+    ctab = torch.full((2, 50), -1, dtype=torch.int32, device=dev)
+    ctab[:, :48] = torch.arange(96, dtype=torch.int32, device=dev).view(2, 48)
+    cln = torch.tensor(cl, dtype=torch.int32, device=dev)
+    qc = torch.randn(2, hq, 1, 128, generator=g, device=dev).to(bf)
     rows, planted = {}, {}
     for label, int8 in (("paged_decode_attention_table", False),
                         ("paged_decode_attention_table_int8", True)):
@@ -1281,20 +1348,83 @@ def check_table_kernels(model, g):
                 ("one table entry off by one", (off, ln))):
             planted[f"{name} {fault}"] = _planted(f"{name} {fault}", fn(q, *pool, *args), ref)
         row_bytes = 128 + 4 if int8 else 2 * 128
+        call = lambda: fn(q, *pool, table, ln)  # noqa: E731
         rows[label] = dict(
             shapes=f"q [3, 28, 1, 128] bf16, pool [288, 4, 128, 128] "
                    + ("int8, scales [288, 4, 128] f32" if int8 else "bf16")
                    + ", table [3, 184] int32 (a seeded permutation, one -1 inside row 0), "
-                     "lengths 23105 / 11905 / 1",
+                     "lengths 23105 / 11905 / 1; caller pool: q [2, 28, 1, 128], pool [98, 4, "
+                     "128, 128], table [2, 50] (rows on pages 0-47 / 48-95), lengths 6100 / "
+                     "3050, four pools in turn",
             max_abs_err=err, max_row_rel_l2=rel,
-            **_timings(lambda: fn(q, *pool, table, ln), lambda: plain(q, *pool, table, ln),
-                       50, 5),
+            **_timings(call, lambda: plain(q, *pool, table, ln), 50, 5),
             ms_row0=device_ms(lambda: fn(q[:1], *pool, table[:1], ln[:1]), 50),
+            launch_ms=[ms for _, ms in device_launches(call, 50)],
+            host_us=host_us(call, 100),
+            blocks=pa.paged_split(3, hkv, maxp, hq // hkv),
+            attributes=pa.attributes(128, int8=int8, table=True),
             **_bound(4 * hq * live * 128, live * hkv * 2 * row_bytes + 2 * _nbytes(q)
                      + _nbytes(table, ln)),
             library_ms=None, library="none (no PyTorch call reads a page table)")
-        rows[label]["gbs"] = _gbs(live * hkv * 2 * row_bytes, rows[label]["ms"])
+        row = rows[label]
+        row["gbs"] = _gbs(live * hkv * 2 * row_bytes, row["ms"])
+        row["share_of_bound"] = row["bound_ms"] / row["ms"]
         del pool, ref
+
+        # The caller pool's shape: checked, timed over four pools in turn.
+        pools = _caller_pools(g, hkv, int8, cl)
+        cargs = [(qc, *pc, ctab, cln) for pc in pools]
+        cref = plain(*cargs[0])
+        cerr, crel = _compare(f"{name} caller pool", fn(*cargs[0]), cref, row_rel=True)
+        t = _timings(_rotating(fn, cargs), _rotating(plain, cargs), 50, 5)
+        clive = sum(cl)
+        cbytes = clive * hkv * 2 * row_bytes
+        cbound = _bound(4 * hq * clive * 128, cbytes + 2 * _nbytes(qc) + _nbytes(ctab, cln))
+        row.update(max_abs_err=max(err, cerr), max_row_rel_l2=max(rel, crel),
+                   caller_ms=t["ms"], caller_plain_ms=t["plain_ms"],
+                   caller_wall_ms=t["wall_ms"], caller_bound_ms=cbound["bound_ms"],
+                   caller_share_of_bound=cbound["bound_ms"] / t["ms"],
+                   caller_gbs=_gbs(cbytes, t["ms"]),
+                   caller_launch_ms=[ms for _, ms in device_launches(_rotating(fn, cargs), 50)],
+                   caller_host_us=host_us(_rotating(fn, cargs), 100),
+                   caller_blocks=pa.paged_split(2, hkv, 50, hq // hkv))
+        # The faults of the table walk, on the first pool. A hole inside row
+        # 1's length, cut to 300 tokens so that a hole's 128 keys weigh: the
+        # kernel skips them as the twin does; a kernel that walked the hole
+        # would read page -1, which TMA fills with zeros (a zero page 97
+        # here, unit scales).
+        pc = pools[0]
+        holed, hln = ctab.clone(), torch.tensor((6100, 300), dtype=torch.int32, device=dev)
+        holed[1, 1] = -1
+        href = plain(qc, *pc, holed, hln)
+        _compare(f"{name} caller pool, a hole inside row 1", fn(qc, *pc, holed, hln), href,
+                 row_rel=True)
+        zpool = tuple(x.clone() for x in pc)
+        for x in zpool[:2]:
+            x[97] = 0
+        for x in zpool[2:]:
+            x[97] = 1.0
+        walked = holed.clone()
+        walked[1, 1] = 97
+        planted[f"{name} a hole walked as a key (read as zeros)"] = _planted(
+            f"{name} hole walked", plain(qc, *zpool, walked, hln), href)
+        full = (cln + ps - 1) // ps * ps
+        planted[f"{name} the last live page taken as full"] = _planted(
+            f"{name} last page full", plain(qc, *pc, ctab, full), cref)
+        if int8:
+            vref, unzeroed = cref, _table_v_unzeroed(qc, *pc, ctab, cln)
+        else:
+            # V past each length NaN: the kernel zeroes those rows before P V.
+            v0 = pc[1].clone()
+            for r, n in enumerate(cl):
+                v0[48 * r + n // ps, :, n % ps:] = float("nan")
+            vref = plain(qc, pc[0], v0, ctab, cln)
+            _compare(f"{name} caller pool, NaN in V past the length",
+                     fn(qc, pc[0], v0, ctab, cln), vref, row_rel=True)
+            unzeroed = _table_v_unzeroed(qc, pc[0], v0, None, None, ctab, cln)
+        planted[f"{name} V rows past the length not zeroed"] = _planted(
+            f"{name} V not zeroed", unzeroed, vref)
+        del pools, cargs, zpool
     return rows, planted
 
 
@@ -2350,7 +2480,7 @@ def main() -> None:
             print(f"    {label}: {json.dumps(case)}")
         extra = {k: v for k, v in row.items() if k.startswith(
             ("share_of_bound", "attributes", "launch_ms", "gemm_", "attention_", "dma_to_cur",
-             "blocks", "gbs", "host_us", "b2_", "t10_", "ms_length"))
+             "blocks", "gbs", "host_us", "b2_", "t10_", "ms_length", "ms_row0", "caller_"))
             or k.endswith("_s4096")}
         if extra:
             print(f"    {json.dumps(extra)}")

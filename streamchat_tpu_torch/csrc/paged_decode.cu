@@ -24,20 +24,20 @@
 // scales (0.0073 ms), while even K7's 1.66 GFLOP take 1.7 us on the tensor
 // cores.
 //
-// All four run one design, paged_tc_kernel (bf16 pages) and its int8 twin
-// paged_tc_i8_kernel:
+// All six (K8 and K9 below) run one design, paged_tc_kernel (bf16 pages)
+// and its int8 twin paged_tc_i8_kernel:
 // - Split-K over the pool (flash-decoding): one block per (page range, row
 //   tile, kv head, row). The wrapper picks the number of ranges from
-//   row_pages and the row tiles alone, never from the length on the device
-//   (ops/paged_attention.paged_split): one wave of two blocks on each SM
-//   wherever the pool has pages enough, the pages cut as evenly as whole
-//   pages allow (sizes differ by at most one). Ranges wholly past the row's
-//   length exit at once.
-// - The block's query rows (g for K4 / K6, g * T head-major for K7 / K7';
-//   row g_i * T + t_i is query head hk * g + g_i at token t_i) are cut into
-//   64-row wgmma M tiles, one a block, padded with zero rows; Q stays in
-//   registers as wgmma's A fragment. Any g * T is served: past 64 rows
-//   (T >= 10 at g 7) each tile's block re-reads its range's K/V, the tiles
+//   row_pages (K8 / K9: maxp) and the row tiles alone, never from the
+//   length on the device (ops/paged_attention.paged_split): one wave of two
+//   blocks on each SM wherever the pool has pages enough, the pages cut as
+//   evenly as whole pages allow (sizes differ by at most one). Ranges wholly
+//   past the row's length exit at once.
+// - The block's query rows (g for K4 / K6 / K8 / K9, g * T head-major for
+//   K7 / K7'; row g_i * T + t_i is query head hk * g + g_i at token t_i) are
+//   cut into 64-row wgmma M tiles, one a block, padded with zero rows; Q
+//   stays in registers as wgmma's A fragment. Any g * T is served: past 64
+//   rows (T >= 10 at g 7) each tile's block re-reads its range's K/V, the tiles
 //   of a range neighbours in launch order so that the second read comes
 //   from L2. S = Q K^T is wgmma m64n64k16 (K K-major in shared memory), the
 //   online softmax runs on S's registers (exp2, scale * log2 e folded into
@@ -88,21 +88,26 @@
 //   and L (K7, K7').
 //
 // K8 and K9 replace ops/paged_attention.py:paged_decode_attention_pallas
-// (_paged_decode_kernel) and paged_decode_attention_pallas_int8
-// (_paged_decode_int8_kernel): a shared pool whose rows' pages are wherever
-// the allocator put them, read through page_table [B, maxp] (-1 = unmapped).
-// They still run paged_table_kernel, the first design: a row's table slots
-// [0, maxp) are split into chunks of `pages_per_chunk` pages, one block per
-// (chunk, kv head, row) serving all g <= 8 query rows of its kv head, so
-// every K/V row is read once; each block first loads its chunk's table
-// entries into shared memory, and the page of position pos is
-// table[b, pos / page_size]. Warps take whole K rows (coalesced) for the
-// scores, then threads take V columns for P V. As in the TPU kernel, a slot
-// that is unmapped or at or past the row's length contributes no key, so its
-// page is never read (NaN there cannot leak); a chunk with no live key
-// writes m = -inf and a row with none gets 0. On int8 pages the scales
-// commute out of both contractions (s = (q . k_i8) * k_scale * D^-0.5, the
-// value row enters P V as v_scale * v_i8); K9 reads k_scale[page, hk, slot]
+// (_paged_decode_kernel, :135, pallas_call :196) and
+// paged_decode_attention_pallas_int8 (_paged_decode_int8_kernel, :698,
+// pallas_call :746): one-token decode over a shared pool whose rows' pages
+// are wherever the allocator put them, read through page_table [B, maxp]
+// (-1 = unmapped). They run the same two kernels, templated on how a block
+// finds its pages (Pages): PoolPages reads row b's slot s at pool page
+// b * row_pages + s, TablePages at table[b, s]. The grid is the same
+// paged_split, counted from maxp and the row tiles (any g), never from the
+// lengths on the device. A table block starts by listing, in order and in
+// shared memory, its range's slots that are mapped and start below the
+// row's length (one coalesced read of the range's table entries by warp 0,
+// compacted by ballot), and walks only those: key tile t reads page
+// live[t / (page_size / 64)]. Every live page is full but the one that holds
+// the row's length, so the block's live keys are (n_live - 1) page_size +
+// (length - last_slot page_size) when that slot is live, n_live page_size
+// when it is a hole or in another range; with that count the masking above
+// carries over as it is. As in the TPU kernel, a slot that is unmapped or
+// at or past the row's length is never loaded (NaN there cannot leak), a
+// range with no live key writes empty partials, and a row with none gets 0.
+// The TMA maps span the whole pool. K9 reads k_scale[page, hk, slot]
 // directly where the TPU kernel selected the head's scale row by a one-hot
 // sum (a Mosaic workaround).
 #include <type_traits>
@@ -112,166 +117,6 @@
 
 namespace sc {
 namespace {
-
-constexpr int THREADS = 128, NWARPS = THREADS / 32;
-// Query heads per kv head the table kernel (K8, K9) serves.
-constexpr int R_TABLE = 8;
-
-__device__ __forceinline__ float page_val(__nv_bfloat16 v) { return __bfloat162float(v); }
-__device__ __forceinline__ float page_val(int8_t v) { return static_cast<float>(v); }
-
-// K8 / K9. T is the page element type: __nv_bfloat16 (K8) or int8_t (K9,
-// with the per-(page, head, slot) scales k_scale / v_scale; null for K8).
-// The block's g query rows: row i is query head hk * g + i. Pages come from
-// table [B, maxp].
-template <int D, typename T>
-__global__ void __launch_bounds__(THREADS)
-paged_table_kernel(const __nv_bfloat16* __restrict__ q, int64_t qsb, int64_t qsh,
-                   const T* __restrict__ k_pages, const T* __restrict__ v_pages,
-                   const float* __restrict__ k_scale, const float* __restrict__ v_scale,
-                   const int* __restrict__ length, const int* __restrict__ table, int maxp,
-                   int page_size, int pages_per_chunk, int nchunks, int g, int Hkv,
-                   float scale, float* __restrict__ acc_out, float* __restrict__ m_out,
-                   float* __restrict__ l_out) {
-  constexpr bool kInt8 = std::is_same<T, int8_t>::value;
-  constexpr int KG = THREADS / D;          // key groups of the P V loop
-  extern __shared__ __align__(16) float sm[];
-  const int rows = g;
-  const int chunk_keys = pages_per_chunk * page_size;
-  float* qs = sm;                          // [R_TABLE][D]
-  float* sc = qs + R_TABLE * D;            // [R_TABLE][chunk_keys]
-  float* red = sc + R_TABLE * chunk_keys;  // [KG][R_TABLE][D]
-  int* pg = reinterpret_cast<int*>(red + R_TABLE * THREADS);  // [pages_per_chunk]
-
-  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
-  const int c = blockIdx.x, hk = blockIdx.y, b = blockIdx.z;
-  const int64_t part = ((int64_t)(b * Hkv + hk) * nchunks + c) * rows;
-  const int key0 = c * chunk_keys;
-  const int len = length[b];
-  int nkeys = min(chunk_keys, len - key0);
-  nkeys = min(nkeys, (maxp - c * pages_per_chunk) * page_size);
-  if (nkeys <= 0) {
-    for (int i = tid; i < rows; i += THREADS) {
-      m_out[part + i] = -INFINITY;
-      l_out[part + i] = 0.0f;
-    }
-    return;
-  }
-
-  for (int j = tid; j < pages_per_chunk; j += THREADS) {
-    const int slot = c * pages_per_chunk + j;
-    pg[j] = slot < maxp ? table[(int64_t)b * maxp + slot] : -1;
-  }
-  for (int i = tid; i < rows * D; i += THREADS)
-    qs[i] = __bfloat162float(q[b * qsb + (hk * g + i / D) * qsh + i % D]);
-  __syncthreads();
-
-  // Scores: one warp per key row; lanes split D.
-  constexpr int E = D / 32;
-  for (int kk = warp; kk < nkeys; kk += NWARPS) {
-    const int pos = key0 + kk;
-    const int64_t page = pg[kk / page_size];
-    if (page < 0) {                          // unmapped: no key
-      if (lane == 0)
-        for (int i = 0; i < rows; ++i) sc[i * chunk_keys + kk] = -INFINITY;
-      continue;
-    }
-    const int64_t slot = (page * Hkv + hk) * page_size + pos % page_size;
-    const T* kr = k_pages + slot * D + lane * E;
-    float kv[E];
-#pragma unroll
-    for (int e = 0; e < E; ++e) kv[e] = page_val(kr[e]);
-    const float ks = kInt8 ? k_scale[slot] : 1.0f;
-    for (int i = 0; i < rows; ++i) {
-      float s = 0.0f;
-#pragma unroll
-      for (int e = 0; e < E; ++e) s += qs[i * D + lane * E + e] * kv[e];
-      s = warp_sum(s);
-      if (lane == 0) sc[i * chunk_keys + kk] = kInt8 ? s * ks * scale : s * scale;
-    }
-  }
-  __syncthreads();
-
-  // Per-row max and exponent sum over the chunk.
-  for (int i = warp; i < rows; i += NWARPS) {
-    float mx = -INFINITY;
-    for (int kk = lane; kk < nkeys; kk += 32) mx = fmaxf(mx, sc[i * chunk_keys + kk]);
-    mx = warp_max(mx);
-    float sum = 0.0f;
-    for (int kk = lane; kk < nkeys; kk += 32) {
-      float p = expf(sc[i * chunk_keys + kk] - mx);
-      p = mx == -INFINITY ? 0.0f : p;        // no mapped page
-      sc[i * chunk_keys + kk] = p;
-      sum += p;
-    }
-    sum = warp_sum(sum);
-    if (lane == 0) {
-      m_out[part + i] = mx;
-      l_out[part + i] = sum;
-    }
-  }
-  __syncthreads();
-
-  // acc[i][d] = sum_k p[i][k] V[k][d]; thread = (key group, column).
-  const int d = tid % D, kg = tid / D;
-  float acc[R_TABLE];
-#pragma unroll
-  for (int i = 0; i < R_TABLE; ++i) acc[i] = 0.0f;
-  for (int kk = kg; kk < nkeys; kk += KG) {
-    const int pos = key0 + kk;
-    const int64_t page = pg[kk / page_size];
-    if (page < 0) continue;
-    const int64_t slot = (page * Hkv + hk) * page_size + pos % page_size;
-    float vv = page_val(v_pages[slot * D + d]);
-    if (kInt8) vv *= v_scale[slot];
-#pragma unroll
-    for (int i = 0; i < R_TABLE; ++i)
-      if (i < rows) acc[i] += sc[i * chunk_keys + kk] * vv;
-  }
-  if (KG > 1) {
-#pragma unroll
-    for (int i = 0; i < R_TABLE; ++i)
-      if (i < rows) red[(kg * R_TABLE + i) * D + d] = acc[i];
-    __syncthreads();
-    if (kg == 0) {
-      for (int j = 1; j < KG; ++j)
-#pragma unroll
-        for (int i = 0; i < R_TABLE; ++i)
-          if (i < rows) acc[i] += red[(j * R_TABLE + i) * D + d];
-    }
-  }
-  if (kg == 0) {
-    for (int i = 0; i < rows; ++i) acc_out[(part + i) * D + d] = acc[i];
-  }
-}
-
-// Merge the chunks of row x = hk * g + i of batch row b (one block each, one
-// thread per column): M = max_c m_c, L = sum_c l_c exp(m_c - M),
-// o = sum_c acc_c exp(m_c - M), written as o / L in bf16 (0 where L == 0)
-// to out[b, x].
-__global__ void paged_table_merge_kernel(const float* __restrict__ acc,
-                                         const float* __restrict__ m,
-                                         const float* __restrict__ l,
-                                         __nv_bfloat16* __restrict__ out, int nchunks, int rows,
-                                         int Hkv, int D) {
-  const int x = blockIdx.x, b = blockIdx.y, d = threadIdx.x;
-  const int hk = x / rows, i = x % rows;
-  const int64_t base = (int64_t)(b * Hkv + hk) * nchunks;
-  float M = -INFINITY;
-  for (int c = 0; c < nchunks; ++c) M = fmaxf(M, m[(base + c) * rows + i]);
-  float L = 0.0f, o = 0.0f;
-  if (M != -INFINITY) {
-    for (int c = 0; c < nchunks; ++c) {
-      const float mc = m[(base + c) * rows + i];
-      if (mc == -INFINITY) continue;
-      const float w = expf(mc - M);
-      L += l[(base + c) * rows + i] * w;
-      o += acc[((base + c) * rows + i) * D + d] * w;
-    }
-  }
-  const int64_t row = (int64_t)b * gridDim.x + x;
-  out[row * D + d] = __float2bfloat16(L > 0.0f ? o / L : 0.0f);
-}
 
 // Pointers of one launch. kp / vp: one layer's contiguous [num_pages, Hkv,
 // page_size, D] pages; ks / vs: [num_pages, Hkv, page_size] f32 scales (int8
@@ -296,43 +141,6 @@ struct Args {
   float* l_o;
 };
 
-template <int D, typename T>
-cudaError_t launch_table(const Args& a, int B, int Hq, int Hkv, int maxp, int page_size,
-                         int pages_per_chunk, float scale, cudaStream_t stream) {
-  const int g = Hq / Hkv;
-  if (g > R_TABLE) return cudaErrorInvalidValue;
-  const int nchunks = (maxp + pages_per_chunk - 1) / pages_per_chunk;
-  const size_t bytes = sizeof(float) * R_TABLE * (D + pages_per_chunk * page_size + THREADS) +
-                       sizeof(int) * pages_per_chunk;
-  auto kernel = paged_table_kernel<D, T>;
-  cudaError_t err =
-      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
-  if (err != cudaSuccess) return err;
-  kernel<<<dim3(nchunks, Hkv, B), THREADS, bytes, stream>>>(
-      static_cast<const __nv_bfloat16*>(a.q), a.qsb, a.qsh, static_cast<const T*>(a.kp),
-      static_cast<const T*>(a.vp), a.ks, a.vs, a.length, a.table, maxp, page_size,
-      pages_per_chunk, nchunks, g, Hkv, scale, a.acc, a.m, a.l);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return err;
-  paged_table_merge_kernel<<<dim3(Hkv * g, B), D, 0, stream>>>(a.acc, a.m, a.l, a.out, nchunks,
-                                                               g, Hkv, D);
-  return cudaGetLastError();
-}
-
-template <typename T>
-int dispatch_table(const Args& a, int B, int Hq, int Hkv, int maxp, int page_size,
-                   int pages_per_chunk, int D, float scale, void* stream) {
-  auto st = static_cast<cudaStream_t>(stream);
-  cudaError_t err;
-  if (D == 64)
-    err = launch_table<64, T>(a, B, Hq, Hkv, maxp, page_size, pages_per_chunk, scale, st);
-  else if (D == 128)
-    err = launch_table<128, T>(a, B, Hq, Hkv, maxp, page_size, pages_per_chunk, scale, st);
-  else
-    err = cudaErrorInvalidValue;
-  return static_cast<int>(err);
-}
-
 // ---- K4, K6, K7 and K7': split-K over the pool on TMA and wgmma ----
 
 namespace tc {
@@ -347,6 +155,9 @@ constexpr int SLOTS = 6;      // bf16 ring slots, holding K and V tiles in turn
 // while K(t)'s are read).
 constexpr int RAW_SLOTS = 2, K_BUFS = 2, V_BUFS = 2, K_SCALE_BUFS = 3;
 constexpr int THREADS = 128;  // one warpgroup
+// Table slots a TablePages block can list (a range's slots; the launch
+// refuses more): 8 KB of shared memory, which two blocks an SM still hold.
+constexpr int TABLE_SLOTS = 2048;
 constexpr float LOG2E = 1.4426950408889634f, LN2 = 0.6931471805599453f;
 
 template <int D>
@@ -354,13 +165,14 @@ struct Ring {
   static constexpr int BOX = KEYS * 128;       // 64 rows of 64 bf16 (8 KB)
   static constexpr int TILE = (D / 64) * BOX;  // one [64, D] K or V tile
   static constexpr int bars = SLOTS * TILE;
-  static constexpr int bytes = bars + 8 * SLOTS + 1024;  // + alignment slack
+  static constexpr int list = bars + 8 * SLOTS;  // a TablePages block's slot list
+  static constexpr int bytes = list + 1024;      // + alignment slack
 };
 
 // Shared memory of the int8 kernel: the converted K tiles and V tiles
 // (bf16, laid out as TMA lays out a bf16 tile), the raw int8 rings (K
 // slots, then V slots), the rings' 64 scales a slot, the converted tiles'
-// scales, and one barrier a raw slot.
+// scales, one barrier a raw slot and, in a TablePages block, its slot list.
 template <int D>
 struct RingI8 {
   static constexpr int BOX = KEYS * 128;
@@ -372,21 +184,17 @@ struct RingI8 {
   static constexpr int ksc = scales + NRAW * KEYS * 4;
   static constexpr int vsc = ksc + K_SCALE_BUFS * KEYS * 4;
   static constexpr int bars = vsc + V_BUFS * KEYS * 4;
-  static constexpr int bytes = bars + 8 * NRAW + 1024;  // + alignment slack
-};
-
-// The pool page that holds slot `slot` of row b's pages: row b owns pages
-// [b * row_pages, (b + 1) * row_pages) of the partitioned pool.
-struct PoolPages {
-  int row_pages, page_size;
-  __device__ int page(int b, int slot) const { return b * row_pages + slot; }
+  static constexpr int list = bars + 8 * NRAW;
+  static constexpr int bytes = list + 1024;  // + alignment slack
 };
 
 struct Params {
   const __nv_bfloat16* q;  // [B, Hq, ntok, D] through (qsb, qsh, qst)
   int64_t qsb, qsh, qst;
   const int* length;
-  PoolPages pool;
+  const int* table;  // TablePages: [B, slots] int32, -1 = unmapped
+  int slots;         // a row's page slots: row_pages (PoolPages) or maxp (TablePages)
+  int page_size;
   int ntok, g, Hkv, nranges, rtiles;
   int q_vec;    // q's rows are 16-byte aligned (strides % 8 == 0, aligned base)
   int q_words;  // q's pairs are 4-byte aligned (even strides, aligned base)
@@ -398,16 +206,61 @@ struct Params {
   float* l;
 };
 
-// A block's place: range r of row b's pages for kv head hk, pages
-// [r row_pages / nranges, (r + 1) row_pages / nranges) of the row, and the
-// head's query rows [row0, row0 + ROWS) (blockIdx.x = r * rtiles + row
-// tile).
+// A block's place: range r of row b's page slots for kv head hk, slots
+// [page0, page1) = [r slots / nranges, (r + 1) slots / nranges) of the row,
+// and the head's query rows [row0, row0 + ROWS) (blockIdx.x = r * rtiles +
+// row tile); nkeys of its keys are live.
 struct Block {
-  int r, hk, b, row0, rows, page0, nkeys;
+  int r, hk, b, row0, rows, page0, page1, nkeys;
   int64_t part;  // the first partial row of (b, hk, r)
 };
 
-__device__ __forceinline__ Block block_of(const Params& p) {
+// How a block finds its pages, the kernels' template parameter: page(p, k,
+// live, i) is the pool page of the block's i-th page (live: a TablePages
+// block's list in shared memory).
+// PoolPages (K4, K6, K7, K7'): row b owns pool pages [b * slots, (b + 1) *
+// slots) of the partitioned pool, in order.
+struct PoolPages {
+  static constexpr bool kTable = false;
+  __device__ static int page(const Params& p, const Block& k, const int*, int i) {
+    return k.b * p.slots + k.page0 + i;
+  }
+};
+// TablePages (K8, K9): row b's slot s is pool page table[b, s]; a block
+// walks the pages of its range's live slots, listed in order.
+struct TablePages {
+  static constexpr bool kTable = true;
+  __device__ static int page(const Params&, const Block&, const int* live, int i) {
+    return live[i];
+  }
+};
+
+// A TablePages block's live pages: warp 0 reads the range's table entries
+// below the row's length, 32 at a time, and writes those that are mapped,
+// in slot order, to list[1..] (a ballot gives each its place), and the
+// block's live keys to list[0]: every page but the one that holds the
+// length is full. Every thread returns the count after a block barrier.
+__device__ __forceinline__ int collect_live(const Params& p, const Block& k, int* list) {
+  if (threadIdx.x < 32) {
+    const int lane = threadIdx.x, len = p.length[k.b], ps = p.page_size;
+    const int* row = p.table + (int64_t)k.b * p.slots;
+    int n = 0, last = -1;  // live slots so far, the last of them
+    for (int s0 = k.page0; s0 < k.page1 && s0 * ps < len; s0 += 32) {
+      const int s = s0 + lane;
+      const int page = s < k.page1 && s * ps < len ? row[s] : -1;
+      const unsigned live = __ballot_sync(0xffffffffu, page >= 0);
+      if (page >= 0) list[1 + n + __popc(live & ((1u << lane) - 1))] = page;
+      if (live) last = s0 + 31 - __clz(live);
+      n += __popc(live);
+    }
+    if (lane == 0) list[0] = n == 0 ? 0 : n * ps - max(0, (last + 1) * ps - len);
+  }
+  __syncthreads();
+  return list[0];
+}
+
+template <typename Pages>
+__device__ __forceinline__ Block block_of(const Params& p, int* list) {
   Block k;
   k.r = blockIdx.x / p.rtiles;
   k.row0 = (blockIdx.x % p.rtiles) * ROWS;
@@ -415,10 +268,13 @@ __device__ __forceinline__ Block block_of(const Params& p) {
   k.b = blockIdx.z;
   k.rows = p.g * p.ntok;
   k.part = ((int64_t)(k.b * p.Hkv + k.hk) * p.nranges + k.r) * k.rows;
-  const int ps = p.pool.page_size;
-  k.page0 = (int)((int64_t)k.r * p.pool.row_pages / p.nranges);
-  const int page1 = (int)((int64_t)(k.r + 1) * p.pool.row_pages / p.nranges);
-  k.nkeys = min((page1 - k.page0) * ps, p.length[k.b] - k.page0 * ps);
+  const int ps = p.page_size;
+  k.page0 = (int)((int64_t)k.r * p.slots / p.nranges);
+  k.page1 = (int)((int64_t)(k.r + 1) * p.slots / p.nranges);
+  if constexpr (Pages::kTable)
+    k.nkeys = collect_live(p, k, list);
+  else
+    k.nkeys = min((k.page1 - k.page0) * ps, p.length[k.b] - k.page0 * ps);
   return k;
 }
 
@@ -573,22 +429,25 @@ __device__ __forceinline__ uint8_t* align1024(uint8_t* raw) {
 
 // Ring tile i of a block: K (i even) or V (i odd) of its key tile i / 2, into
 // slot i % SLOTS, completing on that slot's barrier.
-template <int D>
+template <int D, typename Pages>
 __device__ __forceinline__ void load_tile(uint8_t* smem, uint64_t* full, const CUtensorMap* kmap,
                                           const CUtensorMap* vmap, const Params& p,
                                           const Block& k, int i) {
   using L = Ring<D>;
-  const int s = i % SLOTS, t = i / 2, per_page = p.pool.page_size / KEYS;
-  const int page = p.pool.page(k.b, k.page0 + t / per_page), key = (t % per_page) * KEYS;
+  const int s = i % SLOTS, t = i / 2, per_page = p.page_size / KEYS;
+  const int page = Pages::page(p, k, reinterpret_cast<const int*>(smem + L::list) + 1,
+                               t / per_page);
+  const int key = (t % per_page) * KEYS;
   mbar_expect_tx(&full[s], L::TILE);
   for (int hf = 0; hf < D / 64; ++hf)
     tma_load_4d(smem + s * L::TILE + hf * L::BOX, i % 2 ? vmap : kmap, &full[s], 64 * hf, key,
                 k.hk, page);
 }
 
-// K4 and K7 (bf16 pages). Thread 0 also issues the ring's loads: SLOTS / 2
-// key tiles ahead, each slot refilled once all four warps are past it.
-template <int D>
+// K4, K7 and K8 (bf16 pages). Thread 0 also issues the ring's loads:
+// SLOTS / 2 key tiles ahead, each slot refilled once all four warps are past
+// it.
+template <int D, typename Pages>
 __global__ void __launch_bounds__(THREADS, 2)
     paged_tc_kernel(__grid_constant__ const CUtensorMap kmap,
                     __grid_constant__ const CUtensorMap vmap, const Params p) {
@@ -597,7 +456,7 @@ __global__ void __launch_bounds__(THREADS, 2)
   uint8_t* smem = align1024(smem_raw);
   uint64_t* full = reinterpret_cast<uint64_t*>(smem + L::bars);
 
-  const Block k = block_of(p);
+  const Block k = block_of<Pages>(p, reinterpret_cast<int*>(smem + L::list));
   if (k.nkeys <= 0) {
     write_empty<D>(p, k);
     return;
@@ -613,7 +472,7 @@ __global__ void __launch_bounds__(THREADS, 2)
   __syncthreads();
   if (threadIdx.x == 0)
     for (int i = 0; i < min(SLOTS, 2 * ntiles); ++i)
-      load_tile<D>(smem, full, &kmap, &vmap, p, k, i);
+      load_tile<D, Pages>(smem, full, &kmap, &vmap, p, k, i);
 
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const int rr = 16 * warp + lane / 4, c2 = 2 * (lane % 4);
@@ -694,9 +553,9 @@ __global__ void __launch_bounds__(THREADS, 2)
     fence_regs(next);
     named_barrier_sync(1, THREADS);  // every warp has read V(t) and K(t + 1)
     if (threadIdx.x == 0) {
-      if (iv + SLOTS < 2 * ntiles) load_tile<D>(smem, full, &kmap, &vmap, p, k, iv + SLOTS);
+      if (iv + SLOTS < 2 * ntiles) load_tile<D, Pages>(smem, full, &kmap, &vmap, p, k, iv + SLOTS);
       if (iv + 1 + SLOTS < 2 * ntiles)
-        load_tile<D>(smem, full, &kmap, &vmap, p, k, iv + 1 + SLOTS);
+        load_tile<D, Pages>(smem, full, &kmap, &vmap, p, k, iv + 1 + SLOTS);
     }
   };
 
@@ -705,7 +564,7 @@ __global__ void __launch_bounds__(THREADS, 2)
   wgmma_wait<0>();
   fence_regs(s0);
   named_barrier_sync(1, THREADS);  // every warp has read K(0)
-  if (threadIdx.x == 0 && SLOTS < 2 * ntiles) load_tile<D>(smem, full, &kmap, &vmap, p, k, SLOTS);
+  if (threadIdx.x == 0 && SLOTS < 2 * ntiles) load_tile<D, Pages>(smem, full, &kmap, &vmap, p, k, SLOTS);
   for (int t = 0; t < ntiles; t += 2) {  // two steps, so that s0 / s1 stay in registers
     step(t, s0, s1);
     if (t + 1 < ntiles) step(t + 1, s1, s0);
@@ -772,25 +631,27 @@ __device__ __forceinline__ void convert_tile(const uint8_t* __restrict__ raw,
 
 // Raw int8 tile t of the block, K or (with v) V, into its ring slot with its
 // 64 scales (a bulk copy), both completing on the slot's barrier.
-template <int D>
+template <int D, typename Pages>
 __device__ __forceinline__ void load_raw(uint8_t* smem, uint64_t* full, const CUtensorMap* map,
                                          const Params& p, const Block& k, int t, bool v) {
   using L = RingI8<D>;
-  const int s = (v ? RAW_SLOTS : 0) + t % RAW_SLOTS, per_page = p.pool.page_size / KEYS;
-  const int page = p.pool.page(k.b, k.page0 + t / per_page), key = (t % per_page) * KEYS;
+  const int s = (v ? RAW_SLOTS : 0) + t % RAW_SLOTS, per_page = p.page_size / KEYS;
+  const int page = Pages::page(p, k, reinterpret_cast<const int*>(smem + L::list) + 1,
+                               t / per_page);
+  const int key = (t % per_page) * KEYS;
   mbar_expect_tx(&full[s], L::RAW + KEYS * 4);
   tma_load_4d(smem + L::raw + s * L::RAW, map, &full[s], 0, key, k.hk, page);
   bulk_load(smem + L::scales + s * KEYS * 4,
-            (v ? p.v_scale : p.k_scale) + ((int64_t)page * p.Hkv + k.hk) * p.pool.page_size + key,
+            (v ? p.v_scale : p.k_scale) + ((int64_t)page * p.Hkv + k.hk) * p.page_size + key,
             KEYS * 4, &full[s]);
 }
 
-// K6 and K7' (int8 pages). Thread 0 issues the rings' loads: K tile t into
-// K slot t % RAW_SLOTS, V tile t into V slot t % RAW_SLOTS, each refilled
-// once every warp is past it. K(t) is converted two steps ahead of its
-// softmax into bf16 buffer t % K_BUFS, V(t) one step ahead into buffer
+// K6, K7' and K9 (int8 pages). Thread 0 issues the rings' loads: K tile t
+// into K slot t % RAW_SLOTS, V tile t into V slot t % RAW_SLOTS, each
+// refilled once every warp is past it. K(t) is converted two steps ahead of
+// its softmax into bf16 buffer t % K_BUFS, V(t) one step ahead into buffer
 // t % V_BUFS, each with its scales.
-template <int D>
+template <int D, typename Pages>
 __global__ void __launch_bounds__(THREADS, 2)
     paged_tc_i8_kernel(__grid_constant__ const CUtensorMap kmap,
                        __grid_constant__ const CUtensorMap vmap, const Params p) {
@@ -801,7 +662,7 @@ __global__ void __launch_bounds__(THREADS, 2)
   float* ksc = reinterpret_cast<float*>(smem + L::ksc);  // [K_SCALE_BUFS][KEYS]
   float* vsc = reinterpret_cast<float*>(smem + L::vsc);  // [V_BUFS][KEYS]
 
-  const Block k = block_of(p);
+  const Block k = block_of<Pages>(p, reinterpret_cast<int*>(smem + L::list));
   if (k.nkeys <= 0) {
     write_empty<D>(p, k);
     return;
@@ -816,8 +677,8 @@ __global__ void __launch_bounds__(THREADS, 2)
   }
   __syncthreads();
   if (threadIdx.x == 0) {
-    for (int t = 0; t < min(RAW_SLOTS, ntiles); ++t) load_raw<D>(smem, full, &kmap, p, k, t, false);
-    for (int t = 0; t < min(RAW_SLOTS, ntiles); ++t) load_raw<D>(smem, full, &vmap, p, k, t, true);
+    for (int t = 0; t < min(RAW_SLOTS, ntiles); ++t) load_raw<D, Pages>(smem, full, &kmap, p, k, t, false);
+    for (int t = 0; t < min(RAW_SLOTS, ntiles); ++t) load_raw<D, Pages>(smem, full, &vmap, p, k, t, true);
   }
 
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
@@ -941,9 +802,9 @@ __global__ void __launch_bounds__(THREADS, 2)
     named_barrier_sync(1, THREADS);  // every warp is past the raw slots and buffers
     if (threadIdx.x == 0) {
       if (t + 1 + RAW_SLOTS < ntiles)
-        load_raw<D>(smem, full, &vmap, p, k, t + 1 + RAW_SLOTS, true);
+        load_raw<D, Pages>(smem, full, &vmap, p, k, t + 1 + RAW_SLOTS, true);
       if (t + 2 + RAW_SLOTS < ntiles)
-        load_raw<D>(smem, full, &kmap, p, k, t + 2 + RAW_SLOTS, false);
+        load_raw<D, Pages>(smem, full, &kmap, p, k, t + 2 + RAW_SLOTS, false);
     }
   };
 
@@ -953,8 +814,8 @@ __global__ void __launch_bounds__(THREADS, 2)
   named_barrier_sync(1, THREADS);  // K(0), K(1) and V(0) converted by every warp
   if (threadIdx.x == 0) {
     for (int t = RAW_SLOTS; t < min(RAW_SLOTS + 2, ntiles); ++t)
-      load_raw<D>(smem, full, &kmap, p, k, t, false);
-    if (RAW_SLOTS < ntiles) load_raw<D>(smem, full, &vmap, p, k, RAW_SLOTS, true);
+      load_raw<D, Pages>(smem, full, &kmap, p, k, t, false);
+    if (RAW_SLOTS < ntiles) load_raw<D, Pages>(smem, full, &vmap, p, k, RAW_SLOTS, true);
   }
   issue_s(0);
   wgmma_wait<0>();
@@ -1030,44 +891,50 @@ __global__ void __launch_bounds__(MERGE_GROUPS * 128)
   }
 }
 
-// The kernel for page type T (bf16 or int8) and its shared bytes.
-template <int D, typename T>
+// The kernel for page type T (bf16 or int8) and page policy Pages, and its
+// shared bytes (a TablePages block's slot list: a count and TABLE_SLOTS
+// pages).
+template <int D, typename T, typename Pages>
 struct Kernel {
   static constexpr bool kInt8 = std::is_same<T, int8_t>::value;
-  static constexpr int bytes = kInt8 ? RingI8<D>::bytes : Ring<D>::bytes;
+  static constexpr int bytes = (kInt8 ? RingI8<D>::bytes : Ring<D>::bytes) +
+                               (Pages::kTable ? 4 * (1 + TABLE_SLOTS) : 0);
   static auto fn() {
     if constexpr (kInt8)
-      return paged_tc_i8_kernel<D>;
+      return paged_tc_i8_kernel<D, Pages>;
     else
-      return paged_tc_kernel<D>;
+      return paged_tc_kernel<D, Pages>;
   }
 };
 
-template <int D, typename T>
-cudaError_t launch(const Args& a, int ntok, int B, int Hq, int Hkv, int row_pages,
+// One launch over a pool of num_pages pages, each row's `slots` page slots
+// (PoolPages: row_pages; TablePages: maxp) cut into nranges ranges.
+template <int D, typename T, typename Pages>
+cudaError_t launch(const Args& a, int ntok, int B, int Hq, int Hkv, int num_pages, int slots,
                    int page_size, int nranges, float scale, cudaStream_t stream) {
-  using K = Kernel<D, T>;
+  using K = Kernel<D, T, Pages>;
   const int g = Hq / Hkv, rows = g * ntok, rtiles = (rows + ROWS - 1) / ROWS;
-  if (g < 1 || ntok < 1 || page_size % KEYS || nranges < 1 || nranges > row_pages)
+  if (g < 1 || ntok < 1 || page_size % KEYS || nranges < 1 || nranges > slots ||
+      (Pages::kTable && (slots + nranges - 1) / nranges > TABLE_SLOTS))
     return cudaErrorInvalidValue;
   const int64_t strides[3] = {(int64_t)Hkv * page_size * D, (int64_t)page_size * D, D};
   CUtensorMap km, vm;
   cudaError_t err;
   if constexpr (K::kInt8) {
-    err = make_map_i8(&km, a.kp, strides, B * row_pages, Hkv, page_size, D, KEYS);
+    err = make_map_i8(&km, a.kp, strides, num_pages, Hkv, page_size, D, KEYS);
     if (err == cudaSuccess)
-      err = make_map_i8(&vm, a.vp, strides, B * row_pages, Hkv, page_size, D, KEYS);
+      err = make_map_i8(&vm, a.vp, strides, num_pages, Hkv, page_size, D, KEYS);
   } else {
-    err = make_map_bf16(&km, a.kp, strides, B * row_pages, Hkv, page_size, D, KEYS);
+    err = make_map_bf16(&km, a.kp, strides, num_pages, Hkv, page_size, D, KEYS);
     if (err == cudaSuccess)
-      err = make_map_bf16(&vm, a.vp, strides, B * row_pages, Hkv, page_size, D, KEYS);
+      err = make_map_bf16(&vm, a.vp, strides, num_pages, Hkv, page_size, D, KEYS);
   }
   if (err != cudaSuccess) return err;
   const uintptr_t qa = reinterpret_cast<uintptr_t>(a.q);
   const int q_vec = qa % 16 == 0 && a.qsb % 8 == 0 && a.qsh % 8 == 0 && a.qst % 8 == 0;
   const int q_words = qa % 4 == 0 && a.qsb % 2 == 0 && a.qsh % 2 == 0 && a.qst % 2 == 0;
-  const Params p{static_cast<const __nv_bfloat16*>(a.q), a.qsb, a.qsh, a.qst, a.length,
-                 PoolPages{row_pages, page_size}, ntok, g, Hkv, nranges, rtiles, q_vec, q_words,
+  const Params p{static_cast<const __nv_bfloat16*>(a.q), a.qsb, a.qsh, a.qst, a.length, a.table,
+                 slots, page_size, ntok, g, Hkv, nranges, rtiles, q_vec, q_words,
                  scale * LOG2E, a.ks, a.vs, a.acc, a.m, a.l};
   auto kernel = K::fn();
   err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, K::bytes);
@@ -1086,23 +953,25 @@ cudaError_t launch(const Args& a, int ntok, int B, int Hq, int Hkv, int row_page
   return cudaGetLastError();
 }
 
-template <typename T>
-int dispatch(const Args& a, int ntok, int B, int Hq, int Hkv, int row_pages, int page_size,
-             int nranges, int D, float scale, void* stream) {
+template <typename T, typename Pages>
+int dispatch(const Args& a, int ntok, int B, int Hq, int Hkv, int num_pages, int slots,
+             int page_size, int nranges, int D, float scale, void* stream) {
   auto st = static_cast<cudaStream_t>(stream);
   cudaError_t err;
   if (D == 64)
-    err = launch<64, T>(a, ntok, B, Hq, Hkv, row_pages, page_size, nranges, scale, st);
+    err = launch<64, T, Pages>(a, ntok, B, Hq, Hkv, num_pages, slots, page_size, nranges, scale,
+                               st);
   else if (D == 128)
-    err = launch<128, T>(a, ntok, B, Hq, Hkv, row_pages, page_size, nranges, scale, st);
+    err = launch<128, T, Pages>(a, ntok, B, Hq, Hkv, num_pages, slots, page_size, nranges, scale,
+                                st);
   else
     err = cudaErrorInvalidValue;
   return static_cast<int>(err);
 }
 
-template <int D, typename T>
+template <int D, typename T, typename Pages>
 cudaError_t attributes(int* out) {
-  using K = Kernel<D, T>;
+  using K = Kernel<D, T, Pages>;
   auto kernel = K::fn();
   cudaFuncAttributes a{};
   cudaError_t err = cudaFuncGetAttributes(&a, kernel);
@@ -1120,26 +989,35 @@ cudaError_t attributes(int* out) {
   return cudaSuccess;
 }
 
+template <typename Pages>
+cudaError_t attributes_of(int D, int int8, int* out) {
+  if (D == 64)
+    return int8 ? attributes<64, int8_t, Pages>(out) : attributes<64, __nv_bfloat16, Pages>(out);
+  if (D == 128)
+    return int8 ? attributes<128, int8_t, Pages>(out) : attributes<128, __nv_bfloat16, Pages>(out);
+  return cudaErrorInvalidValue;
+}
+
 }  // namespace tc
 }  // namespace
 }  // namespace sc
 
 // K4. q: [B, Hq, 1, D] addressed by (qsb, qsh) element strides; pages:
-// contiguous [num_pages, Hkv, page_size, D] of one layer (page_size a
+// contiguous [B * row_pages, Hkv, page_size, D] of one layer (page_size a
 // multiple of 64); length: [B] int32 on the device; each row's pages split
-// into `pages_per_chunk` ranges as even as whole pages allow (the argument
-// keeps its first design's name; 1 <= ranges <= row_pages); acc/m/l: f32
-// scratch of [B, Hkv, ranges, g(, D)]; out: [B, Hq, D].
+// into `ranges` ranges as even as whole pages allow (1 <= ranges <=
+// row_pages); acc/m/l: f32 scratch of [B, Hkv, ranges, g(, D)]; out:
+// [B, Hq, D].
 extern "C" int sc_paged_decode(const void* q, int64_t qsb, int64_t qsh, const void* k_pages,
                                const void* v_pages, const int* length, int B, int Hq,
-                               int Hkv, int row_pages, int page_size, int pages_per_chunk,
-                               int D, float scale, void* acc, void* m, void* l, void* out,
+                               int Hkv, int row_pages, int page_size, int ranges, int D,
+                               float scale, void* acc, void* m, void* l, void* out,
                                void* stream) {
   const sc::Args a{q, qsb, qsh, 0, k_pages, v_pages, nullptr, nullptr, length, nullptr,
                    static_cast<float*>(acc), static_cast<float*>(m), static_cast<float*>(l),
                    static_cast<__nv_bfloat16*>(out), nullptr, nullptr, nullptr};
-  return sc::tc::dispatch<__nv_bfloat16>(a, 1, B, Hq, Hkv, row_pages, page_size,
-                                         pages_per_chunk, D, scale, stream);
+  return sc::tc::dispatch<__nv_bfloat16, sc::tc::PoolPages>(
+      a, 1, B, Hq, Hkv, B * row_pages, row_pages, page_size, ranges, D, scale, stream);
 }
 
 // K6: as sc_paged_decode over int8 pages; k_scale / v_scale: contiguous f32
@@ -1148,14 +1026,14 @@ extern "C" int sc_paged_decode_int8(const void* q, int64_t qsb, int64_t qsh,
                                     const void* k_pages, const void* v_pages,
                                     const void* k_scale, const void* v_scale,
                                     const int* length, int B, int Hq, int Hkv, int row_pages,
-                                    int page_size, int pages_per_chunk, int D, float scale,
-                                    void* acc, void* m, void* l, void* out, void* stream) {
+                                    int page_size, int ranges, int D, float scale, void* acc,
+                                    void* m, void* l, void* out, void* stream) {
   const sc::Args a{q, qsb, qsh, 0, k_pages, v_pages, static_cast<const float*>(k_scale),
                    static_cast<const float*>(v_scale), length, nullptr,
                    static_cast<float*>(acc), static_cast<float*>(m), static_cast<float*>(l),
                    static_cast<__nv_bfloat16*>(out), nullptr, nullptr, nullptr};
-  return sc::tc::dispatch<int8_t>(a, 1, B, Hq, Hkv, row_pages, page_size, pages_per_chunk, D,
-                                  scale, stream);
+  return sc::tc::dispatch<int8_t, sc::tc::PoolPages>(a, 1, B, Hq, Hkv, B * row_pages, row_pages,
+                                                     page_size, ranges, D, scale, stream);
 }
 
 // K7: q [B, Hq, ntok, D] addressed by (qsb, qsh, qst) element strides, the
@@ -1165,15 +1043,15 @@ extern "C" int sc_paged_decode_int8(const void* q, int64_t qsb, int64_t qsh,
 extern "C" int sc_paged_seq_partial(const void* q, int64_t qsb, int64_t qsh, int64_t qst,
                                     int ntok, const void* k_pages, const void* v_pages,
                                     const int* length, int B, int Hq, int Hkv, int row_pages,
-                                    int page_size, int pages_per_chunk, int D, float scale,
-                                    void* acc, void* m, void* l, void* acc_o, void* m_o,
-                                    void* l_o, void* stream) {
+                                    int page_size, int ranges, int D, float scale, void* acc,
+                                    void* m, void* l, void* acc_o, void* m_o, void* l_o,
+                                    void* stream) {
   const sc::Args a{q, qsb, qsh, qst, k_pages, v_pages, nullptr, nullptr, length, nullptr,
                    static_cast<float*>(acc), static_cast<float*>(m), static_cast<float*>(l),
                    nullptr, static_cast<float*>(acc_o), static_cast<float*>(m_o),
                    static_cast<float*>(l_o)};
-  return sc::tc::dispatch<__nv_bfloat16>(a, ntok, B, Hq, Hkv, row_pages, page_size,
-                                         pages_per_chunk, D, scale, stream);
+  return sc::tc::dispatch<__nv_bfloat16, sc::tc::PoolPages>(
+      a, ntok, B, Hq, Hkv, B * row_pages, row_pages, page_size, ranges, D, scale, stream);
 }
 
 // K7': K7 over int8 pages with their f32 scales (as for K6).
@@ -1181,32 +1059,34 @@ extern "C" int sc_paged_seq_partial_int8(const void* q, int64_t qsb, int64_t qsh
                                          int ntok, const void* k_pages, const void* v_pages,
                                          const void* k_scale, const void* v_scale,
                                          const int* length, int B, int Hq, int Hkv,
-                                         int row_pages, int page_size, int pages_per_chunk,
-                                         int D, float scale, void* acc, void* m, void* l,
-                                         void* acc_o, void* m_o, void* l_o, void* stream) {
+                                         int row_pages, int page_size, int ranges, int D,
+                                         float scale, void* acc, void* m, void* l, void* acc_o,
+                                         void* m_o, void* l_o, void* stream) {
   const sc::Args a{q, qsb, qsh, qst, k_pages, v_pages, static_cast<const float*>(k_scale),
                    static_cast<const float*>(v_scale), length, nullptr,
                    static_cast<float*>(acc), static_cast<float*>(m), static_cast<float*>(l),
                    nullptr, static_cast<float*>(acc_o), static_cast<float*>(m_o),
                    static_cast<float*>(l_o)};
-  return sc::tc::dispatch<int8_t>(a, ntok, B, Hq, Hkv, row_pages, page_size, pages_per_chunk,
-                                  D, scale, stream);
+  return sc::tc::dispatch<int8_t, sc::tc::PoolPages>(a, ntok, B, Hq, Hkv, B * row_pages,
+                                                     row_pages, page_size, ranges, D, scale,
+                                                     stream);
 }
 
-// K8: one-token decode (g <= 8 query heads per kv head) over a shared pool
-// read through table [B, maxp] int32 (-1 = unmapped; every entry must be -1
-// or a page of the pool); acc/m/l: f32 scratch of
-// [B, Hkv, ceil(maxp / pages_per_chunk), g(, D)]; out: [B, Hq, D].
+// K8: one-token decode (any g query heads per kv head) over a shared pool of
+// num_pages pages read through table [B, maxp] int32 (-1 = unmapped; every
+// entry must be -1 or a page of the pool), each row's maxp slots split into
+// `ranges` ranges (1 <= ranges <= maxp, at most 2,048 slots a range); q,
+// length, acc/m/l and out as for K4.
 extern "C" int sc_paged_decode_table(const void* q, int64_t qsb, int64_t qsh,
                                      const void* k_pages, const void* v_pages, const int* table,
-                                     const int* length, int B, int Hq, int Hkv, int maxp,
-                                     int page_size, int pages_per_chunk, int D, float scale,
+                                     const int* length, int B, int Hq, int Hkv, int num_pages,
+                                     int maxp, int page_size, int ranges, int D, float scale,
                                      void* acc, void* m, void* l, void* out, void* stream) {
   const sc::Args a{q, qsb, qsh, 0, k_pages, v_pages, nullptr, nullptr, length, table,
                    static_cast<float*>(acc), static_cast<float*>(m), static_cast<float*>(l),
                    static_cast<__nv_bfloat16*>(out), nullptr, nullptr, nullptr};
-  return sc::dispatch_table<__nv_bfloat16>(a, B, Hq, Hkv, maxp, page_size, pages_per_chunk, D,
-                                           scale, stream);
+  return sc::tc::dispatch<__nv_bfloat16, sc::tc::TablePages>(
+      a, 1, B, Hq, Hkv, num_pages, maxp, page_size, ranges, D, scale, stream);
 }
 
 // K9: K8 over int8 pages with their f32 scales [num_pages, Hkv, page_size].
@@ -1214,30 +1094,24 @@ extern "C" int sc_paged_decode_table_int8(const void* q, int64_t qsb, int64_t qs
                                           const void* k_pages, const void* v_pages,
                                           const void* k_scale, const void* v_scale,
                                           const int* table, const int* length, int B, int Hq,
-                                          int Hkv, int maxp, int page_size, int pages_per_chunk,
-                                          int D, float scale, void* acc, void* m, void* l,
-                                          void* out, void* stream) {
+                                          int Hkv, int num_pages, int maxp, int page_size,
+                                          int ranges, int D, float scale, void* acc, void* m,
+                                          void* l, void* out, void* stream) {
   const sc::Args a{q, qsb, qsh, 0, k_pages, v_pages, static_cast<const float*>(k_scale),
                    static_cast<const float*>(v_scale), length, table,
                    static_cast<float*>(acc), static_cast<float*>(m), static_cast<float*>(l),
                    static_cast<__nv_bfloat16*>(out), nullptr, nullptr, nullptr};
-  return sc::dispatch_table<int8_t>(a, B, Hq, Hkv, maxp, page_size, pages_per_chunk, D, scale,
-                                    stream);
+  return sc::tc::dispatch<int8_t, sc::tc::TablePages>(a, 1, B, Hq, Hkv, num_pages, maxp,
+                                                      page_size, ranges, D, scale, stream);
 }
 
 // Compiled attributes of the Hopper page kernel for head dim D over bf16
-// pages (int8 = 0: K4, K7) or int8 pages (int8 = 1: K6, K7'): out[0]
-// registers per thread, out[1] local (spill) bytes per thread, out[2] static
-// shared bytes, out[3] the dynamic shared bytes it launches with, out[4] the
-// blocks resident on one SM.
-extern "C" int sc_paged_decode_attributes(int D, int int8, int* out) {
-  cudaError_t err;
-  if (D == 64)
-    err = int8 ? sc::tc::attributes<64, int8_t>(out) : sc::tc::attributes<64, __nv_bfloat16>(out);
-  else if (D == 128)
-    err = int8 ? sc::tc::attributes<128, int8_t>(out)
-               : sc::tc::attributes<128, __nv_bfloat16>(out);
-  else
-    err = cudaErrorInvalidValue;
+// pages (int8 = 0: K4, K7; with table = 1, K8) or int8 pages (int8 = 1: K6,
+// K7'; with table = 1, K9): out[0] registers per thread, out[1] local
+// (spill) bytes per thread, out[2] static shared bytes, out[3] the dynamic
+// shared bytes it launches with, out[4] the blocks resident on one SM.
+extern "C" int sc_paged_decode_attributes(int D, int int8, int table, int* out) {
+  const cudaError_t err = table ? sc::tc::attributes_of<sc::tc::TablePages>(D, int8, out)
+                                : sc::tc::attributes_of<sc::tc::PoolPages>(D, int8, out);
   return static_cast<int>(err);
 }

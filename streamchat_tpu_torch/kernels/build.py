@@ -45,9 +45,8 @@ SIGNATURES = {
                         _I, _F, _P, _P, _P, _P, _P],
     "sc_paged_decode_int8": [_P, _I64, _I64, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
                              _I, _I, _F, _P, _P, _P, _P, _P],
-    "sc_paged_decode_table": [_P, _I64, _I64, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _F,
-                              _P, _P, _P, _P, _P],
-    "sc_paged_decode_table_int8": [_P, _I64, _I64, _P, _P, _P, _P, _P, _P] + [_I] * 7 + [_F]
+    "sc_paged_decode_table": [_P, _I64, _I64, _P, _P, _P, _P] + [_I] * 8 + [_F] + [_P] * 5,
+    "sc_paged_decode_table_int8": [_P, _I64, _I64, _P, _P, _P, _P, _P, _P] + [_I] * 8 + [_F]
                                   + [_P] * 5,
     "sc_paged_seq_partial": [_P, _I64, _I64, _I64, _I, _P, _P, _P] + [_I] * 7 + [_F]
                             + [_P] * 7,
@@ -68,7 +67,7 @@ SIGNATURES = {
     "sc_gemm_attributes": [_I, _I, _I, ctypes.POINTER(ctypes.c_int)],
     "sc_int4_probe_attributes": [_I, _I, _I, ctypes.POINTER(ctypes.c_int)],
     "sc_dotk_attributes": [_I, _I, _I, ctypes.POINTER(ctypes.c_int)],
-    "sc_paged_decode_attributes": [_I, _I, ctypes.POINTER(ctypes.c_int)],
+    "sc_paged_decode_attributes": [_I, _I, _I, ctypes.POINTER(ctypes.c_int)],
 }
 
 

@@ -12,10 +12,12 @@ order, and flags an exhausted pool or table.
 
 The decode step dispatches as the JAX package does: `sequential_pages=True`
 (an identity-mapped single row or a statically partitioned pool, pages in
-row order) runs the K4 kernel (`ops.paged_attention.paged_decode_attention_seq`),
-the default reads the pages through the table with K8
-(`paged_decode_attention_table`), the pool a caller sized and the allocator
-filled.
+row order) runs K4 (`ops.paged_attention.paged_decode_attention_seq`),
+which reads each row's pages in pool order; the default runs K8
+(`paged_decode_attention_table`), which reads the pool a caller sized and
+the allocator filled through the table. On the card both are the same
+split-K tensor-core kernel, K8's blocks walking only the mapped slots below
+each row's length.
 
 Unlike the JAX package's immutable arrays, `append_token_kv` writes the
 pools IN PLACE: one position per row per call (a single indexed store), so

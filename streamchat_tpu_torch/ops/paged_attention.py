@@ -27,11 +27,14 @@ The two agree wherever every page below a row's length is mapped, which the
 allocator guarantees. Every table entry must be -1 or a page of the pool.
 
 A CUDA tensor launches `csrc/paged_decode.cu` (page ranges split across
-blocks, then a merge kernel); a CPU tensor runs the plain twin. K4, K6, K7
-and K7' run its Hopper kernels (TMA, wgmma; int8 tiles converted to bf16
-in shared memory) over the ranges and row tiles of `paged_split`, for any
-g * T; K8 and K9 its first kernel over chunks of PAGES_PER_CHUNK pages. The
-wrappers' geometry checks are `launch_plan`, which needs no tensor.
+blocks, then a merge kernel); a CPU tensor runs the plain twin. All six
+run its Hopper kernels (TMA, wgmma; int8 tiles converted to bf16 in shared
+memory) over the ranges and row tiles of `paged_split`, for any g * T: K4,
+K6, K7 and K7' over a partitioned pool's pages in order, K8 and K9 over
+ranges of a row's table slots, each block walking only the pages of its
+slots that are mapped and start below the row's length (`table_blocks`
+states that walk). The wrappers' geometry checks are `launch_plan`, which
+needs no tensor.
 """
 
 from __future__ import annotations
@@ -42,17 +45,15 @@ import torch
 
 from streamchat_tpu_torch.kernels import counted, launched
 
-# K8, K9: pages per block of the split table (4 pages of 128 tokens give
-# ~180 blocks for a 23k-token context over 4 kv heads).
-PAGES_PER_CHUNK = 4
-# K4, K6, K7, K7': the H100's SMs, and the Hopper kernels' blocks resident
-# on each (csrc/paged_decode.cu paged_tc_kernel / paged_tc_i8_kernel: 128
-# threads and 97 KB / 99 KB of shared memory).
+# The H100's SMs, and the page kernels' blocks resident on each
+# (csrc/paged_decode.cu paged_tc_kernel / paged_tc_i8_kernel: 128 threads
+# and 97-107 KB of shared memory).
 SMS, RESIDENT_BLOCKS = 132, 2
-# Query rows of one block of the Hopper kernels (one wgmma M tile), their
-# keys per tile (a page size must be a multiple of it), and the query heads
-# per kv head K8 / K9 serve (csrc/paged_decode.cu ROWS, KEYS, R_TABLE).
-TILE_ROWS, KEY_TILE, TABLE_HEADS = 64, 64, 8
+# Query rows of one block (one wgmma M tile), keys per tile (a page size
+# must be a multiple of it), and the table slots a K8 / K9 block can list
+# in shared memory, the most a range may hold (csrc/paged_decode.cu ROWS,
+# KEYS, TABLE_SLOTS).
+TILE_ROWS, KEY_TILE, TABLE_SLOTS = 64, 64, 2048
 
 
 def row_tiles(rows: int):
@@ -63,15 +64,17 @@ def row_tiles(rows: int):
 
 
 def paged_split(b: int, hkv: int, row_pages: int, rows: int = 1) -> dict:
-    """The grid of K4 / K6 / K7 / K7' over a partitioned pool of `b` rows of
-    `row_pages` pages, `hkv` kv heads and `rows` query rows per kv head, as
-    `csrc/paged_decode.cu` walks it: each row's pages cut into `ranges`
-    ranges of whole pages, range r holding pages [r * row_pages // ranges,
+    """The grid of the page kernels over `b` rows of `row_pages` page slots
+    (K4 / K6 / K7 / K7': a partitioned pool's pages; K8 / K9: the page
+    table's maxp slots), `hkv` kv heads and `rows` query rows per kv head, as
+    `csrc/paged_decode.cu` walks it: each row's slots cut into `ranges`
+    ranges of whole slots, range r holding slots [r * row_pages // ranges,
     (r + 1) * row_pages // ranges) (sizes differ by at most one), one block
     per (range, row tile, kv head, row). It depends on the static
-    `row_pages` and `rows` only, never on the lengths (on the device): one
-    wave of SMS x RESIDENT_BLOCKS blocks, all resident at once, or a block
-    per page and row tile where the pool has fewer pages than that."""
+    `row_pages` and `rows` only, never on the lengths or the table (on the
+    device): one wave of SMS x RESIDENT_BLOCKS blocks, all resident at once,
+    or a block per slot and row tile where there are fewer slots than
+    that."""
     tiles = len(row_tiles(rows))
     heads = b * hkv * tiles
     ranges = max(1, min(row_pages, SMS * RESIDENT_BLOCKS // heads))
@@ -89,49 +92,77 @@ def paged_blocks(b: int, hkv: int, row_pages: int, rows: int = 1):
             for first, end in row_tiles(rows)]
 
 
+def table_blocks(page_table, length, hkv: int, page_size: int, rows: int = 1):
+    """Every block of K8 / K9 over `page_table` [B, maxp] (-1 = unmapped)
+    and `length` [B], as `csrc/paged_decode.cu` walks them, in launch order
+    (row tiles fastest, then ranges) -> [(row, kv head, first slot, end
+    slot, first query row, end query row, live slots, live keys)]. The
+    ranges are `paged_split`'s over the maxp slots. A block walks, in slot
+    order, the slots of its range that are mapped and start below the row's
+    length (it reads their pages and no other), and its live-key count
+    masks the rest: every live page is full but the one that holds the
+    length."""
+    table, lengths = page_table.tolist(), length.tolist()
+    b, maxp = len(table), len(table[0])
+    n = paged_split(b, hkv, maxp, rows)["ranges"]
+    out = []
+    for r in range(b):
+        walks = []
+        for i in range(n):
+            first, end = i * maxp // n, (i + 1) * maxp // n
+            live = [s for s in range(first, end)
+                    if table[r][s] >= 0 and s * page_size < lengths[r]]
+            keys = len(live) * page_size - (max(0, (live[-1] + 1) * page_size - lengths[r])
+                                            if live else 0)
+            walks.append((first, end, live, keys))
+        out += [(r, h, first, end, q0, q1, live, keys) for h in range(hkv)
+                for first, end, live, keys in walks for q0, q1 in row_tiles(rows)]
+    return out
+
+
 def launch_plan(b: int, hq: int, hkv: int, t: int, d: int, num_pages: int, page_size: int, *,
                 partial: bool = False, maxp: Optional[int] = None) -> dict:
     """The geometry checks of one launch and its grid, from shapes alone:
     q [b, hq, t, d] against a pool of `num_pages` pages of `page_size`
-    slots; `partial` for K7 / K7' (any t), else one token (K4 / K6); `maxp`
-    the page table's width for K8 / K9 (None: the partitioned pool). Raises
-    ValueError on what the kernels do not take -> dict(row_pages, ranges
-    (K8 / K9: chunks of PAGES_PER_CHUNK pages), rows per kv head, row_tiles
-    (as `row_tiles`), blocks of the attention kernel)."""
+    slots; `partial` for K7 / K7' (any t), else one token (K4 / K6 / K8 /
+    K9); `maxp` the page table's width for K8 / K9 (None: the partitioned
+    pool). Raises ValueError on what the kernels do not take -> dict(
+    row_pages (K8 / K9: maxp), ranges, rows per kv head, row_tiles (as
+    `row_tiles`), blocks of the attention kernel)."""
     bad = f"unsupported q {(b, hq, t, d)} pages {(num_pages, hkv, page_size, d)}"
     if (b < 1 or t < 1 or hkv < 1 or hq % hkv or d not in (64, 128)
             or (t != 1 and not partial)):
         raise ValueError(bad)
-    g = hq // hkv
-    rows = g * t
-    if maxp is not None:
-        if g > TABLE_HEADS or partial:
-            raise ValueError(f"{bad}: the table kernel serves one token of at most "
-                             f"{TABLE_HEADS} query heads per kv head")
-        chunks = -(-maxp // PAGES_PER_CHUNK)
-        return dict(row_pages=maxp, ranges=chunks, rows=rows, row_tiles=[(0, rows)],
-                    blocks=b * hkv * chunks)
-    if num_pages % b:
-        raise ValueError(f"{bad}: pool of {num_pages} pages not divisible into {b} rows")
     if page_size % KEY_TILE:
         raise ValueError(f"{bad}: page_size {page_size} is not a multiple of {KEY_TILE}")
-    row_pages = num_pages // b
+    rows = hq // hkv * t
+    if maxp is not None:
+        if partial or maxp < 1:
+            raise ValueError(f"{bad}: the table kernels take one token and maxp >= 1")
+        row_pages = maxp
+    else:
+        if num_pages % b:
+            raise ValueError(f"{bad}: pool of {num_pages} pages not divisible into {b} rows")
+        row_pages = num_pages // b
     split = paged_split(b, hkv, row_pages, rows)
+    if maxp is not None and -(-maxp // split["ranges"]) > TABLE_SLOTS:
+        raise ValueError(f"{bad}: a range of {-(-maxp // split['ranges'])} table slots "
+                         f"does not fit a block's list of {TABLE_SLOTS}")
     return dict(row_pages=row_pages, ranges=split["ranges"], rows=rows,
                 row_tiles=row_tiles(rows), blocks=split["blocks"])
 
 
-def attributes(d: int = 128, int8: bool = False) -> dict:
-    """The Hopper page kernel over bf16 pages (K4, K7) or, with `int8`,
-    int8 pages (K6, K7'): registers and local (spill) bytes per thread,
-    static and dynamic shared bytes, blocks resident on one SM
-    (sc_paged_decode_attributes)."""
+def attributes(d: int = 128, int8: bool = False, table: bool = False) -> dict:
+    """The Hopper page kernel over bf16 pages (K4, K7; with `table`, K8) or,
+    with `int8`, int8 pages (K6, K7'; with `table`, K9): registers and local
+    (spill) bytes per thread, static and dynamic shared bytes, blocks
+    resident on one SM (sc_paged_decode_attributes)."""
     import ctypes
 
     from streamchat_tpu_torch.kernels.build import library
 
     out = (ctypes.c_int * 5)()
-    err = library().sc_paged_decode_attributes(d, int(int8), out)
+    err = library().sc_paged_decode_attributes(d, int(int8), int(table), out)
     if err:
         raise RuntimeError(f"sc_paged_decode_attributes: CUDA error {err}")
     return dict(num_regs=out[0], local_bytes=out[1], static_shared_bytes=out[2],
@@ -319,15 +350,13 @@ def _launch(name, q, k_pages, v_pages, scales, length, page_dtype, partial=False
         tab = (table.data_ptr(),)
     plan = launch_plan(b, hq, hkv, t, d, num_pages, ps, partial=partial,
                        maxp=None if table is None else table.shape[1])
-    # K8 / K9: chunks of PAGES_PER_CHUNK pages; K4, K6, K7, K7': paged_split's
-    # number of ranges, passed in the same argument.
-    per = PAGES_PER_CHUNK if table is not None else plan["ranges"]
     rows = b * hkv * plan["ranges"] * plan["rows"]       # query rows of every range
     f32 = dict(dtype=torch.float32, device=q.device)
     scratch = torch.empty(rows * (d + 2), **f32)          # their acc, m and l
     base = scratch.data_ptr()
-    geometry = (length.data_ptr(), b, hq, hkv, plan["row_pages"], ps, per, d, d ** -0.5,
-                base, base + 4 * rows * d, base + 4 * rows * (d + 1))
+    pool = (num_pages,) if table is not None else ()      # K8 / K9: the TMA maps' extent
+    geometry = (length.data_ptr(), b, hq, hkv, *pool, plan["row_pages"], ps, plan["ranges"], d,
+                d ** -0.5, base, base + 4 * rows * d, base + 4 * rows * (d + 1))
     pages = (k_pages.data_ptr(), v_pages.data_ptr(), *[x.data_ptr() for x in scales], *tab)
     stream = torch.cuda.current_stream().cuda_stream
     if not partial:

@@ -1,6 +1,6 @@
 """Hold this tree's kernels to another checkout's, on one GPU.
 
-    python -m streamchat_tpu_torch.utils.compare_tree OTHER_TREE
+    python -m streamchat_tpu_torch.utils.compare_tree OTHER_TREE [--kernels K4 K8 ...]
 
 OTHER_TREE is the root of another checkout of the repo (e.g. the parent
 commit unpacked with `git archive`). Its `streamchat_tpu_torch/csrc/` is
@@ -17,19 +17,25 @@ GEMVs (K10 at o and down, K11 at q/k/v and gate/up, each at 1 and 5 rows)
 through each tree's own `ops/int4_matmul.py`, so that each library gets the
 grid, the split and the scratch its tree gives it (and its own C
 signature); K4, K6, K7 and K7′ are timed over four pools in turn (each call
-reads its pool cold from HBM), K10 and K11 over enough layers' weights in
-turn to exceed the 50 MB L2, and their wrappers' host time per call is
-reported too. A case must be
+reads its pool cold from HBM), K8 and K9 at the smoke's shape (three rows
+of 23,105, 11,905 and 1 tokens through a permuted 184-slot table) and at the
+caller pool's (two rows of 6,100 and 3,050 tokens on a 98-page pool, 50
+slots, as `generate_paged` pages them; four pools in turn), K10 and K11
+over enough layers' weights in turn to exceed the 50 MB L2, and their
+wrappers' host time per call is reported too. A case must be
 equal bit for bit unless `CASES` names a tolerance for it: the ViT kernels
 K1, K2, K13, K14 and K16 (wgmma GEMM and attention since the Hopper
 redesign, another summation order), the probes K15 (row ranges summed
 in a cluster) and K17 (wgmma, other dot slices), K4, K6, K7 and K7′
-(split-K over the pool on wgmma since their Hopper redesign) and K10 / K11
+(split-K over the pool on wgmma since their Hopper redesign), K8 and K9
+(the same kernels through the page table since theirs) and K10 / K11
 (tensor cores, ranges summed in a cluster, since theirs) are held to
 the other tree's output within the smoke's tolerance instead, |a - b| <=
-3e-2 + 2e-2 |b|, and for K4, K6, K7, K7′, K10, K11, K13, K14, K15 and K17 also a row
+3e-2 + 2e-2 |b|, and for K4, K6-K11, K13, K14, K15 and K17 also a row
 relative L2 error <= 1e-2 (K7 / K7′ through acc / l, m and l
-elementwise). A kernel the
+elementwise); such a case also reports whether it was equal bit for bit
+all the same (`bit_equal_anyway`: a kernel this tree did not change). A
+kernel the
 other tree does not export, or exports with another C signature and is
 not reached through each tree's own wrapper, is timed in this tree alone.
 """
@@ -62,8 +68,10 @@ CASES = {
     "K6": ("sc_paged_decode_int8", "rows"),
     "K7": ("sc_paged_seq_partial", "rows"),
     "K7′": ("sc_paged_seq_partial_int8", "rows"),
-    "K8": ("sc_paged_decode_table", None),
-    "K9": ("sc_paged_decode_table_int8", None),
+    "K8": ("sc_paged_decode_table", "rows"),
+    "K9": ("sc_paged_decode_table_int8", "rows"),
+    "K8 caller pool": ("sc_paged_decode_table", "rows"),
+    "K9 caller pool": ("sc_paged_decode_table_int8", "rows"),
     **{f"K10 {shape} n{n}": ("sc_int4_gemv", "rows") for shape in ("o", "down") for n in (1, 5)},
     **{f"K11 {shape} n{n}": ("sc_int4_gemv", "rows")
        for shape in ("qkv", "gate_up") for n in (1, 5)},
@@ -217,6 +225,23 @@ def _cases(g, mods):
                               dtype=torch.int8) for _ in range(2))
     kst, vst = (torch.rand(pool, 4, 128, generator=g, device=dev) * 0.04 + 0.01
                 for _ in range(2))
+    # K8 / K9 on the caller pool of chip_smoke.drive_caller_pool: two rows of
+    # 6,100 and 3,050 tokens paged as `from_contiguous` pages their 6,144
+    # padded tokens (row r: pool pages [48 r, 48 r + 48)), 98 pages, 50
+    # slots; four pools in turn.
+    cp_table = torch.full((2, 50), -1, dtype=torch.int32, device=dev)
+    cp_table[:, :48] = torch.arange(96, dtype=torch.int32, device=dev).view(2, 48)
+    cp_len = torch.tensor([6100, 3050], dtype=torch.int32, device=dev)
+    q8c = rnd(2, 28, 1, 128)
+    cp_pools = [(rnd(98, 4, 128, 128), rnd(98, 4, 128, 128)) for _ in range(4)]
+    cp_int8 = [tuple(torch.randint(-127, 128, (98, 4, 128, 128), generator=g, device=dev,
+                                   dtype=torch.int8) for _ in range(2))
+               + tuple(torch.rand(98, 4, 128, generator=g, device=dev) * 0.04 + 0.01
+                       for _ in range(2)) for _ in range(4)]
+
+    def caller_pool(fn_name, arg_sets):
+        it = itertools.cycle(arg_sets)
+        return lambda: getattr(mods["paged"], fn_name)(q8c, *next(it), cp_table, cp_len)
     # K7 / K7′: five in-flight queries (spec decode) against the K4 pool;
     # K4 and K7 timed over it and three more.
     q7 = rnd(1, 28, 5, 128)
@@ -256,7 +281,9 @@ def _cases(g, mods):
     timed = {**int4_timed, "K4": rotating("paged_decode_attention_seq", q),
              "K6": rotating("paged_decode_attention_seq_int8", q, int8_pools),
              "K7": rotating("paged_seq_attention_partial", q7),
-             "K7′": rotating("paged_seq_attention_partial_int8", q7, int8_pools)}
+             "K7′": rotating("paged_seq_attention_partial_int8", q7, int8_pools),
+             "K8 caller pool": caller_pool("paged_decode_attention_table", cp_pools),
+             "K9 caller pool": caller_pool("paged_decode_attention_table_int8", cp_int8)}
     return {
         "K1 ingest form": lambda: fused_vit.fused_vit_layer(
             x, *folded, num_heads=16, frame_tile=1, folded=True, ln_onepass=True),
@@ -273,6 +300,10 @@ def _cases(g, mods):
         "K8": lambda: mods["paged"].paged_decode_attention_table(q8, kt, vt, table, lt),
         "K9": lambda: mods["paged"].paged_decode_attention_table_int8(
             q8, kqt, vqt, kst, vst, table, lt),
+        "K8 caller pool": lambda: mods["paged"].paged_decode_attention_table(
+            q8c, *cp_pools[0], cp_table, cp_len),
+        "K9 caller pool": lambda: mods["paged"].paged_decode_attention_table_int8(
+            q8c, *cp_int8[0], cp_table, cp_len),
         **int4_cases,
         "K12": lambda: dedup.select_changed_frames(x12, threshold=0.18,
                                                    return_similarity=True),
@@ -289,6 +320,8 @@ def main(argv=None) -> None:
     p = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     p.add_argument("other_tree")
     p.add_argument("--iters", type=int, default=50)
+    p.add_argument("--kernels", nargs="*", default=None,
+                   help="only the cases of these kernels (e.g. K4 K8); default: every case")
     args = p.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("compare_tree: no CUDA device")
@@ -316,6 +349,8 @@ def main(argv=None) -> None:
 
     mods = dict(this_mods)
     cases, timed = _cases(torch.Generator(device="cuda").manual_seed(7), mods)
+    if args.kernels:
+        cases = {n: fn for n, fn in cases.items() if n.split()[0] in args.kernels}
     report = {}
     try:
         for name, fn in cases.items():
@@ -342,6 +377,7 @@ def main(argv=None) -> None:
                     launches[which].append([ms for _, ms in device_launches(fn, args.iters)])
             if tolerance:
                 report[name] = _within(outs["this"], outs["other"], rows=tolerance == "rows")
+                report[name]["bit_equal_anyway"] = _equal(outs["this"], outs["other"])
             else:
                 report[name] = dict(bit_equal=_equal(outs["this"], outs["other"]))
             report[name].update(ms_other=times["other"], ms_this=times["this"])

@@ -1,7 +1,7 @@
 """Profile the slice's phases at full LongVA-7B width on one GPU.
 
     python -m streamchat_tpu_torch.utils.profile_slice [--weights bf16|int8|int4] [--kv_int8]
-        [--spec_tokens N]
+        [--spec_tokens N] [--caller_pool]
 
 Random seeded weights, bf16; `--weights int8` / `int4` quantizes the
 decoder after the build (as the CLI's `--int8` / `--int4` do),
@@ -17,15 +17,23 @@ verify steps of N drafts (the CLI's flag). Three profiled windows under `torch.p
 * the same caption with 33 new tokens, so the difference of the two is
   32 decode steps at a 23.4k context.
 
+With `--caller_pool` the windows are instead `generate_paged` on a
+caller-sized pool, the path of the page-table kernels K8 (K9 with
+`--kv_int8`): two rows of 6,100 and 3,050 tokens (6,144 padded, seeded
+random embeddings), 98 pages of 128 tokens and 50 table slots a row (as
+`chip_smoke.drive_caller_pool`), with 1 and with 33 new tokens, so that
+their difference is 32 decode steps of B = 2; it prints a step's device
+ms, wall ms and idle share, and the page kernels' share of it.
+
 For each window it prints the host wall time (from before the first launch
 to after a device synchronize), the device time (the sum of the durations
 of every device event the profiler recorded, kernels and copies; the slice
 runs on one stream, so they do not overlap), the idle share 1 - device
 time / wall, the kernels with the largest device time, and the device time
-and share of the int4 GEMVs (K10 / K11: the `int4_gemv` kernels). Last, an
-unprofiled 129-token
-caption gives decode ms per step without the profiler's host overhead,
-and the peak device memory.
+and share of the int4 GEMVs (K10 / K11: the `int4_gemv` kernels) and of the
+page kernels (K4, K6-K9: `paged_tc` and their merge). Last, an unprofiled
+129-token caption (caller pool: 65 new tokens) gives decode ms per step
+without the profiler's host overhead, and the peak device memory.
 """
 
 from __future__ import annotations
@@ -38,7 +46,14 @@ import time
 import torch
 
 
-def summarize(prof, wall: float, label: str, rows: int = 18) -> None:
+# Name parts of the kernels whose time is reported apart.
+GROUPS = {"K10/K11 (int4_gemv)": ("int4_gemv",),
+          "page kernels (paged_tc + merge)": ("paged_tc", "tc::merge_kernel")}
+
+
+def summarize(prof, wall: float, label: str, rows: int = 18) -> dict:
+    """Prints the window's summary -> dict(wall, busy, and each GROUPS
+    label's device seconds) in seconds."""
     from torch.autograd import DeviceType
 
     kern = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
@@ -52,10 +67,49 @@ def summarize(prof, wall: float, label: str, rows: int = 18) -> None:
         by[name] = (t + e.time_range.elapsed_us() / 1e6, n + 1)
     for name, (t, n) in sorted(by.items(), key=lambda kv: -kv[1][0])[:rows]:
         print(f"   {t:9.4f} s  {100 * t / busy:5.1f}%  n={n:6d}  {name}")
-    gemv = [e for e in kern if "int4_gemv" in e.name]
-    t = sum(e.time_range.elapsed_us() for e in gemv) / 1e6
-    print(f"   K10/K11 (int4_gemv): {t:.6f} s, {100 * t / max(busy, 1e-12):.1f}% of device "
-          f"time, {len(gemv)} launches")
+    out = dict(wall=wall, busy=busy)
+    for group, parts in GROUPS.items():
+        mine = [e for e in kern if any(part in e.name for part in parts)]
+        out[group] = t = sum(e.time_range.elapsed_us() for e in mine) / 1e6
+        print(f"   {group}: {t:.6f} s, {100 * t / max(busy, 1e-12):.1f}% of device "
+              f"time, {len(mine)} launches")
+    return out
+
+
+def caller_pool(m, activities) -> None:
+    """The `--caller_pool` windows: `generate_paged` at B = 2 on a
+    caller-sized pool with 1 and 33 new tokens, then 65 unprofiled."""
+    from torch.profiler import profile
+
+    from streamchat_tpu_torch.models import generate_paged as gp
+
+    dcfg, dp = m.dec_cfg, m.dec_params
+    g = torch.Generator(device="cuda").manual_seed(1234)
+    embeds = (torch.randn(2, 6144, dcfg.hidden_size, generator=g, device="cuda") * 0.02
+              ).to(torch.bfloat16)
+    ln = torch.tensor([6100, 3050], dtype=torch.int32, device="cuda")
+    kw = dict(num_pages=98, max_pages_per_seq=50, kv_int8=m.kv_int8)
+    gp.generate_paged(dp, dcfg, embeds, ln, max_new_tokens=4, **kw)
+    torch.cuda.synchronize()
+    seen = {}
+    for new in (1, 33):
+        stats = {}
+        with profile(activities=activities) as prof:
+            t0 = time.perf_counter()
+            gp.generate_paged(dp, dcfg, embeds, ln, max_new_tokens=new, stats=stats, **kw)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        print(json.dumps(stats))
+        seen[new] = summarize(prof, wall, f"caller pool B = 2, {new} new tokens")
+    step = {k: 1e3 * (seen[33][k] - seen[1][k]) / 32 for k in seen[1]}
+    print(f"== caller pool B = 2 decode step (33 - 1 new tokens, / 32): wall "
+          f"{step['wall']:.3f} ms, device {step['busy']:.3f} ms, idle share "
+          f"{1 - step['busy'] / step['wall']:.3f}, page kernels "
+          f"{step['page kernels (paged_tc + merge)']:.3f} ms")
+    stats = {}
+    gp.generate_paged(dp, dcfg, embeds, ln, max_new_tokens=65, stats=stats, **kw)
+    print("unprofiled 65 new tokens:", json.dumps(stats),
+          f"decode ms/step {1e3 * stats['decode_s'] / stats['decode_steps']:.3f}")
 
 
 def main(argv=None) -> None:
@@ -63,6 +117,8 @@ def main(argv=None) -> None:
     p.add_argument("--weights", choices=("bf16", "int8", "int4"), default="bf16")
     p.add_argument("--kv_int8", action="store_true")
     p.add_argument("--spec_tokens", type=int, default=0)
+    p.add_argument("--caller_pool", action="store_true",
+                   help="B = 2 decode on a caller-sized pool (K8 / K9) in place of the slice")
     args = p.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("profile_slice: no CUDA device")
@@ -86,6 +142,10 @@ def main(argv=None) -> None:
     m.spec_tokens = args.spec_tokens
     print(f"weights {args.weights}, kv_int8 {args.kv_int8}, spec_tokens {args.spec_tokens}")
     activities = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
+    if args.caller_pool:
+        caller_pool(m, activities)
+        print(f"peak GiB {torch.cuda.max_memory_allocated() / 2**30:.2f}")
+        return
 
     reader = SyntheticVideoReader(total_frames=600, frame_rate=30, height=360, width=640)
     frames = reader.read_frames(list(range(0, 300, 5)) + [0, 0, 0, 0])

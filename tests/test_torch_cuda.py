@@ -21,9 +21,13 @@ pools with a row of length 0, T = 1, 2, 5, 9, 10 and 16 in-flight queries
 for K7 / K7' (up to 112 folded rows: two 64-row tiles) and T = 16 at 4
 query heads per kv head, K6 also at 4 and 16, NaN in the bf16 K and V
 pages and NaN / inf in the int8 scales past each length, and repeat
-themselves bit for bit. The page-table decode (K8, K9) reads a shared pool through a permuted table
-with -1 past each row's pages and once inside a row's length, NaN in the
-pages no row maps. The partial kernels (K5, K7) return (acc, m, l); they are compared normalized
+themselves bit for bit. The page-table decode (K8, K9) reads a shared pool
+through a permuted table at 4, 7 and 16 query heads per kv head, B = 1, 3
+and 66 (one range of 40 slots), with -1 past each row's pages, inside a
+row's length (once at a range's first slot) and over a whole row (its
+output 0), NaN in the pages no row maps and past each row's length, and
+repeats itself bit for bit; every page kernel instantiation compiles
+without spills at two blocks an SM. The partial kernels (K5, K7) return (acc, m, l); they are compared normalized
 (acc / l, 0 where l == 0) under the same bound, m and l elementwise, and
 rows with no live key must give m = -1e30, l = 0, acc = 0. K12's similarities
 are held within 1e-5; K13 runs both softmax modes, the folded form and the
@@ -292,45 +296,94 @@ def test_cuda_paged_decode_int8(cuda, hq, d, b, lengths, pages):
     assert torch.equal(got, fn(q, kp, vp, ks, vs, ln)) and fn.launches == 2
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("int8", [False, True])
-def test_cuda_paged_decode_table(cuda, int8):
-    """B = 3 rows of 1000, 1 and 300 tokens over a 20-page pool (128-token
-    pages, 2 kv heads, 7 query heads each as Qwen2-7B) in a seeded
-    permutation; the pages and scales no row maps hold NaN / inf."""
-    rng = np.random.default_rng(7)
-    lengths, ps, maxp, pages = (1000, 1, 300), 128, 9, 20
+# Shared pools for K8 / K9: (lengths, kv heads, maxp, pool pages, holes
+# (row, slot) inside a length, rows whose slots are all -1). The grid's
+# ranges: 3 rows x 2 heads over 9 slots give a range a slot; 3 rows x 8
+# heads over 60 slots give ranges of 5-6 slots, slot 10 the first of its
+# range; 66 rows x 4 heads over 40 slots give one range of all 40 slots, so
+# that warp 0 lists them in two rounds of 32.
+_TABLES = {
+    "b3": ((1000, 1, 300), 2, 9, 20, [(0, 2)], []),
+    "b1": ((1000,), 2, 9, 12, [(0, 3)], []),
+    "b3-range-starts": ((7000, 2500, 129), 8, 60, 90, [(0, 10), (1, 0)], []),
+    "b3-unmapped-row": ((1000, 700, 300), 2, 9, 20, [], [1]),
+    "b66-one-range": ((5000,) + (1, 127, 128, 129, 300, 0) * 10 + (200,) * 5, 4, 40, 200,
+                      [(0, 33), (2, 0)], [7]),
+}
+
+
+def _shared_table(rng, lengths, maxp, pages, holes, unmapped):
+    """A seeded permutation of the pool's pages, row r's first
+    ceil(length / 128) slots mapped in batch order, -1 past them, at the
+    holes and over the unmapped rows -> (table, pages no slot maps)."""
     perm = rng.permutation(pages)
-    table = np.full((3, maxp), -1, np.int32)
+    table = np.full((len(lengths), maxp), -1, np.int32)
     i = 0
     for r, n in enumerate(lengths):
-        need = -(-n // ps)
+        need = -(-n // 128)
         table[r, :need] = perm[i:i + need]
         i += need
-    table[0, 2] = -1                             # a page skipped inside row 0's length
-    free = [p for p in range(pages) if p not in set(table[table >= 0].tolist())]
-    q = _bf(1, cuda, 3, 14, 1, 128)
+    for r, slot in holes:
+        table[r, slot] = -1
+    table[list(unmapped)] = -1
+    return table, [p for p in range(pages) if p not in set(table[table >= 0].tolist())]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("int8", [False, True])
+@pytest.mark.parametrize("g", [4, 7, 16])
+@pytest.mark.parametrize("case", list(_TABLES))
+def test_cuda_paged_decode_table(cuda, int8, g, case):
+    """K8 / K9 on a shared pool through a permuted table, 4, 7 (Qwen2-7B) and
+    16 query heads per kv head: holes inside a length (one at a range's
+    first slot), a row whose slots are all -1 (its output is 0), B = 1, and
+    one range of 40 slots; the pages and scales no row maps hold NaN / inf,
+    and so do the bf16 K and V past each row's length in its last page. Two
+    launches give equal bits."""
+    lengths, hkv, maxp, pages, holes, unmapped = _TABLES[case]
+    rng = np.random.default_rng(7)
+    table, free = _shared_table(rng, lengths, maxp, pages, holes, unmapped)
+    b, ps = len(lengths), 128
+    q = _bf(1, cuda, b, g * hkv, 1, 128)
     tab = torch.from_numpy(table).to(cuda)
     ln = torch.tensor(lengths, dtype=torch.int32, device=cuda)
     if int8:
-        kp, vp = (torch.from_numpy(rng.integers(-127, 128, (pages, 2, ps, 128), dtype=np.int8)
+        kp, vp = (torch.from_numpy(rng.integers(-127, 128, (pages, hkv, ps, 128), dtype=np.int8)
                                    ).to(cuda) for _ in range(2))
-        ks, vs = (torch.from_numpy(rng.uniform(0.005, 0.02, (pages, 2, ps)).astype(np.float32)
+        ks, vs = (torch.from_numpy(rng.uniform(0.005, 0.02, (pages, hkv, ps)).astype(np.float32)
                                    ).to(cuda) for _ in range(2))
         ks[free], vs[free] = float("nan"), float("inf")
         args = (q, kp, vp, ks, vs, tab, ln)
         fn = paged_attention.paged_decode_attention_table_int8
         ref = paged_attention.paged_decode_attention_table_int8_plain(*args)
     else:
-        kp, vp = _bf(2, cuda, pages, 2, ps, 128), _bf(3, cuda, pages, 2, ps, 128)
+        kp, vp = _bf(2, cuda, pages, hkv, ps, 128), _bf(3, cuda, pages, hkv, ps, 128)
         kp[free], vp[free] = float("nan"), float("nan")
+        for r, n in enumerate(lengths):
+            last = table[r, (n - 1) // ps] if n else -1
+            if n % ps and last >= 0:
+                kp[last, :, n % ps:], vp[last, :, n % ps:] = float("nan"), float("nan")
         args = (q, kp, vp, tab, ln)
         fn = paged_attention.paged_decode_attention_table
         ref = paged_attention.paged_decode_attention_table_plain(*args)
     got = fn(*args)
     assert torch.isfinite(got).all()
     _close(got, ref)
-    assert fn.launches == 1
+    for r in unmapped:
+        assert (got[r] == 0).all()
+    assert torch.equal(got, fn(*args)) and fn.launches == 2
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("table", [False, True], ids=["pool", "table"])
+@pytest.mark.parametrize("int8", [False, True])
+def test_cuda_paged_decode_attributes(cuda, int8, table):
+    """Every page kernel instantiation at D 128 (K4 / K7, K6 / K7', K8, K9)
+    compiles without spills and keeps two blocks on an SM, the table ones
+    with their slot list too."""
+    a = paged_attention.attributes(128, int8=int8, table=table)
+    assert a["local_bytes"] == 0 and a["resident_blocks"] == 2
+    assert a["dynamic_shared_bytes"] >= (4 * (1 + paged_attention.TABLE_SLOTS) if table else 0)
 
 
 def _close_partial(got, ref):
