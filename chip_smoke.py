@@ -41,7 +41,8 @@
    pool through 50 slots, timed over four pools in turn), K12
    scene-change dedup (frame descriptors [60, 3584] f32, every third
    frame a near-repeat; similarities within 1e-5 of the twin and equal
-   keep masks), K13 the LN-attention half of ViT layer 0 (x [16, 577,
+   keep masks; timed beside an empty kernel's device time, the launch
+   floor, at one block and at K12's grid), K13 the LN-attention half of ViT layer 0 (x [16, 577,
    1024], clamp and exact softmax, unfolded and folded with the one-pass
    LayerNorm), K14 non-causal ViT attention ([16, 16, 577, 64]), and the
    probe kernels: K15 the int4 GEMV probe (3584 x 18944, n = 1; its five
@@ -171,7 +172,29 @@
    Prints each ask's seconds, the worker's caption seconds and the seconds
    in which they overlapped the caller's ingest (host clock, measured from
    outside: the on-line path times no phases), and peak memory.
-10. Prints the kernels JSON line, then the device JSON line last.
+10. Frees LongVA's trees and runs stages 2 and 3 of the v0.3 run at full
+   LLaMA-3-8B width (32 layers, d 4096, 32 / 8 heads, ffn 14,336, vocab
+   128,256) on random weights (seeded): `eval.judge.judge_predictions`
+   with `TextLM.generate_batch` (batch 8, 64 new tokens, the judge CLI's
+   defaults) over the first 8 stage-1 predictions of the runs above
+   (repeated to 8 when fewer), three times on one build: bf16, `--int8`
+   (the tree quantized, the bf16 tree freed) and `--int8 --spec_tokens 4`,
+   the launch counters zeroed before each run and read after it; then
+   `eval.scoring.main` over each run's JSONL. Each run must launch K3 once
+   a layer and prefill at 4 query heads a kv head; the int8 run W8 at 8 rows
+   at every decode shape (q / o, k / v, gate / up, down, and the head with
+   f32 out); the spec run K7 at 20 folded rows a kv head, 8 kv heads, B 8.
+   Each run's first decode (or verify) step is held to the same step on the
+   kernels' plain twins from the same prompts (prefill included): logits
+   (row relative L2) and the K/V the step wrote at each row's positions
+   (the dense step's one slot at its length, the verify step's five from
+   its length; relative L2 a row), both within 5e-2; a decode step whose
+   appends all land at row 0's length and a verify step whose writes do
+   (planted) must fail it. Prints each
+   run's prefill s, decode ms/step and per emitted token, emitted tokens a
+   row a verify step, peak memory, the weight bytes a decode step reads and
+   their bound at 3.35 TB/s, and the scores.
+11. Prints the kernels JSON line, then the device JSON line last.
 
 Any failure raises: the script then exits non-zero and prints no result.
 """
@@ -179,6 +202,8 @@ Any failure raises: the script then exits non-zero and prints no result.
 from __future__ import annotations
 
 import contextlib
+import dataclasses
+import gc
 import itertools
 import json
 import os
@@ -235,6 +260,10 @@ RUNS = {
     "caller_pool_kv_int8": ("paged_decode_attention_table_int8",),
     # generate_paged with spec_tokens 9 over int8 pages (two row tiles).
     "spec9_kv_int8": ("paged_seq_attention_partial_int8",),
+    # Stage 2: the LLaMA-3-8B judge, bf16, --int8, --int8 --spec_tokens 4.
+    "judge_bf16": ("flash_attention",),
+    "judge_int8": ("flash_attention", "qmatvec_int8"),
+    "judge_int8_spec4": ("flash_attention", "paged_seq_attention_partial"),
 }
 SOURCES = {
     "fused_vit_layer": ("streamchat_tpu_torch/csrc/fused_vit.cu",
@@ -1785,6 +1814,40 @@ def _sim_check(name, got, ref, planted=False):
     return err
 
 
+def dedup_attributes() -> dict:
+    """K12's compiled instantiations (f32 / bf16, 16-byte / scalar loads):
+    registers, local (spill) bytes and static shared bytes a thread / block
+    (sc_dedup_attributes)."""
+    import ctypes
+
+    from streamchat_tpu_torch.kernels.build import library
+
+    out = {}
+    for dtype, dname in ((1, "f32"), (0, "bf16")):
+        for vec in (1, 0):
+            a = (ctypes.c_int * 3)()
+            err = library().sc_dedup_attributes(dtype, vec, a)
+            if err:
+                raise RuntimeError(f"sc_dedup_attributes: CUDA error {err}")
+            out[f"{dname}_{'vec16' if vec else 'scalar'}"] = dict(
+                num_regs=a[0], local_bytes=a[1], static_shared_bytes=a[2])
+    return out
+
+
+def launch_floor(blocks: int, threads: int) -> dict:
+    """Device time of an empty kernel (sc_empty_kernel) of one block of 32
+    threads and of K12's grid size: the floor a kernel as short as K12 is
+    read against."""
+    from streamchat_tpu_torch.kernels.build import call
+
+    def empty(b, t):
+        return lambda: call("sc_empty_kernel", b, t, torch.cuda.current_stream().cuda_stream)
+
+    return dict(launch_floor_ms=device_ms(empty(1, 32), 50, kernel="empty_kernel"),
+                launch_floor_grid_ms=device_ms(empty(blocks, threads), 50,
+                                               kernel="empty_kernel"))
+
+
 def check_vit_kernels(model, g):
     """K12, K13 and K14 against their plain twins at main-path shapes ->
     report rows and planted faults."""
@@ -1813,6 +1876,7 @@ def check_vit_kernels(model, g):
     p12 = lambda: dedup.select_changed_frames_plain(x, threshold=thr)  # noqa: E731
     t12 = _timings(k12, p12, 50, 20)
     t12.update(wrapper_ms=t12["ms"], ms=device_ms(k12, 50, kernel="dedup_kernel"))
+    plan = dedup.launch_plan(n, d, x.element_size())
     rows["select_changed_frames"] = dict(
         shapes=f"descriptors [{n}, {d}] f32, threshold {thr}, {int(keep.sum())} kept",
         max_abs_err=err, **t12,
@@ -1820,7 +1884,12 @@ def check_vit_kernels(model, g):
         library_ms=device_ms(lambda: torch.nn.functional.cosine_similarity(
             x, x.roll(1, 0)), 50),
         library="F.cosine_similarity(x, x.roll(1, 0)); ms is the kernel alone, "
-                "wrapper_ms adds the keep mask's two small torch ops")
+                "wrapper_ms adds the keep mask's two small torch ops",
+        blocks=dict(plan, threads=dedup.THREADS),
+        attributes=dedup_attributes(),
+        **launch_floor(plan["blocks"], dedup.THREADS))
+    rows["select_changed_frames"]["share_of_bound"] = (
+        rows["select_changed_frames"]["bound_ms"] / rows["select_changed_frames"]["ms"])
 
     # K13: the attention half of ViT layer 0 over an ingest batch of 16
     # frames, both softmax modes, unfolded and folded (exp2, one-pass LN).
@@ -2394,6 +2463,7 @@ def drive(pipe, label, breakpoints, online=False, captions=None):
             dedup_frames_in_out=seen["dedup"])
     print(f"{'process_video_online' if online else 'process_video'} [{label}]: "
           f"{json.dumps(report)}", flush=True)
+    report["predictions"] = results          # stage 1's records, for the judge
     missing = [n for n in RUNS[label] if counts.get(n, 0) == 0]
     if missing:
         raise AssertionError(f"run {label}: kernels never launched: {missing}")
@@ -2420,6 +2490,390 @@ def drive(pipe, label, breakpoints, online=False, captions=None):
                              f"the row-order kernel with a prefill re-run: {seen}, "
                              f"batched rows {report['batched_rows']}")
     return report, counts
+
+
+# Stage 2 at the v0.3 defaults (`eval/judge.py`'s main: batch 8, 64 new
+# tokens), bf16, then the judge's two options. The predictions are the
+# first JUDGE_BATCH of the stage-1 runs' (repeated to fill one batch).
+JUDGE_BATCH, JUDGE_NEW_TOKENS = 8, 64
+JUDGE_RUNS = {"judge_bf16": (False, 0), "judge_int8": (True, 0),
+              "judge_int8_spec4": (True, SPEC_TOKENS)}
+# LLaMA-3-8B's W8 shapes at decode (in, out): q / o, k / v, gate / up, down,
+# and the head (f32 out).
+JUDGE_W8_SHAPES = {"q / o": (4096, 4096, torch.bfloat16), "k / v": (4096, 1024, torch.bfloat16),
+                   "gate / up": (4096, 14336, torch.bfloat16),
+                   "down": (14336, 4096, torch.bfloat16),
+                   "head": (4096, 128256, torch.float32)}
+
+
+@contextlib.contextmanager
+def _plain_twins():
+    """Every kernel wrapper the judge's path reaches swapped for its plain
+    twin where the path looks it up (K3, K5, W8, K7), for the block."""
+    from streamchat_tpu_torch.models import decoder, spec_decode
+    from streamchat_tpu_torch.ops import attention, paged_attention, quant
+
+    swaps = [(decoder, "flash_attention", attention.flash_attention_plain),
+             (decoder, "flash_attention_partial", attention.flash_attention_partial_plain),
+             (quant, "qmatvec_int8", quant.qmatvec_int8_plain),
+             (spec_decode, "paged_seq_attention_partial",
+              paged_attention.paged_seq_attention_partial_plain)]
+    kept = [(mod, name, getattr(mod, name)) for mod, name, _ in swaps]
+    for mod, name, fn in swaps:
+        setattr(mod, name, fn)
+    try:
+        yield
+    finally:
+        for mod, name, fn in kept:
+            setattr(mod, name, fn)
+
+
+@contextlib.contextmanager
+def _judge_observed():
+    """Records, for one judge run: each K3 launch's (B, Hq, Hkv, S), each
+    quantized projection's (rows, in, out, out dtype, GEMV regime), each K7
+    call's (B, Hq, Hkv, T), the first generation call's inputs and the first
+    decode (or verify) step's inputs and logits. The wrappers still count
+    their own launches."""
+    from streamchat_tpu_torch.models import decoder, generate, spec_decode, textlm
+    from streamchat_tpu_torch.ops import quant
+
+    seen = {"k3": [], "w8": [], "k7": [], "call": None, "first": None}
+    flash, qmatmul = decoder.flash_attention, quant.qmatmul
+    k7 = spec_decode.paged_seq_attention_partial
+    gen, paged, dec, spec = (generate.generate, textlm.generate_paged, generate._decode_inline,
+                             spec_decode.decode_step_spec)
+
+    def k3(q, k, *a, **kw):
+        seen["k3"].append((q.shape[0], q.shape[1], k.shape[1], q.shape[2]))
+        return flash(q, k, *a, **kw)
+
+    def w8(x, q, out_dtype=None):
+        n = x.numel() // x.shape[-1]
+        seen["w8"].append((n, x.shape[-1], q["w_i8"].shape[1], out_dtype or x.dtype,
+                           quant._kernel_rows(x, n)))
+        return qmatmul(x, q, out_dtype)
+
+    def partial(q, k_pages, *a):
+        seen["k7"].append((q.shape[0], q.shape[1], k_pages.shape[1], q.shape[2]))
+        return k7(q, k_pages, *a)
+
+    def call(fn):
+        def wrapped(params, cfg, embeds, seq_length, *a, **kw):
+            if seen["call"] is None:
+                seen["call"] = dict(embeds=embeds, seq_length=seq_length.clone(), kw=kw)
+            return fn(params, cfg, embeds, seq_length, *a, **kw)
+        return wrapped
+
+    def first(fn):
+        def wrapped(params, cfg, tokens, cache, *a):
+            logits, cache = fn(params, cfg, tokens, cache, *a)
+            if seen["first"] is None:
+                seen["first"] = dict(tokens=tokens.clone(), args=[x.clone() for x in a],
+                                     logits=logits.clone())
+                if isinstance(cache, decoder.KVCache):      # the K/V it appended
+                    seen["first"]["appended"] = _appended(cache)
+                else:                                       # the K/V a verify step wrote
+                    seen["first"]["appended"] = _appended_pages(cache, tokens.shape[1])
+            return logits, cache
+        return wrapped
+
+    patches = [(decoder, "flash_attention", k3), (quant, "qmatmul", w8),
+               (spec_decode, "paged_seq_attention_partial", partial),
+               (generate, "generate", call(gen)), (textlm, "generate_paged", call(paged)),
+               (generate, "_decode_inline", first(dec)),
+               (spec_decode, "decode_step_spec", first(spec))]
+    kept = [(mod, name, getattr(mod, name)) for mod, name, _ in patches]
+    for mod, name, fn in patches:
+        setattr(mod, name, fn)
+    try:
+        yield seen
+    finally:
+        for mod, name, fn in kept:
+            setattr(mod, name, fn)
+
+
+def _appended(cache):
+    """K and V [2, L, B, Hkv, Dh] at each row's last slot (length - 1) of a
+    dense cache: what its last decode step appended."""
+    b = cache.length.shape[0]
+    rows, slot = torch.arange(b, device=cache.k.device), cache.length.long() - 1
+    return torch.stack([cache.k[:, rows, :, slot], cache.v[:, rows, :, slot]]).transpose(1, 2)
+
+
+def _appended_pages(cache, t):
+    """K and V [2, L, B, Hkv, T, Dh] at each row's slots length .. length +
+    T - 1 of a paged pool: what a verify step of T tokens wrote there."""
+    slot = cache.length.long()[:, None] + torch.arange(t, device=cache.length.device)
+    page = cache.page_table.long().gather(1, slot // cache.page_size)
+    off = slot % cache.page_size
+
+    def at(pages):                # the indexed dims lead: [B, T, L, Hkv, Dh]
+        return pages[:, page, :, off].permute(2, 0, 3, 1, 4)
+
+    return torch.stack([at(cache.k_pages), at(cache.v_pages)])
+
+
+@contextlib.contextmanager
+def _commits_at_row0():
+    """A verify step whose commits all land at row 0's positions (the
+    planted fault), each row in its own pages; its attention stays right."""
+    from streamchat_tpu_torch.models import spec_decode
+
+    commit = spec_decode._commit_staged
+
+    def at_row0(cache, *staged):
+        row0 = torch.full_like(cache.length, int(cache.length[0]))
+        commit(dataclasses.replace(cache, length=row0), *staged)
+
+    spec_decode._commit_staged = at_row0
+    try:
+        yield
+    finally:
+        spec_decode._commit_staged = commit
+
+
+def _per_row_rel_l2(got, ref):
+    """The largest relative L2 error of one batch row (dim 2 of [2, L, B, ...])."""
+    b = ref.shape[2]
+    got, ref = (x.float().transpose(0, 2).reshape(b, -1) for x in (got, ref))
+    return ((got - ref).norm(dim=-1) / ref.norm(dim=-1)).max().item()
+
+
+def _row_rel_l2(got, ref):
+    d = ref.shape[-1]
+    got, ref = got.float().reshape(-1, d), ref.float().reshape(-1, d)
+    return ((got - ref).norm(dim=-1) / ref.norm(dim=-1)).max().item()
+
+
+def _appends_at_row0(params, cfg, tokens, cache):
+    """A decode step whose appends all land at row 0's length (the planted
+    fault): each row's RoPE position and attended length stay its own."""
+    from streamchat_tpu_torch.models import decoder
+
+    length = cache.length
+    fake = decoder.KVCache(k=cache.k, v=cache.v, length=torch.full_like(length, int(length[0])))
+    embeds = decoder.embed_tokens(params, tokens)[:, None, :]
+    hidden, _ = decoder.forward(params, cfg, embeds, length[:, None], fake,
+                                length + 1 - int(length[0]), decode=True)
+    return decoder.logits_from_hidden(params, cfg, hidden)[:, 0]
+
+
+def judge_first_step(lm, seen, spec: bool, plant: bool):
+    """The run's first decode (or verify) step held to the same step on the
+    kernels' plain twins from the same inputs (prefill included): its logits
+    (row relative L2) and the K/V it wrote at each row's own positions (a
+    decode step's one slot at its length, a verify step's T slots from its
+    length; relative L2 a batch row), each within STEP_REL_L2 -> report
+    entries. With `plant`, a step whose writes all land at row 0's positions
+    must fail the same check: one missing key among ~1.5k moves random
+    weights' logits little, and a verify step's logits not at all (it
+    attends its staged K/V), the K/V at each row's slots much."""
+    from streamchat_tpu_torch import kernels
+    from streamchat_tpu_torch.models import decoder, generate, generate_paged, spec_decode
+
+    call, first = seen["call"], seen["first"]
+    params, cfg = lm.params, lm.cfg
+    embeds, seq_length, kw = call["embeds"], call["seq_length"], call["kw"]
+    kernels.reset_launch_counts()
+    with _plain_twins():
+        if spec:
+            cache, _, _ = generate_paged._generate_paged_split(
+                params, cfg, embeds, seq_length, max_new_tokens=kw["max_new_tokens"],
+                page_size=128, kv_int8=False, spec_tokens=kw["spec_tokens"])
+            if plant:
+                faulty = dataclasses.replace(cache, k_pages=cache.k_pages.clone(),
+                                             v_pages=cache.v_pages.clone())
+                with _commits_at_row0():
+                    bad, _ = spec_decode.decode_step_spec(params, cfg, first["tokens"], faulty,
+                                                          *first["args"])
+            ref, cache = spec_decode.decode_step_spec(params, cfg, first["tokens"], cache,
+                                                      *first["args"])
+            appended = lambda c: _appended_pages(c, first["tokens"].shape[1])  # noqa: E731
+        else:
+            appended = _appended
+            b, s, _ = embeds.shape
+            cache = decoder.KVCache.create(cfg, b, -(-(s + kw["max_new_tokens"]) // 128) * 128,
+                                           dtype=embeds.dtype, device=embeds.device)
+            _, cache = generate._prefill_inline(params, cfg, embeds, cache, seq_length)
+            if plant:
+                faulty = decoder.KVCache(k=cache.k.clone(), v=cache.v.clone(),
+                                         length=cache.length.clone())
+                bad = _appends_at_row0(params, cfg, first["tokens"], faulty)
+                faulty.length = faulty.length + 1
+            ref, cache = decoder.decode_step(params, cfg, first["tokens"], cache)
+    if any(kernels.launch_counts().values()):
+        raise AssertionError(f"the plain path launched kernels: {kernels.launch_counts()}")
+
+    def check(logits, written):
+        rel = _row_rel_l2(logits, ref)
+        kv = _per_row_rel_l2(written, appended(cache))
+        ok = bool(torch.isfinite(logits).all()) and rel <= STEP_REL_L2 and kv <= STEP_REL_L2
+        return ok, rel, kv
+
+    ok, rel, kv = check(first["logits"], first["appended"])
+    if not ok:
+        raise AssertionError(f"judge first step vs the plain path: logits row relative L2 "
+                             f"error {rel}, appended K/V {kv}: past {STEP_REL_L2}")
+    agree = first["logits"].argmax(-1) == ref.argmax(-1)
+    out = dict(first_step_logits_row_rel_l2=rel, first_step_appended_kv_rel_l2=kv,
+               first_step_greedy_agreement=f"{int(agree.sum())}/{agree.numel()}")
+    if plant:
+        lengths = cache.length.tolist()
+        bad_ok, bad_rel, bad_kv = check(bad, appended(faulty))
+        if bad_ok or len(set(lengths)) < 2:
+            raise AssertionError(f"planted fault 'judge {'verify' if spec else 'decode'} "
+                                 "writes at row 0's positions' "
+                                 f"passed the first-step check (logits {bad_rel}, appended "
+                                 f"K/V {bad_kv}, row lengths {lengths})")
+        out["planted_appends_at_row0"] = dict(logits_row_rel_l2=bad_rel,
+                                              appended_kv_rel_l2=bad_kv)
+    return out
+
+
+def drive_judge(lm, label, pred_file, out_dir, plant=False):
+    """Stage 2 (`eval.judge.judge_predictions` with `TextLM.generate_batch`
+    at batch 8 and 64 new tokens) over the prediction file, the launch
+    counters zeroed before and read after -> (report, counts). Every run
+    must launch K3 once a layer and batch at 4 query heads a kv head; an
+    int8 vanilla run W8 at every LLaMA-3-8B decode shape at 8 rows; a spec
+    run K7 at 20 folded rows a kv head over 8 kv heads and 8 rows. The first
+    step's logits are held to the plain path (`judge_first_step`)."""
+    from streamchat_tpu_torch import kernels
+    from streamchat_tpu_torch.eval.judge import judge_predictions
+
+    with open(pred_file, encoding="utf-8") as f:
+        predictions = json.load(f)
+    spec = lm.spec_tokens > 0
+    lm.gen_stats.clear()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launch_counts()
+    out_path = os.path.join(out_dir, f"{label}.jsonl")
+    with _judge_observed() as seen:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        judged = judge_predictions(
+            predictions, lambda prompts: lm.generate_batch(prompts,
+                                                           max_new_tokens=JUDGE_NEW_TOKENS),
+            output_path=out_path, batch_size=JUDGE_BATCH)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+    counts = kernels.launch_counts()
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    gs, cfg = lm.gen_stats, lm.cfg
+    rows = JUDGE_BATCH
+    emitted = gs.get("accepted_tokens", gs["decode_steps"] * rows)
+    weight_bytes = _decode_weight_bytes(lm.params)
+    w8_kernel = sorted({(n, kin, out, str(dt).replace("torch.", ""))
+                        for n, kin, out, dt, kern in seen["w8"] if kern})
+    report = dict(
+        seconds=seconds, judged=len(judged), rows=rows,
+        prompt_tokens=seen["call"]["embeds"].shape[1],
+        prompt_lengths=seen["call"]["seq_length"].tolist(),
+        prefill_s=gs["prefill_s"], decode_steps=gs["decode_steps"],
+        decode_ms_per_step=1e3 * gs["decode_s"] / gs["decode_steps"],
+        decode_ms_per_emitted_token=1e3 * gs["decode_s"] * rows / emitted,
+        emitted_tokens_per_row_per_verify_step=(gs["accepted_tokens"] / gs["verify_steps"] / rows
+                                                if spec else None),
+        peak_gib=peak, weight_bytes_per_step=weight_bytes,
+        weight_bound_ms_per_step=1e3 * weight_bytes / PEAK_BYTES,
+        k3_launches=[list(x) for x in sorted(set(seen["k3"]))],
+        k7_calls=[list(x) for x in sorted(set(seen["k7"]))],
+        w8_kernel_shapes=[list(x) for x in w8_kernel],
+        launches={n: c for n, c in counts.items() if c})
+    report.update(judge_first_step(lm, seen, spec, plant))
+    report["spec_run_launched"] = ({"K4 paged_decode_attention_seq":
+                                    counts.get("paged_decode_attention_seq", 0),
+                                    "W8 qmatvec_int8": counts.get("qmatvec_int8", 0)}
+                                   if spec else None)
+    print(f"judge [{label}]: {json.dumps(report)}", flush=True)
+    missing = [n for n in RUNS[label] if counts.get(n, 0) == 0]
+    if missing:
+        raise AssertionError(f"judge run {label}: kernels never launched: {missing}")
+    prefills = JUDGE_BATCH if spec else 1                 # spec: one prefill a row
+    if (counts["flash_attention"] != cfg.num_layers * prefills
+            or {(hq // hkv) for _, hq, hkv, _ in seen["k3"]} != {4}):
+        raise AssertionError(f"judge run {label}: K3 launches {counts['flash_attention']}, "
+                             f"shapes {report['k3_launches']}: expected {cfg.num_layers} a "
+                             "prefill at 4 query heads a kv head")
+    if len(judged) != JUDGE_BATCH or gs["generated_tokens"] == 0:
+        raise AssertionError(f"judge run {label}: {len(judged)} verdicts, "
+                             f"{gs['generated_tokens']} tokens")
+    with open(out_path, encoding="utf-8") as f:
+        lines = [json.loads(line) for line in f]
+    if [r["question"] for r in lines] != [p["question"] for p in predictions] or not all(
+            "score" in r or r.get("judge_parse_error") for r in lines):
+        raise AssertionError(f"judge run {label}: JSONL rows {lines}")
+    if label == "judge_int8":
+        have = {(kin, out, dt) for n, kin, out, dt, kern in seen["w8"] if kern and n == rows}
+        lacking = [k for k, shape in JUDGE_W8_SHAPES.items() if shape not in have]
+        if lacking:
+            raise AssertionError(f"judge run {label}: W8 never ran at 8 rows at {lacking}")
+    if spec and (SPEC_TOKENS + 1) * 4 not in {hq // hkv * t for b, hq, hkv, t in seen["k7"]
+                                              if b == rows and hkv == 8}:
+        raise AssertionError(f"judge run {label}: K7 calls {report['k7_calls']}: expected "
+                             f"{(SPEC_TOKENS + 1) * 4} rows a kv head, 8 kv heads, B {rows}")
+    return report, counts
+
+
+def score_judged(out_dir, label):
+    """Stage 3 (`eval.scoring.main`) over a judge run's JSONL -> its
+    <name>_res.json entries, checked against the JSONL's rows."""
+    from streamchat_tpu_torch.eval import scoring
+
+    scoring.main(["--output_dir", out_dir, "--output_name", label])
+    with open(os.path.join(out_dir, f"{label}_res.json"), encoding="utf-8") as f:
+        res = {k: v for entry in json.load(f) for k, v in entry.items()}
+    rows = scoring.read_jsonl(os.path.join(out_dir, f"{label}.jsonl"))
+    if (list(res) != ["Yes count", "No count", "Unparseable count", "Accuracy",
+                      "Average score"]
+            or res["Unparseable count"] != sum(1 for r in rows if r.get("judge_parse_error"))
+            or res["Yes count"] + res["No count"] + res["Unparseable count"] > len(rows)):
+        raise AssertionError(f"scoring {label}: {res} over {len(rows)} rows")
+    return res
+
+
+def run_judge(predictions):
+    """Stages 2 and 3 at LLaMA-3-8B width on random weights (seeded): the
+    three judge runs on one model build (int8 made from the bf16 tree and
+    the bf16 tree freed), then scoring over each run's JSONL -> (reports,
+    scores, counts)."""
+    from streamchat_tpu_torch.config import DecoderConfig
+    from streamchat_tpu_torch.models.textlm import TextLM
+
+    preds = list(itertools.islice(itertools.cycle(predictions), JUDGE_BATCH))
+    with phase("judge build (random LLaMA-3-8B weights)"):
+        lm = TextLM.init_random(DecoderConfig.llama3_8b(), seed=7, device="cuda")
+    n_params = sum(t.numel() for t in _leaves(lm.params))
+    print(f"judge: {n_params} parameters, {_decode_weight_bytes(lm.params)} weight bytes a "
+          f"decode step (bf16), {len(predictions)} stage-1 predictions", flush=True)
+    reports, scores, counts = {}, {}, {}
+    with tempfile.TemporaryDirectory() as d:
+        pred_file = os.path.join(d, "predictions.json")
+        with open(pred_file, "w", encoding="utf-8") as f:
+            json.dump(preds, f)
+        for label, (int8, spec_tokens) in JUDGE_RUNS.items():
+            if int8 and "w_i8" not in lm.params["layers"][0]["attn"]["q"]:
+                lm.quantize()                              # frees the bf16 tree
+            lm.spec_tokens = spec_tokens
+            with phase(f"stage 2: judge {label}"):
+                reports[label], counts[label] = drive_judge(lm, label, pred_file, d,
+                                                            plant=label != "judge_int8")
+            with phase(f"stage 3: scoring {label}"):
+                scores[label] = score_judged(d, label)
+    return reports, scores, counts
+
+
+def _leaves(tree):
+    if isinstance(tree, dict):
+        for v in tree.values():
+            yield from _leaves(v)
+    elif isinstance(tree, (list, tuple)):
+        for v in tree:
+            yield from _leaves(v)
+    else:
+        yield tree
 
 
 def main() -> None:
@@ -2480,7 +2934,8 @@ def main() -> None:
             print(f"    {label}: {json.dumps(case)}")
         extra = {k: v for k, v in row.items() if k.startswith(
             ("share_of_bound", "attributes", "launch_ms", "gemm_", "attention_", "dma_to_cur",
-             "blocks", "gbs", "host_us", "b2_", "t10_", "ms_length", "ms_row0", "caller_"))
+             "blocks", "gbs", "host_us", "b2_", "t10_", "ms_length", "ms_row0", "caller_",
+             "launch_floor", "wrapper_ms"))
             or k.endswith("_s4096")}
         if extra:
             print(f"    {json.dumps(extra)}")
@@ -2555,6 +3010,22 @@ def main() -> None:
             sampling(pipe, caption_batch=2, **SHORT_ANSWER):
         runs["int4_kv_int8_cb2"], counts["int4_kv_int8_cb2"] = drive(
             pipe, "int4_kv_int8_cb2", BREAKPOINTS[:1])
+    predictions = [r for v in runs.values() for r in v.pop("predictions")]
+    del pipe, m, bf16_tree                            # LongVA's trees
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"LongVA freed: {torch.cuda.memory_allocated() / 2**30:.3f} GiB still allocated",
+          flush=True)
+    judge_reports, judge_scores, judge_counts = run_judge(predictions)
+    counts.update(judge_counts)
+    for label, name in (("judge_bf16", "judge decode appends at row 0's length"),
+                        ("judge_int8_spec4", "judge verify writes at row 0's positions")):
+        fault = judge_reports[label]["planted_appends_at_row0"]
+        planted[name] = fault["appended_kv_rel_l2"]
+        print(f"planted fault rejected: {name}: written K/V relative L2 err "
+              f"{fault['appended_kv_rel_l2']:.6g}, logits row relative L2 err "
+              f"{fault['logits_row_rel_l2']:.6g} (limit {STEP_REL_L2})")
+    print(f"stage 3 scores: {json.dumps(judge_scores)}")
     print(f"composed checks: {json.dumps(composed)}")
     print(f"spec_tokens 9 over int8 pages: {json.dumps(spec_rows)}")
     print(f"probe results: {json.dumps(probes)}")
@@ -2572,6 +3043,10 @@ def main() -> None:
           + ", caller-sized pool " + ", ".join(
               f"{k} {v['seconds']:.3f} s ({v['decode_ms_per_step']:.2f} ms/step)"
               for k, v in caller.items())
+          + ", judge " + ", ".join(
+              f"{k} {v['seconds']:.3f} s (prefill {v['prefill_s']:.3f} s, "
+              f"{v['decode_ms_per_step']:.2f} ms/step, {v['peak_gib']:.2f} GiB)"
+              for k, v in judge_reports.items())
           + ", probes: K16 combo "
           f"{probes['probe_vit_variants']['combo']['ms_per_layer_call']:.3f} ms/layer, K17 "
           f"qk64 {probes['probe_vit_variants']['dotk']['qk64']['us_per_call']:.2f} us, K15 "

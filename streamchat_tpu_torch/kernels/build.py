@@ -59,7 +59,9 @@ SIGNATURES = {
     "sc_fused_ln_mlp": [_P] * 10 + [_I, _I, _I, _I, _I, _I, _I, _F, _P],
     "sc_fused_ln_attn": [_P] * 11 + [_I, _I, _I, _I, _F, _I, _I, _I, _P],
     "sc_vit_attention": [_P, _PI64, _P, _PI64, _P, _PI64, _P, _I, _I, _I, _I, _I, _F, _P],
-    "sc_select_changed_frames": [_P, _I, _P, _I, _I, _P],
+    "sc_select_changed_frames": [_P, _I, _I, _P, _I, _I, _P],
+    "sc_dedup_attributes": [_I, _I, ctypes.POINTER(ctypes.c_int)],
+    "sc_empty_kernel": [_I, _I, _P],
     "sc_dotk": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
     "sc_int4_probe": [_P, _I, _I, _P, _P, _I, _I, _I, _I, _I, _P, _P, ctypes.c_uint, _P, _P],
     "sc_flash_prefill_attributes": [_I, _I, _I, ctypes.POINTER(ctypes.c_int)],

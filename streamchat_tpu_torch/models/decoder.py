@@ -1,4 +1,4 @@
-"""Causal decoder core (Qwen2 / LLaMA geometry), prefill side
+"""Causal decoder core (Qwen2 / LLaMA geometry)
 (`streamchat_tpu/models/decoder.py`).
 
 The projections take bf16 / f32 weights as plain matrix products (`x @ w`,
@@ -7,8 +7,12 @@ int4 weight-only forms of `ops/quant.py`, whose decode rows go to the W8,
 K10 and K11 GEMV kernels (q/k/v and gate/up share one K11 launch when all
 parts are int4). Prefill attention is the K3 kernel wrapper
 (`ops.attention.flash_attention`). RMSNorm, RoPE (HF rotate-half) and the
-logits run in f32. Decode runs against the paged pool in
-`models/paged_kv.py`.
+logits run in f32. The paged decode runs against the pool in
+`models/paged_kv.py`; `decode_step` (the dense generation loop of
+`models/generate.py`, the judge's) appends each row's token at the row's own
+length of a dense bf16 `KVCache`, one indexed store per tensor and layer, and
+attends through the plain `ops.attention.decode_attention` (plain XLA in the
+JAX package too).
 
 Long prompts prefill in chunks, as in the JAX package (`prefill_chunked`,
 called by `models/generate._prefill_inline` for prompts over
@@ -34,7 +38,11 @@ import torch
 
 from streamchat_tpu_torch.config import DecoderConfig
 from streamchat_tpu_torch.ops import quant
-from streamchat_tpu_torch.ops.attention import flash_attention, flash_attention_partial
+from streamchat_tpu_torch.ops.attention import (
+    decode_attention,
+    flash_attention,
+    flash_attention_partial,
+)
 
 Params = Dict[str, Any]
 
@@ -227,10 +235,17 @@ def _cache_view(cache, i: int, kv_view: int, dtype):
 
 def forward(params: Params, cfg: DecoderConfig, embeds: torch.Tensor,
             positions: torch.Tensor, cache, seq_length: torch.Tensor, *,
-            start: int | list = 0, chunked: bool = False, kv_view: int | None = None):
-    """Prefill the stack over embeds [B, S, D], writing K/V at [start, start
+            start: int | list = 0, chunked: bool = False, kv_view: int | None = None,
+            decode: bool = False):
+    """Run the stack over embeds [B, S, D], writing K/V at [start, start
     + S) of a `KVCache` or `Int8KVCache` -> (post-norm hidden [B, S, D],
     cache with length = start + seq_length).
+
+    With `decode` (S = 1, a bf16 / f32 `KVCache`) each row writes its token
+    at its own `cache.length` (one indexed store per tensor and layer; the
+    lengths stay on the device) and attends over the whole cache up to its
+    new length (`decode_attention`); `start`, `chunked` and `kv_view` are
+    then not read.
 
     positions [B, S]; seq_length [B] valid tokens of `embeds` (the rest is
     padding, masked by kv_length). Without `chunked` the block attends
@@ -243,10 +258,20 @@ def forward(params: Params, cfg: DecoderConfig, embeds: torch.Tensor,
     """
     b, s, _ = embeds.shape
     hq, hkv, dh = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    if decode:
+        if isinstance(cache, Int8KVCache):
+            raise NotImplementedError(
+                "decode over an Int8KVCache: the dense generation loop decodes a "
+                "bf16 KVCache, as the JAX package's generate does")
+        if s != 1:
+            raise ValueError(f"decode takes one token a row, got {s}")
+        rows = torch.arange(b, device=embeds.device)
+        slot = cache.length.long()
+        start = cache.length
     per_row = isinstance(start, (list, tuple))
     q_offset = start[0] if per_row else start
     starts = torch.tensor(start, device=embeds.device) if per_row else start
-    kv_length = (starts + seq_length).to(torch.int32)
+    kv_length = (starts + seq_length).to(torch.int32)      # after this block's writes
     view = cache.k.shape[3] if kv_view is None else kv_view
     x = embeds
     for i, p in enumerate(params["layers"]):
@@ -254,16 +279,21 @@ def forward(params: Params, cfg: DecoderConfig, embeds: torch.Tensor,
         q, k, v = qkv_proj(h, p["attn"], b, s, hq, hkv, dh)
         q = rope(q, positions, cfg.rope_theta)
         k = rope(k, positions, cfg.rope_theta)
-        if per_row:
-            for r, st in enumerate(start):
-                _write_kv(cache, i, st, k[r:r + 1], v[r:r + 1], slice(r, r + 1))
+        if decode:
+            cache.k[i][rows, :, slot] = k[:, :, 0].to(cache.k.dtype)
+            cache.v[i][rows, :, slot] = v[:, :, 0].to(cache.v.dtype)
+            o = decode_attention(q, cache.k[i], cache.v[i], kv_length)
         else:
-            _write_kv(cache, i, start, k, v)
-        if chunked:
-            kd, vd = _cache_view(cache, i, view, k.dtype)
-            o = _chunk_cache_attention(q, kd, vd, q_offset, kv_length)
-        else:
-            o = flash_attention(q, k, v, kv_length, causal=True)
+            if per_row:
+                for r, st in enumerate(start):
+                    _write_kv(cache, i, st, k[r:r + 1], v[r:r + 1], slice(r, r + 1))
+            else:
+                _write_kv(cache, i, start, k, v)
+            if chunked:
+                kd, vd = _cache_view(cache, i, view, k.dtype)
+                o = _chunk_cache_attention(q, kd, vd, q_offset, kv_length)
+            else:
+                o = flash_attention(q, k, v, kv_length, causal=True)
         x = x + _proj(o.transpose(1, 2).reshape(b, s, hq * dh), p["attn"]["o"])
         x = x + mlp_block(rmsnorm(x, p["post_norm"], cfg.rms_eps), p["mlp"])
     cache.length = kv_length.clone()
@@ -307,6 +337,20 @@ def prefill(params: Params, cfg: DecoderConfig, embeds: torch.Tensor,
     last = (seq_length.to(embeds.device).long() - 1)
     rows = hidden[torch.arange(b, device=embeds.device), last]      # [B, D]
     return logits_from_hidden(params, cfg, rows[:, None])[:, 0], cache
+
+
+def decode_step(params: Params, cfg: DecoderConfig, token_ids: torch.Tensor,
+                cache: KVCache) -> Tuple[torch.Tensor, KVCache]:
+    """One decode step for token_ids [B] over a dense `KVCache` -> (logits
+    [B, V] f32, cache), the cache updated in place and its lengths advanced
+    by one. Each row's token takes RoPE position and cache slot
+    `cache.length`."""
+    b = token_ids.shape[0]
+    embeds = embed_tokens(params, token_ids)[:, None, :]
+    positions = cache.length[:, None]
+    hidden, cache = forward(params, cfg, embeds, positions, cache,
+                            torch.ones(b, dtype=torch.int32, device=embeds.device), decode=True)
+    return logits_from_hidden(params, cfg, hidden)[:, 0], cache
 
 
 def prefill_chunked(params: Params, cfg: DecoderConfig, embeds: torch.Tensor, cache,

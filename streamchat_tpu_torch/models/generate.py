@@ -1,17 +1,108 @@
-"""Prompt bucketing and the prefill dispatch (`streamchat_tpu/models/generate.py`).
+"""Dense-cache generation, prompt bucketing and the prefill dispatch
+(`streamchat_tpu/models/generate.py`).
 
 Prompts of up to `CHUNKED_PREFILL_THRESHOLD` tokens prefill in one pass
 (`decoder.prefill`, K3); longer ones prefill in chunks of half the
 threshold (`decoder.prefill_chunked`: K3 for chunk 0, K5 for the rest), for
 every weight and KV storage, as `_prefill_inline` does in the JAX package.
-Paged generation lives in `models/generate_paged.py`.
+
+`generate` is the JAX package's dense loop (the judge's, and the paged
+backend's token-exact twin): B rows prefill together into one bf16
+`KVCache` of S + max_new slots rounded up to 128, then a host loop of sample
+-> decode step (`_decode_inline`: `decoder.decode_step`, each row appending
+at its own length) runs until every row is done or max_new_tokens steps
+were taken, the JAX `lax.while_loop` written out with one host sync a step
+(the all-done test). Finished rows emit the pad id. Paged generation lives
+in `models/generate_paged.py`.
 """
 
 from __future__ import annotations
 
+import dataclasses
+import time
+from typing import Optional, Sequence, Tuple
+
+import torch
+
+from streamchat_tpu_torch.config import DecoderConfig
 from streamchat_tpu_torch.models import decoder
+from streamchat_tpu_torch.models.decoder import KVCache
+from streamchat_tpu_torch.ops.sampling import sample_token
 
 CHUNKED_PREFILL_THRESHOLD = 8192
+
+
+@dataclasses.dataclass
+class GenState:
+    """The decode loop's state (the JAX `lax.while_loop` carry)."""
+
+    cache: KVCache
+    logits: torch.Tensor          # [B, V] for the next sample
+    out_tokens: torch.Tensor      # [B, max_new]
+    step: int
+    done: torch.Tensor            # [B] bool
+
+
+def generate(params, cfg: DecoderConfig, prompt_embeds: torch.Tensor,
+             seq_length: torch.Tensor, generator: torch.Generator | None = None, *,
+             max_new_tokens: int, max_len: int | None = None, temperature: float = 0.0,
+             top_p: float | None = None, eos_ids: Sequence[int] | None = None,
+             stats: Optional[dict] = None) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Generate up to max_new_tokens -> (tokens [B, max_new] int64, count [B]),
+    both on the prompt's device.
+
+    prompt_embeds [B, S, D] padded to S; seq_length [B] valid prompt tokens.
+    count is the number of tokens before the first EOS (EOS excluded), at
+    most the steps taken. The cache holds max_len slots (default S +
+    max_new_tokens), rounded up to 128. `stats`, when given, accumulates
+    "prefill_s", "decode_s" (host clock, each ending in a device
+    synchronize), "decode_steps", "prompt_tokens" (padded, all rows) and
+    "generated_tokens" (before EOS) in place, as `generate_paged` does.
+    """
+    if eos_ids is None:
+        eos_ids = (cfg.eos_token_id,)
+    b, s, _ = prompt_embeds.shape
+    dev = prompt_embeds.device
+    if max_len is None:
+        max_len = s + max_new_tokens
+    max_len = -(-max_len // 128) * 128
+    t0 = time.perf_counter()
+    cache = KVCache.create(cfg, b, max_len, dtype=prompt_embeds.dtype, device=dev)
+    seq_length = seq_length.to(device=dev, dtype=torch.int32)
+    first_logits, cache = _prefill_inline(params, cfg, prompt_embeds, cache, seq_length)
+    if stats is not None and dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+    t1 = time.perf_counter()
+
+    eos = torch.tensor(list(eos_ids), device=dev)
+    st = GenState(cache=cache, logits=first_logits,
+                  out_tokens=torch.full((b, max_new_tokens), cfg.pad_token_id,
+                                        dtype=torch.int64, device=dev),
+                  step=0, done=torch.zeros(b, dtype=torch.bool, device=dev))
+    while st.step < max_new_tokens and not bool(st.done.all()):
+        tok = sample_token(st.logits, generator, temperature=temperature, top_p=top_p)
+        tok = torch.where(st.done, torch.full_like(tok, cfg.pad_token_id), tok)
+        st.done = st.done | torch.isin(tok, eos)
+        st.out_tokens[:, st.step] = tok
+        st.logits, st.cache = _decode_inline(params, cfg, tok, st.cache)
+        st.step += 1
+
+    before_eos = torch.cumsum(torch.isin(st.out_tokens, eos).long(), dim=1) == 0
+    count = before_eos.sum(1).clamp_max(st.step)
+    if stats is not None:
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+        for k, v in (("prefill_s", t1 - t0), ("decode_s", time.perf_counter() - t1),
+                     ("decode_steps", st.step), ("prompt_tokens", b * s),
+                     ("generated_tokens", int(count.sum()))):
+            stats[k] = stats.get(k, 0) + v
+    return st.out_tokens, count
+
+
+def fetch(tokens: torch.Tensor, count: torch.Tensor):
+    """`generate`'s (tokens, count) as numpy arrays, in one device-to-host copy."""
+    out = torch.cat([tokens, count[:, None].to(tokens.dtype)], dim=1).cpu().numpy()
+    return out[:, :-1], out[:, -1]
 
 
 def _prefill_inline(params, cfg, embeds, cache, seq_length):
@@ -20,6 +111,11 @@ def _prefill_inline(params, cfg, embeds, cache, seq_length):
         return decoder.prefill_chunked(params, cfg, embeds, cache, seq_length,
                                        chunk=CHUNKED_PREFILL_THRESHOLD // 2)
     return decoder.prefill(params, cfg, embeds, cache, seq_length)
+
+
+def _decode_inline(params, cfg, token_ids, cache):
+    """One step of the dense loop -> (logits [B, V], cache): `decoder.decode_step`."""
+    return decoder.decode_step(params, cfg, token_ids, cache)
 
 
 def pad_to_bucket(length: int, bucket: int = 128, minimum: int = 128) -> int:

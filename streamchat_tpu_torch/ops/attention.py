@@ -19,7 +19,9 @@ h // (H / Hkv)), kv_length [B] masks keys at and past each row's length.
   same Hopper kernel template as `flash_attention`, with the partial
   epilogue.
 * `decode_attention` — one query token against a contiguous cache (plain
-  PyTorch; the paged decode path uses ops/paged_attention).
+  PyTorch, as it is plain XLA there: the dense generation loop of
+  `models/generate.py` runs it; the paged decode path uses
+  ops/paged_attention).
 """
 
 from __future__ import annotations
@@ -182,7 +184,9 @@ def decode_attention(q, k_cache, v_cache, length):
     b, hq, _, d = q.shape
     hkv, lmax = k_cache.shape[1], k_cache.shape[2]
     qg = q.reshape(b, hkv, hq // hkv, d).float()
-    s = torch.einsum("bhgd,bhld->bhgl", qg, k_cache.float()) / math.sqrt(d)
+    # Scaled as the JAX package scales it (times 1 / sqrt(d)), so that
+    # greedy ties break the same way.
+    s = torch.einsum("bhgd,bhld->bhgl", qg, k_cache.float()) * (1.0 / math.sqrt(d))
     col = torch.arange(lmax, device=q.device)
     s = s.masked_fill(col[None, None, None, :] >= length[:, None, None, None],
                       float("-inf"))

@@ -4,7 +4,8 @@ with its plain twin (`streamchat_tpu/ops/dedup.py`).
 Frame i is kept iff 1 - cos(x_i, x_{i-1}) > threshold over pooled per-frame
 descriptors x [N, D]; frame 0 is always kept (its score compares it with
 row N - 1, as the TPU kernel's roll wraps). `select_changed_frames` launches
-`csrc/dedup.cu` on a CUDA tensor (f32 or bf16 descriptors) and runs
+`csrc/dedup.cu` on a CUDA tensor (f32 or bf16 descriptors, any D; one
+block a row, 16-byte loads where `launch_plan` allows them) and runs
 `select_changed_frames_plain` on a CPU tensor. `frame_descriptors` (the f32
 mean over patches) and `ssim_pairs` (a pixel-space score) are plain PyTorch,
 as they are plain XLA outside the Pallas call there.
@@ -15,6 +16,25 @@ from __future__ import annotations
 import torch
 
 from streamchat_tpu_torch.kernels import counted, launched
+
+# The card's kernel (csrc/dedup.cu): one block of THREADS a row, UNROLL
+# vectors of each row in flight a thread and pass.
+THREADS, UNROLL = 256, 4
+
+
+def launch_plan(n: int, d: int, itemsize: int, aligned: bool = True) -> dict:
+    """The K12 kernel's launch for descriptors [n, d] of `itemsize` bytes ->
+    {"vec", "blocks", "passes"}.
+
+    vec: 16-byte loads, only when every row starts on a 16-byte boundary
+    (d * itemsize % 16 == 0 and an aligned base); otherwise the kernel's
+    scalar loop. One block a row; `passes` round trips of UNROLL loads a
+    thread and row cover it."""
+    if n < 1 or d < 1:
+        raise ValueError(f"select_changed_frames: expected [N >= 1, D >= 1], got [{n}, {d}]")
+    vec = aligned and (d * itemsize) % 16 == 0
+    v = 16 // itemsize if vec else 1
+    return {"vec": vec, "blocks": n, "passes": -(-d // (THREADS * v * UNROLL))}
 
 
 def _keep(sim: torch.Tensor, threshold: float) -> torch.Tensor:
@@ -59,9 +79,10 @@ def select_changed_frames(features: torch.Tensor, *, threshold: float = 0.18,
         raise ValueError(f"select_changed_frames: expected f32 or bf16, got {features.dtype}")
     x = features.contiguous()
     n, d = x.shape
+    plan = launch_plan(n, d, x.element_size(), aligned=x.data_ptr() % 16 == 0)
     sim = torch.empty(n, dtype=torch.float32, device=x.device)
-    call("sc_select_changed_frames", x.data_ptr(), dtypes[x.dtype], sim.data_ptr(), n, d,
-         torch.cuda.current_stream().cuda_stream)
+    call("sc_select_changed_frames", x.data_ptr(), dtypes[x.dtype], int(plan["vec"]),
+         sim.data_ptr(), n, d, torch.cuda.current_stream().cuda_stream)
     launched(select_changed_frames)
     keep = _keep(sim, threshold)
     return (keep, sim) if return_similarity else keep

@@ -11,12 +11,14 @@ shapes (`CASES`: K1 in the ingest's and the exact form, K2-K17, K7′ and W8;
 K16 is K1's entry with the bf16-score softmax), once against each library,
 and the device time per call of each (torch.profiler, as `chip_smoke.py`
 measures it; for K1's ingest form also launch by launch) is taken in
-turns: other, this, this, other. The page-pool kernels (K4, K6-K9) run
+turns: other, this, this, other (K12's kernel alone, without its wrapper's
+keep-mask ops). The page-pool kernels (K4, K6-K9) run
 through each tree's own `ops/paged_attention.py` wrapper, and the int4
 GEMVs (K10 at o and down, K11 at q/k/v and gate/up, each at 1 and 5 rows)
-through each tree's own `ops/int4_matmul.py`, so that each library gets the
-grid, the split and the scratch its tree gives it (and its own C
-signature); K4, K6, K7 and K7′ are timed over four pools in turn (each call
+through each tree's own `ops/int4_matmul.py`, and K12 through each tree's
+own `ops/dedup.py`, so that each library gets the grid, the split and the
+scratch its tree gives it (and its own C signature); K4, K6, K7 and K7′
+are timed over four pools in turn (each call
 reads its pool cold from HBM), K8 and K9 at the smoke's shape (three rows
 of 23,105, 11,905 and 1 tokens through a permuted 184-slot table) and at the
 caller pool's (two rows of 6,100 and 3,050 tokens on a 98-page pool, 50
@@ -33,7 +35,9 @@ in a cluster) and K17 (wgmma, other dot slices), K4, K6, K7 and K7′
 the other tree's output within the smoke's tolerance instead, |a - b| <=
 3e-2 + 2e-2 |b|, and for K4, K6-K11, K13, K14, K15 and K17 also a row
 relative L2 error <= 1e-2 (K7 / K7′ through acc / l, m and l
-elementwise); such a case also reports whether it was equal bit for bit
+elementwise); K12 (a thread's 16-byte vectors summed in another order
+since its redesign) is held as the smoke holds it, equal keep masks and
+max |sim - other sim| <= SIM_ATOL = 1e-5. Such a case also reports whether it was equal bit for bit
 all the same (`bit_equal_anyway`: a kernel this tree did not change). A
 kernel the
 other tree does not export, or exports with another C signature and is
@@ -56,8 +60,12 @@ from streamchat_tpu_torch.utils.profiling import device_launches, device_ms, hos
 
 # Cases whose device time is also reported launch by launch.
 BY_LAUNCH = ("K1 ingest form",)
+# Cases timed on one kernel of the wrapper's launches (K12's wrapper also runs
+# the keep mask's small torch ops).
+KERNEL_ONLY = {"K12": "dedup_kernel"}
 # case -> (its C entry point, its tolerance against the other tree: None for
-# bit for bit, "elementwise", or "rows" for elementwise and row relative L2).
+# bit for bit, "elementwise", "rows" for elementwise and row relative L2, or
+# "sim" for K12's (keep, sim): equal keep masks, max |sim - other| <= SIM_ATOL).
 CASES = {
     "K1 ingest form": ("sc_fused_vit_layer", "elementwise"),
     "K1 exact form": ("sc_fused_vit_layer", "elementwise"),
@@ -75,7 +83,7 @@ CASES = {
     **{f"K10 {shape} n{n}": ("sc_int4_gemv", "rows") for shape in ("o", "down") for n in (1, 5)},
     **{f"K11 {shape} n{n}": ("sc_int4_gemv", "rows")
        for shape in ("qkv", "gate_up") for n in (1, 5)},
-    "K12": ("sc_select_changed_frames", None),
+    "K12": ("sc_select_changed_frames", "sim"),
     "K13": ("sc_fused_ln_attn", "rows"),
     "K14": ("sc_vit_attention", "rows"),
     "K15": ("sc_int4_probe", "rows"),
@@ -84,13 +92,17 @@ CASES = {
     "W8": ("sc_w8a16_gemv", None),
 }
 ATOL, RTOL, ROW_REL_L2 = 3e-2, 2e-2, 1e-2
+# K12's similarities, as chip_smoke.py holds them.
+SIM_ATOL = 1e-5
 # C entries each tree reaches through its own wrapper module (MODULES, the
 # keys of `mods` in `_cases`), compared whatever their C signatures.
 OWN_WRAPPER = frozenset({"sc_paged_decode", "sc_paged_decode_int8", "sc_paged_seq_partial",
                          "sc_paged_seq_partial_int8", "sc_paged_decode_table",
-                         "sc_paged_decode_table_int8", "sc_int4_gemv"})
+                         "sc_paged_decode_table_int8", "sc_int4_gemv",
+                         "sc_select_changed_frames"})
 MODULES = {"paged": os.path.join("ops", "paged_attention.py"),
-           "int4": os.path.join("ops", "int4_matmul.py")}
+           "int4": os.path.join("ops", "int4_matmul.py"),
+           "dedup": os.path.join("ops", "dedup.py")}
 # LongVA-7B's int4 decode launches: (in, out of each part, layers' weights
 # timed in turn so that one call's bytes are not in L2 from the call before).
 INT4_SHAPES = {"o": (3584, (3584,), 10), "down": (18944, (3584,), 3),
@@ -122,6 +134,14 @@ def _within(got, ref, rows: bool = True) -> dict:
     ok = (bool(torch.isfinite(got).all()) and not bool((err > ATOL + RTOL * ref.abs()).any())
           and (rel is None or rel <= ROW_REL_L2))
     return dict(max_abs_err=err.max().item(), max_row_rel_l2=rel, within=ok)
+
+
+def _within_sim(got, ref) -> dict:
+    """K12's (keep, sim): equal keep masks and max |sim - ref sim| <= SIM_ATOL."""
+    (keep, sim), (rkeep, rsim) = got, ref
+    err = (sim.float() - rsim.float()).abs().max().item()
+    ok = bool(torch.equal(keep, rkeep)) and bool(torch.isfinite(sim).all()) and err <= SIM_ATOL
+    return dict(max_abs_err=err, keep_equal=bool(torch.equal(keep, rkeep)), within=ok)
 
 
 def _equal(a, b) -> bool:
@@ -163,11 +183,10 @@ def _cases(g, mods):
     """-> (case -> a call of this tree's wrapper at main-path shapes, case ->
     the call to time where it differs: K4, K6, K7 and K7′ over four pools in
     turn, K10 and K11 over INT4_SHAPES' layers in turn).
-    The page-pool and int4 cases call the wrapper module in mods["paged"] /
-    mods["int4"] (this tree's, or the other tree's while its library
-    runs)."""
-    from streamchat_tpu_torch.ops import (attention, dedup, fused_vit, quant,
-                                          vit_attention)
+    The page-pool, int4 and K12 cases call the wrapper module in
+    mods["paged"] / mods["int4"] / mods["dedup"] (this tree's, or the other
+    tree's while its library runs)."""
+    from streamchat_tpu_torch.ops import attention, fused_vit, quant, vit_attention
     from streamchat_tpu_torch.utils import probe_int4
     from streamchat_tpu_torch.utils import probe_vit_variants as pvv
 
@@ -305,8 +324,8 @@ def _cases(g, mods):
         "K9 caller pool": lambda: mods["paged"].paged_decode_attention_table_int8(
             q8c, *cp_int8[0], cp_table, cp_len),
         **int4_cases,
-        "K12": lambda: dedup.select_changed_frames(x12, threshold=0.18,
-                                                   return_similarity=True),
+        "K12": lambda: mods["dedup"].select_changed_frames(x12, threshold=0.18,
+                                                           return_similarity=True),
         "K13": lambda: fused_vit.fused_ln_attn(x, *vit[:6], num_heads=16),
         "K14": lambda: vit_attention.vit_attention(q14, k14, v14),
         "K15": lambda: probe_int4.matvec(x15, w15, s15, variant="cur"),
@@ -335,9 +354,9 @@ def main(argv=None) -> None:
     other, seconds, present = _load_other(tree)
     print(f"other tree's kernels built in {seconds:.2f} s")
     current = build.call
-    from streamchat_tpu_torch.ops import int4_matmul, paged_attention
+    from streamchat_tpu_torch.ops import dedup, int4_matmul, paged_attention
 
-    this_mods = {"paged": paged_attention, "int4": int4_matmul}
+    this_mods = {"paged": paged_attention, "int4": int4_matmul, "dedup": dedup}
     other_mods = {key: _load_module(tree, f"other_{key}", rel) for key, rel in MODULES.items()}
 
     def call_into(lib):
@@ -360,7 +379,8 @@ def main(argv=None) -> None:
                 build.call = current
                 mods.update(this_mods)
                 report[name] = dict(other="absent or another signature",
-                                    ms_this=[device_ms(clock, args.iters) for _ in range(2)])
+                                    ms_this=[device_ms(clock, args.iters, KERNEL_ONLY.get(name))
+                                             for _ in range(2)])
                 print(f"{name}: {json.dumps(report[name])}", flush=True)
                 continue
             outs, times = {}, {"other": [], "this": []}
@@ -370,13 +390,15 @@ def main(argv=None) -> None:
                 build.call = current if which == "this" else call_into(other)
                 mods.update(this_mods if which == "this" else other_mods)
                 outs[which] = fn()
-                times[which].append(device_ms(clock, args.iters))
+                times[which].append(device_ms(clock, args.iters, KERNEL_ONLY.get(name)))
                 if name in timed:
                     host[which].append(host_us(clock, args.iters))
                 if name in BY_LAUNCH:
                     launches[which].append([ms for _, ms in device_launches(fn, args.iters)])
             if tolerance:
-                report[name] = _within(outs["this"], outs["other"], rows=tolerance == "rows")
+                report[name] = (_within_sim(outs["this"], outs["other"]) if tolerance == "sim"
+                                else _within(outs["this"], outs["other"],
+                                             rows=tolerance == "rows"))
                 report[name]["bit_equal_anyway"] = _equal(outs["this"], outs["other"])
             else:
                 report[name] = dict(bit_equal=_equal(outs["this"], outs["other"]))

@@ -454,22 +454,30 @@ def test_cuda_paged_seq_partial(cuda, int8, hq, t, d, b, lengths, pages):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("n,d,dtype", [(60, 3584, torch.float32), (1, 100, torch.float32),
-                                       (7, 1030, torch.bfloat16)])
-def test_cuda_select_changed_frames(cuda, n, d, dtype):
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("d", [3584, 1024, 1000, 1001, 100, 1030])
+@pytest.mark.parametrize("n,offset", [(1, 0), (60, 0), (7, 0), (60, 1)],
+                         ids=["n1", "n60", "n7", "n60-unaligned"])
+def test_cuda_select_changed_frames(cuda, n, offset, d, dtype):
     """K12: the similarity of each row with the one before (row 0 with row
     N - 1) within 1e-5 of the twin; the keep masks agree wherever the score
-    is not within 1e-4 of the threshold."""
+    is not within 1e-4 of the threshold; equal bits on a second launch. D
+    1001, D 1030 at bf16 and a base one element past a 16-byte boundary
+    take the kernel's scalar loads, the others its 16-byte ones."""
     x = np.random.default_rng(n).standard_normal((n, d)).astype(np.float32)
     for i in range(1, n, 3):
         x[i] = x[i - 1] + 0.05 * np.random.default_rng(i).standard_normal(d)
-    x = torch.from_numpy(x).to(cuda, dtype)
+    flat = torch.empty(n * d + offset, dtype=dtype, device=cuda)
+    x = flat[offset:].view(n, d).copy_(torch.from_numpy(x))
+    plan = dedup.launch_plan(n, d, x.element_size(), aligned=x.data_ptr() % 16 == 0)
+    assert plan["vec"] == (offset == 0 and d * x.element_size() % 16 == 0)
     keep, sim = dedup.select_changed_frames(x, threshold=0.18, return_similarity=True)
     pkeep, psim = dedup.select_changed_frames_plain(x, threshold=0.18, return_similarity=True)
     torch.testing.assert_close(sim, psim, atol=1e-5, rtol=0)
     clear = ((1 - psim) - 0.18).abs() > 1e-4
     assert keep[0] and torch.equal(keep[clear], pkeep[clear])
-    assert dedup.select_changed_frames.launches == 1
+    _, again = dedup.select_changed_frames(x, threshold=0.18, return_similarity=True)
+    assert torch.equal(sim, again) and dedup.select_changed_frames.launches == 2
 
 
 def _attn_args(dev, d, seed=20):
@@ -780,3 +788,72 @@ def test_cuda_probes_repeat_bit_for_bit(cuda, n):
         a, b = (t.to(cuda) for t in pvv.make_dot_inputs(kind, torch.Generator().manual_seed(n),
                                                       device="cpu"))
         assert torch.equal(pvv.dotk(a, b), pvv.dotk(a, b))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [8, 1])
+def test_cuda_w8a16_gemv_lm_head(cuda, n):
+    """W8 at the LLaMA-3-8B head: 4096 -> 128,256 columns, f32 out."""
+    g = torch.Generator(device=cuda).manual_seed(n)
+    w = torch.randn(4096, 128256, generator=g, device=cuda) * 0.02
+    q = quant.quantize_weight(w)
+    del w
+    x = torch.randn(n, 4096, generator=g, device=cuda).to(torch.bfloat16)
+    got = quant.qmatvec_int8(x, q["w_i8"], q["scale"], torch.float32)
+    assert got.dtype == torch.float32 and got.shape == (n, 128256)
+    _close(got, quant.qmatvec_int8_plain(x, q["w_i8"], q["scale"], torch.float32))
+    assert quant.qmatvec_int8.launches == 1
+
+
+def _judge_cfg():
+    """LLaMA-3-8B's heads (32 / 8, head dim 128) on a narrow, 4-layer stack."""
+    from streamchat_tpu_torch.config import DecoderConfig
+
+    return DecoderConfig(vocab_size=2048, hidden_size=1024, intermediate_size=2048,
+                         num_layers=4, num_heads=32, num_kv_heads=8, head_dim=128,
+                         rope_theta=5e5, rms_eps=1e-5, qkv_bias=False, eos_token_id=1,
+                         pad_token_id=0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("int8", [False, True], ids=["bf16", "int8"])
+def test_cuda_dense_decode_step_g4(cuda, monkeypatch, int8):
+    """Three ragged rows prefilled (K3 at g 4) and two dense decode steps
+    (W8 for the int8 tree) against the same path on the kernels' plain
+    twins: logits within a relative L2 error of 2e-2 (bf16 storage, four
+    layers, another summation order)."""
+    from streamchat_tpu_torch.models import decoder
+    from streamchat_tpu_torch.ops import attention as attn_ops
+
+    cfg = _judge_cfg()
+    g = torch.Generator(device=cuda).manual_seed(0)
+    params = decoder.init(cfg, g, device=cuda)
+    if int8:
+        params = quant.quantize_decoder_params(params)
+    lengths = torch.tensor([300, 129, 17], dtype=torch.int32, device=cuda)
+    embeds = (torch.randn(3, 384, cfg.hidden_size, generator=g, device=cuda) * 0.5).to(
+        torch.bfloat16)
+    toks = [torch.tensor(t, device=cuda) for t in ([5, 70, 900], [11, 11, 2047])]
+
+    def run():
+        cache = decoder.KVCache.create(cfg, 3, 512, device=cuda)
+        logits, cache = decoder.prefill(params, cfg, embeds, cache, lengths)
+        out = [logits]
+        for t in toks:
+            logits, cache = decoder.decode_step(params, cfg, t, cache)
+            out.append(logits)
+        assert cache.length.tolist() == [302, 131, 19]
+        return out
+
+    got = run()
+    counts = kernels.launch_counts()
+    assert counts["flash_attention"] == cfg.num_layers
+    # Each decode step: seven projections a layer and the head; the prefill's
+    # three last-token rows take the head's GEMV too.
+    assert counts["qmatvec_int8"] == (2 * 7 * cfg.num_layers + 3 if int8 else 0)
+    monkeypatch.setattr(decoder, "flash_attention", attn_ops.flash_attention_plain)
+    monkeypatch.setattr(quant, "qmatvec_int8", quant.qmatvec_int8_plain)
+    ref = run()
+    for a, b in zip(got, ref):
+        rel = ((a - b).norm() / b.norm()).item()
+        assert torch.isfinite(a).all() and rel <= 2e-2, rel

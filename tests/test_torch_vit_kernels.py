@@ -135,6 +135,21 @@ def test_dedup_segment_matches_jax(no_launches, threshold):
     assert dedup_segment(torch.zeros(0, 6, 16), threshold).shape == (0, 6, 16)
 
 
+@pytest.mark.parametrize("n,d,itemsize,aligned,vec,passes", [
+    (60, 3584, 4, True, True, 1), (60, 3584, 2, True, True, 1), (1, 4096, 4, True, True, 1),
+    (1, 4100, 4, True, True, 2), (60, 1000, 4, True, True, 1), (60, 1001, 4, True, False, 1),
+    (7, 1030, 2, True, False, 2), (60, 3584, 4, False, False, 4), (1, 1, 4, True, False, 1),
+    (500, 100000, 2, True, True, 13)])
+def test_k12_launch_plan(n, d, itemsize, aligned, vec, passes):
+    """K12 on the card: one block a row, 16-byte loads only where every row
+    starts on a 16-byte boundary (else the kernel's scalar loop), and as many
+    passes of 4 loads a thread as cover the row."""
+    plan = dedup.launch_plan(n, d, itemsize, aligned=aligned)
+    assert plan == {"vec": vec, "blocks": n, "passes": passes}
+    with pytest.raises(ValueError):
+        dedup.launch_plan(0, d, itemsize)
+
+
 # --- K13 fused_ln_attn ----------------------------------------------------------
 
 def _attn_weights(d, seed):
