@@ -6,7 +6,28 @@
    (nvidia-smi) and the torch / CUDA versions.
 2. Builds every hand-written kernel from `streamchat_tpu_torch/csrc/` (one
    nvcc per source, in parallel) and prints the build seconds.
-3. Builds the pipeline at full LongVA-7B width on random weights (seeded).
+3. Builds the pipeline at full LongVA-7B width on random weights (seeded)
+   and writes its three models in a temporary directory as HF
+   checkpoints (`write_checkpoint`, the script's own safetensors writer:
+   an 8-byte header length, the JSON header, the raw bytes; HF names and
+   the [out, in] layout): LongVA-7B as llava_qwen (Qwen2-7B's config
+   fields, bf16 shards of at most 5 GB and model.safetensors.index.json),
+   mxbai-colbert-large (f32, under a "bert." prefix) and MiniLM-L6 (f32,
+   without), printing the free space before each write and raising when it
+   is short. Then builds the pipeline from the three paths with
+   `build_pipeline` (`LongVA.from_pretrained` with the byte tokenizer, the
+   checkpoints carrying none, and two `TextEmbedder.from_pretrained`), and
+   holds every leaf and config of the loaded models to the written ones,
+   bit for bit, before the written trees are freed. Prints the seconds and
+   GB/s of the write and of the load, a raw read of the same files' bytes
+   before the load (its yardstick), host peak RSS before the write, after
+   it, after the raw read and after the load, the device peak of the
+   build phase and the bytes on disk. Three planted writer faults, each in a checkpoint of the written
+   decoder cut to two layers and 4,096 vocabulary rows, must fail the leaf
+   check (layer 1's q and k projections swapped, layer 0's o projection
+   without its transpose, layer 1's down projection's BF16 bytes under an
+   F16 header) and the same checkpoint without a fault must pass. Every
+   later phase runs from the loaded weights.
 4. Holds each of the nineteen kernels against its plain PyTorch twin at
    main-path shapes, tolerance |kernel - plain| <= 3e-2 + 2e-2 |plain|
    (bf16 storage, f32 accumulation in both, different summation order),
@@ -172,9 +193,15 @@
    Prints each ask's seconds, the worker's caption seconds and the seconds
    in which they overlapped the caller's ingest (host clock, measured from
    outside: the on-line path times no phases), and peak memory.
-10. Frees LongVA's trees and runs stages 2 and 3 of the v0.3 run at full
-   LLaMA-3-8B width (32 layers, d 4096, 32 / 8 heads, ffn 14,336, vocab
-   128,256) on random weights (seeded): `eval.judge.judge_predictions`
+10. Frees LongVA's trees and checkpoints, writes LLaMA-3-8B at full width
+   and depth (32 layers, d 4096, 32 / 8 heads, ffn 14,336, vocab 128,256;
+   random weights, seeded) as an HF llama checkpoint (an eos list
+   [128001, 128009], no pad token, an untied head; 16.06 GB of bf16
+   shards), loads it with `TextLM.from_pretrained` (the byte tokenizer),
+   holds every leaf and the config to the written ones and prints the
+   same load figures, frees the written tree and the directory, and runs
+   stages 2 and 3 of the v0.3 run from the loaded weights:
+   `eval.judge.judge_predictions`
    with `TextLM.generate_batch` (batch 8, 64 new tokens, the judge CLI's
    defaults) over the first 8 stage-1 predictions of the runs above
    (repeated to 8 when fewer), three times on one build: bf16, `--int8`
@@ -207,6 +234,9 @@ import gc
 import itertools
 import json
 import os
+import resource
+import shutil
+import struct
 import subprocess
 import sys
 import tempfile
@@ -2834,17 +2864,420 @@ def score_judged(out_dir, label):
     return res
 
 
-def run_judge(predictions):
-    """Stages 2 and 3 at LLaMA-3-8B width on random weights (seeded): the
-    three judge runs on one model build (int8 made from the bf16 tree and
-    the bf16 tree freed), then scoring over each run's JSONL -> (reports,
-    scores, counts)."""
+# ---------------------------------------------------------------------------
+# Checkpoints: the random trees written in the HF layout and read back
+# ---------------------------------------------------------------------------
+
+# torch dtype -> safetensors dtype name.
+ST_DTYPES = {torch.float32: "F32", torch.float16: "F16", torch.bfloat16: "BF16",
+             torch.int64: "I64", torch.int32: "I32", torch.int8: "I8", torch.uint8: "U8",
+             torch.bool: "BOOL"}
+SHARD_BYTES = 5 * 10**9          # HF's default max_shard_size, "5GB"
+WRITE_CHUNK = 64 << 20           # bytes a tensor crosses to the host at a time
+VIT_PREFIX = "model.vision_tower.vision_tower.vision_model."
+# The planted loader faults' checkpoint: the written decoder cut to two
+# layers (at full width) and this many vocabulary rows.
+FAULT_LAYERS, FAULT_VOCAB = 2, 4096
+
+
+def _tensor_bytes(t) -> int:
+    return t.numel() * t.element_size()
+
+
+def write_checkpoint(path, config, tensors, header_dtypes=None) -> int:
+    """Write `tensors` (HF name -> tensor in HF's layout, on any device;
+    views do) under `path` as an HF checkpoint: config.json and safetensors
+    shards of at most SHARD_BYTES in the dict's order, one
+    model.safetensors when they fit in one, else model-0000i-of-0000n
+    files and model.safetensors.index.json. A shard is an 8-byte
+    little-endian header length, the JSON header (each tensor's dtype,
+    shape and data offsets, padded with spaces to 8 bytes) and the raw
+    bytes; each tensor crosses to the host in WRITE_CHUNK pieces.
+    `header_dtypes` (name -> dtype name) writes a tensor's bytes under
+    another dtype's name, a planted fault. -> bytes written."""
+    os.makedirs(path, exist_ok=True)
+    with open(os.path.join(path, "config.json"), "w") as f:
+        json.dump(config, f, indent=2)
+    shards, size = [[]], 0
+    for name, t in tensors.items():
+        if shards[-1] and size + _tensor_bytes(t) > SHARD_BYTES:
+            shards.append([])
+            size = 0
+        shards[-1].append(name)
+        size += _tensor_bytes(t)
+    n = len(shards)
+    files = (["model.safetensors"] if n == 1
+             else [f"model-{i + 1:05d}-of-{n:05d}.safetensors" for i in range(n)])
+    written = 0
+    for fname, names in zip(files, shards):
+        header, pos = {"__metadata__": {"format": "pt"}}, 0
+        for name in names:
+            t = tensors[name]
+            header[name] = {"dtype": (header_dtypes or {}).get(name, ST_DTYPES[t.dtype]),
+                            "shape": list(t.shape),
+                            "data_offsets": [pos, pos + _tensor_bytes(t)]}
+            pos += _tensor_bytes(t)
+        blob = json.dumps(header).encode()
+        blob += b" " * (-len(blob) % 8)
+        with open(os.path.join(path, fname), "wb") as f:
+            f.write(struct.pack("<Q", len(blob)) + blob)
+            for name in names:
+                flat = tensors[name].contiguous().reshape(-1).view(torch.uint8)
+                for i in range(0, flat.numel(), WRITE_CHUNK):
+                    f.write(flat[i:i + WRITE_CHUNK].cpu().numpy())
+        written += 8 + len(blob) + pos
+    if n > 1:
+        index = {"metadata": {"total_size": sum(map(_tensor_bytes, tensors.values()))},
+                 "weight_map": {name: fname for fname, names in zip(files, shards)
+                                for name in names}}
+        with open(os.path.join(path, "model.safetensors.index.json"), "w") as f:
+            json.dump(index, f, indent=2)
+    return written
+
+
+def hf_decoder(p, prefix="model."):
+    """The port's decoder tree -> HF names and layout ([out, in] linears, as
+    transposed views)."""
+    out = {prefix + "embed_tokens.weight": p["embed"]}
+    for i, layer in enumerate(p["layers"]):
+        q = f"{prefix}layers.{i}."
+        out[q + "input_layernorm.weight"] = layer["input_norm"]
+        for n in ("q", "k", "v", "o"):
+            lin = layer["attn"][n]
+            out[f"{q}self_attn.{n}_proj.weight"] = lin["w"].t()
+            if "b" in lin:
+                out[f"{q}self_attn.{n}_proj.bias"] = lin["b"]
+        out[q + "post_attention_layernorm.weight"] = layer["post_norm"]
+        for n in ("gate", "up", "down"):
+            out[f"{q}mlp.{n}_proj.weight"] = layer["mlp"][n].t()
+    out[prefix + "norm.weight"] = p["final_norm"]
+    if "lm_head" in p:
+        out["lm_head.weight"] = p["lm_head"].t()
+    return out
+
+
+def hf_vit(p, cfg, prefix=VIT_PREFIX):
+    """The port's ViT tree -> HF CLIP names and layout: the merged q|k|v
+    split into three projections, the patch matmul back into a conv."""
+    d, ps = cfg.hidden_size, cfg.patch_size
+    out = {prefix + "embeddings.class_embedding": p["class_embed"],
+           prefix + "embeddings.patch_embedding.weight":
+               p["patch_embed"]["w"].t().reshape(d, 3, ps, ps),
+           prefix + "embeddings.position_embedding.weight": p["pos_embed"],
+           prefix + "pre_layrnorm.weight": p["pre_ln"]["scale"],
+           prefix + "pre_layrnorm.bias": p["pre_ln"]["bias"]}
+    for i, layer in enumerate(p["layers"]):
+        q = f"{prefix}encoder.layers.{i}."
+        attn = layer["attn"]
+        for j, n in enumerate("qkv"):
+            out[f"{q}self_attn.{n}_proj.weight"] = attn["wqkv"][:, j * d:(j + 1) * d].t()
+            out[f"{q}self_attn.{n}_proj.bias"] = attn["bqkv"][j * d:(j + 1) * d]
+        for name, lin in (("self_attn.out_proj", attn["o"]), ("mlp.fc1", layer["mlp"]["fc1"]),
+                          ("mlp.fc2", layer["mlp"]["fc2"])):
+            out[f"{q}{name}.weight"], out[f"{q}{name}.bias"] = lin["w"].t(), lin["b"]
+        for name, ln in (("layer_norm1", layer["ln1"]), ("layer_norm2", layer["ln2"])):
+            out[f"{q}{name}.weight"], out[f"{q}{name}.bias"] = ln["scale"], ln["bias"]
+    return out
+
+
+def hf_projector(p, prefix="model.mm_projector."):
+    return {prefix + "0.weight": p["fc1"]["w"].t(), prefix + "0.bias": p["fc1"]["b"],
+            prefix + "2.weight": p["fc2"]["w"].t(), prefix + "2.bias": p["fc2"]["b"]}
+
+
+def hf_bert(p, prefix=""):
+    """The port's BERT tree -> HF names (under `prefix`, e.g. "bert.") and layout."""
+    def lin(name, q):
+        return {f"{name}.weight": q["w"].t(), f"{name}.bias": q["b"]}
+
+    def ln(name, q):
+        return {f"{name}.weight": q["scale"], f"{name}.bias": q["bias"]}
+
+    out = {"embeddings.word_embeddings.weight": p["word_embed"],
+           "embeddings.position_embeddings.weight": p["pos_embed"],
+           "embeddings.token_type_embeddings.weight": p["type_embed"],
+           **ln("embeddings.LayerNorm", p["embed_ln"])}
+    for i, layer in enumerate(p["layers"]):
+        q = f"encoder.layer.{i}."
+        for n, hf in (("q", "attention.self.query"), ("k", "attention.self.key"),
+                      ("v", "attention.self.value"), ("o", "attention.output.dense")):
+            out.update(lin(q + hf, layer["attn"][n]))
+        out.update(ln(q + "attention.output.LayerNorm", layer["attn_ln"]))
+        out.update(lin(q + "intermediate.dense", layer["mlp"]["fc1"]))
+        out.update(lin(q + "output.dense", layer["mlp"]["fc2"]))
+        out.update(ln(q + "output.LayerNorm", layer["mlp_ln"]))
+    return {prefix + k: v for k, v in out.items()}
+
+
+def _decoder_fields(cfg) -> dict:
+    return {"vocab_size": cfg.vocab_size, "hidden_size": cfg.hidden_size,
+            "intermediate_size": cfg.intermediate_size, "num_hidden_layers": cfg.num_layers,
+            "num_attention_heads": cfg.num_heads, "num_key_value_heads": cfg.num_kv_heads,
+            "rope_theta": cfg.rope_theta, "rms_norm_eps": cfg.rms_eps,
+            "tie_word_embeddings": cfg.tie_embeddings, "hidden_act": "silu",
+            "torch_dtype": "bfloat16"}
+
+
+def longva_config(dec, vit) -> dict:
+    """config.json of an llava_qwen checkpoint (Qwen2-7B's fields, LongVA's
+    224k-token limit as tokenizer_model_max_length)."""
+    return {"architectures": ["LlavaQwenForCausalLM"], "model_type": "llava_qwen",
+            **_decoder_fields(dec), "max_position_embeddings": 32768,
+            "tokenizer_model_max_length": dec.max_position_embeddings,
+            "bos_token_id": dec.pad_token_id, "eos_token_id": dec.eos_token_id,
+            "pad_token_id": dec.pad_token_id,
+            "mm_vision_tower": "openai/clip-vit-large-patch14-336",
+            "mm_hidden_size": vit.hidden_size, "mm_projector_type": "mlp2x_gelu",
+            "mm_vision_select_layer": vit.select_layer}
+
+
+def llama3_config(dec) -> dict:
+    """config.json of LLaMA-3-8B-Instruct: an eos list, no pad token, an
+    untied head."""
+    return {"architectures": ["LlamaForCausalLM"], "model_type": "llama",
+            **_decoder_fields(dec), "max_position_embeddings": dec.max_position_embeddings,
+            "bos_token_id": 128000, "eos_token_id": [128001, 128009]}
+
+
+def bert_config(cfg) -> dict:
+    return {"architectures": ["BertModel"], "model_type": "bert",
+            "vocab_size": cfg.vocab_size, "hidden_size": cfg.hidden_size,
+            "intermediate_size": cfg.intermediate_size, "num_hidden_layers": cfg.num_layers,
+            "num_attention_heads": cfg.num_heads,
+            "max_position_embeddings": cfg.max_position_embeddings,
+            "type_vocab_size": cfg.type_vocab_size, "layer_norm_eps": cfg.layernorm_eps,
+            "hidden_act": "gelu", "torch_dtype": "float32"}
+
+
+def _bits(t):
+    return t.view({1: torch.uint8, 2: torch.int16, 4: torch.int32, 8: torch.int64}[
+        t.element_size()])
+
+
+def leaf_mismatches(written, loaded, path="") -> list:
+    """Paths where `loaded` differs from `written`: the tree's structure, or
+    a leaf's shape, dtype, device or bits."""
+    if isinstance(written, dict):
+        if not isinstance(loaded, dict) or written.keys() != loaded.keys():
+            return [path or "/"]
+        return [m for k in written for m in leaf_mismatches(written[k], loaded[k],
+                                                            f"{path}/{k}")]
+    if isinstance(written, (list, tuple)):
+        if not isinstance(loaded, (list, tuple)) or len(written) != len(loaded):
+            return [path or "/"]
+        return [m for i, (w, q) in enumerate(zip(written, loaded))
+                for m in leaf_mismatches(w, q, f"{path}/{i}")]
+    same = (isinstance(loaded, torch.Tensor) and loaded.shape == written.shape
+            and loaded.dtype == written.dtype and loaded.device == written.device
+            and torch.equal(_bits(loaded), _bits(written)))
+    return [] if same else [path]
+
+
+def _disk_checked(root, need, label):
+    """Print the free space under `root` before a write; raise if it is short."""
+    usage = shutil.disk_usage(root)
+    print(f"disk before writing {label}: {usage.free} bytes free of {usage.total} under "
+          f"{root}, {need} to write", flush=True)
+    if usage.free < need + (1 << 30):
+        raise RuntimeError(f"{label}: {usage.free} bytes free under {root}, {need} bytes "
+                           "needed (and 1 GiB to spare)")
+
+
+def _written(path, config, tensors, label) -> dict:
+    """write_checkpoint with the disk checked first -> seconds and bytes."""
+    _disk_checked(os.path.dirname(path), sum(map(_tensor_bytes, tensors.values())), label)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    nbytes = write_checkpoint(path, config, tensors)
+    return {"write_s": time.perf_counter() - t0, "bytes": nbytes,
+            "disk_bytes": sum(os.path.getsize(os.path.join(path, f)) for f in os.listdir(path))}
+
+
+def _raw_read(paths) -> dict:
+    """Every file under `paths` read once into one WRITE_CHUNK buffer: the
+    load's yardstick."""
+    buf, nbytes = bytearray(WRITE_CHUNK), 0
+    t0 = time.perf_counter()
+    for path in paths:
+        for fname in sorted(os.listdir(path)):
+            with open(os.path.join(path, fname), "rb", buffering=0) as f:
+                while k := f.readinto(buf):
+                    nbytes += k
+    seconds = time.perf_counter() - t0
+    return {"raw_read_s": seconds, "raw_read_bytes": nbytes, "raw_read_gbs": nbytes / seconds / 1e9}
+
+
+def _peak_rss_gib() -> float:
+    return resource.getrusage(resource.RUSAGE_SELF).ru_maxrss / 2**20      # KiB on Linux
+
+
+def _checked(label, bad):
+    if bad:
+        raise AssertionError(f"{label}: {len(bad)} loaded leaves or configs differ from the "
+                             f"written ones: {bad[:8]}")
+
+
+def load_pipeline(written, root):
+    """The random pipeline's three models written under `root` as HF
+    checkpoints (LongVA-7B as llava_qwen bf16 shards, mxbai-colbert-large
+    in f32 under a "bert." prefix, MiniLM-L6 in f32 without), then the
+    pipeline built from them with `build_pipeline` (the byte tokenizer: the
+    checkpoints carry none), every leaf and config held to the written
+    ones -> (pipeline, paths, report)."""
+    from streamchat_tpu_torch.config import ModelPaths, PipelineConfig
+    from streamchat_tpu_torch.models.tokenizer import ByteTokenizer
+    from streamchat_tpu_torch.pipeline.runner import build_pipeline
+
+    m, tree, bank = written.model, written.tree_embedder, written.bank_embedder
+    models = {
+        "longva": (longva_config(m.dec_cfg, m.vit_cfg),
+                   {**hf_vit(m.vit_params, m.vit_cfg), **hf_projector(m.proj_params),
+                    **hf_decoder(m.dec_params)}),
+        "colbert": (bert_config(tree.cfg), hf_bert(tree.params, prefix="bert.")),
+        "minilm": (bert_config(bank.cfg), hf_bert(bank.params)),
+    }
+    report = {"peak_rss_gib_before_write": _peak_rss_gib()}
+    paths = {}
+    for name, (config, tensors) in models.items():
+        paths[name] = os.path.join(root, name)
+        report[name] = _written(paths[name], config, tensors, name)
+    report["peak_rss_gib_after_write"] = _peak_rss_gib()
+    report.update(_raw_read(paths.values()))
+    report["peak_rss_gib_after_raw_read"] = _peak_rss_gib()
+    cfg = PipelineConfig(paths=ModelPaths(**paths))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    pipe = build_pipeline(cfg, device="cuda", dtype=torch.bfloat16, geometry="longva7b",
+                          tokenizer=ByteTokenizer())
+    torch.cuda.synchronize()
+    report["load_s"] = time.perf_counter() - t0
+    report["peak_rss_gib_after_load"] = _peak_rss_gib()
+    report["device_peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+    disk = sum(report[n]["disk_bytes"] for n in paths)
+    report.update(disk_bytes=disk, load_gbs=disk / report["load_s"] / 1e9,
+                  write_s=sum(report[n]["write_s"] for n in paths),
+                  load_over_raw_read=report["load_s"] / report["raw_read_s"])
+    report["write_gbs"] = disk / report["write_s"] / 1e9
+    got = pipe.model
+    bad = (leaf_mismatches(m.vit_params, got.vit_params, "vit")
+           + leaf_mismatches(m.proj_params, got.proj_params, "projector")
+           + leaf_mismatches(m.dec_params, got.dec_params, "decoder")
+           + leaf_mismatches(tree.params, pipe.tree_embedder.params, "colbert")
+           + leaf_mismatches(bank.params, pipe.bank_embedder.params, "minilm")
+           + [n for n, a, b in (("vit_cfg", m.vit_cfg, got.vit_cfg),
+                                ("dec_cfg", m.dec_cfg, got.dec_cfg),
+                                ("colbert cfg", tree.cfg, pipe.tree_embedder.cfg),
+                                ("minilm cfg", bank.cfg, pipe.bank_embedder.cfg)) if a != b])
+    leaves = [t for tr in (m.vit_params, m.proj_params, m.dec_params, tree.params, bank.params)
+              for t in _leaves(tr)]
+    report.update(leaves=len(leaves), leaf_bytes=sum(map(_tensor_bytes, leaves)))
+    print(f"checkpoint load [LongVA-7B, mxbai-colbert-large, MiniLM-L6]: {json.dumps(report)}",
+          flush=True)
+    _checked("pipeline checkpoints", bad)
+    return pipe, paths, report
+
+
+def check_loader_faults(model, root) -> dict:
+    """Three planted writer faults, each in its own checkpoint of the written
+    decoder cut to FAULT_LAYERS layers (at full width) and FAULT_VOCAB
+    vocabulary rows: layer 1's q and k projections swapped, layer 0's o
+    projection written without its transpose (square: the shape still
+    fits), and layer 1's down projection's BF16 bytes under an F16 header.
+    The leaf check must reject each, and pass the same checkpoint written
+    without a fault -> fault name -> leaves that differ."""
+    from streamchat_tpu_torch.models import weights
+
+    p, cfg = model.dec_params, model.dec_cfg
+    vocab = min(FAULT_VOCAB, cfg.vocab_size)
+    cut = dataclasses.replace(cfg, num_layers=FAULT_LAYERS, vocab_size=vocab)
+    tree = {"embed": p["embed"][:vocab], "layers": p["layers"][:FAULT_LAYERS],
+            "final_norm": p["final_norm"], "lm_head": p["lm_head"][:, :vocab]}
+    config = {"model_type": "qwen2", **_decoder_fields(cut),
+              "max_position_embeddings": cut.max_position_embeddings,
+              "eos_token_id": cut.eos_token_id, "pad_token_id": cut.pad_token_id}
+    hf = hf_decoder(tree)
+    qk = [f"model.layers.1.self_attn.{n}_proj.{w}" for n in "qk" for w in ("weight", "bias")]
+    o0 = "model.layers.0.self_attn.o_proj.weight"
+    cases = {
+        "loader: no fault (control)": (hf, None),
+        "loader: layer 1 q and k projections swapped in the writer": (
+            {**hf, **dict(zip(qk, [hf[qk[2]], hf[qk[3]], hf[qk[0]], hf[qk[1]]]))}, None),
+        "loader: layer 0 o projection written without its transpose": (
+            {**hf, o0: tree["layers"][0]["attn"]["o"]["w"]}, None),
+        "loader: layer 1 down projection's BF16 bytes under an F16 header": (
+            hf, {"model.layers.1.mlp.down_proj.weight": "F16"}),
+    }
+    rejected = {}
+    for name, (tensors, header_dtypes) in cases.items():
+        path = os.path.join(root, "fault")
+        write_checkpoint(path, config, tensors, header_dtypes)
+        got_cfg, got = weights.load_decoder(path, p["final_norm"].dtype,
+                                            device=p["final_norm"].device)
+        shutil.rmtree(path)
+        bad = leaf_mismatches(tree, got) + (["cfg"] if got_cfg != cut else [])
+        if name.endswith("(control)"):
+            _checked(name, bad)
+        elif not bad:
+            raise AssertionError(f"planted fault passed the leaf check: {name}")
+        else:
+            rejected[name] = bad
+    return rejected
+
+
+def load_judge(root):
+    """LLaMA-3-8B at full width and depth: random (seeded), written under
+    `root` as an HF llama checkpoint (bf16 shards), loaded back with
+    `TextLM.from_pretrained` (the byte tokenizer) and every leaf and the
+    config held to the written ones; the written tree and the directory are
+    freed -> (TextLM, report)."""
     from streamchat_tpu_torch.config import DecoderConfig
     from streamchat_tpu_torch.models.textlm import TextLM
+    from streamchat_tpu_torch.models.tokenizer import ByteTokenizer
 
+    torch.cuda.reset_peak_memory_stats()
+    cfg = DecoderConfig.llama3_8b()
+    written = TextLM.init_random(cfg, seed=7, device="cuda")
+    path = os.path.join(root, "llama3")
+    report = {"peak_rss_gib_before_write": _peak_rss_gib()}
+    report.update(_written(path, llama3_config(cfg), hf_decoder(written.params), "llama3"))
+    report["peak_rss_gib_after_write"] = _peak_rss_gib()
+    report.update(_raw_read([path]))
+    report["peak_rss_gib_after_raw_read"] = _peak_rss_gib()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    lm = TextLM.from_pretrained(path, tokenizer=ByteTokenizer())
+    torch.cuda.synchronize()
+    report["load_s"] = time.perf_counter() - t0
+    report["peak_rss_gib_after_load"] = _peak_rss_gib()
+    report["device_peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+    report.update(load_gbs=report["disk_bytes"] / report["load_s"] / 1e9,
+                  write_gbs=report["disk_bytes"] / report["write_s"] / 1e9,
+                  load_over_raw_read=report["load_s"] / report["raw_read_s"],
+                  shards=sorted(f for f in os.listdir(path) if f.endswith(".safetensors")))
+    # The HF config's eos is a list (the loader takes its first) and it has
+    # no pad token.
+    expected = dataclasses.replace(cfg, eos_token_id=128001, pad_token_id=0)
+    bad = leaf_mismatches(written.params, lm.params, "llama3") + (
+        ["cfg"] if lm.cfg != expected else [])
+    leaves = list(_leaves(written.params))
+    report.update(leaves=len(leaves), leaf_bytes=sum(map(_tensor_bytes, leaves)))
+    print(f"checkpoint load [LLaMA-3-8B]: {json.dumps(report)}", flush=True)
+    _checked("LLaMA-3-8B checkpoint", bad)
+    del written
+    shutil.rmtree(path)
+    torch.cuda.empty_cache()
+    return lm, report
+
+
+def run_judge(predictions, root):
+    """Stages 2 and 3 at LLaMA-3-8B width from a checkpoint written under
+    `root` and loaded back (`load_judge`): the three judge runs on one
+    model (int8 made from the bf16 tree and the bf16 tree freed), then
+    scoring over each run's JSONL -> (reports, scores, counts, load
+    report)."""
     preds = list(itertools.islice(itertools.cycle(predictions), JUDGE_BATCH))
-    with phase("judge build (random LLaMA-3-8B weights)"):
-        lm = TextLM.init_random(DecoderConfig.llama3_8b(), seed=7, device="cuda")
+    with phase("judge: write LLaMA-3-8B (random, seeded) and load it back"):
+        lm, load = load_judge(root)
     n_params = sum(t.numel() for t in _leaves(lm.params))
     print(f"judge: {n_params} parameters, {_decode_weight_bytes(lm.params)} weight bytes a "
           f"decode step (bf16), {len(predictions)} stage-1 predictions", flush=True)
@@ -2862,7 +3295,7 @@ def run_judge(predictions):
                                                             plant=label != "judge_int8")
             with phase(f"stage 3: scoring {label}"):
                 scores[label] = score_judged(d, label)
-    return reports, scores, counts
+    return reports, scores, counts, load
 
 
 def _leaves(tree):
@@ -2880,9 +3313,7 @@ def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device (torch.cuda.is_available() "
                          "is False)")
-    from streamchat_tpu_torch.config import PipelineConfig
     from streamchat_tpu_torch.kernels.build import build, library
-    from streamchat_tpu_torch.pipeline.runner import build_pipeline
 
     t_start = time.perf_counter()
     smi = _smi()
@@ -2896,13 +3327,35 @@ def main() -> None:
     library()
     print(f"kernel build: {info['seconds']:.2f} s", flush=True)
 
-    with phase("pipeline build (random LongVA-7B weights)"):
-        pipe = build_pipeline(PipelineConfig(), device="cuda", dtype=torch.bfloat16,
-                              geometry="longva7b")
+    root = tempfile.mkdtemp(prefix="sc_checkpoints_")
+    try:
+        run_all(info, smi, t_start, root)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+
+def run_all(info, smi, t_start, root) -> None:
+    """Every phase after the build, with checkpoints written under `root`."""
+    from streamchat_tpu_torch.config import PipelineConfig
+    from streamchat_tpu_torch.pipeline.runner import build_pipeline
+
+    torch.cuda.reset_peak_memory_stats()
+    with phase("pipeline build (random LongVA-7B weights, seeded)"):
+        written = build_pipeline(PipelineConfig(), device="cuda", dtype=torch.bfloat16,
+                                 geometry="longva7b")
+    with phase("write the pipeline's checkpoints and load them (build_pipeline)"):
+        pipe, paths, loads = load_pipeline(written, root)
+    with phase("planted loader faults"):
+        planted = {name: float(len(bad)) for name, bad in
+                   check_loader_faults(written.model, root).items()}
+    del written                                       # the written trees
+    gc.collect()
+    torch.cuda.empty_cache()
     g = torch.Generator(device="cuda").manual_seed(1234)
 
     with phase("kernel checks K1-K4"):
-        rows, planted = check_kernels(pipe.model, g)
+        rows, kplanted = check_kernels(pipe.model, g)
+    planted.update(kplanted)
     with phase("kernel checks W8, K10, K11, K6"):
         qrows, qplanted = check_quant_kernels(pipe.model, g)
     rows.update(qrows)
@@ -2941,6 +3394,7 @@ def main() -> None:
             print(f"    {json.dumps(extra)}")
     for name, err in planted.items():
         metric, limit = (("max |sim - plain sim|", SIM_ATOL) if name.startswith("K12")
+                         else ("leaves not bit-equal", 0) if name.startswith("loader")
                          else ("max row relative L2 err", ROW_REL_L2))
         print(f"planted fault rejected: {name}: {metric} {err:.6g} (limit {limit})")
     with phase("composed checks (bf16)"):
@@ -3012,11 +3466,13 @@ def main() -> None:
             pipe, "int4_kv_int8_cb2", BREAKPOINTS[:1])
     predictions = [r for v in runs.values() for r in v.pop("predictions")]
     del pipe, m, bf16_tree                            # LongVA's trees
+    for path in paths.values():                       # and its checkpoints
+        shutil.rmtree(path)
     gc.collect()
     torch.cuda.empty_cache()
     print(f"LongVA freed: {torch.cuda.memory_allocated() / 2**30:.3f} GiB still allocated",
           flush=True)
-    judge_reports, judge_scores, judge_counts = run_judge(predictions)
+    judge_reports, judge_scores, judge_counts, judge_load = run_judge(predictions, root)
     counts.update(judge_counts)
     for label, name in (("judge_bf16", "judge decode appends at row 0's length"),
                         ("judge_int8_spec4", "judge verify writes at row 0's positions")):
@@ -3026,6 +3482,20 @@ def main() -> None:
               f"{fault['appended_kv_rel_l2']:.6g}, logits row relative L2 err "
               f"{fault['logits_row_rel_l2']:.6g} (limit {STEP_REL_L2})")
     print(f"stage 3 scores: {json.dumps(judge_scores)}")
+    for label, load in (("LongVA-7B, mxbai-colbert-large, MiniLM-L6", loads),
+                        ("LLaMA-3-8B", judge_load)):
+        print(f"checkpoint [{label}]: {load['disk_bytes']} bytes on disk, {load['leaves']} "
+              f"leaves bit-equal to the written tree, write {load['write_s']:.3f} s "
+              f"({load['write_gbs']:.3f} GB/s), load {load['load_s']:.3f} s "
+              f"({load['load_gbs']:.3f} GB/s), raw read {load['raw_read_s']:.3f} s "
+              f"({load['raw_read_gbs']:.3f} GB/s; load / raw read "
+              f"{load['load_over_raw_read']:.3f}), host peak RSS "
+              f"{load['peak_rss_gib_before_write']:.3f} -> "
+              f"{load['peak_rss_gib_after_write']:.3f} -> "
+              f"{load['peak_rss_gib_after_raw_read']:.3f} -> "
+              f"{load['peak_rss_gib_after_load']:.3f} GiB (before the write, after it, after "
+              f"the raw read, after the load), device peak {load['device_peak_gib']:.3f} GiB  "
+              f"[{smi}]")
     print(f"composed checks: {json.dumps(composed)}")
     print(f"spec_tokens 9 over int8 pages: {json.dumps(spec_rows)}")
     print(f"probe results: {json.dumps(probes)}")

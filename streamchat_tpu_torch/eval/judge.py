@@ -202,7 +202,7 @@ def main(argv=None) -> None:
         raise RuntimeError("--device cuda: no CUDA device is available "
                            "(pass --device cpu for a CPU run)")
     if args.llama3_path:
-        lm = TextLM.from_pretrained(args.llama3_path)
+        lm = TextLM.from_pretrained(args.llama3_path, device=device)
     else:
         cpu = device.type == "cpu"
         log.warning("no LLaMA-3 checkpoint: using random %s weights",

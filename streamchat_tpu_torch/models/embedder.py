@@ -112,6 +112,18 @@ class TextEmbedder:
         g = torch.Generator(device=device).manual_seed(seed)
         return cls(init(cfg, g, device=device), cfg, ByteTokenizer(), max_length=128)
 
+    @classmethod
+    def from_pretrained(cls, path: str, pooling: str, dtype=torch.float32, *,
+                        device="cuda", tokenizer=None):
+        """Load a BERT HF checkpoint onto `device`, the card unless the
+        caller asks for the CPU. `tokenizer` None reads the checkpoint's own
+        (`load_tokenizer(path)`)."""
+        from streamchat_tpu_torch.models import weights
+        from streamchat_tpu_torch.models.tokenizer import load_tokenizer
+
+        cfg, params = weights.load_bert(path, pooling, dtype, device=device)
+        return cls(params, cfg, load_tokenizer(path) if tokenizer is None else tokenizer)
+
     def _batch_ids(self, texts: Sequence[str]) -> Tuple[np.ndarray, np.ndarray]:
         # Sequences pad to a 16-multiple of at least 16 tokens, as in the
         # JAX package: an all-padding (empty) text then averages over the

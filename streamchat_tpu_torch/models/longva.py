@@ -24,13 +24,14 @@ from typing import List, Optional, Sequence, Tuple
 import torch
 
 from streamchat_tpu_torch.config import DecoderConfig, ViTConfig
-from streamchat_tpu_torch.models import decoder, projector, vit
+from streamchat_tpu_torch.models import decoder, projector, vit, weights
 from streamchat_tpu_torch.models.generate import pad_to_bucket
 from streamchat_tpu_torch.models.generate_paged import generate_paged
 from streamchat_tpu_torch.models.spec_decode import build_lookup_arrays
 from streamchat_tpu_torch.models.tokenizer import (
     IMAGE_TOKEN_INDEX,
     ByteTokenizer,
+    load_tokenizer,
     tokenize_with_image_token,
 )
 from streamchat_tpu_torch.ops.quant import embed_dtype, quantize_decoder_params
@@ -90,6 +91,20 @@ class LongVA:
             dec_params=decoder.init(dec_cfg, g, device=device, dtype=dtype),
             vit_cfg=vit_cfg, dec_cfg=dec_cfg,
             tokenizer=ByteTokenizer(), generator=g)
+
+    @classmethod
+    def from_pretrained(cls, path: str, dtype=torch.bfloat16, *, device="cuda",
+                        tokenizer=None) -> "LongVA":
+        """Load a LongVA HF checkpoint (llava_qwen; the reference's
+        builder.py:27) onto `device`, the card unless the caller asks for
+        the CPU. `tokenizer` None reads the checkpoint's own
+        (`load_tokenizer(path)`)."""
+        vit_cfg, dec_cfg, vit_p, proj_p, dec_p = weights.load_longva(path, dtype,
+                                                                     device=device)
+        return cls(vit_params=vit_p, proj_params=proj_p, dec_params=dec_p,
+                   vit_cfg=vit_cfg, dec_cfg=dec_cfg,
+                   tokenizer=load_tokenizer(path) if tokenizer is None else tokenizer,
+                   generator=torch.Generator(device=device).manual_seed(0))
 
     def encode_images(self, pixels: torch.Tensor) -> torch.Tensor:
         """[N, 3, H, W] -> [N, P, lm_hidden] (tower -> projector).

@@ -18,10 +18,10 @@ import dataclasses
 import torch
 
 from streamchat_tpu_torch.config import DecoderConfig
-from streamchat_tpu_torch.models import decoder, generate as genlib
+from streamchat_tpu_torch.models import decoder, generate as genlib, weights
 from streamchat_tpu_torch.models.generate_paged import generate_paged
 from streamchat_tpu_torch.models.spec_decode import build_lookup_arrays
-from streamchat_tpu_torch.models.tokenizer import ByteTokenizer
+from streamchat_tpu_torch.models.tokenizer import ByteTokenizer, load_tokenizer
 from streamchat_tpu_torch.ops.quant import embed_dtype, quantize_decoder_params
 
 
@@ -58,9 +58,14 @@ class TextLM:
                    tokenizer or ByteTokenizer(), g)
 
     @classmethod
-    def from_pretrained(cls, path: str, dtype=torch.bfloat16) -> "TextLM":
-        raise NotImplementedError(
-            f"loading {path!r} is not ported yet: ROADMAP §A 'Checkpoint loading'")
+    def from_pretrained(cls, path: str, dtype=torch.bfloat16, *, device="cuda",
+                        tokenizer=None) -> "TextLM":
+        """Load a Qwen2 / LLaMA-3 HF checkpoint onto `device`, the card
+        unless the caller asks for the CPU. `tokenizer` None reads the
+        checkpoint's own (`load_tokenizer(path)`)."""
+        cfg, params = weights.load_decoder(path, dtype, device=device)
+        return cls(params, cfg, load_tokenizer(path) if tokenizer is None else tokenizer,
+                   torch.Generator(device=device).manual_seed(0))
 
     def shard(self, mesh=None) -> "TextLM":
         raise NotImplementedError("tensor-parallel placement is not ported yet: ROADMAP §A "

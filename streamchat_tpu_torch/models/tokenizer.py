@@ -49,6 +49,44 @@ class ByteTokenizer:
         return (self.EOS,)
 
 
+class HFTokenizer:
+    """Thin adapter over transformers.AutoTokenizer (lazy import: the port
+    needs `transformers` only to read a checkpoint's own tokenizer)."""
+
+    def __init__(self, path: str) -> None:
+        from transformers import AutoTokenizer  # deferred: a slow import
+
+        self._tok = AutoTokenizer.from_pretrained(path, use_fast=True)
+        self.vocab_size = len(self._tok)
+
+    def encode(self, text: str, add_special_tokens: bool = True) -> List[int]:
+        # Default True: BERT embedders need [CLS]/[SEP] for CLS/mean pooling.
+        # Decoder-side callers whose prompts carry explicit specials (ChatML
+        # <|im_start|>, the judge's <|begin_of_text|> header) pass False:
+        # LLaMA-3's tokenizer would otherwise inject a second BOS.
+        return self._tok(text, add_special_tokens=add_special_tokens).input_ids
+
+    def decode(self, ids: Sequence[int]) -> str:
+        return self._tok.decode([i for i in ids if i >= 0], skip_special_tokens=True)
+
+    @property
+    def eos_ids(self) -> tuple:
+        ids = [self._tok.eos_token_id]
+        # ChatML models use <|im_end|> as the turn stop, LLaMA-3 <|eot_id|>.
+        for t in ("<|im_end|>", "<|eot_id|>"):
+            tid = self._tok.convert_tokens_to_ids(t)
+            if tid is not None and tid >= 0 and tid not in ids:
+                ids.append(tid)
+        return tuple(i for i in ids if i is not None)
+
+
+def load_tokenizer(path: str | None):
+    """The checkpoint's tokenizer when `path` exists, else the byte fallback."""
+    if path and os.path.exists(path):
+        return HFTokenizer(path)
+    return ByteTokenizer()
+
+
 def tokenize_with_image_token(
     prompt: str, tokenizer, image_token_index: int = IMAGE_TOKEN_INDEX
 ) -> List[int]:

@@ -20,10 +20,11 @@ as the JAX `main` does; `--bf16` keeps it bf16. `--spec_tokens N` turns on
 speculative decoding (`--spec_ngram` drafting) on the model,
 `--literal_kmeans` keeps every chunk's raw features in its tree node, and
 `--save_tree_dir` pickles each video's tree state, as the JAX `main` does.
-Not ported yet, each raising NotImplementedError that names its ROADMAP
-item: --shard, --offload_chunks / --offload_residents, --ppl,
---compress_rate > 1, the uni-modal answer (no --multi_modal_memory) and
-checkpoint loading (--model_name / --embedding_model / --minilm_model).
+`--model_name`, `--embedding_model` and `--minilm_model` load HF
+checkpoints (models/weights); a model whose path is unset is random at
+`--geometry`. Not ported yet, each raising NotImplementedError that names
+its ROADMAP item: --shard, --offload_chunks / --offload_residents, --ppl,
+--compress_rate > 1 and the uni-modal answer (no --multi_modal_memory).
 """
 
 from __future__ import annotations
@@ -323,15 +324,17 @@ GEOMETRIES = ("tiny", "longva7b")
 
 
 def build_pipeline(cfg: PipelineConfig, *, device, geometry: str,
-                   dtype=torch.bfloat16) -> StreamChatPipeline:
-    """Random-weight models on `device`: the JAX package's tiny plumbing
-    geometry, or LongVA-7B at full width ("longva7b": CLIP ViT-L/14-336,
-    mlp2x_gelu to 3584, Qwen2-7B, mxbai-colbert-large and MiniLM-L6).
-    Decoder, ViT and projector weights are `dtype`; the embedders are f32,
-    as in the JAX package. Checkpoint loading is not ported yet."""
-    if cfg.paths.longva or cfg.paths.colbert or cfg.paths.minilm:
-        raise NotImplementedError(
-            "checkpoint loading is not ported yet: ROADMAP §A 'Checkpoint loading'")
+                   dtype=torch.bfloat16, tokenizer=None) -> StreamChatPipeline:
+    """The pipeline's three models on `device`. Each path set in `cfg.paths`
+    is loaded from its HF checkpoint (models/weights): LongVA at `dtype`,
+    mxbai-colbert (CLS pooling) and MiniLM (mean pooling) in f32, as in the
+    JAX package; a path that fails to load raises. Each unset path is a
+    random-weight model at `geometry`: the JAX package's tiny plumbing
+    geometry, or full width ("longva7b": CLIP ViT-L/14-336, mlp2x_gelu to
+    3584, Qwen2-7B, mxbai-colbert-large and MiniLM-L6). `tokenizer`, when
+    given, serves every loaded model in place of its checkpoint's own
+    (`ByteTokenizer()` where a checkpoint carries no tokenizer files or
+    `transformers` is missing)."""
     if geometry == "tiny":
         dec_cfg = DecoderConfig.tiny()
         vit_cfg = ViTConfig.tiny(projection_dim=dec_cfg.hidden_size)
@@ -344,9 +347,21 @@ def build_pipeline(cfg: PipelineConfig, *, device, geometry: str,
         bank_cfg = BertConfig.minilm_l6()
     else:
         raise ValueError(f"geometry {geometry!r}: expected one of {GEOMETRIES}")
-    model = LongVA.init_random(vit_cfg, dec_cfg, seed=cfg.seed, device=device, dtype=dtype)
-    tree_emb = TextEmbedder.init_random(tree_cfg, seed=cfg.seed + 1, device=device)
-    bank_emb = TextEmbedder.init_random(bank_cfg, seed=cfg.seed + 2, device=device)
+    paths = cfg.paths
+    if paths.longva:
+        model = LongVA.from_pretrained(paths.longva, dtype, device=device, tokenizer=tokenizer)
+    else:
+        model = LongVA.init_random(vit_cfg, dec_cfg, seed=cfg.seed, device=device,
+                                   dtype=dtype)
+
+    def embedder(path, pooling, random_cfg, seed):
+        if path:
+            return TextEmbedder.from_pretrained(path, pooling, device=device,
+                                                tokenizer=tokenizer)
+        return TextEmbedder.init_random(random_cfg, seed=seed, device=device)
+
+    tree_emb = embedder(paths.colbert, "cls", tree_cfg, cfg.seed + 1)
+    bank_emb = embedder(paths.minilm, "mean", bank_cfg, cfg.seed + 2)
     return StreamChatPipeline(model, tree_emb, bank_emb, cfg)
 
 
@@ -394,8 +409,9 @@ def parse_args(argv=None):
     p.add_argument("--device", type=str, default="cuda",
                    help="torch device; a CPU run must be asked for (--device cpu)")
     p.add_argument("--geometry", choices=GEOMETRIES, default="longva7b",
-                   help="random-weight model geometry; the CUDA kernels take "
-                        "only longva7b shapes, tiny runs on the CPU")
+                   help="geometry of the models whose checkpoint path is unset "
+                        "(random weights); the CUDA kernels take only longva7b "
+                        "shapes, tiny runs on the CPU")
     return p.parse_args(argv)
 
 

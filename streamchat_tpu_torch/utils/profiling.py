@@ -44,7 +44,7 @@ class PhaseTimer:
 
 
 # Profiled windows device_ms measures before it gives up on a call.
-PROFILE_ATTEMPTS = 3
+PROFILE_ATTEMPTS = 5
 
 
 def _device_events(fn: Callable[[], object], iters: int, kernel: Optional[str] = None):

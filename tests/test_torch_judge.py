@@ -11,7 +11,9 @@ their originals. On a CPU tensor no wrapper may count a kernel launch.
 """
 
 import dataclasses
+import importlib.util
 import json
+import pathlib
 
 import jax
 import jax.numpy as jnp
@@ -122,10 +124,38 @@ def test_generate_batch_refuses_a_bare_str():
     assert lm.generate_batch([]) == []
 
 
-def test_unported_entry_points_name_their_roadmap_items():
-    _, lm = _models()
-    with pytest.raises(NotImplementedError, match="Checkpoint loading"):
-        TextLM.from_pretrained("/nonexistent/llama3")
+def _smoke():
+    spec = importlib.util.spec_from_file_location(
+        "chip_smoke", pathlib.Path(__file__).resolve().parents[1] / "chip_smoke.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def _llama_dir(path):
+    """A tiny LLaMA checkpoint (no qkv bias, an untied head) written in the
+    HF layout by the smoke's writer -> (its TextLM, the path)."""
+    smoke = _smoke()
+    cfg = dataclasses.replace(config.DecoderConfig.tiny(), qkv_bias=False)
+    lm = TextLM.init_random(cfg, seed=3, device="cpu", dtype=torch.float32)
+    smoke.write_checkpoint(str(path), smoke.llama3_config(cfg), smoke.hf_decoder(lm.params))
+    return lm, str(path)
+
+
+def test_unported_entry_points_name_their_roadmap_items(no_launches, tmp_path):
+    """`from_pretrained` loads (the tiny LLaMA written in the HF layout comes
+    back leaf for leaf and generates the same tokens; a missing directory
+    raises); `shard` still names its ROADMAP item."""
+    written, path = _llama_dir(tmp_path / "llama3")
+    lm = TextLM.from_pretrained(path, torch.float32, device="cpu", tokenizer=ByteTokenizer())
+    assert lm.cfg == dataclasses.replace(written.cfg, eos_token_id=128001, pad_token_id=0)
+    got = jax.tree_util.tree_leaves(lm.params)
+    ref = jax.tree_util.tree_leaves(written.params)
+    assert len(got) == len(ref) and all(torch.equal(a, b) for a, b in zip(got, ref))
+    assert lm.generate_batch(PROMPTS, max_new_tokens=6) == written.generate_batch(
+        PROMPTS, max_new_tokens=6)
+    with pytest.raises(FileNotFoundError):
+        TextLM.from_pretrained(str(tmp_path / "absent"), device="cpu")
     with pytest.raises(NotImplementedError, match="Multi-GPU"):
         lm.shard()
 
@@ -233,11 +263,11 @@ def test_scoring_main_equal(tmp_path, capsys):
         (tmp_path / "jax" / "judged_res.json").read_bytes()
 
 
-def test_judge_cli_on_the_cpu(no_launches, tmp_path):
+def test_judge_cli_on_the_cpu(no_launches, tmp_path, monkeypatch):
     """`python -m streamchat_tpu_torch.eval.judge --device cpu` judges every
-    prediction with random tiny weights; a checkpoint path raises under its
-    ROADMAP item, and the default device, the card, raises where there is
-    none."""
+    prediction with random tiny weights, and with `--llama3_path` from a
+    tiny LLaMA checkpoint (its tokenizer swapped for the byte tokenizer);
+    the default device, the card, raises where there is none."""
     pred_file = tmp_path / "preds.json"
     pred_file.write_text(json.dumps(PREDICTIONS[:3]))
     argv = ["--predict_file", str(pred_file), "--output_dir", str(tmp_path / "out"),
@@ -246,8 +276,12 @@ def test_judge_cli_on_the_cpu(no_launches, tmp_path):
     rows = scoring.read_jsonl(str(tmp_path / "out" / "judged.jsonl"))
     assert [r["question"] for r in rows] == [p["question"] for p in PREDICTIONS[:3]]
     assert all("score" in r or r.get("judge_parse_error") for r in rows)
-    with pytest.raises(NotImplementedError, match="Checkpoint loading"):
-        judge.main(argv + ["--llama3_path", str(tmp_path / "llama3")])
+    _, path = _llama_dir(tmp_path / "llama3")
+    monkeypatch.setattr(textlm, "load_tokenizer", lambda _: ByteTokenizer())
+    judge.main(argv[:-6] + ["--output_name", "loaded", "--batch_size", "2", "--device", "cpu",
+                            "--llama3_path", path])
+    loaded = scoring.read_jsonl(str(tmp_path / "out" / "loaded.jsonl"))
+    assert [r["question"] for r in loaded] == [r["question"] for r in rows]
     with pytest.raises(RuntimeError, match="no CUDA device"):
         judge.main(argv[:-2])
 

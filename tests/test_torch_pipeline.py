@@ -308,12 +308,17 @@ def test_cli_weight_storage_flags_quantize(monkeypatch, flags, key):
 
 
 @pytest.mark.parametrize("change", [
-    dict(paths=config.ModelPaths(longva="ckpt")),
+    dict(paths=config.ModelPaths(longva="/nonexistent/longva")),
     dict(multi_modal_memory=False),
 ])
 def test_unported_pipeline_settings_raise(change):
+    """A checkpoint path that does not exist raises FileNotFoundError (no
+    fallback to random weights), as the JAX loader's config read does; an
+    unported setting names its ROADMAP item."""
     cfg = config.PipelineConfig(**change)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    exc, match = ((FileNotFoundError, "config.json") if "paths" in change
+                  else (NotImplementedError, "ROADMAP"))
+    with pytest.raises(exc, match=match):
         runner.build_pipeline(cfg, device="cpu", geometry="tiny", dtype=torch.float32)
 
 
