@@ -193,7 +193,43 @@
    Prints each ask's seconds, the worker's caption seconds and the seconds
    in which they overlapped the caller's ingest (host clock, measured from
    outside: the on-line path times no phases), and peak memory.
-10. Frees LongVA's trees and checkpoints, writes LLaMA-3-8B at full width
+10. Runs stage 1's answer and memory options on the int8 tree, the
+   launch counters zeroed before each run and read after it, each config
+   switched for its run (`configured`): (1) `process_video` with the
+   uni-modal answer (the CLI's default, no --multi_modal_memory), --ppl and
+   interval 2, breakpoint at 10 s: the two chunk captions merge into a
+   depth-1 root, so `search_features` descends it at full width with the
+   query [question token embeddings | short memory]; its walk is held to a
+   float64 host recomputation (the same node tensors, each level's scores
+   within 1e-5 relative), and the answer's NLL pass (one K3 pass a layer
+   over prompt + target, 28 launches) is recomputed from its recorded
+   inputs on the kernels and on their plain twins (K3's by kv head and by
+   2,048-query blocks): the hidden rows that predict the targets and their
+   logits within a relative L2 of 5e-2 a row, the per-target log-probs
+   within the kernels' tolerance and a relative L2 of 1e-2, the run's mean
+   NLL reproduced; the logits 10% too large and the log-probs read at the
+   targets shifted by one position (both planted) must fail; (2) `process_video_online` with --ppl and max_visual_tokens
+   1,024 (the on-line session, as the JAX package's, never pools: its
+   captions stay chunk-40 prompts of 23k tokens), breakpoint at 10 s; (3)
+   `process_video` at compress_rate 2 with --ppl and the same budget: the
+   24 x 24 patch grid pooled to 12 x 12, 6.2k-token chunk-40 captions in
+   one K3 pass each, and K5 must not launch. Runs 2 and 3 must answer
+   through `StreamChatPipeline._answer`, carry nll / ppl in every record,
+   score the answer's own prompt, and keep no level beyond the finest past
+   the budget. Each answer decodes at most 64 tokens, each summary 32.
+   Then MaxSim and the one-shot trees at
+   mxbai-colbert-large width: run 1's tree rebuilt with `from_state` on the
+   card with `embed_tokens_fn`, its texts token-embedded (a text without
+   tokens, as the random decoder's byte-decoded captions mostly are, gets a
+   fixed caption), `search_maxsim` against a float64 host MaxSim (the same
+   captions and nodes); `build_top_down` over the first segment's 60 frames
+   (two depth-0 nodes: `search_features` finds nothing, as on the host)
+   and `build_bottom_up` (interval 2) over run 1's two leaves and those two
+   nodes (a depth-2 root: a three-level search), each searched with run
+   1's query against the float64 host recomputation. Prints each run's
+   report, the answer prompt, the path, the NLL / PPL, the NLL pass's
+   seconds on the kernels and on the twins, and the visual tokens kept.
+11. Frees LongVA's trees and checkpoints, writes LLaMA-3-8B at full width
    and depth (32 layers, d 4096, 32 / 8 heads, ffn 14,336, vocab 128,256;
    random weights, seeded) as an HF llama checkpoint (an eos list
    [128001, 128009], no pad token, an untied head; 16.06 GB of bf16
@@ -221,7 +257,7 @@
    run's prefill s, decode ms/step and per emitted token, emitted tokens a
    row a verify step, peak memory, the weight bytes a decode step reads and
    their bound at 3.35 TB/s, and the scores.
-11. Prints the kernels JSON line, then the device JSON line last.
+12. Prints the kernels JSON line, then the device JSON line last.
 
 Any failure raises: the script then exits non-zero and prints no result.
 """
@@ -233,6 +269,7 @@ import dataclasses
 import gc
 import itertools
 import json
+import math
 import os
 import resource
 import shutil
@@ -290,6 +327,13 @@ RUNS = {
     "caller_pool_kv_int8": ("paged_decode_attention_table_int8",),
     # generate_paged with spec_tokens 9 over int8 pages (two row tiles).
     "spec9_kv_int8": ("paged_seq_attention_partial_int8",),
+    # Stage 1's answer and memory options: the uni-modal answer with --ppl
+    # (interval 2), the on-line mode with --ppl and a visual-token budget,
+    # and compress_rate 2 (5.9k-token captions: K3 in one pass, no K5).
+    "int8_unimodal_ppl": PREFILL + ("paged_decode_attention_seq", "qmatvec_int8"),
+    "online_int8_ppl": PREFILL + ("paged_decode_attention_seq", "qmatvec_int8"),
+    "int8_compress2_ppl": ("fused_vit_layer", "fused_ln_mlp", "flash_attention",
+                           "paged_decode_attention_seq", "qmatvec_int8"),
     # Stage 2: the LLaMA-3-8B judge, bf16, --int8, --int8 --spec_tokens 4.
     "judge_bf16": ("flash_attention",),
     "judge_int8": ("flash_attention", "qmatvec_int8"),
@@ -2398,23 +2442,6 @@ def _overlap_s(spans_a, spans_b):
 
 
 @contextlib.contextmanager
-def sampling(pipe, **changes):
-    """The pipeline with these SamplingConfig fields changed for the block
-    (`caption_batch=2`, `max_answer_tokens=...`)."""
-    import dataclasses
-
-    from streamchat_tpu_torch.pipeline.answer import make_captioner
-
-    cfg, cap = pipe.cfg, pipe._caption
-    pipe.cfg = cfg.replace(sampling=dataclasses.replace(cfg.sampling, **changes))
-    pipe._caption = make_captioner(pipe.model, pipe.cfg.sampling)
-    try:
-        yield
-    finally:
-        pipe.cfg, pipe._caption = cfg, cap
-
-
-@contextlib.contextmanager
 def dedup_threshold(pipe, threshold):
     """The pipeline with VideoConfig.dedup_threshold = threshold for the block."""
     import dataclasses
@@ -2441,9 +2468,11 @@ def measure_dedup(pipe, end_s):
     return float(change.median()), change.tolist()
 
 
-def drive(pipe, label, breakpoints, online=False, captions=None):
+def drive(pipe, label, breakpoints, online=False, captions=None,
+          caption_min=CAPTION_TOKENS_MIN):
     """One process_video run (`online`: process_video_online) with the
-    launch counters zeroed before it and read after it -> its report. A
+    launch counters zeroed before it and read after it -> its report. Some
+    caption prompt must pass `caption_min` tokens (a chunk-40 caption). A
     caption_batch run (label `*_cb2`) must decode a 2-row caption group
     through K4 / K6 at B = 2 and take the chunked prefill's re-run branch;
     an on-line run must make `captions` captions where given (the off-line
@@ -2509,9 +2538,9 @@ def drive(pipe, label, breakpoints, online=False, captions=None):
         if not 0 < sum(kept) < total:
             raise AssertionError(f"run {label}: dedup kept {kept} of {total} frames")
         captions = sum(-(-k // chunk) for k in kept)
-    elif max(lengths) <= CAPTION_TOKENS_MIN:
+    elif max(lengths) <= caption_min:
         raise AssertionError(f"run {label}: no chunk-40 caption prompt over "
-                             f"{CAPTION_TOKENS_MIN} tokens: {lengths}")
+                             f"{caption_min} tokens: {lengths}")
     if captions is not None and seen["captions"] != captions:
         raise AssertionError(f"run {label}: {seen['captions']} captions, expected {captions}")
     if label.endswith("_cb2") and (report["batched_rows"] < 2 or seen["max_decode_rows"] < 2
@@ -2520,6 +2549,420 @@ def drive(pipe, label, breakpoints, online=False, captions=None):
                              f"the row-order kernel with a prefill re-run: {seen}, "
                              f"batched rows {report['batched_rows']}")
     return report, counts
+
+
+# Stage 1's answer and memory options: the uni-modal answer (the CLI's
+# default) with --ppl on a tree that merges (interval 2, so the uni-modal
+# search descends a summarized root at full width), the on-line mode with
+# --ppl and a visual-token budget, the off-line mode at compress_rate 2
+# (each frame's 24 x 24 patch grid pooled to 12 x 12: 5.9k-token
+# chunk-40 captions, one K3 pass each, no K5), and MaxSim and the one-shot
+# trees at mxbai-colbert-large width. Generations are cut to keep the
+# script short: the uni-modal answer to 64 tokens (its default is 512),
+# summaries to 32 (256).
+UNIMODAL_PPL = dict(multi_modal_memory=False, ppl=True, memory=dict(interval=2),
+                    sampling=dict(max_answer_tokens_unimodal=64, max_summary_tokens=32))
+VISUAL_TOKEN_BUDGET = 1024
+ONLINE_PPL = dict(ppl=True, sampling=dict(max_answer_tokens=64, max_summary_tokens=32,
+                                          max_visual_tokens=VISUAL_TOKEN_BUDGET))
+COMPRESS_2 = dict(ppl=True, memory=dict(compress_rate=2),
+                  sampling=dict(max_answer_tokens=64, max_summary_tokens=32,
+                                max_visual_tokens=VISUAL_TOKEN_BUDGET))
+# A chunk-40 caption at compress_rate 2: 40 frames x 144 tokens and the text.
+CAPTION_TOKENS_MIN_C2 = 5700
+# search_features's f32 scores against a float64 host recomputation.
+SEARCH_RTOL = 1e-5
+# The plain twin of K3 in the NLL check runs by kv head and by query blocks
+# of this many rows (the partial twin's global causal mask), so that its f32
+# scores stay a few GB at a 17k-token pass.
+PLAIN_QUERY_BLOCK = 2048
+
+
+@contextlib.contextmanager
+def configured(pipe, memory=None, sampling=None, **fields):
+    """The pipeline with these PipelineConfig fields, and these fields of
+    its MemoryConfig and SamplingConfig, changed for the block; its
+    captioner and summarizer are remade from the new SamplingConfig."""
+    from streamchat_tpu_torch.pipeline.answer import make_captioner, make_summarizer
+
+    cfg, cap, summarize = pipe.cfg, pipe._caption, pipe._summarize
+    pipe.cfg = cfg.replace(memory=dataclasses.replace(cfg.memory, **(memory or {})),
+                           sampling=dataclasses.replace(cfg.sampling, **(sampling or {})),
+                           **fields)
+    pipe._caption = make_captioner(pipe.model, pipe.cfg.sampling)
+    pipe._summarize = make_summarizer(pipe.model, pipe.cfg.sampling)
+    try:
+        yield
+    finally:
+        pipe.cfg, pipe._caption, pipe._summarize = cfg, cap, summarize
+
+
+@contextlib.contextmanager
+def _answer_observed(pipe):
+    """Records, for one run: each `_answer` call, the visual tokens each
+    answer spliced (the blocks of a generate call whose image entry is a
+    list of blocks), each `search_features` walk (its tree, query, path
+    and each level's scores) and each NLL pass (its inputs, its mean NLL
+    and its K3 launches)."""
+    from streamchat_tpu_torch import kernels
+    from streamchat_tpu_torch.memory.tree import VisualMemoryTree
+    from streamchat_tpu_torch.models import scoring
+
+    seen = {"answers": 0, "visual_tokens": [], "walks": [], "nll": []}
+    walk, nll = VisualMemoryTree._feature_walk, scoring.sequence_nll
+    gen = pipe.model.generate_with_image_embedding
+
+    def recorded_walk(self, q):
+        path, levels = walk(self, q)
+        seen["walks"].append(dict(tree=self, query=q.clone(), path=path, levels=levels))
+        return path, levels
+
+    def recorded_nll(params, cfg, embeds, length, target_ids):
+        before = kernels.launch_counts().get("flash_attention", 0)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = nll(params, cfg, embeds, length, target_ids)
+        value = float(out)
+        seen["nll"].append(dict(
+            params=params, cfg=cfg, embeds=embeds.clone(), length=length,
+            target_ids=target_ids.clone(), nll=value, s=time.perf_counter() - t0,
+            k3=kernels.launch_counts().get("flash_attention", 0) - before))
+        return out
+
+    def counted_answer(*a, **kw):
+        seen["answers"] += 1
+        return answer(*a, **kw)
+
+    def recorded_gen(prompt, image_embeddings=None, **kw):
+        if image_embeddings and isinstance(image_embeddings[0], list):
+            seen["visual_tokens"].append([int(b.shape[0]) for b in image_embeddings[0]])
+        return gen(prompt, image_embeddings=image_embeddings, **kw)
+
+    answer = pipe._answer
+    VisualMemoryTree._feature_walk, scoring.sequence_nll = recorded_walk, recorded_nll
+    pipe._answer, pipe.model.generate_with_image_embedding = counted_answer, recorded_gen
+    try:
+        yield seen
+    finally:
+        VisualMemoryTree._feature_walk, scoring.sequence_nll = walk, nll
+        del pipe._answer, pipe.model.generate_with_image_embedding
+
+
+def _plain_attention_blocked(q, k, v, kv_length=None, *, causal=True):
+    """K3's plain twin by kv head and by PLAIN_QUERY_BLOCK query rows (the
+    partial twin with its global causal mask, normalized): the same
+    function as `flash_attention_plain` at a fraction of its memory."""
+    from streamchat_tpu_torch.ops.attention import flash_attention_partial_plain
+
+    g = q.shape[1] // k.shape[1]
+    out = torch.empty_like(q)
+    for h in range(k.shape[1]):
+        for r0 in range(0, q.shape[2], PLAIN_QUERY_BLOCK):
+            qb = q[:, h * g:(h + 1) * g, r0:r0 + PLAIN_QUERY_BLOCK]
+            acc, _, l = flash_attention_partial_plain(qb, k[:, h:h + 1], v[:, h:h + 1], r0, 0,
+                                                      kv_length, causal=causal)
+            out[:, h * g:(h + 1) * g, r0:r0 + PLAIN_QUERY_BLOCK] = (
+                acc / torch.where(l == 0, torch.ones_like(l), l)[..., None]).to(q.dtype)
+    return out
+
+
+def check_nll_pass(rec):
+    """A run's NLL pass recomputed from its recorded inputs on the kernels
+    and on their plain twins (K3 by kv head and query block, W8 where the
+    head runs it). Held: the T hidden rows that predict the targets, and
+    their logits, within STEP_REL_L2 a row of the twins' (the limit of the
+    script's other whole-stack outputs: a logit row's error against its
+    own size, not against the ~-log V offset that every log-prob carries);
+    the per-target log-probs at the kernels' tolerance (|d| <= ATOL + RTOL
+    |plain|, relative L2 <= ROW_REL_L2); and the run's mean NLL reproduced.
+    Two planted faults must fail: the logits 10% too large (as a wrong
+    head scale makes them; what the log-prob check alone reads of it is
+    reported), and the log-probs read at the targets shifted by one
+    position. Also reported, not held: the rows one position early against
+    the twins'.
+    At random weights a 17k-token pass leaves rows that are mostly one
+    shared vector, so a one-position slip moves them about as much as
+    bf16 rounding through 28 layers does; the log-probs at shifted targets
+    are what catch a slip."""
+    from streamchat_tpu_torch.models import decoder, scoring
+
+    args = (rec["params"], rec["cfg"], rec["embeds"], rec["length"], rec["target_ids"])
+    n0, t = rec["length"], rec["target_ids"].long()
+    n1 = n0 + t.numel()
+
+    def one_pass():
+        hidden = scoring.pass_hidden(*args)
+        rows = hidden[n0 - 1:n1 - 1]
+        logits = decoder.logits_from_hidden(rec["params"], rec["cfg"], rows)
+        torch.cuda.synchronize()
+        return rows, hidden[n0 - 2:n1 - 2], logits, torch.log_softmax(logits, dim=-1)
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    rows, early, logits, ls = one_pass()
+    kernel_s = time.perf_counter() - t0
+    with _plain_twins(k3=_plain_attention_blocked):
+        t0 = time.perf_counter()
+        prows, _, plogits, pls = one_pass()
+        plain_s = time.perf_counter() - t0
+    m = dict(hidden_rows_rel_l2=_row_rel_l2(rows, prows),
+             logits_rel_l2=_row_rel_l2(logits, plogits),
+             planted_scaled_logits_rel_l2=_row_rel_l2(1.1 * logits, plogits),
+             early_rows_rel_l2=_row_rel_l2(early, prows))
+    if (not torch.isfinite(logits).all() or m["hidden_rows_rel_l2"] > STEP_REL_L2
+            or m["logits_rel_l2"] > STEP_REL_L2):
+        raise AssertionError(f"NLL pass past a row relative L2 of {STEP_REL_L2}: {m}")
+    if m["planted_scaled_logits_rel_l2"] <= STEP_REL_L2:
+        raise AssertionError(f"planted fault 'NLL pass logits 10% too large' passed the "
+                             f"check: {m}")
+    lp, ref = ls.gather(1, t[:, None])[:, 0], pls.gather(1, t[:, None])[:, 0]
+    abs_err, rel = _compare("NLL pass per-target log-probs", lp, ref, row_rel=True)
+    scaled = torch.log_softmax(1.1 * logits, dim=-1).gather(1, t[:, None])[:, 0]
+    m["scaled_logits_logprob_rel_l2"] = _errors(scaled, ref, row_rel=True)[1]
+    nll = -lp.mean().item()
+    if abs(nll - rec["nll"]) > 1e-5 * abs(rec["nll"]):
+        raise AssertionError(f"NLL pass: the run's mean NLL {rec['nll']!r}, recomputed {nll!r}")
+    shifted = ls.gather(1, t.roll(1)[:, None])[:, 0]
+    planted = _planted("NLL pass targets shifted by one position", shifted, ref)
+    return dict(prompt_tokens=rec["length"], targets=int(t.numel()), nll=rec["nll"],
+                ppl=math.exp(rec["nll"]), plain_nll=-ref.mean().item(),
+                shifted_nll=-shifted.mean().item(), **m, max_abs_err=abs_err, rel_l2=rel,
+                planted_shifted_rel_l2=planted, run_pass_s=rec["s"], kernel_pass_s=kernel_s,
+                plain_pass_s=plain_s, k3_launches=rec["k3"])
+
+
+def _host_descent(tree, scores_of):
+    """The feature search's walk on the host: every summarized root
+    descended by argmax of `scores_of(children)` (float64) -> (path,
+    levels)."""
+    import numpy as np
+
+    path, levels = [], []
+    for root in tree.roots:
+        if root.depth == 0 or not root.children:
+            continue
+        node = root
+        while node.children:
+            s = scores_of(node.children)
+            levels.append(s)
+            path.append(node.centroids)
+            node = node.children[int(np.argmax(s))]
+        path.append(node.centroids)
+    return path, levels
+
+
+def check_feature_search(tree, query, path, levels):
+    """`search_features` (f32 on the card) against a float64 host
+    recomputation: the same path (the same node tensors) and each level's
+    scores within SEARCH_RTOL. A child's score, the sum of q @ C^T, is
+    recomputed as (sum of q's rows) . (sum of C's rows), equal in exact
+    arithmetic."""
+    import numpy as np
+
+    d = query.shape[-1]
+    qsum = query.reshape(-1, d).double().sum(0).cpu()
+
+    def scores(children):
+        return np.array([float(qsum @ c.centroids.reshape(-1, d).double().sum(0).cpu())
+                         for c in children])
+
+    hpath, hlevels = _host_descent(tree, scores)
+    if len(hpath) != len(path) or any(a is not b for a, b in zip(hpath, path)):
+        raise AssertionError(f"search_features: path of {len(path)} levels differs from the "
+                             f"float64 host's {len(hpath)}")
+    rel = max((float(np.max(np.abs(a - b) / np.abs(b))) for a, b in zip(levels, hlevels)),
+              default=0.0)
+    if rel > SEARCH_RTOL:
+        raise AssertionError(f"search_features: scores {levels} vs float64 {hlevels}: "
+                             f"relative error {rel} > {SEARCH_RTOL}")
+    return dict(levels=len(path), path_tokens=[int(p.shape[0] * p.shape[1]) for p in path],
+                query_rows=int(query.reshape(-1, d).shape[0]),
+                scores=[s.tolist() for s in levels], max_rel_err=rel)
+
+
+MAXSIM_CAPTIONS = ("Clip {}: a person walks to the table and puts a cup on it.",
+                   "Clip {}: the person opens a drawer and drops the keys inside.",
+                   "Clip {}: someone sits down on the sofa and reads a book.")
+
+
+def check_maxsim(pipe, state, question):
+    """MaxSim at mxbai-colbert-large width: the run's tree rebuilt with
+    `from_state` on the card and `embed_tokens_fn` set, its texts (a fixed
+    caption for a text without tokens) re-embedded token by token (one
+    batched forward), `search_maxsim` run
+    for the question's unpadded token states, against a float64 host MaxSim
+    with the same zero-pad convention: the same captions and node tensors."""
+    import numpy as np
+
+    from streamchat_tpu_torch.memory.tree import VisualMemoryTree
+
+    emb = pipe.tree_embedder
+    tree = VisualMemoryTree.from_state(state, pipe.cfg.memory.num_clusters, 2, emb.embed,
+                                       None, None, embed_tokens_fn=emb.embed_tokens,
+                                       device=pipe.model.device)
+    nodes = tree.all_nodes()
+    # The random decoder's tokens are almost all >= 256, which the byte
+    # tokenizer decodes to nothing: a node whose text has no token gets a
+    # fixed caption of its own here (a BERT tokenizer's [CLS] / [SEP] give
+    # a real caption at least two).
+    substituted = 0
+    for i, n in enumerate(nodes):
+        if not emb.tokenizer.encode(n.text):
+            n.text = MAXSIM_CAPTIONS[i % len(MAXSIM_CAPTIONS)].format(i)
+            substituted += 1
+    for n, t in zip(nodes, tree._token_embs([n.text for n in nodes])):
+        n.token_emb = t
+    hidden, mask = emb.embed_tokens([question])
+    q = hidden[0][mask[0] > 0]
+    t0 = time.perf_counter()
+    feats, texts = tree.search_maxsim(q)
+    search_s = time.perf_counter() - t0
+    qn = q.double().cpu().numpy()
+    qn /= np.maximum(np.linalg.norm(qn, axis=1, keepdims=True), 1e-12)
+
+    def best(cands):
+        docs = [n.token_emb.astype(np.float64) for n in cands]
+        td = max(x.shape[0] for x in docs)
+        scores = []
+        for x in docs:
+            sim = qn @ (x / np.maximum(np.linalg.norm(x, axis=1, keepdims=True), 1e-12)).T
+            top = sim.max(axis=1)
+            scores.append(float(np.sum(np.maximum(top, 0.0) if x.shape[0] < td else top)))
+        return int(np.argmax(scores))
+
+    hfeats, htexts = tree._descend(best)
+    if htexts != texts or any(a is not b for a, b in zip(hfeats, feats)):
+        raise AssertionError(f"search_maxsim: {texts} vs the float64 host's {htexts}")
+    return dict(nodes=len(nodes), texts_substituted=substituted,
+                query_tokens=int(q.shape[0]), levels=len(texts),
+                token_rows=[int(n.token_emb.shape[0]) for n in nodes],
+                width=int(q.shape[1]), search_s=search_s)
+
+
+def check_one_shot_trees(pipe, run_tree, query):
+    """The one-shot builders on the card: `build_top_down` over the first
+    segment's features (chunk_size chunks, each k-means reduced: depth-0
+    nodes only, so `search_features` finds nothing, as on the host), and
+    `build_bottom_up` (interval 2) over the run tree's leaves' centroids and
+    the top-down nodes', each searched with the run's query against the
+    float64 host recomputation."""
+    from streamchat_tpu_torch.memory.tree import VisualMemoryTree
+    from streamchat_tpu_torch.pipeline.ingest import encode_segment
+
+    mem = pipe.cfg.memory
+    merge = pipe.new_tree()._merge
+    feats = encode_segment(pipe.model, _video(), 0, BREAKPOINTS[0]["time"], pipe.cfg.video,
+                           mem.chunk_size)
+    t0 = time.perf_counter()
+    top = VisualMemoryTree.build_top_down(feats, mem.chunk_size, mem.num_clusters, merge)
+    leaves = [n.centroids for n in run_tree.all_nodes() if not n.children]
+    bottom = VisualMemoryTree.build_bottom_up(leaves + [r.centroids for r in top.roots],
+                                              mem.num_clusters, 2, merge)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    out = {"build_s": build_s, "frames": int(feats.shape[0])}
+    for label, tree in (("top_down", top), ("bottom_up", bottom)):
+        path, levels = tree._feature_walk(query)
+        out[label] = dict(roots=len(tree), depths=tree.counts_by_depth(),
+                          **check_feature_search(tree, query, path, levels))
+    if out["top_down"]["levels"] != 0 or out["bottom_up"]["levels"] != 3:
+        raise AssertionError(f"one-shot trees: {out}")
+    return out
+
+
+def drive_answer_options(pipe, planted):
+    """The three runs of stage 1's answer and memory options, each through
+    `drive` (counters zeroed before, read after) -> (reports, counts)."""
+    runs, counts = {}, {}
+    with phase("process_video int8, uni-modal, --ppl, interval 2, 1 breakpoint"), \
+            configured(pipe, **UNIMODAL_PPL), _answer_observed(pipe) as seen:
+        runs["int8_unimodal_ppl"], counts["int8_unimodal_ppl"] = drive(
+            pipe, "int8_unimodal_ppl", BREAKPOINTS[:1], caption_min=CAPTION_TOKENS_MIN)
+        run_tree = pipe.last_tree
+    report = runs["int8_unimodal_ppl"]
+    if seen["answers"] != 1 or len(seen["walks"]) != 1 or len(seen["nll"]) != 1:
+        raise AssertionError(f"uni-modal --ppl run: {seen['answers']} answers, "
+                             f"{len(seen['walks'])} feature searches, {len(seen['nll'])} "
+                             "NLL passes")
+    with phase("uni-modal run: NLL pass and feature search held to their references"):
+        walk = seen["walks"][0]
+        report["feature_search"] = check_feature_search(walk["tree"], walk["query"],
+                                                        walk["path"], walk["levels"])
+        report["nll_pass"] = check_nll_pass(seen["nll"][0])
+    if report["feature_search"]["levels"] < 2:
+        raise AssertionError(f"uni-modal run: the search found no summarized root: "
+                             f"{report['feature_search']}")
+    if report["nll_pass"]["k3_launches"] != pipe.model.dec_cfg.num_layers:
+        raise AssertionError(f"NLL pass: {report['nll_pass']['k3_launches']} K3 launches")
+    planted["NLL pass logits 10% too large"] = \
+        report["nll_pass"]["planted_scaled_logits_rel_l2"]
+    planted["NLL pass targets shifted by one position"] = \
+        report["nll_pass"]["planted_shifted_rel_l2"]
+    print(f"planted fault rejected: NLL pass logits 10% too large: row relative L2 err "
+          f"{report['nll_pass']['planted_scaled_logits_rel_l2']:.6g} (limit {STEP_REL_L2}; "
+          f"its log-probs alone {report['nll_pass']['scaled_logits_logprob_rel_l2']:.6g}, "
+          f"limit {ROW_REL_L2})")
+    print(f"planted fault rejected: NLL pass targets shifted by one position: per-target "
+          f"log-prob relative L2 err {report['nll_pass']['planted_shifted_rel_l2']:.6g} "
+          f"(limit {ROW_REL_L2})")
+    record = report["predictions"][0]
+    print(f"uni-modal --ppl: answer prompt {report['prompt_lengths'][-2]} tokens, path "
+          f"{report['feature_search']['path_tokens']} visual tokens beside "
+          f"{seen['visual_tokens'][0][0]} of short memory, nll {record['nll']!r} ppl "
+          f"{record['ppl']!r}, {report['seconds']:.3f} s, "
+          f"{report['decode_ms_per_step']:.2f} decode ms/step: "
+          f"{json.dumps({k: report[k] for k in ('nll_pass', 'feature_search')})}", flush=True)
+    query = walk["query"]
+    state = run_tree.to_state()
+
+    for label, change, online in (("online_int8_ppl", ONLINE_PPL, True),
+                                  ("int8_compress2_ppl", COMPRESS_2, False)):
+        with phase(f"{'process_video_online' if online else 'process_video'} {label}, "
+                   "1 breakpoint"), configured(pipe, **change), \
+                _answer_observed(pipe) as seen:
+            runs[label], counts[label] = drive(
+                pipe, label, BREAKPOINTS[:1], online=online,
+                caption_min=CAPTION_TOKENS_MIN if online else CAPTION_TOKENS_MIN_C2)
+        report = runs[label]
+        records = report["predictions"]
+        if seen["answers"] != len(records) or any(
+                not ({"nll", "ppl"} <= set(r)) for r in records):
+            raise AssertionError(f"run {label}: {seen['answers']} answers through _answer, "
+                                 f"records {records}")
+        kept = seen["visual_tokens"][0]
+        if (len(seen["visual_tokens"]) != 1 or len(seen["nll"]) != 1
+                or seen["nll"][0]["length"] != report["prompt_lengths"][-2]):
+            raise AssertionError(f"run {label}: answers of {seen['visual_tokens']} visual "
+                                 f"tokens, prompts {report['prompt_lengths']}, NLL passes "
+                                 f"over {[r['length'] for r in seen['nll']]}")
+        if sum(kept) > VISUAL_TOKEN_BUDGET and len(kept) > 2:
+            raise AssertionError(f"run {label}: {kept} over the budget beyond the finest level")
+        report["visual_tokens_kept"] = kept
+        report["nll_pass"] = dict(prompt_tokens=seen["nll"][0]["length"],
+                                  k3_launches=seen["nll"][0]["k3"], s=seen["nll"][0]["s"])
+        if not online:
+            if counts[label].get("flash_attention_partial", 0):
+                raise AssertionError(f"run {label}: K5 launched at compress_rate 2")
+            vit = pipe.model.vit_cfg
+            pooled = (vit.image_size // vit.patch_size // 2) ** 2
+            rows = {int(n.centroids.shape[1]) for n in pipe.last_tree.all_nodes()}
+            if rows != {pooled}:
+                raise AssertionError(f"run {label}: tree nodes of {rows} tokens a frame, "
+                                     f"not {pooled}")
+        print(f"{label}: caption prompts {report['prompt_lengths'][:-2]}, visual tokens kept "
+              f"{kept} (budget {VISUAL_TOKEN_BUDGET}), nll {records[0]['nll']!r} ppl "
+              f"{records[0]['ppl']!r}, {report['seconds']:.3f} s, "
+              f"{report['decode_ms_per_step']:.2f} decode ms/step", flush=True)
+
+    with phase("MaxSim and the one-shot trees (mxbai-colbert-large width)"):
+        runs["int8_unimodal_ppl"]["maxsim"] = check_maxsim(
+            pipe, state, BREAKPOINTS[0]["question"])
+        runs["int8_unimodal_ppl"]["one_shot_trees"] = check_one_shot_trees(
+            pipe, run_tree, query)
+    print(f"MaxSim: {json.dumps(runs['int8_unimodal_ppl']['maxsim'])}")
+    print(f"one-shot trees: {json.dumps(runs['int8_unimodal_ppl']['one_shot_trees'])}",
+          flush=True)
+    return runs, counts
 
 
 # Stage 2 at the v0.3 defaults (`eval/judge.py`'s main: batch 8, 64 new
@@ -2537,13 +2980,14 @@ JUDGE_W8_SHAPES = {"q / o": (4096, 4096, torch.bfloat16), "k / v": (4096, 1024, 
 
 
 @contextlib.contextmanager
-def _plain_twins():
+def _plain_twins(k3=None):
     """Every kernel wrapper the judge's path reaches swapped for its plain
-    twin where the path looks it up (K3, K5, W8, K7), for the block."""
+    twin where the path looks it up (K3, K5, W8, K7), for the block; `k3`
+    in place of `flash_attention_plain` where given."""
     from streamchat_tpu_torch.models import decoder, spec_decode
     from streamchat_tpu_torch.ops import attention, paged_attention, quant
 
-    swaps = [(decoder, "flash_attention", attention.flash_attention_plain),
+    swaps = [(decoder, "flash_attention", k3 or attention.flash_attention_plain),
              (decoder, "flash_attention_partial", attention.flash_attention_partial_plain),
              (quant, "qmatvec_int8", quant.qmatvec_int8_plain),
              (spec_decode, "paged_seq_attention_partial",
@@ -3416,7 +3860,7 @@ def run_all(info, smi, t_start, root) -> None:
             caller[label], counts[label] = drive_caller_pool(m, g, kv_int8)
     with phase("generate_paged, spec_tokens 9, kv_int8 (70 rows a kv head)"):
         spec_rows, counts["spec9_kv_int8"] = drive_spec_rows(m, g)
-    with phase("process_video bf16, 1 breakpoint"), sampling(pipe, **SHORT_ANSWER):
+    with phase("process_video bf16, 1 breakpoint"), configured(pipe, sampling=SHORT_ANSWER):
         runs["bf16"], counts["bf16"] = drive(pipe, "bf16", BREAKPOINTS[:1])
     bf16_tree = m.dec_params
     with phase("quantize int8 + composed check"):
@@ -3437,13 +3881,16 @@ def run_all(info, smi, t_start, root) -> None:
         runs["online_int8_dedup"], counts["online_int8_dedup"] = drive(
             pipe, "online_int8_dedup", BREAKPOINTS[:1], online=True)
     with phase(f"process_video int8, spec_tokens {SPEC_TOKENS}, 1 breakpoint"), \
-            sampling(pipe, **SHORT_ANSWER):
+            configured(pipe, sampling=SHORT_ANSWER):
         m.spec_tokens = SPEC_TOKENS
         runs["int8_spec"], counts["int8_spec"] = drive(pipe, "int8_spec", BREAKPOINTS[:1])
         m.spec_tokens = 0
     with phase("process_video int8, caption_batch 2, 1 breakpoint"), \
-            sampling(pipe, caption_batch=2, **SHORT_ANSWER):
+            configured(pipe, sampling=dict(SHORT_ANSWER, caption_batch=2)):
         runs["int8_cb2"], counts["int8_cb2"] = drive(pipe, "int8_cb2", BREAKPOINTS[:1])
+    option_runs, option_counts = drive_answer_options(pipe, planted)
+    runs.update(option_runs)
+    counts.update(option_counts)
     m.dec_params = bf16_tree                          # frees the int8 tree
     torch.cuda.empty_cache()
     with phase("quantize int4 + composed check"):
@@ -3451,17 +3898,18 @@ def run_all(info, smi, t_start, root) -> None:
         m.kv_int8 = True
         composed["int4_step_logits_rel_l2_err"] = check_composed_quant(
             m, g, "int4", ("qmatvec_int4", "qmatvec_int4_fused", "qmatvec_int8"))
-    with phase("process_video int4 + kv_int8, 1 breakpoint"), sampling(pipe, **SHORT_ANSWER):
+    with phase("process_video int4 + kv_int8, 1 breakpoint"), \
+            configured(pipe, sampling=SHORT_ANSWER):
         runs["int4_kv_int8"], counts["int4_kv_int8"] = drive(pipe, "int4_kv_int8",
                                                              BREAKPOINTS[:1])
     with phase(f"process_video int4 + kv_int8, spec_tokens {SPEC_TOKENS}, 1 breakpoint"), \
-            sampling(pipe, **SHORT_ANSWER):
+            configured(pipe, sampling=SHORT_ANSWER):
         m.spec_tokens = SPEC_TOKENS
         runs["int4_kv_int8_spec"], counts["int4_kv_int8_spec"] = drive(
             pipe, "int4_kv_int8_spec", BREAKPOINTS[:1])
         m.spec_tokens = 0
     with phase("process_video int4 + kv_int8, caption_batch 2, 1 breakpoint"), \
-            sampling(pipe, caption_batch=2, **SHORT_ANSWER):
+            configured(pipe, sampling=dict(SHORT_ANSWER, caption_batch=2)):
         runs["int4_kv_int8_cb2"], counts["int4_kv_int8_cb2"] = drive(
             pipe, "int4_kv_int8_cb2", BREAKPOINTS[:1])
     predictions = [r for v in runs.values() for r in v.pop("predictions")]

@@ -149,3 +149,11 @@ class TextEmbedder:
         mask_t = torch.from_numpy(mask).to(dev)
         hidden = forward(self.params, self.cfg, ids_t, mask_t)
         return pool(hidden, mask_t, self.cfg.pooling)
+
+    def embed_tokens(self, texts: Sequence[str]) -> Tuple[torch.Tensor, torch.Tensor]:
+        """Texts -> ([N, S, D] token states, [N, S] mask) for MaxSim (the
+        same batch and forward as `embed`, before pooling)."""
+        dev = self.params["word_embed"].device
+        ids, mask = self._batch_ids(texts)
+        mask_t = torch.from_numpy(mask).to(dev)
+        return forward(self.params, self.cfg, torch.from_numpy(ids).to(dev), mask_t), mask_t

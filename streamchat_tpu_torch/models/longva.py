@@ -11,6 +11,8 @@ pages with `kv_int8`; K7 verify steps with `spec_tokens`). `quantize`
 switches the decoder to int8 / int4 weight-only storage (W8, K10, K11 at
 decode). `generate_with_image_embedding_batch` serves several prompts with
 one batched decode loop (batched captioning), each row prefilled alone.
+`score_with_image_embedding` gives a target's teacher-forced NLL and PPL
+after the same splice (`--ppl`; models/scoring.py).
 Random draws come from the `torch.Generator` the facade holds (the JAX
 package's `KeySeq`).
 """
@@ -24,7 +26,7 @@ from typing import List, Optional, Sequence, Tuple
 import torch
 
 from streamchat_tpu_torch.config import DecoderConfig, ViTConfig
-from streamchat_tpu_torch.models import decoder, projector, vit, weights
+from streamchat_tpu_torch.models import decoder, projector, scoring, vit, weights
 from streamchat_tpu_torch.models.generate import pad_to_bucket
 from streamchat_tpu_torch.models.generate_paged import generate_paged
 from streamchat_tpu_torch.models.spec_decode import build_lookup_arrays
@@ -200,6 +202,19 @@ class LongVA:
             top_p=top_p, eos_ids=tuple(self.tokenizer.eos_ids), kv_int8=self.kv_int8,
             stats=self.gen_stats, **self._spec_kwargs([prompt], top_p))
         return self.tokenizer.decode(toks[0][: int(count[0])].tolist()).strip()
+
+    def score_with_image_embedding(
+        self, prompt: str, target: str,
+        image_embeddings: Optional[Sequence[torch.Tensor]] = None) -> Tuple[float, float]:
+        """Teacher-forced (mean NLL, PPL) of `target` given the spliced
+        prompt: the `--ppl` metric (models/scoring.sequence_nll). The
+        target is a mid-sequence continuation, encoded without specials."""
+        target_ids = self.tokenizer.encode(target, add_special_tokens=False)
+        embeds, length = self.splice_prompt(prompt, image_embeddings)
+        nll = scoring.sequence_nll(
+            self.dec_params, self.dec_cfg, embeds, length,
+            torch.tensor(target_ids, dtype=torch.int64, device=self.device))
+        return float(nll), float(torch.exp(nll))
 
     def _spec_kwargs(self, prompts, top_p) -> dict:
         """Speculative-decode kwargs for generate_paged, or {} when off (or

@@ -150,11 +150,14 @@ class Shards(Mapping):
 
     def _staged(self, f, out: torch.Tensor) -> None:
         """Read the file into `out` on the card, one pinned buffer filling
-        while the other's copy runs."""
+        while the other's copy runs. A copy runs on the current stream of
+        `out`'s device, which need not be the current device: the event
+        that guards its buffer is recorded on that stream."""
         if not self._stage:
             self._stage = [torch.empty(STAGE_BYTES, dtype=torch.uint8, pin_memory=True)
                            for _ in range(2)]
         copied = [None, None]
+        stream = torch.cuda.current_stream(out.device)
         pos, i = 0, 0
         while pos < out.numel():
             k = min(STAGE_BYTES, out.numel() - pos)
@@ -163,7 +166,7 @@ class Shards(Mapping):
             _read_into(f, self._stage[i].numpy()[:k])
             out[pos:pos + k].copy_(self._stage[i][:k], non_blocking=True)
             copied[i] = torch.cuda.Event()
-            copied[i].record()
+            copied[i].record(stream)
             pos, i = pos + k, 1 - i
         for event in copied:
             if event is not None:

@@ -1,5 +1,10 @@
 """Per-segment memory update (`streamchat_tpu/pipeline/memory_update.py`).
 
+0. With `compress_rate` > 1 each frame's patch grid is average-pooled by
+   that rate along each side first (ops/pooling.py; 576 -> 144 tokens a
+   frame at rate 2), so short memory, chunks and captions all see the
+   pooled features. The on-line session (pipeline/streaming.py) cuts its
+   chunks itself and, as the JAX package's, does not pool.
 1. Short memory: the segment's last `short_window` frames, sampled down to
    `remember_window` by the Ebbinghaus curve (reset every breakpoint, as the
    reference does).
@@ -28,6 +33,7 @@ from streamchat_tpu_torch.config import MemoryConfig
 from streamchat_tpu_torch.memory.tree import VisualMemoryTree
 from streamchat_tpu_torch.ops.forgetting import select_short_memory
 from streamchat_tpu_torch.ops.kmeans import weighted_kmeans_feature
+from streamchat_tpu_torch.ops.pooling import compress_spatial_features
 
 CaptionFn = Callable[[torch.Tensor], str]
 
@@ -71,9 +77,7 @@ def update_memory(features: torch.Tensor, tree: VisualMemoryTree, caption_fn: Ca
                   ) -> Tuple[VisualMemoryTree, torch.Tensor]:
     """One segment's memory update -> (tree, short_memory [R, P, D])."""
     if cfg.compress_rate > 1:
-        raise NotImplementedError(
-            "compress_rate > 1 (spatial pooling) is not ported yet: ROADMAP §A "
-            "'Memory update'")
+        features = compress_spatial_features(features, cfg.compress_rate)
     short = build_short_memory(features, cfg, generator)
     raw_chunks, node_feats = chunk_and_cluster(features, cfg, generator,
                                                cluster_full_chunks)

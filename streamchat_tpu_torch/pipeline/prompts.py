@@ -153,6 +153,16 @@ def build_answer_prompt(
     return DEFAULT_IMAGE_TOKEN + "\n" + question + ANSWER_NOTION
 
 
+def build_answer_prompt_unimodal(
+    question: str, history_prompt: Optional[str]
+) -> str:
+    """Uni-modal user turn (reference :93-102): no caption injection, no
+    notion suffix."""
+    if history_prompt is not None:
+        return history_prompt + DEFAULT_IMAGE_TOKEN + "\n" + question
+    return DEFAULT_IMAGE_TOKEN + "\n" + question
+
+
 def build_caption_prompt() -> str:
     """Captioning prompt for memory-tree chunks (updating_memory_buffer,
     inference_streaming_longva_v2.py:284-297; conv qwen_1_5_ego)."""

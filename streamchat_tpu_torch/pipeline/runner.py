@@ -1,5 +1,5 @@
 """Streaming pipeline and CLI (`streamchat_tpu/pipeline/runner.py`),
-multi-modal path, off-line and on-line.
+off-line and on-line.
 
 Per video: reset the visual memory tree and open a dialogue memory bank;
 per breakpoint segment: ingest -> dedup (when `VideoConfig.dedup_threshold`
@@ -13,7 +13,15 @@ batched one (`SamplingConfig.caption_batch` > 1) included.
 `process_video_online` (`--mode on_line`) pushes each segment into a
 `StreamingSession`, whose worker thread captions chunks while the next
 segment is ingested, and keeps the short memory as a FIFO across the
-stream; it times no phases, as in the JAX package.
+stream; it times no phases, as in the JAX package. Both answer through
+`_answer`: the multi-modal answer with `--multi_modal_memory`, else the
+uni-modal one (the CLI's default), and with `--ppl` the record also
+carries the ground-truth answer's teacher-forced `nll` and `ppl`. The
+off-line phase totals split the answer into `answer.retrieval`,
+`answer.generate` and the multi-modal answer's `answer.embed_query_s`,
+`answer.tree_search_s` and `answer.assemble_s`; the "qembed" phase embeds
+the questions for tree search only when the multi-modal answer will use
+them, so each phase name means the same in both modes.
 
 `--int8` (the default) and `--int4` quantize the decoder after it is built,
 as the JAX `main` does; `--bf16` keeps it bf16. `--spec_tokens N` turns on
@@ -22,9 +30,11 @@ speculative decoding (`--spec_ngram` drafting) on the model,
 `--save_tree_dir` pickles each video's tree state, as the JAX `main` does.
 `--model_name`, `--embedding_model` and `--minilm_model` load HF
 checkpoints (models/weights); a model whose path is unset is random at
-`--geometry`. Not ported yet, each raising NotImplementedError that names
-its ROADMAP item: --shard, --offload_chunks / --offload_residents, --ppl,
---compress_rate > 1 and the uni-modal answer (no --multi_modal_memory).
+`--geometry`. `--compress_rate` > 1 average-pools each frame's patch grid
+before the off-line memory update (the on-line session, as the JAX
+package's, does not pool). Not ported yet, each raising NotImplementedError
+that names its ROADMAP item: --shard and --offload_chunks /
+--offload_residents.
 """
 
 from __future__ import annotations
@@ -61,6 +71,7 @@ from streamchat_tpu_torch.ops.kmeans import weighted_kmeans_feature
 from streamchat_tpu_torch.pipeline import prompts
 from streamchat_tpu_torch.pipeline.answer import (
     answer_question,
+    answer_question_unimodal,
     make_captioner,
     make_summarizer,
 )
@@ -75,14 +86,6 @@ class StreamChatPipeline:
 
     def __init__(self, model: LongVA, tree_embedder: TextEmbedder,
                  bank_embedder: TextEmbedder, cfg: PipelineConfig):
-        if not cfg.multi_modal_memory:
-            raise NotImplementedError(
-                "the uni-modal answer is not ported yet: ROADMAP §A "
-                "'Uni-modal answer and --ppl'")
-        if cfg.ppl:
-            raise NotImplementedError(
-                "--ppl label scoring is not ported yet: ROADMAP §A "
-                "'Uni-modal answer and --ppl'")
         self.model = model
         self.tree_embedder = tree_embedder
         self.bank_embedder = bank_embedder
@@ -128,10 +131,11 @@ class StreamChatPipeline:
         return emb
 
     def _prewarm_question_embeddings(self, breakpoints, bank: MemoryBank):
-        """Batch-embed a video's questions for both embedders up front."""
+        """Batch-embed a video's questions up front: for tree search when
+        the multi-modal answer will search by them, and for the dialogue bank."""
         questions = [q["question"] for q in breakpoints if q.get("question")]
         missing = [t for t in dict.fromkeys(questions) if t not in self._q_emb_cache]
-        if missing:
+        if missing and self.cfg.multi_modal_memory:
             for t, r in zip(missing, self.tree_embedder.embed(missing)):
                 if len(self._q_emb_cache) >= 4096:
                     self._q_emb_cache.pop(next(iter(self._q_emb_cache)))
@@ -195,13 +199,14 @@ class StreamChatPipeline:
                 with timer.phase("history"):
                     history_prompt = self._history_prompt(memory_index, q["question"])
                 with timer.phase("answer"):
-                    res = answer_question(
-                        q["question"], self.model, self.embed_query, short_memory, tree,
-                        history_prompt, self.cfg.sampling, self.cfg.conv_mode)
+                    res = self._answer(q, short_memory, tree, history_prompt)
                 timer.totals["answer.retrieval"] += res.process_time
                 timer.totals["answer.generate"] += res.generate_time
                 timer.counts["answer.retrieval"] += 1
                 timer.counts["answer.generate"] += 1
+                for k, v in (res.timings or {}).items():
+                    timer.totals[f"answer.{k}"] += v
+                    timer.counts[f"answer.{k}"] += 1
                 with timer.phase("store"):
                     memory_index = self._record_and_store(
                         results, q, end_s, res, bank, user_name, save_file)
@@ -241,9 +246,8 @@ class StreamChatPipeline:
                     session.sync()
                     continue
 
-                def answer(short, tree, question=q["question"], history=history_prompt):
-                    return answer_question(question, self.model, self.embed_query, short, tree,
-                                           history, self.cfg.sampling, self.cfg.conv_mode)
+                def answer(short, tree, q=q, history=history_prompt):
+                    return self._answer(q, short, tree, history)
 
                 res = session.ask(answer)
                 memory_index = self._record_and_store(
@@ -254,6 +258,18 @@ class StreamChatPipeline:
         self.last_phase_totals = {}
         self.last_phase_counts = {}
         return results
+
+    def _answer(self, q, short_memory, tree, history_prompt):
+        """The multi-modal or the uni-modal answer to breakpoint q, scoring
+        its ground-truth answer under `ppl`."""
+        ppl_target = q.get("answer") if self.cfg.ppl else None
+        if self.cfg.multi_modal_memory:
+            return answer_question(q["question"], self.model, self.embed_query, short_memory,
+                                   tree, history_prompt, self.cfg.sampling, self.cfg.conv_mode,
+                                   ppl_target=ppl_target)
+        return answer_question_unimodal(q["question"], self.model, short_memory, tree,
+                                        history_prompt, self.cfg.sampling, self.cfg.conv_mode,
+                                        ppl_target=ppl_target)
 
     def _history_prompt(self, memory_index, question: str):
         if memory_index is None:
@@ -268,6 +284,9 @@ class StreamChatPipeline:
         record = {"time": end_s, "question": q["question"], "label": q.get("answer"),
                   "predict": res.output, "class": q.get("class"),
                   "process_time": res.process_time}
+        if res.nll is not None:
+            record["nll"] = res.nll
+            record["ppl"] = res.ppl
         results.append(record)
         if save_file:
             _append_result(save_file, record)
@@ -419,7 +438,6 @@ _NOT_PORTED = (
     ("shard", "--shard", "Multi-GPU"),
     ("offload_chunks", "--offload_chunks", "Host offload"),
     ("offload_residents", "--offload_residents", "Host offload"),
-    ("ppl", "--ppl", "Uni-modal answer and --ppl"),
 )
 
 

@@ -232,3 +232,236 @@ def test_bank_cache_keeps_hits_at_the_bound():
     rows = bank.embed_into_cache(hash_embed, cache, texts)
     assert len(rows) == 2 and len(cache) == 4096
     np.testing.assert_array_equal(rows[1], hash_embed(["a brand new text"])[0])
+
+
+# --- MaxSim, feature search, the one-shot builders, pooling ------------------------------
+
+def hash_embed_tokens(texts):
+    """Deterministic stand-in token embedder: one hash row per character
+    bigram, zero-padded to the longest text -> ([N, S, 16], mask [N, S])."""
+    s = max([len(t) - 1 for t in texts] + [1])
+    out = np.zeros((len(texts), s, 16), np.float32)
+    mask = np.zeros((len(texts), s), np.int64)
+    for i, t in enumerate(texts):
+        for j, (a, b) in enumerate(zip(t, t[1:])):
+            out[i, j, (ord(a) * 7 + ord(b)) % 16] = 1.0
+            out[i, j, ord(b) % 16] -= 0.5
+            mask[i, j] = 1
+    return out, mask
+
+
+def _both_trees(interval=2, chunks=5, tokens=True, d=8):
+    def summarize(caps):
+        return "summary of: " + " | ".join(caps)
+
+    def p_tokens(texts):
+        h, m = hash_embed_tokens(texts)
+        return torch.from_numpy(h), torch.from_numpy(m)
+
+    jt = JTree(2, interval, hash_embed, summarize, lambda x, k: x[:k],
+               embed_tokens_fn=hash_embed_tokens if tokens else None)
+    pt = VisualMemoryTree(2, interval, lambda t: torch.from_numpy(hash_embed(t)), summarize,
+                          lambda x, k: x[:k], embed_tokens_fn=p_tokens if tokens else None)
+    for i in range(chunks):
+        f = _rand(200 + i, 2, 4, d)
+        cap = [f"the person {'sits' if i % 2 else 'walks'} by table {i}"]
+        jt.add_chunks([jnp.asarray(f)], cap)
+        pt.add_chunks([torch.from_numpy(f)], cap)
+    return jt, pt
+
+
+def _same_path(pf, jf):
+    assert len(pf) == len(jf)
+    for a, b in zip(pf, jf):
+        np.testing.assert_array_equal(a.numpy(), np.asarray(b))
+
+
+@pytest.mark.parametrize("interval,chunks", [(2, 5), (3, 7)])
+def test_search_maxsim_matches_jax(interval, chunks):
+    jt, pt = _both_trees(interval, chunks)
+    for pn, jn in zip(pt.all_nodes(), jt.all_nodes()):
+        np.testing.assert_array_equal(pn.token_emb, jn.token_emb)
+    for q in ["where does the person sit?", "table 3", "zz"]:
+        qh, qm = hash_embed_tokens([q])
+        qtok = qh[0][qm[0] > 0]
+        jf, jtexts = jt.search_maxsim(jnp.asarray(qtok))
+        pf, ptexts = pt.search_maxsim(torch.from_numpy(qtok))
+        assert ptexts == jtexts and len(ptexts) >= 2
+        _same_path(pf, jf)
+
+
+def test_search_maxsim_needs_token_embeddings():
+    _, pt = _both_trees(tokens=False)
+    assert all(n.token_emb is None for n in pt.all_nodes())
+    with pytest.raises(ValueError, match="embed_tokens_fn"):
+        pt.search_maxsim(torch.ones(3, 16))
+
+
+@pytest.mark.parametrize("interval,chunks,seed", [(2, 5, 0), (2, 4, 1), (3, 7, 2)])
+def test_search_features_matches_jax(interval, chunks, seed):
+    """Depth-0 roots are skipped; each summarized root emits its centroids
+    and each visited child's, down to a leaf."""
+    jt, pt = _both_trees(interval, chunks, tokens=False)
+    q = _rand(300 + seed, 5, 8)
+    jf = jt.search_features(jnp.asarray(q))
+    pf = pt.search_features(torch.from_numpy(q))
+    _same_path(pf, jf)
+    summarized = [r for r in pt.roots if r.depth > 0]
+    assert len(pf) == sum(r.depth + 1 for r in summarized) and len(pf) > 0
+    path, levels = pt._feature_walk(torch.from_numpy(q))
+    assert len(levels) == len(pf) - len(summarized)
+    assert all(s.dtype == np.float32 for s in levels)
+
+
+def test_search_features_skips_a_tree_without_summaries():
+    jt, pt = _both_trees(interval=4, chunks=3, tokens=False)
+    assert pt.search_features(torch.ones(2, 8)) == [] == jt.search_features(jnp.ones((2, 8)))
+
+
+@pytest.mark.parametrize("n,interval,with_text", [(5, 2, True), (7, 3, False), (4, 2, False)])
+def test_build_bottom_up_matches_jax(n, interval, with_text):
+    feats = [_rand(400 + i, 2, 4, 8) for i in range(n)]
+    caps = [f"clip {i}: a cup moves" for i in range(n)] if with_text else None
+
+    def summarize(c):
+        return "sum(" + ",".join(c) + ")"
+
+    def merge(x, k):
+        return x[:k] * 0.5 + x[-k:] * 0.5
+
+    jt = JTree.build_bottom_up([jnp.asarray(f) for f in feats], 3, interval, merge, caps,
+                               summarize if with_text else None,
+                               hash_embed if with_text else None)
+    pt = VisualMemoryTree.build_bottom_up(
+        [torch.from_numpy(f) for f in feats], 3, interval, merge, caps,
+        summarize if with_text else None,
+        (lambda t: torch.from_numpy(hash_embed(t))) if with_text else None)
+    assert len(pt) == len(jt) == 1
+    assert _shape(pt.roots) == _shape(jt.roots)
+    for a, b in zip(pt.all_nodes(), jt.all_nodes()):
+        np.testing.assert_allclose(a.centroids.numpy(), np.asarray(b.centroids), atol=1e-6,
+                                   rtol=0)
+        assert (a.emb is None) == (b.emb is None)
+        if a.emb is not None:
+            np.testing.assert_array_equal(a.emb, b.emb)
+    q = _rand(450, 3, 8)
+    _same_path(pt.search_features(torch.from_numpy(q)), jt.search_features(jnp.asarray(q)))
+    if with_text:
+        qe = hash_embed(["a cup"])[0]
+        pf, ptexts = pt.search(torch.from_numpy(qe))
+        jf, jtexts = jt.search(jnp.asarray(qe))
+        assert ptexts == jtexts
+        _same_path(pf, jf)
+    with pytest.raises(ValueError, match="summarize_fn"):
+        VisualMemoryTree.build_bottom_up([torch.ones(1, 4, 8)], 3, 2, merge, ["c"])
+
+
+@pytest.mark.parametrize("n,chunk,rate", [(10, 4, 1), (9, 3, 2), (5, 8, 2)])
+def test_build_top_down_matches_jax(n, chunk, rate):
+    feats = _rand(500 + n, n, 16, 8)
+
+    def merge(x, k):
+        return x[:k] * 0.25 + x[-k:] * 0.75
+
+    jt = JTree.build_top_down(jnp.asarray(feats), chunk, 2, merge, compress_rate=rate)
+    pt = VisualMemoryTree.build_top_down(torch.from_numpy(feats), chunk, 2, merge,
+                                         compress_rate=rate)
+    assert len(pt) == len(jt) == -(-n // chunk) and pt.interval == jt.interval
+    for a, b in zip(pt.roots, jt.roots):
+        assert a.depth == b.depth == 0 and a.text == b.text == ""
+        assert a.centroids.shape[1] == 16 // rate ** 2
+        np.testing.assert_allclose(a.centroids.numpy(), np.asarray(b.centroids), atol=1e-6,
+                                   rtol=0)
+
+
+def test_tree_state_round_trips_token_embeddings():
+    jt, pt = _both_trees()
+    state = pt.to_state()
+    jstate = jt.to_state()
+
+    def tokens(s):
+        out = []
+
+        def walk(d):
+            out.append(d["token_emb"])
+            for c in d["children"]:
+                walk(c)
+
+        for r in s["roots"]:
+            walk(r)
+        return out
+
+    for a, b in zip(tokens(state), tokens(jstate)):
+        assert isinstance(a, np.ndarray)
+        np.testing.assert_array_equal(a, b)
+    back = VisualMemoryTree.from_state(state, 2, 2, None, None, None,
+                                       embed_tokens_fn=pt._embed_tokens)
+    assert back._embed_tokens is pt._embed_tokens
+    for a, b in zip(back.all_nodes(), pt.all_nodes()):
+        np.testing.assert_array_equal(a.token_emb, b.token_emb)
+        assert torch.equal(a.centroids, b.centroids)
+    qh, qm = hash_embed_tokens(["the person sits"])
+    q = torch.from_numpy(qh[0][qm[0] > 0])
+    assert back.search_maxsim(q)[1] == pt.search_maxsim(q)[1]
+
+
+@pytest.mark.parametrize("shape,rate,mode", [((3, 16, 5), 2, "average"), ((3, 16, 5), 4, "max"),
+                                             ((2, 36, 4), 3, "average"), ((2, 36, 4), 2, "max"),
+                                             ((2, 9, 3), 1, "average")])
+def test_pool_patch_grid_matches_jax(shape, rate, mode):
+    jpool = importlib.import_module("streamchat_tpu.ops.pooling")
+    from streamchat_tpu_torch.ops import pooling
+
+    x = _rand(600 + rate, *shape)
+    ref = jpool.pool_patch_grid(jnp.asarray(x), rate, mode=mode)
+    out = pooling.pool_patch_grid(torch.from_numpy(x), rate, mode=mode)
+    np.testing.assert_allclose(out.numpy(), np.asarray(ref), atol=1e-6, rtol=0)
+    if mode == "average":
+        np.testing.assert_allclose(
+            pooling.compress_spatial_features(torch.from_numpy(x), rate).numpy(),
+            np.asarray(jpool.compress_spatial_features(jnp.asarray(x), rate)), atol=1e-6)
+
+
+@pytest.mark.parametrize("shape,rate,mode,match", [((1, 15, 2), 2, "average", "perfect square"),
+                                                   ((1, 16, 2), 3, "average", "divisible"),
+                                                   ((1, 16, 2), 2, "min", "unknown pool")])
+def test_pool_patch_grid_refuses_as_jax(shape, rate, mode, match):
+    jpool = importlib.import_module("streamchat_tpu.ops.pooling")
+    from streamchat_tpu_torch.ops import pooling
+
+    with pytest.raises(ValueError, match=match):
+        jpool.pool_patch_grid(jnp.zeros(shape), rate, mode=mode)
+    with pytest.raises(ValueError, match=match):
+        pooling.pool_patch_grid(torch.zeros(shape), rate, mode=mode)
+
+
+def test_summarize_copy_matches(tmp_path):
+    from streamchat_tpu.memory import summarize as jsummarize
+    from streamchat_tpu_torch.memory import summarize
+
+    history = {"2024-01-01": [{"query": " what is here? ", "response": "a cup "}],
+               "2024-01-02": [{"query": "and there?", "response": "a chair"},
+                              {"query": "keys?", "response": "on the shelf"}]}
+
+    def memory():
+        return {"User": {"name": "User", "history": json.loads(json.dumps(history)),
+                         "summary": {"2024-01-01": {"content": "kept"}}},
+                "Other": {"name": "Other"}}
+
+    def generate(prompt):
+        return f"<{len(prompt)}:{prompt[-12:]}>"
+
+    outs = []
+    for mod, name in ((jsummarize, "j.json"), (summarize, "p.json")):
+        out = mod.summarize_memory(memory(), generate, memory_path=str(tmp_path / name))
+        outs.append(out)
+        assert mod.summarize_memory(memory(), generate, name="Nobody") == memory()
+    assert outs[0] == outs[1]
+    assert (tmp_path / "p.json").read_bytes() == (tmp_path / "j.json").read_bytes()
+    turns = history["2024-01-02"]
+    for fn in ("summarize_content_prompt", "summarize_person_prompt"):
+        assert getattr(summarize, fn)(turns, "User") == getattr(jsummarize, fn)(turns, "User")
+    assert (summarize.summarize_overall_prompt([("d", {"content": " x "})])
+            == jsummarize.summarize_overall_prompt([("d", {"content": " x "})]))
+    assert (summarize.summarize_overall_personality([("d", " y ")])
+            == jsummarize.summarize_overall_personality([("d", " y ")]))

@@ -7,9 +7,11 @@ num_clusters, fewer than `interval` tree nodes), and their result records
 must agree field by field: with bf16-free float32 weights, and with each
 package quantizing its own copy to int8, to int4, and to int4 with int8 KV
 pages. Also: the port imports and runs with jax and the JAX package
-blocked (off-line, then on-line with dedup), every CLI option that is not
-ported raises, `--mode on_line`, `--literal_kmeans` and `--save_tree_dir`
-run through `main` at tiny geometry, and the CLI's weight storage flags
+blocked (off-line, then on-line with dedup, then off-line with the
+uni-modal answer and --ppl), every CLI option that is not ported raises,
+`--mode on_line`, `--literal_kmeans`, `--save_tree_dir`, `--ppl`, the
+uni-modal answer (no `--multi_modal_memory`) and `--compress_rate 2` run
+through `main` at tiny geometry, and the CLI's weight storage flags
 quantize the model as the JAX `main` does.
 """
 
@@ -182,6 +184,13 @@ def test_port_runs_with_jax_blocked(tmp_path):
         res = pipe.process_video_online(reader, bps, bank, "User")
         assert len(res) == 2 and len(pipe.last_tree) > 0
         assert any(k < n for n, k in seen) and all(k > 0 for n, k in seen), seen
+        # Off-line with the uni-modal answer and --ppl.
+        pipe.cfg = pipe.cfg.replace(
+            multi_modal_memory=False, ppl=True,
+            sampling=dataclasses.replace(pipe.cfg.sampling, max_answer_tokens_unimodal=4))
+        bps = [dict(b, answer="a cup") for b in bps]
+        res = pipe.process_video(reader, bps, bank, "User")
+        assert len(res) == 2 and all(r["nll"] > 0 and r["ppl"] > 1 for r in res), res
         print("OK")
     """)
     env = dict(os.environ, PYTHONPATH=REPO)
@@ -201,14 +210,23 @@ BASE = ["--video_dir", "v", "--memory_basic_dir", "m", "--save_file", "s.json",
     ["--bf16", "--ppl"],
 ])
 def test_unported_cli_options_raise(flags):
+    """The options still unported raise, naming their ROADMAP item; --ppl,
+    once among them, is ported and now parses into PipelineConfig.ppl
+    (`test_cli_answer_options_run_on_cpu` runs it)."""
+    args = runner.parse_args(BASE + flags)
+    if "--ppl" in flags:
+        cfg = runner.config_from_args(args)
+        assert cfg.ppl and cfg.multi_modal_memory
+        return
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        runner.config_from_args(runner.parse_args(BASE + flags))
+        runner.config_from_args(args)
 
 
-def _cli_run(tmp_path, monkeypatch, flags):
+def _cli_run(tmp_path, monkeypatch, flags, multi_modal=True):
     """`main` over a one-video annotation file at tiny geometry on the CPU
-    (the synthetic reader in place of the codec, 4-token generations) ->
-    (the pipeline it built, the saved results)."""
+    (the synthetic reader in place of the codec, 4-token generations), with
+    `--multi_modal_memory` unless multi_modal is False -> (the pipeline it
+    built, the saved results)."""
     (tmp_path / "videos" / "cls").mkdir(parents=True)
     (tmp_path / "videos" / "cls" / "v.mp4").write_bytes(b"")
     anno = [{"info": {"video_path": "v.mp4", "class_1": "cls"},
@@ -222,7 +240,8 @@ def _cli_run(tmp_path, monkeypatch, flags):
     def short(args):
         cfg = config_from_args(args)
         return cfg.replace(sampling=dataclasses.replace(
-            cfg.sampling, max_answer_tokens=4, max_caption_tokens=4, max_summary_tokens=4))
+            cfg.sampling, max_answer_tokens=4, max_answer_tokens_unimodal=4,
+            max_caption_tokens=4, max_summary_tokens=4))
 
     def recording_build(*a, **kw):
         built.append(build(*a, **kw))
@@ -234,9 +253,9 @@ def _cli_run(tmp_path, monkeypatch, flags):
         total_frames=150, frame_rate=30, height=56, width=56))
     runner.main(["--video_dir", str(tmp_path / "videos"), "--memory_basic_dir",
                  str(tmp_path / "m"), "--save_file", str(tmp_path / "s.json"),
-                 "--annotations", str(tmp_path / "a.json"), "--multi_modal_memory",
-                 "--device", "cpu", "--geometry", "tiny", "--bf16", "--chunk_size", "4",
-                 "--num_clusters", "2", "--interval", "3"] + flags)
+                 "--annotations", str(tmp_path / "a.json"), "--device", "cpu",
+                 "--geometry", "tiny", "--bf16", "--chunk_size", "4", "--num_clusters", "2",
+                 "--interval", "3"] + (["--multi_modal_memory"] if multi_modal else []) + flags)
     return built[0], json.loads((tmp_path / "s.json").read_text())
 
 
@@ -276,8 +295,46 @@ def test_online_cli_flags_run_on_cpu(tmp_path, monkeypatch, flags):
 
 
 def test_cli_compress_rate_still_raises(tmp_path, monkeypatch):
-    with pytest.raises(NotImplementedError, match="compress_rate > 1.*ROADMAP"):
-        _cli_run(tmp_path, monkeypatch, ["--compress_rate", "2"])
+    """--compress_rate 2, which raised before spatial pooling was ported,
+    runs: every tree node and the answers' short memory hold the tiny
+    tower's 4 x 4 patch grid pooled to 2 x 2."""
+    shorts = []
+    answer = runner.answer_question
+
+    def recording(question, model, embed_query, short_memory, *a, **kw):
+        shorts.append(tuple(short_memory.shape[1:]))
+        return answer(question, model, embed_query, short_memory, *a, **kw)
+
+    monkeypatch.setattr(runner, "answer_question", recording)
+    pipe, saved = _cli_run(tmp_path, monkeypatch, ["--compress_rate", "2"])
+    assert pipe.cfg.memory.compress_rate == 2 and len(saved) == 2
+    assert {n.centroids.shape[1] for n in pipe.last_tree.all_nodes()} == {4}
+    assert shorts == [(4, 128)] * 2 and "nll" not in saved[0]
+
+
+@pytest.mark.parametrize("flags,multi_modal", [
+    (["--ppl"], True), ([], False), (["--ppl"], False),
+    (["--ppl", "--mode", "on_line"], False), (["--ppl", "--compress_rate", "2"], False),
+], ids=["ppl", "unimodal", "unimodal-ppl", "unimodal-ppl-on_line", "unimodal-ppl-compress2"])
+def test_cli_answer_options_run_on_cpu(tmp_path, monkeypatch, flags, multi_modal):
+    """`main` without --multi_modal_memory (the CLI's default) answers
+    uni-modally, --ppl saves the ground-truth answer's nll / ppl in every
+    record, and both combine with --mode on_line and --compress_rate 2."""
+    answers = []
+    for name in ("answer_question", "answer_question_unimodal"):
+        fn = getattr(runner, name)
+        monkeypatch.setattr(runner, name, lambda *a, _fn=fn, _n=name, **kw:
+                            answers.append((_n, kw.get("ppl_target"))) or _fn(*a, **kw))
+    pipe, saved = _cli_run(tmp_path, monkeypatch, flags, multi_modal=multi_modal)
+    ppl = "--ppl" in flags
+    name = "answer_question" if multi_modal else "answer_question_unimodal"
+    assert answers == [(name, "a" if ppl else None), (name, "b" if ppl else None)]
+    assert pipe.cfg.multi_modal_memory is multi_modal and pipe.cfg.ppl is ppl
+    assert len(saved) == 2
+    for r in saved:
+        assert ({"nll", "ppl"} <= set(r)) is ppl
+        if ppl:
+            assert r["nll"] > 0 and np.isclose(r["ppl"], np.exp(r["nll"]), rtol=1e-5)
 
 
 @pytest.mark.parametrize("flags,key", [
@@ -311,15 +368,23 @@ def test_cli_weight_storage_flags_quantize(monkeypatch, flags, key):
     dict(paths=config.ModelPaths(longva="/nonexistent/longva")),
     dict(multi_modal_memory=False),
 ])
-def test_unported_pipeline_settings_raise(change):
+def test_unported_pipeline_settings_raise(monkeypatch, change):
     """A checkpoint path that does not exist raises FileNotFoundError (no
-    fallback to random weights), as the JAX loader's config read does; an
-    unported setting names its ROADMAP item."""
+    fallback to random weights), as the JAX loader's config read does.
+    multi_modal_memory=False, which raised before the uni-modal answer was
+    ported, now builds a pipeline that answers uni-modally."""
     cfg = config.PipelineConfig(**change)
-    exc, match = ((FileNotFoundError, "config.json") if "paths" in change
-                  else (NotImplementedError, "ROADMAP"))
-    with pytest.raises(exc, match=match):
-        runner.build_pipeline(cfg, device="cpu", geometry="tiny", dtype=torch.float32)
+    if "paths" in change:
+        with pytest.raises(FileNotFoundError, match="config.json"):
+            runner.build_pipeline(cfg, device="cpu", geometry="tiny", dtype=torch.float32)
+        return
+    pipe = runner.build_pipeline(cfg, device="cpu", geometry="tiny", dtype=torch.float32)
+    assert pipe.cfg.multi_modal_memory is False
+    called = []
+    monkeypatch.setattr(runner, "answer_question_unimodal",
+                        lambda *a, **kw: called.append(kw) or "answer")
+    assert pipe._answer({"question": "q", "answer": "a"}, None, None, None) == "answer"
+    assert called == [{"ppl_target": None}]
 
 
 def test_cli_refuses_without_cuda_by_default(monkeypatch):

@@ -343,6 +343,49 @@ def test_missing_weights_raise(tmp_path):
         weights.load_decoder(str(tmp_path / "absent"), device="cpu")
 
 
+def test_staged_copies_are_guarded_on_the_stream_of_the_target_device(tmp_path, monkeypatch):
+    """A staged read onto a card that is not the current one: each pinned
+    buffer's guard event is recorded on the current stream of the target's
+    device, where its copy runs, not on the current device's. A one-card
+    machine cannot show the race, so the stream each event records on is
+    asserted here, with the CUDA calls stood in for and the target's device
+    named "cuda:1" to the stream lookup."""
+    data = torch.arange(40, dtype=torch.float32)
+    safetensors_torch.save_file({"w": data}, str(tmp_path / "t.safetensors"))
+    shards = weights.open_shards(str(tmp_path))
+    target = torch.device("cuda", 1)
+    recorded, asked = [], []
+
+    class Event:
+        def record(self, stream=None):
+            recorded.append(stream)
+
+        def synchronize(self):
+            pass
+
+    def current_stream(device=None):
+        asked.append(device)
+        return ("stream of", device)
+
+    class Target(torch.Tensor):
+        """A CPU tensor that names cuda:1 as its device."""
+        @property
+        def device(self):
+            return target
+
+    monkeypatch.setattr(torch.cuda, "Event", Event)
+    monkeypatch.setattr(torch.cuda, "current_stream", current_stream)
+    monkeypatch.setattr(weights, "STAGE_BYTES", 48)
+    shards._stage = [torch.empty(48, dtype=torch.uint8) for _ in range(2)]
+    out = torch.empty(160, dtype=torch.uint8).as_subclass(Target)
+    with open(tmp_path / "t.safetensors", "rb", buffering=0) as f:
+        f.seek(shards._entries["w"].start)
+        shards._staged(f, out)
+    assert torch.equal(torch.Tensor(out).view(torch.float32), data)
+    assert asked == [target] and len(recorded) == 4
+    assert recorded == [("stream of", target)] * 4
+
+
 def test_smoke_writer_reads_back_in_safe_open(tmp_path, monkeypatch):
     """chip_smoke.write_checkpoint: shards of at most SHARD_BYTES under an
     index, views written in their logical order, every dtype; safe_open and
