@@ -229,7 +229,44 @@
    1's query against the float64 host recomputation. Prints each run's
    report, the answer prompt, the path, the NLL / PPL, the NLL pass's
    seconds on the kernels and on the twins, and the visual tokens kept.
-11. Frees LongVA's trees and checkpoints, writes LLaMA-3-8B at full width
+11. Runs H2O eviction (`LongVA.kv_budget_tokens`) on the int8 tree through
+   `generate_with_image_embedding`, greedy, the counters zeroed before each
+   run and read after it: budget 8,192 on a chunk-40 caption prompt (40
+   frames of the video, a 23,552-token bucket: compressed to 6,144 slots
+   right after its chunked dense prefill, K3 + K5) with 128 new tokens, and
+   budget 512 on a one-frame caption prompt (compressed at prefill) with
+   300 new tokens, over which the loop compresses again at least twice.
+   Each budgeted step must rope at its global position and see a pool of
+   at most cap / 128 pages; a step must collect mass through the plain
+   gather exactly while a later compression is to come (adding g = 7 of
+   mass a (layer, kv head)) and run K4 after the last one; the prompt's
+   seeded mass (first and last layer) and one step's layer-0 mass are held
+   to float64 host recomputations (relative L2 1e-4 a kv head).
+   `compress_kv` on the card is held to the CPU's on the same inputs (the
+   8,192 run's prefill: 112 heads of 23,552 slots, its scores and tied
+   integer scores: equal kept slots, bit-equal K / V / scores; the merges
+   at the 512 run's prefill on integer keys, within 1e-5). Planted faults:
+   ties broken toward the higher slot, and the step after a compression
+   roped at the cache length. Then an 8-frame prompt under budget 8,192
+   (5,120 tokens; no compression fires, so every step runs K4) against the
+   same prompt without a budget: the first 16 steps' logits within 5e-2 a
+   row while their tokens agree; and one collect_mass step against one K4
+   step on copies of the same 64-page pool (logits within 5e-2 a row).
+   Prints prefill s, decode ms/step with and without collect_mass, the
+   compressions and peak memory.
+12. Runs the memory-free baseline (`pipeline/baseline.py`, prefix and ego
+   modes) and the cross-benchmark runners (`pipeline/bench_runners.py`:
+   videoqa at 8 and at 128 frames, videobench, seedbench) through their
+   `main(argv)` with `--model_name` at the written LongVA-7B checkpoint
+   (loaded in bf16 with the byte tokenizer), over an mp4 of the video's
+   first 10 s, annotations and two PNG frames written by the script, 16
+   new tokens an answer, the counters zeroed before each run and read
+   after it. Each output file must hold the JAX CLI's records and keys,
+   each answer must emit a token, K1, K3 and K4 must launch (seedbench: K1
+   and K3), K5 at 128 frames (a 73.8k-token prompt); seedbench's eight
+   NLLs are held to the plain twins' within |d| <= 3e-2 + 2e-2 |plain| and
+   its accuracy summary is written as JSON. Prints seconds per item.
+13. Frees LongVA's trees and checkpoints, writes LLaMA-3-8B at full width
    and depth (32 layers, d 4096, 32 / 8 heads, ffn 14,336, vocab 128,256;
    random weights, seeded) as an HF llama checkpoint (an eos list
    [128001, 128009], no pad token, an untied head; 16.06 GB of bf16
@@ -257,7 +294,7 @@
    run's prefill s, decode ms/step and per emitted token, emitted tokens a
    row a verify step, peak memory, the weight bytes a decode step reads and
    their bound at 3.35 TB/s, and the scores.
-12. Prints the kernels JSON line, then the device JSON line last.
+14. Prints the kernels JSON line, then the device JSON line last.
 
 Any failure raises: the script then exits non-zero and prints no result.
 """
@@ -334,6 +371,12 @@ RUNS = {
     "online_int8_ppl": PREFILL + ("paged_decode_attention_seq", "qmatvec_int8"),
     "int8_compress2_ppl": ("fused_vit_layer", "fused_ln_mlp", "flash_attention",
                            "paged_decode_attention_seq", "qmatvec_int8"),
+    # H2O eviction on the int8 tree: the budget-8192 run's 23k-token prompt
+    # prefills in chunks; a step attends through the plain gather while a
+    # later compression is to come, and through K4 after the last one.
+    "h2o_budget_large": ("flash_attention", "flash_attention_partial", "qmatvec_int8",
+                         "paged_decode_attention_seq"),
+    "h2o_budget_small": ("flash_attention", "qmatvec_int8", "paged_decode_attention_seq"),
     # Stage 2: the LLaMA-3-8B judge, bf16, --int8, --int8 --spec_tokens 4.
     "judge_bf16": ("flash_attention",),
     "judge_int8": ("flash_attention", "qmatvec_int8"),
@@ -2965,6 +3008,643 @@ def drive_answer_options(pipe, planted):
     return runs, counts
 
 
+# H2O eviction (`LongVA.kv_budget_tokens`, ROADMAP §A 6) at LongVA-7B width
+# on the int8 tree, through `LongVA.generate_with_image_embedding`: budget
+# 8,192 on a chunk-40 caption prompt (40 frames of the synthetic video,
+# ~23k tokens: compressed right after the dense prefill, K3 + K5), and
+# budget 512 on a one-frame prompt with enough new tokens that the decode
+# loop compresses again and again. Every budgeted step collects the
+# attention mass through the plain gather (no kernel materializes the
+# probabilities; the JAX package's dispatch takes XLA's gather there too).
+H2O_RUNS = {8192: (40, 128), 512: (1, 300)}          # budget: (frames, new tokens)
+H2O_SAME = (8192, 8, 16)          # no compression fires: budget, frames, steps
+H2O_MASS_RTOL = 1e-4              # mass against float64, relative L2 a kv head
+H2O_MERGE_ATOL = 1e-5             # merged K/V, card against CPU
+H2O_MASS_STEP = 1                 # the step whose layer-0 mass is recomputed
+
+
+def _frame_features(model, frames: int):
+    """`frames` frames of the smoke video, evenly over its 20 s, through the
+    ingest's K1 / K2 -> [frames * 576, 3584] bf16."""
+    from streamchat_tpu_torch.pipeline.preprocess import preprocess_frames
+
+    idx = [int(i) for i in torch.linspace(0, 599, frames).tolist()]
+    pixels = preprocess_frames(_video().read_frames(idx), model.vit_cfg.image_size,
+                               device=model.device)
+    feats = model.encode_images(pixels)
+    return feats.reshape(-1, feats.shape[-1])
+
+
+@contextlib.contextmanager
+def _h2o_observed(plant_rope=False):
+    """Records, for one generate call: the first `compress_kv` call's
+    inputs and outputs (the prefill's), `_seed_hh_from_prompt`'s input keys
+    and result at the first and last layer (host float64 copies), each in-loop
+    compression's step, and for each decode step its RoPE positions, its
+    cache length and pool pages in use, whether it collected mass, its
+    mass's sum a (layer, kv head), its logits (first steps) and, at
+    H2O_MASS_STEP, layer 0's query, gathered keys and mass. With
+    `plant_rope` the step after each compression (the prefill's or the
+    loop's) ropes at the cache length (the planted fault)."""
+    from streamchat_tpu_torch.models import decoder, paged_kv
+    from streamchat_tpu_torch.models import generate_paged as gp
+
+    seen = {"compress_kv": [], "seed": None, "loop_compressions": [], "steps": []}
+    kept = dict(ckv=gp.compress_kv, seed=gp._seed_hh_from_prompt, cp=gp.compress_paged,
+                step=gp.decode_step_paged, rope=decoder.rope,
+                gather=paged_kv.paged_decode_attention)
+    state = {"in_step": None, "layer": 0, "after_compression": False}
+
+    def ckv(k, v, score, length, **kw):
+        out = kept["ckv"](k, v, score, length, **kw)
+        state["after_compression"] = True
+        if not seen["compress_kv"]:
+            seen["compress_kv"].append(dict(k=k, v=v, score=score.clone(), length=int(length),
+                                            kw=kw, out=out))
+        return out
+
+    def seed(cache, length, *a):
+        out = kept["seed"](cache, length, *a)
+        layers = (0, out.shape[0] - 1)
+        seen["seed"] = dict(length=int(length),
+                            keys={i: cache.k[i, 0].double().cpu() for i in layers},
+                            mass={i: out[i].double().cpu() for i in layers})
+        return out
+
+    def cp(cache, hh, **kw):
+        seen["loop_compressions"].append(len(seen["steps"]))
+        state["after_compression"] = True
+        return kept["cp"](cache, hh, **kw)
+
+    def step(params, cfg, tok, cache, positions=None, collect_mass=False, **kw):
+        rec = dict(positions=[], length=int(cache.length[0]), collect_mass=collect_mass,
+                   pool_pages=int(cache.k_pages.shape[1]), next_free=int(cache.next_free),
+                   true_position=None if positions is None else int(positions[0]),
+                   kernel="gather" if collect_mass else
+                   "K4" if kw.get("sequential_pages") else "K8", t0=time.perf_counter())
+        if plant_rope and state["after_compression"]:
+            positions = None
+        state.update(in_step=rec, layer=0, after_compression=False)
+        try:
+            out = kept["step"](params, cfg, tok, cache, positions=positions,
+                               collect_mass=collect_mass, **kw)
+        finally:
+            state["in_step"] = None
+        if len(seen["steps"]) < H2O_SAME[2]:
+            rec["logits"] = out[0].float().clone()
+        if collect_mass:
+            rec["mass_sums"] = out[2].sum(-1)
+        seen["steps"].append(rec)
+        return out
+
+    def rope(x, positions, theta):
+        if state["in_step"] is not None:
+            state["in_step"]["positions"].append(positions[:, 0].clone())
+        return kept["rope"](x, positions, theta)
+
+    def gather(q, k_pages, v_pages, page_table, length, sm_scale=None, return_mass=False):
+        out = kept["gather"](q, k_pages, v_pages, page_table, length, sm_scale, return_mass)
+        if (return_mass and state["layer"] == 0 and len(seen["steps"]) == H2O_MASS_STEP
+                and "mass_probe" not in seen):
+            rows = k_pages[page_table[0].clamp_min(0).long()].transpose(0, 1)
+            seen["mass_probe"] = dict(q=q[0, :, 0].double().cpu(), length=int(length[0]),
+                                      keys=rows.reshape(rows.shape[0], -1, rows.shape[-1])
+                                      .double().cpu(), mass=out[1][0].double().cpu())
+        state["layer"] += 1
+        return out
+
+    gp.compress_kv, gp._seed_hh_from_prompt, gp.compress_paged = ckv, seed, cp
+    gp.decode_step_paged, decoder.rope, paged_kv.paged_decode_attention = step, rope, gather
+    try:
+        yield seen
+    finally:
+        gp.compress_kv, gp._seed_hh_from_prompt = kept["ckv"], kept["seed"]
+        gp.compress_paged, gp.decode_step_paged = kept["cp"], kept["step"]
+        decoder.rope, paged_kv.paged_decode_attention = kept["rope"], kept["gather"]
+
+
+def _h2o_generate(model, budget, feats, new, plant_rope=False):
+    """One `generate_with_image_embedding` call of the caption prompt over
+    `feats` under `budget` (None: no budget), greedy, counters zeroed before
+    it and read after it -> (report, seen, counts)."""
+    from streamchat_tpu_torch import kernels
+    from streamchat_tpu_torch.pipeline import prompts
+
+    model.kv_budget_tokens = budget
+    model.gen_stats.clear()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    try:
+        with _h2o_observed(plant_rope) as seen:
+            text = model.generate_with_image_embedding(
+                prompts.build_caption_prompt(), [feats], max_new_tokens=new, temperature=0.0)
+        torch.cuda.synchronize()
+    finally:
+        model.kv_budget_tokens = None
+    gs = dict(model.gen_stats)
+    report = dict(
+        budget=budget, seconds=time.perf_counter() - t0, prompt_tokens=gs["prompt_tokens"],
+        prefill_s=gs["prefill_s"], decode_steps=gs["decode_steps"],
+        decode_ms_per_step=1e3 * gs["decode_s"] / gs["decode_steps"],
+        generated_tokens=gs["generated_tokens"], text_chars=len(text),
+        compressions_at_prefill=gs.get("compressions_at_prefill", 0),
+        compressions_in_loop=gs.get("compressions_in_loop", 0),
+        loop_compression_steps=seen["loop_compressions"],
+        peak_gib=torch.cuda.max_memory_allocated() / 2**30)
+    return report, seen, kernels.launch_counts()
+
+
+def _host_mass(q, keys, length, g):
+    """Softmax mass of q [Hq, D] (or probes [Hkv, Q, D]) over keys [Hkv, L, D]
+    masked at `length`, in float64 on the host, summed per kv head -> [Hkv, L]."""
+    d = keys.shape[-1]
+    if q.dim() == 2:
+        q = q.reshape(keys.shape[0], g, d)
+    s = torch.einsum("hqd,hld->hql", q, keys) * d ** -0.5
+    s[:, :, length:] = float("-inf")
+    return torch.softmax(s, dim=-1).sum(1)
+
+
+def h2o_figures(cfg, seen, cap, new):
+    """The checks every budgeted run of `new` tokens is held to -> (figures,
+    passed): it takes all `new` steps; each ropes at its global position
+    (prompt length + step); a step collects mass exactly while a later
+    compression of the run is still to come, and runs K4 after the last
+    (the pool stays in page order); each mass step's mass sums to g a
+    (layer, kv head); the pool never holds more than cap / 128 pages nor
+    maps past them; the seeded mass (first and last layer) and, where that
+    step collects mass, H2O_MASS_STEP's layer-0 mass against float64 host
+    recomputations. Also the mean host interval from one step's start to
+    the next's, by the kernel the step ran (a step ends in a device sync)."""
+    g = cfg.num_heads // cfg.num_kv_heads
+    steps = seen["steps"]
+    n0 = steps[0]["true_position"]
+    pos_err = max(int((torch.stack(s["positions"]) - (n0 + i)).abs().max())
+                  for i, s in enumerate(steps))
+    last = max(seen["loop_compressions"], default=-1)
+    expect = ["gather" if i < last else "K4" for i in range(len(steps))]
+    wrong_kernel = sum(s["kernel"] != e for s, e in zip(steps, expect))
+    sums = [s["mass_sums"] for s in steps if s["collect_mass"]]
+    mass_sum_err = ((torch.stack(sums) - g).abs() / g).max().item() if sums else 0.0
+    ms = {}
+    for a, b in zip(steps, steps[1:]):
+        ms.setdefault(a["kernel"], []).append(1e3 * (b["t0"] - a["t0"]))
+    pages = cap // 128
+    over = [s for s in steps if s["pool_pages"] != pages or s["next_free"] > pages]
+    sd = seen["seed"]
+    seed_err = 0.0
+    for i, keys in sd["keys"].items():
+        start = min(max(sd["length"] - 16, 0), keys.shape[1] - 16)
+        ref = _host_mass(keys[:, start:start + 16], keys, sd["length"], g)
+        seed_err = max(seed_err, _row_rel_l2(sd["mass"][i], ref))
+    mp = seen.get("mass_probe")
+    step_err = (_row_rel_l2(mp["mass"], _host_mass(mp["q"], mp["keys"], mp["length"], g))
+                if mp else None)
+    figures = dict(position_err=pos_err, steps=len(steps), wrong_kernel_steps=wrong_kernel,
+                   mass_steps=len(sums), mass_sum_rel_err=mass_sum_err,
+                   seeded_mass_rel_l2=seed_err, step_mass_rel_l2=step_err,
+                   step_ms_by_kernel={k: sum(v) / len(v) for k, v in ms.items()},
+                   max_pool_pages=max(s["pool_pages"] for s in steps),
+                   max_next_free=max(s["next_free"] for s in steps), cap_pages=pages)
+    passed = not (pos_err or wrong_kernel or len(steps) != new
+                  or mass_sum_err > H2O_MASS_RTOL or over or seed_err > H2O_MASS_RTOL
+                  or (H2O_MASS_STEP < last and not step_err <= H2O_MASS_RTOL))
+    return figures, passed
+
+
+def _kept_higher_index_ties(score, length, c, hh, recent, sink):
+    """The planted selection: `kv_compress._kept_slots`' heavy hitters with
+    ties broken toward the HIGHER slot (the stable sort run on the reversed
+    scores)."""
+    n = score.shape[1]
+    pos = torch.arange(n, device=score.device)[None]
+    s = score.float().masked_fill(pos >= length - recent, float("-inf"))
+    s = s.masked_fill(pos < sink, float("inf"))
+    order = torch.sort(s.flip(1), dim=1, descending=True, stable=True).indices
+    return (n - 1 - order[:, :sink + hh]).sort(dim=1).values
+
+
+def check_compress_kv(rec, merge_rec, planted):
+    """`compress_kv` on the card against the CPU's, given the same inputs
+    copied to the host: the 8,192-budget prefill's (all 28 x 4 heads of
+    ~23k slots, its seeded scores) and the same slots under tied scores
+    (integers 0-2: most slots tie): kept slots equal, kept K / V / scores
+    bit-equal. Planted: ties broken toward the higher slot, which must keep
+    another set. Reported beside it: how many slots `torch.topk` on the
+    card would keep differently. Then the merges ("avg", "weighted") at the
+    512-budget prefill's shapes, within H2O_MERGE_ATOL of the CPU's, on its
+    keys rounded to integers (k * 2, so that every similarity is exact in
+    f32 and both devices pick the same nearest heavy hitter) and its values
+    in f32."""
+    from streamchat_tpu_torch.ops import kv_compress
+
+    kw, length = rec["kw"], rec["length"]
+    c = kw["sink_size"] + kw["hh_size"] + kw["recent_size"]
+    sel = dict(hh=kw["hh_size"], recent=kw["recent_size"], sink=kw["sink_size"])
+    gen = torch.Generator().manual_seed(17)
+    ties = torch.randint(0, 3, rec["score"].shape, generator=gen).float()
+    dev = rec["k"].device
+    out = {}
+    for name, score in (("run_scores", rec["score"]), ("tied_scores", ties.to(dev))):
+        got = kv_compress.compress_kv(rec["k"], rec["v"], score, length, **kw)
+        ref = kv_compress.compress_kv(rec["k"].cpu(), rec["v"].cpu(), score.cpu(), length, **kw)
+        keep = kv_compress._kept_slots(score, torch.tensor(length, device=dev), c,
+                                       sel["hh"], sel["recent"], sel["sink"])
+        keep_ref = kv_compress._kept_slots(score.cpu(), torch.tensor(length), c, sel["hh"],
+                                           sel["recent"], sel["sink"])
+        bad = [n for n, a, b in (("slots", keep, keep_ref), ("k", got[0], ref[0]),
+                                 ("v", got[1], ref[1]), ("scores", got[2], ref[2]),
+                                 ("length", got[3], ref[3])) if not torch.equal(a.cpu(), b)]
+        if bad:
+            raise AssertionError(f"compress_kv on the card differs from the CPU's ({name}): "
+                                 f"{bad}")
+        hi = _kept_higher_index_ties(score, length, c, sel["hh"], sel["recent"], sel["sink"])
+        wrong = int((hi.cpu() != keep_ref[:, :sel["sink"] + sel["hh"]]).sum())
+        pos = torch.arange(score.shape[1], device=dev)[None]
+        masked = score.float().masked_fill(pos >= length - sel["recent"], float("-inf"))
+        masked = masked.masked_fill(pos < sel["sink"], float("inf"))
+        top = torch.topk(masked, sel["sink"] + sel["hh"], dim=1).indices.sort(dim=1).values
+        out[name] = dict(heads=int(score.shape[0]), slots=int(score.shape[1]), kept=c,
+                         higher_index_ties_slots_differing=wrong,
+                         topk_slots_differing=int((top.cpu()
+                                                   != keep_ref[:, :sel["sink"] + sel["hh"]])
+                                                  .sum()))
+        if name == "tied_scores":
+            if wrong == 0:
+                raise AssertionError("planted fault 'H2O ties broken toward the higher slot' "
+                                     "kept the stable set")
+            planted["H2O compress_kv ties broken toward the higher slot"] = float(wrong)
+            print(f"planted fault rejected: H2O compress_kv ties broken toward the higher "
+                  f"slot: {wrong} kept slots differ from the CPU's (limit 0)")
+    mkw, mlen = merge_rec["kw"], merge_rec["length"]
+    k = (merge_rec["k"].float() * 2).round()
+    v = merge_rec["v"].float()
+    for merge in ("avg", "weighted"):
+        kwm = dict(mkw, merge=merge)
+        got = kv_compress.compress_kv(k, v, merge_rec["score"], mlen, **kwm)
+        ref = kv_compress.compress_kv(k.cpu(), v.cpu(), merge_rec["score"].cpu(), mlen, **kwm)
+        err = max((a.cpu() - b).abs().max().item() for a, b in zip(got[:2], ref[:2]))
+        out[f"merge_{merge}"] = dict(max_abs_err=err, heads=int(k.shape[0]),
+                                     slots=int(k.shape[1]))
+        if not err <= H2O_MERGE_ATOL or not torch.equal(got[2].cpu(), ref[2]):
+            raise AssertionError(f"compress_kv merge {merge!r}: card against CPU {err} past "
+                                 f"{H2O_MERGE_ATOL}, or its scores differ")
+    return out
+
+
+def check_gather_step(model, feats, budget):
+    """One decode step of the caption prompt over `feats`, prefilled and
+    paged into a pool of `budget` / 128 pages, taken twice on copies of the
+    pool: with `collect_mass` (the plain gather) and through K4. Held: the
+    logits within STEP_REL_L2 a row, the K/V the step wrote at layer 0
+    (before either attention) equal, the mass summing to g a (layer, kv
+    head) within H2O_MASS_RTOL -> figures."""
+    from streamchat_tpu_torch.models import decoder, generate, paged_kv
+    from streamchat_tpu_torch.pipeline import prompts
+
+    cfg, params = model.dec_cfg, model.dec_params
+    embeds, n = model.splice_prompt(prompts.build_caption_prompt(), [feats])
+    dense = decoder.KVCache.create(cfg, 1, embeds.shape[1], dtype=embeds.dtype,
+                                   device=embeds.device)
+    logits, dense = generate._prefill_inline(params, cfg, embeds, dense,
+                                             torch.tensor([n], dtype=torch.int32,
+                                                          device=embeds.device))
+    pages = budget // 128
+    base = paged_kv.allocate_pages(paged_kv.from_contiguous(dense, pages, pages),
+                                   torch.ones(1, dtype=torch.int32, device=embeds.device))
+    del dense
+    tok = logits.argmax(-1)
+    out = {}
+    for name, kw in (("gather", dict(collect_mass=True)), ("K4", dict(sequential_pages=True))):
+        cache = dataclasses.replace(base, k_pages=base.k_pages.clone(),
+                                    v_pages=base.v_pages.clone())
+        out[name] = (paged_kv.decode_step_paged(params, cfg, tok, cache, **kw), cache)
+    (lg, gcache, mass), (lk, kcache) = out["gather"][0], out["K4"][0]
+    g = cfg.num_heads // cfg.num_kv_heads
+    slot = n // 128
+    written = all(torch.equal(getattr(gcache, n)[0, slot], getattr(kcache, n)[0, slot])
+                  for n in ("k_pages", "v_pages"))
+    figures = dict(prompt_tokens=n, pool_pages=pages, logits_rel_l2=_row_rel_l2(lg, lk),
+                   written_kv_equal=written,
+                   mass_sum_rel_err=((mass.sum(-1) - g).abs() / g).max().item())
+    if (not torch.isfinite(lg).all() or figures["logits_rel_l2"] > STEP_REL_L2
+            or not figures["written_kv_equal"] or figures["mass_sum_rel_err"] > H2O_MASS_RTOL):
+        raise AssertionError(f"H2O collect_mass step against K4: {figures}")
+    return figures
+
+
+def drive_h2o(pipe, planted):
+    """H2O eviction at full width on the pipeline's model -> (report, counts):
+    the H2O_RUNS budgets (each step's checks in `h2o_figures`; compression
+    at prefill in both and in the loop at least twice at 512), `compress_kv`
+    card against CPU (`check_compress_kv`), the planted fault of a step after
+    a compression roped at the cache length (the small budget, 8 new
+    tokens), and
+    H2O_SAME: a budget under which no compression fires, so every step runs
+    K4, whose first steps' logits must match the unbudgeted run's within
+    STEP_REL_L2 a row while their tokens agree; then one collect_mass step
+    against K4 on the same cache (`check_gather_step`)."""
+    m = pipe.model
+    cfg = m.dec_cfg
+    report, counts, recs = {}, {}, {}
+    big, small = H2O_RUNS
+    for budget, (frames, new) in H2O_RUNS.items():
+        label = "h2o_budget_large" if budget == big else "h2o_budget_small"
+        feats = _frame_features(m, frames)
+        with phase(f"H2O budget {budget}: {frames}-frame caption prompt, {new} new tokens"):
+            rep, seen, counts[label] = _h2o_generate(m, budget, feats, new)
+            figures, passed = h2o_figures(cfg, seen, -(-budget // 128) * 128, new)
+        rep.update(figures)
+        if not passed:
+            raise AssertionError(f"H2O budget {budget}: {figures}")
+        recs[budget] = seen["compress_kv"][0]
+        del feats, seen
+        missing = [n for n in RUNS[label] if counts[label].get(n, 0) == 0]
+        k4 = counts[label].get("paged_decode_attention_seq", 0)
+        if (missing or k4 != (new - rep["mass_steps"]) * cfg.num_layers
+                or counts[label].get("paged_decode_attention_table", 0)
+                or rep["compressions_at_prefill"] != 1
+                or rep["compressions_in_loop"] < (2 if budget == small else 0)):
+            raise AssertionError(f"{label}: kernels never launched {missing}, K4 launches "
+                                 f"{k4} for {new - rep['mass_steps']} steps without mass, or "
+                                 f"compressions {rep}")
+        rep["launches"] = {n: c for n, c in counts[label].items() if c}
+        report[label] = rep
+        print(f"H2O [{label}]: {json.dumps(rep)}", flush=True)
+    with phase("H2O compress_kv, card against CPU"):
+        report["compress_kv"] = check_compress_kv(recs[big], recs[small], planted)
+    del recs
+    print(f"H2O compress_kv: {json.dumps(report['compress_kv'])}", flush=True)
+
+    with phase("H2O planted: the step after a compression roped at the cache length"):
+        feats = _frame_features(m, H2O_RUNS[small][0])
+        _, seen, _ = _h2o_generate(m, small, feats, 8, plant_rope=True)
+        figures, passed = h2o_figures(cfg, seen, -(-small // 128) * 128, 8)
+    if passed:
+        raise AssertionError("planted fault 'H2O step after a compression roped at the cache "
+                             f"length' passed the check: {figures}")
+    err = figures["position_err"]
+    planted["H2O step after a compression roped at the cache length"] = float(err)
+    print(f"planted fault rejected: H2O step after a compression roped at the cache length: "
+          f"max RoPE position error {err} (limit 0)")
+
+    budget, frames, steps = H2O_SAME
+    feats = _frame_features(m, frames)
+    with phase(f"H2O budget {budget} without a compression against no budget (K4)"):
+        same, seen_b, cb = _h2o_generate(m, budget, feats, steps)
+        plain, seen_k, ck = _h2o_generate(m, None, feats, steps)
+    toks = [[int(s["logits"].argmax()) for s in x["steps"]] for x in (seen_b, seen_k)]
+    agree = next((i for i, (a, b) in enumerate(zip(*toks)) if a != b), steps)
+    rel = max(_row_rel_l2(a["logits"], b["logits"])
+              for a, b in zip(seen_b["steps"][:agree + 1], seen_k["steps"][:agree + 1]))
+    same.update(compressions=same["compressions_at_prefill"] + same["compressions_in_loop"],
+                logits_rel_l2_vs_k4=rel, steps_compared=min(agree + 1, steps),
+                greedy_agreement=f"{agree}/{steps}",
+                k4_launches_budgeted=cb.get("paged_decode_attention_seq", 0),
+                k4_launches_unbudgeted=ck.get("paged_decode_attention_seq", 0),
+                decode_ms_per_step_k4=plain["decode_ms_per_step"],
+                prefill_s_k4=plain["prefill_s"])
+    with phase("H2O collect_mass step against K4 on one cache"):
+        same["gather_step"] = check_gather_step(m, feats, budget)
+    report["h2o_no_compression"] = same
+    print(f"H2O [budget {budget}, no compression vs K4]: {json.dumps(same)}", flush=True)
+    if (same["compressions"] or rel > STEP_REL_L2
+            or same["k4_launches_budgeted"] != steps * cfg.num_layers
+            or same["k4_launches_unbudgeted"] != steps * cfg.num_layers):
+        raise AssertionError(f"H2O without a compression against K4: {same}")
+    return report, counts
+
+
+# The memory-free baseline and the cross-benchmark runners (ROADMAP §A 8),
+# each CLI through its `main(argv)` on LongVA-7B loaded from the checkpoint
+# the smoke wrote (`--model_name`; bf16, as the CLIs load it), over inputs
+# the smoke writes: an mp4 of the smoke video's first 10 s, StreamBench /
+# ActivityNet-QA / Video-Bench annotations over it, and two PNG frames with
+# SEED-Bench v2 items. Answers are cut to RUNNER_NEW_TOKENS tokens.
+RUNNER_NEW_TOKENS = 16
+RUNNER_FRAMES = 300               # the smoke video's first 10 s
+# Each CLI's output files and the keys the JAX package's CLI writes there.
+RUNNER_SCHEMAS = {
+    "baseline_prefix": ("json_list", {"time", "question", "label", "predict", "class",
+                                      "process_time"}),
+    "baseline_ego": ("jsonl", {"id", "question", "answer", "class", "pred"}),
+    "videoqa_8": ("jsonl", {"id", "question", "answer", "pred"}),
+    "videoqa_128": ("jsonl", {"id", "question", "answer", "pred"}),
+    "videobench": ("json_dict", {"video_id", "question", "output_sequence"}),
+    "seedbench": ("jsonl", {"question_id", "prediction", "gt", "q_type_id"}),
+}
+
+
+def _write_runner_inputs(d):
+    """The runners' inputs under `d` -> {label: (module name, argv, output
+    file, items)} (argv without --model_name)."""
+    import cv2
+
+    videos = os.path.join(d, "videos")
+    os.makedirs(os.path.join(videos, "ego"))
+    os.makedirs(os.path.join(d, "vb", "Eval_QA"))
+    os.makedirs(os.path.join(d, "imgs"))
+    out = os.path.join(d, "out")
+    os.makedirs(out)
+    frames = _video().read_frames(range(RUNNER_FRAMES))
+    clip = os.path.join(videos, "ego", "clip.mp4")
+    w = cv2.VideoWriter(clip, cv2.VideoWriter_fourcc(*"mp4v"), 30.0,
+                        (frames.shape[2], frames.shape[1]))
+    if not w.isOpened():
+        raise RuntimeError("cv2 cannot write an mp4 here")
+    for f in frames:
+        w.write(cv2.cvtColor(f, cv2.COLOR_RGB2BGR))
+    w.release()
+    shutil.copy(clip, os.path.join(videos, "v_clip.mp4"))
+    for name, i in (("a.png", 0), ("b.png", RUNNER_FRAMES // 2)):
+        cv2.imwrite(os.path.join(d, "imgs", name), cv2.cvtColor(frames[i], cv2.COLOR_RGB2BGR))
+
+    def dump(name, obj):
+        path = os.path.join(d, name)
+        with open(path, "w", encoding="utf-8") as f:
+            json.dump(obj, f)
+        return path
+
+    qs = [(q["question"], q["answer"], q["class"]) for q in BREAKPOINTS]
+    baseline = dump("baseline.json", [{"info": {"class_1": "ego", "video_path": "clip.mp4"},
+                                       "breakpoint": [dict(question=q, answer=a, **{"class": c},
+                                                           time=t)
+                                                      for (q, a, c), t in zip(qs, (5, 10))]}])
+    gt = [{"video_name": "clip", "question": q, "answer": a, "question_id": f"q{i}"}
+          for i, (q, a, _) in enumerate(qs)]
+    gt8, gt128 = dump("videoqa.json", gt), dump("videoqa_one.json", gt[:1])
+    choices = {"A": "a cup", "B": "a phone", "C": "a book", "D": "nothing", "E": "keys"}
+    with open(os.path.join(d, "vb", "Eval_QA", "MSVD_QA_new.json"), "w") as f:
+        json.dump({f"MSVD_{n}": {"video_id": "clip", "vid_path": "v_clip.mp4",
+                                 "question": qs[0][0],
+                                 "choices": dict(list(choices.items())[:n])} for n in (4, 5)}, f)
+    common = {"subpart": "Single-Image & Text Comprehension", "version": "v2"}
+    seed = dump("seed.json", {"questions": [
+        {"question_id": "s0", "question": "<img>What is on the table?", "choice_a": "a cup",
+         "choice_b": "a set of keys", "choice_c": "nothing at all",
+         "choice_d": "two people talking", "answer": "A", "question_type_id": 1,
+         "data_source": "SEED-Bench v2", "data_id": "a.png", "level": "L1", **common},
+        {"question_id": "s1", "question": "Which frame comes first?",
+         "choice_a": "the first one", "choice_b": "the second one",
+         "choice_c": "both at once", "choice_d": "neither of them", "answer": "A",
+         "question_type_id": 2, "data_source": "cc3m", "data_id": ["a.png", "b.png"],
+         "level": "L2", **common}]})
+    new = ["--max_new_tokens", str(RUNNER_NEW_TOKENS)]
+    qa = ["videoqa", "--video_dir", videos, "--output_dir", out]
+    return {
+        "baseline_prefix": ("baseline", ["--video_dir", videos, "--annotations", baseline,
+                                         "--save_file", os.path.join(out, "prefix.json")] + new,
+                            os.path.join(out, "prefix.json"), 2),
+        "baseline_ego": ("baseline", ["--video_dir", videos, "--annotations", baseline,
+                                      "--save_file", os.path.join(out, "ego.jsonl"), "--ego"]
+                         + new, os.path.join(out, "ego.jsonl"), 2),
+        "videoqa_8": ("bench_runners", qa + ["--gt_file_question", gt8, "--output_name",
+                                             "videoqa8"] + new,
+                      os.path.join(out, "videoqa8.json"), len(gt)),
+        "videoqa_128": ("bench_runners", qa + ["--gt_file_question", gt128, "--output_name",
+                                               "videoqa128", "--num_frame", "128"] + new,
+                        os.path.join(out, "videoqa128.json"), 1),
+        "videobench": ("bench_runners", ["videobench", "--eval_qa_root", os.path.join(d, "vb"),
+                                         "--eval_video_root", videos, "--output_dir", out,
+                                         "--datasets", "MSVD"] + new,
+                       os.path.join(out, "MSVD_eval.json"), 2),
+        "seedbench": ("bench_runners", ["seedbench", "--anno_path", seed, "--output_dir", out,
+                                        "--cc3m_dir", os.path.join(d, "imgs"),
+                                        "--seed_bench_dir", os.path.join(d, "imgs")],
+                      os.path.join(out, "results_longva.json"), 2),
+    }
+
+
+@contextlib.contextmanager
+def _runner_observed():
+    """Records, for one CLI run: the model `LongVA.from_pretrained` loaded
+    (with the byte tokenizer: the checkpoint carries none) and its seconds,
+    each generate call's rows, padded prompt and tokens emitted, each NLL
+    pass's value beside the same pass on the plain twins (K3's by kv head
+    and query block), and seedbench's accuracy summary."""
+    from streamchat_tpu_torch.models import longva, scoring
+    from streamchat_tpu_torch.models.tokenizer import ByteTokenizer
+    from streamchat_tpu_torch.pipeline import bench_runners
+
+    seen = {"generate": [], "nll": [], "load_s": None, "summary": None}
+    load, gen, nll = longva.LongVA.from_pretrained, longva.generate_paged, scoring.sequence_nll
+    run_seed = bench_runners.run_seedbench
+
+    def from_pretrained(cls, path, *a, **kw):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        model = load.__func__(cls, path, *a, tokenizer=ByteTokenizer(), **kw)
+        torch.cuda.synchronize()
+        seen["load_s"] = time.perf_counter() - t0
+        return model
+
+    def generate(params, cfg, embeds, lengths, *a, **kw):
+        toks, count = gen(params, cfg, embeds, lengths, *a, **kw)
+        seen["generate"].append(dict(rows=len(lengths), prompt=int(embeds.shape[1]),
+                                     valid=int(lengths[0]), emitted=int(count[0])))
+        return toks, count
+
+    def sequence_nll(params, cfg, embeds, length, target_ids):
+        out = nll(params, cfg, embeds, length, target_ids)
+        with _plain_twins(k3=_plain_attention_blocked):
+            plain = float(nll(params, cfg, embeds, length, target_ids))
+        seen["nll"].append(dict(prompt=int(length), targets=int(target_ids.numel()),
+                                nll=float(out), plain=plain))
+        return out
+
+    def seedbench(model, args):
+        seen["summary"] = run_seed(model, args)
+        return seen["summary"]
+
+    longva.LongVA.from_pretrained = classmethod(from_pretrained)
+    longva.generate_paged, scoring.sequence_nll = generate, sequence_nll
+    bench_runners.run_seedbench = seedbench
+    try:
+        yield seen
+    finally:
+        longva.LongVA.from_pretrained = classmethod(load.__func__)
+        longva.generate_paged, scoring.sequence_nll = gen, nll
+        bench_runners.run_seedbench = run_seed
+
+
+def _runner_records(kind, path):
+    with open(path, encoding="utf-8") as f:
+        text = f.read()
+    if kind == "jsonl":
+        return [json.loads(line) for line in text.splitlines()]
+    data = json.loads(text)
+    return data if kind == "json_list" else list(data.values())
+
+
+def drive_runners(ckpt, root):
+    """Each runner CLI once through its `main(argv)` with `--model_name
+    ckpt`, the launch counters zeroed before and read after each ->
+    (report, counts). Held: each output file has the JAX CLI's records and
+    keys, one per item; each answer emitted at least one token (its text is
+    mostly empty: the random decoder's tokens lie past the byte tokenizer's
+    256 bytes); the CLI launched K1, K3 and (with answers) K4, and K5 at
+    128 frames (a 73.8k-token prompt); seedbench's NLLs within the kernels'
+    tolerance of the plain twins' (|d| <= ATOL + RTOL |plain|), its
+    predictions among A-D and its accuracy summary written as JSON."""
+    import importlib
+
+    from streamchat_tpu_torch import kernels
+
+    d = os.path.join(root, "runners")
+    os.makedirs(d)
+    with phase("runner inputs (mp4, annotations, PNGs)"):
+        runs = _write_runner_inputs(d)
+    report, counts = {}, {}
+    for label, (mod, argv, out_file, items) in runs.items():
+        main = importlib.import_module(f"streamchat_tpu_torch.pipeline.{mod}").main
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        kernels.reset_launch_counts()
+        with phase(f"runner {label}"), _runner_observed() as seen:
+            t0 = time.perf_counter()
+            main(argv + ["--model_name", ckpt])
+            torch.cuda.synchronize()
+            seconds = time.perf_counter() - t0
+        counts[label] = kernels.launch_counts()
+        kind, keys = RUNNER_SCHEMAS[label]
+        records = _runner_records(kind, out_file)
+        rep = dict(seconds=seconds, load_s=seen["load_s"],
+                   s_per_item=(seconds - seen["load_s"]) / items, items=len(records),
+                   generate=seen["generate"], peak_gib=torch.cuda.max_memory_allocated() / 2**30,
+                   launches={n: c for n, c in counts[label].items() if c})
+        bad = [r for r in records if set(r) != keys]
+        expect = ("fused_vit_layer", "flash_attention") + (
+            () if label == "seedbench" else ("paged_decode_attention_seq",)) + (
+            ("flash_attention_partial",) if label == "videoqa_128" else ())
+        missing = [n for n in expect if counts[label].get(n, 0) == 0]
+        if label == "seedbench":
+            errs = [abs(r["nll"] - r["plain"]) - (ATOL + RTOL * abs(r["plain"]))
+                    for r in seen["nll"]]
+            rep.update(nll=seen["nll"], summary=seen["summary"])
+            summary_path = os.path.join(os.path.dirname(out_file), "seed_accuracy.json")
+            with open(summary_path, "w") as f:
+                json.dump(seen["summary"], f)
+            with open(summary_path) as f:
+                written = json.load(f)
+            if (len(seen["nll"]) != 4 * items or max(errs) > 0
+                    or any(r["prediction"] not in "ABCD" for r in records)
+                    or written["count"] != items):
+                raise AssertionError(f"runner seedbench: {rep}, written {written}")
+        elif (len(seen["generate"]) != items
+              or any(g["emitted"] < 1 or g["rows"] != 1 for g in seen["generate"])):
+            raise AssertionError(f"runner {label}: answers {seen['generate']}, {items} items")
+        if bad or len(records) != items or missing:
+            raise AssertionError(f"runner {label}: {len(records)} records of {items}, keys "
+                                 f"{[sorted(r) for r in bad]} (expected {sorted(keys)}), "
+                                 f"kernels never launched {missing}")
+        report[label] = rep
+        print(f"runner [{label}]: {json.dumps(rep)}", flush=True)
+    return report, counts
+
+
 # Stage 2 at the v0.3 defaults (`eval/judge.py`'s main: batch 8, 64 new
 # tokens), bf16, then the judge's two options. The predictions are the
 # first JUDGE_BATCH of the stage-1 runs' (repeated to fill one batch).
@@ -3891,6 +4571,12 @@ def run_all(info, smi, t_start, root) -> None:
     option_runs, option_counts = drive_answer_options(pipe, planted)
     runs.update(option_runs)
     counts.update(option_counts)
+    h2o, h2o_counts = drive_h2o(pipe, planted)
+    counts.update(h2o_counts)
+    gc.collect()
+    torch.cuda.empty_cache()
+    runners, runner_counts = drive_runners(paths["longva"], root)
+    counts.update(runner_counts)
     m.dec_params = bf16_tree                          # frees the int8 tree
     torch.cuda.empty_cache()
     with phase("quantize int4 + composed check"):
@@ -3947,6 +4633,8 @@ def run_all(info, smi, t_start, root) -> None:
     print(f"composed checks: {json.dumps(composed)}")
     print(f"spec_tokens 9 over int8 pages: {json.dumps(spec_rows)}")
     print(f"probe results: {json.dumps(probes)}")
+    print(f"H2O: {json.dumps(h2o)}")
+    print(f"runners: {json.dumps(runners)}")
 
     report = []
     for n, row in rows.items():
@@ -3965,6 +4653,12 @@ def run_all(info, smi, t_start, root) -> None:
               f"{k} {v['seconds']:.3f} s (prefill {v['prefill_s']:.3f} s, "
               f"{v['decode_ms_per_step']:.2f} ms/step, {v['peak_gib']:.2f} GiB)"
               for k, v in judge_reports.items())
+          + ", H2O " + ", ".join(
+              f"{k} prefill {v['prefill_s']:.3f} s, {v['decode_ms_per_step']:.2f} ms/step, "
+              f"{v['compressions_at_prefill']} + {v['compressions_in_loop']} compressions"
+              for k, v in h2o.items() if k.startswith("h2o_budget"))
+          + ", runners " + ", ".join(f"{k} {v['s_per_item']:.3f} s/item"
+                                     for k, v in runners.items())
           + ", probes: K16 combo "
           f"{probes['probe_vit_variants']['combo']['ms_per_layer_call']:.3f} ms/layer, K17 "
           f"qk64 {probes['probe_vit_variants']['dotk']['qk64']['us_per_call']:.2f} us, K15 "

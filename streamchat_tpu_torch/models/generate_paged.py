@@ -32,8 +32,22 @@ prefills bf16 and is quantized when paged, as in the JAX package.
 spec_tokens > 0 runs the speculative verify loop instead
 (`models/spec_decode`, the K7 kernel) on a pool in row order: prompt-lookup
 drafts over `lookup_tokens` plus everything generated, exact greedy /
-rejection-sampled acceptance, top_p unsupported. H2O eviction is not
-ported yet (ROADMAP §A).
+rejection-sampled acceptance, top_p unsupported.
+
+hh_size > 0 (batch 1, bf16 pages, no speculative decode) turns on H2O
+heavy-hitter eviction on a pool of cap = max_pages_per_seq * page_size
+slots (`_prefill_h2o`, `_decode_loop_h2o`): the prompt's slots are scored
+by the mass of its 16 last keys used as probe queries; a prompt over the
+pool is compressed to C = sink + hh + recent slots right after its dense
+prefill, and whenever the next token would overflow the pool the cache is
+compressed again (`paged_kv.compress_paged`) and decoding goes on. Each
+step ropes at the token's global position, which keeps counting while the
+cache shrinks. A step adds its attention mass to the scores
+(`collect_mass`: the plain gather attention, the only one that yields the
+probabilities) while a later compression can still fire; the steps after
+the last one run the page kernel (K4 on a pool in page order, else K8), as
+a run without a budget does. The overflow test and that choice read only
+host-side lengths and pages.
 """
 
 from __future__ import annotations
@@ -54,12 +68,14 @@ from streamchat_tpu_torch.models.paged_kv import (
     _quantize_kv,
     _row_table,
     allocate_pages_checked,
+    compress_paged,
     decode_step_paged,
     decode_step_paged_int8,
     from_contiguous,
     from_contiguous_int8,
 )
 from streamchat_tpu_torch.models.spec_decode import run_spec_decode_loop
+from streamchat_tpu_torch.ops.kv_compress import attention_mass, compress_kv
 from streamchat_tpu_torch.ops.sampling import sample_token
 
 # Pages of a partitioned pool's row are rounded to a multiple of this (the
@@ -80,7 +96,8 @@ def generate_paged(params, cfg: DecoderConfig, prompt_embeds, seq_length: torch.
                    top_p: float | None = None, eos_ids: Sequence[int] | None = None,
                    kv_int8: bool = False, spec_tokens: int = 0, spec_ngram: int = 3,
                    lookup_tokens: torch.Tensor | None = None,
-                   lookup_len: torch.Tensor | None = None,
+                   lookup_len: torch.Tensor | None = None, hh_size: int = 0,
+                   recent_size: int = 0, sink_size: int = 4, merge: str | None = None,
                    stats: Optional[dict] = None) -> Tuple[np.ndarray, np.ndarray]:
     """-> (tokens [B, max_new] int64, count [B]) as numpy arrays.
 
@@ -94,15 +111,49 @@ def generate_paged(params, cfg: DecoderConfig, prompt_embeds, seq_length: torch.
     "prompt_tokens" (padded, all rows), "generated_tokens" (before EOS) and
     "batched_rows" (rows of calls with B > 1) in place; a speculative run
     adds "verify_steps" and "accepted_tokens" (tokens its verify steps
-    emitted).
+    emitted), an H2O run (hh_size > 0; `recent_size`, `sink_size` and
+    `merge` as `ops.kv_compress.compress_kv`) "compressions_at_prefill" and
+    "compressions_in_loop".
     """
     as_rows = isinstance(prompt_embeds, (list, tuple))
     b = len(prompt_embeds) if as_rows else prompt_embeds.shape[0]
+    compress = hh_size > 0
+    if compress and b != 1:
+        raise ValueError("in-loop H2O compression supports batch 1")
+    if compress and kv_int8:
+        raise ValueError("kv_int8 and in-loop H2O compression are exclusive")
+    if compress and spec_tokens > 0:
+        raise ValueError("speculative decode excludes in-loop H2O")
     if spec_tokens > 0 and top_p is not None:
         raise ValueError("speculative decode supports top_p=None only")
     if eos_ids is None:
         eos_ids = (cfg.eos_token_id,)
     t0 = time.perf_counter()
+    if compress:
+        if as_rows:
+            prompt_embeds = prompt_embeds[0]() if callable(prompt_embeds[0]) else prompt_embeds[0]
+        h2o = dict(hh_size=hh_size, recent_size=recent_size, sink_size=sink_size, merge=merge)
+        cache, logits, s_pad, hh, host = _prefill_h2o(
+            params, cfg, prompt_embeds, seq_length, max_new_tokens=max_new_tokens,
+            page_size=page_size, num_pages=num_pages, max_pages_per_seq=max_pages_per_seq,
+            **h2o)
+        if stats is not None and logits.device.type == "cuda":
+            torch.cuda.synchronize(logits.device)
+        t1 = time.perf_counter()
+        toks, step, loop_compressions = _decode_loop_h2o(
+            params, cfg, cache, hh, logits, seq_length, generator, host,
+            max_new_tokens=max_new_tokens, temperature=temperature, top_p=top_p,
+            eos_ids=eos_ids, **h2o)
+        before_eos = np.cumsum(np.isin(toks, list(eos_ids)), axis=1) == 0
+        count = np.minimum(before_eos.sum(axis=1), step)
+        if stats is not None:
+            for k, v in (("prefill_s", t1 - t0), ("decode_s", time.perf_counter() - t1),
+                         ("decode_steps", step), ("prompt_tokens", s_pad),
+                         ("generated_tokens", int(count.sum())),
+                         ("compressions_at_prefill", host["compressions"]),
+                         ("compressions_in_loop", loop_compressions)):
+                stats[k] = stats.get(k, 0) + v
+        return toks, count
     kw = dict(max_new_tokens=max_new_tokens, page_size=page_size, kv_int8=kv_int8,
               spec_tokens=spec_tokens)
     if b > 1 and num_pages is None and max_pages_per_seq is None:
@@ -191,6 +242,136 @@ def _decode_loop(params, cfg, cache, logits, seq_length, generator, *, row_order
         if bool(done.all()):
             break
     return out.cpu().numpy(), step
+
+
+def _decode_loop_h2o(params, cfg, cache, hh, logits, seq_length, generator, host: dict, *,
+                     max_new_tokens, temperature, top_p, eos_ids, hh_size, recent_size,
+                     sink_size, merge):
+    """The H2O decode loop (batch 1) -> (tokens [1, max_new] numpy, steps
+    taken, compressions). Each step: sample; when the next token's slot
+    would need a page past the pool or the row's table, compress the cache
+    (`compress_paged`); map a page at a page boundary; then one step at the
+    token's global position. While a later compression can still fire
+    within max_new_tokens, the step collects its attention mass into the
+    scores hh [L, Hkv, cap] (`collect_mass`: the plain gather); after the
+    last one nothing reads hh again, so the step runs the page kernel a run
+    without a budget would: K4 while slot j of the row sits in pool page j
+    (the paged prompt, a compression's pages and pages mapped in order),
+    K8 through the table once the allocator has mapped a slot past a
+    padded prompt's unused pages. The cache length and the pool
+    pages in use are tracked on the host from `host` ("length",
+    "next_free"; after a compression the kept length and its pages), so
+    neither test reads anything back from the card."""
+    dev = logits.device
+    num_pages, maxp, ps = cache.k_pages.shape[1], cache.page_table.shape[1], cache.page_size
+    c = sink_size + hh_size + recent_size
+    eos = torch.tensor(list(eos_ids), device=dev)
+    out = torch.full((1, max_new_tokens), cfg.pad_token_id, dtype=torch.int64, device=dev)
+    done = torch.zeros(1, dtype=torch.bool, device=dev)
+    pos = seq_length.to(device=dev, dtype=torch.int32)
+    length, next_free = host["length"], host["next_free"]
+    ones = torch.ones(1, dtype=torch.int32, device=dev)
+    step = compressions = 0
+    in_order = True
+    while step < max_new_tokens:
+        tok = sample_token(logits, generator, temperature=temperature, top_p=top_p)
+        tok = torch.where(done, torch.full_like(tok, cfg.pad_token_id), tok)
+        done = done | torch.isin(tok, eos)
+        out[:, step] = tok
+        extra = -(-(length + 1) // ps) - -(-length // ps)
+        if next_free + extra > num_pages or -(-(length + 1) // ps) > maxp:
+            cache, hh = compress_paged(cache, hh, hh_size=hh_size, recent_size=recent_size,
+                                       sink_size=sink_size, merge=merge)
+            length, next_free = min(length, c), -(-c // ps)
+            compressions += 1
+            in_order = True
+        have = -(-length // ps)
+        reachable = (have + min(num_pages - next_free, maxp - have)) * ps
+        collect = length + max_new_tokens - step > reachable
+        if length % ps == 0:
+            cache, _ = allocate_pages_checked(cache, ones)
+            in_order = in_order and next_free == length // ps
+            next_free += 1
+            if next_free > num_pages or length // ps + 1 > maxp:
+                raise RuntimeError(_OVERFLOW_MSG)
+        if collect:
+            logits, cache, mass = decode_step_paged(params, cfg, tok, cache, positions=pos,
+                                                    collect_mass=True)
+            hh += mass[:, 0]
+        else:
+            logits, cache = decode_step_paged(params, cfg, tok, cache, positions=pos,
+                                              sequential_pages=in_order)
+        pos = pos + 1
+        length += 1
+        step += 1
+        if bool(done.all()):
+            break
+    return out.cpu().numpy(), step, compressions
+
+
+def _seed_hh_from_prompt(cache: decoder.KVCache, length: int,
+                         num_probes: int = 16) -> torch.Tensor:
+    """Heavy-hitter scores [L, Hkv, Lmax] f32 of a batch-1 dense cache's
+    slots: the attention mass of its last `num_probes` valid keys used as
+    probe queries (the prefill's own probabilities never leave the
+    attention kernel)."""
+    n_layers, _, hkv, lmax, dh = cache.k.shape
+    size = min(num_probes, lmax)
+    start = min(max(length - num_probes, 0), lmax - size)
+    k = cache.k[:, 0].reshape(n_layers * hkv, lmax, dh)
+    return attention_mass(k[:, start:start + size], k, length).reshape(n_layers, hkv, lmax)
+
+
+def _prefill_h2o(params, cfg, prompt_embeds: torch.Tensor, seq_length, *, max_new_tokens: int,
+                 page_size: int, num_pages, max_pages_per_seq, hh_size: int, recent_size: int,
+                 sink_size: int, merge):
+    """Prefill one row for H2O decode -> (cache, first logits, padded length,
+    scores hh [L, Hkv, cap], host) where host holds the cache's length and
+    the pool pages in use as host ints ("length", "next_free") and the
+    compressions made (0 or 1). A dense prefill (chunked past the
+    threshold) and the prompt's seeded scores; a prompt over the pool
+    (padded length > cap) is compressed with `compress_kv` into a dense
+    cache of cap slots first. The pool holds `num_pages` (default
+    max_pages_per_seq, default prompt + max_new_tokens); `from_contiguous`
+    raises ValueError when the paged prompt does not fit it."""
+    b, s, _ = prompt_embeds.shape
+    s_pad = _padded_length(s, page_size)
+    if max_pages_per_seq is None:
+        max_pages_per_seq = -(-(s_pad + max_new_tokens) // page_size)
+    if num_pages is None:
+        num_pages = max_pages_per_seq
+    maxp, cap = max_pages_per_seq, max_pages_per_seq * page_size
+    if s_pad > s:
+        prompt_embeds = torch.nn.functional.pad(prompt_embeds, (0, 0, 0, s_pad - s))
+    dev = prompt_embeds.device
+    n = int(seq_length.reshape(-1)[0])
+    dense = _dense_cache(cfg, 1, s_pad, False, prompt_embeds.dtype, dev)
+    logits, dense = generate._prefill_inline(params, cfg, prompt_embeds, dense,
+                                             seq_length.to(device=dev, dtype=torch.int32))
+    n_layers, hkv, dh = cfg.num_layers, cfg.num_kv_heads, cfg.head_dim
+    hh = torch.zeros(n_layers, hkv, cap, dtype=torch.float32, device=dev)
+    seed = _seed_hh_from_prompt(dense, n)
+    host = dict(length=n, next_free=s_pad // page_size, compressions=0)
+    if s_pad > cap:
+        # The reference's H2O cache likewise evicts right after the prompt's
+        # forward pass.
+        k2, v2, s2, kept = compress_kv(
+            dense.k[:, 0].reshape(n_layers * hkv, s_pad, dh),
+            dense.v[:, 0].reshape(n_layers * hkv, s_pad, dh),
+            seed.reshape(n_layers * hkv, s_pad), n, hh_size=hh_size, recent_size=recent_size,
+            sink_size=sink_size, merge=merge)
+        c = k2.shape[1]
+        small = decoder.KVCache.create(cfg, 1, cap, dtype=dense.k.dtype, device=dev)
+        small.k[:, 0, :, :c] = k2.reshape(n_layers, hkv, c, dh)
+        small.v[:, 0, :, :c] = v2.reshape(n_layers, hkv, c, dh)
+        small.length = kept.reshape(1).to(device=dev, dtype=torch.int32)
+        dense = small
+        hh[:, :, :c] = s2.reshape(n_layers, hkv, c)
+        host.update(length=min(n, c), next_free=maxp, compressions=1)
+    else:
+        hh[:, :, :s_pad] = seed
+    del seed
+    return from_contiguous(dense, num_pages, maxp, page_size), logits, s_pad, hh, host
 
 
 def _padded_length(s: int, page_size: int) -> int:

@@ -12,7 +12,10 @@ switches the decoder to int8 / int4 weight-only storage (W8, K10, K11 at
 decode). `generate_with_image_embedding_batch` serves several prompts with
 one batched decode loop (batched captioning), each row prefilled alone.
 `score_with_image_embedding` gives a target's teacher-forced NLL and PPL
-after the same splice (`--ppl`; models/scoring.py).
+after the same splice (`--ppl`; models/scoring.py). `kv_budget_tokens`
+caps the page pool and turns on H2O eviction (`_paged_budget`): batch 1,
+bf16 pages, no speculative decode; a decode step whose heavy-hitter mass a
+later compression needs attends through the plain gather that yields it.
 Random draws come from the `torch.Generator` the facade holds (the JAX
 package's `KeySeq`).
 """
@@ -62,6 +65,12 @@ class LongVA:
     # when top_p is unset; greedy output stays token-identical.
     spec_tokens: int = 0
     spec_ngram: int = 3
+    # KV budget in tokens (page-aligned). None sizes the pool so that it
+    # never overflows. When set, the pool holds ceil(budget / 128) pages and
+    # H2O eviction compresses the cache to 3/4 of them (sink 4, recent a
+    # quarter) whenever it runs out; speculative decode is then off, and
+    # kv_int8 is refused.
+    kv_budget_tokens: Optional[int] = None
 
     @property
     def device(self) -> torch.device:
@@ -199,8 +208,9 @@ class LongVA:
             self.dec_params, self.dec_cfg, embeds,
             torch.tensor([length], dtype=torch.int32, device=self.device),
             self.generator, max_new_tokens=max_new_tokens, temperature=temperature,
-            top_p=top_p, eos_ids=tuple(self.tokenizer.eos_ids), kv_int8=self.kv_int8,
-            stats=self.gen_stats, **self._spec_kwargs([prompt], top_p))
+            top_p=top_p, eos_ids=tuple(self.tokenizer.eos_ids), stats=self.gen_stats,
+            **self._paged_budget(),
+            **self._spec_kwargs([prompt], top_p))
         return self.tokenizer.decode(toks[0][: int(count[0])].tolist()).strip()
 
     def score_with_image_embedding(
@@ -218,14 +228,35 @@ class LongVA:
 
     def _spec_kwargs(self, prompts, top_p) -> dict:
         """Speculative-decode kwargs for generate_paged, or {} when off (or
-        top_p is set). The lookup corpus is the prompts' text tokens, image
+        top_p or a KV budget is set). The lookup corpus is the prompts' text tokens, image
         sentinels dropped, in a 256-token bucket."""
-        if self.spec_tokens <= 0 or top_p is not None:
+        if self.spec_tokens <= 0 or top_p is not None or self.kv_budget_tokens is not None:
             return {}
         rows = [[t for t in tokenize_with_image_token(p, self.tokenizer) if t >= 0]
                 for p in prompts]
         return {"spec_tokens": self.spec_tokens, "spec_ngram": self.spec_ngram,
                 **build_lookup_arrays(rows)}
+
+    def _paged_budget(self) -> dict:
+        """`generate_paged`'s pool and H2O arguments. Without a budget: 128-
+        token pages sized to never overflow (int8 with kv_int8). With
+        `kv_budget_tokens`: a pool of cap = ceil(budget / 128) * 128 slots
+        (at least two pages), recent = max(128, cap / 4), sink 4, hh =
+        3 cap / 4 - sink - recent; ValueError when hh <= 0 or with kv_int8."""
+        ps = 128
+        if self.kv_budget_tokens is None:
+            return {"page_size": ps, "kv_int8": True} if self.kv_int8 else {"page_size": ps}
+        if self.kv_int8:
+            raise ValueError("kv_int8 and kv_budget_tokens are exclusive")
+        cap = max(-(-self.kv_budget_tokens // ps), 2) * ps
+        recent = max(ps, cap // 4)
+        sink = 4
+        hh = (3 * cap) // 4 - sink - recent
+        if hh <= 0:
+            raise ValueError(f"kv_budget_tokens={self.kv_budget_tokens} too small")
+        pages = cap // ps
+        return {"page_size": ps, "num_pages": pages, "max_pages_per_seq": pages,
+                "hh_size": hh, "recent_size": recent, "sink_size": sink}
 
     def generate_with_image_embedding_batch(
         self, prompts: Sequence[str],
@@ -237,9 +268,15 @@ class LongVA:
         partitioned pool and one decode loop serves them all (the weights a
         decode step reads serve every row). Rows after the first are made
         lazily, at their prefill turn, so one spliced row at a time waits
-        for its pages."""
+        for its pages. Under `kv_budget_tokens` the rows generate one after
+        another through `generate_with_image_embedding` (H2O eviction runs at
+        batch 1), so no row's pool outgrows the budget."""
         if not prompts:
             return []
+        if self.kv_budget_tokens is not None:
+            return [self.generate_with_image_embedding(
+                p, e, max_new_tokens=max_new_tokens, temperature=temperature, top_p=top_p)
+                for p, e in zip(prompts, image_embeddings)]
         sizes = [self._splice_length(p, e) for p, e in zip(prompts, image_embeddings)]
         max_pad = max(padded for padded, _ in sizes)
 

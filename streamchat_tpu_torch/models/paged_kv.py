@@ -25,6 +25,14 @@ a decode step never copies a pool. The allocator returns a new cache object
 with a new table and `next_free` that shares the pools: a table a caller
 still holds is never changed under it.
 
+H2O eviction (batch 1, bf16 pages): `decode_step_paged(positions=,
+collect_mass=True)` ropes at the caller's global positions and attends
+through the plain gather `paged_decode_attention`, which also returns the
+attention mass a kv head (the JAX package's XLA path: no kernel
+materializes the probabilities); `compress_paged` keeps the sink, heavy
+hitter and recent slots (`ops.kv_compress.compress_kv`) in the pool's
+first pages and restarts the allocator after them.
+
 `PagedKVCacheInt8` stores the pages as int8 with per-(token, head) f32
 scales (`kv_int8`): half the pool bytes, read by the K6 kernel
 (`ops.paged_attention.paged_decode_attention_seq_int8`) or through the
@@ -48,6 +56,9 @@ from streamchat_tpu_torch.ops.paged_attention import (
     paged_decode_attention_table,
     paged_decode_attention_table_int8,
 )
+
+# The JAX package's masked-score value (`ops/attention.DEFAULT_MASK_VALUE`).
+DEFAULT_MASK_VALUE = -0.7 * float(torch.finfo(torch.float32).max)
 
 
 @dataclasses.dataclass
@@ -204,14 +215,16 @@ def advance(cache: PagedKVCache, tokens: int = 1) -> None:
     cache.length = cache.length + tokens
 
 
-def _decode_step(params, cfg, token_ids: torch.Tensor, cache, append, attend):
+def _decode_step(params, cfg, token_ids: torch.Tensor, cache, append, attend,
+                 positions: torch.Tensor | None = None):
     """One decode step over a paged cache, updated in place -> (logits [B, V]
-    f32, cache). append(cache, layer, k, v) writes the new token's K/V;
-    attend(q, layer, length) attends over the layer's pages. The new
-    token's RoPE position is the row's cache length."""
+    f32, cache). append(cache, layer, k, v) writes the new token's K/V at
+    the row's cache length; attend(q, layer, length) attends over the
+    layer's pages. The new token's RoPE position is `positions` [B], by
+    default the row's cache length."""
     b = token_ids.shape[0]
     x = decoder.embed_tokens(params, token_ids)[:, None, :]
-    positions = cache.length[:, None]
+    positions = (cache.length if positions is None else positions)[:, None]
     hq, hkv, dh = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
     new_length = (cache.length + 1).to(torch.int32)
     for i, p in enumerate(params["layers"]):
@@ -231,21 +244,124 @@ def _decode_step(params, cfg, token_ids: torch.Tensor, cache, append, attend):
 
 
 def decode_step_paged(params, cfg, token_ids: torch.Tensor, cache: PagedKVCache,
+                      positions: torch.Tensor | None = None, collect_mass: bool = False,
                       sequential_pages: bool = False):
-    """One decode step -> (logits [B, V] f32, cache), the cache updated in place.
+    """One decode step -> (logits [B, V] f32, cache[, mass]), the cache
+    updated in place.
 
     Pages for the new token must be mapped (`allocate_pages`). As in the JAX
     package, sequential_pages=True is for a pool in row order (a single
     identity-mapped row, or a statically partitioned pool) and runs the K4
     kernel wrapper; the default reads the pages through the table (K8).
+    `positions` [B]: the new token's RoPE position, by default the cache
+    length; after an H2O eviction the cache holds fewer slots than tokens
+    seen, so the caller passes the true position (evicted keys keep their
+    rotary phase). `collect_mass` also returns each layer's attention mass
+    [L, B, Hkv, maxp * page_size] (query groups summed): the heavy-hitter
+    statistic. Only the probabilities give it and no kernel materializes
+    them, so that step attends through the plain gather
+    (`paged_decode_attention`), on the card too, as the JAX package's
+    dispatch takes XLA's gather whenever it collects mass.
     """
+    masses = []
+
     def attend(q, i, length):
+        if collect_mass:
+            o, mass = paged_decode_attention(q, cache.k_pages[i], cache.v_pages[i],
+                                             cache.page_table, length, return_mass=True)
+            masses.append(mass)
+            return o
         if sequential_pages:
             return paged_decode_attention_seq(q, cache.k_pages[i], cache.v_pages[i], length)
         return paged_decode_attention_table(q, cache.k_pages[i], cache.v_pages[i],
                                             cache.page_table, length)
 
-    return _decode_step(params, cfg, token_ids, cache, append_token_kv, attend)
+    logits, cache = _decode_step(params, cfg, token_ids, cache, append_token_kv, attend,
+                                 positions)
+    if collect_mass:
+        return logits, cache, torch.stack(masses)
+    return logits, cache
+
+
+def paged_decode_attention(q, k_pages, v_pages, page_table, length, sm_scale=None,
+                           return_mass: bool = False):
+    """Single-token attention through the page table by gathering the
+    table's pages (the JAX package's XLA path) -> [B, Hq, 1, Dh]; with
+    return_mass also the per-kv-head attention mass [B, Hkv, maxp *
+    page_size] (query groups summed). q [B, Hq, 1, Dh], one layer's pages
+    [num_pages, Hkv, page_size, Dh], page_table [B, maxp] (-1 reads page 0,
+    masked by `length` [B])."""
+    b, hq, _, d = q.shape
+    hkv, ps = k_pages.shape[1], k_pages.shape[2]
+    if sm_scale is None:
+        sm_scale = d ** -0.5
+    maxp = page_table.shape[1]
+    table = page_table.clamp_min(0).long()
+
+    def rows(pages):                                   # [B, Hkv, maxp * ps, Dh]
+        return pages[table].transpose(1, 2).reshape(b, hkv, maxp * ps, d).float()
+
+    qg = q.reshape(b, hkv, hq // hkv, d).float()
+    s = torch.einsum("bhgd,bhld->bhgl", qg, rows(k_pages)) * sm_scale
+    col = torch.arange(maxp * ps, device=q.device)
+    s = s.masked_fill(col[None, None, None, :] >= length.to(q.device)[:, None, None, None],
+                      DEFAULT_MASK_VALUE)
+    p = torch.softmax(s, dim=-1)
+    o = torch.einsum("bhgl,bhld->bhgd", p, rows(v_pages)).reshape(b, hq, 1, d).to(q.dtype)
+    if return_mass:
+        return o, p.sum(2)
+    return o
+
+
+def compress_paged(cache: PagedKVCache, hh_score: torch.Tensor, *, hh_size: int,
+                   recent_size: int, sink_size: int = 4, merge=None):
+    """H2O-compress a batch-1 paged cache -> (cache', hh_score').
+
+    Gathers the table's pages into token order, runs
+    `ops.kv_compress.compress_kv` on every layer's heads at once with the
+    accumulated scores hh_score [L, Hkv, maxp * page_size], and writes the
+    surviving C = sink + hh + recent slots back into pool pages [0,
+    ceil(C / page_size)) in place. The new cache maps just those pages and
+    its allocator restarts after them, so decoding goes on with cap - C free
+    slots. Evicted keys keep their RoPE phase: the caller tracks each
+    token's global position (`decode_step_paged(positions=)`)."""
+    from streamchat_tpu_torch.ops.kv_compress import compress_kv
+
+    n_layers, _, hkv, ps, dh = cache.k_pages.shape
+    b, maxp = cache.page_table.shape
+    if b != 1:
+        raise ValueError("compress_paged supports batch 1")
+    cap = maxp * ps
+    c = sink_size + hh_size + recent_size
+    if c >= cap:
+        raise ValueError(f"compressed size {c} must be < capacity {cap}")
+    table = cache.page_table[0].clamp_min(0).long()
+
+    def gather(pages):                                 # [L * Hkv, cap, Dh]
+        return pages[:, table].transpose(1, 2).reshape(n_layers * hkv, cap, dh)
+
+    k2, v2, s2, kept = compress_kv(gather(cache.k_pages), gather(cache.v_pages),
+                                   hh_score.reshape(n_layers * hkv, cap), cache.length[0],
+                                   hh_size=hh_size, recent_size=recent_size,
+                                   sink_size=sink_size, merge=merge)
+    c_pages = -(-c // ps)
+
+    def repage(x, pages):
+        out = torch.zeros(n_layers, hkv, c_pages * ps, dh, dtype=pages.dtype, device=x.device)
+        out[:, :, :c] = x.reshape(n_layers, hkv, c, dh)
+        pages[:, :c_pages] = out.reshape(n_layers, hkv, c_pages, ps, dh).transpose(1, 2)
+
+    repage(k2, cache.k_pages)
+    repage(v2, cache.v_pages)
+    dev = cache.page_table.device
+    slots = torch.arange(maxp, device=dev)
+    new_hh = torch.zeros(n_layers, hkv, cap, dtype=hh_score.dtype, device=hh_score.device)
+    new_hh[:, :, :c] = s2.reshape(n_layers, hkv, c)
+    return PagedKVCache(
+        k_pages=cache.k_pages, v_pages=cache.v_pages,
+        page_table=torch.where(slots < c_pages, slots, -1)[None].to(torch.int32),
+        length=kept.reshape(1).to(device=dev, dtype=torch.int32),
+        next_free=torch.tensor(c_pages, dtype=torch.int32, device=dev)), new_hh
 
 
 # ---------------------------------------------------------------------------

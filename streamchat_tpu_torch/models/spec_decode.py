@@ -39,14 +39,16 @@ import torch
 
 from streamchat_tpu_torch.models import decoder
 from streamchat_tpu_torch.models.generate import pad_to_bucket
-from streamchat_tpu_torch.models.paged_kv import PagedKVCacheInt8, _quantize_kv
+from streamchat_tpu_torch.models.paged_kv import (
+    DEFAULT_MASK_VALUE,
+    PagedKVCacheInt8,
+    _quantize_kv,
+)
 from streamchat_tpu_torch.ops.paged_attention import (
     paged_seq_attention_partial,
     paged_seq_attention_partial_int8,
 )
 from streamchat_tpu_torch.ops.sampling import sample_token
-
-DEFAULT_MASK_VALUE = -0.7 * float(torch.finfo(torch.float32).max)
 
 
 def ngram_propose(hist: torch.Tensor, hist_len: torch.Tensor, *, ngram: int,
