@@ -182,7 +182,40 @@
    ms/step and per emitted token, accepted tokens per verify step, caption
    seconds per caption, peak memory, and the weight and KV bytes a decode
    token reads.
-9. Runs `process_video_online` (`--mode on_line`: a worker thread captions
+9. Right after the bf16 run (1), from the generator states it started
+   from, runs it again through a pipeline whose memory config takes
+   --offload_chunks --offload_residents as `config_from_args` parses them:
+   each raw chunk goes to pinned host memory as it is cut and back right
+   before its caption, and the ViT, projector and both embedders are parked
+   in pinned host memory for the caption loop. Its captions' and answer's
+   token ids must equal the bf16 run's; at the first caption the boxed
+   feature stack must be gone and the trees parked, the device's allocated
+   bytes down from update_memory's entry by at least the stack's and the
+   trees' bytes less what stays on the card (the caption's chunk, the short
+   memory, the tree's nodes; 16 MiB of slack), and every tree must come back
+   on the card bit for bit (planted: a restore that skips the bank
+   embedder). Prints the bytes allocated at the entry, at the first caption
+   and after the restore, the host pinned bytes, and the seconds and GB/s
+   of each direction for the chunks and the trees. Then, on 64 frames of
+   the video (every ninth): S2 ingest at scales (336, 672), 64 + 256 tiles
+   through K1 (46 launches) and a 2048 -> 3584 mlp2x_gelu through K2 (one
+   launch), held to the chain of plain twins (min token cosine 0.99), its
+   first 256-tile K1 launch and its K2 launch each to its twin at the
+   kernels' tolerance, and timed against single-scale ingest (frames/s);
+   anyres on one 360x640 frame with LLaVA-NeXT's grid pinpoints (best
+   resolution 672 x 672, a 2 x 2 grid, five tiles with the overview) and
+   its tiles through `encode_images`, held to the twin chain; the host
+   frameproc built from the checkout's C++ copy (g++, forced) against the
+   card's `preprocess_frames` (interior mean difference under 0.08, the JAX
+   package's bound; frames/s of each); and, each on the card in f32
+   against the same code in float64 on the host (relative error 1e-4):
+   the Perceiver (dim 1024, depth 6, 64 latents) and the Q-Former
+   (bert-base, 32 queries, vision width 1024) over 16 x 576 features,
+   optical flow over the 32 first frames each shown twice (a keep mask
+   equal to the host's at a threshold in the widest gap of the
+   magnitudes), k-means over 16 blobs (labels equal), knn with planted
+   exact ties (the lower indices first) and pairwise soft-DTW.
+10. Runs `process_video_online` (`--mode on_line`: a worker thread captions
    while the caller ingests, a short-term FIFO across the stream) twice on
    the int8 tree, counters zeroed before each: over both breakpoints, where
    it must make as many captions as the off-line int8 run, and with
@@ -193,7 +226,7 @@
    Prints each ask's seconds, the worker's caption seconds and the seconds
    in which they overlapped the caller's ingest (host clock, measured from
    outside: the on-line path times no phases), and peak memory.
-10. Runs stage 1's answer and memory options on the int8 tree, the
+11. Runs stage 1's answer and memory options on the int8 tree, the
    launch counters zeroed before each run and read after it, each config
    switched for its run (`configured`): (1) `process_video` with the
    uni-modal answer (the CLI's default, no --multi_modal_memory), --ppl and
@@ -229,7 +262,7 @@
    1's query against the float64 host recomputation. Prints each run's
    report, the answer prompt, the path, the NLL / PPL, the NLL pass's
    seconds on the kernels and on the twins, and the visual tokens kept.
-11. Runs H2O eviction (`LongVA.kv_budget_tokens`) on the int8 tree through
+12. Runs H2O eviction (`LongVA.kv_budget_tokens`) on the int8 tree through
    `generate_with_image_embedding`, greedy, the counters zeroed before each
    run and read after it: budget 8,192 on a chunk-40 caption prompt (40
    frames of the video, a 23,552-token bucket: compressed to 6,144 slots
@@ -254,7 +287,7 @@
    step on copies of the same 64-page pool (logits within 5e-2 a row).
    Prints prefill s, decode ms/step with and without collect_mass, the
    compressions and peak memory.
-12. Runs the memory-free baseline (`pipeline/baseline.py`, prefix and ego
+13. Runs the memory-free baseline (`pipeline/baseline.py`, prefix and ego
    modes) and the cross-benchmark runners (`pipeline/bench_runners.py`:
    videoqa at 8 and at 128 frames, videobench, seedbench) through their
    `main(argv)` with `--model_name` at the written LongVA-7B checkpoint
@@ -266,7 +299,11 @@
    and K3), K5 at 128 frames (a 73.8k-token prompt); seedbench's eight
    NLLs are held to the plain twins' within |d| <= 3e-2 + 2e-2 |plain| and
    its accuracy summary is written as JSON. Prints seconds per item.
-13. Frees LongVA's trees and checkpoints, writes LLaMA-3-8B at full width
+   Then the StreamBench tools' CLI (`tools/streambench.py`) over that mp4
+   and annotation file: stats, resample, check-videos (opening the video;
+   a wrong video root must report it missing) and extract-frames at 1 fps
+   (ten frames of 300).
+14. Frees LongVA's trees and checkpoints, writes LLaMA-3-8B at full width
    and depth (32 layers, d 4096, 32 / 8 heads, ffn 14,336, vocab 128,256;
    random weights, seeded) as an HF llama checkpoint (an eos list
    [128001, 128009], no pad token, an untied head; 16.06 GB of bf16
@@ -294,7 +331,7 @@
    run's prefill s, decode ms/step and per emitted token, emitted tokens a
    row a verify step, peak memory, the weight bytes a decode step reads and
    their bound at 3.35 TB/s, and the scores.
-14. Prints the kernels JSON line, then the device JSON line last.
+15. Prints the kernels JSON line, then the device JSON line last.
 
 Any failure raises: the script then exits non-zero and prints no result.
 """
@@ -377,6 +414,8 @@ RUNS = {
     "h2o_budget_large": ("flash_attention", "flash_attention_partial", "qmatvec_int8",
                          "paged_decode_attention_seq"),
     "h2o_budget_small": ("flash_attention", "qmatvec_int8", "paged_decode_attention_seq"),
+    # The bf16 run again with --offload_chunks --offload_residents.
+    "bf16_offload": PREFILL + ("paged_decode_attention_seq",),
     # Stage 2: the LLaMA-3-8B judge, bf16, --int8, --int8 --spec_tokens 4.
     "judge_bf16": ("flash_attention",),
     "judge_int8": ("flash_attention", "qmatvec_int8"),
@@ -4422,6 +4461,545 @@ def run_judge(predictions, root):
     return reports, scores, counts, load
 
 
+# Host offload, the ingest variants and the library modules no entry point
+# calls (S2 and anyres, the host frameproc, the resamplers, optical flow,
+# clustering), and the StreamBench tools.
+OFFLOAD_FLAGS = ["--offload_chunks", "--offload_residents"]
+CLI_REQUIRED = ["--video_dir", "v", "--memory_basic_dir", "m", "--save_file", "s.json",
+                "--annotations", "a.json"]
+# What may stay allocated around the parked first caption beyond what the
+# check counts (the caching allocator's 512-byte rounding, small tensors).
+OFFLOAD_SLACK_BYTES = 16 << 20
+S2_FRAMES, S2_SCALES = 64, (336, 672)
+# LLaVA-NeXT's anyres grid pinpoints (image_grid_pinpoints at base 336).
+ANYRES_PINPOINTS = [[336, 672], [672, 336], [672, 672], [1008, 336], [336, 1008]]
+# The JAX package's own bound for the host preprocessing against the
+# device op (tests/test_native.py): mean |host - card| over the interior.
+FRAMEPROC_MEAN_DIFF = 0.08
+# f32 on the card against float64 on the host: the resamplers' row relative
+# L2, optical flow's magnitudes relative to the largest, soft-DTW's relative
+# error, k-means' centroids and knn's distances relative to their scale.
+F64_REL = 1e-4
+MIN_COSINE = 0.99
+
+
+def _smoke_frames(n):
+    """n frames of the smoke video, every ninth (uint8 [n, 360, 640, 3])."""
+    return _video().read_frames(range(0, 9 * n, 9))
+
+
+@contextlib.contextmanager
+def _decoded_ids(model):
+    """Records the token ids of every text the model's tokenizer decodes
+    (every generation's output, in order)."""
+    tok = model.tokenizer
+    decode, seen = tok.decode, []
+
+    def recording(ids, *a, **kw):
+        seen.append([int(i) for i in ids])
+        return decode(ids, *a, **kw)
+
+    tok.decode = recording
+    try:
+        yield seen
+    finally:
+        del tok.decode
+
+
+def _generator_states(pipe):
+    return pipe.generator.get_state(), pipe.model.generator.get_state()
+
+
+def offload_pipeline(pipe):
+    """A pipeline over the same models whose memory config takes the
+    offload flags as `config_from_args` parses them from the CLI
+    (--offload_chunks --offload_residents), its other settings kept and
+    its answers cut to 64 tokens, as the bf16 run's."""
+    from streamchat_tpu_torch.pipeline import runner
+
+    cli = runner.config_from_args(runner.parse_args(CLI_REQUIRED + OFFLOAD_FLAGS))
+    memory = dataclasses.replace(pipe.cfg.memory, offload_chunks=cli.memory.offload_chunks,
+                                 offload_residents=cli.memory.offload_residents)
+    if not (memory.offload_chunks and memory.offload_residents):
+        raise AssertionError(f"config_from_args({OFFLOAD_FLAGS}) -> {cli.memory}")
+    cfg = pipe.cfg.replace(memory=memory,
+                           sampling=dataclasses.replace(pipe.cfg.sampling, **SHORT_ANSWER))
+    return runner.StreamChatPipeline(pipe.model, pipe.tree_embedder, pipe.bank_embedder, cfg)
+
+
+@contextlib.contextmanager
+def _offload_observed(pipe):
+    """Device bytes allocated around the run's first update_memory: at its
+    entry (the boxed feature stack held), at its first caption (the stack
+    cut and freed, the chunks and the idle trees parked) and after it
+    returns (the trees restored); the stack's bytes and whether it was
+    still alive at the first caption; the bytes of what stays on the card
+    (the caption's chunk, the short memory and the tree's nodes); the bytes
+    parking the trees freed; the residents' seconds each way, the restore
+    timed until its last byte arrived."""
+    import weakref
+
+    from streamchat_tpu_torch.pipeline import runner
+
+    seen = {}
+    update, cap, res = runner.update_memory, pipe._caption, pipe.residents
+    offload, restore = res.offload, res.restore
+
+    def observed_update(box, *a, **kw):
+        first = "stack_bytes" not in seen
+        if first:
+            seen["stack_bytes"] = box[0].nbytes
+            seen["stack"] = weakref.ref(box[0])
+            seen["allocated_at_entry"] = torch.cuda.memory_allocated()
+        tree, short = update(box, *a, **kw)
+        if first:
+            seen["allocated_after_restore"] = torch.cuda.memory_allocated()
+            seen["short_bytes"] = short.nbytes
+            seen["node_bytes"] = sum(n.centroids.nbytes for n in tree.all_nodes())
+        return tree, short
+
+    def caption(chunk):
+        if "allocated_at_first_caption" not in seen:
+            seen["allocated_at_first_caption"] = torch.cuda.memory_allocated()
+            seen["group_bytes"] = chunk.nbytes
+            seen["stack_alive_at_first_caption"] = seen["stack"]() is not None
+            seen["residents_parked_at_first_caption"] = res.offloaded == set(res.names)
+        return cap(chunk)
+
+    def observed_offload(*a, **kw):
+        torch.cuda.synchronize()
+        before = torch.cuda.memory_allocated()
+        t0 = time.perf_counter()
+        offload(*a, **kw)
+        seen["residents_d2h_s"] = time.perf_counter() - t0
+        seen["parking_freed_bytes"] = before - torch.cuda.memory_allocated()
+
+    def observed_restore(*a, **kw):
+        t0 = time.perf_counter()
+        restore(*a, **kw)
+        torch.cuda.synchronize()
+        seen["residents_h2d_s"] = time.perf_counter() - t0
+
+    caption.batch, caption.batch_size = cap.batch, cap.batch_size
+    runner.update_memory, pipe._caption = observed_update, caption
+    res.offload, res.restore = observed_offload, observed_restore
+    try:
+        yield seen
+    finally:
+        runner.update_memory, pipe._caption = update, cap
+        del res.offload, res.restore
+
+
+def residents_not_restored(off) -> list:
+    """The names of the offloader's trees that are not back on the devices
+    they came from, bit for bit (each tensor against its host copy)."""
+    from streamchat_tpu_torch.utils.offload import tensors
+
+    bad = []
+    for name in off.names:
+        obj, attr = off._entries[name]
+        _, host, devices = off._host[name]
+        got, host = tensors(getattr(obj, attr)), tensors(host)
+        if (name in off.offloaded or len(got) != len(host)
+                or any(t.device != dev or not torch.equal(t.cpu(), h)
+                       for t, h, dev in zip(got, host, devices))):
+            bad.append(name)
+    return bad
+
+
+def check_restore_fault(pipe) -> int:
+    """Planted: a restore that skips the last registered tree must fail
+    `residents_not_restored`; the tree is put back after."""
+    from streamchat_tpu_torch.utils.offload import WeightOffloader
+
+    class SkipsOne(WeightOffloader):
+        def restore(self, names=None, block=False):
+            super().restore(self.names[:-1], block)
+
+    off = SkipsOne()
+    for name, obj, attr in (("vit", pipe.model, "vit_params"),
+                            ("projector", pipe.model, "proj_params"),
+                            ("tree_embedder", pipe.tree_embedder, "params"),
+                            ("bank_embedder", pipe.bank_embedder, "params")):
+        off.register(name, obj, attr)
+    off.offload()
+    off.restore(block=True)
+    bad = residents_not_restored(off)
+    WeightOffloader.restore(off, block=True)
+    if bad != ["bank_embedder"] or residents_not_restored(off):
+        raise AssertionError(f"planted fault 'a restore that skips the bank embedder' "
+                             f"passed the check ({bad})")
+    return len(bad)
+
+
+def drive_offload(pipe, base_ids, states, base_report):
+    """process_video bf16 over the first breakpoint with --offload_chunks
+    --offload_residents (through `config_from_args`), from the generator
+    states the bf16 run started from -> (report, counts). Its captions'
+    and answer's tokens must equal the bf16 run's; its stack must be gone
+    and the idle trees parked by the first caption, with the device's
+    allocated bytes down by at least the stack's and the trees' bytes less
+    what stays on the card; every tree must come back bit for bit."""
+    opipe = offload_pipeline(pipe)
+    opipe.generator.set_state(states[0])
+    pipe.model.generator.set_state(states[1])
+    with _offload_observed(opipe) as seen, _decoded_ids(pipe.model) as ids:
+        report, counts = drive(opipe, "bf16_offload", BREAKPOINTS[:1])
+    res, stats = opipe.residents, opipe.last_offload_stats
+    parked = res.host_bytes()
+    kept = seen["group_bytes"] + seen["short_bytes"] + seen["node_bytes"]
+    fall = seen["allocated_at_entry"] - seen["allocated_at_first_caption"]
+    chunk_bytes = stats["bytes"] // 2                 # each chunk crosses both ways
+    out = dict(
+        stack_bytes=seen["stack_bytes"], residents_bytes=parked,
+        parking_freed_bytes=seen["parking_freed_bytes"],
+        allocated_at_entry=seen["allocated_at_entry"],
+        allocated_at_first_caption=seen["allocated_at_first_caption"],
+        allocated_after_restore=seen["allocated_after_restore"],
+        fall_at_first_caption=fall, kept_on_card_bytes=kept,
+        stack_alive_at_first_caption=seen["stack_alive_at_first_caption"],
+        host_pinned_bytes=parked + chunk_bytes, chunks=stats["chunks"],
+        chunks_d2h_s=stats["d2h_s"], chunks_h2d_s=stats["h2d_s"],
+        chunks_d2h_gbs=_gbs(chunk_bytes, 1e3 * stats["d2h_s"]),
+        chunks_h2d_gbs=_gbs(chunk_bytes, 1e3 * stats["h2d_s"]),
+        residents_d2h_s=seen["residents_d2h_s"], residents_h2d_s=seen["residents_h2d_s"],
+        residents_d2h_gbs=_gbs(parked, 1e3 * seen["residents_d2h_s"]),
+        residents_h2d_gbs=_gbs(parked, 1e3 * seen["residents_h2d_s"]),
+        generations=len(ids), tokens=sum(len(i) for i in ids),
+        tokens_equal_to_bf16_run=ids == base_ids,
+        seconds=report["seconds"], bf16_run_seconds=base_report["seconds"])
+    print(f"host offload [bf16, --offload_chunks --offload_residents]: {json.dumps(out)}",
+          flush=True)
+    bad = residents_not_restored(res)
+    if ids != base_ids or not ids:
+        raise AssertionError(f"offloaded run: {len(ids)} generations, tokens differ from "
+                             f"the bf16 run's ({len(base_ids)} generations)")
+    if (bad or seen["stack_alive_at_first_caption"]
+            or not seen["residents_parked_at_first_caption"] or stats["chunks"] < 2
+            or fall < seen["stack_bytes"] + parked - kept - OFFLOAD_SLACK_BYTES
+            or seen["parking_freed_bytes"] < parked - OFFLOAD_SLACK_BYTES):
+        raise AssertionError(f"host offload: trees not restored {bad}, {out}")
+    return out, counts
+
+
+def _s2_observed():
+    """Records the first K1 launch of 256 frames (the 672 scale's tiles):
+    its arguments, for a check of that launch alone."""
+    from streamchat_tpu_torch.models import vit
+
+    seen, layer = {}, vit.fused_vit_layer
+
+    def recording(x, *a, **kw):
+        if x.shape[0] == 4 * S2_FRAMES and "args" not in seen:
+            seen["args"] = (x.clone(),) + a
+            seen["kwargs"] = dict(kw)
+        return layer(x, *a, **kw)
+
+    return seen, recording
+
+
+@contextlib.contextmanager
+def _vit_twins():
+    """K1 and K2's wrappers swapped for their plain twins where the ViT and
+    the projectors look them up."""
+    from streamchat_tpu_torch.models import projector, vit
+    from streamchat_tpu_torch.ops.fused_vit import fused_ln_mlp_plain, fused_vit_layer_plain
+
+    kept = vit.fused_vit_layer, projector.fused_ln_mlp
+    vit.fused_vit_layer, projector.fused_ln_mlp = fused_vit_layer_plain, fused_ln_mlp_plain
+    try:
+        yield
+    finally:
+        vit.fused_vit_layer, projector.fused_ln_mlp = kept
+
+
+def _min_cosine(got, ref):
+    d = got.shape[-1]
+    return torch.nn.functional.cosine_similarity(
+        got.float().reshape(-1, d), ref.float().reshape(-1, d), dim=-1).min().item()
+
+
+def _timed(fn, reps=3):
+    """(result, seconds of the fastest of `reps` calls after a warm-up),
+    each call ended by a device synchronize."""
+    fn()
+    best, out = float("inf"), None
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        best = min(best, time.perf_counter() - t0)
+    return out, best
+
+
+def drive_s2_anyres(model, g, frames):
+    """(b) S2 ingest of the frames at scales (336, 672): 64 + 256 tiles
+    through K1, then a 2048 -> 3584 mlp2x_gelu through K2, against the twin
+    chain (min token cosine) and, at the 256-tile launch and the 2048-wide
+    projector, each kernel against its plain twin (the kernels'
+    tolerance); frames/s against single-scale ingest. (c) anyres on one
+    frame with LLaVA-NeXT's pinpoints, its tiles encoded (K1, K2) and held
+    to the twin chain -> (report, counts)."""
+    from streamchat_tpu_torch import kernels
+    from streamchat_tpu_torch.models import projector, vit
+    from streamchat_tpu_torch.ops.fused_vit import (fused_ln_mlp, fused_ln_mlp_plain,
+                                                    fused_vit_layer, fused_vit_layer_plain)
+    from streamchat_tpu_torch.pipeline import anyres
+    from streamchat_tpu_torch.pipeline.preprocess import preprocess_frames
+
+    cfg, counts, out = model.vit_cfg, {}, {}
+    pixels = preprocess_frames(torch.from_numpy(frames).cuda(), cfg.image_size)
+    model.encode_images(pixels[:2])                   # the fold, if not done yet
+    vp = model.vit_params
+    proj = projector.init(len(S2_SCALES) * cfg.hidden_size, model.dec_cfg.hidden_size, g,
+                          device=pixels.device)
+
+    def s2():
+        return projector.apply(proj, vit.encode_s2(vp, pixels, cfg, scales=S2_SCALES))
+
+    with phase(f"S2 ingest, {S2_FRAMES} frames at {S2_SCALES}"):
+        s2()
+        seen, recording = _s2_observed()
+        kernels.reset_launch_counts()
+        vit.fused_vit_layer = recording
+        try:
+            got = s2()
+        finally:
+            vit.fused_vit_layer = fused_vit_layer
+        counts["s2_ingest"] = kernels.launch_counts()
+        _, s2_s = _timed(s2, reps=2)
+        _, single_s = _timed(lambda: model.encode_images(pixels), reps=2)
+        feats = vit.encode_s2(vp, pixels, cfg, scales=S2_SCALES)
+        with _vit_twins():
+            ref = s2()
+        cos = _min_cosine(got, ref)
+        k1_err, _ = _compare("K1 at the S2 tiles' shape", fused_vit_layer(
+            *seen["args"], **seen["kwargs"]), fused_vit_layer_plain(
+            *seen["args"], **seen["kwargs"]))
+        flat = feats.reshape(-1, feats.shape[-1])
+        k2_args = (flat, None, None, proj["fc1"]["w"], proj["fc1"]["b"], proj["fc2"]["w"],
+                   proj["fc2"]["b"])
+        k2_kw = dict(activation="gelu", layernorm=False, residual=False)
+        k2_err, _ = _compare("K2 at 2048 -> 3584", fused_ln_mlp(*k2_args, **k2_kw),
+                             fused_ln_mlp_plain(*k2_args, **k2_kw))
+    k1 = counts["s2_ingest"]["fused_vit_layer"]
+    blocks = cfg.num_layers + 1 + cfg.select_layer
+    out["s2"] = dict(
+        frames=S2_FRAMES, scales=S2_SCALES, tiles=S2_FRAMES * (1 + 4), shape=list(got.shape),
+        k1_launches=k1, k2_launches=counts["s2_ingest"]["fused_ln_mlp"],
+        k1_256_tiles_max_abs_err=k1_err, k2_2048_max_abs_err=k2_err,
+        min_token_cosine_vs_twin_chain=cos, s2_s=s2_s, single_scale_s=single_s,
+        s2_frames_per_s=S2_FRAMES / s2_s, single_scale_frames_per_s=S2_FRAMES / single_s)
+    print(f"S2 ingest: {json.dumps(out['s2'])}", flush=True)
+    if (tuple(got.shape) != (S2_FRAMES, cfg.num_patches, model.dec_cfg.hidden_size)
+            or not torch.isfinite(got).all() or cos < MIN_COSINE or k1 != 2 * blocks
+            or counts["s2_ingest"]["fused_ln_mlp"] != 1):
+        raise AssertionError(f"S2 ingest: {out['s2']}")
+    del got, ref, feats, flat, seen
+    torch.cuda.empty_cache()
+
+    with phase("anyres: one 360x640 frame, LLaVA-NeXT pinpoints"):
+        frame = frames[0]
+        h, w = frame.shape[:2]
+        t0 = time.perf_counter()
+        tiles = anyres.process_anyres_image(frame, ANYRES_PINPOINTS, cfg.image_size)
+        host_s = time.perf_counter() - t0
+        best = anyres.select_best_resolution((w, h), ANYRES_PINPOINTS)
+        grid = anyres.get_anyres_image_grid_shape((w, h), ANYRES_PINPOINTS, cfg.image_size)
+        x = torch.from_numpy(tiles).cuda()
+        kernels.reset_launch_counts()
+        emb = model.encode_images(x)
+        counts["anyres"] = kernels.launch_counts()
+        with _vit_twins():
+            ref = model.encode_images(x)
+        cos = _min_cosine(emb, ref)
+    out["anyres"] = dict(image=[h, w], best_resolution=list(best), grid=list(grid),
+                         tiles=int(tiles.shape[0]), host_s=host_s, shape=list(emb.shape),
+                         min_token_cosine_vs_twin_chain=cos,
+                         k1_launches=counts["anyres"]["fused_vit_layer"],
+                         k2_launches=counts["anyres"]["fused_ln_mlp"])
+    print(f"anyres: {json.dumps(out['anyres'])}", flush=True)
+    if (tiles.shape != (1 + grid[0] * grid[1], 3, cfg.image_size, cfg.image_size)
+            or not torch.isfinite(emb).all() or cos < MIN_COSINE
+            or counts["anyres"]["fused_vit_layer"] != blocks):
+        raise AssertionError(f"anyres: {out['anyres']}")
+    return out, counts
+
+
+def drive_frameproc(frames):
+    """(d) The host frameproc, built from the checkout's copy of the C++
+    source, against the card's `preprocess_frames` on the same frames:
+    interior mean difference under the JAX package's bound; frames/s of
+    each (the card's with the frames' upload)."""
+    from streamchat_tpu_torch.native import frameproc
+    from streamchat_tpu_torch.pipeline.preprocess import preprocess_frames
+
+    with phase("frameproc: build, then the host against the card"):
+        built = frameproc.build(force=True)
+        frameproc.library()
+        host, host_s = _timed(lambda: frameproc.preprocess_frames_host(frames, 336), reps=2)
+        card, card_s = _timed(lambda: preprocess_frames(torch.from_numpy(frames).cuda(), 336),
+                              reps=2)
+        diff = (torch.from_numpy(host) - card.cpu()).abs()
+        mean = diff[:, :, 2:-2, 2:-2].mean().item()
+    out = dict(build_s=built["seconds"], frames=len(frames), shape=list(host.shape),
+               interior_mean_abs_diff=mean, max_abs_diff=diff.max().item(),
+               host_frames_per_s=len(frames) / host_s, host_threads=os.cpu_count(),
+               card_frames_per_s=len(frames) / card_s)
+    print(f"frameproc: {json.dumps(out)}", flush=True)
+    if not mean < FRAMEPROC_MEAN_DIFF:
+        raise AssertionError(f"frameproc against the card: {out}")
+    return out
+
+
+def _f64_rel(got, ref):
+    """Max row relative L2 of a card result against a float64 host one."""
+    got, ref = got.double().cpu(), ref.double()
+    d = ref.shape[-1]
+    return ((got - ref).reshape(-1, d).norm(dim=-1)
+            / ref.reshape(-1, d).norm(dim=-1).clamp_min(1e-12)).max().item()
+
+
+def _card_ms(fn, iters=5):
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    fn()
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def drive_library_ops(g, frames):
+    """(e) Perceiver (dim 1024, depth 6, 64 latents) and Q-Former (bert-base,
+    32 queries, vision width 1024) over 16 x 576 features; (f) optical flow
+    over the frames (each shown twice, so every other pair is static); (g)
+    k-means, knn and soft-DTW; each on the card in f32 against the same
+    code in float64 on the host -> report."""
+    from streamchat_tpu_torch.models import resampler
+    from streamchat_tpu_torch.ops import clustering, optical_flow
+    from streamchat_tpu_torch.utils.offload import map_tensors
+
+    out = {}
+    with phase("resamplers: Perceiver and Q-Former, card against float64"):
+        gh = torch.Generator().manual_seed(5)
+        feats = torch.randn(16, 576, 1024, generator=gh)
+        for name in ("perceiver", "qformer"):
+            params, apply = resampler.build_parametric(name, 1024, gh)
+            card = map_tensors(lambda t: t.cuda(), params)
+            x = feats.cuda()
+            got = apply(card, x)
+            ref = apply(map_tensors(lambda t: t.double(), params), feats.double())
+            out[name] = dict(shape=list(got.shape), row_rel_l2_vs_f64=_f64_rel(got, ref),
+                             ms=_card_ms(lambda: apply(card, x)))
+    with phase("optical flow: 64 frames at 360x640, card against float64"):
+        rgb = torch.from_numpy(frames[: S2_FRAMES // 2]).repeat_interleave(2, 0)
+        rgb = rgb.permute(0, 3, 1, 2)
+        gray = optical_flow.grayscale(rgb.cuda())
+        mags = optical_flow.flow_magnitude(gray[:-1], gray[1:])
+        gray64 = optical_flow.grayscale(rgb.double())
+        mags64 = optical_flow.flow_magnitude(gray64[:-1], gray64[1:])
+        ordered = torch.sort(mags64).values
+        cut = int(torch.argmax(ordered[1:] - ordered[:-1]))
+        threshold = float(ordered[cut] + ordered[cut + 1]) / 2
+        keep = optical_flow.keep_frames_optical_flow(gray, threshold).cpu()
+        keep64 = optical_flow.keep_frames_optical_flow(gray64, threshold)
+        out["optical_flow"] = dict(
+            frames=int(gray.shape[0]), magnitude_range=[ordered[0].item(), ordered[-1].item()],
+            rel_err_vs_f64=((mags.double().cpu() - mags64).abs().max()
+                            / mags64.abs().max()).item(),
+            threshold=threshold, kept=int(keep.sum()), keep_equal=bool(torch.equal(keep, keep64)),
+            ms=_card_ms(lambda: optical_flow.flow_magnitude(gray[:-1], gray[1:])))
+    with phase("clustering: k-means, knn, soft-DTW, card against float64"):
+        centers = torch.randn(16, 64, generator=gh) * 10.0
+        x = (centers.repeat_interleave(256, 0) + torch.randn(4096, 64, generator=gh))
+        # One initial row in each blob: Lloyd's then settles on the blobs, and
+        # no point lies near a boundary that f32 rounding could move.
+        idx = torch.arange(16) * 256 + torch.randint(0, 256, (16,), generator=gh)
+        c, labels = clustering.kmeans(x.cuda(), num_clusters=16, init_idx=idx)
+        c64, labels64 = clustering.kmeans(x.double(), num_clusters=16, init_idx=idx)
+        points = torch.randn(4096, 64, generator=gh)
+        points[101], points[3000] = points[7], points[7]        # planted exact ties
+        queries = torch.cat([points[7:8] + 1e-3, torch.randn(255, 64, generator=gh)])
+        d, i = clustering.knn(queries.cuda(), points.cuda(), k=8)
+        d64 = clustering.pairwise_distances(queries.double(), points.double(), "sq_euclidean")
+        ranked = torch.sort(d64, dim=1).values[:, :8]
+        chosen = d64.gather(1, i.cpu())
+        scale = ranked.abs().max().item()
+        xs = torch.randn(8, 64, 16, generator=gh)
+        ys = torch.randn(8, 48, 16, generator=gh)
+        sd = clustering.pairwise_soft_dtw(xs.cuda(), ys.cuda())
+        sd64 = clustering.pairwise_soft_dtw(xs.double(), ys.double())
+        out["clustering"] = dict(
+            kmeans_labels_equal=bool(torch.equal(labels.cpu().long(), labels64.long())),
+            kmeans_centroid_err=((c.double().cpu() - c64).abs().max() / c64.abs().max()).item(),
+            knn_distance_err=((d.double().cpu() - ranked).abs().max() / scale).item(),
+            knn_chosen_err=((chosen - ranked).abs().max() / scale).item(),
+            knn_planted_ties=i[0, :3].tolist(),
+            soft_dtw_rel_err=((sd.double().cpu() - sd64).abs() / sd64.abs()).max().item(),
+            kmeans_ms=_card_ms(lambda: clustering.kmeans(x.cuda(), num_clusters=16,
+                                                         init_idx=idx)),
+            knn_ms=_card_ms(lambda: clustering.knn(queries.cuda(), points.cuda(), k=8)),
+            soft_dtw_ms=_card_ms(lambda: clustering.pairwise_soft_dtw(xs.cuda(), ys.cuda())))
+    print(f"library modules: {json.dumps(out)}", flush=True)
+    cl, of = out["clustering"], out["optical_flow"]
+    if (any(out[n]["row_rel_l2_vs_f64"] > F64_REL for n in ("perceiver", "qformer"))
+            or of["rel_err_vs_f64"] > F64_REL or not of["keep_equal"]
+            or not 0 < of["kept"] < of["frames"] or not cl["kmeans_labels_equal"]
+            or cl["kmeans_centroid_err"] > F64_REL or cl["knn_distance_err"] > F64_REL
+            or cl["knn_chosen_err"] > F64_REL or cl["knn_planted_ties"] != [7, 101, 3000]
+            or cl["soft_dtw_rel_err"] > F64_REL):
+        raise AssertionError(f"library modules against float64: {out}")
+    return out
+
+
+def drive_streambench(root):
+    """(h) The StreamBench tools' CLI over the runner phase's mp4 and
+    annotation file: stats, resample, check-videos (opening the video),
+    extract-frames at 1 fps -> report."""
+    import io
+
+    from streamchat_tpu_torch.tools import streambench
+
+    d = os.path.join(root, "runners")
+    ann, videos = os.path.join(d, "baseline.json"), os.path.join(d, "videos")
+
+    def cli(*argv):
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            streambench.main(list(argv))
+        return buf.getvalue()
+
+    with phase("StreamBench tools over the runner phase's mp4"):
+        stats = json.loads(cli("stats", "--annotations", ann))
+        sampled = os.path.join(d, "sampled.json")
+        cli("resample", "--annotations", ann, "--per_category", "1", "--output", sampled)
+        with open(sampled) as f:
+            resampled = len(json.load(f))
+        check = json.loads(cli("check-videos", "--annotations", ann, "--video_dir", videos,
+                               "--open_check"))
+        missing = json.loads(cli("check-videos", "--annotations", ann, "--video_dir", d))
+        frames = json.loads(cli("extract-frames", "--video",
+                                os.path.join(videos, "ego", "clip.mp4"), "--output_folder",
+                                os.path.join(d, "frames"), "--fps", "1"))
+        written = sorted(os.listdir(frames["save_path"]))
+    out = dict(num_videos=stats["num_videos"], num_questions=stats["num_questions"],
+               resampled=resampled, missing=check["count"],
+               missing_under_a_wrong_dir=missing["count"],
+               extracted_frames=frames["extracted_frames"],
+               total_frames=frames["total_frames"], duration=frames["duration"],
+               files=len(written))
+    print(f"StreamBench tools: {json.dumps(out)}", flush=True)
+    if (out["num_videos"], out["num_questions"], resampled, check["count"],
+            missing["count"]) != (1, 2, 1, 0, 1) or not (
+            frames["extracted_frames"] == len(written) == RUNNER_FRAMES // 30
+            and frames["total_frames"] == RUNNER_FRAMES):
+        raise AssertionError(f"StreamBench tools: {out}")
+    return out
+
+
 def _leaves(tree):
     if isinstance(tree, dict):
         for v in tree.values():
@@ -4540,8 +5118,23 @@ def run_all(info, smi, t_start, root) -> None:
             caller[label], counts[label] = drive_caller_pool(m, g, kv_int8)
     with phase("generate_paged, spec_tokens 9, kv_int8 (70 rows a kv head)"):
         spec_rows, counts["spec9_kv_int8"] = drive_spec_rows(m, g)
-    with phase("process_video bf16, 1 breakpoint"), configured(pipe, sampling=SHORT_ANSWER):
+    states = _generator_states(pipe)
+    with phase("process_video bf16, 1 breakpoint"), configured(pipe, sampling=SHORT_ANSWER), \
+            _decoded_ids(m) as bf16_ids:
         runs["bf16"], counts["bf16"] = drive(pipe, "bf16", BREAKPOINTS[:1])
+    with phase("process_video bf16, 1 breakpoint, --offload_chunks --offload_residents"):
+        offload, counts["bf16_offload"] = drive_offload(pipe, bf16_ids, states, runs["bf16"])
+    with phase("planted: a restore that skips one tree"):
+        name = "offload restore skips the bank embedder"
+        planted[name] = float(check_restore_fault(pipe))
+    print(f"planted fault rejected: {name}: trees not restored {planted[name]:.6g} (limit 0)")
+    frames = _smoke_frames(S2_FRAMES)
+    ingest, ingest_counts = drive_s2_anyres(m, g, frames)
+    counts.update(ingest_counts)
+    host_frames = drive_frameproc(frames)
+    library = drive_library_ops(g, frames)
+    del frames
+    torch.cuda.empty_cache()
     bf16_tree = m.dec_params
     with phase("quantize int8 + composed check"):
         m.quantize()                                  # the CLI default, as `main` does
@@ -4577,6 +5170,7 @@ def run_all(info, smi, t_start, root) -> None:
     torch.cuda.empty_cache()
     runners, runner_counts = drive_runners(paths["longva"], root)
     counts.update(runner_counts)
+    tools = drive_streambench(root)
     m.dec_params = bf16_tree                          # frees the int8 tree
     torch.cuda.empty_cache()
     with phase("quantize int4 + composed check"):
@@ -4635,6 +5229,9 @@ def run_all(info, smi, t_start, root) -> None:
     print(f"probe results: {json.dumps(probes)}")
     print(f"H2O: {json.dumps(h2o)}")
     print(f"runners: {json.dumps(runners)}")
+    print(f"host offload: {json.dumps(offload)}")
+    print(f"ingest variants: {json.dumps(ingest)}; frameproc: {json.dumps(host_frames)}")
+    print(f"library modules: {json.dumps(library)}; StreamBench tools: {json.dumps(tools)}")
 
     report = []
     for n, row in rows.items():
@@ -4659,6 +5256,12 @@ def run_all(info, smi, t_start, root) -> None:
               for k, v in h2o.items() if k.startswith("h2o_budget"))
           + ", runners " + ", ".join(f"{k} {v['s_per_item']:.3f} s/item"
                                      for k, v in runners.items())
+          + f", host offload: stack {offload['stack_bytes']} B and trees "
+          f"{offload['residents_bytes']} B parked, allocated down "
+          f"{offload['fall_at_first_caption']} B at the first caption, tokens equal "
+          f"{offload['tokens_equal_to_bf16_run']}"
+          + f", S2 {ingest['s2']['s2_frames_per_s']:.1f} frames/s (single scale "
+          f"{ingest['s2']['single_scale_frames_per_s']:.1f})"
           + ", probes: K16 combo "
           f"{probes['probe_vit_variants']['combo']['ms_per_layer_call']:.3f} ms/layer, K17 "
           f"qk64 {probes['probe_vit_variants']['dotk']['qk64']['us_per_call']:.2f} us, K15 "

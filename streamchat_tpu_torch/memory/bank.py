@@ -265,3 +265,78 @@ class MemoryBank:
         os.makedirs(os.path.dirname(self.memory_path) or ".", exist_ok=True)
         with open(self.memory_path, "w", encoding="utf-8") as f:
             json.dump(self.memory, f, ensure_ascii=False, indent=4)
+
+
+def forgetting_curve(t_days: float, strength: float) -> float:
+    """Ebbinghaus retention over days (forget_memory.py:20-36).
+
+    Intent is exp(-t / (5 S)); the reference writes `math.exp(-t / 5*S)`,
+    which Python parses as exp(-(t/5)*S) — stronger memories decay FASTER,
+    inverting the stated model. We implement the stated model.
+    """
+    import math
+
+    return math.exp(-t_days / (5.0 * max(strength, 1e-9)))
+
+
+class ForgetfulMemoryBank:
+    """Forget-mechanism dialogue memory (optional path, utiles.py:1296-1299).
+
+    Port of `forget_memory.py`: each turn carries (memory_strength,
+    last_recall_date, memory_id); on load, turns survive with probability
+    retention(days_since_recall, strength) and forgotten turns are PURGED
+    from the store (initial_load_forget_and_save, :83-130); recalled turns
+    are strengthened (+1, recall date reset; update_memory_when_searched,
+    :63-69).
+    """
+
+    def __init__(self, bank: MemoryBank, seed: int = 0):
+        self.bank = bank
+        import random as _random
+
+        self._rng = _random.Random(seed)
+
+    @staticmethod
+    def _days_between(d1: str, d2: str) -> float:
+        import datetime
+
+        fmt = "%Y-%m-%d"
+        a = datetime.datetime.strptime(d1, fmt)
+        b = datetime.datetime.strptime(d2, fmt)
+        return abs((b - a).days)
+
+    def apply_forgetting(self, user_name: str, now_date: str) -> int:
+        """Probabilistically purge decayed turns. Returns #forgotten."""
+        user = self.bank.memory.get(user_name, {})
+        history = user.get("history", {})
+        forgotten = 0
+        for date in list(history):
+            survivors = []
+            for i, dialog in enumerate(history[date]):
+                dialog.setdefault("memory_strength", 1)
+                dialog.setdefault("last_recall_date", date)
+                dialog.setdefault("memory_id", f"{user_name}_{date}_{i}")
+                days = self._days_between(dialog["last_recall_date"], now_date)
+                keep_p = forgetting_curve(days, dialog["memory_strength"])
+                if self._rng.random() <= keep_p:
+                    survivors.append(dialog)
+                else:
+                    forgotten += 1
+            if survivors:
+                history[date] = survivors
+            else:
+                history.pop(date)
+                user.get("summary", {}).pop(date, None)
+        self.bank.flush()
+        return forgotten
+
+    def strengthen(self, user_name: str, memory_ids: Sequence[str], now_date: str) -> None:
+        """Recalled memories decay slower next time (:63-69)."""
+        ids = set(memory_ids)
+        history = self.bank.memory.get(user_name, {}).get("history", {})
+        for date, content in history.items():
+            for dialog in content:
+                if dialog.get("memory_id") in ids:
+                    dialog["memory_strength"] = dialog.get("memory_strength", 1) + 1
+                    dialog["last_recall_date"] = now_date
+        self.bank.flush()

@@ -199,3 +199,42 @@ def encode(params: Params, pixels: torch.Tensor, cfg: ViTConfig,
            fused: bool | None = None) -> torch.Tensor:
     """Patch features [N, P, hidden]: hidden_states[select_layer] minus CLS."""
     return hidden_states(params, pixels, cfg, fused=fused)[:, 1:, :]
+
+
+def s2_resize(pixels: torch.Tensor, size: int) -> torch.Tensor:
+    """[N, 3, H, W] -> [N, 3, size, size] bicubic, as the JAX package's
+    `jax.image.resize(..., "bicubic", antialias=False)` computes an upscale:
+    Keys a = -0.5 with the taps past an edge dropped and the rest
+    renormalized, which is torch's antialiased kernel (the plain one uses
+    a = -0.75 and clamps the edges). In f32."""
+    return torch.nn.functional.interpolate(pixels.float(), size=(size, size),
+                                           mode="bicubic", align_corners=False,
+                                           antialias=True)
+
+
+def encode_s2(params: Params, pixels: torch.Tensor, cfg: ViTConfig,
+              scales: tuple = (336, 672), fused: bool | None = None) -> torch.Tensor:
+    """S2 multiscale features [N, P, hidden * len(scales)] of base-size
+    pixels [N, 3, base, base] (`CLIPVisionTowerS2` with s2wrapper's
+    multiscale_forward): per scale s, resize to s x s, cut into (s / base)^2
+    base-size tiles, `encode` every tile (K1 on the card), reassemble each
+    frame's tile grid, average-pool it ns x ns back to the base grid, and
+    concatenate the scales along the channels, smallest first."""
+    base, side = cfg.image_size, cfg.num_patches_per_side
+    n = pixels.shape[0]
+    outs = []
+    for s in sorted(scales):
+        ns = s // base
+        if ns * base != s:
+            raise ValueError(f"scale {s} not a multiple of base {base}")
+        if ns == 1:
+            outs.append(encode(params, pixels, cfg, fused=fused))
+            continue
+        big = s2_resize(pixels, s).to(pixels.dtype)
+        tiles = big.reshape(n, 3, ns, base, ns, base).permute(0, 2, 4, 1, 3, 5)
+        feats = encode(params, tiles.reshape(n * ns * ns, 3, base, base), cfg, fused=fused)
+        d = feats.shape[-1]
+        grid = feats.reshape(n, ns, ns, side, side, d).permute(0, 1, 3, 2, 4, 5)
+        pooled = grid.reshape(n, side, ns, side, ns, d).mean(dim=(2, 4))
+        outs.append(pooled.reshape(n, side * side, d))
+    return torch.cat(outs, dim=-1)

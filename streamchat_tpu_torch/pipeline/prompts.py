@@ -186,3 +186,62 @@ def build_history_prompt(related_memory_content: Optional[str], language: str = 
     return ONLY_RELATED_PROMPT_EGO[language].format(
         related_memory_content=related_memory_content
     )
+
+
+def build_full_memory_prompt(
+    question: str,
+    user_name: str,
+    user_memory: dict,
+    related_memos: List[str],
+    memo_dates: str,
+    meta_prompt: str,
+    new_user_meta_prompt: str,
+    history: Optional[List[dict]] = None,
+    boot_actual_name: str = "AI",
+    user_keyword: str = "[|User|]",
+    ai_keyword: str = "[|AI|]",
+) -> str:
+    """Fuller companion-chat prompt (`build_prompt_with_search_memory`,
+    utiles.py:1005-1055, en branch): weaves the overall-history summary, the
+    retrieved memories, the personality analysis, and the running dialogue
+    into the app-style meta prompt; falls back to the new-user prompt when
+    any piece is missing. The v0.3 benchmark path uses the slimmer
+    only_related variant above (this one serves the companion/live-app
+    prompt dicts in memory_bank/prompt_utils.py)."""
+    history_summary = ""
+    if "overall_history" in user_memory:
+        history_summary = (
+            "The summary of your past memories with the user is: "
+            f"{user_memory['overall_history']}"
+        )
+    personality = user_memory.get("overall_personality", "")
+    related_memory_content = "\n" + "\n".join(related_memos).strip() + "\n"
+
+    history_text = ""
+    for dialog in history or []:
+        history_text += f"\n {user_keyword}: {dialog['query']}"
+        history_text += f"\n {ai_keyword}: {dialog['response']}"
+    history_text += f"\n {user_keyword}: {question} \n {ai_keyword}: "
+
+    if history_summary and related_memos and personality:
+        return meta_prompt.format(
+            user_name=user_name,
+            history_summary=history_summary,
+            related_memory_content=related_memory_content,
+            personality=personality,
+            boot_actual_name=boot_actual_name,
+            history_text=history_text,
+            memo_dates=memo_dates,
+        )
+    if related_memos:
+        return meta_prompt.format(
+            user_name=user_name,
+            related_memory_content=related_memory_content,
+            boot_actual_name=boot_actual_name,
+            memo_dates=memo_dates,
+        )
+    return new_user_meta_prompt.format(
+        user_name=user_name,
+        boot_actual_name=boot_actual_name,
+        history_text=history_text,
+    )

@@ -32,9 +32,15 @@ speculative decoding (`--spec_ngram` drafting) on the model,
 checkpoints (models/weights); a model whose path is unset is random at
 `--geometry`. `--compress_rate` > 1 average-pools each frame's patch grid
 before the off-line memory update (the on-line session, as the JAX
-package's, does not pool). Not ported yet, each raising NotImplementedError
-that names its ROADMAP item: --shard and --offload_chunks /
---offload_residents.
+package's, does not pool). `--offload_chunks` parks each segment's raw
+caption chunks in pinned host memory until its caption (as does a segment
+over `MemoryConfig.offload_chunks_over` frames) and `--offload_residents`
+parks the ViT, projector and both embedders there for each caption loop
+(pipeline/memory_update.py, utils/offload.py); `last_offload_stats` holds
+the run's chunk offload seconds and bytes. Both act in `process_video`
+only: the on-line session never calls `update_memory`, as in the JAX
+package. Not ported yet, raising NotImplementedError that names its
+ROADMAP item: --shard.
 """
 
 from __future__ import annotations
@@ -76,8 +82,9 @@ from streamchat_tpu_torch.pipeline.answer import (
     make_summarizer,
 )
 from streamchat_tpu_torch.pipeline.ingest import dedup_segment, encode_segment, segment_indices
-from streamchat_tpu_torch.pipeline.memory_update import update_memory
+from streamchat_tpu_torch.pipeline.memory_update import offload_stats, update_memory
 from streamchat_tpu_torch.pipeline.streaming import StreamingSession
+from streamchat_tpu_torch.utils.offload import WeightOffloader
 from streamchat_tpu_torch.utils.profiling import PhaseTimer
 
 
@@ -95,6 +102,15 @@ class StreamChatPipeline:
         self.cfg = cfg
         self._caption = make_captioner(model, cfg.sampling)
         self._summarize = make_summarizer(model, cfg.sampling)
+        # The trees the caption loop leaves idle, parked in host memory
+        # around it under offload_residents (utils/offload.py).
+        self.residents = None
+        if cfg.memory.offload_residents:
+            self.residents = (WeightOffloader()
+                              .register("vit", model, "vit_params")
+                              .register("projector", model, "proj_params")
+                              .register("tree_embedder", tree_embedder, "params")
+                              .register("bank_embedder", bank_embedder, "params"))
         self.generator = torch.Generator(device=model.device).manual_seed(cfg.seed)
         # Held around every draw from `generator` that the on-line session's
         # worker may make at the same time as the caller.
@@ -106,6 +122,7 @@ class StreamChatPipeline:
         self.last_tree = None
         self.last_phase_totals = {}
         self.last_phase_counts = {}
+        self.last_offload_stats = offload_stats()
 
     def new_tree(self) -> VisualMemoryTree:
         def merge(combined, k):
@@ -177,6 +194,7 @@ class StreamChatPipeline:
         segments = list(zip(breakpoints, frame_line[:-1], frame_line[1:]))
         reader = PrefetchReader(reader)
         short_memory = None
+        stats = offload_stats()
         try:
             for i, (q, start_s, end_s) in enumerate(segments):
                 with timer.phase("ingest"):
@@ -189,11 +207,14 @@ class StreamChatPipeline:
                 with timer.phase("dedup"):
                     features = dedup_segment(features, self.cfg.video.dedup_threshold)
                 if features.shape[0] > 0:
+                    # The stack passes in a box that update_memory empties,
+                    # so no frame here pins it while the captions run.
+                    box, features = [features], None
                     with timer.phase("memory_update"):
                         tree, short_memory = update_memory(
-                            features, tree, timed_caption, self.cfg.memory,
-                            self.generator, self.cluster_full_chunks)
-                    features = None
+                            box, tree, timed_caption, self.cfg.memory,
+                            self.generator, self.cluster_full_chunks,
+                            residents=self.residents, stats=stats)
                 if short_memory is None:
                     continue    # an empty first segment has nothing to answer from
                 with timer.phase("history"):
@@ -215,6 +236,7 @@ class StreamChatPipeline:
         self.last_tree = tree
         self.last_phase_totals = {k: round(v, 3) for k, v in timer.summary().items()}
         self.last_phase_counts = dict(timer.counts)
+        self.last_offload_stats = stats
         return results
 
     def process_video_online(self, reader, breakpoints, bank: MemoryBank, user_name: str,
@@ -420,8 +442,14 @@ def parse_args(argv=None):
     p.add_argument("--bf16", dest="int8", action="store_false")
     p.add_argument("--int4", action="store_true")
     p.add_argument("--save_tree_dir", type=str, default=None)
-    p.add_argument("--offload_chunks", action="store_true")
-    p.add_argument("--offload_residents", action="store_true")
+    p.add_argument("--offload_chunks", action="store_true",
+                   help="park each segment's raw caption chunks in pinned host "
+                        "memory until its caption runs (off-line mode only: the "
+                        "on-line session never calls update_memory)")
+    p.add_argument("--offload_residents", action="store_true",
+                   help="park the ViT, projector and both embedders in pinned host "
+                        "memory during each segment's caption loop (off-line mode "
+                        "only)")
     p.add_argument("--literal_kmeans", action="store_true")
     p.add_argument("--spec_tokens", type=int, default=0)
     p.add_argument("--spec_ngram", type=int, default=3)
@@ -436,8 +464,6 @@ def parse_args(argv=None):
 
 _NOT_PORTED = (
     ("shard", "--shard", "Multi-GPU"),
-    ("offload_chunks", "--offload_chunks", "Host offload"),
-    ("offload_residents", "--offload_residents", "Host offload"),
 )
 
 
@@ -450,7 +476,8 @@ def config_from_args(args) -> PipelineConfig:
             chunk_size=args.chunk_size, num_clusters=args.num_clusters,
             interval=args.interval, short_window=args.short_window,
             remember_window=args.remember_window, tau=float(args.tau),
-            compress_rate=args.compress_rate),
+            compress_rate=args.compress_rate, offload_chunks=args.offload_chunks,
+            offload_residents=args.offload_residents),
         sampling=SamplingConfig(temperature=args.temperature, top_p=args.top_p,
                                 num_beams=args.num_beams),
         video=VideoConfig(sample_rate=args.sample_rate),
