@@ -331,7 +331,37 @@
    run's prefill s, decode ms/step and per emitted token, emitted tokens a
    row a verify step, peak memory, the weight bytes a decode step reads and
    their bound at 3.35 TB/s, and the scores.
-15. Prints the kernels JSON line, then the device JSON line last.
+15. Multi-GPU (tensor parallelism, one process a rank; before the judge's
+   checkpoint is written, the LongVA part, after it the judge part): the
+   runner (int8, one breakpoint over the video's first 2 s: 6 frames,
+   chunk 4, 16-token captions and answers, from the written checkpoints)
+   run unsharded here as the reference, off-line and on-line; then rank
+   processes (`torch.multiprocessing`, spawn) that share the card over a
+   gloo group the script sets up (gloo aborts on CUDA tensors in this
+   torch build: each all_reduce is staged through a pinned host buffer),
+   the card's free bytes printed first: `runner.main --shard` off-line at
+   tp 4 and `--mode on_line --shard` at tp 2 (the ranks build in turn:
+   load, quantize, shard), and the int8 judge with `TextLM.shard` at tp 4
+   over the 8 predictions (rank 0's whole tree judges first: the
+   reference). Held: every rank's tokens equal (an all_reduce of a token
+   hash), the first decode step's logits within 1e-2 row relative L2 of
+   the unsharded model's on the same prompt, the first token equal, rank 0
+   alone writing the results, the path's kernels launched in every rank.
+   Printed: each rank's device bytes after `shard`, the leading tokens
+   equal to the unsharded run, and every rank's all_reduce calls, bytes
+   and host seconds by label. Then each kernel at a tp-4 rank's shapes
+   against its twin (K3 / K5 at 7 / 1 heads and K3 at LLaMA's 8 / 2, K4 /
+   K6 / K7 / K7′ / K8 / K9 over one kv head, W8 at the shards' widths, K10
+   / K11 at the rank's widths), and the sequence-parallel ops for four
+   ranks emulated in this process through their per-step functions (ring
+   with a ragged kv_length, zigzag, stripe, Ulysses, USP 2 x 2 at 28 / 4
+   heads, S = 16,384, B = 2), each held to K3 over the whole sequence and
+   to the plain twin; planted: a rotation skipped, a block's k_offset one
+   shard late, zigzag's inverse permutation left out, Ulysses' all-to-all
+   with split and concat axes swapped. Where the machine has a card a
+   rank, the off-line TP runner and the SP ops run again over NCCL through
+   their real transports; on one card one line says they did not run.
+16. Prints the kernels JSON line, then the device JSON line last.
 
 Any failure raises: the script then exits non-zero and prints no result.
 """
@@ -420,6 +450,13 @@ RUNS = {
     "judge_bf16": ("flash_attention",),
     "judge_int8": ("flash_attention", "qmatvec_int8"),
     "judge_int8_spec4": ("flash_attention", "paged_seq_attention_partial"),
+    # Tensor parallelism: runner --shard at int8 (tp 4 off-line, tp 2
+    # on-line) and the int8 judge sharded over 4 ranks, each rank's launches.
+    "tp4_runner_offline": ("fused_vit_layer", "fused_ln_mlp", "flash_attention",
+                           "paged_decode_attention_seq", "qmatvec_int8"),
+    "tp2_runner_online": ("fused_vit_layer", "fused_ln_mlp", "flash_attention",
+                          "paged_decode_attention_seq", "qmatvec_int8"),
+    "tp4_judge_int8": ("flash_attention", "qmatvec_int8"),
 }
 SOURCES = {
     "fused_vit_layer": ("streamchat_tpu_torch/csrc/fused_vit.cu",
@@ -4392,7 +4429,8 @@ def load_judge(root):
     `root` as an HF llama checkpoint (bf16 shards), loaded back with
     `TextLM.from_pretrained` (the byte tokenizer) and every leaf and the
     config held to the written ones; the written tree and the directory are
-    freed -> (TextLM, report)."""
+    freed, after the tree's first TP_LAYERS layers are written at full width
+    for the TP judge phase (report["tp_path"]) -> (TextLM, report)."""
     from streamchat_tpu_torch.config import DecoderConfig
     from streamchat_tpu_torch.models.textlm import TextLM
     from streamchat_tpu_torch.models.tokenizer import ByteTokenizer
@@ -4426,8 +4464,12 @@ def load_judge(root):
     report.update(leaves=len(leaves), leaf_bytes=sum(map(_tensor_bytes, leaves)))
     print(f"checkpoint load [LLaMA-3-8B]: {json.dumps(report)}", flush=True)
     _checked("LLaMA-3-8B checkpoint", bad)
-    del written
     shutil.rmtree(path)
+    report["tp_path"] = os.path.join(root, "llama3_tp")      # the TP judge phase's
+    p = written.params
+    _written(report["tp_path"], llama3_config(dataclasses.replace(cfg, num_layers=TP_LAYERS)),
+             hf_decoder(dict(p, layers=p["layers"][:TP_LAYERS])), "llama3 (TP phases)")
+    del written, p
     torch.cuda.empty_cache()
     return lm, report
 
@@ -5011,6 +5053,684 @@ def _leaves(tree):
         yield tree
 
 
+# ---------------------------------------------------------------------------
+# Multi-GPU (ROADMAP §A 9): tensor parallelism in rank processes that share
+# the card, the per-rank kernel shapes, and the sequence-parallel ops
+# ---------------------------------------------------------------------------
+
+TP_WORLD, TP_ONLINE_WORLD = 4, 2
+# The TP phases' models: LongVA-7B and LLaMA-3-8B at full width, the
+# decoders cut to 4 layers (written from the smoke's random trees). At 28
+# random layers bf16 rounding alone moves the logits 1.4-1.9% (the sharded
+# run's f32 sums in another order, as the kernels against their twins in
+# the composed checks), past the 1e-2 the first decode step is held to;
+# and each layer costs each caption ~1.1 s of gloo's host staging.
+TP_LAYERS = 4
+# Seconds a collective waits for the other ranks before the phase fails.
+TP_TIMEOUT_S = 300
+TP_LOGITS_REL_L2 = 1e-2
+# One breakpoint over the video's first 2 s at sample rate 0.1: 6 frames, a
+# chunk of 4 (a 2.3k-token caption) and a tail of 2. Generations are cut
+# (captions and answers to 16 tokens) so that few prefill tokens and steps
+# pass through gloo's host staging.
+TP_BREAKPOINT = {"question": "What is on the table in front of me?", "answer": "a cup",
+                 "class": "object", "time": 2}
+TP_CLI = ["--chunk_size", "4", "--num_clusters", "2", "--short_window", "4",
+          "--remember_window", "2", "--sample_rate", "0.1", "--temperature", "0",
+          "--multi_modal_memory"]
+TP_SAMPLING = dict(max_answer_tokens=16, max_caption_tokens=16, max_summary_tokens=16,
+                   caption_temperature=0.0)
+# The sequence-parallel ops at LongVA-7B's 28 / 4 heads over 4 ranks.
+SP_S, SP_RANKS, SP_LENGTHS = 16384, 4, (16384, 12000)
+
+
+def _tree_bytes(tree) -> int:
+    return sum(_tensor_bytes(t) for t in _leaves(tree) if isinstance(t, torch.Tensor))
+
+
+def _token_hash(tokens) -> int:
+    h = 0
+    for t in tokens:
+        h = (h * 1000003 + int(t) + 1) % (1 << 61)
+    return h
+
+
+def _leading_equal(a, b) -> int:
+    n = 0
+    for x, y in zip(a, b):
+        if x != y:
+            break
+        n += 1
+    return n
+
+
+def write_tp_longva(model, root) -> str:
+    """LongVA-7B's ViT, projector and first TP_LAYERS decoder layers (bf16,
+    full width) written as an HF checkpoint for the TP phases -> its path."""
+    p = model.dec_params
+    path = os.path.join(root, "longva_tp")
+    _written(path, longva_config(dataclasses.replace(model.dec_cfg, num_layers=TP_LAYERS),
+                                 model.vit_cfg),
+             {**hf_vit(model.vit_params, model.vit_cfg), **hf_projector(model.proj_params),
+              **hf_decoder(dict(p, layers=p["layers"][:TP_LAYERS]))}, "longva (TP phases)")
+    return path
+
+
+def _tp_inputs(root, ckpts):
+    """The runner's annotation file (one breakpoint) and the argv its TP
+    runs share (the checkpoints written earlier; --mode, --shard and the
+    output paths added per run)."""
+    d = os.path.join(root, "tp")
+    os.makedirs(os.path.join(d, "videos", "tp"), exist_ok=True)
+    open(os.path.join(d, "videos", "tp", "v.mp4"), "wb").close()   # read as `_video()`
+    anno = os.path.join(d, "anno.json")
+    with open(anno, "w", encoding="utf-8") as f:
+        json.dump([{"info": {"class_1": "tp", "video_path": "v.mp4"},
+                    "breakpoint": [TP_BREAKPOINT]}], f)
+    return d, ["--video_dir", os.path.join(d, "videos"), "--annotations", anno,
+               "--model_name", ckpts["longva"], "--embedding_model", ckpts["colbert"],
+               "--minilm_model", ckpts["minilm"]] + TP_CLI
+
+
+@contextlib.contextmanager
+def _tp_observed():
+    """Records, for one runner run: every generate call's emitted tokens in
+    call order, the first caption's prefill logits (the logits of its first
+    token) and its first decode step's, the seconds of `run_inference`, and
+    after `LongVA.shard` the rank's device bytes and its trees' bytes. The
+    runner loads the byte tokenizer (the checkpoints carry none), reads the
+    smoke's synthetic video and generates TP_SAMPLING's lengths."""
+    from streamchat_tpu_torch.models import generate_paged, longva
+    from streamchat_tpu_torch.models.tokenizer import ByteTokenizer
+    from streamchat_tpu_torch.pipeline import runner
+
+    seen = {"tokens": [], "prefill_logits": None, "first_step_logits": None}
+    build, config, infer = runner.build_pipeline, runner.config_from_args, runner.run_inference
+    gen, loop, step = longva.generate_paged, generate_paged._decode_loop, \
+        generate_paged.decode_step_paged
+    shard = longva.LongVA.shard
+
+    def configured(args):
+        cfg = config(args)
+        return cfg.replace(sampling=dataclasses.replace(cfg.sampling, **TP_SAMPLING))
+
+    def generating(*a, **kw):
+        toks, count = gen(*a, **kw)
+        for r in range(len(count)):
+            seen["tokens"].extend(int(t) for t in toks[r][:int(count[r])])
+        return toks, count
+
+    def looping(params, cfg, cache, logits, *a, **kw):
+        if seen["prefill_logits"] is None:
+            seen["prefill_logits"] = logits.float().cpu()
+        return loop(params, cfg, cache, logits, *a, **kw)
+
+    def stepping(*a, **kw):
+        out = step(*a, **kw)
+        if seen["first_step_logits"] is None:
+            seen["first_step_logits"] = out[0].float().cpu()
+        return out
+
+    def sharding(self, mesh=None):
+        out = shard(self, mesh)
+        torch.cuda.synchronize()
+        seen.update(device_bytes_after_shard=torch.cuda.memory_allocated(),
+                    decoder_bytes=_tree_bytes(self.dec_params),
+                    vit_projector_bytes=_tree_bytes(self.vit_params)
+                    + _tree_bytes(self.proj_params), dec_cfg=dataclasses.asdict(self.dec_cfg))
+        return out
+
+    def inferring(*a, **kw):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        infer(*a, **kw)
+        torch.cuda.synchronize()
+        seen["run_s"] = time.perf_counter() - t0
+
+    patches = [(runner, "build_pipeline",
+                lambda *a, **kw: build(*a, tokenizer=ByteTokenizer(), **kw)),
+               (runner, "config_from_args", configured),
+               (runner, "open_video", lambda path: _video()),
+               (runner, "run_inference", inferring), (longva, "generate_paged", generating),
+               (generate_paged, "_decode_loop", looping),
+               (generate_paged, "decode_step_paged", stepping),
+               (longva.LongVA, "shard", sharding)]
+    kept = [(mod, name, getattr(mod, name)) for mod, name, _ in patches]
+    for mod, name, fn in patches:
+        setattr(mod, name, fn)
+    try:
+        yield seen
+    finally:
+        for mod, name, fn in kept:
+            setattr(mod, name, fn)
+
+
+def _tp_reference(d, argv, label):
+    """The runner run unsharded in this process (the TP runs' reference)
+    -> its tokens and first logits."""
+    from streamchat_tpu_torch.pipeline import runner
+
+    out = os.path.join(d, f"{label}_unsharded")
+    with _tp_observed() as seen:
+        runner.main(argv + ["--memory_basic_dir", out, "--save_file", out + ".json"])
+    gc.collect()
+    torch.cuda.empty_cache()
+    if not seen["tokens"] or seen["first_step_logits"] is None:
+        raise AssertionError(f"TP reference {label}: no tokens or decode step: {seen}")
+    return {k: seen[k] for k in ("tokens", "prefill_logits", "first_step_logits", "run_s")}
+
+
+def _judge_tokens(lm, preds, out_path):
+    """One judge batch (`judge_predictions`, batch 8, 64 new tokens) ->
+    (emitted tokens in order, the first decode step's logits)."""
+    from streamchat_tpu_torch.eval.judge import judge_predictions
+    from streamchat_tpu_torch.models import generate
+
+    seen = {"first": None}
+    gen, dec = generate.generate, generate._decode_inline
+
+    def generating(*a, **kw):
+        toks, count = gen(*a, **kw)
+        seen["toks"] = (toks, count)
+        return toks, count
+
+    def decoding(*a, **kw):
+        logits, cache = dec(*a, **kw)
+        if seen["first"] is None:
+            seen["first"] = logits.float().cpu()
+        return logits, cache
+
+    generate.generate, generate._decode_inline = generating, decoding
+    try:
+        judge_predictions(preds, lambda prompts: lm.generate_batch(
+            prompts, max_new_tokens=JUDGE_NEW_TOKENS), output_path=out_path,
+            batch_size=JUDGE_BATCH)
+    finally:
+        generate.generate, generate._decode_inline = gen, dec
+    toks, count = (x.cpu() for x in seen["toks"])
+    return [int(t) for r in range(len(count)) for t in toks[r][:int(count[r])]], seen["first"]
+
+
+def _tp_judge_job(rank, world, spec, mesh):
+    """LLaMA-3-8B from its checkpoint, int8, built in turn, rank 0's whole
+    tree judging once before `shard` (the reference) -> the rank's report."""
+    import torch.distributed as dist
+
+    from streamchat_tpu_torch import kernels
+    from streamchat_tpu_torch.models.textlm import TextLM
+    from streamchat_tpu_torch.models.tokenizer import ByteTokenizer
+    from streamchat_tpu_torch.parallel import mesh as pmesh
+
+    rep = {}
+    for turn in range(world):
+        if turn == rank:
+            lm = TextLM.from_pretrained(spec["llama"], tokenizer=ByteTokenizer())
+            lm.quantize()
+            if rank == 0:
+                rep["ref_tokens"], rep["ref_first_step_logits"] = _judge_tokens(
+                    lm, spec["preds"], os.path.join(spec["dir"], "judge_whole.jsonl"))
+            lm.shard(mesh)
+            torch.cuda.synchronize()
+            torch.cuda.empty_cache()
+            rep.update(device_bytes_after_shard=torch.cuda.memory_allocated(),
+                       decoder_bytes=_tree_bytes(lm.params),
+                       dec_cfg=dataclasses.asdict(lm.cfg))
+        dist.barrier()
+    kernels.reset_launch_counts()
+    pmesh.reset_collective_stats()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    rep["tokens"], rep["first_step_logits"] = _judge_tokens(
+        lm, spec["preds"], os.path.join(spec["dir"], f"judge_rank{rank}.jsonl"))
+    torch.cuda.synchronize()
+    rep["run_s"] = time.perf_counter() - t0
+    return rep
+
+
+def _tp_runner_job(rank, spec):
+    """`runner.main` with --shard (the group already up, so the runner keeps
+    it and its ranks build in turn on the shared card) -> the rank's report."""
+    from streamchat_tpu_torch import kernels
+    from streamchat_tpu_torch.parallel import mesh as pmesh
+    from streamchat_tpu_torch.pipeline import runner
+
+    out = os.path.join(spec["dir"], f"{spec['label']}_rank{rank}")
+    kernels.reset_launch_counts()
+    pmesh.reset_collective_stats()
+    with _tp_observed() as seen:
+        runner.main(spec["argv"] + ["--shard", "--memory_basic_dir", out,
+                                    "--save_file", out + ".json"])
+    seen["saved"] = os.path.exists(out + ".json")
+    return seen
+
+
+def _tp_rank(rank, world, spec):
+    """One rank of a TP phase: joins the phase's group (gloo on the shared
+    card, or NCCL on card `rank`), runs the job, checks with an all_reduce
+    that every rank emitted the same tokens, and saves its report (tokens,
+    logits, launch counts, all_reduce count / bytes / host seconds)."""
+    import datetime
+
+    import torch.distributed as dist
+
+    from streamchat_tpu_torch import kernels
+    from streamchat_tpu_torch.kernels.build import library
+    from streamchat_tpu_torch.parallel import make_mesh
+    from streamchat_tpu_torch.parallel import mesh as pmesh
+
+    nccl = spec["backend"] == "nccl"
+    os.environ["LOCAL_RANK"] = str(rank)
+    torch.cuda.set_device(rank if nccl else 0)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    library()
+    store = dist.FileStore(os.path.join(spec["dir"], f"{spec['label']}.store"), world)
+    dist.init_process_group(spec["backend"], store=store, rank=rank, world_size=world,
+                            timeout=datetime.timedelta(seconds=TP_TIMEOUT_S))
+    try:
+        if spec["job"] == "judge":
+            rep = _tp_judge_job(rank, world, spec, make_mesh(kv_heads=8))
+        else:
+            rep = _tp_runner_job(rank, spec)
+        rep["launches"] = {n: c for n, c in kernels.launch_counts().items() if c}
+        rep["collectives"] = pmesh.collective_stats()
+        h = _token_hash(rep["tokens"])
+        both = torch.tensor([h, -h], dtype=torch.int64, device="cuda" if nccl else "cpu")
+        dist.all_reduce(both, op=dist.ReduceOp.MAX)
+        rep["tokens_equal_on_every_rank"] = both.tolist() == [h, -h]
+        torch.save(rep, os.path.join(spec["dir"], f"{spec['label']}_rank{rank}.pt"))
+    finally:
+        dist.destroy_process_group()
+
+
+def run_tp_phase(label, world, spec, ref=None):
+    """Spawn `world` ranks for one TP phase and check them -> (report,
+    rank 0's launch counts). Held: every rank's tokens equal (the
+    all_reduce of a token hash), rank 0 writes the results alone (runner),
+    the first decode step's logits within TP_LOGITS_REL_L2 of the unsharded
+    model's on the same prompt (row relative L2) and its first token equal;
+    printed: the leading tokens equal to the unsharded run, each rank's
+    device bytes after `shard` and its all_reduce count, bytes and host
+    seconds (gloo's host staging on the shared card)."""
+    import torch.multiprocessing as mp
+
+    spec = dict(spec, label=label, backend=spec.get("backend", "gloo"))
+    free, total = torch.cuda.mem_get_info()
+    print(f"TP [{label}]: {world} ranks over {spec['backend']}"
+          f"{' (a card a rank)' if spec['backend'] == 'nccl' else ' on one card, all_reduce staged through pinned host buffers'}"
+          f"; card free {free} of {total} bytes before the spawn", flush=True)
+    t0 = time.perf_counter()
+    mp.spawn(_tp_rank, args=(world, spec), nprocs=world, join=True)
+    seconds = time.perf_counter() - t0
+    reps = [torch.load(os.path.join(spec["dir"], f"{label}_rank{r}.pt"), weights_only=False)
+            for r in range(world)]
+    if ref is None:                     # the judge: rank 0's whole tree judged first
+        ref = {"tokens": reps[0].pop("ref_tokens"),
+               "first_step_logits": reps[0].pop("ref_first_step_logits")}
+    first = reps[0]["first_step_logits"]
+    rel = _row_rel_l2(first, ref["first_step_logits"])
+    report = dict(
+        seconds=seconds, ranks=world, backend=spec["backend"],
+        tokens=len(reps[0]["tokens"]),
+        tokens_equal_on_every_rank=all(r["tokens_equal_on_every_rank"] for r in reps)
+        and all(r["tokens"] == reps[0]["tokens"] for r in reps),
+        leading_tokens_equal_to_unsharded=_leading_equal(reps[0]["tokens"], ref["tokens"]),
+        unsharded_tokens=len(ref["tokens"]), first_step_logits_row_rel_l2=rel,
+        run_s=[r.get("run_s") for r in reps],
+        device_bytes_after_shard=[r["device_bytes_after_shard"] for r in reps],
+        decoder_bytes=[r["decoder_bytes"] for r in reps],
+        rank_dec_cfg={k: reps[0]["dec_cfg"][k] for k in ("num_heads", "num_kv_heads",
+                                                          "intermediate_size", "head_dim")},
+        collectives=[r["collectives"] for r in reps], launches=reps[0]["launches"])
+    if "vit_projector_bytes" in reps[0]:
+        report.update(vit_projector_bytes=reps[0]["vit_projector_bytes"],
+                      results_written=[r["saved"] for r in reps])
+    if "prefill_logits" in ref:
+        report["prefill_logits_row_rel_l2"] = _row_rel_l2(reps[0]["prefill_logits"],
+                                                          ref["prefill_logits"])
+    print(f"TP [{label}]: {json.dumps(report)}", flush=True)
+    bad = []
+    if not report["tokens_equal_on_every_rank"] or not report["tokens"]:
+        bad.append("ranks' tokens differ (or none emitted)")
+    if not rel <= TP_LOGITS_REL_L2 or not bool(torch.isfinite(first).all()):
+        bad.append(f"first decode step's logits {rel} from the unsharded model's")
+    if report.get("results_written", [True] + [False] * (world - 1)) != \
+            [True] + [False] * (world - 1):
+        bad.append(f"results written by ranks {report['results_written']}")
+    if report["leading_tokens_equal_to_unsharded"] == 0:
+        bad.append("the first token differs from the unsharded run's")
+    if any(c["count"] == 0 for c in report["collectives"]):
+        bad.append("a rank took no all_reduce")
+    missing = [n for n in RUNS[label.replace("_nccl", "")] if report["launches"].get(n, 0) == 0]
+    if missing:
+        bad.append(f"kernels never launched: {missing}")
+    if bad:
+        raise AssertionError(f"TP phase {label}: {'; '.join(bad)}")
+    return report, reps[0]["launches"]
+
+
+# Per-rank shapes at tp 4: Qwen2-7B (28 / 4 heads, ffn 18,944, vocab
+# 152,064) gives a rank 7 query heads over 1 kv head, 4,736 MLP columns and
+# 38,016 vocabulary columns; LLaMA-3-8B (32 / 8, 14,336, 128,256) 8 over 2,
+# 3,584 and 32,064.
+TP_W8 = {"qwen k/v": (1, 3584, 128, torch.bfloat16), "qwen q": (1, 3584, 896, torch.bfloat16),
+         "qwen o": (1, 896, 3584, torch.bfloat16), "qwen gate/up": (1, 3584, 4736, torch.bfloat16),
+         "qwen down": (1, 4736, 3584, torch.float32), "qwen head": (1, 3584, 38016, torch.float32),
+         "llama q": (8, 4096, 1024, torch.bfloat16), "llama k/v": (8, 4096, 256, torch.bfloat16),
+         "llama o": (8, 1024, 4096, torch.float32), "llama gate/up": (8, 4096, 3584, torch.bfloat16),
+         "llama down": (8, 3584, 4096, torch.float32), "llama head": (8, 4096, 32064, torch.float32)}
+
+
+def check_rank_shapes(g):
+    """Each kernel at the shapes a tp-4 rank gives it, held to its plain
+    twin (|d| <= ATOL + RTOL |plain| and row relative L2 <= ROW_REL_L2; the
+    partial kernels through acc / l, m and l) -> {case: errors}. o and down
+    write f32 under TP (their partial sums are all-reduced in f32)."""
+    from streamchat_tpu_torch.ops import attention as att
+    from streamchat_tpu_torch.ops import int4_matmul as i4
+    from streamchat_tpu_torch.ops import paged_attention as pa
+    from streamchat_tpu_torch.ops import quant
+
+    def rnd(*shape, scale=1.0):
+        return (torch.randn(*shape, generator=g, device="cuda") * scale).to(torch.bfloat16)
+
+    out = {}
+
+    def held(name, got, ref, partial=False):
+        err, rel = (_compare_partial if partial else
+                    lambda n, a, b: _compare(n, a, b, row_rel=True))(name, got, ref)
+        out[name] = dict(max_abs_err=err, max_row_rel_l2=rel)
+
+    for name, (b, hq, hkv, s) in {"K3 qwen 7/1": (1, 7, 1, 4096),
+                                  "K3 llama 8/2": (8, 8, 2, 1408)}.items():
+        q, k, v = rnd(b, hq, s, 128), rnd(b, hkv, s, 128), rnd(b, hkv, s, 128)
+        n = torch.randint(s // 2, s + 1, (b,), generator=g, device="cuda").to(torch.int32)
+        held(name, att.flash_attention(q, k, v, n), att.flash_attention_plain(q, k, v, n))
+    q, k, v = rnd(1, 7, 2048, 128), rnd(1, 1, 6144, 128), rnd(1, 1, 6144, 128)
+    n = torch.tensor([6100], dtype=torch.int32, device="cuda")
+    held("K5 qwen 7/1", att.flash_attention_partial(q, k, v, 4096, 0, n),
+         att.flash_attention_partial_plain(q, k, v, 4096, 0, n), partial=True)
+    length = torch.tensor([23105], dtype=torch.int32, device="cuda")
+    pages = -(-23105 // 128) + 1
+    kp, vp = rnd(pages, 1, 128, 128), rnd(pages, 1, 128, 128)
+    ki, vi, ks, vs = _int8_pool(g, pages, 1, 23105)
+    q1, q5 = rnd(1, 7, 1, 128), rnd(1, 7, 5, 128)
+    held("K4 qwen 7/1", pa.paged_decode_attention_seq(q1, kp, vp, length),
+         pa.paged_decode_attention_seq_plain(q1, kp, vp, length))
+    held("K6 qwen 7/1", pa.paged_decode_attention_seq_int8(q1, ki, vi, ks, vs, length),
+         pa.paged_decode_attention_seq_int8_plain(q1, ki, vi, ks, vs, length))
+    held("K7 qwen 7/1 T 5", pa.paged_seq_attention_partial(q5, kp, vp, length),
+         pa.paged_seq_attention_partial_plain(q5, kp, vp, length), partial=True)
+    held("K7' qwen 7/1 T 5", pa.paged_seq_attention_partial_int8(q5, ki, vi, ks, vs, length),
+         pa.paged_seq_attention_partial_int8_plain(q5, ki, vi, ks, vs, length), partial=True)
+    lengths = [6100, 3050]
+    table, _ = _shared_table(g, lengths, 128, 50, 98, hole=3)
+    tlen = torch.tensor(lengths, dtype=torch.int32, device="cuda")
+    kp, vp = rnd(98, 1, 128, 128), rnd(98, 1, 128, 128)
+    ki, vi = (torch.randint(-127, 128, (98, 1, 128, 128), generator=g, device="cuda",
+                            dtype=torch.int8) for _ in range(2))
+    ks, vs = (torch.rand(98, 1, 128, generator=g, device="cuda") * 0.04 + 0.01
+              for _ in range(2))
+    q2 = rnd(2, 7, 1, 128)
+    held("K8 qwen 7/1", pa.paged_decode_attention_table(q2, kp, vp, table, tlen),
+         pa.paged_decode_attention_table_plain(q2, kp, vp, table, tlen))
+    held("K9 qwen 7/1", pa.paged_decode_attention_table_int8(q2, ki, vi, ks, vs, table, tlen),
+         pa.paged_decode_attention_table_int8_plain(q2, ki, vi, ks, vs, table, tlen))
+    for name, (rows, kin, cols, dt) in TP_W8.items():
+        x = rnd(rows, kin)
+        w = quant.quantize_weight(torch.randn(kin, cols, generator=g, device="cuda") * 0.02)
+        held(f"W8 {name} {kin}->{cols}", quant.qmatvec_int8(x, w["w_i8"], w["scale"], dt),
+             quant.qmatvec_int8_plain(x, w["w_i8"], w["scale"], dt))
+
+    def w4(kin, cols):
+        return quant.quantize_weight_int4(torch.randn(kin, cols, generator=g, device="cuda")
+                                          * 0.02)
+
+    x = rnd(1, 3584)
+    for name, kin in (("o", 896), ("down", 4736)):
+        w, xi = w4(kin, 3584), rnd(1, kin)
+        held(f"K10 qwen {name} {kin}->3584", i4.qmatvec_int4(xi, w["w_i4p"], w["scale"]),
+             i4.qmatvec_int4_plain(xi, w["w_i4p"], w["scale"]))
+    for name, cols in (("q/k/v", (896, 128, 128)), ("gate/up", (4736, 4736))):
+        flat = []
+        for c in cols:
+            w = w4(3584, c)
+            flat += [w["w_i4p"], w["scale"]]
+        got = i4.qmatvec_int4_fused(x, *flat, out_dtype=torch.bfloat16)
+        ref = i4.qmatvec_int4_fused_plain(x, *flat, out_dtype=torch.bfloat16)
+        for i, (a, b) in enumerate(zip(got, ref)):
+            held(f"K11 qwen {name} part {i} 3584->{cols[i]}", a, b)
+    print(f"per-rank kernel shapes (tp 4): {json.dumps(out)}", flush=True)
+    return out
+
+
+def _rotated(xs):
+    """The list after one ring step: rank r now holds rank r - 1's entry."""
+    return xs[-1:] + xs[:-1]
+
+
+def _ring_emulated(q, k, v, layout, n, kv_length=None, fault=None):
+    """`ring_attention` / `zigzag_ring_attention` / `stripe_ring_attention`
+    for all n ranks in this process through their per-step functions, the
+    K/V lists rotated a step at a time -> the whole output in natural
+    order. `fault`: "skip rotation" (no rotation after step 0), "k_offset"
+    (the last rank's own block one shard late), "no inverse" (zigzag's
+    output left in the permuted order)."""
+    from streamchat_tpu_torch.ops import ring_attention as ring
+
+    qs, ks, vs = ([ring.sequence_shard(t, r, n, layout) for r in range(n)] for t in (q, k, v))
+    sl = qs[0].shape[2]
+    origins = list(range(n))
+    if layout == "zigzag":
+        states = [[ring.ring_init(x[:, :, :sl // 2]) for _ in range(2)] for x in qs]
+    else:
+        states = [ring.ring_init(x) for x in qs]
+    for step in range(n):
+        for r in range(n):
+            o = origins[r]
+            if layout == "zigzag":
+                states[r] = ring.zigzag_step(states[r], qs[r], ks[r], vs[r], r, o, n)
+            elif layout == "stripe":
+                states[r] = ring.stripe_step(states[r], qs[r], ks[r], vs[r], r, o)
+            else:
+                late = fault == "k_offset" and step == 0 and r == n - 1
+                states[r] = ring.ring_step(states[r], qs[r], ks[r], vs[r], r * sl,
+                                           (o + late) * sl, kv_length=kv_length)
+        if not (fault == "skip rotation" and step == 0):
+            ks, vs, origins = _rotated(ks), _rotated(vs), _rotated(origins)
+    outs = [torch.cat([ring.ring_finish(st, q.dtype) for st in s], 2) if layout == "zigzag"
+            else ring.ring_finish(s, q.dtype) for s in states]
+    full = torch.cat(outs, dim=2)
+    if layout != "contiguous" and fault != "no inverse":
+        idx = (ring.zigzag_indices if layout == "zigzag" else ring.stripe_indices)(q.shape[2], n)
+        full = full.index_select(2, ring.inverse_permutation(idx).to(q.device).long())
+    return full
+
+
+def _ulysses_emulated(q, k, v, n, fault=None):
+    """`ulysses_attention` for all n ranks: `exchange` scatters heads and
+    gathers the sequence (split 1, concat 2), K3 on each rank's head slice,
+    `exchange` back; fault "swapped axes" swaps split and concat both ways."""
+    from streamchat_tpu_torch.ops import ring_attention as ring
+    from streamchat_tpu_torch.ops import ulysses
+
+    there, back = ((2, 1), (1, 2)) if fault == "swapped axes" else ((1, 2), (2, 1))
+    qh, kh, vh = (ulysses.exchange([ring.sequence_shard(t, r, n) for r in range(n)], *there)
+                  for t in (q, k, v))
+    outs = [ulysses.ulysses_local(a, b, c) for a, b, c in zip(qh, kh, vh)]
+    return torch.cat(ulysses.exchange(outs, *back), dim=2)
+
+
+def _usp_emulated(q, k, v, nr=2, nu=2):
+    """`usp_attention` on the nr x nu grid (rank a nu + u holds piece a nu +
+    u): the Ulysses exchange within each row a, the ring over each column u
+    at ring block a's offset, the exchange back."""
+    from streamchat_tpu_torch.ops import ring_attention as ring
+    from streamchat_tpu_torch.ops import ulysses
+
+    n = nr * nu
+    pieces = [[ring.sequence_shard(t, r, n) for r in range(n)] for t in (q, k, v)]
+    grid = [[[None] * nu for _ in range(nr)] for _ in range(3)]
+    for a in range(nr):
+        for i in range(3):
+            ex = ulysses.exchange(pieces[i][a * nu:(a + 1) * nu], 1, 2)
+            for u in range(nu):
+                grid[i][a][u] = ex[u]
+    outs = [[None] * nu for _ in range(nr)]
+    for u in range(nu):
+        qs = [grid[0][a][u] for a in range(nr)]
+        ks, vs, origins = [grid[1][a][u] for a in range(nr)], [grid[2][a][u] for a in range(nr)], \
+            list(range(nr))
+        block = qs[0].shape[2]
+        states = [ring.ring_init(x) for x in qs]
+        for _ in range(nr):
+            for a in range(nr):
+                states[a] = ring.ring_step(states[a], qs[a], ks[a], vs[a], a * block,
+                                           origins[a] * block)
+            ks, vs, origins = _rotated(ks), _rotated(vs), _rotated(origins)
+        for a in range(nr):
+            outs[a][u] = ring.ring_finish(states[a], q.dtype)
+    back = [p for a in range(nr) for p in ulysses.exchange(outs[a], 2, 1)]
+    return torch.cat(back, dim=2)
+
+
+def drive_sp_ops(g, planted):
+    """Ring (with a ragged kv_length), zigzag, stripe, Ulysses and USP (2 x
+    2) at LongVA-7B's 28 / 4 heads, S = 16,384, B = 2, over 4 ranks emulated
+    in this process (`_ring_emulated` and siblings: K5 a ring step, K3 a
+    Ulysses head slice), each held to K3 over the whole sequence and to its
+    plain twin (by kv head and query block) -> report. Planted faults must
+    fail the same check: a rotation skipped, a block's k_offset one shard
+    late, zigzag's inverse permutation left out, Ulysses' all-to-all with
+    its split and concat axes swapped."""
+    from streamchat_tpu_torch.ops.attention import flash_attention
+
+    b, n = 2, SP_RANKS
+    q = torch.randn(b, 28, SP_S, 128, generator=g, device="cuda").to(torch.bfloat16)
+    k, v = (torch.randn(b, 4, SP_S, 128, generator=g, device="cuda").to(torch.bfloat16)
+            for _ in range(2))
+    kv_length = torch.tensor(SP_LENGTHS, dtype=torch.int32, device="cuda")
+    refs = {}
+    for name, kvl in (("full", None), ("ragged", kv_length)):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        k3 = flash_attention(q, k, v, kvl, causal=True)
+        torch.cuda.synchronize()
+        refs[name] = (k3, _plain_attention_blocked(q, k, v, kvl, causal=True),
+                      time.perf_counter() - t0)
+    cases = {"ring, ragged kv_length": (lambda f=None: _ring_emulated(
+                 q, k, v, "contiguous", n, kv_length, f), "ragged"),
+             "zigzag": (lambda f=None: _ring_emulated(q, k, v, "zigzag", n, fault=f), "full"),
+             "stripe": (lambda f=None: _ring_emulated(q, k, v, "stripe", n, fault=f), "full"),
+             "ulysses": (lambda f=None: _ulysses_emulated(q, k, v, n, f), "full"),
+             "usp 2 x 2": (lambda f=None: _usp_emulated(q, k, v), "full")}
+    report = {"k3_whole_s": refs["full"][2]}
+    for name, (run, ref) in cases.items():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        got = run()
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        k3, plain, _ = refs[ref]
+        e_k3 = _compare(f"SP {name} vs K3 whole", got, k3, row_rel=True)
+        e_plain = _compare(f"SP {name} vs plain", got, plain, row_rel=True)
+        report[name] = dict(seconds=seconds, vs_k3=e_k3, vs_plain=e_plain)
+    for name, (fault, case) in {"ring rotation skipped": ("skip rotation", "ring, ragged kv_length"),
+                                "ring block k_offset one shard late": ("k_offset",
+                                                                       "ring, ragged kv_length"),
+                                "zigzag inverse permutation left out": ("no inverse", "zigzag"),
+                                "ulysses all-to-all split / concat axes swapped": (
+                                    "swapped axes", "ulysses")}.items():
+        run, ref = cases[case]
+        planted[f"SP {name}"] = _planted(f"SP {name}", run(fault), refs[ref][0])
+        print(f"planted fault rejected: SP {name}: max row relative L2 err "
+              f"{planted[f'SP {name}']:.6g} (limit {ROW_REL_L2})", flush=True)
+    print(f"sequence-parallel ops (4 ranks emulated, S {SP_S}, 28 / 4 heads): "
+          f"{json.dumps(report)}", flush=True)
+    return report
+
+
+def _sp_nccl_rank(rank, world, spec):
+    """One rank of the SP ops over NCCL, a card a rank: the same seeded
+    q / k / v on every card, this rank's shard of each layout through the
+    ops' real transports (batch_isend_irecv, all_to_all_single), held to
+    the same shard of K3 over the whole sequence."""
+    import datetime
+
+    import torch.distributed as dist
+
+    from streamchat_tpu_torch.kernels.build import library
+    from streamchat_tpu_torch.ops import ring_attention as ring
+    from streamchat_tpu_torch.ops import ulysses
+    from streamchat_tpu_torch.ops.attention import flash_attention
+
+    torch.cuda.set_device(rank)
+    library()
+    store = dist.FileStore(os.path.join(spec["dir"], "sp_nccl.store"), world)
+    dist.init_process_group("nccl", store=store, rank=rank, world_size=world,
+                            timeout=datetime.timedelta(seconds=TP_TIMEOUT_S))
+    try:
+        g = torch.Generator(device="cuda").manual_seed(99)
+        q = torch.randn(2, 28, SP_S, 128, generator=g, device="cuda").to(torch.bfloat16)
+        k, v = (torch.randn(2, 4, SP_S, 128, generator=g, device="cuda").to(torch.bfloat16)
+                for _ in range(2))
+        kv_length = torch.tensor(SP_LENGTHS, dtype=torch.int32, device="cuda")
+        whole = {"full": flash_attention(q, k, v, causal=True),
+                 "ragged": flash_attention(q, k, v, kv_length, causal=True)}
+        uly, rg = ulysses.usp_groups(2, 2)
+
+        def shard(t, layout="contiguous"):
+            return ring.sequence_shard(t, rank, world, layout)
+
+        cases = {
+            "ring, ragged kv_length": (lambda: ring.ring_attention(
+                shard(q), shard(k), shard(v), kv_length=kv_length), "ragged", "contiguous"),
+            "zigzag": (lambda: ring.zigzag_ring_attention(
+                shard(q, "zigzag"), shard(k, "zigzag"), shard(v, "zigzag")), "full", "zigzag"),
+            "stripe": (lambda: ring.stripe_ring_attention(
+                shard(q, "stripe"), shard(k, "stripe"), shard(v, "stripe")), "full", "stripe"),
+            "ulysses": (lambda: ulysses.ulysses_attention(shard(q), shard(k), shard(v)),
+                        "full", "contiguous"),
+            "usp 2 x 2": (lambda: ulysses.usp_attention(shard(q), shard(k), shard(v), uly, rg),
+                          "full", "contiguous")}
+        rep = {}
+        for name, (run, ref, layout) in cases.items():
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            got = run()
+            torch.cuda.synchronize()
+            rep[name] = dict(seconds=time.perf_counter() - t0, errors=_compare(
+                f"SP {name} over NCCL, rank {rank}", got, shard(whole[ref], layout),
+                row_rel=True))
+        torch.save(rep, os.path.join(spec["dir"], f"sp_nccl_rank{rank}.pt"))
+    finally:
+        dist.destroy_process_group()
+
+
+def run_nccl_phases(tp_dir, tp_argv, refs, counts):
+    """Phases 2 and 6 again over NCCL, one card a rank, through the real
+    transports, where the machine has a card for each rank; else one line
+    saying why they did not run -> report or None."""
+    import torch.multiprocessing as mp
+
+    cards = torch.cuda.device_count()
+    if cards < max(TP_WORLD, SP_RANKS):
+        print(f"NCCL phases (runner --shard over NCCL, the SP ops through batch_isend_irecv "
+              f"and all_to_all_single): not run: {cards} CUDA device(s), they need "
+              f"{max(TP_WORLD, SP_RANKS)} (NCCL takes one card a rank)", flush=True)
+        return None
+    report = {}
+    with phase("TP over NCCL: runner --shard off-line int8, tp 4, a card a rank"):
+        report["tp4_runner_offline_nccl"], counts["tp4_runner_offline_nccl"] = run_tp_phase(
+            "tp4_runner_offline_nccl", TP_WORLD,
+            dict(job="runner", argv=tp_argv, dir=tp_dir, backend="nccl"), refs["off_line"])
+    with phase("SP ops over NCCL, a card a rank"):
+        mp.spawn(_sp_nccl_rank, args=(SP_RANKS, dict(dir=tp_dir)), nprocs=SP_RANKS, join=True)
+        report["sp_nccl"] = [torch.load(os.path.join(tp_dir, f"sp_nccl_rank{r}.pt"))
+                             for r in range(SP_RANKS)]
+    print(f"NCCL phases: {json.dumps(report)}", flush=True)
+    return report
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device (torch.cuda.is_available() "
@@ -5050,6 +5770,8 @@ def run_all(info, smi, t_start, root) -> None:
     with phase("planted loader faults"):
         planted = {name: float(len(bad)) for name, bad in
                    check_loader_faults(written.model, root).items()}
+    with phase(f"write LongVA-7B cut to {TP_LAYERS} layers (the TP phases' checkpoint)"):
+        paths_tp = dict(paths, longva=write_tp_longva(written.model, root))
     del written                                       # the written trees
     gc.collect()
     torch.cuda.empty_cache()
@@ -5194,14 +5916,42 @@ def run_all(info, smi, t_start, root) -> None:
             pipe, "int4_kv_int8_cb2", BREAKPOINTS[:1])
     predictions = [r for v in runs.values() for r in v.pop("predictions")]
     del pipe, m, bf16_tree                            # LongVA's trees
-    for path in paths.values():                       # and its checkpoints
-        shutil.rmtree(path)
     gc.collect()
     torch.cuda.empty_cache()
     print(f"LongVA freed: {torch.cuda.memory_allocated() / 2**30:.3f} GiB still allocated",
           flush=True)
+    tp_dir, tp_argv = _tp_inputs(root, paths_tp)
+    with phase("TP references: runner int8 unsharded, off-line and on-line"):
+        tp_refs = {mode: _tp_reference(tp_dir, tp_argv + extra, f"ref_{mode}")
+                   for mode, extra in (("off_line", []), ("on_line", ["--mode", "on_line"]))}
+    tp = {}
+    with phase(f"TP: runner --shard off-line int8, tp {TP_WORLD} (gloo, ranks sharing the card)"):
+        tp["tp4_runner_offline"], counts["tp4_runner_offline"] = run_tp_phase(
+            "tp4_runner_offline", TP_WORLD, dict(job="runner", argv=tp_argv, dir=tp_dir),
+            tp_refs["off_line"])
+    with phase(f"TP: runner --shard --mode on_line int8, tp {TP_ONLINE_WORLD} (gloo)"):
+        tp["tp2_runner_online"], counts["tp2_runner_online"] = run_tp_phase(
+            "tp2_runner_online", TP_ONLINE_WORLD,
+            dict(job="runner", argv=tp_argv + ["--mode", "on_line"], dir=tp_dir),
+            tp_refs["on_line"])
+    nccl = run_nccl_phases(tp_dir, tp_argv, tp_refs, counts)
+    for path in {**paths, "longva_tp": paths_tp["longva"]}.values():   # LongVA's checkpoints
+        shutil.rmtree(path)
     judge_reports, judge_scores, judge_counts, judge_load = run_judge(predictions, root)
     counts.update(judge_counts)
+    gc.collect()
+    torch.cuda.empty_cache()
+    with phase(f"TP: judge TextLM.shard int8, LLaMA-3-8B, tp {TP_WORLD} (gloo)"):
+        preds = list(itertools.islice(itertools.cycle(predictions), JUDGE_BATCH))
+        tp["tp4_judge_int8"], counts["tp4_judge_int8"] = run_tp_phase(
+            "tp4_judge_int8", TP_WORLD, dict(job="judge", llama=judge_load["tp_path"],
+                                              preds=preds, dir=tp_dir))
+    shutil.rmtree(judge_load["tp_path"])
+    with phase("per-rank kernel shapes (tp 4) against their plain twins"):
+        tp["rank_shapes"] = check_rank_shapes(g)
+    with phase(f"sequence-parallel ops, {SP_RANKS} ranks emulated, S {SP_S}"):
+        tp["sp_ops"] = drive_sp_ops(g, planted)
+    tp["nccl"] = nccl
     for label, name in (("judge_bf16", "judge decode appends at row 0's length"),
                         ("judge_int8_spec4", "judge verify writes at row 0's positions")):
         fault = judge_reports[label]["planted_appends_at_row0"]
@@ -5232,6 +5982,14 @@ def run_all(info, smi, t_start, root) -> None:
     print(f"host offload: {json.dumps(offload)}")
     print(f"ingest variants: {json.dumps(ingest)}; frameproc: {json.dumps(host_frames)}")
     print(f"library modules: {json.dumps(library)}; StreamBench tools: {json.dumps(tools)}")
+    print("multi-GPU: " + ", ".join(
+        f"{k} {v['seconds']:.1f} s ({v['backend']}, tokens equal on every rank "
+        f"{v['tokens_equal_on_every_rank']}, {v['leading_tokens_equal_to_unsharded']} of "
+        f"{v['unsharded_tokens']} leading tokens equal to the unsharded run, first step "
+        f"logits row rel L2 {v['first_step_logits_row_rel_l2']:.3g}, all_reduce "
+        f"{v['collectives'][0]['count']} calls / {v['collectives'][0]['bytes']} B / "
+        f"{v['collectives'][0]['seconds']:.3f} s on rank 0)"
+        for k, v in tp.items() if isinstance(v, dict) and "backend" in v) + f"  [{smi}]")
 
     report = []
     for n, row in rows.items():

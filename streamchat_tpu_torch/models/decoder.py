@@ -27,6 +27,11 @@ The cache is the dense bf16 `KVCache` or, for int8 KV pages, the
 `Int8KVCache`: values are quantized on write and later chunks attend
 through a per-layer dequantized view, so the result is the JAX package's,
 not a bf16 prefill quantized afterwards.
+
+A tree cut to one rank's tensor-parallel slice (`parallel.sharding`) runs
+the same loops at the rank's narrower shapes (its config's heads and MLP
+width); `attn_out`, `mlp_out`, `embed_tokens` and `logits_from_hidden` add
+the four all_reduces over its `ModelGroup` (see the note above `attn_out`).
 """
 
 from __future__ import annotations
@@ -180,16 +185,51 @@ def qkv_proj(h, attn, b, s, hq, hkv, dh):
             vy.reshape(b, s, hkv, dh).transpose(1, 2))
 
 
-def mlp_block(h: torch.Tensor, mlp: Params) -> torch.Tensor:
-    """SwiGLU: down(silu(gate(h)) * up(h)); gate/up share one K11 launch at
-    decode when both are int4."""
+def _swiglu(h: torch.Tensor, mlp: Params) -> torch.Tensor:
+    """silu(gate(h)) * up(h), the input of the down projection; gate/up
+    share one K11 launch at decode when both are int4."""
     pg, pu = mlp["gate"], mlp["up"]
     if _all_int4(pg, pu):
         gy, uy = quant.qmatmul_int4_multi(h, (pg, pu))
     else:
         gy, uy = _mm(h, pg), _mm(h, pu)
-    gated = torch.nn.functional.silu(gy.float()).to(h.dtype)
-    return _mm(gated * uy, mlp["down"])
+    return torch.nn.functional.silu(gy.float()).to(h.dtype) * uy
+
+
+# Tensor-parallel hooks. A tree cut by `parallel.sharding.shard_decoder`
+# carries its `ModelGroup` under "tp"; every layer loop (`forward`,
+# `paged_kv._decode_step`, `spec_decode.decode_step_spec`) adds the
+# attention and MLP outputs through `attn_out` / `mlp_out` and embeds and
+# reads logits through `embed_tokens` / `logits_from_hidden`, so the same
+# four reductions serve all three. An unsharded tree takes none of them.
+#
+# o and down are row-parallel: each rank's product is a partial sum over its
+# heads or MLP columns. The partials are all-reduced in f32 and then rounded
+# where and as the unsharded product rounds (`quant.matmul_f32`: one f32
+# accumulation, one rounding), so a sharded step differs from the
+# unsharded one by the order of its f32 sums only; a bf16 reduction would
+# round tp + 1 times. W8 and K10 write the f32 partials directly.
+
+
+def _row_parallel(params: Params, x: torch.Tensor, p: Any, label: str) -> torch.Tensor:
+    """x @ p for a row-parallel projection p (a matrix, {"w"(, "b")} or a
+    quantized dict), summed over the model axis when the tree is sharded
+    (a sharded row-parallel projection has no bias: `shard_decoder`)."""
+    tp = params.get("tp")
+    if tp is None:
+        return _proj(x, p) if isinstance(p, dict) else _mm(x, p)
+    y, finish = quant.matmul_f32(x, p["w"] if isinstance(p, dict) and "w" in p else p)
+    return finish(tp.all_reduce(y, label))
+
+
+def attn_out(params: Params, o: torch.Tensor, attn: Params) -> torch.Tensor:
+    """The o projection of the heads' output o [B, S, H * Dh]."""
+    return _row_parallel(params, o, attn["o"], "o")
+
+
+def mlp_out(params: Params, h: torch.Tensor, mlp: Params) -> torch.Tensor:
+    """The SwiGLU MLP of the normed hidden state h."""
+    return _row_parallel(params, _swiglu(h, mlp), mlp["down"], "down")
 
 
 def _chunk_cache_attention(q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tensor,
@@ -294,8 +334,8 @@ def forward(params: Params, cfg: DecoderConfig, embeds: torch.Tensor,
                 o = _chunk_cache_attention(q, kd, vd, q_offset, kv_length)
             else:
                 o = flash_attention(q, k, v, kv_length, causal=True)
-        x = x + _proj(o.transpose(1, 2).reshape(b, s, hq * dh), p["attn"]["o"])
-        x = x + mlp_block(rmsnorm(x, p["post_norm"], cfg.rms_eps), p["mlp"])
+        x = x + attn_out(params, o.transpose(1, 2).reshape(b, s, hq * dh), p["attn"])
+        x = x + mlp_out(params, rmsnorm(x, p["post_norm"], cfg.rms_eps), p["mlp"])
     cache.length = kv_length.clone()
     return rmsnorm(x, params["final_norm"], cfg.rms_eps), cache
 
@@ -311,20 +351,43 @@ def logits_from_hidden(params: Params, cfg: DecoderConfig,
             "error through the logits; quantize_embed is for untied models")
     head = params["embed"].T if cfg.tie_embeddings else params["lm_head"]
     if isinstance(head, dict) and "w_i4p" in head:
-        return quant.qmatmul_int4(hidden.float(), head)
-    if quant.is_quantized(head):
-        return quant.qmatmul(hidden, head, out_dtype=torch.float32)
-    return hidden.float() @ head.float()
+        logits = quant.qmatmul_int4(hidden.float(), head)
+    elif quant.is_quantized(head):
+        logits = quant.qmatmul(hidden, head, out_dtype=torch.float32)
+    else:
+        logits = hidden.float() @ head.float()
+    tp = params.get("tp")
+    if tp is None:
+        return logits
+    # Vocabulary-parallel head: the rank's columns land in a zeroed
+    # full-vocabulary buffer; adding zeros is exact, so every rank holds the
+    # whole logits bit for bit and samples, scores and accepts as one.
+    n = logits.shape[-1]
+    full = logits.new_zeros(*logits.shape[:-1], n * tp.size)
+    full[..., tp.rank * n:(tp.rank + 1) * n] = logits
+    return tp.all_reduce(full, "logits")
 
 
 def embed_tokens(params: Params, token_ids: torch.Tensor) -> torch.Tensor:
     """Token rows; an int8-row table (ops/quant.quantize_embedding) is
-    dequantized per row to bf16."""
+    dequantized per row to bf16. A sharded tree looks up the rows its
+    vocabulary slice holds, zeroes the rest and all-reduces (exact: each
+    row is one rank's row plus zeros)."""
     emb = params["embed"]
+    tp = params.get("tp")
+    if tp is not None:
+        n = (emb["w_i8"] if isinstance(emb, dict) else emb).shape[0]
+        local = token_ids - tp.rank * n
+        inside = (local >= 0) & (local < n)
+        token_ids = local.clamp(0, n - 1)
     if isinstance(emb, dict):
         rows = emb["w_i8"][token_ids].float() * emb["scale"][token_ids][..., None]
-        return rows.to(torch.bfloat16)
-    return emb[token_ids]
+        rows = rows.to(torch.bfloat16)
+    else:
+        rows = emb[token_ids]
+    if tp is None:
+        return rows
+    return tp.all_reduce(rows.masked_fill(~inside[..., None], 0), "embed")
 
 
 def prefill(params: Params, cfg: DecoderConfig, embeds: torch.Tensor,

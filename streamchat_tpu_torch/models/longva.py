@@ -9,8 +9,9 @@ splices the prompt's `<image>` markers with visual embeddings, pads to a
 for the chunks of a prompt over 8192 tokens, K4 decode, or K6 over int8
 pages with `kv_int8`; K7 verify steps with `spec_tokens`). `quantize`
 switches the decoder to int8 / int4 weight-only storage (W8, K10, K11 at
-decode). `generate_with_image_embedding_batch` serves several prompts with
-one batched decode loop (batched captioning), each row prefilled alone.
+decode), and `shard` then cuts it to one rank's tensor-parallel slice.
+`generate_with_image_embedding_batch` serves several prompts with one
+batched decode loop (batched captioning), each row prefilled alone.
 `score_with_image_embedding` gives a target's teacher-forced NLL and PPL
 after the same splice (`--ppl`; models/scoring.py). `kv_budget_tokens`
 caps the page pool and turns on H2O eviction (`_paged_budget`): batch 1,
@@ -83,6 +84,22 @@ class LongVA:
         table as int8 rows."""
         self.dec_params = quantize_decoder_params(
             self.dec_params, quantize_embed=quantize_embed, bits=bits)
+        return self
+
+    def shard(self, mesh=None) -> "LongVA":
+        """Cut the decoder to this rank's tensor-parallel slice, in place
+        (`parallel.sharding.shard_decoder`; the whole leaves are freed), the
+        way `main` calls it: after `quantize`. `mesh` is a
+        `parallel.ModelGroup`, by default the initialized world
+        (`parallel.make_mesh`); with no process group a world of one, and
+        nothing changes. The ViT and the projector stay whole on every rank:
+        K1 fuses a whole ViT layer, and each rank's tower is a one-device
+        model."""
+        from streamchat_tpu_torch.parallel import make_mesh
+        from streamchat_tpu_torch.parallel.sharding import shard_decoder
+
+        mesh = make_mesh(kv_heads=self.dec_cfg.num_kv_heads) if mesh is None else mesh
+        self.dec_params, self.dec_cfg = shard_decoder(self.dec_params, self.dec_cfg, mesh)
         return self
 
     @classmethod

@@ -234,9 +234,9 @@ def _decode_step(params, cfg, token_ids: torch.Tensor, cache, append, attend,
         k = decoder.rope(k, positions, cfg.rope_theta)
         append(cache, i, k[:, :, 0], v[:, :, 0])
         o = attend(q, i, new_length)
-        x = x + decoder._proj(o.transpose(1, 2).reshape(b, 1, hq * dh), p["attn"]["o"])
-        x = x + decoder.mlp_block(decoder.rmsnorm(x, p["post_norm"], cfg.rms_eps),
-                                  p["mlp"])
+        x = x + decoder.attn_out(params, o.transpose(1, 2).reshape(b, 1, hq * dh), p["attn"])
+        x = x + decoder.mlp_out(params, decoder.rmsnorm(x, p["post_norm"], cfg.rms_eps),
+                                p["mlp"])
     x = decoder.rmsnorm(x, params["final_norm"], cfg.rms_eps)
     logits = decoder.logits_from_hidden(params, cfg, x)[:, 0]
     advance(cache)

@@ -167,8 +167,9 @@ def decode_step_spec(params, cfg, token_ids: torch.Tensor, cache, positions: tor
             staged.append((torch.stack([k, v]), None))
             o = _spec_attention(q, cache.k_pages[i], cache.v_pages[i], None, None,
                                 cache.length, k, v)
-        x = x + decoder._proj(o.transpose(1, 2).reshape(b, t, hq * dh), p["attn"]["o"])
-        x = x + decoder.mlp_block(decoder.rmsnorm(x, p["post_norm"], cfg.rms_eps), p["mlp"])
+        x = x + decoder.attn_out(params, o.transpose(1, 2).reshape(b, t, hq * dh), p["attn"])
+        x = x + decoder.mlp_out(params, decoder.rmsnorm(x, p["post_norm"], cfg.rms_eps),
+                                p["mlp"])
     x = decoder.rmsnorm(x, params["final_norm"], cfg.rms_eps)
     logits = decoder.logits_from_hidden(params, cfg, x)          # [B, T, V]
     kv = torch.stack([s[0] for s in staged], dim=1)              # [2, L, B, Hkv, T, Dh]

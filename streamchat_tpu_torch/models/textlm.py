@@ -68,8 +68,13 @@ class TextLM:
                    torch.Generator(device=device).manual_seed(0))
 
     def shard(self, mesh=None) -> "TextLM":
-        raise NotImplementedError("tensor-parallel placement is not ported yet: ROADMAP §A "
-                                  "'Multi-GPU'")
+        """Tensor-parallel slice of the decoder, in place (see LongVA.shard)."""
+        from streamchat_tpu_torch.parallel import make_mesh
+        from streamchat_tpu_torch.parallel.sharding import shard_decoder
+
+        mesh = make_mesh(kv_heads=self.cfg.num_kv_heads) if mesh is None else mesh
+        self.params, self.cfg = shard_decoder(self.params, self.cfg, mesh)
+        return self
 
     def quantize(self, bits: int = 8) -> "TextLM":
         """int8 (bits=8) or group-128 int4 (bits=4, lm_head int8) weight-only

@@ -34,14 +34,22 @@ import torch
 from streamchat_tpu_torch.kernels import counted, launched
 
 
-def flash_attention_plain(q, k, v, kv_length=None, *, causal: bool = True):
+def _scores(q, k, sm_scale):
+    """f32 scores q k^T [B, H, Sq, Sk] (k already repeated over the query
+    groups), divided by sqrt(D) or, when given, times sm_scale."""
+    s = q.float() @ k.float().transpose(-1, -2)
+    return s / math.sqrt(q.shape[-1]) if sm_scale is None else s * sm_scale
+
+
+def flash_attention_plain(q, k, v, kv_length=None, *, causal: bool = True,
+                          sm_scale: float | None = None):
     """Plain PyTorch twin of `flash_attention` (same signature)."""
     b, hq, sq, d = q.shape
     hkv, sk = k.shape[1], k.shape[2]
     if hq != hkv:
         k = k.repeat_interleave(hq // hkv, dim=1)
         v = v.repeat_interleave(hq // hkv, dim=1)
-    s = (q.float() @ k.float().transpose(-1, -2)) / math.sqrt(d)    # [B,H,Sq,Sk]
+    s = _scores(q, k, sm_scale)                                      # [B,H,Sq,Sk]
     col = torch.arange(sk, device=q.device)
     mask = torch.ones(sq, sk, dtype=torch.bool, device=q.device)
     if causal:
@@ -60,14 +68,15 @@ def flash_attention_plain(q, k, v, kv_length=None, *, causal: bool = True):
 
 
 def flash_attention_partial_plain(q, k, v, q_offset: int, k_offset: int, kv_length=None,
-                                  *, causal: bool = True, neg_inf: float = -1e30):
+                                  *, causal: bool = True, neg_inf: float = -1e30,
+                                  sm_scale: float | None = None):
     """Plain PyTorch twin of `flash_attention_partial` (same signature)."""
     b, hq, sq, d = q.shape
     hkv, sk = k.shape[1], k.shape[2]
     if hq != hkv:
         k = k.repeat_interleave(hq // hkv, dim=1)
         v = v.repeat_interleave(hq // hkv, dim=1)
-    s = (q.float() @ k.float().transpose(-1, -2)) / math.sqrt(d)    # [B,H,Sq,Sk]
+    s = _scores(q, k, sm_scale)                                      # [B,H,Sq,Sk]
     col = torch.arange(sk, device=q.device)
     mask = torch.ones(sq, sk, dtype=torch.bool, device=q.device)
     if causal:
@@ -118,10 +127,15 @@ def _checked(fn: str, q, k, v, kv_length):
     return strides, kv_length
 
 
+def _kernel_scale(d: int, sm_scale: float | None) -> float:
+    return 1.0 / math.sqrt(d) if sm_scale is None else float(sm_scale)
+
+
 @counted
-def flash_attention(q, k, v, kv_length=None, *, causal: bool = True):
-    """Tiled flash attention (K3), scores scaled by D^-0.5 -> [B, H, Sq, D]
-    in q's dtype.
+def flash_attention(q, k, v, kv_length=None, *, causal: bool = True,
+                    sm_scale: float | None = None):
+    """Tiled flash attention (K3), scores scaled by `sm_scale` (default
+    D^-0.5) -> [B, H, Sq, D] in q's dtype.
 
     On CUDA the result is a [B, H, Sq, D] view of a [B, Sq, H, D] buffer,
     so the decoder's following transpose to [B, Sq, H * D] is free.
@@ -129,7 +143,7 @@ def flash_attention(q, k, v, kv_length=None, *, causal: bool = True):
     b, hq, sq, d = q.shape
     _, hkv, sk, _ = k.shape
     if q.device.type == "cpu":
-        return flash_attention_plain(q, k, v, kv_length, causal=causal)
+        return flash_attention_plain(q, k, v, kv_length, causal=causal, sm_scale=sm_scale)
     from streamchat_tpu_torch.kernels.build import call
 
     (qs, ks, vs), kv_length = _checked("flash_attention", q, k, v, kv_length)
@@ -138,7 +152,7 @@ def flash_attention(q, k, v, kv_length=None, *, causal: bool = True):
     call("sc_flash_attention", q.data_ptr(), qs, k.data_ptr(), ks,
          v.data_ptr(), vs, out.data_ptr(), os_,
          None if kv_length is None else kv_length.data_ptr(),
-         b, hq, hkv, sq, sk, d, int(causal), 1.0 / math.sqrt(d),
+         b, hq, hkv, sq, sk, d, int(causal), _kernel_scale(d, sm_scale),
          torch.cuda.current_stream().cuda_stream)
     launched(flash_attention)
     return out
@@ -146,9 +160,11 @@ def flash_attention(q, k, v, kv_length=None, *, causal: bool = True):
 
 @counted
 def flash_attention_partial(q, k, v, q_offset: int, k_offset: int, kv_length=None,
-                            *, causal: bool = True, neg_inf: float = -1e30):
-    """Partial flash attention (K5), scores scaled by D^-0.5 -> (acc f32
-    [B, H, Sq, D] UNNORMALIZED, m f32 [B, H, Sq], l f32 [B, H, Sq]).
+                            *, causal: bool = True, neg_inf: float = -1e30,
+                            sm_scale: float | None = None):
+    """Partial flash attention (K5), scores scaled by `sm_scale` (default
+    D^-0.5) -> (acc f32 [B, H, Sq, D] UNNORMALIZED, m f32 [B, H, Sq], l f32
+    [B, H, Sq]).
 
     q_offset / k_offset are the global positions of q's and k's first rows
     (host ints); causality is `k_offset + col <= q_offset + row`. The
@@ -158,7 +174,7 @@ def flash_attention_partial(q, k, v, q_offset: int, k_offset: int, kv_length=Non
     _, hkv, sk, _ = k.shape
     if q.device.type == "cpu":
         return flash_attention_partial_plain(q, k, v, q_offset, k_offset, kv_length,
-                                             causal=causal, neg_inf=neg_inf)
+                                             causal=causal, neg_inf=neg_inf, sm_scale=sm_scale)
     from streamchat_tpu_torch.kernels.build import call
 
     (qs, ks, vs), kv_length = _checked("flash_attention_partial", q, k, v, kv_length)
@@ -169,7 +185,7 @@ def flash_attention_partial(q, k, v, q_offset: int, k_offset: int, kv_length=Non
     call("sc_flash_attention_partial", q.data_ptr(), qs, k.data_ptr(), ks,
          v.data_ptr(), vs, acc.data_ptr(), m.data_ptr(), l.data_ptr(),
          None if kv_length is None else kv_length.data_ptr(),
-         b, hq, hkv, sq, sk, d, int(causal), 1.0 / math.sqrt(d), int(q_offset),
+         b, hq, hkv, sq, sk, d, int(causal), _kernel_scale(d, sm_scale), int(q_offset),
          int(k_offset), float(neg_inf), torch.cuda.current_stream().cuda_stream)
     launched(flash_attention_partial)
     return acc, m, l

@@ -72,11 +72,17 @@ def quantize_weight_int4(w: torch.Tensor, group_size: int = 128) -> Params:
     amax = w32.abs().amax(1)                                   # [g, out]
     scale = torch.where(amax > 0, amax / 7.0, torch.ones_like(amax))
     w_i4 = torch.clamp(torch.round(w32 / scale[:, None, :]), -7, 7)
-    w_i4 = w_i4.to(torch.int32).reshape(kin, out)
-    oh = out // 2
-    byte = (w_i4[:, :oh] & 0xF) | ((w_i4[:, oh:] & 0xF) << 4)  # 0..255
-    packed = torch.where(byte >= 128, byte - 256, byte).to(torch.int8)
-    return {"w_i4p": packed, "scale": scale.reshape(g, 2, oh)}
+    return {"w_i4p": pack_int4(w_i4.reshape(kin, out)), "scale": scale.reshape(g, 2, out // 2)}
+
+
+def pack_int4(w_i4: torch.Tensor) -> torch.Tensor:
+    """int4 values [in, out] (-8..7, any integer dtype) -> packed bytes
+    [in, out/2]: column j in the low nibble, column j + out/2 in the high
+    one (the inverse of `unpack_int4`)."""
+    w = w_i4.to(torch.int32)
+    oh = w.shape[-1] // 2
+    byte = (w[..., :oh] & 0xF) | ((w[..., oh:] & 0xF) << 4)     # 0..255
+    return torch.where(byte >= 128, byte - 256, byte).to(torch.int8)
 
 
 def unpack_int4(p: torch.Tensor) -> torch.Tensor:
@@ -211,6 +217,42 @@ def matmul_any(x: torch.Tensor, w: Any) -> torch.Tensor:
     return x @ w
 
 
+def matmul_f32(x: torch.Tensor, w: Any):
+    """x @ w split where `matmul_any` rounds -> (y f32 [..., out], finish):
+    finish(y) gives what `matmul_any(x, w)` gives, up to the order of the
+    f32 sums, and finishing the sum of row-parallel parts' y gives the
+    whole product's result the same way (the tensor-parallel o and down).
+    W8 and K10 write their f32 result directly at decode; a prefill
+    product is taken in f32 and rounded as the single-device path rounds
+    it (an int8 one before its scale, as `qmatmul` scales on the card)."""
+    lead, kin = x.shape[:-1], x.shape[-1]
+    n = math.prod(lead)
+    x2 = x.reshape(n, kin)
+    dtype, scale = x.dtype, None
+
+    def finish(t):
+        t = t.to(dtype)
+        return t if scale is None else t.mul_(scale)
+
+    if isinstance(w, dict) and "w_i4p" in w:
+        if _kernel_rows(x, n):
+            from streamchat_tpu_torch.ops.int4_matmul import qmatvec_int4
+
+            y = qmatvec_int4(x2.contiguous(), w["w_i4p"], w["scale"], out_dtype=torch.float32)
+        else:
+            y = x2.float() @ dequantize_weight_int4(w, dtype).float()
+    elif is_quantized(w):
+        if _kernel_rows(x, n):
+            y = qmatvec_int8(x2.contiguous(), w["w_i8"], w["scale"], torch.float32)
+        elif x.is_cuda:
+            y, scale = x2.float() @ w["w_i8"].float(), w["scale"]
+        else:
+            y = qmatvec_int8_plain(x2, w["w_i8"], w["scale"], torch.float32)
+    else:
+        y = x2.float() @ w.float()
+    return y.reshape(*lead, y.shape[-1]), finish
+
+
 def quantize_decoder_params(params: Params, quantize_embed: bool = False,
                             bits: int = 8) -> Params:
     """Quantize every decoder matmul weight (returns a new tree).
@@ -222,6 +264,9 @@ def quantize_decoder_params(params: Params, quantize_embed: bool = False,
     source weight early to fit a 16 GB chip, is not needed on 80 GB."""
     if bits not in (4, 8):
         raise ValueError(f"bits must be 4 or 8, got {bits}")
+    if "tp" in params:
+        raise ValueError("quantize a decoder before it is sharded: a row-parallel slice's "
+                         "int8 scales would come from its own rows only")
     qfn = quantize_weight_int4 if bits == 4 else quantize_weight
 
     def proj(p):

@@ -39,8 +39,19 @@ parks the ViT, projector and both embedders there for each caption loop
 (pipeline/memory_update.py, utils/offload.py); `last_offload_stats` holds
 the run's chunk offload seconds and bytes. Both act in `process_video`
 only: the on-line session never calls `update_memory`, as in the JAX
-package. Not ported yet, raising NotImplementedError that names its
-ROADMAP item: --shard.
+package.
+
+`--shard` runs the decoder tensor-parallel, one process a rank: start the
+CLI under `torchrun --nproc_per_node=N`, or call `main` in ranks that share
+an initialized process group. Each rank runs the whole runner (reading,
+ingest, memory, answers) on `cuda:{LOCAL_RANK % device count}` with its
+slice of the decoder (`LongVA.shard` after `quantize`, as the JAX `main`
+orders them) and the whole ViT, projector and embedders; rank 0 alone
+writes the results, the memory bank files and the tree dumps. Without an
+initialized group `main` joins torchrun's over NCCL and raises when the
+ranks outnumber the cards; ranks that share a card (a gloo group a caller
+set up) build their models in turn, so that one whole tree at a time sits
+on the card.
 """
 
 from __future__ import annotations
@@ -327,22 +338,33 @@ def _append_result(save_file: str, record: dict) -> None:
         json.dump(data, f, ensure_ascii=False, indent=4)
 
 
-def run_inference(pipeline: StreamChatPipeline, args) -> None:
-    """Annotation loop over a StreamBench annotation file."""
+class _UnsavedBank(MemoryBank):
+    """The dialogue bank of a rank other than 0: kept in memory only, since
+    rank 0 writes the same turns to the file."""
+
+    def flush(self) -> None:
+        pass
+
+
+def run_inference(pipeline: StreamChatPipeline, args, writer: bool = True) -> None:
+    """Annotation loop over a StreamBench annotation file. Only a `writer`
+    (rank 0 of a sharded run) writes the results, the bank files and the
+    tree dumps."""
     with open(args.annotations, "r", encoding="utf-8") as f:
         all_annotations = json.load(f)
-    os.makedirs(args.memory_basic_dir, exist_ok=True)
-    if not os.path.exists(args.save_file):
-        with open(args.save_file, "w", encoding="utf-8") as f:
-            json.dump([], f)
+    if writer:
+        os.makedirs(args.memory_basic_dir, exist_ok=True)
+        if not os.path.exists(args.save_file):
+            with open(args.save_file, "w", encoding="utf-8") as f:
+                json.dump([], f)
     for count, anno in enumerate(all_annotations):
         if count < args.start:
             continue
         if args.num_chunks > 1 and count % args.num_chunks != args.chunk_idx:
             continue
-        bank = MemoryBank(os.path.join(args.memory_basic_dir, f"memory_{count}.json"),
-                          pipeline.bank_embed, language=args.language,
-                          top_k=args.memory_search_top_k)
+        bank = (MemoryBank if writer else _UnsavedBank)(
+            os.path.join(args.memory_basic_dir, f"memory_{count}.json"),
+            pipeline.bank_embed, language=args.language, top_k=args.memory_search_top_k)
         video_path = os.path.join(args.video_dir, anno["info"]["class_1"],
                                   anno["info"]["video_path"])
         if not os.path.exists(video_path):
@@ -352,10 +374,10 @@ def run_inference(pipeline: StreamChatPipeline, args) -> None:
                    else pipeline.process_video)
         try:
             process(reader, anno["breakpoint"], bank, user_name="User",
-                    save_file=args.save_file)
+                    save_file=args.save_file if writer else None)
         finally:
             reader.close()
-        if args.save_tree_dir:
+        if args.save_tree_dir and writer:
             os.makedirs(args.save_tree_dir, exist_ok=True)
             with open(os.path.join(args.save_tree_dir, f"tree_{count}.pkl"), "wb") as f:
                 pickle.dump(pipeline.last_tree.to_state(), f)
@@ -462,15 +484,7 @@ def parse_args(argv=None):
     return p.parse_args(argv)
 
 
-_NOT_PORTED = (
-    ("shard", "--shard", "Multi-GPU"),
-)
-
-
 def config_from_args(args) -> PipelineConfig:
-    for attr, flag, item in _NOT_PORTED:
-        if getattr(args, attr):
-            raise NotImplementedError(f"{flag} is not ported yet: ROADMAP §A '{item}'")
     return PipelineConfig(
         memory=MemoryConfig(
             chunk_size=args.chunk_size, num_clusters=args.num_clusters,
@@ -488,6 +502,27 @@ def config_from_args(args) -> PipelineConfig:
         multi_modal_memory=args.multi_modal_memory, ppl=args.ppl)
 
 
+def _join_ranks(device: torch.device):
+    """--shard's process group and this rank's device -> (rank, world,
+    device, whether main started the group). A group a caller initialized
+    is kept; otherwise torchrun's environment is joined, over NCCL on the
+    card (one card a rank) and gloo on the CPU."""
+    import torch.distributed as dist
+
+    from streamchat_tpu_torch.parallel import multihost
+
+    started = not dist.is_initialized()
+    rank, world = multihost.initialize(backend="nccl" if device.type == "cuda" else "gloo")
+    if device.type == "cuda":
+        if started and world > torch.cuda.device_count():
+            raise RuntimeError(
+                f"--shard over NCCL takes one card a rank: {world} ranks, "
+                f"{torch.cuda.device_count()} cards")
+        device = multihost.local_device()
+        torch.cuda.set_device(device)
+    return rank, world, device, started and dist.is_initialized()
+
+
 def main(argv=None) -> None:
     args = parse_args(argv)
     cfg = config_from_args(args)
@@ -495,21 +530,46 @@ def main(argv=None) -> None:
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("--device cuda: no CUDA device is available "
                            "(pass --device cpu --geometry tiny for a CPU run)")
-    pipeline = build_pipeline(cfg, device=device, dtype=torch.bfloat16,
-                              geometry=args.geometry)
-    if args.int4:
-        pipeline.model.quantize(bits=4)
-    elif args.int8:
-        pipeline.model.quantize()
+    rank, world, started = 0, 1, False
+    if args.shard:
+        rank, world, device, started = _join_ranks(device)
+    # Ranks that share a card build in turn: one whole tree at a time.
+    shared = device.type == "cuda" and world > torch.cuda.device_count()
+    for turn in range(world if shared else 1):
+        if turn == rank or not shared:
+            pipeline = build_pipeline(cfg, device=device, dtype=torch.bfloat16,
+                                      geometry=args.geometry)
+            if args.int4:
+                pipeline.model.quantize(bits=4)
+            elif args.int8:
+                pipeline.model.quantize()
+            if args.shard:
+                pipeline.model.shard()
+            if shared:
+                torch.cuda.empty_cache()
+        if shared:
+            import torch.distributed as dist
+
+            dist.barrier()
     if args.spec_tokens:
         pipeline.model.spec_tokens = args.spec_tokens
         pipeline.model.spec_ngram = args.spec_ngram
     if args.literal_kmeans:
         pipeline.cluster_full_chunks = False
     t0 = time.time()
-    run_inference(pipeline, args)
-    print(json.dumps({"seconds": round(time.time() - t0, 3),
-                      "phase_totals": pipeline.last_phase_totals}))
+    try:
+        if rank == 0:
+            run_inference(pipeline, args)
+        else:
+            run_inference(pipeline, args, writer=False)
+    finally:
+        if started:
+            import torch.distributed as dist
+
+            dist.destroy_process_group()
+    if rank == 0:
+        print(json.dumps({"seconds": round(time.time() - t0, 3),
+                          "phase_totals": pipeline.last_phase_totals}))
 
 
 if __name__ == "__main__":

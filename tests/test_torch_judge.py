@@ -156,8 +156,7 @@ def test_unported_entry_points_name_their_roadmap_items(no_launches, tmp_path):
         PROMPTS, max_new_tokens=6)
     with pytest.raises(FileNotFoundError):
         TextLM.from_pretrained(str(tmp_path / "absent"), device="cpu")
-    with pytest.raises(NotImplementedError, match="Multi-GPU"):
-        lm.shard()
+    assert lm.shard() is lm and "tp" not in lm.params      # no process group: a world of one
 
 
 # ---------------------------------------------------------------------------

@@ -306,7 +306,7 @@ def test_cli_runs_with_both_offload_flags(tmp_path, monkeypatch):
     """`main` with --offload_chunks --offload_residents at tiny geometry:
     the pipeline registers its four idle trees, parks and restores them
     each segment, counts the chunks it parked, and saves the records of
-    the run without the flags; --shard still raises."""
+    the run without the flags; --shard, once unported, parses."""
     (tmp_path / "videos" / "cls").mkdir(parents=True)
     (tmp_path / "videos" / "cls" / "v.mp4").write_bytes(b"")
     anno = [{"info": {"video_path": "v.mp4", "class_1": "cls"},
@@ -347,6 +347,5 @@ def test_cli_runs_with_both_offload_flags(tmp_path, monkeypatch):
     assert saved[1] == saved[0] and len(saved[0]) == 2
     args = runner.parse_args(["--video_dir", "v", "--memory_basic_dir", "m", "--save_file",
                               "s", "--annotations", "a", "--shard", "--offload_chunks"])
-    with pytest.raises(NotImplementedError, match="Multi-GPU"):
-        runner.config_from_args(args)
-    assert runner._NOT_PORTED == (("shard", "--shard", "Multi-GPU"),)
+    assert args.shard and runner.config_from_args(args).memory.offload_chunks
+    assert not hasattr(runner, "_NOT_PORTED")

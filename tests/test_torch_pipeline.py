@@ -210,21 +210,16 @@ BASE = ["--video_dir", "v", "--memory_basic_dir", "m", "--save_file", "s.json",
     ["--bf16", "--ppl"],
 ])
 def test_unported_cli_options_raise(flags):
-    """The options still unported (--shard) raise, naming their ROADMAP
-    item; --ppl and the offload flags, once among them, are ported and now
-    parse into PipelineConfig.ppl and MemoryConfig.offload_chunks /
-    offload_residents (`test_cli_answer_options_run_on_cpu` and
-    `tests/test_torch_offload.py` run them)."""
+    """No option is left unported: --shard, --ppl and the offload flags,
+    once among them, parse into the PipelineConfig (--shard is `main`'s:
+    `tests/test_torch_parallel.py` runs it) and `_NOT_PORTED` is gone."""
     args = runner.parse_args(BASE + flags)
-    if "--shard" not in flags:
-        cfg = runner.config_from_args(args)
-        assert cfg.multi_modal_memory
-        assert cfg.ppl is ("--ppl" in flags)
-        assert cfg.memory.offload_chunks is ("--offload_chunks" in flags)
-        assert cfg.memory.offload_residents is ("--offload_residents" in flags)
-        return
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        runner.config_from_args(args)
+    cfg = runner.config_from_args(args)
+    assert cfg.multi_modal_memory and args.shard is ("--shard" in flags)
+    assert cfg.ppl is ("--ppl" in flags)
+    assert cfg.memory.offload_chunks is ("--offload_chunks" in flags)
+    assert cfg.memory.offload_residents is ("--offload_residents" in flags)
+    assert not hasattr(runner, "_NOT_PORTED")
 
 
 def _cli_run(tmp_path, monkeypatch, flags, multi_modal=True):
