@@ -214,7 +214,23 @@
    optical flow over the 32 first frames each shown twice (a keep mask
    equal to the host's at a threshold in the widest gap of the
    magnitudes), k-means over 16 blobs (labels equal), knn with planted
-   exact ties (the lower indices first) and pairwise soft-DTW.
+   exact ties (the lower indices first) and pairwise soft-DTW. Then the
+   traced run: `process_video` in bf16 at full depth over the 10 s
+   breakpoint, generations cut to 16 new tokens, under
+   `utils.profiling.maybe_device_trace` (torch.profiler, CPU and CUDA
+   activity; the runner's phases are `record_function` windows that
+   enclose their device synchronize), read back with `utils.traceparse`:
+   per phase wall_s, device_s, host_gap_s, device_events and the idle
+   share 1 - device_s / wall_s, the top ten device ops and the trace's
+   size. Held: device_s <= wall_s in every phase; ingest, caption and
+   answer show device events; the trace's K1 launches (its attention, the
+   flash_prefill_kernel at head dim 64) equal the ViT's blocks run x frame
+   batches and the K1 counter, its K3 launches (head dim 128, not partial)
+   the decoder's 28 layers x one-pass prefills and the K3 counter, K5's and
+   K4's their counters. A trace that lost events is taken again, five runs
+   at most, then the phase fails. Planted: a copy of the trace with a
+   `gpu_user_annotation` over the caption windows must leave caption's
+   device_s unchanged.
 10. Runs `process_video_online` (`--mode on_line`: a worker thread captions
    while the caller ingests, a short-term FIFO across the stream) twice on
    the int8 tree, counters zeroed before each: over both breakpoints, where
@@ -358,9 +374,25 @@
    heads, S = 16,384, B = 2), each held to K3 over the whole sequence and
    to the plain twin; planted: a rotation skipped, a block's k_offset one
    shard late, zigzag's inverse permutation left out, Ulysses' all-to-all
-   with split and concat axes swapped. Where the machine has a card a
+   with split and concat axes swapped. Before those two, the data axis:
+   `runner.main --shard` off-line, int8, over 8 ranks on the card (gloo),
+   which `make_mesh` lays out as the 2 x 4 (data, model) mesh an 8-card
+   user gets at Qwen2-7B's 4 kv heads, every rank given the same output
+   paths, over two annotations (one breakpoint and one video each): each
+   replica's ranks must emit the same tokens, equal to a tp-4 runner run
+   of its `--num_chunks 2 --chunk_idx d` share (replica 0's: the tp-4
+   off-line phase, the same annotation; replica 1's: a tp-4 phase run for
+   it), and its first token and first decode step (within 1e-2) those of
+   the unsharded runner run of that share (run here first); rank r must sit
+   at (r // 4, r % 4); `--save_file` must hold both replicas' records in
+   annotation order, equal to the tp-4 runs' records; rank 0 writes it and
+   replica 0's bank file, rank 4 replica 1's, no other rank anything. Printed: each rank's coordinates, bytes
+   after `shard`, all_reduce calls / bytes / host seconds, and the phase's
+   seconds. Planted: replica 1 having run replica 0's annotation, and a
+   rank in the other replica's model group. Where the machine has a card a
    rank, the off-line TP runner and the SP ops run again over NCCL through
-   their real transports; on one card one line says they did not run.
+   their real transports (the data-axis phase where there are eight
+   cards); on one card one line says they did not run.
 16. Prints the kernels JSON line, then the device JSON line last.
 
 Any failure raises: the script then exits non-zero and prints no result.
@@ -457,6 +489,14 @@ RUNS = {
     "tp2_runner_online": ("fused_vit_layer", "fused_ln_mlp", "flash_attention",
                           "paged_decode_attention_seq", "qmatvec_int8"),
     "tp4_judge_int8": ("flash_attention", "qmatvec_int8"),
+    # The (data, model) mesh: runner --shard over 8 ranks, dp 2 x tp 4, and
+    # its replica 1's tp-4 reference (--num_chunks 2 --chunk_idx 1).
+    "dp2_tp4_runner": ("fused_vit_layer", "fused_ln_mlp", "flash_attention",
+                       "paged_decode_attention_seq", "qmatvec_int8"),
+    "tp4_runner_chunk1": ("fused_vit_layer", "fused_ln_mlp", "flash_attention",
+                          "paged_decode_attention_seq", "qmatvec_int8"),
+    # One off-line breakpoint in bf16 at full depth under a torch.profiler trace.
+    "traced_bf16": PREFILL + ("paged_decode_attention_seq",),
 }
 SOURCES = {
     "fused_vit_layer": ("streamchat_tpu_torch/csrc/fused_vit.cu",
@@ -2442,10 +2482,11 @@ BREAKPOINTS = [
 ]
 
 
-def _video():
+def _video(seed=0):
     from streamchat_tpu_torch.video.reader import SyntheticVideoReader
 
-    return SyntheticVideoReader(total_frames=600, frame_rate=30, height=360, width=640)
+    return SyntheticVideoReader(total_frames=600, frame_rate=30, height=360, width=640,
+                                seed=seed)
 
 
 def run_slice(pipe, breakpoints, online=False):
@@ -5174,7 +5215,8 @@ def _tp_observed():
     def sharding(self, mesh=None):
         out = shard(self, mesh)
         torch.cuda.synchronize()
-        seen.update(device_bytes_after_shard=torch.cuda.memory_allocated(),
+        seen.update(coords=mesh.coords, mesh_shape=mesh.shape,
+                    device_bytes_after_shard=torch.cuda.memory_allocated(),
                     decoder_bytes=_tree_bytes(self.dec_params),
                     vit_projector_bytes=_tree_bytes(self.vit_params)
                     + _tree_bytes(self.proj_params), dec_cfg=dataclasses.asdict(self.dec_cfg))
@@ -5190,7 +5232,8 @@ def _tp_observed():
     patches = [(runner, "build_pipeline",
                 lambda *a, **kw: build(*a, tokenizer=ByteTokenizer(), **kw)),
                (runner, "config_from_args", configured),
-               (runner, "open_video", lambda path: _video()),
+               (runner, "open_video",
+                lambda path: _video(seed=DP_VIDEOS.index(os.path.basename(path)))),
                (runner, "run_inference", inferring), (longva, "generate_paged", generating),
                (generate_paged, "_decode_loop", looping),
                (generate_paged, "decode_step_paged", stepping),
@@ -5207,7 +5250,7 @@ def _tp_observed():
 
 def _tp_reference(d, argv, label):
     """The runner run unsharded in this process (the TP runs' reference)
-    -> its tokens and first logits."""
+    -> its tokens, first logits and saved records."""
     from streamchat_tpu_torch.pipeline import runner
 
     out = os.path.join(d, f"{label}_unsharded")
@@ -5217,7 +5260,10 @@ def _tp_reference(d, argv, label):
     torch.cuda.empty_cache()
     if not seen["tokens"] or seen["first_step_logits"] is None:
         raise AssertionError(f"TP reference {label}: no tokens or decode step: {seen}")
-    return {k: seen[k] for k in ("tokens", "prefill_logits", "first_step_logits", "run_s")}
+    with open(out + ".json", encoding="utf-8") as f:
+        records = json.load(f)
+    return {**{k: seen[k] for k in ("tokens", "prefill_logits", "first_step_logits", "run_s")},
+            "records": records}
 
 
 def _judge_tokens(lm, preds, out_path):
@@ -5289,18 +5335,38 @@ def _tp_judge_job(rank, world, spec, mesh):
 
 def _tp_runner_job(rank, spec):
     """`runner.main` with --shard (the group already up, so the runner keeps
-    it and its ranks build in turn on the shared card) -> the rank's report."""
+    it and its ranks build in turn on the shared card) -> the rank's report.
+    With spec["shared"] every rank gets the same output paths, as under
+    torchrun, and the report names the files the rank opened for writing
+    (rank 0's also the saved records)."""
     from streamchat_tpu_torch import kernels
+    from streamchat_tpu_torch.memory import bank
     from streamchat_tpu_torch.parallel import mesh as pmesh
     from streamchat_tpu_torch.pipeline import runner
 
-    out = os.path.join(spec["dir"], f"{spec['label']}_rank{rank}")
+    shared = spec.get("shared", False)
+    out = os.path.join(spec["dir"], spec["label"] if shared else f"{spec['label']}_rank{rank}")
     kernels.reset_launch_counts()
     pmesh.reset_collective_stats()
-    with _tp_observed() as seen:
-        runner.main(spec["argv"] + ["--shard", "--memory_basic_dir", out,
-                                    "--save_file", out + ".json"])
-    seen["saved"] = os.path.exists(out + ".json")
+    written = set()
+
+    def recording_open(path, mode="r", *a, **kw):
+        if any(c in mode for c in "wax"):
+            written.add(os.path.relpath(os.path.abspath(path), spec["dir"]))
+        return open(path, mode, *a, **kw)
+
+    runner.open = bank.open = recording_open
+    try:
+        with _tp_observed() as seen:
+            runner.main(spec["argv"] + ["--shard", "--memory_basic_dir", out,
+                                        "--save_file", out + ".json"])
+    finally:
+        del runner.open, bank.open
+    seen["written"] = sorted(written)
+    seen["saved"] = f"{os.path.basename(out)}.json" in written
+    if shared and rank == 0:
+        with open(out + ".json", encoding="utf-8") as f:
+            seen["records"] = json.load(f)
     return seen
 
 
@@ -5333,10 +5399,11 @@ def _tp_rank(rank, world, spec):
             rep = _tp_runner_job(rank, spec)
         rep["launches"] = {n: c for n, c in kernels.launch_counts().items() if c}
         rep["collectives"] = pmesh.collective_stats()
-        h = _token_hash(rep["tokens"])
-        both = torch.tensor([h, -h], dtype=torch.int64, device="cuda" if nccl else "cpu")
-        dist.all_reduce(both, op=dist.ReduceOp.MAX)
-        rep["tokens_equal_on_every_rank"] = both.tolist() == [h, -h]
+        if not spec.get("shared"):      # one model group: every rank's tokens alike
+            h = _token_hash(rep["tokens"])
+            both = torch.tensor([h, -h], dtype=torch.int64, device="cuda" if nccl else "cpu")
+            dist.all_reduce(both, op=dist.ReduceOp.MAX)
+            rep["tokens_equal_on_every_rank"] = both.tolist() == [h, -h]
         torch.save(rep, os.path.join(spec["dir"], f"{spec['label']}_rank{rank}.pt"))
     finally:
         dist.destroy_process_group()
@@ -5388,6 +5455,7 @@ def run_tp_phase(label, world, spec, ref=None):
         report["prefill_logits_row_rel_l2"] = _row_rel_l2(reps[0]["prefill_logits"],
                                                           ref["prefill_logits"])
     print(f"TP [{label}]: {json.dumps(report)}", flush=True)
+    report["rank0_tokens"] = reps[0]["tokens"]
     bad = []
     if not report["tokens_equal_on_every_rank"] or not report["tokens"]:
         bad.append("ranks' tokens differ (or none emitted)")
@@ -5406,6 +5474,380 @@ def run_tp_phase(label, world, spec, ref=None):
     if bad:
         raise AssertionError(f"TP phase {label}: {'; '.join(bad)}")
     return report, reps[0]["launches"]
+
+
+# The data axis: 8 ranks at Qwen2-7B's 4 kv heads make the 2 x 4 mesh an
+# 8-card user gets (`best_mesh_shape`); two annotations, one a replica, each
+# over its own video (the synthetic video of seed 0 and of seed 1), so that
+# the replicas' captions differ.
+DP_WORLD = 8
+DP_VIDEOS = ("v.mp4", "v1.mp4")
+DP_BREAKPOINTS = (TP_BREAKPOINT, dict(TP_BREAKPOINT, question="What is next to the cup?"))
+
+
+def _dp_inputs(d, argv):
+    """The data-axis phase's annotation file (two annotations, one
+    breakpoint and one video each) -> the TP argv reading it."""
+    anno = os.path.join(d, "anno_dp.json")
+    open(os.path.join(d, "videos", "tp", DP_VIDEOS[1]), "wb").close()
+    with open(anno, "w", encoding="utf-8") as f:
+        json.dump([{"info": {"class_1": "tp", "video_path": v}, "breakpoint": [bp]}
+                   for v, bp in zip(DP_VIDEOS, DP_BREAKPOINTS)], f)
+    i = argv.index("--annotations")
+    return argv[:i + 1] + [anno] + argv[i + 2:]
+
+
+def _untimed(records):
+    return [{k: v for k, v in r.items() if k != "process_time"} for r in records]
+
+
+def check_data_axis(label, reps, refs, dp, tp):
+    """Hold one data-axis phase's rank reports to `refs` (per replica d: the
+    tokens and saved records of the tp-`tp` runner run with --num_chunks dp
+    --chunk_idx d, and its unsharded run's report) -> list of faults: rank
+    r at (r // tp, r % tp) of a dp x tp mesh; each replica's ranks emit the
+    same tokens, equal to its tp-`tp` run's, and its first token and first
+    decode step (within TP_LOGITS_REL_L2) those of the unsharded run; rank
+    0's --save_file holds the tp-`tp` runs' records in annotation order;
+    rank 0 writes it and replica 0's bank file, replica d's model rank 0 its
+    own bank file, no other rank anything; every rank takes all_reduces;
+    rank 0 launches the run's kernels."""
+    bad = []
+    for r, rep in enumerate(reps):
+        if tuple(rep["coords"]) != divmod(r, tp) or rep["mesh_shape"] != {"data": dp,
+                                                                          "model": tp}:
+            bad.append(f"rank {r} at {rep['coords']} of {rep['mesh_shape']}, not "
+                       f"{divmod(r, tp)} of {dp} x {tp}")
+        if rep["collectives"]["count"] == 0:
+            bad.append(f"rank {r} took no all_reduce")
+    for d in range(dp):
+        group, ref, whole = reps[d * tp:(d + 1) * tp], refs[d], refs[d]["unsharded"]
+        if any(rep["tokens"] != group[0]["tokens"] for rep in group):
+            bad.append(f"replica {d}: its ranks' tokens differ")
+        if not group[0]["tokens"] or group[0]["tokens"] != ref["tokens"]:
+            bad.append(f"replica {d}: {_leading_equal(group[0]['tokens'], ref['tokens'])} of "
+                       f"{len(ref['tokens'])} leading tokens equal to its tp-{tp} run")
+        first = group[0]["first_step_logits"]
+        rel = _row_rel_l2(first, whole["first_step_logits"])
+        if not rel <= TP_LOGITS_REL_L2 or not bool(torch.isfinite(first).all()):
+            bad.append(f"replica {d}: first decode step {rel} from its unsharded run's")
+        if _leading_equal(group[0]["tokens"], whole["tokens"]) == 0:
+            bad.append(f"replica {d}: the first token differs from its unsharded run's")
+    want = _untimed([r for d in range(dp) for r in refs[d]["records"]])
+    if _untimed(reps[0].get("records", [])) != want:
+        bad.append(f"{label}.json holds {_untimed(reps[0].get('records', []))}, not {want}")
+    expect = [[] for _ in reps]
+    expect[0].append(f"{label}.json")
+    for d in range(dp):
+        expect[d * tp].append(f"{label}/memory_{d}.json")
+    for r, rep in enumerate(reps):
+        if sorted(rep["written"]) != sorted(expect[r]):
+            bad.append(f"rank {r} wrote {rep['written']}, expected {expect[r]}")
+    missing = [n for n in RUNS[label.replace("_nccl", "")] if reps[0]["launches"].get(n, 0) == 0]
+    if missing:
+        bad.append(f"kernels never launched: {missing}")
+    return bad
+
+
+def data_axis_refs(tp_dir, tp, whole):
+    """Each replica's references: the tp-4 runner run of its annotations
+    (replica 0's is `tp4_runner_offline`, over the same annotation, video
+    and seed; replica 1's `tp4_runner_chunk1`) -> its tokens and saved
+    records, beside its unsharded run's report."""
+    refs = []
+    for d, label in enumerate(("tp4_runner_offline", "tp4_runner_chunk1")):
+        with open(os.path.join(tp_dir, f"{label}_rank0.json"), encoding="utf-8") as f:
+            refs.append(dict(tokens=tp[label]["rank0_tokens"], records=json.load(f),
+                             unsharded=whole[d]))
+    return refs
+
+
+def run_data_axis_phase(label, spec, refs, planted, world=DP_WORLD):
+    """`runner --shard` over `world` ranks on the (data, model) mesh, every
+    rank given the same output paths -> (report, rank 0's launch counts).
+    Held by `check_data_axis` to `refs`; two planted faults must fail it:
+    replica 1 having run replica 0's annotation, and a rank placed in the
+    other replica's model group."""
+    import copy
+
+    import torch.multiprocessing as mp
+
+    from streamchat_tpu_torch.parallel import layout
+
+    dp, tp = layout(world)
+    spec = dict(spec, label=label, backend=spec.get("backend", "gloo"), shared=True)
+    free, total = torch.cuda.mem_get_info()
+    where = (" (a card a rank)" if spec["backend"] == "nccl" else
+             " on one card, all_reduce staged through pinned host buffers")
+    print(f"data axis [{label}]: {world} ranks, dp {dp} x tp {tp}, over {spec['backend']}{where}"
+          f"; card free {free} of {total} bytes before the spawn", flush=True)
+    t0 = time.perf_counter()
+    mp.spawn(_tp_rank, args=(world, spec), nprocs=world, join=True)
+    seconds = time.perf_counter() - t0
+    reps = [torch.load(os.path.join(spec["dir"], f"{label}_rank{r}.pt"), weights_only=False)
+            for r in range(world)]
+    ranks = [dict(rank=r, coords=list(rep["coords"]),
+                  device_bytes_after_shard=rep["device_bytes_after_shard"],
+                  decoder_bytes=rep["decoder_bytes"], run_s=rep["run_s"],
+                  all_reduce=dict(calls=rep["collectives"]["count"],
+                                  bytes=rep["collectives"]["bytes"],
+                                  host_s=rep["collectives"]["seconds"]),
+                  tokens=len(rep["tokens"]), written=rep["written"])
+             for r, rep in enumerate(reps)]
+    report = dict(seconds=seconds, ranks=world, dp=dp, tp=tp, backend=spec["backend"],
+                  first_step_logits_row_rel_l2=[
+                      _row_rel_l2(reps[d * tp]["first_step_logits"],
+                                  refs[d]["unsharded"]["first_step_logits"]) for d in range(dp)],
+                  tokens_equal_to_tp_run=[reps[d * tp]["tokens"] == refs[d]["tokens"]
+                                          for d in range(dp)],
+                  leading_tokens_equal_to_unsharded=[
+                      _leading_equal(reps[d * tp]["tokens"], refs[d]["unsharded"]["tokens"])
+                      for d in range(dp)],
+                  tokens=[len(reps[d * tp]["tokens"]) for d in range(dp)],
+                  unsharded_run_s=[refs[d]["unsharded"]["run_s"] for d in range(dp)],
+                  records=len(reps[0].get("records", [])), per_rank=ranks,
+                  launches=reps[0]["launches"])
+    print(f"data axis [{label}]: {json.dumps(report)}", flush=True)
+    for rank in ranks:
+        print(f"data axis [{label}] rank {rank['rank']} at (data, model) "
+              f"{tuple(rank['coords'])}: {rank['device_bytes_after_shard']} B after shard, "
+              f"all_reduce {rank['all_reduce']['calls']} calls / {rank['all_reduce']['bytes']} B"
+              f" / {rank['all_reduce']['host_s']:.3f} s, run {rank['run_s']:.3f} s", flush=True)
+    bad = check_data_axis(label, reps, refs, dp, tp)
+    if bad:
+        raise AssertionError(f"data axis phase {label}: {'; '.join(bad)}")
+    faults = {}
+    swapped = copy.deepcopy(reps)                 # replica 1 ran replica 0's annotation
+    for rep in swapped[tp:2 * tp]:
+        rep["tokens"] = list(reps[0]["tokens"])
+    swapped[0]["records"] = list(reps[0]["records"][:1]) * 2
+    faults["data axis: a replica writes the other's annotation"] = swapped
+    moved = copy.deepcopy(reps)                   # rank tp - 1 in replica 1's model group
+    moved[tp - 1]["coords"] = (1, tp - 1)
+    faults["data axis: a rank put in the wrong model group"] = moved
+    for name, reports in faults.items():
+        found = check_data_axis(label, reports, refs, dp, tp)
+        if not found:
+            raise AssertionError(f"planted fault not rejected: {name}")
+        planted[name] = float(len(found))
+        print(f"planted fault rejected: {name}: {len(found)} checks failed (limit 0): "
+              f"{found[0]}", flush=True)
+    return report, reps[0]["launches"]
+
+
+# The traced run: one off-line breakpoint in bf16 at full depth, its
+# generations cut to 16 new tokens so that the trace stays small.
+TRACE_SAMPLING = dict(max_answer_tokens=16, max_caption_tokens=16, max_summary_tokens=16)
+# Phases of the traced run that launch kernels and must show device events.
+TRACE_DEVICE_PHASES = ("ingest", "caption", "answer")
+
+
+def _prefill_form(name):
+    """(head dim, partial) of a flash_prefill_kernel instantiation named in
+    a trace (demangled or not), else None."""
+    import re
+
+    m = re.search(r"flash_prefill_kernel<(\d+), (true|false)", name)
+    if m:
+        return int(m.group(1)), m.group(2) == "true"
+    m = re.search(r"flash_prefill_kernelILi(\d+)ELb([01])", name)
+    return (int(m.group(1)), m.group(2) == "1") if m else None
+
+
+def traced_launches(ops) -> dict:
+    """Launches of the path's kernels in a trace's device-op rows: K1 by its
+    attention (`flash_prefill_kernel` at the ViT's head dim 64, once a K1
+    launch), K3 / K5 by theirs at 128 (one a launch; K5 the partial form),
+    K4 by `paged_tc_kernel` (one a launch, beside its merge)."""
+    out = {"fused_vit_layer": 0, "flash_attention": 0, "flash_attention_partial": 0,
+           "paged_decode_attention_seq": 0}
+    for r in ops:
+        form = _prefill_form(r["name"])
+        if form == (64, False):
+            out["fused_vit_layer"] += r["count"]
+        elif form == (128, False):
+            out["flash_attention"] += r["count"]
+        elif form == (128, True):
+            out["flash_attention_partial"] += r["count"]
+        elif "paged_tc_kernel" in r["name"]:
+            out["paged_decode_attention_seq"] += r["count"]
+    return out
+
+
+def _trace_with_annotation(src_dir, dst_dir, phase_name):
+    """A copy of the trace in `src_dir` (its metadata, annotations and
+    device events: what the per-phase device seconds read) with a
+    `gpu_user_annotation` over every window of `phase_name` on a kernel's
+    GPU lane (as Kineto mirrors a record_function) -> the copy's events."""
+    from streamchat_tpu_torch.utils import traceparse
+
+    keep = traceparse.DEVICE_CATS | {"user_annotation", "gpu_user_annotation"}
+    events = [e for e in traceparse.load_trace_events(traceparse.find_trace_file(src_dir))
+              if e.get("ph") == "M" or e.get("cat") in keep]
+    lane = next(e for e in events if e.get("cat") == "kernel")
+    events += [dict(e, pid=lane["pid"], tid=lane["tid"], cat="gpu_user_annotation")
+               for e in events if e.get("name") == f"phase={phase_name}"
+               and e.get("ph") == "X" and e.get("cat") != "gpu_user_annotation"]
+    os.makedirs(dst_dir, exist_ok=True)
+    with open(os.path.join(dst_dir, "planted.pt.trace.json"), "w", encoding="utf-8") as f:
+        json.dump({"traceEvents": events}, f)
+    return events
+
+
+def traced_attempt(pipe, d):
+    """One off-line breakpoint in bf16 under `maybe_device_trace` into `d`,
+    with the launch counters zeroed before it, the ViT's frame batches and
+    the decoder's one-pass prefills counted -> (seconds, launch counts,
+    {"batches", "one_pass"}, trace path, per-phase device seconds, device
+    op rows, seconds to parse, the run's PhaseTimer totals, its answers)."""
+    from streamchat_tpu_torch import kernels
+    from streamchat_tpu_torch.models import decoder
+    from streamchat_tpu_torch.utils import traceparse
+    from streamchat_tpu_torch.utils.profiling import TRACE_DIR_ENV, maybe_device_trace
+
+    m = pipe.model
+    seen = {"batches": 0, "one_pass": 0}
+    forward, encode = decoder.forward, m.encode_images
+
+    def counting_forward(*a, **kw):
+        if not kw.get("decode") and not kw.get("chunked"):
+            seen["one_pass"] += 1
+        return forward(*a, **kw)
+
+    def counting_encode(pixels):
+        seen["batches"] += 1
+        return encode(pixels)
+
+    decoder.forward, m.encode_images = counting_forward, counting_encode
+    os.environ[TRACE_DIR_ENV] = d
+    kernels.reset_launch_counts()
+    try:
+        with configured(pipe, sampling=TRACE_SAMPLING), maybe_device_trace():
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            results = run_slice(pipe, BREAKPOINTS[:1])[0]
+            torch.cuda.synchronize()
+            seconds = time.perf_counter() - t0
+    finally:
+        decoder.forward = forward
+        del m.encode_images, os.environ[TRACE_DIR_ENV]
+    counts = kernels.launch_counts()
+    t1 = time.perf_counter()
+    path = traceparse.find_trace_file(d)
+    phases = traceparse.device_seconds_by_phase(d)
+    ops = traceparse.device_op_table(d, top=10**6)
+    return (seconds, counts, seen, path, phases, ops, time.perf_counter() - t1,
+            dict(pipe.last_phase_totals), [r["predict"] for r in results])
+
+
+def untraced_run(pipe):
+    """The traced run's breakpoint and settings with no profiler -> (seconds,
+    the run's PhaseTimer totals, its answers)."""
+    with configured(pipe, sampling=TRACE_SAMPLING):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        results = run_slice(pipe, BREAKPOINTS[:1])[0]
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+    return seconds, dict(pipe.last_phase_totals), [r["predict"] for r in results]
+
+
+def drive_traced(pipe, planted):
+    """One off-line breakpoint in bf16 at full depth under
+    `maybe_device_trace`, read back with `utils.traceparse` -> (report,
+    launch counts). Held: every phase's device_s <= wall_s; ingest, caption
+    and answer show device events; the trace's K1 launches equal the ViT's
+    blocks run x frame batches and the K1 counter, its K3 launches the
+    decoder's layers x one-pass prefills and the K3 counter, K5's and K4's
+    their counters; every kernel of RUNS["traced_bf16"] launched. A trace
+    that lost events is taken again, PROFILE_ATTEMPTS runs at most, then the
+    phase fails. The same breakpoint, from the same generator states, then
+    runs untraced: each phase's PhaseTimer total beside the traced run's is
+    the profiler's inflation, and device_s over the untraced total the idle
+    share's estimate without it. Planted: a gpu_user_annotation over the
+    caption windows must leave caption's device_s unchanged."""
+    from streamchat_tpu_torch.models import vit
+    from streamchat_tpu_torch.utils import traceparse
+    from streamchat_tpu_torch.utils.profiling import PROFILE_ATTEMPTS
+
+    m = pipe.model
+    blocks = vit._num_blocks(m.vit_cfg, None)
+    root = tempfile.mkdtemp(prefix="sc_trace_")
+    states = _generator_states(pipe)
+    try:
+        for attempt in range(1, PROFILE_ATTEMPTS + 1):
+            d = os.path.join(root, f"attempt{attempt}")
+            pipe.generator.set_state(states[0])
+            m.generator.set_state(states[1])
+            (seconds, counts, seen, path, phases, ops, parse_s, timer_traced,
+             answers) = traced_attempt(pipe, d)
+            traced = traced_launches(ops)
+            expected = {"fused_vit_layer": blocks * seen["batches"],
+                        "flash_attention": m.dec_cfg.num_layers * seen["one_pass"]}
+            wrong = {n: (counts.get(n, 0), e) for n, e in expected.items()
+                     if counts.get(n, 0) != e}
+            if wrong or not seen["batches"] or not seen["one_pass"]:
+                raise AssertionError(f"traced run: counters {wrong} against the expected "
+                                     f"(blocks {blocks} x batches, layers x one-pass "
+                                     f"prefills {seen})")
+            lost = [f"{p}: no device events" for p in TRACE_DEVICE_PHASES
+                    if phases.get(p, {}).get("device_events", 0) == 0]
+            lost += [f"{n}: {traced[n]} traced, {counts.get(n, 0)} launched"
+                     for n in traced if traced[n] != counts.get(n, 0)]
+            if not lost:
+                break
+            print(f"traced run, attempt {attempt}: the trace lost events: {lost}", flush=True)
+            shutil.rmtree(d, ignore_errors=True)
+        else:
+            raise AssertionError(f"traced run: the trace lost events in {PROFILE_ATTEMPTS} "
+                                 f"attempts: {lost}")
+        missing = [n for n in RUNS["traced_bf16"] if counts.get(n, 0) == 0]
+        if missing:
+            raise AssertionError(f"traced run: kernels never launched: {missing}")
+        over = {p: r for p, r in phases.items() if not r["device_s"] <= r["wall_s"]}
+        if over:
+            raise AssertionError(f"traced run: device_s over wall_s in {over}")
+        pipe.generator.set_state(states[0])
+        m.generator.set_state(states[1])
+        untraced_s, timer_untraced, untraced_answers = untraced_run(pipe)
+        per_phase = {}
+        for p, r in phases.items():
+            plain = timer_untraced.get(p)
+            per_phase[p] = dict(
+                r, idle_share=1.0 - r["device_s"] / r["wall_s"] if r["wall_s"] else None,
+                timer_traced_s=timer_traced.get(p), timer_untraced_s=plain,
+                profiler_inflation=timer_traced.get(p, 0.0) / plain if plain else None,
+                idle_share_untraced_est=1.0 - r["device_s"] / plain if plain else None)
+        report = dict(seconds=seconds, untraced_seconds=untraced_s,
+                      same_answers_untraced=untraced_answers == answers,
+                      attempts=attempt, parse_s=parse_s,
+                      trace_mb=os.path.getsize(path) / 1e6, phases=per_phase,
+                      top_ops=ops[:10], traced_launches=traced,
+                      expected=dict(expected, frame_batches=seen["batches"], vit_blocks=blocks,
+                                    one_pass_prefills=seen["one_pass"],
+                                    decoder_layers=m.dec_cfg.num_layers),
+                      launches={n: c for n, c in counts.items() if c})
+        print(f"traced run (bf16, full depth, 1 breakpoint, {TRACE_SAMPLING['max_caption_tokens']}"
+              f"-token generations): {json.dumps(report)}", flush=True)
+        for p, r in per_phase.items():
+            print(f"traced phase {p}: wall_s {r['wall_s']} device_s {r['device_s']} host_gap_s "
+                  f"{r['host_gap_s']} device_events {r['device_events']} idle share "
+                  f"{r['idle_share']}; PhaseTimer traced {r['timer_traced_s']} s, untraced "
+                  f"{r['timer_untraced_s']} s (inflation {r['profiler_inflation']}), idle "
+                  f"share untraced (est.) {r['idle_share_untraced_est']}", flush=True)
+        name = "trace: a gpu_user_annotation over the caption windows"
+        _trace_with_annotation(d, os.path.join(root, "planted"), "caption")
+        after = traceparse.device_seconds_by_phase(os.path.join(root, "planted"))["caption"]
+        planted[name] = abs(after["device_s"] - phases["caption"]["device_s"])
+        if planted[name] != 0 or after["device_events"] != phases["caption"]["device_events"]:
+            raise AssertionError(f"planted fault not rejected: {name}: {phases['caption']} -> "
+                                 f"{after}")
+        print(f"planted fault rejected: {name}: caption device_s {after['device_s']} as before "
+              f"(limit 0 change; counted as busy it would read its wall "
+              f"{phases['caption']['wall_s']})", flush=True)
+        return report, counts
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
 
 
 # Per-rank shapes at tp 4: Qwen2-7B (28 / 4 heads, ffn 18,944, vocab
@@ -5662,6 +6104,7 @@ def _sp_nccl_rank(rank, world, spec):
     from streamchat_tpu_torch.ops import ring_attention as ring
     from streamchat_tpu_torch.ops import ulysses
     from streamchat_tpu_torch.ops.attention import flash_attention
+    from streamchat_tpu_torch.parallel import make_mesh
 
     torch.cuda.set_device(rank)
     library()
@@ -5676,7 +6119,7 @@ def _sp_nccl_rank(rank, world, spec):
         kv_length = torch.tensor(SP_LENGTHS, dtype=torch.int32, device="cuda")
         whole = {"full": flash_attention(q, k, v, causal=True),
                  "ragged": flash_attention(q, k, v, kv_length, causal=True)}
-        uly, rg = ulysses.usp_groups(2, 2)
+        mesh = make_mesh(2, 2)
 
         def shard(t, layout="contiguous"):
             return ring.sequence_shard(t, rank, world, layout)
@@ -5690,7 +6133,7 @@ def _sp_nccl_rank(rank, world, spec):
                 shard(q, "stripe"), shard(k, "stripe"), shard(v, "stripe")), "full", "stripe"),
             "ulysses": (lambda: ulysses.ulysses_attention(shard(q), shard(k), shard(v)),
                         "full", "contiguous"),
-            "usp 2 x 2": (lambda: ulysses.usp_attention(shard(q), shard(k), shard(v), uly, rg),
+            "usp 2 x 2": (lambda: ulysses.usp_attention(shard(q), shard(k), shard(v), mesh),
                           "full", "contiguous")}
         rep = {}
         for name, (run, ref, layout) in cases.items():
@@ -5706,19 +6149,28 @@ def _sp_nccl_rank(rank, world, spec):
         dist.destroy_process_group()
 
 
-def run_nccl_phases(tp_dir, tp_argv, refs, counts):
+def run_nccl_phases(tp_dir, tp_argv, refs, counts, dp_argv, dp_refs, planted):
     """Phases 2 and 6 again over NCCL, one card a rank, through the real
     transports, where the machine has a card for each rank; else one line
-    saying why they did not run -> report or None."""
+    saying why they did not run -> report or None. The data-axis phase runs
+    over NCCL where there are DP_WORLD cards."""
     import torch.multiprocessing as mp
 
     cards = torch.cuda.device_count()
+    report = {}
+    if cards >= DP_WORLD:
+        with phase(f"data axis over NCCL: runner --shard, {DP_WORLD} ranks, a card a rank"):
+            report["dp2_tp4_runner_nccl"], counts["dp2_tp4_runner_nccl"] = run_data_axis_phase(
+                "dp2_tp4_runner_nccl", dict(job="runner", argv=dp_argv, dir=tp_dir,
+                                            backend="nccl"), dp_refs, planted)
+    else:
+        print(f"data axis over NCCL: not run: {cards} CUDA device(s), it needs {DP_WORLD}",
+              flush=True)
     if cards < max(TP_WORLD, SP_RANKS):
         print(f"NCCL phases (runner --shard over NCCL, the SP ops through batch_isend_irecv "
               f"and all_to_all_single): not run: {cards} CUDA device(s), they need "
               f"{max(TP_WORLD, SP_RANKS)} (NCCL takes one card a rank)", flush=True)
-        return None
-    report = {}
+        return report or None
     with phase("TP over NCCL: runner --shard off-line int8, tp 4, a card a rank"):
         report["tp4_runner_offline_nccl"], counts["tp4_runner_offline_nccl"] = run_tp_phase(
             "tp4_runner_offline_nccl", TP_WORLD,
@@ -5857,6 +6309,9 @@ def run_all(info, smi, t_start, root) -> None:
     library = drive_library_ops(g, frames)
     del frames
     torch.cuda.empty_cache()
+    with phase("traced run: process_video bf16, full depth, 1 breakpoint, under "
+               "maybe_device_trace"):
+        traced, counts["traced_bf16"] = drive_traced(pipe, planted)
     bf16_tree = m.dec_params
     with phase("quantize int8 + composed check"):
         m.quantize()                                  # the CLI default, as `main` does
@@ -5934,7 +6389,21 @@ def run_all(info, smi, t_start, root) -> None:
             "tp2_runner_online", TP_ONLINE_WORLD,
             dict(job="runner", argv=tp_argv + ["--mode", "on_line"], dir=tp_dir),
             tp_refs["on_line"])
-    nccl = run_nccl_phases(tp_dir, tp_argv, tp_refs, counts)
+    dp_argv = _dp_inputs(tp_dir, tp_argv)
+    with phase("data axis references: runner int8 unsharded, --num_chunks 2 --chunk_idx 0 / 1"):
+        dp_whole = [_tp_reference(tp_dir, dp_argv + ["--num_chunks", "2", "--chunk_idx", str(c)],
+                                  f"ref_dp{c}") for c in range(2)]
+    with phase(f"data axis reference: runner --shard tp {TP_WORLD}, --num_chunks 2 --chunk_idx 1 "
+               "(gloo)"):
+        tp["tp4_runner_chunk1"], counts["tp4_runner_chunk1"] = run_tp_phase(
+            "tp4_runner_chunk1", TP_WORLD, dict(job="runner", dir=tp_dir, argv=dp_argv + [
+                "--num_chunks", "2", "--chunk_idx", "1"]), dp_whole[1])
+    dp_refs = data_axis_refs(tp_dir, tp, dp_whole)
+    with phase(f"data axis: runner --shard off-line int8, {DP_WORLD} ranks, dp 2 x tp 4 (gloo, "
+               "ranks sharing the card)"):
+        data_axis, counts["dp2_tp4_runner"] = run_data_axis_phase(
+            "dp2_tp4_runner", dict(job="runner", argv=dp_argv, dir=tp_dir), dp_refs, planted)
+    nccl = run_nccl_phases(tp_dir, tp_argv, tp_refs, counts, dp_argv, dp_refs, planted)
     for path in {**paths, "longva_tp": paths_tp["longva"]}.values():   # LongVA's checkpoints
         shutil.rmtree(path)
     judge_reports, judge_scores, judge_counts, judge_load = run_judge(predictions, root)
@@ -5982,6 +6451,16 @@ def run_all(info, smi, t_start, root) -> None:
     print(f"host offload: {json.dumps(offload)}")
     print(f"ingest variants: {json.dumps(ingest)}; frameproc: {json.dumps(host_frames)}")
     print(f"library modules: {json.dumps(library)}; StreamBench tools: {json.dumps(tools)}")
+    print(f"data axis (dp 2 x tp 4 on one card over gloo): {data_axis['seconds']:.1f} s, "
+          f"tokens equal to the tp-4 --num_chunks 2 runs {data_axis['tokens_equal_to_tp_run']}, "
+          f"leading tokens equal to the unsharded ones "
+          f"{data_axis['leading_tokens_equal_to_unsharded']} of {data_axis['tokens']}, "
+          f"first step logits row rel L2 "
+          f"{data_axis['first_step_logits_row_rel_l2']}, bytes a rank after shard "
+          f"{[r['device_bytes_after_shard'] for r in data_axis['per_rank']]}  [{smi}]")
+    print("traced run phases: " + ", ".join(
+        f"{p} wall {r['wall_s']} s device {r['device_s']} s idle {r['idle_share']}"
+        for p, r in traced["phases"].items()) + f"; trace {traced['trace_mb']:.1f} MB  [{smi}]")
     print("multi-GPU: " + ", ".join(
         f"{k} {v['seconds']:.1f} s ({v['backend']}, tokens equal on every rank "
         f"{v['tokens_equal_on_every_rank']}, {v['leading_tokens_equal_to_unsharded']} of "

@@ -89,17 +89,19 @@ class LongVA:
     def shard(self, mesh=None) -> "LongVA":
         """Cut the decoder to this rank's tensor-parallel slice, in place
         (`parallel.sharding.shard_decoder`; the whole leaves are freed), the
-        way `main` calls it: after `quantize`. `mesh` is a
-        `parallel.ModelGroup`, by default the initialized world
-        (`parallel.make_mesh`); with no process group a world of one, and
-        nothing changes. The ViT and the projector stay whole on every rank:
-        K1 fuses a whole ViT layer, and each rank's tower is a one-device
-        model."""
+        way `main` calls it: after `quantize`. `mesh` is a `parallel.Mesh`,
+        by default the initialized world's (`parallel.make_mesh`); with no
+        process group a world of one, and nothing changes. The decoder is
+        cut over the mesh's model group; each data replica keeps a whole
+        copy, as no JAX pspec names the data axis. The ViT and the projector
+        stay whole on every rank: K1 fuses a whole ViT layer, and each
+        rank's tower is a one-device model."""
         from streamchat_tpu_torch.parallel import make_mesh
         from streamchat_tpu_torch.parallel.sharding import shard_decoder
 
         mesh = make_mesh(kv_heads=self.dec_cfg.num_kv_heads) if mesh is None else mesh
-        self.dec_params, self.dec_cfg = shard_decoder(self.dec_params, self.dec_cfg, mesh)
+        self.dec_params, self.dec_cfg = shard_decoder(self.dec_params, self.dec_cfg,
+                                                      mesh.model)
         return self
 
     @classmethod

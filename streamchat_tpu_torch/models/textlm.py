@@ -73,7 +73,7 @@ class TextLM:
         from streamchat_tpu_torch.parallel.sharding import shard_decoder
 
         mesh = make_mesh(kv_heads=self.cfg.num_kv_heads) if mesh is None else mesh
-        self.params, self.cfg = shard_decoder(self.params, self.cfg, mesh)
+        self.params, self.cfg = shard_decoder(self.params, self.cfg, mesh.model)
         return self
 
     def quantize(self, bits: int = 8) -> "TextLM":

@@ -253,6 +253,12 @@ def decoder_config_from_hf(cfg: dict) -> DecoderConfig:
     )
 
 
+def longva_decoder_config(path: str) -> DecoderConfig:
+    """The decoder config of the LongVA checkpoint at `path` (its config.json
+    alone)."""
+    return decoder_config_from_hf(_read_config(path))
+
+
 def map_decoder(t: Mapping, cfg: DecoderConfig, dtype, prefix: str = "model.", *,
                 device="cuda") -> dict:
     layers = []
@@ -334,9 +340,8 @@ def map_projector(t: Mapping, dtype, prefix: str = "model.mm_projector.", *,
 def load_longva(path: str, dtype=torch.bfloat16, *, device="cuda"):
     """LongVA llava_qwen checkpoint -> (vit_cfg, dec_cfg, vit_p, proj_p,
     dec_p) on `device`."""
-    hf = _read_config(path)
-    dec_cfg = decoder_config_from_hf(hf)
-    vit_cfg = ViTConfig(projection_dim=hf["hidden_size"])
+    dec_cfg = longva_decoder_config(path)
+    vit_cfg = ViTConfig(projection_dim=dec_cfg.hidden_size)
     t = open_shards(path)
     return (
         vit_cfg,

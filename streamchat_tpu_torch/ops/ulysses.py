@@ -9,13 +9,13 @@ plain twin on the CPU) attends over the whole sequence for the rank's head
 slice, and a second all-to-all restores the sequence shard. Exact, two
 collectives, no softmax bookkeeping.
 
-`usp_attention` is the reference's USP hybrid (hybrid_attn.py:60-282):
-ranks form an nr x nu grid, rank = a nu + u; the sequence is cut ring-major
-(rank (a, u) holds piece a nu + u of nr nu pieces). The all-to-all over the
-Ulysses group (the ranks of one a) gives each rank its ring block a for
-H/nu heads; `ring_attention` over the ring group (the ranks of one u) runs
-at that block's global offset; the second all-to-all restores the shard.
-`usp_groups` makes both groups.
+`usp_attention` is the reference's USP hybrid (hybrid_attn.py:60-282) on
+the (data, model) mesh (`parallel.make_mesh`), rank = a nu + u for its
+coordinates (a, u) on nr x nu; the sequence is cut ring-major (rank (a, u)
+holds piece a nu + u of nr nu pieces). The all-to-all over the Ulysses
+group (the model group: the ranks of one a) gives each rank its ring block
+a for H/nu heads; the ring over the data group (the ranks of one u) runs at
+that block's global offset; the second all-to-all restores the shard.
 
 `all_to_all` is the collective (`dist.all_to_all_single` over chunks
 stacked along a leading dim) and `exchange` its effect on a list of every
@@ -25,7 +25,7 @@ rank's tensors in one process: rank r receives chunk r of each rank's
 
 from __future__ import annotations
 
-from typing import List, Sequence, Tuple
+from typing import List, Sequence
 
 import torch
 
@@ -74,43 +74,26 @@ def ulysses_attention(q, k, v, group=None, *, causal: bool = True,
     return all_to_all(ulysses_local(q, k, v, causal=causal, sm_scale=sm_scale), group, 2, 1)
 
 
-def usp_groups(nr: int, nu: int) -> Tuple[object, object]:
-    """(Ulysses group, ring group) of this rank on the nr x nu grid of the
-    world (rank = a nu + u). Every rank calls it: each group is made by all."""
-    import torch.distributed as dist
-
-    rank, world = dist.get_rank(), dist.get_world_size()
-    if world != nr * nu:
-        raise ValueError(f"ring {nr} x ulysses {nu} != {world} ranks")
-    uly = ring = None
-    for a in range(nr):
-        g = dist.new_group([a * nu + u for u in range(nu)])
-        if rank // nu == a:
-            uly = g
-    for u in range(nu):
-        g = dist.new_group([a * nu + u for a in range(nr)])
-        if rank % nu == u:
-            ring = g
-    return uly, ring
-
-
-def usp_attention(q, k, v, ulysses_group, ring_group, *, causal: bool = True,
-                  sm_scale=None) -> torch.Tensor:
-    """The rank's output shard of exact attention, ring inside Ulysses
-    (sp = ring x ulysses): q / k / v are the rank's piece a nu + u of the
-    sequence cut into nr nu pieces."""
-    import torch.distributed as dist
-
-    nu = dist.get_world_size(ulysses_group)
-    a = dist.get_rank(ring_group)
+def usp_attention(q, k, v, mesh, *, causal: bool = True, sm_scale=None) -> torch.Tensor:
+    """The rank's output shard of exact attention, ring inside Ulysses (sp =
+    ring x ulysses) on a `parallel.Mesh`: Ulysses over its model group, the
+    ring over its data group (JAX `usp_attention`'s default axes). q / k /
+    v are the rank's piece d tp + m of the sequence cut into dp tp pieces,
+    where (d, m) are its mesh coordinates."""
+    nu, a = mesh.tp, mesh.data
     check_heads(q.shape[1], k.shape[1], nu)
-    q, k, v = (all_to_all(t, ulysses_group, 1, 2) for t in (q, k, v))
-    block = q.shape[2]                       # the ring block: S / nr tokens
+    if nu > 1:
+        q, k, v = (all_to_all(t, mesh.model.group, 1, 2) for t in (q, k, v))
+    block = q.shape[2]                       # the ring block: S / dp tokens
     state = [ring_init(q)]
 
     def step(kb, vb, origin):
         state[0] = ring_step(state[0], q, kb, vb, a * block, origin * block,
                              sm_scale=sm_scale, causal=causal)
 
-    _ring(ring_group, k.contiguous(), v.contiguous(), step)
-    return all_to_all(ring_finish(state[0], q.dtype), ulysses_group, 2, 1)
+    if mesh.dp > 1:
+        _ring(mesh.data_group, k.contiguous(), v.contiguous(), step)
+    else:
+        step(k, v, 0)
+    out = ring_finish(state[0], q.dtype)
+    return all_to_all(out, mesh.model.group, 2, 1) if nu > 1 else out

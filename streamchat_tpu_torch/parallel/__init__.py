@@ -6,10 +6,12 @@ or `torch.multiprocessing` with the spawn start method); each rank keeps
 its slice of the decoder (`sharding.shard_decoder`) and the whole ViT,
 projector and embedders, and the decoder's layer loops all-reduce after
 the row-parallel projections (`models/decoder.attn_out`, `mlp_out`), the
-vocabulary-parallel embedding and the logits. `mesh.ModelGroup` is the
-model axis as a rank sees it.
+vocabulary-parallel embedding and the logits. `mesh.make_mesh` lays the
+ranks out on the (data, model) mesh (`mesh.Mesh`); `mesh.ModelGroup` is
+the model axis as a rank sees it.
 """
 
-from streamchat_tpu_torch.parallel.mesh import ModelGroup, best_mesh_shape, make_mesh
+from streamchat_tpu_torch.parallel.mesh import (Mesh, ModelGroup, best_mesh_shape, layout,
+                                                make_mesh)
 
-__all__ = ["ModelGroup", "best_mesh_shape", "make_mesh"]
+__all__ = ["Mesh", "ModelGroup", "best_mesh_shape", "layout", "make_mesh"]

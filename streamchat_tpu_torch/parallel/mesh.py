@@ -1,16 +1,18 @@
-"""The model axis of tensor parallelism (`streamchat_tpu/parallel/mesh.py`).
+"""The (data, model) mesh of one rank (`streamchat_tpu/parallel/mesh.py`).
 
 The JAX package builds a (data, model) `Mesh` over every device one
-controller sees. The port runs one process a rank, Megatron-style, and a
-rank sees the model axis as a `ModelGroup`: a `torch.distributed` process
-group, the rank's index in it and its size. Tensor parallelism needs one
-collective, `all_reduce`, so the same code runs over gloo on the CPU, over
-gloo with several ranks sharing one card (NCCL takes one card a rank),
-and over NCCL with a card a rank.
-
-In this port the world is the model axis: a world whose `best_mesh_shape`
-has a data axis larger than one raises (ROADMAP §A "Multi-GPU: the data
-axis").
+controller sees. The port runs one process a rank, Megatron-style, and
+lays the ranks out as JAX lays out its devices,
+`np.arange(world).reshape(dp, tp)`: rank r has data index r // tp and
+model index r % tp (`layout`). `make_mesh` returns the rank's `Mesh`: its
+model axis as a `ModelGroup` (a `torch.distributed` process group, the
+rank's index in it and its size), over which the decoder all-reduces, and
+its data axis, the group of the ranks that share its model index. Tensor
+parallelism needs one collective, `all_reduce`, so the same code runs over
+gloo on the CPU, over gloo with several ranks sharing one card (NCCL takes
+one card a rank), and over NCCL with a card a rank. No parameter is cut
+over the data axis (as no JAX pspec names it): each data replica holds a
+whole copy of the model, sharded over its own model group.
 
 Every all_reduce goes through `ModelGroup.all_reduce`, which counts the
 calls, bytes and host seconds (`collective_stats`), and, inside
@@ -126,22 +128,77 @@ class ModelGroup:
         return t
 
 
-def make_mesh(*, group=None, kv_heads: int = 4) -> ModelGroup:
-    """The model-axis group of this rank: `group` when given, else the
-    world (a world of one when no process group is initialized, as a
-    single-device mesh in the JAX package). A world whose
-    `best_mesh_shape` at `kv_heads` has a data axis above one raises
-    NotImplementedError."""
+@dataclasses.dataclass(frozen=True)
+class Mesh:
+    """One rank's place on the (data, model) mesh: `model`, its model-axis
+    group; `data_group`, the ranks that share its model index (None while
+    the data axis is one rank); `data`, its index on the data axis of `dp`."""
+
+    model: ModelGroup = dataclasses.field(default_factory=ModelGroup)
+    data_group: Any = None
+    data: int = 0
+    dp: int = 1
+
+    @property
+    def tp(self) -> int:
+        return self.model.size
+
+    @property
+    def coords(self) -> Tuple[int, int]:
+        """(data index, model index) of this rank."""
+        return self.data, self.model.rank
+
+    @property
+    def shape(self) -> dict:
+        """Axis sizes by name, as `jax.sharding.Mesh.shape`."""
+        return {DATA_AXIS: self.dp, MODEL_AXIS: self.tp}
+
+
+def layout(world: int, dp: Optional[int] = None, tp: Optional[int] = None, *,
+           kv_heads: int = 4) -> Tuple[int, int]:
+    """(dp, tp) of a mesh over `world` ranks, by JAX `make_mesh`'s rules:
+    neither given -> `best_mesh_shape(world, kv_heads=...)`, one given -> the
+    other divides it out; ValueError unless dp * tp == world. Rank r then
+    sits at (r // tp, r % tp)."""
+    if dp is None and tp is None:
+        dp, tp = best_mesh_shape(world, kv_heads=kv_heads)
+    elif dp is None:
+        dp = world // tp
+    elif tp is None:
+        tp = world // dp
+    if dp * tp != world:
+        raise ValueError(f"mesh {dp}x{tp} != {world} devices")
+    return dp, tp
+
+
+def make_mesh(dp: Optional[int] = None, tp: Optional[int] = None, *, group=None,
+              kv_heads: int = 4) -> Mesh:
+    """This rank's `Mesh` over the initialized world, laid out by `layout`
+    (a world of one when no process group is initialized, as a
+    single-device mesh in the JAX package). `group`, when given, is the
+    model axis as it is, with a data axis of one. Every rank must call it
+    with the same arguments: every rank makes every group, in the same
+    order (first the model groups by data index, then the data groups by
+    model index)."""
     import torch.distributed as dist
 
-    if group is None and not (dist.is_available() and dist.is_initialized()):
-        return ModelGroup()
-    g = group if group is not None else dist.group.WORLD
-    n = dist.get_world_size(g)
-    dp, tp = best_mesh_shape(n, kv_heads=kv_heads) if group is None else (1, n)
-    if dp != 1:
-        raise NotImplementedError(
-            f"{n} ranks at {kv_heads} kv heads make a {dp} x {tp} mesh with a data axis of "
-            f"{dp}: only a data axis of one is ported, ROADMAP §A 'Multi-GPU: the data axis'")
-    return ModelGroup(group=g, rank=dist.get_rank(g), size=n,
-                      backend=str(dist.get_backend(g)))
+    if group is not None:
+        return Mesh(ModelGroup(group=group, rank=dist.get_rank(group),
+                               size=dist.get_world_size(group),
+                               backend=str(dist.get_backend(group))))
+    up = dist.is_available() and dist.is_initialized()
+    world = dist.get_world_size() if up else 1
+    dp, tp = layout(world, dp, tp, kv_heads=kv_heads)
+    if world == 1:
+        return Mesh()
+    data, index = divmod(dist.get_rank(), tp)
+    backend = str(dist.get_backend())
+    model = dist.group.WORLD if dp == 1 else None
+    data_group = dist.group.WORLD if tp == 1 else None
+    if dp > 1 and tp > 1:
+        models = [dist.new_group([d * tp + m for m in range(tp)]) for d in range(dp)]
+        datas = [dist.new_group([d * tp + m for d in range(dp)]) for m in range(tp)]
+        model, data_group = models[data], datas[index]
+    model_axis = (ModelGroup() if tp == 1 else
+                  ModelGroup(group=model, rank=index, size=tp, backend=backend))
+    return Mesh(model_axis, data_group, data, dp)

@@ -5,7 +5,8 @@ environment (RANK, WORLD_SIZE, MASTER_ADDR, MASTER_PORT); without it it is
 a no-op that returns (0, 1), as `jax.distributed` is on one host. Its
 timeout bounds every collective, so ranks that diverge fail the run
 instead of hanging it. `host_shard` is the JAX package's contiguous
-ceil-split of an annotation list, and `local_device` the card of this rank.
+ceil-split of an annotation list over the data replicas, and
+`local_device` the card of this rank.
 """
 
 from __future__ import annotations
@@ -37,14 +38,25 @@ def initialize(backend: str) -> Tuple[int, int]:
 
 
 def host_shard(items: Sequence, process_id: Optional[int] = None,
-               process_count: Optional[int] = None) -> List:
-    """This process's contiguous ceil-split shard of `items` (the rank and
-    world size of the initialized group by default)."""
+               process_count: Optional[int] = None, mesh=None) -> List:
+    """This data replica's contiguous ceil-split shard of `items`: the
+    ranks of one model group share a replica and take the same items (as
+    one JAX process holds the whole model axis). The replica is `mesh`'s
+    (data index, dp); `process_id` / `process_count`, when given, take
+    their place. In an initialized process group the layout is the
+    caller's (it follows the decoder's kv heads), so a call with neither a
+    mesh nor both ids raises; without a group it is a world of one."""
     import torch.distributed as dist
 
-    up = dist.is_initialized()
-    pid = (dist.get_rank() if up else 0) if process_id is None else process_id
-    n = (dist.get_world_size() if up else 1) if process_count is None else process_count
+    if mesh is not None:
+        data, dp = mesh.data, mesh.dp
+    elif (process_id is None or process_count is None) and dist.is_initialized():
+        raise ValueError("host_shard in a process group: pass mesh= (the make_mesh "
+                         "of the run) or process_id and process_count")
+    else:
+        data, dp = 0, 1
+    pid = data if process_id is None else process_id
+    n = dp if process_count is None else process_count
     size = math.ceil(len(items) / n)
     return list(items[pid * size: (pid + 1) * size])
 

@@ -43,21 +43,37 @@ package.
 
 `--shard` runs the decoder tensor-parallel, one process a rank: start the
 CLI under `torchrun --nproc_per_node=N`, or call `main` in ranks that share
-an initialized process group. Each rank runs the whole runner (reading,
-ingest, memory, answers) on `cuda:{LOCAL_RANK % device count}` with its
-slice of the decoder (`LongVA.shard` after `quantize`, as the JAX `main`
-orders them) and the whole ViT, projector and embedders; rank 0 alone
-writes the results, the memory bank files and the tree dumps. Without an
-initialized group `main` joins torchrun's over NCCL and raises when the
-ranks outnumber the cards; ranks that share a card (a gloo group a caller
-set up) build their models in turn, so that one whole tree at a time sits
-on the card.
+an initialized process group. The ranks form the (data, model) mesh of
+`parallel.make_mesh` at the decoder's kv-head count: the model axis is at
+most the kv heads, and the ranks beyond it form data replicas (8 ranks at
+Qwen2-7B's 4 kv heads: 2 replicas of 4). Each rank runs the whole runner
+(reading, ingest, memory, answers) on `cuda:{LOCAL_RANK % device count}`
+with its slice of the decoder (`LongVA.shard` after `quantize`, as the JAX
+`main` orders them) and the whole ViT, projector and embedders. Data
+replica d of dp takes the annotations a JAX process run with
+`--num_chunks C*dp --chunk_idx i+C*d` takes (C and i the given
+`--num_chunks` and `--chunk_idx`), from the configured seed as that
+process would, and runs each of its videos whole. The replica's model
+rank 0 alone writes its memory bank files and tree dumps; with one replica
+it appends each record to `--save_file` as it goes, with several the
+replicas' writers gather their records to rank 0 after the loop, which
+appends them all in annotation order. Without an initialized group `main`
+joins torchrun's over NCCL and raises when the ranks outnumber the cards;
+ranks that share a card (a gloo group a caller set up) build their models
+in turn, so that one whole tree at a time sits on the card.
+
+The off-line loop's phases are `record_function` windows ("phase=<name>")
+of a torch.profiler trace; with STREAMCHAT_TRACE_DIR set, `main` traces
+the whole run (`utils.profiling.maybe_device_trace`) into that directory,
+one file a rank, and `utils.traceparse` reads each phase's device seconds
+from it.
 """
 
 from __future__ import annotations
 
 import argparse
 import dataclasses
+import datetime
 import json
 import os
 import pickle
@@ -96,7 +112,7 @@ from streamchat_tpu_torch.pipeline.ingest import dedup_segment, encode_segment, 
 from streamchat_tpu_torch.pipeline.memory_update import offload_stats, update_memory
 from streamchat_tpu_torch.pipeline.streaming import StreamingSession
 from streamchat_tpu_torch.utils.offload import WeightOffloader
-from streamchat_tpu_torch.utils.profiling import PhaseTimer
+from streamchat_tpu_torch.utils.profiling import PhaseTimer, maybe_device_trace
 
 
 class StreamChatPipeline:
@@ -174,6 +190,8 @@ class StreamChatPipeline:
                       save_file: Optional[str] = None):
         """Stream one video through its breakpoints. Returns result dicts."""
         sync = torch.cuda.synchronize if self.model.device.type == "cuda" else None
+        # Each window is also a "phase=<name>" annotation of a torch.profiler
+        # trace (utils.traceparse buckets device time by them), as in JAX.
         timer = PhaseTimer(synchronize=sync)
         orig_summarize = self._summarize
 
@@ -346,21 +364,36 @@ class _UnsavedBank(MemoryBank):
         pass
 
 
-def run_inference(pipeline: StreamChatPipeline, args, writer: bool = True) -> None:
-    """Annotation loop over a StreamBench annotation file. Only a `writer`
-    (rank 0 of a sharded run) writes the results, the bank files and the
-    tree dumps."""
+# Seconds the replicas' writers wait for one another to gather the records:
+# replicas run different videos, and finish apart by up to a whole video.
+GATHER_TIMEOUT_S = 7 * 24 * 3600
+
+
+def run_inference(pipeline: StreamChatPipeline, args, mesh=None, writers=None) -> None:
+    """Annotation loop over a StreamBench annotation file, on this rank's
+    data replica of `mesh` (a `parallel.Mesh`; None: a world of one). Only
+    a replica's model rank 0 writes: its bank files and tree dumps, and the
+    records, gathered over `writers` where there are several replicas
+    (`_gather_records`)."""
+    from streamchat_tpu_torch.parallel import Mesh
+
+    mesh = Mesh() if mesh is None else mesh
+    writer = mesh.model.rank == 0
+    gather = mesh.dp > 1
+    num_chunks = args.num_chunks * mesh.dp
+    chunk_idx = args.chunk_idx + args.num_chunks * mesh.data
     with open(args.annotations, "r", encoding="utf-8") as f:
         all_annotations = json.load(f)
     if writer:
         os.makedirs(args.memory_basic_dir, exist_ok=True)
-        if not os.path.exists(args.save_file):
-            with open(args.save_file, "w", encoding="utf-8") as f:
-                json.dump([], f)
+    if mesh.coords == (0, 0) and not os.path.exists(args.save_file):
+        with open(args.save_file, "w", encoding="utf-8") as f:
+            json.dump([], f)
+    records = []                        # (annotation index, record) of this replica
     for count, anno in enumerate(all_annotations):
         if count < args.start:
             continue
-        if args.num_chunks > 1 and count % args.num_chunks != args.chunk_idx:
+        if num_chunks > 1 and count % num_chunks != chunk_idx:
             continue
         bank = (MemoryBank if writer else _UnsavedBank)(
             os.path.join(args.memory_basic_dir, f"memory_{count}.json"),
@@ -373,17 +406,62 @@ def run_inference(pipeline: StreamChatPipeline, args, writer: bool = True) -> No
         process = (pipeline.process_video_online if args.mode == "on_line"
                    else pipeline.process_video)
         try:
-            process(reader, anno["breakpoint"], bank, user_name="User",
-                    save_file=args.save_file if writer else None)
+            results = process(reader, anno["breakpoint"], bank, user_name="User",
+                              save_file=args.save_file if writer and not gather else None)
         finally:
             reader.close()
+        records.extend((count, r) for r in results)
         if args.save_tree_dir and writer:
             os.makedirs(args.save_tree_dir, exist_ok=True)
             with open(os.path.join(args.save_tree_dir, f"tree_{count}.pkl"), "wb") as f:
                 pickle.dump(pipeline.last_tree.to_state(), f)
+    if gather and writer:
+        _gather_records(records, mesh, writers, args.save_file)
+
+
+def _writers_group(mesh):
+    """The gloo group of the data replicas' writers (model rank 0 of each),
+    with a wait long enough for the replicas to finish apart; every rank
+    makes it, after the mesh."""
+    import torch.distributed as dist
+
+    return dist.new_group([d * mesh.tp for d in range(mesh.dp)], backend="gloo",
+                          timeout=datetime.timedelta(seconds=GATHER_TIMEOUT_S))
+
+
+def _gather_records(records, mesh, writers, save_file: str) -> None:
+    """The replicas' writers send their (annotation index, record) pairs to
+    rank 0 over `writers`, which appends them to `save_file` in annotation
+    order, each annotation's in breakpoint order."""
+    import torch.distributed as dist
+
+    parts = [None] * mesh.dp if mesh.data == 0 else None
+    dist.gather_object(records, parts, dst=0, group=writers)
+    if parts is None:
+        return
+    merged = sorted((p for part in parts for p in part), key=lambda p: p[0])
+    with open(save_file, "r", encoding="utf-8") as f:
+        data = json.load(f)
+    data.extend(r for _, r in merged)
+    with open(save_file, "w", encoding="utf-8") as f:
+        json.dump(data, f, ensure_ascii=False, indent=4)
 
 
 GEOMETRIES = ("tiny", "longva7b")
+
+
+def _geometry_configs(geometry: str):
+    """(decoder, ViT, tree embedder, bank embedder) configs of a random-weight
+    geometry."""
+    if geometry == "tiny":
+        dec_cfg = DecoderConfig.tiny()
+        return (dec_cfg, ViTConfig.tiny(projection_dim=dec_cfg.hidden_size), BertConfig.tiny(),
+                dataclasses.replace(BertConfig.tiny(), pooling="mean"))
+    if geometry == "longva7b":
+        dec_cfg = DecoderConfig.qwen2_7b()
+        return (dec_cfg, ViTConfig(projection_dim=dec_cfg.hidden_size),
+                BertConfig.mxbai_colbert_large(), BertConfig.minilm_l6())
+    raise ValueError(f"geometry {geometry!r}: expected one of {GEOMETRIES}")
 
 
 def build_pipeline(cfg: PipelineConfig, *, device, geometry: str,
@@ -398,18 +476,7 @@ def build_pipeline(cfg: PipelineConfig, *, device, geometry: str,
     given, serves every loaded model in place of its checkpoint's own
     (`ByteTokenizer()` where a checkpoint carries no tokenizer files or
     `transformers` is missing)."""
-    if geometry == "tiny":
-        dec_cfg = DecoderConfig.tiny()
-        vit_cfg = ViTConfig.tiny(projection_dim=dec_cfg.hidden_size)
-        tree_cfg = BertConfig.tiny()
-        bank_cfg = dataclasses.replace(BertConfig.tiny(), pooling="mean")
-    elif geometry == "longva7b":
-        dec_cfg = DecoderConfig.qwen2_7b()
-        vit_cfg = ViTConfig(projection_dim=dec_cfg.hidden_size)
-        tree_cfg = BertConfig.mxbai_colbert_large()
-        bank_cfg = BertConfig.minilm_l6()
-    else:
-        raise ValueError(f"geometry {geometry!r}: expected one of {GEOMETRIES}")
+    dec_cfg, vit_cfg, tree_cfg, bank_cfg = _geometry_configs(geometry)
     paths = cfg.paths
     if paths.longva:
         model = LongVA.from_pretrained(paths.longva, dtype, device=device, tokenizer=tokenizer)
@@ -523,6 +590,16 @@ def _join_ranks(device: torch.device):
     return rank, world, device, started and dist.is_initialized()
 
 
+def _decoder_config(cfg: PipelineConfig, geometry: str) -> DecoderConfig:
+    """The decoder's config, read before any model is built: the LongVA
+    checkpoint's, else the random geometry's."""
+    if cfg.paths.longva:
+        from streamchat_tpu_torch.models.weights import longva_decoder_config
+
+        return longva_decoder_config(cfg.paths.longva)
+    return _geometry_configs(geometry)[0]
+
+
 def main(argv=None) -> None:
     args = parse_args(argv)
     cfg = config_from_args(args)
@@ -530,9 +607,15 @@ def main(argv=None) -> None:
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("--device cuda: no CUDA device is available "
                            "(pass --device cpu --geometry tiny for a CPU run)")
-    rank, world, started = 0, 1, False
+    rank, world, started, mesh, writers = 0, 1, False, None, None
     if args.shard:
+        from streamchat_tpu_torch.parallel import make_mesh
+
         rank, world, device, started = _join_ranks(device)
+        # Every rank makes every group here, before the (possibly turn-taking) builds.
+        mesh = make_mesh(kv_heads=_decoder_config(cfg, args.geometry).num_kv_heads)
+        if mesh.dp > 1:
+            writers = _writers_group(mesh)
     # Ranks that share a card build in turn: one whole tree at a time.
     shared = device.type == "cuda" and world > torch.cuda.device_count()
     for turn in range(world if shared else 1):
@@ -544,7 +627,7 @@ def main(argv=None) -> None:
             elif args.int8:
                 pipeline.model.quantize()
             if args.shard:
-                pipeline.model.shard()
+                pipeline.model.shard(mesh)
             if shared:
                 torch.cuda.empty_cache()
         if shared:
@@ -558,10 +641,11 @@ def main(argv=None) -> None:
         pipeline.cluster_full_chunks = False
     t0 = time.time()
     try:
-        if rank == 0:
-            run_inference(pipeline, args)
-        else:
-            run_inference(pipeline, args, writer=False)
+        with maybe_device_trace():
+            if args.shard:
+                run_inference(pipeline, args, mesh=mesh, writers=writers)
+            else:
+                run_inference(pipeline, args)
     finally:
         if started:
             import torch.distributed as dist

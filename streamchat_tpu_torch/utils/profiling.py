@@ -1,4 +1,4 @@
-"""Phase timing (the `PhaseTimer` of `streamchat_tpu/utils/profiling.py`).
+"""Phase timing and device traces (`streamchat_tpu/utils/profiling.py`).
 
   timer = PhaseTimer()
   with timer.phase("ingest"): ...
@@ -6,7 +6,13 @@
 
 Host wall-clock per named phase. A phase that ends in device work measures
 the device only if the caller synchronises inside the window (the runner
-does, through `synchronize`, so phase totals are true on a GPU).
+does, through `synchronize`, so phase totals are true on a GPU). Each
+window is also a `record_function` named "phase=<name>" in a torch.profiler
+trace (a few microseconds when no profiler runs); it encloses the window's
+synchronize, so every kernel of the phase ends inside it
+(`utils.traceparse.device_seconds_by_phase` buckets device time by these
+windows). Set STREAMCHAT_TRACE_DIR to write a Chrome trace of everything
+inside `maybe_device_trace()` into that directory.
 
 `device_ms(fn, iters[, kernel])` is the device time of a GPU call: the summed
 durations of the device events torch.profiler records. `device_launches(fn,
@@ -17,9 +23,12 @@ call, in launch order, averaged over the calls.
 from __future__ import annotations
 
 import contextlib
+import os
 import time
 from collections import defaultdict
 from typing import Callable, Dict, Iterator, Optional
+
+TRACE_DIR_ENV = "STREAMCHAT_TRACE_DIR"
 
 
 class PhaseTimer:
@@ -32,15 +41,53 @@ class PhaseTimer:
     def phase(self, name: str) -> Iterator[None]:
         t0 = time.perf_counter()
         try:
-            yield
+            with annotate(f"phase={name}"):
+                try:
+                    yield
+                finally:
+                    if self._sync is not None:
+                        self._sync()
         finally:
-            if self._sync is not None:
-                self._sync()
             self.totals[name] += time.perf_counter() - t0
             self.counts[name] += 1
 
     def summary(self) -> Dict[str, float]:
         return dict(self.totals)
+
+
+@contextlib.contextmanager
+def annotate(name: str) -> Iterator[None]:
+    """A named region in the torch.profiler trace (`record_function`)."""
+    from torch.profiler import record_function
+
+    with record_function(name):
+        yield
+
+
+@contextlib.contextmanager
+def maybe_device_trace() -> Iterator[None]:
+    """A torch.profiler trace of the block, CPU and CUDA activity (CPU alone
+    where no card is visible), written as a Chrome trace
+    `<host>_<pid>.<ms>.pt.trace.json` into $STREAMCHAT_TRACE_DIR; a no-op
+    when it is unset."""
+    trace_dir = os.environ.get(TRACE_DIR_ENV)
+    if not trace_dir:
+        yield
+        return
+    import socket
+
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    activities = [ProfilerActivity.CPU]
+    if torch.cuda.is_available():
+        activities.append(ProfilerActivity.CUDA)
+    os.makedirs(trace_dir, exist_ok=True)
+    with profile(activities=activities) as prof:
+        yield
+    prof.export_chrome_trace(os.path.join(
+        trace_dir, f"{socket.gethostname()}_{os.getpid()}.{time.time_ns() // 10**6}"
+                   ".pt.trace.json"))
 
 
 # Profiled windows device_ms measures before it gives up on a call.

@@ -22,7 +22,9 @@ import torch.distributed as dist
 import torch.multiprocessing as mp
 
 from streamchat_tpu_torch.config import MemoryConfig, PipelineConfig, SamplingConfig
+from streamchat_tpu_torch.memory import bank as bank_mod
 from streamchat_tpu_torch.memory.bank import MemoryBank
+from streamchat_tpu_torch.models.embedder import TextEmbedder
 from streamchat_tpu_torch.models import decoder
 from streamchat_tpu_torch.models.longva import LongVA
 from streamchat_tpu_torch.models.textlm import TextLM
@@ -30,6 +32,7 @@ from streamchat_tpu_torch.models.tokenizer import ByteTokenizer
 from streamchat_tpu_torch.ops import ring_attention as ring
 from streamchat_tpu_torch.ops import ulysses
 from streamchat_tpu_torch.parallel import make_mesh, mesh as mesh_mod
+from streamchat_tpu_torch.parallel.multihost import host_shard
 from streamchat_tpu_torch.pipeline import runner
 from streamchat_tpu_torch.video.reader import SyntheticVideoReader
 
@@ -115,7 +118,7 @@ def _prefill(inp, mesh):
     if mesh is not None:
         from streamchat_tpu_torch.parallel.sharding import shard_decoder
 
-        params, cfg = shard_decoder(params, cfg, mesh)
+        params, cfg = shard_decoder(params, cfg, mesh.model)
     embeds, lengths = inp["prefill_embeds"], inp["prefill_lengths"]
     cache = decoder.KVCache.create(cfg, embeds.shape[0], embeds.shape[1], dtype=torch.float32)
     return decoder.prefill(params, cfg, embeds, cache, lengths)[0]
@@ -131,42 +134,123 @@ def _short_config(args):
 runner_config = runner.config_from_args
 
 
-def _runner(tmp, rank, mesh) -> dict:
-    """The CLI without and with --shard (int8, the default) -> rank 0's
-    saved records of each run (the sharded run's ranks shard over `mesh`)."""
-    videos = os.path.join(tmp, "videos", "cls")
-    os.makedirs(videos, exist_ok=True)
-    open(os.path.join(videos, "v.mp4"), "wb").close()
-    anno = os.path.join(tmp, "a.json")
-    with open(anno, "w") as f:
-        json.dump([{"info": {"video_path": "v.mp4", "class_1": "cls"},
-                    "breakpoint": [{"question": "What do I see?", "answer": "a", "class": "c",
-                                    "time": 2},
-                                   {"question": "What changed?", "answer": "b", "class": "c",
-                                    "time": 5}]}], f)
+def _tiny_pipeline(models, cfg) -> runner.StreamChatPipeline:
+    """The runner's pipeline on the JAX package's tiny weights (f32)."""
+    def emb(e):
+        return TextEmbedder(copy.deepcopy(e["params"]), e["cfg"], ByteTokenizer(),
+                            max_length=e["max_length"])
+
+    model = LongVA(vit_params=copy.deepcopy(models["vit"]),
+                   proj_params=copy.deepcopy(models["proj"]),
+                   dec_params=copy.deepcopy(models["dec"]), vit_cfg=models["vit_cfg"],
+                   dec_cfg=models["dec_cfg"], tokenizer=ByteTokenizer(),
+                   generator=torch.Generator().manual_seed(0))
+    return runner.StreamChatPipeline(model, emb(models["tree"]), emb(models["bank"]), cfg)
+
+
+def _recording_open(sink):
+    def recording(path, mode="r", *a, **kw):
+        if any(c in mode for c in "wax"):
+            sink.add(os.path.abspath(path))
+        return open(path, mode, *a, **kw)
+    return recording
+
+
+def _runner(tmp, rank, inp) -> dict:
+    """The CLI (int8, the default) at the tiny geometry's 2 kv heads over
+    the annotation files of `inp["runner"]`. Under the multi-modal memory:
+    on ranks 0 and 2 unsharded with --num_chunks 2 --chunk_idx rank // 2
+    (each rank its own output paths), then on every rank with --shard (the
+    2 x 2 mesh, shared output paths, as under torchrun). Then the uni-modal
+    run with --shard -> the saved records of each run this rank wrote, the
+    bank files this rank wrote in the multi-modal sharded run, and the files
+    it opened for writing in the uni-modal one."""
+    spec = inp["runner"]
+    mm = spec["multimodal"]
+
+    def cli(run, out, *flags):
+        return (["--video_dir", spec["videos"], "--annotations", run["annotations"],
+                 "--device", "cpu", "--geometry", "tiny", "--memory_basic_dir", out,
+                 "--save_file", out + ".json"] + run["cli"] + list(flags))
+
+    def records(out):
+        with open(out + ".json") as f:
+            return json.load(f)
+
+    written, mm_written = set(), set()
     runner.config_from_args = _short_config
     runner.open_video = lambda path: SyntheticVideoReader(total_frames=150, frame_rate=30,
                                                           height=56, width=56)
-    shard = LongVA.shard
-    LongVA.shard = lambda self, m=None: shard(self, mesh)
+    build = runner.build_pipeline
+    runner.build_pipeline = lambda cfg, **kw: _tiny_pipeline(spec["models"], cfg)
     saved = {}
     try:
-        for label, flags in (("unsharded", []), ("sharded", ["--shard"])):
-            out = os.path.join(tmp, f"{label}{rank}")
-            runner.main(["--video_dir", os.path.join(tmp, "videos"), "--memory_basic_dir",
-                         out, "--save_file", out + ".json", "--annotations", anno,
-                         "--device", "cpu", "--geometry", "tiny", "--chunk_size", "4",
-                         "--num_clusters", "2", "--interval", "3", "--temperature", "0",
-                         "--multi_modal_memory"] + flags)
-            if os.path.exists(out + ".json"):
-                with open(out + ".json") as f:
-                    saved[label] = [{k: v for k, v in r.items() if k != "process_time"}
-                                    for r in json.load(f)]
-            saved[label + "_bank"] = os.path.exists(os.path.join(out, "memory_0.json"))
+        if rank % 2 == 0:
+            out = os.path.join(tmp, f"mm_unsharded{rank}")
+            runner.main(cli(mm, out, "--num_chunks", "2", "--chunk_idx", str(rank // 2)))
+            saved["mm_unsharded"] = records(out)
+        for run, out, sink, key in ((mm, "mm_sharded", mm_written, "mm_sharded"),
+                                    (spec, "sharded", written, "sharded")):
+            out = os.path.join(tmp, out)
+            runner.open = bank_mod.open = _recording_open(sink)
+            try:
+                runner.main(cli(run, out, "--shard"))
+            finally:
+                del runner.open, bank_mod.open
+            if rank == 0:
+                saved[key] = records(out)
     finally:
-        LongVA.shard = shard
+        runner.build_pipeline = build
         runner.config_from_args = runner_config
+    saved["written"] = sorted(os.path.relpath(p, tmp) for p in written)
+    saved["mm_banks"] = sorted(os.path.basename(p) for p in mm_written
+                               if os.path.basename(p).startswith("memory_"))
     return saved
+
+
+def _members(group, world) -> list:
+    """The world ranks of `group`, by an all_reduce of one-hot rows."""
+    t = torch.zeros(world)
+    t[dist.get_rank()] = 1
+    dist.all_reduce(t, group=group)
+    return [int(r) for r in torch.nonzero(t).flatten()]
+
+
+# make_mesh(dp, tp) argument cases, held to JAX make_mesh over 4 devices.
+MESH_ARGS = [(None, None), (2, None), (None, 2), (4, None), (None, 4), (1, 4), (4, 1),
+             (2, 2), (3, None), (None, 3), (3, 2), (4, 4)]
+
+
+def _grid_cases(rank, world, inp) -> dict:
+    """The 2 x 2 mesh at 2 kv heads: coordinates, group members, the
+    make_mesh argument rules, host_shard's data split, LongVA / TextLM
+    sharded on it, USP over its groups."""
+    grid = make_mesh(kv_heads=2)
+    out = {"grid": dict(coords=grid.coords, shape=grid.shape,
+                        model=_members(grid.model.group, world),
+                        data=_members(grid.data_group, world)),
+           "host_shard": {"tp4": host_shard(list(range(10)), mesh=make_mesh(tp=4)),
+                          "grid": host_shard(list(range(10)), mesh=grid),
+                          "ids": host_shard(list(range(10)), rank % 2, 2)}}
+    try:
+        out["host_shard"]["no_mesh"] = host_shard(list(range(10)))
+    except ValueError as e:
+        out["host_shard"]["no_mesh"] = str(e)
+    shapes = {}
+    for args in MESH_ARGS:
+        try:
+            shapes[args] = make_mesh(*args).shape
+        except ValueError as e:
+            shapes[args] = str(e)
+    out["mesh_args"] = shapes
+    m22 = make_mesh(2, 2)
+    out["prefill22"] = _prefill(inp, m22)
+    out["generate22"] = _generations(_longva(inp).shard(m22), inp)
+    out["judge22"] = _judge(inp, m22)
+    q, k, v = inp["usp"]
+    out["usp"] = ulysses.usp_attention(*(ring.sequence_shard(t, rank, world)
+                                         for t in (q, k, v)), grid, causal=True)
+    return out
 
 
 def _online(mesh, bank_path) -> dict:
@@ -196,11 +280,12 @@ def _online(mesh, bank_path) -> dict:
 
 def tp_cases(rank: int, world: int, inputs_path: str, tmp: str) -> dict:
     """Every tensor-parallel case in this rank (world 4: tp 4 over the
-    world, tp 2 over this rank's pair)."""
+    world, tp 2 over this rank's pair, the 2 x 2 mesh)."""
     inp = torch.load(inputs_path, weights_only=False)
     pair = make_mesh(group=_pairs())
     world_mesh = make_mesh(kv_heads=inp["dec_cfg"].num_kv_heads)
-    out = {"mesh": (pair.rank, pair.size, world_mesh.rank, world_mesh.size),
+    out = {"mesh": (pair.model.rank, pair.model.size, world_mesh.model.rank,
+                    world_mesh.model.size),
            "prefill": {tp: _prefill(inp, m) for tp, m in ((1, None), (2, pair), (4, world_mesh))}}
     out["generate"] = {1: _generations(_longva(inp), inp)}
     for tp, m in ((2, pair), (4, world_mesh)):
@@ -213,13 +298,10 @@ def tp_cases(rank: int, world: int, inputs_path: str, tmp: str) -> dict:
         m.shard(world_mesh)
     except ValueError as e:
         out["int4_tp4_error"] = str(e)
-    out["runner"] = _runner(tmp, rank, pair)
+    out.update(_grid_cases(rank, world, inp))
+    out["runner"] = _runner(tmp, rank, inp)
     out["online"] = {tp: _online(m, os.path.join(tmp, f"bank{rank}_{tp}.json"))
                      for tp, m in ((1, None), (2, pair))}
-    try:
-        make_mesh(kv_heads=2)
-    except NotImplementedError as e:
-        out["data_axis_error"] = str(e)
     return out
 
 
@@ -230,7 +312,7 @@ def tp_cases(rank: int, world: int, inputs_path: str, tmp: str) -> dict:
 
 def sp_cases(rank: int, world: int, inputs_path: str) -> dict:
     """Every sequence-parallel case in this rank: each op at n = 2 (this
-    rank's pair) and n = 4 (the world), USP on the 2 x 2 grid. Each rank
+    rank's pair) and n = 4 (the world), USP on the 2 x 2 mesh. Each rank
     cuts its shard of the whole q / k / v it is given -> {case: output shard}."""
     inp = torch.load(inputs_path, weights_only=False)
     groups = {2: _pairs(), 4: None}
@@ -258,9 +340,9 @@ def sp_cases(rank: int, world: int, inputs_path: str) -> dict:
         q, k, v = inp["cases"]["mha"]
         out[("scaled", n)] = ring.ring_attention(
             *(ring.sequence_shard(t, r, n) for t in (q, k, v)), g, causal=True, sm_scale=0.3)
-    uly, rg = ulysses.usp_groups(2, 2)
+    grid = make_mesh(2, 2)
     for causal in (True, False):
         q, k, v = inp["cases"]["mha"]
         out[("usp", causal)] = ulysses.usp_attention(
-            *(ring.sequence_shard(t, rank, world) for t in (q, k, v)), uly, rg, causal=causal)
+            *(ring.sequence_shard(t, rank, world) for t in (q, k, v)), grid, causal=causal)
     return out
