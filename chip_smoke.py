@@ -2673,7 +2673,8 @@ def drive(pipe, label, breakpoints, online=False, captions=None,
         kv_bytes_per_token_at_max_prompt=_kv_bytes_per_token(m.dec_cfg, max(lengths),
                                                              m.kv_int8),
         launches={n: c for n, c in counts.items() if c}, k1_modes=k1_modes,
-        phase_totals=phases)
+        phase_totals=phases, graph_captures=gs.get("graph_captures", 0),
+        graph_replays=gs.get("graph_replays", 0), capture_s=gs.get("capture_s", 0.0))
     if online:
         report.update(
             ask_s=seen["ask_s"], worker_caption_s=caption_span_s,
@@ -2691,6 +2692,10 @@ def drive(pipe, label, breakpoints, online=False, captions=None,
                              f"{INGEST_K1_MODE}")
     if gs["generated_tokens"] == 0:
         raise AssertionError(f"run {label}: the main path generated no token")
+    if not report["graph_replays"] or not report["graph_captures"]:
+        raise AssertionError(f"run {label}: its decode loops did not replay CUDA graphs: "
+                             f"{report['graph_captures']} captures, "
+                             f"{report['graph_replays']} replays")
     if label.endswith("_dedup"):
         kept = [k for _, k in seen["dedup"]]
         total = sum(n for n, _ in seen["dedup"])
@@ -3162,14 +3167,16 @@ def _h2o_observed(plant_rope=False):
     mass's sum a (layer, kv head), its logits (first steps) and, at
     H2O_MASS_STEP, layer 0's query, gathered keys and mass. With
     `plant_rope` the step after each compression (the prefill's or the
-    loop's) ropes at the cache length (the planted fault)."""
+    loop's) ropes at the cache length (the planted fault). A run without a
+    budget takes the vanilla loop, eagerly here (graph=False): the records
+    read each step's values on the host, which a captured step cannot."""
     from streamchat_tpu_torch.models import decoder, paged_kv
     from streamchat_tpu_torch.models import generate_paged as gp
 
     seen = {"compress_kv": [], "seed": None, "loop_compressions": [], "steps": []}
     kept = dict(ckv=gp.compress_kv, seed=gp._seed_hh_from_prompt, cp=gp.compress_paged,
                 step=gp.decode_step_paged, rope=decoder.rope,
-                gather=paged_kv.paged_decode_attention)
+                gather=paged_kv.paged_decode_attention, loop=gp._decode_loop)
     state = {"in_step": None, "layer": 0, "after_compression": False}
 
     def ckv(k, v, score, length, **kw):
@@ -3232,9 +3239,11 @@ def _h2o_observed(plant_rope=False):
 
     gp.compress_kv, gp._seed_hh_from_prompt, gp.compress_paged = ckv, seed, cp
     gp.decode_step_paged, decoder.rope, paged_kv.paged_decode_attention = step, rope, gather
+    gp._decode_loop = lambda *a, **kw: kept["loop"](*a, **dict(kw, graph=False))
     try:
         yield seen
     finally:
+        gp._decode_loop = kept["loop"]
         gp.compress_kv, gp._seed_hh_from_prompt = kept["ckv"], kept["seed"]
         gp.compress_paged, gp.decode_step_paged = kept["cp"], kept["step"]
         decoder.rope, paged_kv.paged_decode_attention = kept["rope"], kept["gather"]
@@ -3436,7 +3445,7 @@ def check_gather_step(model, feats, budget):
     out = {}
     for name, kw in (("gather", dict(collect_mass=True)), ("K4", dict(sequential_pages=True))):
         cache = dataclasses.replace(base, k_pages=base.k_pages.clone(),
-                                    v_pages=base.v_pages.clone())
+                                    v_pages=base.v_pages.clone(), length=base.length.clone())
         out[name] = (paged_kv.decode_step_paged(params, cfg, tok, cache, **kw), cache)
     (lg, gcache, mass), (lk, kcache) = out["gather"][0], out["K4"][0]
     g = cfg.num_heads // cfg.num_kv_heads
@@ -4052,7 +4061,8 @@ def drive_judge(lm, label, pred_file, out_dir, plant=False):
         k3_launches=[list(x) for x in sorted(set(seen["k3"]))],
         k7_calls=[list(x) for x in sorted(set(seen["k7"]))],
         w8_kernel_shapes=[list(x) for x in w8_kernel],
-        launches={n: c for n, c in counts.items() if c})
+        launches={n: c for n, c in counts.items() if c},
+        graph_captures=gs.get("graph_captures", 0), graph_replays=gs.get("graph_replays", 0))
     report.update(judge_first_step(lm, seen, spec, plant))
     report["spec_run_launched"] = ({"K4 paged_decode_attention_seq":
                                     counts.get("paged_decode_attention_seq", 0),
@@ -4068,6 +4078,8 @@ def drive_judge(lm, label, pred_file, out_dir, plant=False):
         raise AssertionError(f"judge run {label}: K3 launches {counts['flash_attention']}, "
                              f"shapes {report['k3_launches']}: expected {cfg.num_layers} a "
                              "prefill at 4 query heads a kv head")
+    if not report["graph_captures"] or not report["graph_replays"]:
+        raise AssertionError(f"judge run {label}: its decode loops did not replay CUDA graphs")
     if len(judged) != JUDGE_BATCH or gs["generated_tokens"] == 0:
         raise AssertionError(f"judge run {label}: {len(judged)} verdicts, "
                              f"{gs['generated_tokens']} tokens")
@@ -4515,11 +4527,13 @@ def load_judge(root):
     return lm, report
 
 
-def run_judge(predictions, root):
+def run_judge(predictions, root, smi, graphs):
     """Stages 2 and 3 at LLaMA-3-8B width from a checkpoint written under
     `root` and loaded back (`load_judge`): the three judge runs on one
     model (int8 made from the bf16 tree and the bf16 tree freed), then
-    scoring over each run's JSONL -> (reports, scores, counts, load
+    scoring over each run's JSONL, and after the bf16 and int8 runs the
+    dense loop's graphed steps against eager ones at 8 rows
+    (`drive_graphs`, into `graphs`) -> (reports, scores, counts, load
     report)."""
     preds = list(itertools.islice(itertools.cycle(predictions), JUDGE_BATCH))
     with phase("judge: write LLaMA-3-8B (random, seeded) and load it back"):
@@ -4541,6 +4555,10 @@ def run_judge(predictions, root):
                                                             plant=label != "judge_int8")
             with phase(f"stage 3: scoring {label}"):
                 scores[label] = score_judged(d, label)
+            if label in GRAPH_CASES:
+                with phase(f"decode steps as CUDA graphs against eager steps ({label})"):
+                    graphs[label], counts[f"graphs_{label}"] = drive_graphs(
+                        lm.params, lm.cfg, lm.generator, label, smi)
     return reports, scores, counts, load
 
 
@@ -5850,6 +5868,127 @@ def drive_traced(pipe, planted):
         shutil.rmtree(root, ignore_errors=True)
 
 
+# Decode steps replayed as CUDA graphs (models/step_graph.py), each path run
+# twice from one generator state: graphed (the default on the card) and
+# eager (graph=False). Short generations: GRAPH_NEW_TOKENS tokens after a
+# prompt of GRAPH_PROMPT[0] valid tokens (rows after the first shorter),
+# padded to GRAPH_PROMPT[1]; the judge's rows a 1,408-token bucket.
+GRAPH_NEW_TOKENS = 24
+GRAPH_PROMPT = (1000, 1024)
+GRAPH_SAMPLING = {"greedy": dict(temperature=0.0), "temperature": dict(temperature=1.0),
+                  "top_p": dict(temperature=0.8, top_p=0.9)}
+# LongVA's paths, by the decoder's storage at each point of the script:
+# name -> (rows' valid lengths, generate_paged keywords (None: the dense
+# loop), kernels the path must launch).
+GRAPH_CASES = {
+    "bf16": {
+        "bf16_b1": ([1000], {}, ("paged_decode_attention_seq",)),
+        "caller_pool_bf16": ([1000, 500], dict(num_pages=18, max_pages_per_seq=10),
+                             ("paged_decode_attention_table",)),
+        "caller_pool_kv_int8": ([1000, 500], dict(num_pages=18, max_pages_per_seq=10,
+                                                  kv_int8=True),
+                                ("paged_decode_attention_table_int8",)),
+        "spec4_bf16_pages": ([1000], dict(spec_tokens=4), ("paged_seq_attention_partial",)),
+        "spec4_int8_pages": ([1000], dict(spec_tokens=4, kv_int8=True),
+                             ("paged_seq_attention_partial_int8",)),
+    },
+    "int8": {
+        "int8_b1": ([1000], {}, ("paged_decode_attention_seq", "qmatvec_int8")),
+        "int8_caption_batch2": ([1000, 700], {}, ("paged_decode_attention_seq",
+                                                  "qmatvec_int8")),
+    },
+    "int4": {
+        "int4_kv_int8_b1": ([1000], dict(kv_int8=True),
+                            ("paged_decode_attention_seq_int8",) + INT4),
+    },
+    "judge_bf16": {
+        "judge_dense_b8_bf16": ([1400, 1300, 1200, 1100, 1000, 900, 800, 700], None, ()),
+    },
+    "judge_int8": {
+        "judge_dense_b8_int8": ([1400, 1300, 1200, 1100, 1000, 900, 800, 700], None,
+                                ("qmatvec_int8",)),
+    },
+}
+
+
+def _graph_run(params, cfg, embeds, ln, generator, kw, graph, sampling):
+    """One generation of GRAPH_NEW_TOKENS tokens with the launch counters
+    zeroed before it -> (tokens, counts, stats, seconds)."""
+    from streamchat_tpu_torch import kernels
+    from streamchat_tpu_torch.models import generate, generate_paged
+
+    stats = {}
+    kernels.reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    common = dict(max_new_tokens=GRAPH_NEW_TOKENS, stats=stats, graph=graph, **sampling)
+    if kw is None:
+        toks, _ = generate.generate(params, cfg, embeds, ln, generator, **common)
+        toks = toks.cpu()
+    else:
+        toks, _ = generate_paged.generate_paged(params, cfg, embeds, ln, generator, **kw,
+                                                **common)
+        toks = torch.from_numpy(toks)
+    torch.cuda.synchronize()
+    return toks, kernels.launch_counts(), stats, time.perf_counter() - t0
+
+
+def drive_graphs(params, cfg, generator, label, smi):
+    """Every path of GRAPH_CASES[label] in each sampling mode (no top_p with
+    speculative decode) run graphed and eager from the same generator state
+    -> (report, summed launch counts of the graphed runs). Held: tokens
+    bit-equal, launch counts equal (each replay counts what its capture
+    recorded), one capture and a replay for every later step, the path's
+    kernels launched. Printed a path and mode: eager and graphed ms a step
+    (graphed: the loop's host seconds less the capture, over its steps,
+    the first of which runs eagerly as the warm-up), capture s, launches a
+    replay."""
+    report, total = {}, {}
+    for name, (lengths, kw, expect) in GRAPH_CASES[label].items():
+        s = GRAPH_PROMPT[1] if kw is not None else 1408
+        b = len(lengths)
+        embeds = (torch.randn(b, s, cfg.hidden_size, generator=generator, device="cuda")
+                  * 0.02).to(torch.bfloat16)
+        ln = torch.tensor(lengths, dtype=torch.int32, device="cuda")
+        for mode, sampling in GRAPH_SAMPLING.items():
+            if kw and kw.get("spec_tokens") and "top_p" in sampling:
+                continue
+            state = generator.get_state()
+            runs = {}
+            for graph in (None, False):
+                generator.set_state(state)
+                runs["eager" if graph is False else "graphed"] = _graph_run(
+                    params, cfg, embeds, ln, generator, kw, graph, sampling)
+            (gt, gc_, gs, gsec), (et, ec, es, esec) = runs["graphed"], runs["eager"]
+            steps = gs["decode_steps"]
+            row = dict(
+                rows=b, steps=steps, tokens_bit_equal=bool(torch.equal(gt, et)),
+                launches_equal=gc_ == ec, eager_ms_per_step=1e3 * es["decode_s"] / steps,
+                graphed_ms_per_step=1e3 * (gs["decode_s"] - gs["capture_s"]) / steps,
+                capture_s=gs["capture_s"], graph_captures=gs.get("graph_captures"),
+                replays=gs.get("graph_replays"),
+                launches_per_replay=gs["replayed_launches"] / max(gs["graph_replays"], 1),
+                graphed_s=gsec, eager_s=esec, prefill_s=gs["prefill_s"],
+                reserved_gib=torch.cuda.memory_reserved() / 2**30)
+            report[f"{name} {mode}"] = row
+            print(f"decode graph [{name}, {mode}]: {b} rows, {steps} steps, eager "
+                  f"{row['eager_ms_per_step']:.3f} ms/step, graphed "
+                  f"{row['graphed_ms_per_step']:.3f} ms/step, capture {row['capture_s']:.4f} s, "
+                  f"{row['launches_per_replay']:.0f} launches a replay, tokens bit-equal "
+                  f"{row['tokens_bit_equal']}, {row['reserved_gib']:.2f} GiB reserved  [{smi}]",
+                  flush=True)
+            missing = [n for n in expect if gc_.get(n, 0) == 0]
+            if (not row["tokens_bit_equal"] or not row["launches_equal"] or missing
+                    or gs.get("graph_captures") != 1 or gs.get("graph_replays") != steps - 1
+                    or steps < 2 or "graph_captures" in es):
+                raise AssertionError(f"decode graph [{name}, {mode}]: {row}, kernels never "
+                                     f"launched {missing}, graphed counts {gc_}, eager {ec}")
+            for n, c in gc_.items():
+                total[n] = total.get(n, 0) + c
+        del embeds
+    return report, total
+
+
 # Per-rank shapes at tp 4: Qwen2-7B (28 / 4 heads, ffn 18,944, vocab
 # 152,064) gives a rank 7 query heads over 1 kv head, 4,736 MLP columns and
 # 38,016 vocabulary columns; LLaMA-3-8B (32 / 8, 14,336, 128,256) 8 over 2,
@@ -6312,11 +6451,18 @@ def run_all(info, smi, t_start, root) -> None:
     with phase("traced run: process_video bf16, full depth, 1 breakpoint, under "
                "maybe_device_trace"):
         traced, counts["traced_bf16"] = drive_traced(pipe, planted)
+    graphs = {}
+    with phase("decode steps as CUDA graphs against eager steps (bf16 tree)"):
+        graphs["bf16"], counts["graphs_bf16"] = drive_graphs(m.dec_params, m.dec_cfg, g,
+                                                             "bf16", smi)
     bf16_tree = m.dec_params
     with phase("quantize int8 + composed check"):
         m.quantize()                                  # the CLI default, as `main` does
         composed["int8_step_logits_rel_l2_err"] = check_composed_quant(
             m, g, "int8", ("qmatvec_int8",))
+    with phase("decode steps as CUDA graphs against eager steps (int8 tree)"):
+        graphs["int8"], counts["graphs_int8"] = drive_graphs(m.dec_params, m.dec_cfg, g,
+                                                             "int8", smi)
     with phase("process_video int8, 2 breakpoints"):
         runs["int8"], counts["int8"] = drive(pipe, "int8", BREAKPOINTS)
     with phase("process_video_online int8, 2 breakpoints"):
@@ -6355,6 +6501,9 @@ def run_all(info, smi, t_start, root) -> None:
         m.kv_int8 = True
         composed["int4_step_logits_rel_l2_err"] = check_composed_quant(
             m, g, "int4", ("qmatvec_int4", "qmatvec_int4_fused", "qmatvec_int8"))
+    with phase("decode steps as CUDA graphs against eager steps (int4 tree, kv_int8)"):
+        graphs["int4"], counts["graphs_int4"] = drive_graphs(m.dec_params, m.dec_cfg, g,
+                                                             "int4", smi)
     with phase("process_video int4 + kv_int8, 1 breakpoint"), \
             configured(pipe, sampling=SHORT_ANSWER):
         runs["int4_kv_int8"], counts["int4_kv_int8"] = drive(pipe, "int4_kv_int8",
@@ -6406,7 +6555,8 @@ def run_all(info, smi, t_start, root) -> None:
     nccl = run_nccl_phases(tp_dir, tp_argv, tp_refs, counts, dp_argv, dp_refs, planted)
     for path in {**paths, "longva_tp": paths_tp["longva"]}.values():   # LongVA's checkpoints
         shutil.rmtree(path)
-    judge_reports, judge_scores, judge_counts, judge_load = run_judge(predictions, root)
+    judge_reports, judge_scores, judge_counts, judge_load = run_judge(predictions, root, smi,
+                                                                      graphs)
     counts.update(judge_counts)
     gc.collect()
     torch.cuda.empty_cache()
@@ -6444,6 +6594,14 @@ def run_all(info, smi, t_start, root) -> None:
               f"the raw read, after the load), device peak {load['device_peak_gib']:.3f} GiB  "
               f"[{smi}]")
     print(f"composed checks: {json.dumps(composed)}")
+    print(f"decode graphs: {json.dumps(graphs)}  [{smi}]")
+    print("decode graph summary (ms a step eager -> graphed, capture s, launches a replay): "
+          + ", ".join(f"{k} {v['eager_ms_per_step']:.2f} -> {v['graphed_ms_per_step']:.2f}, "
+                      f"{v['capture_s']:.3f} s, {v['launches_per_replay']:.0f}"
+                      for rows in graphs.values() for k, v in rows.items())
+          + f"; the graph phases' generations took "
+          f"{sum(v['graphed_s'] + v['eager_s'] for r in graphs.values() for v in r.values()):.1f}"
+          f" s in all  [{smi}]")
     print(f"spec_tokens 9 over int8 pages: {json.dumps(spec_rows)}")
     print(f"probe results: {json.dumps(probes)}")
     print(f"H2O: {json.dumps(h2o)}")

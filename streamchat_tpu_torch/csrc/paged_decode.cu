@@ -937,8 +937,12 @@ cudaError_t launch(const Args& a, int ntok, int B, int Hq, int Hkv, int num_page
                  slots, page_size, ntok, g, Hkv, nranges, rtiles, q_vec, q_words,
                  scale * LOG2E, a.ks, a.vs, a.acc, a.m, a.l};
   auto kernel = K::fn();
-  err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, K::bytes);
-  if (err != cudaSuccess) return err;
+  // Once per instantiation, at the first launch: a decode step replayed as
+  // a CUDA graph (models/step_graph.py) runs its first launch eagerly, so
+  // no attribute call happens while a stream captures.
+  static const cudaError_t attr =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, K::bytes);
+  if (attr != cudaSuccess) return attr;
   kernel<<<dim3(nranges * rtiles, Hkv, B), THREADS, K::bytes, stream>>>(km, vm, p);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;

@@ -11,15 +11,23 @@ wrapper whose kernel has modes (K1's folded / one-pass / clamp form, a
 probe's variant) names the mode of each launch, `launched(fn, mode)`, and
 `launch_modes()` reads those tallies (one entry per mode, summing to the
 count).
+
+A wrapper called while its thread captures a CUDA graph
+(`models/step_graph.StepGraph`) launches nothing: inside `recording()` the
+thread's `launched` calls are tallied for the graph instead of counted, and
+each replay of the graph adds that tally back (`add_launches`), so the
+counters stay the launches the card made. Other threads count as usual.
 """
 
 from __future__ import annotations
 
+import contextlib
 import threading
-from typing import Callable, Dict, Optional
+from typing import Callable, Dict, Iterator, Optional, Tuple
 
 _WRAPPERS: Dict[str, Callable] = {}
 _LOCK = threading.Lock()
+_CAPTURE = threading.local()
 
 
 def counted(fn: Callable) -> Callable:
@@ -32,11 +40,40 @@ def counted(fn: Callable) -> Callable:
 
 def launched(fn: Callable, mode: Optional[str] = None) -> None:
     """Count one launch of `fn`'s kernel (atomic across threads), in `mode`
-    when the kernel has modes."""
+    when the kernel has modes; inside this thread's `recording()` tally it
+    there instead."""
+    tally = getattr(_CAPTURE, "tally", None)
+    if tally is not None:
+        tally[fn, mode] = tally.get((fn, mode), 0) + 1
+        return
+    _add(fn, mode, 1)
+
+
+def _add(fn: Callable, mode: Optional[str], n: int) -> None:
     with _LOCK:
-        fn.launches += 1
+        fn.launches += n
         if mode is not None:
-            fn.modes[mode] = fn.modes.get(mode, 0) + 1
+            fn.modes[mode] = fn.modes.get(mode, 0) + n
+
+
+@contextlib.contextmanager
+def recording() -> Iterator[Dict[Tuple[Callable, Optional[str]], int]]:
+    """The `launched` calls this thread makes inside the block -> a tally
+    {(wrapper, mode): calls}, left out of the counters."""
+    if getattr(_CAPTURE, "tally", None) is not None:
+        raise RuntimeError("kernels.recording() does not nest")
+    _CAPTURE.tally = tally = {}
+    try:
+        yield tally
+    finally:
+        _CAPTURE.tally = None
+
+
+def add_launches(tally: Dict[Tuple[Callable, Optional[str]], int]) -> None:
+    """Count the launches of a `recording()` tally: one replay of the graph
+    captured while it was recorded."""
+    for (fn, mode), n in tally.items():
+        _add(fn, mode, n)
 
 
 def launch_counts() -> Dict[str, int]:

@@ -285,7 +285,8 @@ def forward(params: Params, cfg: DecoderConfig, embeds: torch.Tensor,
     at its own `cache.length` (one indexed store per tensor and layer; the
     lengths stay on the device) and attends over the whole cache up to its
     new length (`decode_attention`); `start`, `chunked` and `kv_view` are
-    then not read.
+    then not read, and the cache's length is updated in place (a graphed
+    decode step reads and writes it at one address).
 
     positions [B, S]; seq_length [B] valid tokens of `embeds` (the rest is
     padding, masked by kv_length). Without `chunked` the block attends
@@ -336,7 +337,10 @@ def forward(params: Params, cfg: DecoderConfig, embeds: torch.Tensor,
                 o = flash_attention(q, k, v, kv_length, causal=True)
         x = x + attn_out(params, o.transpose(1, 2).reshape(b, s, hq * dh), p["attn"])
         x = x + mlp_out(params, rmsnorm(x, p["post_norm"], cfg.rms_eps), p["mlp"])
-    cache.length = kv_length.clone()
+    if decode:
+        cache.length.copy_(kv_length)
+    else:
+        cache.length = kv_length.clone()
     return rmsnorm(x, params["final_norm"], cfg.rms_eps), cache
 
 

@@ -8,12 +8,15 @@ every weight and KV storage, as `_prefill_inline` does in the JAX package.
 
 `generate` is the JAX package's dense loop (the judge's, and the paged
 backend's token-exact twin): B rows prefill together into one bf16
-`KVCache` of S + max_new slots rounded up to 128, then a host loop of sample
--> decode step (`_decode_inline`: `decoder.decode_step`, each row appending
-at its own length) runs until every row is done or max_new_tokens steps
-were taken, the JAX `lax.while_loop` written out with one host sync a step
-(the all-done test). Finished rows emit the pad id. Paged generation lives
-in `models/generate_paged.py`.
+`KVCache` of S + max_new slots rounded up to 128, then a loop of sample ->
+decode step (`_decode_inline`: `decoder.decode_step`, each row appending at
+its own length) runs until every row is done or max_new_tokens steps were
+taken. The JAX `lax.while_loop` is one device program; here its body is one
+`StepGraph` step (`models/step_graph.py`), replayed as a CUDA graph on the
+card, and the host reads the all-done flags once a step (the loop's
+`cond`). The step writes its token through a device step counter and keeps
+every buffer it touches at one address. Finished rows emit the pad id.
+Paged generation lives in `models/generate_paged.py`.
 """
 
 from __future__ import annotations
@@ -27,6 +30,7 @@ import torch
 from streamchat_tpu_torch.config import DecoderConfig
 from streamchat_tpu_torch.models import decoder
 from streamchat_tpu_torch.models.decoder import KVCache
+from streamchat_tpu_torch.models.step_graph import StepGraph, cache_tensors, use_graph
 from streamchat_tpu_torch.ops.sampling import sample_token
 
 CHUNKED_PREFILL_THRESHOLD = 8192
@@ -34,20 +38,26 @@ CHUNKED_PREFILL_THRESHOLD = 8192
 
 @dataclasses.dataclass
 class GenState:
-    """The decode loop's state (the JAX `lax.while_loop` carry)."""
+    """The decode loop's state (the JAX `lax.while_loop` carry), every
+    tensor at one address for the whole loop."""
 
     cache: KVCache
     logits: torch.Tensor          # [B, V] for the next sample
     out_tokens: torch.Tensor      # [B, max_new]
-    step: int
+    step: torch.Tensor            # [1] int64: the column the next token goes to
     done: torch.Tensor            # [B] bool
+
+    def tensors(self):
+        return (self.logits, self.out_tokens, self.step, self.done,
+                *cache_tensors(self.cache))
 
 
 def generate(params, cfg: DecoderConfig, prompt_embeds: torch.Tensor,
              seq_length: torch.Tensor, generator: torch.Generator | None = None, *,
              max_new_tokens: int, max_len: int | None = None, temperature: float = 0.0,
              top_p: float | None = None, eos_ids: Sequence[int] | None = None,
-             stats: Optional[dict] = None) -> Tuple[torch.Tensor, torch.Tensor]:
+             stats: Optional[dict] = None,
+             graph: Optional[bool] = None) -> Tuple[torch.Tensor, torch.Tensor]:
     """Generate up to max_new_tokens -> (tokens [B, max_new] int64, count [B]),
     both on the prompt's device.
 
@@ -57,7 +67,10 @@ def generate(params, cfg: DecoderConfig, prompt_embeds: torch.Tensor,
     max_new_tokens), rounded up to 128. `stats`, when given, accumulates
     "prefill_s", "decode_s" (host clock, each ending in a device
     synchronize), "decode_steps", "prompt_tokens" (padded, all rows) and
-    "generated_tokens" (before EOS) in place, as `generate_paged` does.
+    "generated_tokens" (before EOS) in place, as `generate_paged` does, and
+    a graphed loop its `StepGraph.record` figures. `graph`: None replays the
+    step as a CUDA graph on the card (`step_graph.use_graph`), False runs it
+    eagerly there (the card's equality check).
     """
     if eos_ids is None:
         eos_ids = (cfg.eos_token_id,)
@@ -75,27 +88,38 @@ def generate(params, cfg: DecoderConfig, prompt_embeds: torch.Tensor,
     t1 = time.perf_counter()
 
     eos = torch.tensor(list(eos_ids), device=dev)
-    st = GenState(cache=cache, logits=first_logits,
+    st = GenState(cache=cache, logits=first_logits.clone(),
                   out_tokens=torch.full((b, max_new_tokens), cfg.pad_token_id,
                                         dtype=torch.int64, device=dev),
-                  step=0, done=torch.zeros(b, dtype=torch.bool, device=dev))
-    while st.step < max_new_tokens and not bool(st.done.all()):
+                  step=torch.zeros(1, dtype=torch.int64, device=dev),
+                  done=torch.zeros(b, dtype=torch.bool, device=dev))
+
+    def body():
         tok = sample_token(st.logits, generator, temperature=temperature, top_p=top_p)
         tok = torch.where(st.done, torch.full_like(tok, cfg.pad_token_id), tok)
-        st.done = st.done | torch.isin(tok, eos)
-        st.out_tokens[:, st.step] = tok
-        st.logits, st.cache = _decode_inline(params, cfg, tok, st.cache)
-        st.step += 1
+        st.done.logical_or_(torch.isin(tok, eos))
+        st.out_tokens.scatter_(1, st.step.expand(b, 1), tok[:, None])
+        logits, _ = _decode_inline(params, cfg, tok, st.cache)
+        st.logits.copy_(logits)
+        st.step.add_(1)
+
+    loop = StepGraph(body, st.tensors, dev, generator,
+                     graphed=use_graph(graph, dev, params))
+    steps = 0
+    while steps < max_new_tokens and not bool(st.done.all()):
+        loop()
+        steps += 1
 
     before_eos = torch.cumsum(torch.isin(st.out_tokens, eos).long(), dim=1) == 0
-    count = before_eos.sum(1).clamp_max(st.step)
+    count = before_eos.sum(1).clamp_max(steps)
     if stats is not None:
         if dev.type == "cuda":
             torch.cuda.synchronize(dev)
         for k, v in (("prefill_s", t1 - t0), ("decode_s", time.perf_counter() - t1),
-                     ("decode_steps", st.step), ("prompt_tokens", b * s),
+                     ("decode_steps", steps), ("prompt_tokens", b * s),
                      ("generated_tokens", int(count.sum()))):
             stats[k] = stats.get(k, 0) + v
+        loop.record(stats)
     return st.out_tokens, count
 
 

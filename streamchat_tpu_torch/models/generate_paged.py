@@ -3,9 +3,15 @@ single rows and batches.
 
 Prefill runs into a dense cache (`generate._prefill_inline`: one pass up
 to `CHUNKED_PREFILL_THRESHOLD` tokens, chunks beyond it), the pages go into
-a pool, then a Python loop: sample -> (allocate) -> write -> decode step.
-Finished rows emit the pad id; `count` is the number of tokens before the
-first EOS, as in the JAX loop. The dispatch is the JAX package's:
+a pool, then the loop: (allocate) -> sample -> write -> decode step. The
+JAX package fuses it into one `lax.while_loop` program; here the sample,
+write and decode step are one `StepGraph` step (`models/step_graph.py`),
+replayed as a CUDA graph on the card, while the allocator's in-place call
+(`paged_kv.allocate_pages_`) and its overflow read run on the host between
+steps, at page boundaries only, and the host reads the done flags once a
+step. Finished rows emit the pad id; `count` is the number of tokens
+before the first EOS, as in the JAX loop. The dispatch is the JAX
+package's:
 
 * B > 1 rows and no caller-sized pool: the split path
   (`_generate_paged_split`). Each row prefills alone (B = 1, so a short
@@ -47,7 +53,8 @@ cache shrinks. A step adds its attention mass to the scores
 probabilities) while a later compression can still fire; the steps after
 the last one run the page kernel (K4 on a pool in page order, else K8), as
 a run without a budget does. The overflow test and that choice read only
-host-side lengths and pages.
+host-side lengths and pages. This loop stays eager on the card: its steps
+change form as compressions fire.
 """
 
 from __future__ import annotations
@@ -67,6 +74,7 @@ from streamchat_tpu_torch.models.paged_kv import (
     _place,
     _quantize_kv,
     _row_table,
+    allocate_pages_,
     allocate_pages_checked,
     compress_paged,
     decode_step_paged,
@@ -75,6 +83,7 @@ from streamchat_tpu_torch.models.paged_kv import (
     from_contiguous_int8,
 )
 from streamchat_tpu_torch.models.spec_decode import run_spec_decode_loop
+from streamchat_tpu_torch.models.step_graph import StepGraph, cache_tensors, use_graph
 from streamchat_tpu_torch.ops.kv_compress import attention_mass, compress_kv
 from streamchat_tpu_torch.ops.sampling import sample_token
 
@@ -98,7 +107,8 @@ def generate_paged(params, cfg: DecoderConfig, prompt_embeds, seq_length: torch.
                    lookup_tokens: torch.Tensor | None = None,
                    lookup_len: torch.Tensor | None = None, hh_size: int = 0,
                    recent_size: int = 0, sink_size: int = 4, merge: str | None = None,
-                   stats: Optional[dict] = None) -> Tuple[np.ndarray, np.ndarray]:
+                   stats: Optional[dict] = None,
+                   graph: Optional[bool] = None) -> Tuple[np.ndarray, np.ndarray]:
     """-> (tokens [B, max_new] int64, count [B]) as numpy arrays.
 
     prompt_embeds [B, S, D] padded, or a list of B [1, S, D] rows (entries
@@ -113,7 +123,10 @@ def generate_paged(params, cfg: DecoderConfig, prompt_embeds, seq_length: torch.
     adds "verify_steps" and "accepted_tokens" (tokens its verify steps
     emitted), an H2O run (hh_size > 0; `recent_size`, `sink_size` and
     `merge` as `ops.kv_compress.compress_kv`) "compressions_at_prefill" and
-    "compressions_in_loop".
+    "compressions_in_loop", and a graphed loop its `StepGraph.record`
+    figures. `graph`: None replays the vanilla and speculative steps as a
+    CUDA graph on the card (`step_graph.use_graph`), False runs them
+    eagerly there (the card's equality check); the H2O loop is eager.
     """
     as_rows = isinstance(prompt_embeds, (list, tuple))
     b = len(prompt_embeds) if as_rows else prompt_embeds.shape[0]
@@ -124,6 +137,8 @@ def generate_paged(params, cfg: DecoderConfig, prompt_embeds, seq_length: torch.
         raise ValueError("kv_int8 and in-loop H2O compression are exclusive")
     if compress and spec_tokens > 0:
         raise ValueError("speculative decode excludes in-loop H2O")
+    if compress and graph:
+        raise ValueError("the H2O decode loop is not graphed")
     if spec_tokens > 0 and top_p is not None:
         raise ValueError("speculative decode supports top_p=None only")
     if eos_ids is None:
@@ -186,7 +201,7 @@ def generate_paged(params, cfg: DecoderConfig, prompt_embeds, seq_length: torch.
             params, cfg, cache, logits, seq_length, generator,
             max_new_tokens=max_new_tokens, temperature=temperature, eos_ids=eos_ids,
             spec_tokens=spec_tokens, spec_ngram=spec_ngram, lookup_tokens=lookup_tokens,
-            lookup_len=lookup_len)
+            lookup_len=lookup_len, stats=stats, graph=graph)
         toks, count = out.cpu().numpy(), count.cpu().numpy()
         if stats is not None:
             for k, v in (("verify_steps", step), ("accepted_tokens", emitted)):
@@ -195,7 +210,8 @@ def generate_paged(params, cfg: DecoderConfig, prompt_embeds, seq_length: torch.
         toks, step = _decode_loop(params, cfg, cache, logits, seq_length, generator,
                                   row_order=row_order,
                                   max_new_tokens=max_new_tokens, temperature=temperature,
-                                  top_p=top_p, eos_ids=eos_ids, kv_int8=kv_int8)
+                                  top_p=top_p, eos_ids=eos_ids, kv_int8=kv_int8,
+                                  stats=stats, graph=graph)
         before_eos = np.cumsum(np.isin(toks, list(eos_ids)), axis=1) == 0
         count = np.minimum(before_eos.sum(axis=1), step)
     if stats is not None:
@@ -208,7 +224,8 @@ def generate_paged(params, cfg: DecoderConfig, prompt_embeds, seq_length: torch.
 
 
 def _decode_loop(params, cfg, cache, logits, seq_length, generator, *, row_order,
-                 max_new_tokens, temperature, top_p, eos_ids, kv_int8):
+                 max_new_tokens, temperature, top_p, eos_ids, kv_int8, stats=None,
+                 graph=None):
     """Vanilla decode -> (tokens [B, max_new] numpy, steps taken).
 
     `row_order`: every page is mapped and the pool is read in row order (K4
@@ -216,31 +233,43 @@ def _decode_loop(params, cfg, cache, logits, seq_length, generator, *, row_order
     table (K8 / K9): a row needs a new page when its length is a multiple
     of the page size (the JAX loop's allocator call with ones is a no-op
     otherwise), and lengths are tracked on the host, so only those steps
-    read the overflow flag back."""
+    call the allocator, in place and before the step, and read the
+    overflow flag back. The step (sample, write, decode) is a `StepGraph`
+    step; its figures go to `stats`."""
     b = seq_length.shape[0]
     dev = logits.device
     step_fn = decode_step_paged_int8 if kv_int8 else decode_step_paged
     ps = cache.page_size
     eos = torch.tensor(list(eos_ids), device=dev)
+    logits = logits.clone()
     out = torch.full((b, max_new_tokens), cfg.pad_token_id, dtype=torch.int64, device=dev)
     done = torch.zeros(b, dtype=torch.bool, device=dev)
+    column = torch.zeros(1, dtype=torch.int64, device=dev)
+
+    def body():
+        tok = sample_token(logits, generator, temperature=temperature, top_p=top_p)
+        tok = torch.where(done, torch.full_like(tok, cfg.pad_token_id), tok)
+        done.logical_or_(torch.isin(tok, eos))
+        out.scatter_(1, column.expand(b, 1), tok[:, None])
+        new_logits, _ = step_fn(params, cfg, tok, cache, sequential_pages=row_order)
+        logits.copy_(new_logits)
+        column.add_(1)
+
+    loop = StepGraph(body, lambda: (logits, out, done, column, *cache_tensors(cache)), dev,
+                     generator, graphed=use_graph(graph, dev, params))
     lengths = seq_length.tolist()
     ones = torch.ones(b, dtype=torch.int32, device=dev)
     step = 0
     while step < max_new_tokens:
-        tok = sample_token(logits, generator, temperature=temperature, top_p=top_p)
-        tok = torch.where(done, torch.full_like(tok, cfg.pad_token_id), tok)
-        done = done | torch.isin(tok, eos)
-        out[:, step] = tok
         if not row_order and any(n % ps == 0 for n in lengths):
-            cache, over = allocate_pages_checked(cache, ones)
-            if bool(over):
+            if bool(allocate_pages_(cache, ones)):
                 raise RuntimeError(_OVERFLOW_MSG)
-        logits, cache = step_fn(params, cfg, tok, cache, sequential_pages=row_order)
+        loop()
         lengths = [n + 1 for n in lengths]
         step += 1
         if bool(done.all()):
             break
+    loop.record(stats)
     return out.cpu().numpy(), step
 
 

@@ -21,9 +21,12 @@ each row's length.
 
 Unlike the JAX package's immutable arrays, `append_token_kv` writes the
 pools IN PLACE: one position per row per call (a single indexed store), so
-a decode step never copies a pool. The allocator returns a new cache object
-with a new table and `next_free` that shares the pools: a table a caller
-still holds is never changed under it.
+a decode step never copies a pool, and `advance` adds to the length in
+place. The allocator returns a new cache object with a new table and
+`next_free` that shares the pools: a table a caller still holds is never
+changed under it. `allocate_pages_` is its in-place form, for the graphed
+decode loop (`models/step_graph.py`): the table and `next_free` keep their
+addresses, and the loop calls it between steps, never inside one.
 
 H2O eviction (batch 1, bf16 pages): `decode_step_paged(positions=,
 collect_mass=True)` ropes at the caller's global positions and attends
@@ -110,6 +113,16 @@ def allocate_pages_checked(cache, tokens_per_seq: torch.Tensor):
     next_free = (cache.next_free + extra.sum()).to(torch.int32)
     over = (next_free > cache.k_pages.shape[1]) | (need > max_pages).any()
     return dataclasses.replace(cache, page_table=table, next_free=next_free), over
+
+
+def allocate_pages_(cache, tokens_per_seq: torch.Tensor) -> torch.Tensor:
+    """`allocate_pages_checked` in place -> overflowed: the cache's own table
+    and `next_free` take the new values. The caller reads the flag before
+    any step reads the new pages."""
+    new_cache, over = allocate_pages_checked(cache, tokens_per_seq)
+    cache.page_table.copy_(new_cache.page_table)
+    cache.next_free.copy_(new_cache.next_free)
+    return over
 
 
 def allocate_pages(cache, tokens_per_seq: torch.Tensor):
@@ -212,7 +225,8 @@ def append_token_kv(cache: PagedKVCache, layer: int, k: torch.Tensor,
 
 
 def advance(cache: PagedKVCache, tokens: int = 1) -> None:
-    cache.length = cache.length + tokens
+    """Add `tokens` to every row's length, in place."""
+    cache.length.add_(tokens)
 
 
 def _decode_step(params, cfg, token_ids: torch.Tensor, cache, append, attend,

@@ -22,8 +22,12 @@ rows on a statically partitioned pool (ragged acceptance, per-row lengths).
   is vanilla sampling's. Greedy output is token-identical to the vanilla
   loop (`models/generate_paged`).
 
-The JAX `lax.while_loop` becomes a host loop of verify steps, one host
-sync per step, as the port's vanilla loop. Random draws come from a
+The JAX `lax.while_loop` is one device program. Here its body (sample,
+draft, verify, accept, the scatters into the outputs, the history and the
+cache) is one `StepGraph` step (`models/step_graph.py`), replayed as a
+CUDA graph on the card with every buffer it touches updated in place, and
+the host reads the continue flag between steps (the loop's `cond`), as the
+port's vanilla loop reads its done flags. Random draws come from a
 `torch.Generator`. Verify steps of B * T <= 8 rows keep the W8 / K10 /
 K11 GEMVs (more rows than `quant.MAX_KERNEL_ROWS` take the dequantize-and-
 matmul path, as in the JAX package); K7 serves g * T <= 64 query rows per
@@ -44,6 +48,7 @@ from streamchat_tpu_torch.models.paged_kv import (
     PagedKVCacheInt8,
     _quantize_kv,
 )
+from streamchat_tpu_torch.models.step_graph import StepGraph, cache_tensors, use_graph
 from streamchat_tpu_torch.ops.paged_attention import (
     paged_seq_attention_partial,
     paged_seq_attention_partial_int8,
@@ -226,11 +231,14 @@ def run_spec_decode_loop(params, cfg, cache, first_logits: torch.Tensor,
                          max_new_tokens: int, temperature: float, eos_ids: Sequence[int],
                          spec_tokens: int, spec_ngram: int,
                          lookup_tokens: Optional[torch.Tensor] = None,
-                         lookup_len: Optional[torch.Tensor] = None):
+                         lookup_len: Optional[torch.Tensor] = None,
+                         stats: Optional[dict] = None, graph: Optional[bool] = None):
     """Greedy / temperature speculative decode -> (tokens [B, max_new] on the
     device, count [B] tokens before the first EOS, verify steps, tokens
     emitted). The pool must hold length + max_new + spec_tokens tokens:
-    every verify step writes its whole block before acceptance is known."""
+    every verify step writes its whole block before acceptance is known.
+    The verify step is a `StepGraph` step (`graph` as `generate_paged`'s);
+    its figures go to `stats`."""
     t_block = spec_tokens + 1
     b = seq_length.shape[0]
     dev = first_logits.device
@@ -241,7 +249,7 @@ def run_spec_decode_loop(params, cfg, cache, first_logits: torch.Tensor,
     if lookup_tokens is not None:
         hist[:, :hlk] = lookup_tokens.to(dev)
         hist_len = (torch.full((b,), hlk) if lookup_len is None else lookup_len).to(
-            device=dev, dtype=torch.long)
+            device=dev, dtype=torch.long, copy=True)
     trash_out = max_new_tokens + t_block - 1           # scratch slots, sliced off
     trash_hist = hist.shape[1] - 1
     rows = torch.arange(b, device=dev)[:, None]
@@ -250,31 +258,43 @@ def run_spec_decode_loop(params, cfg, cache, first_logits: torch.Tensor,
                      device=dev)
     written = torch.zeros(b, dtype=torch.long, device=dev)
     done = torch.zeros(b, dtype=torch.bool, device=dev)
-    pos = seq_length.to(device=dev, dtype=torch.long)
-    logits = first_logits
-    steps = 0
-    while bool((~done & (written < max_new_tokens)).any()):
+    pos = seq_length.to(device=dev, dtype=torch.long, copy=True)
+    logits = first_logits.clone()
+
+    def body():
         t0 = sample_token(logits, generator, temperature=temperature)
         t0 = torch.where(done, torch.full_like(t0, cfg.pad_token_id), t0)
         hist2 = hist.clone()
         hist2[rows[:, 0], hist_len.clamp_max(trash_hist)] = t0
         draft = ngram_propose(hist2, hist_len + 1, ngram=spec_ngram, num_draft=spec_tokens)
         tokens = torch.cat([t0[:, None], draft], dim=1)                    # [B, T]
-        logits_all, cache = decode_step_spec(params, cfg, tokens, cache, pos[:, None] + ar)
+        logits_all, _ = decode_step_spec(params, cfg, tokens, cache, pos[:, None] + ar)
         uniforms = None
         if spec_tokens and temperature > 0.0:
             uniforms = torch.rand(b, spec_tokens, generator=generator, device=dev)
-        n_acc, logits, any_eos = _accept(logits_all, tokens, logits, done, written,
-                                         temperature=temperature, uniforms=uniforms, eos=eos,
-                                         max_new_tokens=max_new_tokens)
+        n_acc, nxt, any_eos = _accept(logits_all, tokens, logits, done, written,
+                                      temperature=temperature, uniforms=uniforms, eos=eos,
+                                      max_new_tokens=max_new_tokens)
         live = ar < n_acc[:, None]
         out[rows, torch.where(live, written[:, None] + ar, trash_out)] = tokens
         hist[rows, torch.where(live, (hist_len[:, None] + ar).clamp_max(trash_hist),
                                trash_hist)] = tokens
-        done = done | any_eos | (written + n_acc >= max_new_tokens)
-        cache.length = (cache.length + n_acc).to(torch.int32)
-        pos, written, hist_len = pos + n_acc, written + n_acc, hist_len + n_acc
+        done.logical_or_(any_eos | (written + n_acc >= max_new_tokens))
+        cache.length.add_(n_acc)
+        pos.add_(n_acc)
+        written.add_(n_acc)
+        hist_len.add_(n_acc)
+        logits.copy_(nxt)
+
+    def bound():
+        return (logits, out, hist, hist_len, written, done, pos, *cache_tensors(cache))
+
+    loop = StepGraph(body, bound, dev, generator, graphed=use_graph(graph, dev, params))
+    steps = 0
+    while bool((~done & (written < max_new_tokens)).any()):
+        loop()
         steps += 1
+    loop.record(stats)
     toks = out[:, :max_new_tokens]
     before_eos = torch.cumsum(torch.isin(toks, eos).long(), dim=1) == 0
     count = torch.minimum(before_eos.sum(1), written)

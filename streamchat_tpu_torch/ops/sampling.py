@@ -5,6 +5,14 @@ the temperature, optionally top-p filtered (the smallest sorted prefix whose
 mass reaches top_p; the first token always survives), and one token is
 drawn per row from `generator`. The draw cannot reproduce `jax.random`'s
 stream; the filtering and the greedy path are exact twins.
+
+The draw is `torch.multinomial`'s for one sample, written out: the argmax
+of p / E with E ~ Exp(1) drawn by `exponential_` from the generator, the
+same tokens from the same generator state. `multinomial` first checks its
+probabilities on the host (a device-to-host read), which no CUDA graph can
+hold; a decode step that samples is captured whole
+(`models/step_graph.py`), so the check is left out: softmax rows are
+valid probabilities.
 """
 
 from __future__ import annotations
@@ -34,4 +42,5 @@ def sample_token(logits: torch.Tensor, generator: torch.Generator | None = None,
     if top_p is not None and top_p < 1.0:
         logits = top_p_filter(logits, top_p)
     probs = torch.softmax(logits, dim=-1)
-    return torch.multinomial(probs, 1, generator=generator)[:, 0]
+    noise = torch.empty_like(probs).exponential_(1, generator=generator)
+    return torch.argmax(probs / noise, dim=-1)

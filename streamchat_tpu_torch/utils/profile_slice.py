@@ -25,6 +25,13 @@ random embeddings), 98 pages of 128 tokens and 50 table slots a row (as
 their difference is 32 decode steps of B = 2; it prints a step's device
 ms, wall ms and idle share, and the page kernels' share of it.
 
+Then the decode step alone, graphed and eager: the same caption through
+`generate_paged` with 2 and with 34 new tokens, once with the step replayed
+as a CUDA graph (the default on the card) and once eager (`graph=False`).
+Both windows of a pair hold the prefill, the warm-up step and (graphed) the
+capture, so their difference is 32 steps at a 23.4k context: it prints a
+step's wall ms, device ms, idle share and kernel launches, for each form.
+
 For each window it prints the host wall time (from before the first launch
 to after a device synchronize), the device time (the sum of the durations
 of every device event the profiler recorded, kernels and copies; the slice
@@ -73,7 +80,37 @@ def summarize(prof, wall: float, label: str, rows: int = 18) -> dict:
         out[group] = t = sum(e.time_range.elapsed_us() for e in mine) / 1e6
         print(f"   {group}: {t:.6f} s, {100 * t / max(busy, 1e-12):.1f}% of device "
               f"time, {len(mine)} launches")
+    out["kernels"] = len(kern)
     return out
+
+
+def decode_steps(m, prompt, chunk, activities) -> None:
+    """The graphed and the eager decode step at the caption's context: 34
+    minus 2 new tokens, each pair under the profiler (temperature 0.1)."""
+    from torch.profiler import profile
+
+    from streamchat_tpu_torch.models import generate_paged as gp
+
+    embeds, length = m.splice_prompt(prompt, [chunk])
+    ln = torch.tensor([length], dtype=torch.int32, device="cuda")
+    kw = dict(temperature=0.1, eos_ids=(), **m._paged_budget())
+    for graph, form in ((None, "graphed"), (False, "eager")):
+        seen = {}
+        for new in (2, 34):
+            stats = {}
+            with profile(activities=activities) as prof:
+                t0 = time.perf_counter()
+                gp.generate_paged(m.dec_params, m.dec_cfg, embeds, ln, m.generator,
+                                  max_new_tokens=new, stats=stats, graph=graph, **kw)
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - t0
+            print(json.dumps(stats))
+            seen[new] = summarize(prof, wall, f"caption 40 frames, {new} new tokens, {form}",
+                                  rows=8)
+        step = {k: (seen[34][k] - seen[2][k]) / 32 for k in seen[2]}
+        print(f"== {form} decode step (34 - 2 new tokens, / 32; context {length}): wall "
+              f"{1e3 * step['wall']:.3f} ms, device {1e3 * step['busy']:.3f} ms, idle share "
+              f"{1 - step['busy'] / step['wall']:.3f}, {step['kernels']:.1f} kernels a step")
 
 
 def caller_pool(m, activities) -> None:
@@ -174,6 +211,7 @@ def main(argv=None) -> None:
         print(json.dumps(m.gen_stats))
         summarize(prof, wall, f"caption 40 frames, {new} new tokens")
 
+    decode_steps(m, prompt, chunk, activities)
     m.gen_stats.clear()
     m.generate_with_image_embedding(prompt, [chunk], max_new_tokens=129,
                                     temperature=0.1)

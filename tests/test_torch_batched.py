@@ -373,7 +373,7 @@ def test_caller_sized_pool_token_exact(no_launches, tiny, monkeypatch, kv_int8):
                       else "paged_decode_attention_table")
     seq = _Counting(monkeypatch, paged_kv, "paged_decode_attention_seq_int8" if kv_int8
                     else "paged_decode_attention_seq")
-    alloc = _Counting(monkeypatch, port_generate_paged, "allocate_pages_checked")
+    alloc = _Counting(monkeypatch, port_generate_paged, "allocate_pages_")
     (jt, jn), (pt, pn), _ = _both(tiny, embeds, length, max_new_tokens=10, page_size=8,
                                   num_pages=18, max_pages_per_seq=6, kv_int8=kv_int8)
     np.testing.assert_array_equal(pt, jt)

@@ -857,3 +857,68 @@ def test_cuda_dense_decode_step_g4(cuda, monkeypatch, int8):
     for a, b in zip(got, ref):
         rel = ((a - b).norm() / b.norm()).item()
         assert torch.isfinite(a).all() and rel <= 2e-2, rel
+
+
+# Each decode path as `generate` / `generate_paged` runs it on the card: (rows'
+# valid lengths, weights, generate_paged's keywords; None for the dense loop).
+GRAPH_PATHS = {
+    "dense_b3": ([250, 131, 17], "bf16", None),
+    "dense_b3_int8": ([250, 131, 17], "int8", None),
+    "row_order_b1": ([250], "bf16", {}),
+    "row_order_b1_int8": ([250], "int8", {}),
+    "row_order_b1_int4_kv_int8": ([250], "int4", dict(kv_int8=True)),
+    "partitioned_b2": ([250, 131], "int8", {}),
+    "table_b3": ([250, 131, 17], "bf16", dict(num_pages=8, max_pages_per_seq=4)),
+    "table_b3_kv_int8": ([250, 131, 17], "bf16",
+                         dict(num_pages=8, max_pages_per_seq=4, kv_int8=True)),
+    "spec4_b1": ([250], "bf16", dict(spec_tokens=4)),
+    "spec4_b1_kv_int8": ([250], "int8", dict(spec_tokens=4, kv_int8=True)),
+}
+GRAPH_SAMPLING = {"greedy": dict(temperature=0.0), "temperature": dict(temperature=1.0),
+                  "top_p": dict(temperature=0.8, top_p=0.9)}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("sampling", list(GRAPH_SAMPLING))
+@pytest.mark.parametrize("path", list(GRAPH_PATHS))
+def test_cuda_graphed_decode_bit_equal_to_eager(cuda, path, sampling):
+    """Each decode loop run twice from the same generator state: its step
+    replayed as a CUDA graph (the default on the card) and eager (graph=
+    False). The tokens are bit-equal, the graphed run captured once and
+    replayed every later step, and the launch counters of both runs agree
+    (each replay counts the launches its capture recorded)."""
+    from streamchat_tpu_torch.models import decoder, generate, generate_paged
+
+    lengths, weights, paged = GRAPH_PATHS[path]
+    if sampling == "top_p" and paged and paged.get("spec_tokens"):
+        pytest.skip("speculative decode refuses top_p")
+    cfg = _judge_cfg()
+    g = torch.Generator(device=cuda).manual_seed(0)
+    params = decoder.init(cfg, g, device=cuda)
+    if weights != "bf16":
+        params = quant.quantize_decoder_params(params, bits=4 if weights == "int4" else 8)
+    b = len(lengths)
+    embeds = (torch.randn(b, 256, cfg.hidden_size, generator=g, device=cuda) * 0.5).to(
+        torch.bfloat16)
+    ln = torch.tensor(lengths, dtype=torch.int32, device=cuda)
+    state = g.get_state()
+    runs = []
+    for graph in (None, False):
+        g.set_state(state)
+        stats = {}
+        kernels.reset_launch_counts()
+        kw = dict(max_new_tokens=16, stats=stats, graph=graph, **GRAPH_SAMPLING[sampling])
+        if paged is None:
+            toks, _ = generate.generate(params, cfg, embeds, ln, g, **kw)
+            toks = toks.cpu().numpy()
+        else:
+            toks, _ = generate_paged.generate_paged(params, cfg, embeds, ln, g, **paged, **kw)
+        runs.append((toks, kernels.launch_counts(), stats))
+    (graphed, graphed_counts, gstats), (eager, eager_counts, estats) = runs
+    np.testing.assert_array_equal(graphed, eager)
+    assert graphed_counts == eager_counts
+    assert gstats["graph_captures"] == 1 and "graph_captures" not in estats
+    assert gstats["graph_replays"] == gstats["decode_steps"] - 1 >= 1
+    # The bf16 dense step launches none of the counted kernels (cuBLAS and
+    # plain attention); every other path's replays launch some.
+    assert (gstats["replayed_launches"] > 0) == (paged is not None or weights != "bf16")
