@@ -2522,17 +2522,18 @@ def run_slice(pipe, breakpoints, online=False):
 @contextlib.contextmanager
 def _observed(pipe):
     """Counts, for one run: captions made (`pipe._caption` and its batch
-    method) with each call's host-clock span, the most rows one K4 / K6
-    launch served, the chunked prefill's re-run windows, the host-clock span
+    method) with each call's host-clock span, LongVA's generate calls, the
+    most rows one K4 / K6 launch served (a kept graph's replays call no
+    wrapper: its capture did), the chunked prefill's re-run windows, the host-clock span
     of each `encode_segment` call (ingest), each dedup's frames in and out,
     and each on-line `ask`'s seconds. The kernel wrappers still count their
     own launches."""
-    from streamchat_tpu_torch.models import decoder, paged_kv
+    from streamchat_tpu_torch.models import decoder, longva, paged_kv
     from streamchat_tpu_torch.pipeline import runner
 
     seen = {"captions": 0, "max_decode_rows": 0, "reruns": 0, "caption_spans": [],
-            "ingest_spans": [], "dedup": [], "ask_s": []}
-    cap, rerun = pipe._caption, decoder._rerun_last
+            "ingest_spans": [], "dedup": [], "ask_s": [], "generate_calls": 0}
+    cap, rerun, gen = pipe._caption, decoder._rerun_last, longva.generate_paged
     encode, dedup, session = runner.encode_segment, runner.dedup_segment, runner.StreamingSession
     seq = {n: getattr(paged_kv, n) for n in ("paged_decode_attention_seq",
                                               "paged_decode_attention_seq_int8")}
@@ -2564,6 +2565,10 @@ def _observed(pipe):
         seen["reruns"] += 1
         return rerun(*a)
 
+    def counted_generate(*a, **kw):
+        seen["generate_calls"] += 1
+        return gen(*a, **kw)
+
     def counted_dedup(features, threshold):
         out = dedup(features, threshold)
         seen["dedup"].append((int(features.shape[0]), int(out.shape[0])))
@@ -2583,12 +2588,13 @@ def _observed(pipe):
     pipe._caption, decoder._rerun_last = timed, counted_rerun
     runner.encode_segment = spanned(encode, seen["ingest_spans"])
     runner.dedup_segment, runner.StreamingSession = counted_dedup, TimedSession
+    longva.generate_paged = counted_generate
     for n, fn in seq.items():
         setattr(paged_kv, n, rows(fn))
     try:
         yield seen
     finally:
-        pipe._caption, decoder._rerun_last = cap, rerun
+        pipe._caption, decoder._rerun_last, longva.generate_paged = cap, rerun, gen
         runner.encode_segment, runner.dedup_segment = encode, dedup
         runner.StreamingSession = session
         for n, fn in seq.items():
@@ -2638,7 +2644,9 @@ def drive(pipe, label, breakpoints, online=False, captions=None,
     an on-line run must make `captions` captions where given (the off-line
     run's over the same breakpoints), and a dedup run (label `*_dedup`)
     must drop some frames and keep others and make one caption per
-    chunk_size kept frames of each segment, rounded up."""
+    chunk_size kept frames of each segment, rounded up. Every generate
+    call must replay a graph, captured in it or kept from an earlier call
+    at its key (the graph figures and the reserved GiB are printed)."""
     from streamchat_tpu_torch import kernels
 
     m = pipe.model
@@ -2673,8 +2681,10 @@ def drive(pipe, label, breakpoints, online=False, captions=None,
         kv_bytes_per_token_at_max_prompt=_kv_bytes_per_token(m.dec_cfg, max(lengths),
                                                              m.kv_int8),
         launches={n: c for n, c in counts.items() if c}, k1_modes=k1_modes,
-        phase_totals=phases, graph_captures=gs.get("graph_captures", 0),
-        graph_replays=gs.get("graph_replays", 0), capture_s=gs.get("capture_s", 0.0))
+        phase_totals=phases, generate_calls=seen["generate_calls"],
+        graph_captures=gs.get("graph_captures", 0), graph_reuses=gs.get("graph_reuses", 0),
+        graph_replays=gs.get("graph_replays", 0), capture_s=gs.get("capture_s", 0.0),
+        reserved_gib=torch.cuda.memory_reserved() / 2**30)
     if online:
         report.update(
             ask_s=seen["ask_s"], worker_caption_s=caption_span_s,
@@ -2692,10 +2702,12 @@ def drive(pipe, label, breakpoints, online=False, captions=None,
                              f"{INGEST_K1_MODE}")
     if gs["generated_tokens"] == 0:
         raise AssertionError(f"run {label}: the main path generated no token")
-    if not report["graph_replays"] or not report["graph_captures"]:
+    if (not report["graph_replays"]
+            or report["graph_captures"] + report["graph_reuses"] < report["generate_calls"]):
         raise AssertionError(f"run {label}: its decode loops did not replay CUDA graphs: "
                              f"{report['graph_captures']} captures, "
-                             f"{report['graph_replays']} replays")
+                             f"{report['graph_reuses']} reuses, {report['graph_replays']} "
+                             f"replays, {report['generate_calls']} generate calls")
     if label.endswith("_dedup"):
         kept = [k for _, k in seen["dedup"]]
         total = sum(n for n, _ in seen["dedup"])
@@ -3167,16 +3179,18 @@ def _h2o_observed(plant_rope=False):
     mass's sum a (layer, kv head), its logits (first steps) and, at
     H2O_MASS_STEP, layer 0's query, gathered keys and mass. With
     `plant_rope` the step after each compression (the prefill's or the
-    loop's) ropes at the cache length (the planted fault). A run without a
-    budget takes the vanilla loop, eagerly here (graph=False): the records
-    read each step's values on the host, which a captured step cannot."""
+    loop's) ropes at the cache length (the planted fault). The H2O loop and
+    a run without a budget's vanilla loop run eagerly here (graph=False):
+    the records read each step's values on the host, which a captured step
+    cannot."""
     from streamchat_tpu_torch.models import decoder, paged_kv
     from streamchat_tpu_torch.models import generate_paged as gp
 
     seen = {"compress_kv": [], "seed": None, "loop_compressions": [], "steps": []}
-    kept = dict(ckv=gp.compress_kv, seed=gp._seed_hh_from_prompt, cp=gp.compress_paged,
+    kept = dict(ckv=gp.compress_kv, seed=gp._seed_hh_from_prompt, cp=gp.compress_paged_,
                 step=gp.decode_step_paged, rope=decoder.rope,
-                gather=paged_kv.paged_decode_attention, loop=gp._decode_loop)
+                gather=paged_kv.paged_decode_attention, loop=gp._decode_loop,
+                loop_h2o=gp._decode_loop_h2o)
     state = {"in_step": None, "layer": 0, "after_compression": False}
 
     def ckv(k, v, score, length, **kw):
@@ -3237,22 +3251,25 @@ def _h2o_observed(plant_rope=False):
         state["layer"] += 1
         return out
 
-    gp.compress_kv, gp._seed_hh_from_prompt, gp.compress_paged = ckv, seed, cp
+    gp.compress_kv, gp._seed_hh_from_prompt, gp.compress_paged_ = ckv, seed, cp
     gp.decode_step_paged, decoder.rope, paged_kv.paged_decode_attention = step, rope, gather
     gp._decode_loop = lambda *a, **kw: kept["loop"](*a, **dict(kw, graph=False))
+    gp._decode_loop_h2o = lambda *a, **kw: kept["loop_h2o"](*a, **dict(kw, graph=False))
     try:
         yield seen
     finally:
-        gp._decode_loop = kept["loop"]
+        gp._decode_loop, gp._decode_loop_h2o = kept["loop"], kept["loop_h2o"]
         gp.compress_kv, gp._seed_hh_from_prompt = kept["ckv"], kept["seed"]
-        gp.compress_paged, gp.decode_step_paged = kept["cp"], kept["step"]
+        gp.compress_paged_, gp.decode_step_paged = kept["cp"], kept["step"]
         decoder.rope, paged_kv.paged_decode_attention = kept["rope"], kept["gather"]
 
 
-def _h2o_generate(model, budget, feats, new, plant_rope=False):
+def _h2o_generate(model, budget, feats, new, plant_rope=False, observe=True):
     """One `generate_with_image_embedding` call of the caption prompt over
     `feats` under `budget` (None: no budget), greedy, counters zeroed before
-    it and read after it -> (report, seen, counts)."""
+    it and read after it -> (report, seen, counts). `observe`: through
+    `_h2o_observed` (eager steps); otherwise as the model runs it (graphed
+    on the card). seen["ids"] holds the generated token ids."""
     from streamchat_tpu_torch import kernels
     from streamchat_tpu_torch.pipeline import prompts
 
@@ -3263,12 +3280,14 @@ def _h2o_generate(model, budget, feats, new, plant_rope=False):
     kernels.reset_launch_counts()
     t0 = time.perf_counter()
     try:
-        with _h2o_observed(plant_rope) as seen:
+        with (_h2o_observed(plant_rope) if observe else contextlib.nullcontext(
+                {"loop_compressions": None})) as seen, _decoded_ids(model) as ids:
             text = model.generate_with_image_embedding(
                 prompts.build_caption_prompt(), [feats], max_new_tokens=new, temperature=0.0)
         torch.cuda.synchronize()
     finally:
         model.kv_budget_tokens = None
+    seen["ids"] = ids
     gs = dict(model.gen_stats)
     report = dict(
         budget=budget, seconds=time.perf_counter() - t0, prompt_tokens=gs["prompt_tokens"],
@@ -3278,7 +3297,9 @@ def _h2o_generate(model, budget, feats, new, plant_rope=False):
         compressions_at_prefill=gs.get("compressions_at_prefill", 0),
         compressions_in_loop=gs.get("compressions_in_loop", 0),
         loop_compression_steps=seen["loop_compressions"],
-        peak_gib=torch.cuda.max_memory_allocated() / 2**30)
+        graph_captures=gs.get("graph_captures", 0), graph_replays=gs.get("graph_replays", 0),
+        peak_gib=torch.cuda.max_memory_allocated() / 2**30,
+        reserved_gib=torch.cuda.memory_reserved() / 2**30)
     return report, seen, kernels.launch_counts()
 
 
@@ -3464,7 +3485,9 @@ def check_gather_step(model, feats, budget):
 def drive_h2o(pipe, planted):
     """H2O eviction at full width on the pipeline's model -> (report, counts):
     the H2O_RUNS budgets (each step's checks in `h2o_figures`; compression
-    at prefill in both and in the loop at least twice at 512), `compress_kv`
+    at prefill in both and in the loop at least twice at 512), each run
+    again graphed, as the model runs it, with tokens and launch counts equal
+    to the observed eager run's, `compress_kv`
     card against CPU (`check_compress_kv`), the planted fault of a step after
     a compression roped at the cache length (the small budget, 8 new
     tokens), and
@@ -3486,7 +3509,24 @@ def drive_h2o(pipe, planted):
         if not passed:
             raise AssertionError(f"H2O budget {budget}: {figures}")
         recs[budget] = seen["compress_kv"][0]
-        del feats, seen
+        with phase(f"H2O budget {budget}, graphed (the same call as the card runs it)"):
+            graphed, gseen, gcounts = _h2o_generate(m, budget, feats, new, observe=False)
+        rep["graphed"] = dict(
+            {k: graphed[k] for k in ("seconds", "prefill_s", "decode_ms_per_step",
+                                     "compressions_at_prefill", "compressions_in_loop",
+                                     "graph_captures", "graph_replays", "peak_gib",
+                                     "reserved_gib")},
+            tokens_bit_equal=gseen["ids"] == seen["ids"], launches_equal=gcounts == counts[label])
+        print(f"H2O [{label}] graphed: {graphed['decode_ms_per_step']:.3f} ms a step against "
+              f"{rep['decode_ms_per_step']:.3f} eager (observed), "
+              f"{graphed['graph_captures']} captures, {graphed['graph_replays']} replays, tokens "
+              f"bit-equal {rep['graphed']['tokens_bit_equal']}, launches equal "
+              f"{rep['graphed']['launches_equal']}  [{_smi()}]", flush=True)
+        if (not rep["graphed"]["tokens_bit_equal"] or not rep["graphed"]["launches_equal"]
+                or not graphed["graph_captures"] or not graphed["graph_replays"]
+                or graphed["compressions_in_loop"] != rep["compressions_in_loop"]):
+            raise AssertionError(f"H2O budget {budget} graphed against eager: {rep['graphed']}")
+        del feats, seen, gseen
         missing = [n for n in RUNS[label] if counts[label].get(n, 0) == 0]
         k4 = counts[label].get("paged_decode_attention_seq", 0)
         if (missing or k4 != (new - rep["mass_steps"]) * cfg.num_layers
@@ -3950,7 +3990,8 @@ def judge_first_step(lm, seen, spec: bool, plant: bool):
     weights' logits little, and a verify step's logits not at all (it
     attends its staged K/V), the K/V at each row's slots much."""
     from streamchat_tpu_torch import kernels
-    from streamchat_tpu_torch.models import decoder, generate, generate_paged, spec_decode
+    from streamchat_tpu_torch.models import (decoder, generate, generate_paged, spec_decode,
+                                             step_graph)
 
     call, first = seen["call"], seen["first"]
     params, cfg = lm.params, lm.cfg
@@ -3958,9 +3999,11 @@ def judge_first_step(lm, seen, spec: bool, plant: bool):
     kernels.reset_launch_counts()
     with _plain_twins():
         if spec:
-            cache, _, _ = generate_paged._generate_paged_split(
+            ws, _, _ = generate_paged._generate_paged_split(      # a workspace of its own
                 params, cfg, embeds, seq_length, max_new_tokens=kw["max_new_tokens"],
-                page_size=128, kv_int8=False, spec_tokens=kw["spec_tokens"])
+                page_size=128, kv_int8=False, spec_tokens=kw["spec_tokens"],
+                claim=lambda *a: step_graph.Workspace(params, None, embeds.device))
+            cache = ws.tensors["cache"]
             if plant:
                 faulty = dataclasses.replace(cache, k_pages=cache.k_pages.clone(),
                                              v_pages=cache.v_pages.clone())
@@ -4062,7 +4105,9 @@ def drive_judge(lm, label, pred_file, out_dir, plant=False):
         k7_calls=[list(x) for x in sorted(set(seen["k7"]))],
         w8_kernel_shapes=[list(x) for x in w8_kernel],
         launches={n: c for n, c in counts.items() if c},
-        graph_captures=gs.get("graph_captures", 0), graph_replays=gs.get("graph_replays", 0))
+        graph_captures=gs.get("graph_captures", 0), graph_reuses=gs.get("graph_reuses", 0),
+        graph_replays=gs.get("graph_replays", 0),
+        reserved_gib=torch.cuda.memory_reserved() / 2**30)
     report.update(judge_first_step(lm, seen, spec, plant))
     report["spec_run_launched"] = ({"K4 paged_decode_attention_seq":
                                     counts.get("paged_decode_attention_seq", 0),
@@ -4078,7 +4123,7 @@ def drive_judge(lm, label, pred_file, out_dir, plant=False):
         raise AssertionError(f"judge run {label}: K3 launches {counts['flash_attention']}, "
                              f"shapes {report['k3_launches']}: expected {cfg.num_layers} a "
                              "prefill at 4 query heads a kv head")
-    if not report["graph_captures"] or not report["graph_replays"]:
+    if not report["graph_captures"] + report["graph_reuses"] or not report["graph_replays"]:
         raise AssertionError(f"judge run {label}: its decode loops did not replay CUDA graphs")
     if len(judged) != JUDGE_BATCH or gs["generated_tokens"] == 0:
         raise AssertionError(f"judge run {label}: {len(judged)} verdicts, "
@@ -4768,7 +4813,9 @@ def drive_offload(pipe, base_ids, states, base_report):
         residents_h2d_gbs=_gbs(parked, 1e3 * seen["residents_h2d_s"]),
         generations=len(ids), tokens=sum(len(i) for i in ids),
         tokens_equal_to_bf16_run=ids == base_ids,
-        seconds=report["seconds"], bf16_run_seconds=base_report["seconds"])
+        seconds=report["seconds"], bf16_run_seconds=base_report["seconds"],
+        **{k: report[k] for k in ("generate_calls", "graph_captures", "graph_reuses",
+                                  "reserved_gib")})
     print(f"host offload [bf16, --offload_chunks --offload_residents]: {json.dumps(out)}",
           flush=True)
     bad = residents_not_restored(res)
@@ -5269,11 +5316,13 @@ def _tp_observed():
 def _tp_reference(d, argv, label):
     """The runner run unsharded in this process (the TP runs' reference)
     -> its tokens, first logits and saved records."""
+    from streamchat_tpu_torch.models import step_graph
     from streamchat_tpu_torch.pipeline import runner
 
     out = os.path.join(d, f"{label}_unsharded")
     with _tp_observed() as seen:
         runner.main(argv + ["--memory_basic_dir", out, "--save_file", out + ".json"])
+    step_graph.release()                  # the run's model is gone: free its workspaces
     gc.collect()
     torch.cuda.empty_cache()
     if not seen["tokens"] or seen["first_step_logits"] is None:
@@ -5877,6 +5926,11 @@ GRAPH_NEW_TOKENS = 24
 GRAPH_PROMPT = (1000, 1024)
 GRAPH_SAMPLING = {"greedy": dict(temperature=0.0), "temperature": dict(temperature=1.0),
                   "top_p": dict(temperature=0.8, top_p=0.9)}
+# H2O on a 4-page pool (cap 512): the 1,024-token prompt is compressed at
+# prefill to C = 492 slots and again in the loop at length 512 (step 20);
+# the steps collect mass until then (the plain gather) and run K4 after:
+# two step forms, each captured once.
+GRAPH_H2O = dict(num_pages=4, max_pages_per_seq=4, hh_size=360, recent_size=128, sink_size=4)
 # LongVA's paths, by the decoder's storage at each point of the script:
 # name -> (rows' valid lengths, generate_paged keywords (None: the dense
 # loop), kernels the path must launch).
@@ -5896,6 +5950,7 @@ GRAPH_CASES = {
         "int8_b1": ([1000], {}, ("paged_decode_attention_seq", "qmatvec_int8")),
         "int8_caption_batch2": ([1000, 700], {}, ("paged_decode_attention_seq",
                                                   "qmatvec_int8")),
+        "int8_h2o_b1": ([1000], GRAPH_H2O, ("paged_decode_attention_seq", "qmatvec_int8")),
     },
     "int4": {
         "int4_kv_int8_b1": ([1000], dict(kv_int8=True),
@@ -5942,7 +5997,12 @@ def drive_graphs(params, cfg, generator, label, smi):
     kernels launched. Printed a path and mode: eager and graphed ms a step
     (graphed: the loop's host seconds less the capture, over its steps,
     the first of which runs eagerly as the warm-up), capture s, launches a
-    replay."""
+    replay. The thread's kept workspaces are dropped first, so that every
+    path captures anew; an H2O path captures each of its two step forms and
+    must compress inside the loop."""
+    from streamchat_tpu_torch.models import step_graph
+
+    step_graph.release()
     report, total = {}, {}
     for name, (lengths, kw, expect) in GRAPH_CASES[label].items():
         s = GRAPH_PROMPT[1] if kw is not None else 1408
@@ -5961,6 +6021,7 @@ def drive_graphs(params, cfg, generator, label, smi):
                     params, cfg, embeds, ln, generator, kw, graph, sampling)
             (gt, gc_, gs, gsec), (et, ec, es, esec) = runs["graphed"], runs["eager"]
             steps = gs["decode_steps"]
+            forms = 2 if kw and kw.get("hh_size") else 1
             row = dict(
                 rows=b, steps=steps, tokens_bit_equal=bool(torch.equal(gt, et)),
                 launches_equal=gc_ == ec, eager_ms_per_step=1e3 * es["decode_s"] / steps,
@@ -5969,6 +6030,7 @@ def drive_graphs(params, cfg, generator, label, smi):
                 replays=gs.get("graph_replays"),
                 launches_per_replay=gs["replayed_launches"] / max(gs["graph_replays"], 1),
                 graphed_s=gsec, eager_s=esec, prefill_s=gs["prefill_s"],
+                compressions_in_loop=gs.get("compressions_in_loop"),
                 reserved_gib=torch.cuda.memory_reserved() / 2**30)
             report[f"{name} {mode}"] = row
             print(f"decode graph [{name}, {mode}]: {b} rows, {steps} steps, eager "
@@ -5979,14 +6041,102 @@ def drive_graphs(params, cfg, generator, label, smi):
                   flush=True)
             missing = [n for n in expect if gc_.get(n, 0) == 0]
             if (not row["tokens_bit_equal"] or not row["launches_equal"] or missing
-                    or gs.get("graph_captures") != 1 or gs.get("graph_replays") != steps - 1
-                    or steps < 2 or "graph_captures" in es):
+                    or gs.get("graph_captures") != forms
+                    or gs.get("graph_replays") != steps - forms
+                    or steps < 2 or "graph_captures" in es
+                    or (forms == 2 and not gs.get("compressions_in_loop"))):
                 raise AssertionError(f"decode graph [{name}, {mode}]: {row}, kernels never "
                                      f"launched {missing}, graphed counts {gc_}, eager {ec}")
             for n, c in gc_.items():
                 total[n] = total.get(n, 0) + c
         del embeds
     return report, total
+
+
+def _poison_pool(ws):
+    """A kept workspace's cache overwritten: NaN in its bf16 pages (and f32
+    scales), 7 in int8 pages, table, length and `next_free`. A call at its
+    key pages its prompt in and resets the rest; no step may read a slot
+    past a row's length."""
+    for name, x in ws.tensors.items():
+        if name == "cache":
+            for f in dataclasses.fields(x):
+                t = getattr(x, f.name)
+                t.fill_(float("nan") if t.is_floating_point() else 7)
+
+
+def drive_graph_reuse(params, cfg, generator, smi):
+    """Graphs kept across generate calls (`step_graph.workspace`), on
+    GRAPH_CASES' int8_b1 path at temperature 1 -> report. Calls: A at key K
+    (captures); its kept pool poisoned; B at K with another prompt from
+    generator state S (no warm-up, no capture: replays from its first step);
+    C at another key (max_new_tokens + 1: captures); D at K from S again
+    (replays after C's graph); F at K from S in a fresh workspace. Held: B
+    and D capture nothing and reuse one graph, their tokens equal F's, and
+    the thread's graph pool holds no live block after any call (every step
+    leaves its outputs in workspace tensors). Printed: each call's
+    first-step ms (A's and F's the eager warm-up, B's and D's a replay),
+    the reserved GiB and the pool's bytes after it."""
+    from streamchat_tpu_torch.models import generate_paged, step_graph
+
+    lengths, kw, _ = GRAPH_CASES["int8"]["int8_b1"]
+    embeds = [(torch.randn(1, GRAPH_PROMPT[1], cfg.hidden_size, generator=generator,
+                           device="cuda") * 0.02).to(torch.bfloat16) for _ in range(2)]
+    ln = torch.tensor(lengths, dtype=torch.int32, device="cuda")
+    sampling = GRAPH_SAMPLING["temperature"]
+    step_graph.release()
+    calls, toks = {}, {}
+
+    def call(name, x, new=GRAPH_NEW_TOKENS):
+        from streamchat_tpu_torch import kernels
+
+        stats = {}
+        kernels.reset_launch_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        toks[name], _ = generate_paged.generate_paged(params, cfg, x, ln, generator,
+                                                      max_new_tokens=new, stats=stats,
+                                                      **kw, **sampling)
+        torch.cuda.synchronize()
+        pool = step_graph.pool_bytes()
+        calls[name] = dict(
+            seconds=time.perf_counter() - t0, steps=stats["decode_steps"],
+            graph_captures=stats["graph_captures"], graph_reuses=stats["graph_reuses"],
+            graph_replays=stats["graph_replays"], first_step_ms=1e3 * stats["first_step_s"],
+            decode_ms_per_step=1e3 * (stats["decode_s"] - stats["capture_s"])
+            / stats["decode_steps"], launches=kernels.launch_counts()["qmatvec_int8"],
+            workspaces=len(step_graph.workspaces()),
+            reserved_gib=torch.cuda.memory_reserved() / 2**30,
+            pool_reserved_bytes=None if pool is None else pool["reserved"],
+            pool_active_bytes=None if pool is None else pool["active"])
+
+    call("A", embeds[0])
+    _poison_pool(step_graph.workspaces()[-1])
+    state = generator.get_state()
+    call("B", embeds[1])
+    call("C", embeds[0], GRAPH_NEW_TOKENS + 1)
+    generator.set_state(state)
+    call("D", embeds[1])
+    step_graph.release()
+    generator.set_state(state)
+    call("F", embeds[1])
+    step_graph.release()
+    report = dict(calls=calls, tokens_B_equal_F=bool((toks["B"] == toks["F"]).all()),
+                  tokens_D_equal_F=bool((toks["D"] == toks["F"]).all()))
+    for name, c in calls.items():
+        print(f"decode graph reuse [{name}]: {json.dumps(c)}  [{smi}]", flush=True)
+    print(f"decode graph reuse: tokens B == F {report['tokens_B_equal_F']}, D == F "
+          f"{report['tokens_D_equal_F']}, first step ms A {calls['A']['first_step_ms']:.3f} "
+          f"(warm-up) -> B {calls['B']['first_step_ms']:.3f} (replay)  [{smi}]", flush=True)
+    kept = [calls[n] for n in "BD"]
+    if (not report["tokens_B_equal_F"] or not report["tokens_D_equal_F"]
+            or any(c["graph_captures"] or c["graph_reuses"] != 1
+                   or c["graph_replays"] != c["steps"] for c in kept)
+            or any(calls[n]["graph_captures"] != 1 for n in "ACF")
+            or any(c["pool_active_bytes"] for c in calls.values())
+            or calls["B"]["launches"] != calls["F"]["launches"]):
+        raise AssertionError(f"decode graph reuse: {report}")
+    return report
 
 
 # Per-rank shapes at tp 4: Qwen2-7B (28 / 4 heads, ffn 18,944, vocab
@@ -6350,6 +6500,7 @@ def main() -> None:
 def run_all(info, smi, t_start, root) -> None:
     """Every phase after the build, with checkpoints written under `root`."""
     from streamchat_tpu_torch.config import PipelineConfig
+    from streamchat_tpu_torch.models import step_graph
     from streamchat_tpu_torch.pipeline.runner import build_pipeline
 
     torch.cuda.reset_peak_memory_stats()
@@ -6463,6 +6614,8 @@ def run_all(info, smi, t_start, root) -> None:
     with phase("decode steps as CUDA graphs against eager steps (int8 tree)"):
         graphs["int8"], counts["graphs_int8"] = drive_graphs(m.dec_params, m.dec_cfg, g,
                                                              "int8", smi)
+    with phase("decode graphs kept across generate calls (int8 tree)"):
+        graph_reuse = drive_graph_reuse(m.dec_params, m.dec_cfg, g, smi)
     with phase("process_video int8, 2 breakpoints"):
         runs["int8"], counts["int8"] = drive(pipe, "int8", BREAKPOINTS)
     with phase("process_video_online int8, 2 breakpoints"):
@@ -6495,6 +6648,7 @@ def run_all(info, smi, t_start, root) -> None:
     counts.update(runner_counts)
     tools = drive_streambench(root)
     m.dec_params = bf16_tree                          # frees the int8 tree
+    step_graph.release()                              # and its kept decode workspaces
     torch.cuda.empty_cache()
     with phase("quantize int4 + composed check"):
         m.quantize(bits=4)
@@ -6519,7 +6673,17 @@ def run_all(info, smi, t_start, root) -> None:
         runs["int4_kv_int8_cb2"], counts["int4_kv_int8_cb2"] = drive(
             pipe, "int4_kv_int8_cb2", BREAKPOINTS[:1])
     predictions = [r for v in runs.values() for r in v.pop("predictions")]
+    process_video_graphs = {k: (v["generate_calls"], v["graph_captures"], v["graph_reuses"])
+                            for k, v in {**runs, "bf16_offload": offload}.items()}
+    calls, captures = (sum(c[i] for c in process_video_graphs.values()) for i in (0, 1))
+    print(f"process_video decode graphs (generate calls, captures, reuses): "
+          f"{json.dumps(process_video_graphs)}; {calls} calls, {captures} captures  [{smi}]",
+          flush=True)
+    if captures >= calls or process_video_graphs["bf16_offload"][1]:
+        raise AssertionError("process_video runs did not replay kept graphs: "
+                             f"{process_video_graphs}")
     del pipe, m, bf16_tree                            # LongVA's trees
+    step_graph.release()
     gc.collect()
     torch.cuda.empty_cache()
     print(f"LongVA freed: {torch.cuda.memory_allocated() / 2**30:.3f} GiB still allocated",
@@ -6602,6 +6766,7 @@ def run_all(info, smi, t_start, root) -> None:
           + f"; the graph phases' generations took "
           f"{sum(v['graphed_s'] + v['eager_s'] for r in graphs.values() for v in r.values()):.1f}"
           f" s in all  [{smi}]")
+    print(f"decode graphs kept across calls: {json.dumps(graph_reuse)}  [{smi}]")
     print(f"spec_tokens 9 over int8 pages: {json.dumps(spec_rows)}")
     print(f"probe results: {json.dumps(probes)}")
     print(f"H2O: {json.dumps(h2o)}")
@@ -6646,7 +6811,8 @@ def run_all(info, smi, t_start, root) -> None:
               f"{v['decode_ms_per_step']:.2f} ms/step, {v['peak_gib']:.2f} GiB)"
               for k, v in judge_reports.items())
           + ", H2O " + ", ".join(
-              f"{k} prefill {v['prefill_s']:.3f} s, {v['decode_ms_per_step']:.2f} ms/step, "
+              f"{k} prefill {v['prefill_s']:.3f} s, {v['decode_ms_per_step']:.2f} ms/step eager "
+              f"(observed), {v['graphed']['decode_ms_per_step']:.2f} graphed, "
               f"{v['compressions_at_prefill']} + {v['compressions_in_loop']} compressions"
               for k, v in h2o.items() if k.startswith("h2o_budget"))
           + ", runners " + ", ".join(f"{k} {v['s_per_item']:.3f} s/item"

@@ -11,10 +11,11 @@ backend's token-exact twin): B rows prefill together into one bf16
 `KVCache` of S + max_new slots rounded up to 128, then a loop of sample ->
 decode step (`_decode_inline`: `decoder.decode_step`, each row appending at
 its own length) runs until every row is done or max_new_tokens steps were
-taken. The JAX `lax.while_loop` is one device program; here its body is one
-`StepGraph` step (`models/step_graph.py`), replayed as a CUDA graph on the
-card, and the host reads the all-done flags once a step (the loop's
-`cond`). The step writes its token through a device step counter and keeps
+taken. The JAX `lax.while_loop` is one device program, compiled once a
+key; here its body is one `StepGraph` step (`models/step_graph.py`),
+replayed as a CUDA graph on the card and kept with its cache for the next
+call at the same key, and the host reads the all-done flags once a step
+(the loop's `cond`). The step writes its token through a device step counter and keeps
 every buffer it touches at one address. Finished rows emit the pad id.
 Paged generation lives in `models/generate_paged.py`.
 """
@@ -28,9 +29,9 @@ from typing import Optional, Sequence, Tuple
 import torch
 
 from streamchat_tpu_torch.config import DecoderConfig
-from streamchat_tpu_torch.models import decoder
+from streamchat_tpu_torch.models import decoder, step_graph
 from streamchat_tpu_torch.models.decoder import KVCache
-from streamchat_tpu_torch.models.step_graph import StepGraph, cache_tensors, use_graph
+from streamchat_tpu_torch.models.step_graph import cache_tensors, use_graph
 from streamchat_tpu_torch.ops.sampling import sample_token
 
 CHUNKED_PREFILL_THRESHOLD = 8192
@@ -38,18 +39,54 @@ CHUNKED_PREFILL_THRESHOLD = 8192
 
 @dataclasses.dataclass
 class GenState:
-    """The decode loop's state (the JAX `lax.while_loop` carry), every
-    tensor at one address for the whole loop."""
+    """A decode loop's state (the JAX `lax.while_loop` carry), every tensor
+    a workspace's (`step_graph.Workspace`), at one address in every call."""
 
-    cache: KVCache
+    cache: object
     logits: torch.Tensor          # [B, V] for the next sample
     out_tokens: torch.Tensor      # [B, max_new]
     step: torch.Tensor            # [1] int64: the column the next token goes to
     done: torch.Tensor            # [B] bool
+    eos: torch.Tensor             # the EOS ids
+
+    @classmethod
+    def reset(cls, ws, cache, first_logits: torch.Tensor, max_new_tokens: int, pad_id: int,
+              eos_ids: Sequence[int]) -> "GenState":
+        """The workspace's loop state (made on first use), set for a new call:
+        the prefill's logits, pad tokens, column 0, no row done."""
+        b, dev = first_logits.shape[0], first_logits.device
+
+        def new(shape, dtype):
+            return lambda: torch.empty(shape, dtype=dtype, device=dev)
+
+        st = cls(cache=cache, logits=ws.get("logits", lambda: torch.empty_like(first_logits)),
+                 out_tokens=ws.get("out_tokens", new((b, max_new_tokens), torch.int64)),
+                 step=ws.get("step", new((1,), torch.int64)),
+                 done=ws.get("done", new((b,), torch.bool)),
+                 eos=ws.get("eos", lambda: torch.tensor(list(eos_ids), device=dev)))
+        st.logits.copy_(first_logits)
+        st.out_tokens.fill_(pad_id)
+        st.step.zero_()
+        st.done.zero_()
+        return st
 
     def tensors(self):
-        return (self.logits, self.out_tokens, self.step, self.done,
+        return (self.logits, self.out_tokens, self.step, self.done, self.eos,
                 *cache_tensors(self.cache))
+
+    def sample(self, generator, temperature, top_p, pad_id) -> torch.Tensor:
+        """A step's head: the next token of every row (pad for a finished
+        one), written at the step's column; rows that drew EOS are done."""
+        tok = sample_token(self.logits, generator, temperature=temperature, top_p=top_p)
+        tok = torch.where(self.done, torch.full_like(tok, pad_id), tok)
+        self.done.logical_or_(torch.isin(tok, self.eos))
+        self.out_tokens.scatter_(1, self.step.expand(tok.shape[0], 1), tok[:, None])
+        return tok
+
+    def advance(self, logits: torch.Tensor) -> None:
+        """A step's tail: the decode step's logits for the next sample."""
+        self.logits.copy_(logits)
+        self.step.add_(1)
 
 
 def generate(params, cfg: DecoderConfig, prompt_embeds: torch.Tensor,
@@ -64,7 +101,9 @@ def generate(params, cfg: DecoderConfig, prompt_embeds: torch.Tensor,
     prompt_embeds [B, S, D] padded to S; seq_length [B] valid prompt tokens.
     count is the number of tokens before the first EOS (EOS excluded), at
     most the steps taken. The cache holds max_len slots (default S +
-    max_new_tokens), rounded up to 128. `stats`, when given, accumulates
+    max_new_tokens), rounded up to 128; it and the loop's tensors are the
+    decode workspace of this call's key (`step_graph.workspace`), kept for
+    the next call at it. `stats`, when given, accumulates
     "prefill_s", "decode_s" (host clock, each ending in a device
     synchronize), "decode_steps", "prompt_tokens" (padded, all rows) and
     "generated_tokens" (before EOS) in place, as `generate_paged` does, and
@@ -80,37 +119,37 @@ def generate(params, cfg: DecoderConfig, prompt_embeds: torch.Tensor,
         max_len = s + max_new_tokens
     max_len = -(-max_len // 128) * 128
     t0 = time.perf_counter()
-    cache = KVCache.create(cfg, b, max_len, dtype=prompt_embeds.dtype, device=dev)
+    ws = step_graph.workspace(("dense", cfg, b, max_len, prompt_embeds.dtype, max_new_tokens,
+                               temperature, top_p, tuple(eos_ids)), params, generator, dev)
+    cache = ws.get("cache", lambda: KVCache.create(cfg, b, max_len, dtype=prompt_embeds.dtype,
+                                                   device=dev))
     seq_length = seq_length.to(device=dev, dtype=torch.int32)
-    first_logits, cache = _prefill_inline(params, cfg, prompt_embeds, cache, seq_length)
+    # The prefill writes the kept K/V in place and rebinds its copy's length.
+    first_logits, filled = _prefill_inline(params, cfg, prompt_embeds,
+                                           dataclasses.replace(cache), seq_length)
+    cache.length.copy_(filled.length)
     if stats is not None and dev.type == "cuda":
         torch.cuda.synchronize(dev)
     t1 = time.perf_counter()
 
-    eos = torch.tensor(list(eos_ids), device=dev)
-    st = GenState(cache=cache, logits=first_logits.clone(),
-                  out_tokens=torch.full((b, max_new_tokens), cfg.pad_token_id,
-                                        dtype=torch.int64, device=dev),
-                  step=torch.zeros(1, dtype=torch.int64, device=dev),
-                  done=torch.zeros(b, dtype=torch.bool, device=dev))
+    st = GenState.reset(ws, cache, first_logits, max_new_tokens, cfg.pad_token_id, eos_ids)
 
     def body():
-        tok = sample_token(st.logits, generator, temperature=temperature, top_p=top_p)
-        tok = torch.where(st.done, torch.full_like(tok, cfg.pad_token_id), tok)
-        st.done.logical_or_(torch.isin(tok, eos))
-        st.out_tokens.scatter_(1, st.step.expand(b, 1), tok[:, None])
+        tok = st.sample(generator, temperature, top_p, cfg.pad_token_id)
         logits, _ = _decode_inline(params, cfg, tok, st.cache)
-        st.logits.copy_(logits)
-        st.step.add_(1)
+        st.advance(logits)
 
-    loop = StepGraph(body, st.tensors, dev, generator,
-                     graphed=use_graph(graph, dev, params))
+    loop = ws.loop("dense", body, st.tensors, graphed=use_graph(graph, dev, params))
     steps = 0
-    while steps < max_new_tokens and not bool(st.done.all()):
-        loop()
-        steps += 1
+    try:
+        while steps < max_new_tokens and not bool(st.done.all()):
+            loop()
+            steps += 1
+    finally:
+        loop.record(stats)
 
-    before_eos = torch.cumsum(torch.isin(st.out_tokens, eos).long(), dim=1) == 0
+    tokens = st.out_tokens.clone()
+    before_eos = torch.cumsum(torch.isin(tokens, st.eos).long(), dim=1) == 0
     count = before_eos.sum(1).clamp_max(steps)
     if stats is not None:
         if dev.type == "cuda":
@@ -119,8 +158,7 @@ def generate(params, cfg: DecoderConfig, prompt_embeds: torch.Tensor,
                      ("decode_steps", steps), ("prompt_tokens", b * s),
                      ("generated_tokens", int(count.sum()))):
             stats[k] = stats.get(k, 0) + v
-        loop.record(stats)
-    return st.out_tokens, count
+    return tokens, count
 
 
 def fetch(tokens: torch.Tensor, count: torch.Tensor):

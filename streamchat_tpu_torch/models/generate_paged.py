@@ -9,7 +9,11 @@ write and decode step are one `StepGraph` step (`models/step_graph.py`),
 replayed as a CUDA graph on the card, while the allocator's in-place call
 (`paged_kv.allocate_pages_`) and its overflow read run on the host between
 steps, at page boundaries only, and the host reads the done flags once a
-step. Finished rows emit the pad id; `count` is the number of tokens
+step. The pool and every tensor the loop touches belong to a decode
+workspace kept across calls (`step_graph.workspace`, keyed as the JAX
+package's jit is): a call at a known key pages its prefill into the kept
+pool (`from_contiguous(into=)`, `_scatter_row_into_pools`) and replays the
+kept graphs. Finished rows emit the pad id; `count` is the number of tokens
 before the first EOS, as in the JAX loop. The dispatch is the JAX
 package's:
 
@@ -46,15 +50,18 @@ slots (`_prefill_h2o`, `_decode_loop_h2o`): the prompt's slots are scored
 by the mass of its 16 last keys used as probe queries; a prompt over the
 pool is compressed to C = sink + hh + recent slots right after its dense
 prefill, and whenever the next token would overflow the pool the cache is
-compressed again (`paged_kv.compress_paged`) and decoding goes on. Each
-step ropes at the token's global position, which keeps counting while the
-cache shrinks. A step adds its attention mass to the scores
-(`collect_mass`: the plain gather attention, the only one that yields the
-probabilities) while a later compression can still fire; the steps after
-the last one run the page kernel (K4 on a pool in page order, else K8), as
-a run without a budget does. The overflow test and that choice read only
-host-side lengths and pages. This loop stays eager on the card: its steps
-change form as compressions fire.
+compressed again, in place (`paged_kv.compress_paged_`), and decoding
+goes on. Each step ropes at the token's global position, which keeps
+counting while the cache shrinks. A step adds its attention mass to the
+scores (`collect_mass`: the plain gather attention, the only one that
+yields the probabilities) while a later compression can still fire; the
+steps after the last one run the page kernel (K4 on a pool in page order,
+else K8), as a run without a budget does. The overflow test and that choice
+read only host-side lengths and pages. The step has these three forms, each
+its own `StepGraph`, which come in phases that never return (collect, then
+K4, then K8); the compression and the allocator run eagerly between
+replays, as the JAX loop's `lax.cond` branch and allocator call run inside
+its one program.
 """
 
 from __future__ import annotations
@@ -67,7 +74,7 @@ import numpy as np
 import torch
 
 from streamchat_tpu_torch.config import DecoderConfig
-from streamchat_tpu_torch.models import decoder, generate
+from streamchat_tpu_torch.models import decoder, generate, step_graph
 from streamchat_tpu_torch.models.paged_kv import (
     PagedKVCache,
     PagedKVCacheInt8,
@@ -75,17 +82,15 @@ from streamchat_tpu_torch.models.paged_kv import (
     _quantize_kv,
     _row_table,
     allocate_pages_,
-    allocate_pages_checked,
-    compress_paged,
+    compress_paged_,
     decode_step_paged,
     decode_step_paged_int8,
     from_contiguous,
     from_contiguous_int8,
 )
 from streamchat_tpu_torch.models.spec_decode import run_spec_decode_loop
-from streamchat_tpu_torch.models.step_graph import StepGraph, cache_tensors, use_graph
+from streamchat_tpu_torch.models.step_graph import use_graph
 from streamchat_tpu_torch.ops.kv_compress import attention_mass, compress_kv
-from streamchat_tpu_torch.ops.sampling import sample_token
 
 # Pages of a partitioned pool's row are rounded to a multiple of this (the
 # JAX package's TPU kernel block, `ops/paged_attention.SEQ_POOL_BLOCK`), so
@@ -124,9 +129,9 @@ def generate_paged(params, cfg: DecoderConfig, prompt_embeds, seq_length: torch.
     emitted), an H2O run (hh_size > 0; `recent_size`, `sink_size` and
     `merge` as `ops.kv_compress.compress_kv`) "compressions_at_prefill" and
     "compressions_in_loop", and a graphed loop its `StepGraph.record`
-    figures. `graph`: None replays the vanilla and speculative steps as a
-    CUDA graph on the card (`step_graph.use_graph`), False runs them
-    eagerly there (the card's equality check); the H2O loop is eager.
+    figures. `graph`: None replays every loop's step as a CUDA graph on the
+    card (`step_graph.use_graph`), False runs it eagerly there (the card's
+    equality check).
     """
     as_rows = isinstance(prompt_embeds, (list, tuple))
     b = len(prompt_embeds) if as_rows else prompt_embeds.shape[0]
@@ -137,28 +142,37 @@ def generate_paged(params, cfg: DecoderConfig, prompt_embeds, seq_length: torch.
         raise ValueError("kv_int8 and in-loop H2O compression are exclusive")
     if compress and spec_tokens > 0:
         raise ValueError("speculative decode excludes in-loop H2O")
-    if compress and graph:
-        raise ValueError("the H2O decode loop is not graphed")
     if spec_tokens > 0 and top_p is not None:
         raise ValueError("speculative decode supports top_p=None only")
     if eos_ids is None:
         eos_ids = (cfg.eos_token_id,)
+    eos_ids = tuple(eos_ids)
+    form = "h2o" if compress else "spec" if spec_tokens > 0 else "vanilla"
+    lookup_width = 0 if lookup_tokens is None else lookup_tokens.shape[1]
+
+    def claim(row_order: bool, pages: int, maxp: int, dtype, device):
+        """The decode workspace of this call's key (`step_graph.workspace`)."""
+        return step_graph.workspace(
+            (form, cfg, b, row_order, pages, maxp, page_size, dtype, kv_int8, max_new_tokens,
+             temperature, top_p, eos_ids, spec_tokens, spec_ngram, lookup_width, hh_size,
+             recent_size, sink_size, merge), params, generator, device)
+
     t0 = time.perf_counter()
     if compress:
         if as_rows:
             prompt_embeds = prompt_embeds[0]() if callable(prompt_embeds[0]) else prompt_embeds[0]
         h2o = dict(hh_size=hh_size, recent_size=recent_size, sink_size=sink_size, merge=merge)
-        cache, logits, s_pad, hh, host = _prefill_h2o(
+        ws, logits, s_pad, host = _prefill_h2o(
             params, cfg, prompt_embeds, seq_length, max_new_tokens=max_new_tokens,
             page_size=page_size, num_pages=num_pages, max_pages_per_seq=max_pages_per_seq,
-            **h2o)
+            claim=claim, **h2o)
         if stats is not None and logits.device.type == "cuda":
             torch.cuda.synchronize(logits.device)
         t1 = time.perf_counter()
         toks, step, loop_compressions = _decode_loop_h2o(
-            params, cfg, cache, hh, logits, seq_length, generator, host,
-            max_new_tokens=max_new_tokens, temperature=temperature, top_p=top_p,
-            eos_ids=eos_ids, **h2o)
+            params, cfg, ws.tensors["cache"], ws.tensors["hh"], logits, seq_length, generator,
+            host, max_new_tokens=max_new_tokens, temperature=temperature, top_p=top_p,
+            eos_ids=eos_ids, ws=ws, stats=stats, graph=graph, **h2o)
         before_eos = np.cumsum(np.isin(toks, list(eos_ids)), axis=1) == 0
         count = np.minimum(before_eos.sum(axis=1), step)
         if stats is not None:
@@ -170,17 +184,17 @@ def generate_paged(params, cfg: DecoderConfig, prompt_embeds, seq_length: torch.
                 stats[k] = stats.get(k, 0) + v
         return toks, count
     kw = dict(max_new_tokens=max_new_tokens, page_size=page_size, kv_int8=kv_int8,
-              spec_tokens=spec_tokens)
+              spec_tokens=spec_tokens, claim=claim)
     if b > 1 and num_pages is None and max_pages_per_seq is None:
-        cache, logits, s_pad = _generate_paged_split(params, cfg, prompt_embeds, seq_length,
-                                                     **kw)
+        ws, logits, s_pad = _generate_paged_split(params, cfg, prompt_embeds, seq_length, **kw)
         row_order = True
     else:
         if as_rows:
             prompt_embeds = torch.cat([r() if callable(r) else r for r in prompt_embeds])
-        cache, logits, s_pad, row_order = _generate_paged_one(
+        ws, logits, s_pad, row_order = _generate_paged_one(
             params, cfg, prompt_embeds, seq_length, num_pages=num_pages,
             max_pages_per_seq=max_pages_per_seq, **kw)
+    cache = ws.tensors["cache"]
     dev = logits.device
     seq_length = seq_length.to(device=dev, dtype=torch.int32)
     if spec_tokens > 0 and not (row_order or b == 1):
@@ -188,9 +202,8 @@ def generate_paged(params, cfg: DecoderConfig, prompt_embeds, seq_length: torch.
                          "(batch 1 or the statically partitioned batched pool)")
     if spec_tokens > 0 and not row_order:
         # The verify step has no allocator: map every page the loop can touch.
-        cache, over = allocate_pages_checked(
-            cache, torch.full((b,), max_new_tokens + spec_tokens, device=dev))
-        if bool(over):
+        if bool(allocate_pages_(cache, torch.full((b,), max_new_tokens + spec_tokens,
+                                                  device=dev))):
             raise RuntimeError(_OVERFLOW_MSG)
     if stats is not None and dev.type == "cuda":
         torch.cuda.synchronize(dev)
@@ -201,7 +214,7 @@ def generate_paged(params, cfg: DecoderConfig, prompt_embeds, seq_length: torch.
             params, cfg, cache, logits, seq_length, generator,
             max_new_tokens=max_new_tokens, temperature=temperature, eos_ids=eos_ids,
             spec_tokens=spec_tokens, spec_ngram=spec_ngram, lookup_tokens=lookup_tokens,
-            lookup_len=lookup_len, stats=stats, graph=graph)
+            lookup_len=lookup_len, stats=stats, graph=graph, ws=ws)
         toks, count = out.cpu().numpy(), count.cpu().numpy()
         if stats is not None:
             for k, v in (("verify_steps", step), ("accepted_tokens", emitted)):
@@ -211,7 +224,7 @@ def generate_paged(params, cfg: DecoderConfig, prompt_embeds, seq_length: torch.
                                   row_order=row_order,
                                   max_new_tokens=max_new_tokens, temperature=temperature,
                                   top_p=top_p, eos_ids=eos_ids, kv_int8=kv_int8,
-                                  stats=stats, graph=graph)
+                                  stats=stats, graph=graph, ws=ws)
         before_eos = np.cumsum(np.isin(toks, list(eos_ids)), axis=1) == 0
         count = np.minimum(before_eos.sum(axis=1), step)
     if stats is not None:
@@ -224,7 +237,7 @@ def generate_paged(params, cfg: DecoderConfig, prompt_embeds, seq_length: torch.
 
 
 def _decode_loop(params, cfg, cache, logits, seq_length, generator, *, row_order,
-                 max_new_tokens, temperature, top_p, eos_ids, kv_int8, stats=None,
+                 max_new_tokens, temperature, top_p, eos_ids, kv_int8, ws, stats=None,
                  graph=None):
     """Vanilla decode -> (tokens [B, max_new] numpy, steps taken).
 
@@ -234,108 +247,117 @@ def _decode_loop(params, cfg, cache, logits, seq_length, generator, *, row_order
     of the page size (the JAX loop's allocator call with ones is a no-op
     otherwise), and lengths are tracked on the host, so only those steps
     call the allocator, in place and before the step, and read the
-    overflow flag back. The step (sample, write, decode) is a `StepGraph`
-    step; its figures go to `stats`."""
+    overflow flag back. The step (sample, write, decode) is the workspace
+    `ws`'s `StepGraph`; its figures go to `stats`."""
     b = seq_length.shape[0]
     dev = logits.device
-    step_fn = decode_step_paged_int8 if kv_int8 else decode_step_paged
     ps = cache.page_size
-    eos = torch.tensor(list(eos_ids), device=dev)
-    logits = logits.clone()
-    out = torch.full((b, max_new_tokens), cfg.pad_token_id, dtype=torch.int64, device=dev)
-    done = torch.zeros(b, dtype=torch.bool, device=dev)
-    column = torch.zeros(1, dtype=torch.int64, device=dev)
+    st = generate.GenState.reset(ws, cache, logits, max_new_tokens, cfg.pad_token_id, eos_ids)
 
     def body():
-        tok = sample_token(logits, generator, temperature=temperature, top_p=top_p)
-        tok = torch.where(done, torch.full_like(tok, cfg.pad_token_id), tok)
-        done.logical_or_(torch.isin(tok, eos))
-        out.scatter_(1, column.expand(b, 1), tok[:, None])
+        tok = st.sample(generator, temperature, top_p, cfg.pad_token_id)
+        step_fn = decode_step_paged_int8 if kv_int8 else decode_step_paged
         new_logits, _ = step_fn(params, cfg, tok, cache, sequential_pages=row_order)
-        logits.copy_(new_logits)
-        column.add_(1)
+        st.advance(new_logits)
 
-    loop = StepGraph(body, lambda: (logits, out, done, column, *cache_tensors(cache)), dev,
-                     generator, graphed=use_graph(graph, dev, params))
+    loop = ws.loop("vanilla", body, st.tensors, graphed=use_graph(graph, dev, params))
     lengths = seq_length.tolist()
     ones = torch.ones(b, dtype=torch.int32, device=dev)
     step = 0
-    while step < max_new_tokens:
-        if not row_order and any(n % ps == 0 for n in lengths):
-            if bool(allocate_pages_(cache, ones)):
-                raise RuntimeError(_OVERFLOW_MSG)
-        loop()
-        lengths = [n + 1 for n in lengths]
-        step += 1
-        if bool(done.all()):
-            break
-    loop.record(stats)
-    return out.cpu().numpy(), step
+    try:
+        while step < max_new_tokens:
+            if not row_order and any(n % ps == 0 for n in lengths):
+                if bool(allocate_pages_(cache, ones)):
+                    raise RuntimeError(_OVERFLOW_MSG)
+            loop()
+            lengths = [n + 1 for n in lengths]
+            step += 1
+            if bool(st.done.all()):
+                break
+    finally:
+        loop.record(stats)
+    return st.out_tokens.cpu().numpy(), step
 
 
 def _decode_loop_h2o(params, cfg, cache, hh, logits, seq_length, generator, host: dict, *,
                      max_new_tokens, temperature, top_p, eos_ids, hh_size, recent_size,
-                     sink_size, merge):
+                     sink_size, merge, ws, stats=None, graph=None):
     """The H2O decode loop (batch 1) -> (tokens [1, max_new] numpy, steps
-    taken, compressions). Each step: sample; when the next token's slot
-    would need a page past the pool or the row's table, compress the cache
-    (`compress_paged`); map a page at a page boundary; then one step at the
-    token's global position. While a later compression can still fire
-    within max_new_tokens, the step collects its attention mass into the
-    scores hh [L, Hkv, cap] (`collect_mass`: the plain gather); after the
-    last one nothing reads hh again, so the step runs the page kernel a run
-    without a budget would: K4 while slot j of the row sits in pool page j
-    (the paged prompt, a compression's pages and pages mapped in order),
-    K8 through the table once the allocator has mapped a slot past a
-    padded prompt's unused pages. The cache length and the pool
-    pages in use are tracked on the host from `host` ("length",
-    "next_free"; after a compression the kept length and its pages), so
-    neither test reads anything back from the card."""
+    taken, compressions). Each step: when the next token's slot would need
+    a page past the pool or the row's table, compress the cache in place
+    (`compress_paged_`); map a page at a page boundary (`allocate_pages_`,
+    its overflow flag read back); then the step: sample, write the token,
+    decode at the token's global position `pos`. While a later compression
+    can still fire within max_new_tokens, the step collects its attention
+    mass into the scores hh [L, Hkv, cap] (`collect_mass`: the plain
+    gather); after the last one nothing reads hh again, so the step runs
+    the page kernel a run without a budget would: K4 while slot j of the
+    row sits in pool page j (the paged prompt, a compression's pages and
+    pages mapped in order), K8 through the table once the allocator has
+    mapped a slot past a padded prompt's unused pages. Each of the three
+    forms is a `StepGraph` of the workspace `ws` (graphed as `graph` says,
+    figures to `stats`); the phases never return, so no form replays after
+    a later one. The cache length and the pool pages in use are tracked on
+    the host from `host` ("length", "next_free"; after a compression the
+    kept length and its pages), so neither test reads anything back from
+    the card."""
     dev = logits.device
     num_pages, maxp, ps = cache.k_pages.shape[1], cache.page_table.shape[1], cache.page_size
     c = sink_size + hh_size + recent_size
-    eos = torch.tensor(list(eos_ids), device=dev)
-    out = torch.full((1, max_new_tokens), cfg.pad_token_id, dtype=torch.int64, device=dev)
-    done = torch.zeros(1, dtype=torch.bool, device=dev)
-    pos = seq_length.to(device=dev, dtype=torch.int32)
+    st = generate.GenState.reset(ws, cache, logits, max_new_tokens, cfg.pad_token_id, eos_ids)
+    pos = ws.get("pos", lambda: torch.empty(1, dtype=torch.int32, device=dev))
+    pos.copy_(seq_length.reshape(1))
+    graphed = use_graph(graph, dev, params)
+
+    def form_step(form):
+        def body():
+            tok = st.sample(generator, temperature, top_p, cfg.pad_token_id)
+            if form == "collect":
+                new_logits, _, mass = decode_step_paged(params, cfg, tok, cache, positions=pos,
+                                                        collect_mass=True)
+                hh.add_(mass[:, 0])
+            else:
+                new_logits, _ = decode_step_paged(params, cfg, tok, cache, positions=pos,
+                                                  sequential_pages=form == "K4")
+            st.advance(new_logits)
+            pos.add_(1)
+        return body
+
+    loops = {}
     length, next_free = host["length"], host["next_free"]
     ones = torch.ones(1, dtype=torch.int32, device=dev)
     step = compressions = 0
     in_order = True
-    while step < max_new_tokens:
-        tok = sample_token(logits, generator, temperature=temperature, top_p=top_p)
-        tok = torch.where(done, torch.full_like(tok, cfg.pad_token_id), tok)
-        done = done | torch.isin(tok, eos)
-        out[:, step] = tok
-        extra = -(-(length + 1) // ps) - -(-length // ps)
-        if next_free + extra > num_pages or -(-(length + 1) // ps) > maxp:
-            cache, hh = compress_paged(cache, hh, hh_size=hh_size, recent_size=recent_size,
-                                       sink_size=sink_size, merge=merge)
-            length, next_free = min(length, c), -(-c // ps)
-            compressions += 1
-            in_order = True
-        have = -(-length // ps)
-        reachable = (have + min(num_pages - next_free, maxp - have)) * ps
-        collect = length + max_new_tokens - step > reachable
-        if length % ps == 0:
-            cache, _ = allocate_pages_checked(cache, ones)
-            in_order = in_order and next_free == length // ps
-            next_free += 1
-            if next_free > num_pages or length // ps + 1 > maxp:
-                raise RuntimeError(_OVERFLOW_MSG)
-        if collect:
-            logits, cache, mass = decode_step_paged(params, cfg, tok, cache, positions=pos,
-                                                    collect_mass=True)
-            hh += mass[:, 0]
-        else:
-            logits, cache = decode_step_paged(params, cfg, tok, cache, positions=pos,
-                                              sequential_pages=in_order)
-        pos = pos + 1
-        length += 1
-        step += 1
-        if bool(done.all()):
-            break
-    return out.cpu().numpy(), step, compressions
+    try:
+        while step < max_new_tokens:
+            extra = -(-(length + 1) // ps) - -(-length // ps)
+            if next_free + extra > num_pages or -(-(length + 1) // ps) > maxp:
+                compress_paged_(cache, hh, hh_size=hh_size, recent_size=recent_size,
+                                sink_size=sink_size, merge=merge)
+                length, next_free = min(length, c), -(-c // ps)
+                compressions += 1
+                in_order = True
+            have = -(-length // ps)
+            reachable = (have + min(num_pages - next_free, maxp - have)) * ps
+            if length % ps == 0:
+                if bool(allocate_pages_(cache, ones)):
+                    raise RuntimeError(_OVERFLOW_MSG)
+                in_order = in_order and next_free == length // ps
+                next_free += 1
+            form = ("collect" if length + max_new_tokens - step > reachable
+                    else "K4" if in_order else "K8")
+            if form not in loops:
+                loops[form] = ws.loop(form, form_step(form), lambda: (*st.tensors(), pos, hh),
+                                      graphed=graphed)
+            loops[form]()
+            length += 1
+            step += 1
+            if bool(st.done.all()):
+                break
+    finally:
+        for loop in loops.values():
+            loop.record(stats)
+    return st.out_tokens.cpu().numpy(), step, compressions
 
 
 def _seed_hh_from_prompt(cache: decoder.KVCache, length: int,
@@ -353,16 +375,18 @@ def _seed_hh_from_prompt(cache: decoder.KVCache, length: int,
 
 def _prefill_h2o(params, cfg, prompt_embeds: torch.Tensor, seq_length, *, max_new_tokens: int,
                  page_size: int, num_pages, max_pages_per_seq, hh_size: int, recent_size: int,
-                 sink_size: int, merge):
-    """Prefill one row for H2O decode -> (cache, first logits, padded length,
-    scores hh [L, Hkv, cap], host) where host holds the cache's length and
-    the pool pages in use as host ints ("length", "next_free") and the
-    compressions made (0 or 1). A dense prefill (chunked past the
-    threshold) and the prompt's seeded scores; a prompt over the pool
-    (padded length > cap) is compressed with `compress_kv` into a dense
-    cache of cap slots first. The pool holds `num_pages` (default
-    max_pages_per_seq, default prompt + max_new_tokens); `from_contiguous`
-    raises ValueError when the paged prompt does not fit it."""
+                 sink_size: int, merge, claim):
+    """Prefill one row for H2O decode -> (workspace, first logits, padded
+    length, host): the workspace `claim(...)` gives holds the paged cache
+    ("cache") and the scores hh [L, Hkv, cap] ("hh"), both written in place;
+    host holds the cache's length and the pool pages in use as host ints
+    ("length", "next_free") and the compressions made (0 or 1). A dense
+    prefill (chunked past the threshold) and the prompt's seeded scores; a
+    prompt over the pool (padded length > cap) is compressed with
+    `compress_kv` into a dense cache of cap slots first. The pool holds
+    `num_pages` (default max_pages_per_seq, default prompt +
+    max_new_tokens); `from_contiguous` raises ValueError when the paged
+    prompt does not fit it."""
     b, s, _ = prompt_embeds.shape
     s_pad = _padded_length(s, page_size)
     if max_pages_per_seq is None:
@@ -378,7 +402,9 @@ def _prefill_h2o(params, cfg, prompt_embeds: torch.Tensor, seq_length, *, max_ne
     logits, dense = generate._prefill_inline(params, cfg, prompt_embeds, dense,
                                              seq_length.to(device=dev, dtype=torch.int32))
     n_layers, hkv, dh = cfg.num_layers, cfg.num_kv_heads, cfg.head_dim
-    hh = torch.zeros(n_layers, hkv, cap, dtype=torch.float32, device=dev)
+    ws = claim(True, num_pages, maxp, prompt_embeds.dtype, dev)
+    hh = ws.get("hh", lambda: torch.empty(n_layers, hkv, cap, dtype=torch.float32, device=dev))
+    hh.zero_()
     seed = _seed_hh_from_prompt(dense, n)
     host = dict(length=n, next_free=s_pad // page_size, compressions=0)
     if s_pad > cap:
@@ -400,7 +426,16 @@ def _prefill_h2o(params, cfg, prompt_embeds: torch.Tensor, seq_length, *, max_ne
     else:
         hh[:, :, :s_pad] = seed
     del seed
-    return from_contiguous(dense, num_pages, maxp, page_size), logits, s_pad, hh, host
+    _page_into(ws, from_contiguous, dense, num_pages, maxp, page_size)
+    return ws, logits, s_pad, host
+
+
+def _page_into(ws, page, dense, *args, **kw):
+    """`page` (`from_contiguous` or its int8 twin) of a dense prefill into
+    the workspace's pool, in place, or into a new pool the first time."""
+    if "cache" in ws.tensors:
+        return page(dense, *args, into=ws.tensors["cache"], **kw)
+    return ws.get("cache", lambda: page(dense, *args, **kw))
 
 
 def _padded_length(s: int, page_size: int) -> int:
@@ -455,9 +490,11 @@ def _scatter_row_into_pools(cache, dense, ri: int, maxp: int) -> None:
 
 
 def _prefill_rows(params, cfg, rows: list, seq_length, *, maxp: int, page_size: int,
-                  kv_int8: bool):
+                  kv_int8: bool, claim):
     """Prefill the rows one at a time (B = 1 each) into a statically
-    partitioned pool -> (cache, first logits [B, V], padded length).
+    partitioned pool, the workspace's -> (workspace, first logits [B, V],
+    padded length). Pages past each row's prompt keep what a former call
+    at this key left there.
 
     `rows` holds [1, S, D] tensors or (after the first) callables making
     them; it is consumed, each entry dropped as its pages land."""
@@ -467,7 +504,11 @@ def _prefill_rows(params, cfg, rows: list, seq_length, *, maxp: int, page_size: 
     b, s = len(rows), shape0[1]
     s_pad = _padded_length(s, page_size)
     dev, dtype = rows[0].device, rows[0].dtype
-    cache = _empty_cache(cfg, b, maxp, page_size, kv_int8, dtype, dev)
+    ws = claim(True, b * maxp, maxp, dtype, dev)
+    cache = ws.get("cache", lambda: _empty_cache(cfg, b, maxp, page_size, kv_int8, dtype, dev))
+    table, num_pages = _row_table(b, 0, maxp, True, dev)
+    cache.page_table.copy_(table)
+    cache.next_free.fill_(num_pages)
     lengths = seq_length.to(device=dev, dtype=torch.int32)
     logits = []
     for r in range(b):
@@ -485,13 +526,13 @@ def _prefill_rows(params, cfg, rows: list, seq_length, *, maxp: int, page_size: 
         _scatter_row_into_pools(cache, dense, r, maxp)
         logits.append(lg)
         del dense
-    cache.length = lengths.clone()
-    return cache, torch.cat(logits), s_pad
+    cache.length.copy_(lengths)
+    return ws, torch.cat(logits), s_pad
 
 
 def _generate_paged_split(params, cfg, prompt_embeds, seq_length, *, max_new_tokens: int,
-                          page_size: int, kv_int8: bool, spec_tokens: int):
-    """Batched rows on the default pool -> (cache, first logits, padded
+                          page_size: int, kv_int8: bool, spec_tokens: int, claim):
+    """Batched rows on the default pool -> (workspace, first logits, padded
     length): row-by-row prefill into a partitioned pool whose rows hold the
     prompt, max_new_tokens and spec_tokens (a verify step writes its whole
     block before acceptance), rounded up to whole SEQ_POOL_BLOCKs."""
@@ -505,13 +546,13 @@ def _generate_paged_split(params, cfg, prompt_embeds, seq_length, *, max_new_tok
     maxp = -(-(s_pad + max_new_tokens + spec_tokens) // page_size)
     maxp = -(-maxp // SEQ_POOL_BLOCK) * SEQ_POOL_BLOCK
     return _prefill_rows(params, cfg, rows, seq_length, maxp=maxp, page_size=page_size,
-                         kv_int8=kv_int8)
+                         kv_int8=kv_int8, claim=claim)
 
 
 def _generate_paged_one(params, cfg, prompt_embeds: torch.Tensor, seq_length, *,
                         max_new_tokens: int, page_size: int, num_pages, max_pages_per_seq,
-                        kv_int8: bool, spec_tokens: int):
-    """One row, or rows on a caller-sized pool -> (cache, first logits,
+                        kv_int8: bool, spec_tokens: int, claim):
+    """One row, or rows on a caller-sized pool -> (workspace, first logits,
     padded length, row_order). `row_order`: the pool is read in row order
     with no allocator, for a single row on the default pool (all its pages
     mapped in pool order) or a static partition prefilled row by row.
@@ -535,9 +576,9 @@ def _generate_paged_one(params, cfg, prompt_embeds: torch.Tensor, seq_length, *,
         if bool((seq_length + max_new_tokens + spec_tokens > cap).any()):
             raise RuntimeError(_OVERFLOW_MSG)
         rows = [prompt_embeds[r:r + 1] for r in range(b)]
-        cache, logits, s_pad = _prefill_rows(params, cfg, rows, seq_length, maxp=maxp,
-                                             page_size=page_size, kv_int8=kv_int8)
-        return cache, logits, s_pad, True
+        ws, logits, s_pad = _prefill_rows(params, cfg, rows, seq_length, maxp=maxp,
+                                          page_size=page_size, kv_int8=kv_int8, claim=claim)
+        return ws, logits, s_pad, True
     if s_pad > s:
         prompt_embeds = torch.nn.functional.pad(prompt_embeds, (0, 0, 0, s_pad - s))
     if s_pad > cap:
@@ -547,8 +588,9 @@ def _generate_paged_one(params, cfg, prompt_embeds: torch.Tensor, seq_length, *,
     dense = _dense_cache(cfg, b, s_pad, kv_int8, prompt_embeds.dtype, dev)
     logits, dense = generate._prefill_inline(params, cfg, prompt_embeds, dense,
                                              seq_length.to(device=dev, dtype=torch.int32))
-    page = from_contiguous_int8 if kv_int8 else from_contiguous
-    cache = page(dense, num_pages, maxp, page_size)
+    ws = claim(identity, num_pages, maxp, prompt_embeds.dtype, dev)
+    cache = _page_into(ws, from_contiguous_int8 if kv_int8 else from_contiguous, dense,
+                       num_pages, maxp, page_size)
     if identity:
-        cache.page_table = torch.arange(maxp, dtype=torch.int32, device=dev)[None]
-    return cache, logits, s_pad, identity
+        cache.page_table.copy_(torch.arange(maxp, dtype=torch.int32, device=dev)[None])
+    return ws, logits, s_pad, identity

@@ -32,9 +32,10 @@ H2O eviction (batch 1, bf16 pages): `decode_step_paged(positions=,
 collect_mass=True)` ropes at the caller's global positions and attends
 through the plain gather `paged_decode_attention`, which also returns the
 attention mass a kv head (the JAX package's XLA path: no kernel
-materializes the probabilities); `compress_paged` keeps the sink, heavy
+materializes the probabilities); `compress_paged_` keeps the sink, heavy
 hitter and recent slots (`ops.kv_compress.compress_kv`) in the pool's
-first pages and restarts the allocator after them.
+first pages and restarts the allocator after them, writing the pages,
+table, length, `next_free` and scores in place.
 
 `PagedKVCacheInt8` stores the pages as int8 with per-(token, head) f32
 scales (`kv_int8`): half the pool bytes, read by the K6 kernel
@@ -81,12 +82,7 @@ class PagedKVCache:
                page_size: int = 128, dtype=torch.bfloat16, device="cpu") -> "PagedKVCache":
         """An empty pool: zero pages, every table entry unmapped."""
         shape = (cfg.num_layers, num_pages, cfg.num_kv_heads, page_size, cfg.head_dim)
-        return cls(k_pages=torch.zeros(shape, dtype=dtype, device=device),
-                   v_pages=torch.zeros(shape, dtype=dtype, device=device),
-                   page_table=torch.full((batch, max_pages_per_seq), -1, dtype=torch.int32,
-                                         device=device),
-                   length=torch.zeros(batch, dtype=torch.int32, device=device),
-                   next_free=torch.zeros((), dtype=torch.int32, device=device))
+        return _pool_like(shape, dtype, batch, max_pages_per_seq, device)
 
 
 def allocate_pages_checked(cache, tokens_per_seq: torch.Tensor):
@@ -188,27 +184,47 @@ def _place(x: torch.Tensor, pages: torch.Tensor, ppr: int, stride: int) -> None:
     pages[:b * stride].view(b, stride, *pages.shape[1:])[:, :ppr] = src
 
 
+def _pool_like(pages_shape, dtype, b: int, max_pages_per_seq: int, dev) -> PagedKVCache:
+    """An empty bf16 / f32 pool of `pages_shape`: zero pages, no page mapped."""
+    return PagedKVCache(k_pages=torch.zeros(pages_shape, dtype=dtype, device=dev),
+                        v_pages=torch.zeros(pages_shape, dtype=dtype, device=dev),
+                        page_table=torch.full((b, max_pages_per_seq), -1, dtype=torch.int32,
+                                              device=dev),
+                        length=torch.zeros(b, dtype=torch.int32, device=dev),
+                        next_free=torch.zeros((), dtype=torch.int32, device=dev))
+
+
+def _set_rows(into, table, length, next_free: int) -> None:
+    into.page_table.copy_(table)
+    into.length.copy_(length)
+    into.next_free.fill_(next_free)
+
+
 def from_contiguous(cache: decoder.KVCache, num_pages: int, max_pages_per_seq: int,
-                    page_size: int = 128, partitioned: bool = False) -> PagedKVCache:
+                    page_size: int = 128, partitioned: bool = False,
+                    into: PagedKVCache | None = None) -> PagedKVCache:
     """Page a prefilled dense cache: rows claim pages sequentially, or with
     `partitioned` (num_pages == B * max_pages_per_seq) row r owns the static
     slice [r * max_pages_per_seq, (r + 1) * max_pages_per_seq), table fully
-    mapped, so decode needs no allocator and reads the pool in row order."""
+    mapped, so decode needs no allocator and reads the pool in row order.
+
+    `into`, a pool of this shape (a decode workspace's, `models/step_graph`),
+    takes the rows' pages, table, length and `next_free` in place; its pages
+    past the rows' keep what they held, which no decode step reads below a
+    row's length. Otherwise a new zeroed pool is made."""
     l, b, hkv, lmax, dh = cache.k.shape
     ppr = _pages_per_row(cache, num_pages, max_pages_per_seq, page_size, partitioned)
     dev = cache.k.device
     stride = max_pages_per_seq if partitioned else ppr
-
-    def repage(x):
-        pages = torch.zeros(l, num_pages, hkv, page_size, dh, dtype=x.dtype, device=dev)
-        for i in range(l):
-            _place(x[i], pages[i], ppr, stride)
-        return pages
-
+    if into is None:
+        into = _pool_like((l, num_pages, hkv, page_size, dh), cache.k.dtype, b,
+                          max_pages_per_seq, dev)
+    for i in range(l):
+        _place(cache.k[i], into.k_pages[i], ppr, stride)
+        _place(cache.v[i], into.v_pages[i], ppr, stride)
     table, next_free = _row_table(b, ppr, max_pages_per_seq, partitioned, dev)
-    return PagedKVCache(k_pages=repage(cache.k), v_pages=repage(cache.v), page_table=table,
-                        length=cache.length.clone(),
-                        next_free=torch.tensor(next_free, dtype=torch.int32, device=dev))
+    _set_rows(into, table, cache.length, next_free)
+    return into
 
 
 def append_token_kv(cache: PagedKVCache, layer: int, k: torch.Tensor,
@@ -321,37 +337,43 @@ def paged_decode_attention(q, k_pages, v_pages, page_table, length, sm_scale=Non
     s = s.masked_fill(col[None, None, None, :] >= length.to(q.device)[:, None, None, None],
                       DEFAULT_MASK_VALUE)
     p = torch.softmax(s, dim=-1)
-    o = torch.einsum("bhgl,bhld->bhgd", p, rows(v_pages)).reshape(b, hq, 1, d).to(q.dtype)
+    valid = col[None, None, :, None] < length.to(q.device)[:, None, None, None]
+    v = torch.where(valid, rows(v_pages), 0.0)          # 0 x NaN past the length is NaN
+    o = torch.einsum("bhgl,bhld->bhgd", p, v).reshape(b, hq, 1, d).to(q.dtype)
     if return_mass:
         return o, p.sum(2)
     return o
 
 
-def compress_paged(cache: PagedKVCache, hh_score: torch.Tensor, *, hh_size: int,
-                   recent_size: int, sink_size: int = 4, merge=None):
-    """H2O-compress a batch-1 paged cache -> (cache', hh_score').
+def compress_paged_(cache: PagedKVCache, hh_score: torch.Tensor, *, hh_size: int,
+                    recent_size: int, sink_size: int = 4, merge=None) -> None:
+    """H2O-compress a batch-1 paged cache and its scores, in place.
 
     Gathers the table's pages into token order, runs
     `ops.kv_compress.compress_kv` on every layer's heads at once with the
     accumulated scores hh_score [L, Hkv, maxp * page_size], and writes the
-    surviving C = sink + hh + recent slots back into pool pages [0,
-    ceil(C / page_size)) in place. The new cache maps just those pages and
-    its allocator restarts after them, so decoding goes on with cap - C free
-    slots. Evicted keys keep their RoPE phase: the caller tracks each
-    token's global position (`decode_step_paged(positions=)`)."""
+    surviving C = sink + hh + recent slots into pool pages [0,
+    ceil(C / page_size)) (zeros after them in the last page). The table then
+    maps just those pages, the length is the kept count, the allocator
+    restarts after them (`next_free`) and the scores hold the kept slots'
+    (zeros after them): every tensor keeps its address, so a graphed decode
+    step reads the compressed cache where it read the old one. Decoding
+    goes on with cap - C free slots. Evicted keys keep their RoPE phase: the
+    caller tracks each token's global position
+    (`decode_step_paged(positions=)`)."""
     from streamchat_tpu_torch.ops.kv_compress import compress_kv
 
     n_layers, _, hkv, ps, dh = cache.k_pages.shape
     b, maxp = cache.page_table.shape
     if b != 1:
-        raise ValueError("compress_paged supports batch 1")
+        raise ValueError("compress_paged_ supports batch 1")
     cap = maxp * ps
     c = sink_size + hh_size + recent_size
     if c >= cap:
         raise ValueError(f"compressed size {c} must be < capacity {cap}")
     table = cache.page_table[0].clamp_min(0).long()
 
-    def gather(pages):                                 # [L * Hkv, cap, Dh]
+    def gather(pages):                                 # [L * Hkv, cap, Dh], a copy
         return pages[:, table].transpose(1, 2).reshape(n_layers * hkv, cap, dh)
 
     k2, v2, s2, kept = compress_kv(gather(cache.k_pages), gather(cache.v_pages),
@@ -367,15 +389,11 @@ def compress_paged(cache: PagedKVCache, hh_score: torch.Tensor, *, hh_size: int,
 
     repage(k2, cache.k_pages)
     repage(v2, cache.v_pages)
-    dev = cache.page_table.device
-    slots = torch.arange(maxp, device=dev)
-    new_hh = torch.zeros(n_layers, hkv, cap, dtype=hh_score.dtype, device=hh_score.device)
-    new_hh[:, :, :c] = s2.reshape(n_layers, hkv, c)
-    return PagedKVCache(
-        k_pages=cache.k_pages, v_pages=cache.v_pages,
-        page_table=torch.where(slots < c_pages, slots, -1)[None].to(torch.int32),
-        length=kept.reshape(1).to(device=dev, dtype=torch.int32),
-        next_free=torch.tensor(c_pages, dtype=torch.int32, device=dev)), new_hh
+    scores = s2.reshape(n_layers, hkv, c).clone()      # s2 may view hh_score
+    hh_score.zero_()
+    hh_score[:, :, :c] = scores
+    slots = torch.arange(maxp, device=cache.page_table.device)
+    _set_rows(cache, torch.where(slots < c_pages, slots, -1)[None], kept.reshape(1), c_pages)
 
 
 # ---------------------------------------------------------------------------
@@ -407,33 +425,40 @@ def _quantize_kv(x: torch.Tensor):
 
 
 def from_contiguous_int8(cache, num_pages: int, max_pages_per_seq: int,
-                         page_size: int = 128, partitioned: bool = False) -> PagedKVCacheInt8:
+                         page_size: int = 128, partitioned: bool = False,
+                         into: PagedKVCacheInt8 | None = None) -> PagedKVCacheInt8:
     """Quantizing twin of `from_contiguous` (dense bf16 prefill -> int8 pages,
-    `partitioned` as there), one layer at a time: beside the dense cache,
-    only the int8 pool and one layer's f32 transients are live. An already
-    quantized `decoder.Int8KVCache` (a long kv_int8 chunked prefill) is only
-    repaged: its values and scales move as they are."""
+    `partitioned` and `into` as there), one layer at a time: beside the
+    dense cache, only the int8 pool and one layer's f32 transients are
+    live. An already quantized `decoder.Int8KVCache` (a long kv_int8
+    chunked prefill) is only repaged: its values and scales move as they
+    are."""
     l, b, hkv, lmax, dh = cache.k.shape
     ppr = _pages_per_row(cache, num_pages, max_pages_per_seq, page_size, partitioned)
     dev = cache.k.device
     stride = max_pages_per_seq if partitioned else ppr
+    if into is None:
+        shape = (l, num_pages, hkv, page_size, dh)
+        into = PagedKVCacheInt8(
+            k_pages=torch.zeros(shape, dtype=torch.int8, device=dev),
+            v_pages=torch.zeros(shape, dtype=torch.int8, device=dev),
+            k_scale=torch.zeros(shape[:4], dtype=torch.float32, device=dev),
+            v_scale=torch.zeros(shape[:4], dtype=torch.float32, device=dev),
+            page_table=torch.full((b, max_pages_per_seq), -1, dtype=torch.int32, device=dev),
+            length=torch.zeros(b, dtype=torch.int32, device=dev),
+            next_free=torch.zeros((), dtype=torch.int32, device=dev))
     pre_quantized = isinstance(cache, decoder.Int8KVCache)
-    pages = {n: torch.zeros(l, num_pages, hkv, page_size, dh, dtype=torch.int8, device=dev)
-             for n in ("k", "v")}
-    scales = {n: torch.zeros(l, num_pages, hkv, page_size, dtype=torch.float32, device=dev)
-              for n in ("k", "v")}
     for i in range(l):
         for n, dense in (("k", cache.k[i]), ("v", cache.v[i])):
             if pre_quantized:
                 vals, sc = dense, getattr(cache, f"{n}_s")[i]
             else:
                 vals, sc = _quantize_kv(dense)               # [B, Hkv, Lmax(, Dh)]
-            _place(vals, pages[n][i], ppr, stride)
-            _place(sc, scales[n][i], ppr, stride)
+            _place(vals, getattr(into, f"{n}_pages")[i], ppr, stride)
+            _place(sc, getattr(into, f"{n}_scale")[i], ppr, stride)
     table, next_free = _row_table(b, ppr, max_pages_per_seq, partitioned, dev)
-    return PagedKVCacheInt8(k_pages=pages["k"], v_pages=pages["v"], k_scale=scales["k"],
-                            v_scale=scales["v"], page_table=table, length=cache.length.clone(),
-                            next_free=torch.tensor(next_free, dtype=torch.int32, device=dev))
+    _set_rows(into, table, cache.length, next_free)
+    return into
 
 
 def append_token_kv_int8(cache: PagedKVCacheInt8, layer: int, k: torch.Tensor,

@@ -25,7 +25,8 @@ rows on a statically partitioned pool (ragged acceptance, per-row lengths).
 The JAX `lax.while_loop` is one device program. Here its body (sample,
 draft, verify, accept, the scatters into the outputs, the history and the
 cache) is one `StepGraph` step (`models/step_graph.py`), replayed as a
-CUDA graph on the card with every buffer it touches updated in place, and
+CUDA graph on the card with every buffer it touches updated in place (a
+decode workspace's, kept for the next call at the same key), and
 the host reads the continue flag between steps (the loop's `cond`), as the
 port's vanilla loop reads its done flags. Random draws come from a
 `torch.Generator`. Verify steps of B * T <= 8 rows keep the W8 / K10 /
@@ -48,7 +49,7 @@ from streamchat_tpu_torch.models.paged_kv import (
     PagedKVCacheInt8,
     _quantize_kv,
 )
-from streamchat_tpu_torch.models.step_graph import StepGraph, cache_tensors, use_graph
+from streamchat_tpu_torch.models.step_graph import cache_tensors, use_graph
 from streamchat_tpu_torch.ops.paged_attention import (
     paged_seq_attention_partial,
     paged_seq_attention_partial_int8,
@@ -231,35 +232,44 @@ def run_spec_decode_loop(params, cfg, cache, first_logits: torch.Tensor,
                          max_new_tokens: int, temperature: float, eos_ids: Sequence[int],
                          spec_tokens: int, spec_ngram: int,
                          lookup_tokens: Optional[torch.Tensor] = None,
-                         lookup_len: Optional[torch.Tensor] = None,
+                         lookup_len: Optional[torch.Tensor] = None, ws,
                          stats: Optional[dict] = None, graph: Optional[bool] = None):
     """Greedy / temperature speculative decode -> (tokens [B, max_new] on the
     device, count [B] tokens before the first EOS, verify steps, tokens
     emitted). The pool must hold length + max_new + spec_tokens tokens:
     every verify step writes its whole block before acceptance is known.
-    The verify step is a `StepGraph` step (`graph` as `generate_paged`'s);
-    its figures go to `stats`."""
+    The loop's tensors and its verify step, a `StepGraph` (`graph` as
+    `generate_paged`'s), are the workspace `ws`'s; its figures go to
+    `stats`."""
     t_block = spec_tokens + 1
     b = seq_length.shape[0]
     dev = first_logits.device
-    eos = torch.tensor(list(eos_ids), device=dev)
+
+    def new(shape, dtype=torch.long):
+        return lambda: torch.empty(shape, dtype=dtype, device=dev)
+
+    eos = ws.get("eos", lambda: torch.tensor(list(eos_ids), device=dev))
     hlk = 0 if lookup_tokens is None else lookup_tokens.shape[1]
-    hist = torch.full((b, hlk + max_new_tokens + t_block), -1, dtype=torch.long, device=dev)
-    hist_len = torch.zeros(b, dtype=torch.long, device=dev)
+    hist = ws.get("hist", new((b, hlk + max_new_tokens + t_block)))
+    hist_len = ws.get("hist_len", new((b,)))
+    hist.fill_(-1)
+    hist_len.zero_()
     if lookup_tokens is not None:
         hist[:, :hlk] = lookup_tokens.to(dev)
-        hist_len = (torch.full((b,), hlk) if lookup_len is None else lookup_len).to(
-            device=dev, dtype=torch.long, copy=True)
+        hist_len.copy_(torch.full((b,), hlk) if lookup_len is None else lookup_len)
     trash_out = max_new_tokens + t_block - 1           # scratch slots, sliced off
     trash_hist = hist.shape[1] - 1
-    rows = torch.arange(b, device=dev)[:, None]
-    ar = torch.arange(t_block, device=dev)[None]
-    out = torch.full((b, max_new_tokens + t_block), cfg.pad_token_id, dtype=torch.long,
-                     device=dev)
-    written = torch.zeros(b, dtype=torch.long, device=dev)
-    done = torch.zeros(b, dtype=torch.bool, device=dev)
-    pos = seq_length.to(device=dev, dtype=torch.long, copy=True)
-    logits = first_logits.clone()
+    rows = ws.get("rows", lambda: torch.arange(b, device=dev)[:, None])
+    ar = ws.get("ar", lambda: torch.arange(t_block, device=dev)[None])
+    out = ws.get("out", new((b, max_new_tokens + t_block)))
+    written, done, pos = ws.get("written", new((b,))), ws.get("done", new((b,), torch.bool)), \
+        ws.get("pos", new((b,)))
+    logits = ws.get("logits", lambda: torch.empty_like(first_logits))
+    out.fill_(cfg.pad_token_id)
+    written.zero_()
+    done.zero_()
+    pos.copy_(seq_length)
+    logits.copy_(first_logits)
 
     def body():
         t0 = sample_token(logits, generator, temperature=temperature)
@@ -287,15 +297,18 @@ def run_spec_decode_loop(params, cfg, cache, first_logits: torch.Tensor,
         logits.copy_(nxt)
 
     def bound():
-        return (logits, out, hist, hist_len, written, done, pos, *cache_tensors(cache))
+        return (logits, out, hist, hist_len, written, done, pos, eos, rows, ar,
+                *cache_tensors(cache))
 
-    loop = StepGraph(body, bound, dev, generator, graphed=use_graph(graph, dev, params))
+    loop = ws.loop("verify", body, bound, graphed=use_graph(graph, dev, params))
     steps = 0
-    while bool((~done & (written < max_new_tokens)).any()):
-        loop()
-        steps += 1
-    loop.record(stats)
-    toks = out[:, :max_new_tokens]
+    try:
+        while bool((~done & (written < max_new_tokens)).any()):
+            loop()
+            steps += 1
+    finally:
+        loop.record(stats)
+    toks = out[:, :max_new_tokens].clone()
     before_eos = torch.cumsum(torch.isin(toks, eos).long(), dim=1) == 0
     count = torch.minimum(before_eos.sum(1), written)
     return toks, count, steps, int(written.sum())

@@ -195,7 +195,8 @@ def decode_attention(q, k_cache, v_cache, length):
     """One-token attention against a contiguous cache.
 
     q [B, H, 1, D]; k_cache/v_cache [B, Hkv, Lmax, D]; length [B] valid
-    entries (the new token's K/V already written).
+    entries (the new token's K/V already written). Entries at or past a
+    row's length may hold any garbage, NaN included (a reused cache).
     """
     b, hq, _, d = q.shape
     hkv, lmax = k_cache.shape[1], k_cache.shape[2]
@@ -207,5 +208,6 @@ def decode_attention(q, k_cache, v_cache, length):
     s = s.masked_fill(col[None, None, None, :] >= length[:, None, None, None],
                       float("-inf"))
     p = torch.softmax(s, dim=-1)
-    o = torch.einsum("bhgl,bhld->bhgd", p, v_cache.float())
+    v = torch.where(col[None, None, :, None] < length[:, None, None, None], v_cache.float(), 0.0)
+    o = torch.einsum("bhgl,bhld->bhgd", p, v)
     return o.reshape(b, hq, 1, d).to(q.dtype)

@@ -90,7 +90,9 @@ def compress_kv(k: torch.Tensor, v: torch.Tensor, hh_score: torch.Tensor, length
         kept_mask = torch.zeros(h, l, dtype=torch.bool, device=k.device).scatter_(1, keep, True)
         valid = torch.arange(l, device=k.device)[None] < length
         pruned = ~kept_mask & valid                                       # [H, L]
-        kf, vf = k.float(), v.float()
+        # Slots past the length may hold anything (a reused pool): 0 x NaN.
+        kf = torch.where(valid[..., None], k.float(), 0.0)
+        vf = torch.where(valid[..., None], v.float(), 0.0)
         sim = torch.einsum("hld,hcd->hlc", kf, k_kept[:, :n_hh].float())
         nearest = sim.argmax(dim=2)                                       # first maximum
         w = (torch.where(pruned, hh_score.float(), 0.0) if merge == "weighted"

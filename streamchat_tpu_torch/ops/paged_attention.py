@@ -177,7 +177,8 @@ def _rows(pages, b, row_pages):
 
 
 def paged_decode_attention_seq_plain(q, k_pages, v_pages, length):
-    """Plain PyTorch twin of `paged_decode_attention_seq` (same signature)."""
+    """Plain PyTorch twin of `paged_decode_attention_seq` (same signature);
+    slots at or past a row's length may hold any garbage, NaN included."""
     b, hq, _, d = q.shape
     num_pages, hkv, ps, _ = k_pages.shape
     if num_pages % b:
@@ -192,7 +193,9 @@ def paged_decode_attention_seq_plain(q, k_pages, v_pages, length):
     m = torch.where(torch.isinf(m), torch.zeros_like(m), m)
     p = torch.exp(s - m)
     l = p.sum(-1, keepdim=True)
-    o = torch.einsum("bhgl,bhld->bhgd", p, _rows(v_pages, b, row_pages).float())
+    v = torch.where(col[None, None, :, None] < length.to(q.device)[:, None, None, None],
+                    _rows(v_pages, b, row_pages).float(), 0.0)
+    o = torch.einsum("bhgl,bhld->bhgd", p, v)
     o = o / torch.where(l == 0, torch.ones_like(l), l)
     return o.reshape(b, hq, 1, d).to(q.dtype)
 

@@ -33,6 +33,7 @@ import torch
 from streamchat_tpu_torch.config import MemoryConfig
 from streamchat_tpu_torch.memory.short_term import ShortTermMemory
 from streamchat_tpu_torch.memory.tree import VisualMemoryTree
+from streamchat_tpu_torch.models import step_graph
 from streamchat_tpu_torch.ops.kmeans import weighted_kmeans_feature
 
 CaptionFn = Callable[[torch.Tensor], str]
@@ -85,6 +86,12 @@ class StreamingSession:
     def _run(self) -> None:
         if self._device is not None and self._device.type == "cuda":
             torch.cuda.set_device(self._device)
+        try:
+            self._serve()
+        finally:
+            step_graph.release()      # this thread's kept decode workspaces and graphs
+
+    def _serve(self) -> None:
         while not self._stop.is_set():
             try:
                 chunk = self._chunks.get(timeout=0.05)

@@ -922,3 +922,108 @@ def test_cuda_graphed_decode_bit_equal_to_eager(cuda, path, sampling):
     # The bf16 dense step launches none of the counted kernels (cuBLAS and
     # plain attention); every other path's replays launch some.
     assert (gstats["replayed_launches"] > 0) == (paged is not None or weights != "bf16")
+
+
+# H2O under a 2-page pool (cap 256): the 250-token prompt fits, the loop
+# compresses once at length 256 (step 6) to 232 slots, collecting mass
+# until then (the plain gather) and running K4 after.
+GRAPH_H2O = dict(num_pages=2, max_pages_per_seq=2, hh_size=100, recent_size=128, sink_size=4)
+
+
+def _graph_h2o_inputs(cuda):
+    from streamchat_tpu_torch.models import decoder
+
+    cfg = _judge_cfg()
+    g = torch.Generator(device=cuda).manual_seed(0)
+    params = quant.quantize_decoder_params(decoder.init(cfg, g, device=cuda))
+    embeds = (torch.randn(1, 256, cfg.hidden_size, generator=g, device=cuda) * 0.5).to(
+        torch.bfloat16)
+    return cfg, g, params, embeds, torch.tensor([250], dtype=torch.int32, device=cuda)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("sampling", list(GRAPH_SAMPLING))
+def test_cuda_graphed_h2o_bit_equal_to_eager(cuda, sampling):
+    """The H2O loop run twice from one generator state, graphed (the
+    default) and eager: tokens and launch counts bit-equal, one capture a
+    step form (collect, K4) and a replay for every later step, a
+    compression inside the loop."""
+    from streamchat_tpu_torch.models import generate_paged, step_graph
+
+    cfg, g, params, embeds, ln = _graph_h2o_inputs(cuda)
+    state = g.get_state()
+    runs = []
+    for graph in (None, False):
+        g.set_state(state)
+        stats = {}
+        kernels.reset_launch_counts()
+        toks, _ = generate_paged.generate_paged(params, cfg, embeds, ln, g, max_new_tokens=16,
+                                                stats=stats, graph=graph, **GRAPH_H2O,
+                                                **GRAPH_SAMPLING[sampling])
+        runs.append((toks, kernels.launch_counts(), stats))
+    step_graph.release()
+    (graphed, graphed_counts, gstats), (eager, eager_counts, estats) = runs
+    np.testing.assert_array_equal(graphed, eager)
+    assert graphed_counts == eager_counts
+    assert gstats["compressions_in_loop"] == 1 and gstats["graph_captures"] == 2
+    assert gstats["graph_replays"] == gstats["decode_steps"] - 2 >= 8
+    assert graphed_counts["paged_decode_attention_seq"] == 10 * cfg.num_layers
+    assert "graph_captures" not in estats
+
+
+def _poison_cache(ws):
+    for name, x in ws.tensors.items():
+        if name == "cache":
+            for f in x.__dataclass_fields__:
+                t = getattr(x, f)
+                t.fill_(float("nan") if t.is_floating_point() else 7)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("path", ["dense_b3_int8", "row_order_b1", "table_b3_kv_int8",
+                                  "spec4_b1", "h2o"])
+def test_cuda_reused_graph_replays_with_no_capture(cuda, path):
+    """Call 1 at a key captures; its kept pool is poisoned (NaN, int8 7) and
+    call 2 from generator state S replays with no capture and no warm-up;
+    call 3 from S in a fresh workspace gives the same tokens and launches."""
+    from streamchat_tpu_torch.models import decoder, generate, generate_paged, step_graph
+
+    if path == "h2o":
+        cfg, g, params, embeds, ln = _graph_h2o_inputs(cuda)
+        paged = GRAPH_H2O
+    else:
+        lengths, weights, paged = GRAPH_PATHS[path]
+        cfg = _judge_cfg()
+        g = torch.Generator(device=cuda).manual_seed(0)
+        params = decoder.init(cfg, g, device=cuda)
+        if weights != "bf16":
+            params = quant.quantize_decoder_params(params)
+        embeds = (torch.randn(len(lengths), 256, cfg.hidden_size, generator=g, device=cuda)
+                  * 0.5).to(torch.bfloat16)
+        ln = torch.tensor(lengths, dtype=torch.int32, device=cuda)
+
+    def call(x):
+        stats = {}
+        kernels.reset_launch_counts()
+        kw = dict(max_new_tokens=16, stats=stats, temperature=1.0)
+        if paged is None:
+            toks = generate.generate(params, cfg, x, ln, g, **kw)[0].cpu().numpy()
+        else:
+            toks = generate_paged.generate_paged(params, cfg, x, ln, g, **paged, **kw)[0]
+        return toks, kernels.launch_counts(), stats
+
+    step_graph.release()
+    _, _, first = call(embeds.flip(1))
+    assert first["graph_captures"] >= 1 and not first["graph_reuses"]
+    (ws,) = step_graph.workspaces()
+    _poison_cache(ws)
+    state = g.get_state()
+    kept, kept_counts, stats = call(embeds)
+    assert stats["graph_captures"] == 0 and stats["graph_reuses"] >= 1
+    assert stats["graph_replays"] == stats["decode_steps"]
+    step_graph.release()
+    g.set_state(state)
+    fresh, fresh_counts, _ = call(embeds)
+    step_graph.release()
+    np.testing.assert_array_equal(kept, fresh)
+    assert kept_counts == fresh_counts

@@ -13,8 +13,13 @@ tiny geometry in float32. Tolerances:
   `next_free` exactly.
 - `generate_paged` with hh_size > 0 (page_size 16, hh 12 / recent 16 /
   sink 4, as `tests/test_paged_kv.py`): greedy tokens identical with a
-  prompt over the pool and with in-loop compression firing twice;
-  `LongVA` under `kv_budget_tokens`: identical text and tokens.
+  prompt over the pool and with in-loop compression firing twice (f32,
+  and bf16 weights, prompt and pages); `LongVA` under
+  `kv_budget_tokens`: identical text and tokens.
+- The loop's step forms (collect, K4, K8; `StepGraph`s, eager here):
+  sampled tokens equal to a copy of the eager loop they replaced, every
+  buffer at one address across compressions, and `compress_paged_` equal
+  to the functional form it replaced, bit for bit, every tensor in place.
 On a CPU tensor no wrapper may count a kernel launch.
 """
 
@@ -33,13 +38,13 @@ from streamchat_tpu.models import paged_kv as jpkv
 from streamchat_tpu.models.longva import LongVA as JLongVA
 from streamchat_tpu.ops import kv_compress as jkv
 from streamchat_tpu_torch import config, convert, kernels
-from streamchat_tpu_torch.models import decoder, paged_kv
+from streamchat_tpu_torch.models import decoder, paged_kv, step_graph
 from streamchat_tpu_torch.models import generate_paged as port_generate_paged
 from streamchat_tpu_torch.models import longva as port_longva
 from streamchat_tpu_torch.models.generate_paged import generate_paged
 from streamchat_tpu_torch.models.longva import LongVA
 from streamchat_tpu_torch.models.tokenizer import ByteTokenizer
-from streamchat_tpu_torch.ops import kv_compress
+from streamchat_tpu_torch.ops import kv_compress, sampling
 
 H2O = dict(hh_size=12, recent_size=16, sink_size=4)
 
@@ -228,10 +233,10 @@ def test_compress_paged_matches_jax(no_launches, merge):
         jpkv.PagedKVCache(jnp.asarray(kp), jnp.asarray(vp), jnp.asarray(table),
                           jnp.asarray(length), jnp.asarray(4, jnp.int32)),
         jnp.asarray(hh), merge=merge, **H2O)
-    got, got_hh = paged_kv.compress_paged(
-        paged_kv.PagedKVCache(_t(kp.copy()), _t(vp.copy()), _t(table), _t(length),
-                              torch.tensor(4, dtype=torch.int32)),
-        _t(hh), merge=merge, **H2O)
+    got = paged_kv.PagedKVCache(_t(kp.copy()), _t(vp.copy()), _t(table), _t(length),
+                                torch.tensor(4, dtype=torch.int32))
+    got_hh = _t(hh.copy())
+    paged_kv.compress_paged_(got, got_hh, merge=merge, **H2O)
     np.testing.assert_array_equal(got.page_table.numpy(), np.asarray(ref.page_table))
     assert int(got.length[0]) == int(ref.length[0]) == 32
     assert int(got.next_free) == int(ref.next_free) == 2
@@ -241,6 +246,168 @@ def test_compress_paged_matches_jax(no_launches, merge):
                                atol=atol, rtol=0)
     np.testing.assert_allclose(got.v_pages[:, :2].numpy(), np.asarray(ref.v_pages[:, :2]),
                                atol=atol, rtol=0)
+
+
+def _old_compress_paged(cache, hh_score, *, hh_size, recent_size, sink_size=4, merge=None):
+    """`paged_kv.compress_paged` as it was: the kept slots written into the
+    pool's first pages, a new table, length, `next_free` and scores."""
+    n_layers, _, hkv, ps, dh = cache.k_pages.shape
+    maxp = cache.page_table.shape[1]
+    cap, c = maxp * ps, sink_size + hh_size + recent_size
+    table = cache.page_table[0].clamp_min(0).long()
+
+    def gather(pages):
+        return pages[:, table].transpose(1, 2).reshape(n_layers * hkv, cap, dh)
+
+    k2, v2, s2, kept = kv_compress.compress_kv(
+        gather(cache.k_pages), gather(cache.v_pages), hh_score.reshape(n_layers * hkv, cap),
+        cache.length[0], hh_size=hh_size, recent_size=recent_size, sink_size=sink_size,
+        merge=merge)
+    c_pages = -(-c // ps)
+
+    def repage(x, pages):
+        out = torch.zeros(n_layers, hkv, c_pages * ps, dh, dtype=pages.dtype)
+        out[:, :, :c] = x.reshape(n_layers, hkv, c, dh)
+        pages[:, :c_pages] = out.reshape(n_layers, hkv, c_pages, ps, dh).transpose(1, 2)
+
+    repage(k2, cache.k_pages)
+    repage(v2, cache.v_pages)
+    slots = torch.arange(maxp)
+    new_hh = torch.zeros(n_layers, hkv, cap, dtype=hh_score.dtype)
+    new_hh[:, :, :c] = s2.reshape(n_layers, hkv, c)
+    return paged_kv.PagedKVCache(
+        k_pages=cache.k_pages, v_pages=cache.v_pages,
+        page_table=torch.where(slots < c_pages, slots, -1)[None].to(torch.int32),
+        length=kept.reshape(1).to(torch.int32),
+        next_free=torch.tensor(c_pages, dtype=torch.int32)), new_hh
+
+
+@pytest.mark.parametrize("merge", [None, "weighted"])
+@pytest.mark.parametrize("length", [44, 23], ids=["evicts", "fits"])
+def test_compress_paged_in_place_equals_the_old_output_and_keeps_addresses(no_launches, merge,
+                                                                           length):
+    """`compress_paged_` against the functional form it replaced, on one pool
+    (3 pages of 16 slots mapped out of order, garbage in the pages it leaves
+    alone): pages [0, c_pages), table, length, `next_free` and scores equal,
+    and every tensor at its address."""
+    kp, vp = _rand(15, 2, 4, 2, 16, 8), _rand(16, 2, 4, 2, 16, 8)
+    table = np.asarray([[2, 0, 3, -1]], np.int32)
+    hh = np.abs(_rand(11, 2, 2, 64))
+
+    def pool():
+        return paged_kv.PagedKVCache(_t(kp.copy()), _t(vp.copy()), _t(table.copy()),
+                                     torch.tensor([length], dtype=torch.int32),
+                                     torch.tensor(4, dtype=torch.int32))
+
+    ref, ref_hh = _old_compress_paged(pool(), _t(hh.copy()), merge=merge, **H2O)
+    got, got_hh = pool(), _t(hh.copy())
+    before = [t.data_ptr() for t in (*step_graph.cache_tensors(got), got_hh)]
+    paged_kv.compress_paged_(got, got_hh, merge=merge, **H2O)
+    assert [t.data_ptr() for t in (*step_graph.cache_tensors(got), got_hh)] == before
+    for name in ("page_table", "length", "next_free"):
+        assert torch.equal(getattr(got, name), getattr(ref, name)), name
+    assert torch.equal(got_hh, ref_hh)
+    assert torch.equal(got.k_pages[:, :2], ref.k_pages[:, :2])
+    assert torch.equal(got.v_pages[:, :2], ref.v_pages[:, :2])
+
+
+def _eager_decode_loop_h2o(params, cfg, cache, hh, logits, seq_length, generator, host, *,
+                           max_new_tokens, temperature, top_p, eos_ids, hh_size, recent_size,
+                           sink_size, merge, **_):
+    """`generate_paged._decode_loop_h2o` as it was: sample, compress
+    (functional), allocate (functional), one eager step."""
+    num_pages, maxp, ps = cache.k_pages.shape[1], cache.page_table.shape[1], cache.page_size
+    c = sink_size + hh_size + recent_size
+    eos = torch.tensor(list(eos_ids))
+    out = torch.full((1, max_new_tokens), cfg.pad_token_id, dtype=torch.int64)
+    done = torch.zeros(1, dtype=torch.bool)
+    pos = seq_length.to(torch.int32)
+    length, next_free = host["length"], host["next_free"]
+    step = compressions = 0
+    in_order = True
+    while step < max_new_tokens:
+        tok = sampling.sample_token(logits, generator, temperature=temperature, top_p=top_p)
+        tok = torch.where(done, torch.full_like(tok, cfg.pad_token_id), tok)
+        done = done | torch.isin(tok, eos)
+        out[:, step] = tok
+        extra = -(-(length + 1) // ps) - -(-length // ps)
+        if next_free + extra > num_pages or -(-(length + 1) // ps) > maxp:
+            cache, hh = _old_compress_paged(cache, hh, hh_size=hh_size, recent_size=recent_size,
+                                            sink_size=sink_size, merge=merge)
+            length, next_free = min(length, c), -(-c // ps)
+            compressions += 1
+            in_order = True
+        have = -(-length // ps)
+        reachable = (have + min(num_pages - next_free, maxp - have)) * ps
+        collect = length + max_new_tokens - step > reachable
+        if length % ps == 0:
+            cache, _ = paged_kv.allocate_pages_checked(cache, torch.ones(1, dtype=torch.int32))
+            in_order = in_order and next_free == length // ps
+            next_free += 1
+        if collect:
+            logits, cache, mass = paged_kv.decode_step_paged(params, cfg, tok, cache,
+                                                             positions=pos, collect_mass=True)
+            hh = hh + mass[:, 0]
+        else:
+            logits, cache = paged_kv.decode_step_paged(params, cfg, tok, cache, positions=pos,
+                                                       sequential_pages=in_order)
+        pos = pos + 1
+        length += 1
+        step += 1
+        if bool(done.all()):
+            break
+    return out.numpy(), step, compressions
+
+
+@pytest.mark.parametrize("sampled", [dict(temperature=1.0), dict(temperature=0.8, top_p=0.9)],
+                         ids=["temperature", "top_p"])
+@pytest.mark.parametrize("s,n,max_new,merge", [
+    (20, 20, 48, None),            # compresses in the loop twice, then K4
+    (20, 20, 48, "avg"),
+    (32, 5, 20, None),             # K4, then K8 (a slot mapped past a padded page)
+], ids=["in_loop", "in_loop_avg", "padded_prompt"])
+def test_h2o_step_form_matches_the_eager_loop_sampled(no_launches, tiny, monkeypatch, s, n,
+                                                      max_new, merge, sampled):
+    embeds = _rand(18, 1, s, tiny["cfg"].hidden_size)
+    args = (tiny["params"], tiny["cfg"], _t(embeds), torch.tensor([n], dtype=torch.int32))
+    kw = dict(max_new_tokens=max_new, page_size=16, num_pages=3, max_pages_per_seq=3,
+              merge=merge, **H2O, **sampled)
+    stats = {}
+    toks, count = generate_paged(*args, torch.Generator().manual_seed(3), stats=stats, **kw)
+    monkeypatch.setattr(port_generate_paged, "_decode_loop_h2o", _eager_decode_loop_h2o)
+    ref, ref_count = generate_paged(*args, torch.Generator().manual_seed(3), **kw)
+    np.testing.assert_array_equal(toks, ref)
+    np.testing.assert_array_equal(count, ref_count)
+    assert stats["compressions_in_loop"] == (2 if s == 20 else 0)
+    assert len(set(toks[0].tolist())) > 8                     # the draws vary
+
+
+def test_h2o_step_keeps_its_buffers_across_compressions(no_launches, tiny, monkeypatch):
+    """Every call of each step form (collect, then K4) reads and writes the
+    same tensors, through two in-loop compressions: the pools, table,
+    length, `next_free`, scores, position and loop state."""
+    seen = {}
+    call = step_graph.StepGraph.__call__
+
+    def recording(self):
+        call(self)
+        seen.setdefault(id(self), []).append(tuple(t.data_ptr() for t in self.bound()))
+
+    monkeypatch.setattr(step_graph.StepGraph, "__call__", recording)
+    caches = []
+    loop = port_generate_paged._decode_loop_h2o
+    monkeypatch.setattr(port_generate_paged, "_decode_loop_h2o",
+                        lambda p, c, cache, hh, *a, **kw: caches.append((cache, hh))
+                        or loop(p, c, cache, hh, *a, **kw))
+    stats = {}
+    generate_paged(tiny["params"], tiny["cfg"], _t(_rand(12, 1, 20, tiny["cfg"].hidden_size)),
+                   torch.tensor([20], dtype=torch.int32), max_new_tokens=48, page_size=16,
+                   num_pages=3, max_pages_per_seq=3, stats=stats, **H2O)
+    assert stats["compressions_in_loop"] == 2
+    (collect, k4), ((cache, hh),) = seen.values(), caches
+    assert len(collect) == 44 and len(k4) == 4
+    assert len(set(collect)) == 1 and set(k4) == set(collect)
+    assert {t.data_ptr() for t in (*step_graph.cache_tensors(cache), hh)} <= set(collect[0])
 
 
 # ---------------------------------------------------------------------------
@@ -269,6 +436,26 @@ def test_generate_paged_h2o_token_exact(no_launches, tiny, s, max_new, merge, at
     assert stats["compressions_at_prefill"] == at_prefill
     assert stats["compressions_in_loop"] == in_loop
     assert stats["decode_steps"] == max_new
+
+
+def test_h2o_step_form_token_exact_with_jax_bf16(no_launches, tiny):
+    """The step forms at bf16 (weights, prompt and pages, in both packages):
+    greedy tokens identical through two in-loop compressions."""
+    jparams = jdec.init(jax.random.key(0), tiny["jcfg"], jnp.bfloat16)
+    params = jax.tree.map(lambda x: x.to(torch.bfloat16) if x.is_floating_point() else x,
+                          convert.to_torch(_np(jparams)))
+    embeds = _rand(12, 1, 20, tiny["cfg"].hidden_size)
+    kw = dict(max_new_tokens=48, page_size=16, num_pages=3, max_pages_per_seq=3,
+              temperature=0.0, **H2O)
+    ref, ref_count = j_generate_paged.generate_paged(
+        jparams, tiny["jcfg"], jnp.asarray(embeds, jnp.bfloat16), jnp.array([20], jnp.int32),
+        jax.random.key(0), **kw)
+    stats = {}
+    toks, count = generate_paged(params, tiny["cfg"], _t(embeds).to(torch.bfloat16),
+                                 torch.tensor([20], dtype=torch.int32), stats=stats, **kw)
+    np.testing.assert_array_equal(toks, np.asarray(ref))
+    np.testing.assert_array_equal(count, np.asarray(ref_count))
+    assert stats["compressions_in_loop"] == 2
 
 
 def test_h2o_step_after_compression_ropes_at_the_global_position(no_launches, tiny,

@@ -13,9 +13,16 @@ static buffers, at tiny geometry in float32:
 - every tensor a step reads or writes at one address for the whole loop
   (what a captured graph needs), and a step that rebinds one refused;
 - the launch counters' capture tally, the sampler's written-out draw, and
-  the in-place allocator and length update.
+  the in-place allocator and length update;
+- the decode workspaces kept across calls (`step_graph.workspace`): a
+  second call at one key, over a pool poisoned with NaN, equal to a fresh
+  workspace's call from the same generator state, for every loop form; a
+  changed key field or generator object giving a new workspace; the byte
+  bound's least-recently-used eviction; one cache a thread; a freed
+  tree's workspace dropped.
 The captured step against the eager one on the card is
-`tests/test_torch_cuda.py::test_cuda_graphed_decode_bit_equal_to_eager`.
+`tests/test_torch_cuda.py::test_cuda_graphed_decode_bit_equal_to_eager`,
+a kept graph's replay `test_cuda_reused_graph_replays_with_no_capture`.
 """
 
 import dataclasses
@@ -443,3 +450,175 @@ def test_decode_steps_advance_lengths_in_place(tiny):
         length = cache.length
         step(cache)
         assert cache.length is length and length.tolist() == [38, 21]
+
+
+# ---------------------------------------------------------------------------
+# Workspaces kept across calls (the jit cache's counterpart)
+# ---------------------------------------------------------------------------
+
+
+@pytest.fixture
+def fresh_cache():
+    """This thread's workspaces dropped before and after the test, which runs
+    on one intra-op thread (the suite runs a worker per core; these tiny
+    steps take several times as long when torch's thread pools contend)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    step_graph.release()
+    yield
+    step_graph.release()
+    torch.set_num_threads(n)
+
+
+def _poison(ws):
+    """Every cache tensor of a kept workspace (pools, scales, table, lengths,
+    `next_free`) and H2O's scores overwritten: NaN where floating, 7
+    elsewhere. A call at its key must page its prefill in, reset the rest
+    and read nothing past a row's length."""
+    for name, x in ws.tensors.items():
+        tensors = step_graph.cache_tensors(x) if dataclasses.is_dataclass(x) else (
+            (x,) if name == "hh" else ())
+        for t in tensors:
+            t.fill_(float("nan") if t.is_floating_point() else 7)
+
+
+# Each loop form's call: (rows' valid lengths, generate_paged keywords, or
+# None for the dense loop).
+FORMS = {
+    "dense": ([37, 12, 25], None),
+    "row_order_b1": ([37], dict(page_size=8)),
+    "partitioned_b2_int8_pages": ([37, 20], dict(page_size=8, kv_int8=True)),
+    "table_b3": ([37, 20, 5], dict(page_size=8, num_pages=22, max_pages_per_seq=7)),
+    "spec3": ([37], dict(page_size=8, spec_tokens=3)),
+    "h2o": ([20], dict(page_size=16, num_pages=3, max_pages_per_seq=3, hh_size=12,
+                       recent_size=16, sink_size=4)),
+}
+
+
+def _form_call(tiny, form, seed, generator, **extra):
+    lengths, kw = FORMS[form]
+    embeds, lengths = _rows(tiny, lengths, s=40 if form != "h2o" else 20, seed=seed)
+    args = (tiny["params"], tiny["cfg"], torch.from_numpy(embeds), torch.from_numpy(lengths),
+            generator)
+    common = dict(max_new_tokens=14 if form != "h2o" else 36, temperature=1.0, **extra)
+    if kw is None:
+        return generate.generate(*args, **common)[0].numpy()
+    return gp.generate_paged(*args, **kw, **common)[0]
+
+
+@pytest.mark.parametrize("form", list(FORMS))
+def test_second_call_at_one_key_equals_a_fresh_workspace(no_launches, tiny, fresh_cache, form):
+    """Call 1 at a key, its kept pool and scores poisoned, then call 2 from
+    generator state S (another prompt) in the kept workspace, and call 3
+    from S in a fresh one: the tokens are equal, and call 2 ran the
+    workspace's own step and tensors. Sampled at temperature 1, with H2O
+    compressing inside the loop."""
+    g = torch.Generator().manual_seed(9)
+    _form_call(tiny, form, 80, g)
+    (ws,) = step_graph.workspaces()
+    loops = dict(ws.loops)
+    _poison(ws)
+    state = g.get_state()
+    stats = {}
+    kept = _form_call(tiny, form, 81, g, **({} if FORMS[form][1] is None else dict(stats=stats)))
+    assert step_graph.workspaces() == [ws] and ws.loops == loops
+    step_graph.release()
+    g.set_state(state)
+    fresh = _form_call(tiny, form, 81, g)
+    assert step_graph.workspaces()[0] is not ws
+    np.testing.assert_array_equal(kept, fresh)
+    if form == "h2o":
+        assert stats["compressions_in_loop"] >= 1
+
+
+# One field changed at a time against BASE (generate_paged keywords).
+BASE = dict(max_new_tokens=6, page_size=8, temperature=0.0)
+CHANGED = {
+    "max_new_tokens": dict(max_new_tokens=7), "temperature": dict(temperature=0.5),
+    "top_p": dict(temperature=0.5, top_p=0.9), "eos_ids": dict(eos_ids=(1, 2)),
+    "pool": dict(num_pages=22, max_pages_per_seq=7), "kv_int8": dict(kv_int8=True),
+    "spec_tokens": dict(spec_tokens=2), "spec_ngram": dict(spec_tokens=2, spec_ngram=2),
+    "h2o": dict(hh_size=12, recent_size=16, num_pages=3, max_pages_per_seq=3, page_size=16),
+    "h2o_merge": dict(hh_size=12, recent_size=16, num_pages=3, max_pages_per_seq=3,
+                      page_size=16, merge="avg"),
+}
+
+
+def test_a_changed_key_field_or_generator_gives_a_new_workspace(no_launches, tiny, fresh_cache):
+    embeds, lengths = _rows(tiny, [37], s=40, seed=82)
+    g = torch.Generator().manual_seed(1)
+
+    def claimed(generator=g, rows=1, **kw):
+        gp.generate_paged(tiny["params"], tiny["cfg"], torch.from_numpy(embeds).repeat(rows, 1, 1),
+                          torch.from_numpy(lengths).repeat(rows), generator, **dict(BASE, **kw))
+        return step_graph.workspaces()[-1]
+
+    base = claimed()
+    seen = {"base": base}
+    for name, kw in CHANGED.items():
+        seen[name] = claimed(**kw)
+    seen["rows"] = claimed(rows=2)
+    seen["generator"] = claimed(generator=torch.Generator().manual_seed(1))
+    seen["no_generator"] = claimed(generator=None)
+    assert len({id(ws) for ws in seen.values()}) == len(seen)
+    assert claimed() is base and claimed(**CHANGED["h2o"]) is seen["h2o"]
+
+
+def test_the_byte_bound_evicts_the_least_recently_used(no_launches, tiny, fresh_cache,
+                                                       monkeypatch):
+    embeds, lengths = _rows(tiny, [37], s=40, seed=83)
+
+    def call(max_new):
+        gp.generate_paged(tiny["params"], tiny["cfg"], torch.from_numpy(embeds),
+                          torch.from_numpy(lengths), max_new_tokens=max_new, page_size=8)
+        return step_graph.workspaces()[-1]
+
+    a = call(4)
+    monkeypatch.setattr(step_graph, "WORKSPACE_BYTES", 2 * a.nbytes() + a.nbytes() // 2)
+    b = call(5)
+    assert step_graph.workspaces() == [a, b]
+    assert call(4) is a                              # a is the most recent again
+    c = call(6)
+    assert step_graph.workspaces() == [a, c]         # b, the least recent, went
+    monkeypatch.setattr(step_graph, "WORKSPACE_BYTES", 1)
+    d = call(7)
+    assert step_graph.workspaces() == [d]            # alone over the bound, it stays
+
+
+def test_two_threads_keep_separate_caches(no_launches, tiny, fresh_cache):
+    embeds, lengths = _rows(tiny, [37], s=40, seed=84)
+    out = {}
+
+    def run():
+        return gp.generate_paged(tiny["params"], tiny["cfg"], torch.from_numpy(embeds),
+                                 torch.from_numpy(lengths), max_new_tokens=5, page_size=8)
+
+    def worker():
+        out["toks"] = run()[0]
+        out["spaces"] = step_graph.workspaces()
+        step_graph.release()
+
+    toks, _ = run()
+    mine = step_graph.workspaces()
+    thread = threading.Thread(target=worker)
+    thread.start()
+    thread.join(timeout=60)
+    assert not thread.is_alive()
+    assert len(mine) == 1 and len(out["spaces"]) == 1 and out["spaces"][0] is not mine[0]
+    assert step_graph.workspaces() == mine
+    np.testing.assert_array_equal(out["toks"], toks)
+
+
+def test_a_freed_tree_drops_its_workspace(no_launches, tiny, fresh_cache):
+    embeds, lengths = _rows(tiny, [37], s=40, seed=85)
+    # The same leaves but one, a leaf of its own.
+    copy = dict(tiny["params"], final_norm=tiny["params"]["final_norm"].clone())
+    kw = dict(max_new_tokens=4, page_size=8)
+    gp.generate_paged(copy, tiny["cfg"], torch.from_numpy(embeds), torch.from_numpy(lengths), **kw)
+    (ws,) = step_graph.workspaces()
+    assert ws.alive()
+    del copy
+    assert not ws.alive()
+    gp.generate_paged(tiny["params"], tiny["cfg"], torch.from_numpy(embeds),
+                      torch.from_numpy(lengths), **kw)
+    assert ws not in step_graph.workspaces() and len(step_graph.workspaces()) == 1
