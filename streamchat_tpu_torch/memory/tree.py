@@ -35,6 +35,7 @@ import numpy as np
 import torch
 
 from streamchat_tpu_torch.ops import retrieval
+from streamchat_tpu_torch.utils.profiling import span
 
 EmbedFn = Callable[[List[str]], torch.Tensor]
 EmbedTokensFn = Callable[[List[str]], Tuple[torch.Tensor, torch.Tensor]]
@@ -92,17 +93,19 @@ class VisualMemoryTree:
 
     def add_chunks(self, centroids_list: Sequence[torch.Tensor],
                    captions: Sequence[str]) -> None:
-        """Append captioned chunks as depth-0 roots, then merge if due."""
+        """Append captioned chunks as depth-0 roots, then merge if due (a
+        `memory.tree_add` span, the captions' embedding included)."""
         if len(centroids_list) != len(captions):
             raise ValueError("centroids/captions length mismatch")
-        if captions:
-            embs = _host(self._embed(list(captions)))
-            tok_embs = self._token_embs(list(captions))
-            for i, (c, t, e) in enumerate(zip(centroids_list, captions, embs)):
-                self.roots.append(MemoryTreeNode(
-                    centroids=c, text=t, emb=e,
-                    token_emb=None if tok_embs is None else tok_embs[i]))
-        self._maybe_merge()
+        with span("memory.tree_add", chunks=len(captions)):
+            if captions:
+                embs = _host(self._embed(list(captions)))
+                tok_embs = self._token_embs(list(captions))
+                for i, (c, t, e) in enumerate(zip(centroids_list, captions, embs)):
+                    self.roots.append(MemoryTreeNode(
+                        centroids=c, text=t, emb=e,
+                        token_emb=None if tok_embs is None else tok_embs[i]))
+            self._maybe_merge()
 
     def _token_embs(self, texts: List[str]) -> Optional[List[np.ndarray]]:
         """Per-text unpadded token embeddings on the host, or None when
@@ -128,7 +131,8 @@ class VisualMemoryTree:
             merged = self._merge(combined, self.num_clusters)
         else:
             merged = combined
-        summary = self._summarize([n.text for n in chunk])
+        with span("memory.summarize", captions=len(chunk)):
+            summary = self._summarize([n.text for n in chunk])
         parent_tok = self._token_embs([summary])
         parent = MemoryTreeNode(
             centroids=merged, text=summary, depth=chunk[0].depth + 1,

@@ -23,7 +23,6 @@ Paged generation lives in `models/generate_paged.py`.
 from __future__ import annotations
 
 import dataclasses
-import time
 from typing import Optional, Sequence, Tuple
 
 import torch
@@ -33,6 +32,7 @@ from streamchat_tpu_torch.models import decoder, step_graph
 from streamchat_tpu_torch.models.decoder import KVCache
 from streamchat_tpu_torch.models.step_graph import cache_tensors, use_graph
 from streamchat_tpu_torch.ops.sampling import sample_token
+from streamchat_tpu_torch.utils.profiling import span
 
 CHUNKED_PREFILL_THRESHOLD = 8192
 
@@ -118,43 +118,45 @@ def generate(params, cfg: DecoderConfig, prompt_embeds: torch.Tensor,
     if max_len is None:
         max_len = s + max_new_tokens
     max_len = -(-max_len // 128) * 128
-    t0 = time.perf_counter()
-    ws = step_graph.workspace(("dense", cfg, b, max_len, prompt_embeds.dtype, max_new_tokens,
-                               temperature, top_p, tuple(eos_ids)), params, generator, dev)
-    cache = ws.get("cache", lambda: KVCache.create(cfg, b, max_len, dtype=prompt_embeds.dtype,
-                                                   device=dev))
-    seq_length = seq_length.to(device=dev, dtype=torch.int32)
-    # The prefill writes the kept K/V in place and rebinds its copy's length.
-    first_logits, filled = _prefill_inline(params, cfg, prompt_embeds,
-                                           dataclasses.replace(cache), seq_length)
-    cache.length.copy_(filled.length)
-    if stats is not None and dev.type == "cuda":
-        torch.cuda.synchronize(dev)
-    t1 = time.perf_counter()
+    graphed = use_graph(graph, dev, params)
+    with span("generate", prompt_tokens=b * s, graphed=graphed) as call:
+        with span("generate.prefill") as prefill:
+            ws = step_graph.workspace(("dense", cfg, b, max_len, prompt_embeds.dtype,
+                                       max_new_tokens, temperature, top_p, tuple(eos_ids)),
+                                      params, generator, dev)
+            cache = ws.get("cache", lambda: KVCache.create(cfg, b, max_len,
+                                                           dtype=prompt_embeds.dtype, device=dev))
+            seq_length = seq_length.to(device=dev, dtype=torch.int32)
+            # The prefill writes the kept K/V in place and rebinds its copy's length.
+            first_logits, filled = _prefill_inline(params, cfg, prompt_embeds,
+                                                   dataclasses.replace(cache), seq_length)
+            cache.length.copy_(filled.length)
+            if stats is not None and dev.type == "cuda":
+                torch.cuda.synchronize(dev)
 
-    st = GenState.reset(ws, cache, first_logits, max_new_tokens, cfg.pad_token_id, eos_ids)
+        with span("generate.decode") as decode:
+            st = GenState.reset(ws, cache, first_logits, max_new_tokens, cfg.pad_token_id,
+                                eos_ids)
 
-    def body():
-        tok = st.sample(generator, temperature, top_p, cfg.pad_token_id)
-        logits, _ = _decode_inline(params, cfg, tok, st.cache)
-        st.advance(logits)
+            def body():
+                tok = st.sample(generator, temperature, top_p, cfg.pad_token_id)
+                logits, _ = _decode_inline(params, cfg, tok, st.cache)
+                st.advance(logits)
 
-    loop = ws.loop("dense", body, st.tensors, graphed=use_graph(graph, dev, params))
-    steps = 0
-    try:
-        while steps < max_new_tokens and not bool(st.done.all()):
-            loop()
-            steps += 1
-    finally:
-        loop.record(stats)
+            loop = ws.loop("dense", body, st.tensors, graphed=graphed)
+            try:
+                steps = step_graph.run_steps(loop, lambda: bool(st.done.all()), max_new_tokens)
+            finally:
+                loop.record(stats)
 
-    tokens = st.out_tokens.clone()
-    before_eos = torch.cumsum(torch.isin(tokens, st.eos).long(), dim=1) == 0
-    count = before_eos.sum(1).clamp_max(steps)
+            tokens = st.out_tokens.clone()
+            before_eos = torch.cumsum(torch.isin(tokens, st.eos).long(), dim=1) == 0
+            count = before_eos.sum(1).clamp_max(steps)
+            if stats is not None and dev.type == "cuda":
+                torch.cuda.synchronize(dev)
+        call.tags["steps"] = steps
     if stats is not None:
-        if dev.type == "cuda":
-            torch.cuda.synchronize(dev)
-        for k, v in (("prefill_s", t1 - t0), ("decode_s", time.perf_counter() - t1),
+        for k, v in (("prefill_s", prefill.seconds), ("decode_s", decode.seconds),
                      ("decode_steps", steps), ("prompt_tokens", b * s),
                      ("generated_tokens", int(count.sum()))):
             stats[k] = stats.get(k, 0) + v

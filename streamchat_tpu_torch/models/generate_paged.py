@@ -67,7 +67,6 @@ its one program.
 from __future__ import annotations
 
 import math
-import time
 from typing import Optional, Sequence, Tuple
 
 import numpy as np
@@ -89,8 +88,9 @@ from streamchat_tpu_torch.models.paged_kv import (
     from_contiguous_int8,
 )
 from streamchat_tpu_torch.models.spec_decode import run_spec_decode_loop
-from streamchat_tpu_torch.models.step_graph import use_graph
+from streamchat_tpu_torch.models.step_graph import run_steps, use_graph
 from streamchat_tpu_torch.ops.kv_compress import attention_mass, compress_kv
+from streamchat_tpu_torch.utils.profiling import span
 
 # Pages of a partitioned pool's row are rounded to a multiple of this (the
 # JAX package's TPU kernel block, `ops/paged_attention.SEQ_POOL_BLOCK`), so
@@ -157,83 +157,91 @@ def generate_paged(params, cfg: DecoderConfig, prompt_embeds, seq_length: torch.
              temperature, top_p, eos_ids, spec_tokens, spec_ngram, lookup_width, hh_size,
              recent_size, sink_size, merge), params, generator, device)
 
-    t0 = time.perf_counter()
-    if compress:
-        if as_rows:
-            prompt_embeds = prompt_embeds[0]() if callable(prompt_embeds[0]) else prompt_embeds[0]
-        h2o = dict(hh_size=hh_size, recent_size=recent_size, sink_size=sink_size, merge=merge)
-        ws, logits, s_pad, host = _prefill_h2o(
-            params, cfg, prompt_embeds, seq_length, max_new_tokens=max_new_tokens,
-            page_size=page_size, num_pages=num_pages, max_pages_per_seq=max_pages_per_seq,
-            claim=claim, **h2o)
-        if stats is not None and logits.device.type == "cuda":
-            torch.cuda.synchronize(logits.device)
-        t1 = time.perf_counter()
-        toks, step, loop_compressions = _decode_loop_h2o(
-            params, cfg, ws.tensors["cache"], ws.tensors["hh"], logits, seq_length, generator,
-            host, max_new_tokens=max_new_tokens, temperature=temperature, top_p=top_p,
-            eos_ids=eos_ids, ws=ws, stats=stats, graph=graph, **h2o)
-        before_eos = np.cumsum(np.isin(toks, list(eos_ids)), axis=1) == 0
-        count = np.minimum(before_eos.sum(axis=1), step)
-        if stats is not None:
-            for k, v in (("prefill_s", t1 - t0), ("decode_s", time.perf_counter() - t1),
-                         ("decode_steps", step), ("prompt_tokens", s_pad),
-                         ("generated_tokens", int(count.sum())),
-                         ("compressions_at_prefill", host["compressions"]),
-                         ("compressions_in_loop", loop_compressions)):
-                stats[k] = stats.get(k, 0) + v
-        return toks, count
-    kw = dict(max_new_tokens=max_new_tokens, page_size=page_size, kv_int8=kv_int8,
-              spec_tokens=spec_tokens, claim=claim)
-    if b > 1 and num_pages is None and max_pages_per_seq is None:
-        ws, logits, s_pad = _generate_paged_split(params, cfg, prompt_embeds, seq_length, **kw)
-        row_order = True
-    else:
-        if as_rows:
-            prompt_embeds = torch.cat([r() if callable(r) else r for r in prompt_embeds])
-        ws, logits, s_pad, row_order = _generate_paged_one(
-            params, cfg, prompt_embeds, seq_length, num_pages=num_pages,
-            max_pages_per_seq=max_pages_per_seq, **kw)
-    cache = ws.tensors["cache"]
-    dev = logits.device
-    seq_length = seq_length.to(device=dev, dtype=torch.int32)
-    if spec_tokens > 0 and not (row_order or b == 1):
-        raise ValueError("speculative decode needs a row-ordered pool "
-                         "(batch 1 or the statically partitioned batched pool)")
-    if spec_tokens > 0 and not row_order:
-        # The verify step has no allocator: map every page the loop can touch.
-        if bool(allocate_pages_(cache, torch.full((b,), max_new_tokens + spec_tokens,
-                                                  device=dev))):
-            raise RuntimeError(_OVERFLOW_MSG)
-    if stats is not None and dev.type == "cuda":
-        torch.cuda.synchronize(dev)
-    t1 = time.perf_counter()
+    with span("generate") as call:
+        if compress:
+            h2o = dict(hh_size=hh_size, recent_size=recent_size, sink_size=sink_size, merge=merge)
+            with span("generate.prefill") as prefill:
+                if as_rows:
+                    prompt_embeds = (prompt_embeds[0]() if callable(prompt_embeds[0])
+                                     else prompt_embeds[0])
+                ws, logits, s_pad, host = _prefill_h2o(
+                    params, cfg, prompt_embeds, seq_length, max_new_tokens=max_new_tokens,
+                    page_size=page_size, num_pages=num_pages, max_pages_per_seq=max_pages_per_seq,
+                    claim=claim, **h2o)
+                if stats is not None and logits.device.type == "cuda":
+                    torch.cuda.synchronize(logits.device)
+            call.tags["graphed"] = use_graph(graph, logits.device, params)
+            with span("generate.decode") as decode:
+                toks, step, loop_compressions = _decode_loop_h2o(
+                    params, cfg, ws.tensors["cache"], ws.tensors["hh"], logits, seq_length,
+                    generator, host, max_new_tokens=max_new_tokens, temperature=temperature,
+                    top_p=top_p, eos_ids=eos_ids, ws=ws, stats=stats, graph=graph, **h2o)
+                before_eos = np.cumsum(np.isin(toks, list(eos_ids)), axis=1) == 0
+                count = np.minimum(before_eos.sum(axis=1), step)
+            if stats is not None:
+                for k, v in (("prefill_s", prefill.seconds), ("decode_s", decode.seconds),
+                             ("decode_steps", step), ("prompt_tokens", s_pad),
+                             ("generated_tokens", int(count.sum())),
+                             ("compressions_at_prefill", host["compressions"]),
+                             ("compressions_in_loop", loop_compressions)):
+                    stats[k] = stats.get(k, 0) + v
+            call.tags.update(prompt_tokens=s_pad, steps=step)
+            return toks, count
+        kw = dict(max_new_tokens=max_new_tokens, page_size=page_size, kv_int8=kv_int8,
+                  spec_tokens=spec_tokens, claim=claim)
+        with span("generate.prefill") as prefill:
+            if b > 1 and num_pages is None and max_pages_per_seq is None:
+                ws, logits, s_pad = _generate_paged_split(params, cfg, prompt_embeds, seq_length,
+                                                          **kw)
+                row_order = True
+            else:
+                if as_rows:
+                    prompt_embeds = torch.cat([r() if callable(r) else r for r in prompt_embeds])
+                ws, logits, s_pad, row_order = _generate_paged_one(
+                    params, cfg, prompt_embeds, seq_length, num_pages=num_pages,
+                    max_pages_per_seq=max_pages_per_seq, **kw)
+            cache = ws.tensors["cache"]
+            dev = logits.device
+            seq_length = seq_length.to(device=dev, dtype=torch.int32)
+            if spec_tokens > 0 and not (row_order or b == 1):
+                raise ValueError("speculative decode needs a row-ordered pool "
+                                 "(batch 1 or the statically partitioned batched pool)")
+            if spec_tokens > 0 and not row_order:
+                # The verify step has no allocator: map every page the loop can touch.
+                if bool(allocate_pages_(cache, torch.full((b,), max_new_tokens + spec_tokens,
+                                                          device=dev))):
+                    raise RuntimeError(_OVERFLOW_MSG)
+            if stats is not None and dev.type == "cuda":
+                torch.cuda.synchronize(dev)
+        call.tags["graphed"] = use_graph(graph, dev, params)
 
-    if spec_tokens > 0:
-        out, count, step, emitted = run_spec_decode_loop(
-            params, cfg, cache, logits, seq_length, generator,
-            max_new_tokens=max_new_tokens, temperature=temperature, eos_ids=eos_ids,
-            spec_tokens=spec_tokens, spec_ngram=spec_ngram, lookup_tokens=lookup_tokens,
-            lookup_len=lookup_len, stats=stats, graph=graph, ws=ws)
-        toks, count = out.cpu().numpy(), count.cpu().numpy()
+        with span("generate.decode") as decode:
+            if spec_tokens > 0:
+                out, count, step, emitted = run_spec_decode_loop(
+                    params, cfg, cache, logits, seq_length, generator,
+                    max_new_tokens=max_new_tokens, temperature=temperature, eos_ids=eos_ids,
+                    spec_tokens=spec_tokens, spec_ngram=spec_ngram, lookup_tokens=lookup_tokens,
+                    lookup_len=lookup_len, stats=stats, graph=graph, ws=ws)
+                toks, count = out.cpu().numpy(), count.cpu().numpy()
+                if stats is not None:
+                    for k, v in (("verify_steps", step), ("accepted_tokens", emitted)):
+                        stats[k] = stats.get(k, 0) + v
+            else:
+                toks, step = _decode_loop(params, cfg, cache, logits, seq_length, generator,
+                                          row_order=row_order,
+                                          max_new_tokens=max_new_tokens, temperature=temperature,
+                                          top_p=top_p, eos_ids=eos_ids, kv_int8=kv_int8,
+                                          stats=stats, graph=graph, ws=ws)
+                before_eos = np.cumsum(np.isin(toks, list(eos_ids)), axis=1) == 0
+                count = np.minimum(before_eos.sum(axis=1), step)
         if stats is not None:
-            for k, v in (("verify_steps", step), ("accepted_tokens", emitted)):
+            for k, v in (("prefill_s", prefill.seconds), ("decode_s", decode.seconds),
+                         ("decode_steps", step), ("prompt_tokens", b * s_pad),
+                         ("generated_tokens", int(count.sum())),
+                         ("batched_rows", b if b > 1 else 0)):
                 stats[k] = stats.get(k, 0) + v
-    else:
-        toks, step = _decode_loop(params, cfg, cache, logits, seq_length, generator,
-                                  row_order=row_order,
-                                  max_new_tokens=max_new_tokens, temperature=temperature,
-                                  top_p=top_p, eos_ids=eos_ids, kv_int8=kv_int8,
-                                  stats=stats, graph=graph, ws=ws)
-        before_eos = np.cumsum(np.isin(toks, list(eos_ids)), axis=1) == 0
-        count = np.minimum(before_eos.sum(axis=1), step)
-    if stats is not None:
-        for k, v in (("prefill_s", t1 - t0), ("decode_s", time.perf_counter() - t1),
-                     ("decode_steps", step), ("prompt_tokens", b * s_pad),
-                     ("generated_tokens", int(count.sum())),
-                     ("batched_rows", b if b > 1 else 0)):
-            stats[k] = stats.get(k, 0) + v
-    return toks, count
+        call.tags.update(prompt_tokens=b * s_pad, steps=step)
+        return toks, count
 
 
 def _decode_loop(params, cfg, cache, logits, seq_length, generator, *, row_order,
@@ -263,17 +271,15 @@ def _decode_loop(params, cfg, cache, logits, seq_length, generator, *, row_order
     loop = ws.loop("vanilla", body, st.tensors, graphed=use_graph(graph, dev, params))
     lengths = seq_length.tolist()
     ones = torch.ones(b, dtype=torch.int32, device=dev)
-    step = 0
-    try:
-        while step < max_new_tokens:
-            if not row_order and any(n % ps == 0 for n in lengths):
+
+    def allocate(step):
+        if not row_order and any((n + step) % ps == 0 for n in lengths):
+            with span("decode.alloc"):
                 if bool(allocate_pages_(cache, ones)):
                     raise RuntimeError(_OVERFLOW_MSG)
-            loop()
-            lengths = [n + 1 for n in lengths]
-            step += 1
-            if bool(st.done.all()):
-                break
+
+    try:
+        step = run_steps(loop, lambda: bool(st.done.all()), max_new_tokens, before=allocate)
     finally:
         loop.record(stats)
     return st.out_tokens.cpu().numpy(), step
@@ -324,40 +330,44 @@ def _decode_loop_h2o(params, cfg, cache, hh, logits, seq_length, generator, host
         return body
 
     loops = {}
-    length, next_free = host["length"], host["next_free"]
     ones = torch.ones(1, dtype=torch.int32, device=dev)
-    step = compressions = 0
-    in_order = True
-    try:
-        while step < max_new_tokens:
-            extra = -(-(length + 1) // ps) - -(-length // ps)
-            if next_free + extra > num_pages or -(-(length + 1) // ps) > maxp:
-                compress_paged_(cache, hh, hh_size=hh_size, recent_size=recent_size,
-                                sink_size=sink_size, merge=merge)
-                length, next_free = min(length, c), -(-c // ps)
-                compressions += 1
-                in_order = True
-            have = -(-length // ps)
-            reachable = (have + min(num_pages - next_free, maxp - have)) * ps
-            if length % ps == 0:
+    # The host's view of the cache: its length, the pool pages in use,
+    # whether slot j still sits in page j, and the compressions made.
+    at = dict(length=host["length"], next_free=host["next_free"], in_order=True,
+              compressions=0)
+
+    def before(step):
+        """Compress and map pages as the next token needs -> that step's form."""
+        length, next_free = at["length"], at["next_free"]
+        extra = -(-(length + 1) // ps) - -(-length // ps)
+        if next_free + extra > num_pages or -(-(length + 1) // ps) > maxp:
+            compress_paged_(cache, hh, hh_size=hh_size, recent_size=recent_size,
+                            sink_size=sink_size, merge=merge)
+            length, next_free = min(length, c), -(-c // ps)
+            at["compressions"] += 1
+            at["in_order"] = True
+        have = -(-length // ps)
+        reachable = (have + min(num_pages - next_free, maxp - have)) * ps
+        if length % ps == 0:
+            with span("decode.alloc"):
                 if bool(allocate_pages_(cache, ones)):
                     raise RuntimeError(_OVERFLOW_MSG)
-                in_order = in_order and next_free == length // ps
-                next_free += 1
-            form = ("collect" if length + max_new_tokens - step > reachable
-                    else "K4" if in_order else "K8")
-            if form not in loops:
-                loops[form] = ws.loop(form, form_step(form), lambda: (*st.tensors(), pos, hh),
-                                      graphed=graphed)
-            loops[form]()
-            length += 1
-            step += 1
-            if bool(st.done.all()):
-                break
+            at["in_order"] = at["in_order"] and next_free == length // ps
+            next_free += 1
+        form = ("collect" if length + max_new_tokens - step > reachable
+                else "K4" if at["in_order"] else "K8")
+        if form not in loops:
+            loops[form] = ws.loop(form, form_step(form), lambda: (*st.tensors(), pos, hh),
+                                  graphed=graphed)
+        at["length"], at["next_free"] = length + 1, next_free
+        return loops[form]
+
+    try:
+        step = run_steps(None, lambda: bool(st.done.all()), max_new_tokens, before=before)
     finally:
         for loop in loops.values():
             loop.record(stats)
-    return st.out_tokens.cpu().numpy(), step, compressions
+    return st.out_tokens.cpu().numpy(), step, at["compressions"]
 
 
 def _seed_hh_from_prompt(cache: decoder.KVCache, length: int,

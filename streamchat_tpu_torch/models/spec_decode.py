@@ -49,7 +49,7 @@ from streamchat_tpu_torch.models.paged_kv import (
     PagedKVCacheInt8,
     _quantize_kv,
 )
-from streamchat_tpu_torch.models.step_graph import cache_tensors, use_graph
+from streamchat_tpu_torch.models.step_graph import cache_tensors, run_steps, use_graph
 from streamchat_tpu_torch.ops.paged_attention import (
     paged_seq_attention_partial,
     paged_seq_attention_partial_int8,
@@ -301,11 +301,11 @@ def run_spec_decode_loop(params, cfg, cache, first_logits: torch.Tensor,
                 *cache_tensors(cache))
 
     loop = ws.loop("verify", body, bound, graphed=use_graph(graph, dev, params))
-    steps = 0
     try:
-        while bool((~done & (written < max_new_tokens)).any()):
-            loop()
-            steps += 1
+        # A live row emits at least one token a step, so max_new_tokens
+        # steps always reach the end.
+        steps = run_steps(loop, lambda: not bool((~done & (written < max_new_tokens)).any()),
+                          max_new_tokens)
     finally:
         loop.record(stats)
     toks = out[:, :max_new_tokens].clone()

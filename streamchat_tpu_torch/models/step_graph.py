@@ -84,6 +84,7 @@ from typing import Callable, Optional, Sequence
 import torch
 
 from streamchat_tpu_torch import kernels
+from streamchat_tpu_torch.utils.profiling import span
 
 # Bytes of workspace tensors kept a thread and device: a chunk-40 caption's
 # pool (~1.36 GB of bf16 pages at LongVA-7B), a partial chunk's and a few
@@ -136,6 +137,32 @@ def use_graph(graph: Optional[bool], device, params: dict) -> bool:
         raise ValueError("a decode step is graphed only on a CUDA device and an "
                          "unsharded decoder")
     return bool(graph)
+
+
+def run_steps(replay: Optional[Callable[[], None]], finished: Callable[[], bool],
+              max_steps: int, *, before: Optional[Callable[[int], Optional[Callable]]] = None
+              ) -> int:
+    """The host side of every decode loop -> the steps taken. Up to
+    `max_steps` iterations, each a `decode.step` span: `before(step)` (the
+    host's work between replays: the allocator, a compression, the choice
+    of the step's form; it opens a `decode.alloc` span where the allocator
+    runs, and may return the step to run instead of `replay`), then the
+    step (`decode.replay`: a graph's replay or the eager step), then
+    `finished()` (`decode.readback`: the host blocked on the loop's flag),
+    which ends the loop when true. The end of a call's first readback is
+    its first token's mark."""
+    step = 0
+    while step < max_steps:
+        with span("decode.step"):
+            fn = before(step) if before is not None else None
+            with span("decode.replay"):
+                (fn or replay)()
+            step += 1
+            with span("decode.readback"):
+                stop = finished()
+        if stop:
+            break
+    return step
 
 
 def cache_tensors(cache) -> tuple:

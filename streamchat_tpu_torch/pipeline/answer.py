@@ -25,6 +25,7 @@ import torch
 from streamchat_tpu_torch.config import SamplingConfig
 from streamchat_tpu_torch.memory.tree import VisualMemoryTree
 from streamchat_tpu_torch.pipeline import prompts
+from streamchat_tpu_torch.utils.profiling import span
 
 
 @dataclasses.dataclass
@@ -36,8 +37,9 @@ class AnswerResult:
     # under the same spliced prompt (--ppl), else None.
     nll: Optional[float] = None
     ppl: Optional[float] = None
-    # Host seconds of the retrieval half: embed_query_s, tree_search_s,
-    # assemble_s (the multi-modal answer only).
+    # Host seconds of the retrieval half: embed_query_s, tree_search_s (the
+    # `answer.embed_query` and `answer.tree_search` spans), assemble_s (the
+    # multi-modal answer only).
     timings: Optional[dict] = None
 
 
@@ -51,12 +53,11 @@ def answer_question(question: str, model, embed_query, short_memory: torch.Tenso
     blocks: List[torch.Tensor] = [short_flat]
     t_embed = t_search = 0.0
     if tree is not None and len(tree) > 0:
-        te = time.time()
-        q_emb = embed_query(question)
-        t_search = time.time()
-        t_embed = t_search - te
-        feats, texts = tree.search(q_emb)
-        t_search = time.time() - t_search
+        with span("answer.embed_query") as embed:
+            q_emb = embed_query(question)
+        with span("answer.tree_search") as search:
+            feats, texts = tree.search(q_emb)
+        t_embed, t_search = embed.seconds, search.seconds
         if feats:
             flat_levels = [f.reshape(-1, f.shape[-1]) for f in feats]
             budget = sampling.max_visual_tokens

@@ -44,6 +44,7 @@ from streamchat_tpu_torch.ops.forgetting import select_short_memory
 from streamchat_tpu_torch.ops.kmeans import weighted_kmeans_feature
 from streamchat_tpu_torch.ops.pooling import compress_spatial_features
 from streamchat_tpu_torch.utils.offload import WeightOffloader, synchronize, to_host
+from streamchat_tpu_torch.utils.profiling import span
 
 CaptionFn = Callable[[torch.Tensor], str]
 
@@ -118,39 +119,46 @@ def update_memory(features, tree: VisualMemoryTree, caption_fn: CaptionFn,
     """One segment's memory update -> (tree, short_memory [R, P, D]).
 
     `features` is [N, P, D], or a one-element list holding it (popped, so
-    the stack is freed once it is cut)."""
-    if isinstance(features, list):
-        features = features.pop()
-    stats = offload_stats() if stats is None else stats
-    if cfg.compress_rate > 1:
-        features = compress_spatial_features(features, cfg.compress_rate)
-    device = features.device
-    offload = cfg.offload_chunks or (cfg.offload_chunks_over is not None
-                                     and features.shape[0] > cfg.offload_chunks_over)
-    short = build_short_memory(features, cfg, generator)
-    if offload:
-        short = _owned(short, features)
-    raw_chunks, node_feats = chunk_and_cluster(features, cfg, generator,
-                                               cluster_full_chunks, offload, stats)
-    del features
-    batch_fn = getattr(caption_fn, "batch", None)
-    size = getattr(caption_fn, "batch_size", 1) if batch_fn is not None else 1
-    if residents is not None:
-        residents.offload()
-    groups = [raw_chunks[i:i + size] for i in range(0, len(raw_chunks), size)]
-    del raw_chunks
-    captions: List[str] = []
-    for gi in range(len(groups)):
-        group, groups[gi] = groups[gi], None
-        if offload:
-            t0 = time.perf_counter()
-            group = [c.to(device, non_blocking=True) for c in group]
-            synchronize([device])
-            stats["h2d_s"] += time.perf_counter() - t0
-            stats["bytes"] += sum(c.nbytes for c in group)
-        captions.extend([caption_fn(group[0])] if len(group) == 1 else batch_fn(group))
-        del group
-    if residents is not None:
-        residents.restore()
-    tree.add_chunks(node_feats, captions)
-    return tree, short
+    the stack is freed once it is cut). Spans: `memory.update` around it
+    all, with `memory.short` (the short memory's selection),
+    `memory.cluster` (chunking and k-means), a `memory.caption` a caption
+    call or batch, and `memory.tree_add` (`VisualMemoryTree.add_chunks`)."""
+    with span("memory.update"):
+        if isinstance(features, list):
+            features = features.pop()
+        stats = offload_stats() if stats is None else stats
+        if cfg.compress_rate > 1:
+            features = compress_spatial_features(features, cfg.compress_rate)
+        device = features.device
+        offload = cfg.offload_chunks or (cfg.offload_chunks_over is not None
+                                         and features.shape[0] > cfg.offload_chunks_over)
+        with span("memory.short"):
+            short = build_short_memory(features, cfg, generator)
+            if offload:
+                short = _owned(short, features)
+        with span("memory.cluster"):
+            raw_chunks, node_feats = chunk_and_cluster(features, cfg, generator,
+                                                       cluster_full_chunks, offload, stats)
+        del features
+        batch_fn = getattr(caption_fn, "batch", None)
+        size = getattr(caption_fn, "batch_size", 1) if batch_fn is not None else 1
+        if residents is not None:
+            residents.offload()
+        groups = [raw_chunks[i:i + size] for i in range(0, len(raw_chunks), size)]
+        del raw_chunks
+        captions: List[str] = []
+        for gi in range(len(groups)):
+            group, groups[gi] = groups[gi], None
+            if offload:
+                t0 = time.perf_counter()
+                group = [c.to(device, non_blocking=True) for c in group]
+                synchronize([device])
+                stats["h2d_s"] += time.perf_counter() - t0
+                stats["bytes"] += sum(c.nbytes for c in group)
+            with span("memory.caption", chunks=len(group)):
+                captions.extend([caption_fn(group[0])] if len(group) == 1 else batch_fn(group))
+            del group
+        if residents is not None:
+            residents.restore()
+        tree.add_chunks(node_feats, captions)
+        return tree, short

@@ -112,7 +112,8 @@ from streamchat_tpu_torch.pipeline.ingest import dedup_segment, encode_segment, 
 from streamchat_tpu_torch.pipeline.memory_update import offload_stats, update_memory
 from streamchat_tpu_torch.pipeline.streaming import StreamingSession
 from streamchat_tpu_torch.utils.offload import WeightOffloader
-from streamchat_tpu_torch.utils.profiling import PhaseTimer, maybe_device_trace
+from streamchat_tpu_torch.utils import profiling
+from streamchat_tpu_torch.utils.profiling import PhaseTimer, maybe_device_trace, span
 
 
 class StreamChatPipeline:
@@ -274,7 +275,12 @@ class StreamChatPipeline:
         while the next segment is ingested; the short memory is a FIFO
         across the stream. As in the JAX package the frames are read without
         a PrefetchReader, and a breakpoint is skipped only when no frame has
-        arrived yet (after `sync()`, so a worker error still surfaces)."""
+        arrived yet (after `sync()`, so a worker error still surfaces). The
+        phase totals and counts are the call's program spans (`utils.profiling`)
+        of this thread and the session's worker, summed by span name: the two
+        threads' work overlaps, so there are no off-line phases to fill. They
+        are empty when the span ring overwrote any span of the call."""
+        start_ns = time.perf_counter_ns()
         session = StreamingSession(
             self.new_tree(), self._caption, self.cfg.memory, self.generator,
             self.cluster_full_chunks, generator_lock=self._generator_lock,
@@ -306,8 +312,12 @@ class StreamChatPipeline:
         finally:
             session.close()
         self.last_tree = session.tree
-        self.last_phase_totals = {}
-        self.last_phase_counts = {}
+        threads = {threading.get_ident(), session.worker_ident}
+        kept = (profiling.spans(start_ns, time.perf_counter_ns())
+                if profiling.intact_since(start_ns) else [])
+        totals, counts = profiling.totals([s for s in kept if s.thread in threads])
+        self.last_phase_totals = {k: round(v, 3) for k, v in totals.items()}
+        self.last_phase_counts = counts
         return results
 
     def _answer(self, q, short_memory, tree, history_prompt):
@@ -323,13 +333,16 @@ class StreamChatPipeline:
                                         ppl_target=ppl_target)
 
     def _history_prompt(self, memory_index, question: str):
-        if memory_index is None:
-            return None
-        date_docs, _ = memory_index.search_memory(question, self.cfg.retrieval.language)
-        if not date_docs:
-            return None
-        related = "\n" + "\n".join(date_docs).strip() + "\n"
-        return prompts.build_history_prompt(related, self.cfg.retrieval.language)
+        """The dialogue bank's retrieved history for `question`, or None (an
+        `answer.history` span)."""
+        with span("answer.history"):
+            if memory_index is None:
+                return None
+            date_docs, _ = memory_index.search_memory(question, self.cfg.retrieval.language)
+            if not date_docs:
+                return None
+            related = "\n" + "\n".join(date_docs).strip() + "\n"
+            return prompts.build_history_prompt(related, self.cfg.retrieval.language)
 
     def _record_and_store(self, results, q, end_s, res, bank, user_name, save_file):
         record = {"time": end_s, "question": q["question"], "label": q.get("answer"),

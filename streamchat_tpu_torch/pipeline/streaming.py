@@ -35,6 +35,7 @@ from streamchat_tpu_torch.memory.short_term import ShortTermMemory
 from streamchat_tpu_torch.memory.tree import VisualMemoryTree
 from streamchat_tpu_torch.models import step_graph
 from streamchat_tpu_torch.ops.kmeans import weighted_kmeans_feature
+from streamchat_tpu_torch.utils.profiling import span
 
 CaptionFn = Callable[[torch.Tensor], str]
 
@@ -61,6 +62,7 @@ class StreamingSession:
         self._error: Optional[BaseException] = None
         self._worker = threading.Thread(target=self._run, daemon=True)
         self._worker.start()
+        self.worker_ident = self._worker.ident     # the thread of its spans
 
     # Producer side
 
@@ -101,10 +103,11 @@ class StreamingSession:
                 node_feats = chunk
                 if (self._cluster and chunk.shape[0] >= self.cfg.chunk_size
                         and chunk.shape[0] > self.cfg.num_clusters):
-                    with self._generator_lock:
+                    with span("memory.cluster"), self._generator_lock:
                         node_feats, _ = weighted_kmeans_feature(
                             chunk, self.cfg.num_clusters, generator=self._generator)
-                caption = self._caption(chunk)
+                with span("memory.caption", chunks=1):
+                    caption = self._caption(chunk)
                 with self._tree_lock:
                     self.tree.add_chunks([node_feats], [caption])
             except BaseException as e:       # raised by the next sync / ask / close
@@ -122,8 +125,10 @@ class StreamingSession:
             raise err
 
     def ask(self, answer_fn: Callable[[torch.Tensor, VisualMemoryTree], object]):
-        """answer_fn(short_memory [R, P, D], tree) on a consistent snapshot."""
-        self.sync()
+        """answer_fn(short_memory [R, P, D], tree) on a consistent snapshot
+        (the wait for the queue is an `online.drain` span)."""
+        with span("online.drain"):
+            self.sync()
         with self._short_lock, self._generator_lock:
             short = self.short_term.sample(self._generator)
         with self._tree_lock:
