@@ -535,6 +535,13 @@ SOURCES = {
     "probe_layer": ("streamchat_tpu_torch/csrc/fused_vit.cu",
                     "scripts/probe_vit_variants.py:142"),
     "dotk": ("streamchat_tpu_torch/csrc/dotk.cu", "scripts/probe_vit_variants.py:259"),
+    # The decode step's glue: no Pallas source (XLA fuses it into the step).
+    "add_rmsnorm": ("streamchat_tpu_torch/csrc/decode_glue.cu",
+                    "none: XLA's fusion in streamchat_tpu/models/paged_kv.py:262"),
+    "bias_rope_append": ("streamchat_tpu_torch/csrc/decode_glue.cu",
+                         "none: XLA's fusion in streamchat_tpu/models/paged_kv.py:262"),
+    "silu_mul": ("streamchat_tpu_torch/csrc/decode_glue.cu",
+                 "none: XLA's fusion in streamchat_tpu/models/paged_kv.py:262"),
 }
 
 
@@ -1690,6 +1697,118 @@ def check_table_kernels(model, g):
     return rows, planted
 
 
+def check_glue_kernels(model, g):
+    """The paged decode step's glue kernels (`ops/decode_glue.py`) against
+    their plain twins at LongVA-7B's batch-1 decode shapes -> (report rows,
+    planted faults): add_rmsnorm on the residual stream [1, 1, 3584] with an
+    o product's delta (the add bit-equal, the norm within the tolerance);
+    bias_rope_append with q/k/v biases at position 6,800 into bf16 pages
+    (within one bf16 ulp) and int8 pages (values and scales equal); silu_mul
+    on gate and up products [1, 1, 18944]. Device ms by torch.profiler over
+    calls on four sets of inputs in turn; bound: each input byte read and
+    each output byte written once at 3.35 TB/s. Each row's launches a step
+    come later, from `drive_glue_steps`' counters."""
+    from streamchat_tpu_torch.ops import decode_glue
+
+    cfg, layers = model.dec_cfg, model.dec_params["layers"]
+    d, f, hq, hkv, dh, eps = (cfg.hidden_size, cfg.intermediate_size, cfg.num_heads,
+                              cfg.num_kv_heads, cfg.head_dim, cfg.rms_eps)
+    bf, dev = torch.bfloat16, "cuda"
+    rows, planted = {}, {}
+
+    def rnd(*shape, scale=1.0):
+        return (torch.randn(*shape, generator=g, device=dev) * scale).to(bf)
+
+    def ulps(a, b):
+        def ordered(t):
+            i = t.contiguous().view(torch.int16).int()
+            return torch.where(i < 0, -(i & 0x7FFF), i)
+        return int((ordered(a) - ordered(b)).abs().max())
+
+    # add_rmsnorm: the post-attention norm of four layers in turn.
+    args = [(rnd(1, 1, d, scale=4.0), rnd(1, 1, d), p["post_norm"], eps) for p in layers[:4]]
+    x, delta, scale, _ = args[0]
+    ref_x, ref_h = decode_glue.add_rmsnorm_plain(x.clone(), delta, scale, eps)
+    got_x, got_h = decode_glue.add_rmsnorm(x.clone(), delta, scale, eps)
+    if not torch.equal(got_x, ref_x):
+        raise AssertionError("add_rmsnorm: the residual add differs from the plain twin's")
+    err, rel = _compare("add_rmsnorm", got_h, ref_h, row_rel=True)
+    name = "add_rmsnorm without its residual add"
+    planted[name] = _planted(name, decode_glue.add_rmsnorm(x.clone(), None, scale, eps)[1],
+                             ref_h)
+    t = _timings(_rotating(decode_glue.add_rmsnorm, args),
+                 _rotating(decode_glue.add_rmsnorm_plain, args), 200, 50)
+    nbytes = 5 * d * 2
+    rows["add_rmsnorm"] = dict(
+        shapes=f"x, delta [1, 1, {d}] bf16, scale [{d}] bf16 (x updated in place, h out)",
+        max_abs_err=err, max_row_rel_l2=rel, **t, **_bound(4 * d, nbytes),
+        host_us=host_us(_rotating(decode_glue.add_rmsnorm, args), 200),
+        library_ms=None, library="none")
+
+    # bias_rope_append: q/k/v products with biases at 6,800 tokens, bf16 and
+    # int8 pages (64 pages of 128 slots, the row's table in pool order).
+    length = torch.tensor([6800], dtype=torch.int32, device=dev)
+    table = torch.arange(64, dtype=torch.int32, device=dev)[None]
+    cases = {}
+    for label in ("bf16", "int8"):
+        shape = (64, hkv, 128, dh)
+        if label == "int8":
+            pools = [torch.randint(-127, 128, shape, dtype=torch.int8, device=dev,
+                                   generator=g) for _ in range(2)]
+            pools += [torch.rand(shape[:3], device=dev, generator=g) for _ in range(2)]
+        else:
+            pools = [rnd(*shape), rnd(*shape), None, None]
+        args = [(rnd(1, 1, hq * dh, scale=2.0), rnd(1, 1, hkv * dh, scale=2.0),
+                 rnd(1, 1, hkv * dh, scale=2.0),
+                 tuple(rnd(h * dh, scale=0.5) for h in (hq, hkv, hkv)), None, cfg.rope_theta,
+                 *pools, table, length) for _ in range(4)]
+        twin = [None if t is None else t.clone() for t in pools]
+        ref = decode_glue.bias_rope_append_plain(*args[0][:6], *twin, table, length)
+        got = decode_glue.bias_rope_append(*args[0])
+        q_ulps = ulps(got, ref)
+        if label == "int8":
+            pools_ok = all(torch.equal(a, b) for a, b in zip(pools, twin))
+        else:
+            pools_ok = ulps(pools[0], twin[0]) <= 1 and ulps(pools[1], twin[1]) <= 1
+        if q_ulps > 1 or not pools_ok:
+            raise AssertionError(f"bias_rope_append ({label} pages): q {q_ulps} ulps from the "
+                                 f"plain twin's, pools as the twin's {pools_ok}")
+        name = f"bias_rope_append ({label} pages) at position + 1"
+        planted[name] = _planted(name, decode_glue.bias_rope_append(
+            *args[0][:4], length + 1, *args[0][5:]), ref)
+        t = _timings(_rotating(decode_glue.bias_rope_append, args),
+                     _rotating(decode_glue.bias_rope_append_plain, args), 200, 50)
+        kv_bytes = 2 * hkv * dh * (1 if label == "int8" else 2) + (
+            2 * hkv * 4 if label == "int8" else 0)
+        nbytes = 2 * (2 * (hq + 2 * hkv) * dh) + dh // 2 * 4 + 8 + 2 * hq * dh + kv_bytes
+        cases[label] = dict(q_ulps=q_ulps, max_abs_err=(got.float() - ref.float()).abs().max()
+                            .item(), **t, **_bound(6 * (hq + hkv) * dh, nbytes),
+                            host_us=host_us(_rotating(decode_glue.bias_rope_append, args), 200))
+    rows["bias_rope_append"] = dict(
+        shapes=f"q [1, 1, {hq * dh}], k / v [1, 1, {hkv * dh}] bf16 with biases, position "
+               f"6800, pages [64, {hkv}, 128, {dh}] bf16 / int8 (+ scales); ms = bf16",
+        max_abs_err=max(c["max_abs_err"] for c in cases.values()), max_row_rel_l2=None,
+        cases=cases,
+        **{k: cases["bf16"][k] for k in ("ms", "plain_ms", "wall_ms", "plain_wall_ms",
+                                         "bound_ms", "bound_by", "flops", "bytes")},
+        library_ms=None, library="none")
+
+    # silu_mul: the gate and up products (separate W8 outputs) of four layers.
+    args = [(rnd(1, 1, f, scale=3.0), rnd(1, 1, f)) for _ in range(4)]
+    ref = decode_glue.silu_mul_plain(*args[0])
+    err, rel = _compare("silu_mul", decode_glue.silu_mul(*args[0]), ref, row_rel=True)
+    name = "silu_mul with gate and up swapped"
+    planted[name] = _planted(name, decode_glue.silu_mul(*args[0][::-1]), ref)
+    t = _timings(_rotating(decode_glue.silu_mul, args),
+                 _rotating(decode_glue.silu_mul_plain, args), 200, 50)
+    rows["silu_mul"] = dict(
+        shapes=f"gate, up [1, 1, {f}] bf16", max_abs_err=err, max_row_rel_l2=rel, **t,
+        **_bound(5 * f, 3 * f * 2),
+        host_us=host_us(_rotating(decode_glue.silu_mul, args), 200),
+        library_ms=None, library="none")
+    return rows, planted
+
+
 def check_composed_spec(model, g):
     """One 28-layer verify step (K7) of teacher-forced tokens against as many
     vanilla decode steps (K4 / K6) from one prefilled, statically
@@ -1750,11 +1869,11 @@ def check_composed_table(model, g):
     logits, dense = decoder.prefill(dp, dcfg, embeds, dense, length)
     tok = torch.argmax(logits, -1)
     out = {}
-    for label, page, step, append, name in (
+    for label, page, step, name in (
             ("bf16", paged_kv.from_contiguous, paged_kv.decode_step_paged,
-             paged_kv.append_token_kv, "paged_decode_attention_table"),
+             "paged_decode_attention_table"),
             ("int8", paged_kv.from_contiguous_int8, paged_kv.decode_step_paged_int8,
-             paged_kv.append_token_kv_int8, "paged_decode_attention_table_int8")):
+             "paged_decode_attention_table_int8")):
         cache, twin = page(dense, 8, 4), page(dense, 8, 4)
         kernels.reset_launch_counts()
         got, _ = step(dp, dcfg, tok, cache)
@@ -1763,7 +1882,7 @@ def check_composed_table(model, g):
             lambda i: ())
         plain = getattr(pa, name + "_plain")
         ref, _ = paged_kv._decode_step(
-            dp, dcfg, tok, twin, append,
+            dp, dcfg, tok, twin,
             lambda q, i, ln: plain(q, twin.k_pages[i], twin.v_pages[i], *scales(i),
                                    twin.page_table, ln))
         rel = ((got - ref).norm() / ref.norm()).item()
@@ -2464,7 +2583,7 @@ def check_composed(model, g):
     tok = torch.argmax(logits, -1)
     got, _ = paged_kv.decode_step_paged(dp, dcfg, tok, cache, sequential_pages=True)
     ref, _ = paged_kv._decode_step(
-        dp, dcfg, tok, twin, paged_kv.append_token_kv,
+        dp, dcfg, tok, twin,
         lambda q, i, ln: paged_attention.paged_decode_attention_table_plain(
             q, twin.k_pages[i], twin.v_pages[i], twin.page_table, ln))
     rel = ((got - ref).norm() / ref.norm()).item()
@@ -3183,12 +3302,13 @@ def _h2o_observed(plant_rope=False):
     a run without a budget's vanilla loop run eagerly here (graph=False):
     the records read each step's values on the host, which a captured step
     cannot."""
-    from streamchat_tpu_torch.models import decoder, paged_kv
     from streamchat_tpu_torch.models import generate_paged as gp
+    from streamchat_tpu_torch.models import paged_kv
+    from streamchat_tpu_torch.ops import decode_glue
 
     seen = {"compress_kv": [], "seed": None, "loop_compressions": [], "steps": []}
     kept = dict(ckv=gp.compress_kv, seed=gp._seed_hh_from_prompt, cp=gp.compress_paged_,
-                step=gp.decode_step_paged, rope=decoder.rope,
+                step=gp.decode_step_paged, rope=decode_glue.bias_rope_append,
                 gather=paged_kv.paged_decode_attention, loop=gp._decode_loop,
                 loop_h2o=gp._decode_loop_h2o)
     state = {"in_step": None, "layer": 0, "after_compression": False}
@@ -3235,10 +3355,13 @@ def _h2o_observed(plant_rope=False):
         seen["steps"].append(rec)
         return out
 
-    def rope(x, positions, theta):
+    def rope(*args):
+        # bias_rope_append(q, k, v, bias, positions, theta, ..., page_table, length)
         if state["in_step"] is not None:
-            state["in_step"]["positions"].append(positions[:, 0].clone())
-        return kept["rope"](x, positions, theta)
+            positions, length = args[4], args[-1]
+            state["in_step"]["positions"].append(
+                (length if positions is None else positions).clone())
+        return kept["rope"](*args)
 
     def gather(q, k_pages, v_pages, page_table, length, sm_scale=None, return_mass=False):
         out = kept["gather"](q, k_pages, v_pages, page_table, length, sm_scale, return_mass)
@@ -3252,7 +3375,8 @@ def _h2o_observed(plant_rope=False):
         return out
 
     gp.compress_kv, gp._seed_hh_from_prompt, gp.compress_paged_ = ckv, seed, cp
-    gp.decode_step_paged, decoder.rope, paged_kv.paged_decode_attention = step, rope, gather
+    gp.decode_step_paged, decode_glue.bias_rope_append = step, rope
+    paged_kv.paged_decode_attention = gather
     gp._decode_loop = lambda *a, **kw: kept["loop"](*a, **dict(kw, graph=False))
     gp._decode_loop_h2o = lambda *a, **kw: kept["loop_h2o"](*a, **dict(kw, graph=False))
     try:
@@ -3261,7 +3385,8 @@ def _h2o_observed(plant_rope=False):
         gp._decode_loop, gp._decode_loop_h2o = kept["loop"], kept["loop_h2o"]
         gp.compress_kv, gp._seed_hh_from_prompt = kept["ckv"], kept["seed"]
         gp.compress_paged_, gp.decode_step_paged = kept["cp"], kept["step"]
-        decoder.rope, paged_kv.paged_decode_attention = kept["rope"], kept["gather"]
+        decode_glue.bias_rope_append = kept["rope"]
+        paged_kv.paged_decode_attention = kept["gather"]
 
 
 def _h2o_generate(model, budget, feats, new, plant_rope=False, observe=True):
@@ -6053,6 +6178,85 @@ def drive_graphs(params, cfg, generator, label, smi):
     return report, total
 
 
+GLUE_PROMPT = (6800, 6912)       # the qa cells' prompt (valid, padded)
+GLUE_STEPS = 256                 # an answer's decode steps
+
+
+def drive_glue_steps(params, cfg, generator, label, smi):
+    """The decode step's split before and after the glue kernels, untraced
+    -> report: generate_paged over a 6,800-token prompt, 256 greedy steps,
+    graphed, in turns with the plain glue twins patched in (the eager glue:
+    "plain") and with the kernels ("fused"): plain, fused, fused, plain,
+    each turn's workspaces dropped first so that it captures its own graph.
+    From the program's spans of each turn's replayed steps (the warm-up and
+    capture steps left out), as PERF.md's step split reads them: step ms
+    (`decode.step`), launch ms (`decode.replay`), wait ms
+    (`decode.readback`); and each glue kernel's launches a step from
+    `kernels.launch_counts()` (fused turns: 2 L + 1, L and L, 113 at
+    LongVA-7B; none in the plain turns). `label`: "int8" (bf16 pages) or
+    "int4_kv_int8"."""
+    from streamchat_tpu_torch import kernels
+    from streamchat_tpu_torch.models import generate_paged, step_graph
+    from streamchat_tpu_torch.ops import decode_glue
+    from streamchat_tpu_torch.utils import profiling
+
+    n, s = GLUE_PROMPT
+    embeds = (torch.randn(1, s, cfg.hidden_size, generator=generator, device="cuda")
+              * 0.02).to(torch.bfloat16)
+    ln = torch.tensor([n], dtype=torch.int32, device="cuda")
+    twins = {name: getattr(decode_glue, name + "_plain")
+             for name in ("add_rmsnorm", "bias_rope_append", "silu_mul")}
+    report = {"plain": [], "fused": []}
+    tokens = {}
+    for glue in ("plain", "fused", "fused", "plain"):
+        kept = {name: getattr(decode_glue, name) for name in twins}
+        if glue == "plain":
+            for name, fn in twins.items():
+                setattr(decode_glue, name, fn)
+        step_graph.release()
+        kernels.reset_launch_counts()
+        stats = {}
+        t0 = time.perf_counter_ns()
+        try:
+            toks, _ = generate_paged.generate_paged(
+                params, cfg, embeds, ln, generator, max_new_tokens=GLUE_STEPS,
+                kv_int8=label != "int8", temperature=0.0, stats=stats)
+        finally:
+            for name, fn in kept.items():
+                setattr(decode_glue, name, fn)
+        t1 = time.perf_counter_ns()
+        if not profiling.intact_since(t0):
+            raise AssertionError("drive_glue_steps: the span ring overflowed")
+        spans = profiling.spans(t0, t1)
+        mean = {}
+        for span_name, key in (("decode.step", "step_ms"), ("decode.replay", "launch_ms"),
+                               ("decode.readback", "wait_ms")):
+            ds = [r.duration_ns for r in spans if r.name == span_name][2:]
+            mean[key] = sum(ds) / len(ds) / 1e6
+        counts = kernels.launch_counts()
+        steps = stats["decode_steps"]
+        by_kernel = {name: counts[name] / steps for name in twins}
+        glue_launches = sum(counts[name] for name in twins)
+        report[glue].append(dict(mean, steps=steps, replays=stats.get("graph_replays"),
+                                 launches_a_step=by_kernel,
+                                 glue_launches_a_step=glue_launches / steps,
+                                 decode_ms=1e3 * (stats["decode_s"] - stats["capture_s"])
+                                 / steps))
+        tokens.setdefault(glue, toks)
+        print(f"glue step split [{label}, {glue}]: step {mean['step_ms']:.4f} ms, launch "
+              f"{mean['launch_ms']:.4f} ms, wait {mean['wait_ms']:.4f} ms over {steps - 2} "
+              f"replayed steps, {glue_launches / steps:.1f} glue launches a step  [{smi}]",
+              flush=True)
+    step_graph.release()
+    report["tokens_equal"] = bool((tokens["plain"] == tokens["fused"]).all())
+    n = cfg.num_layers
+    expected = dict(add_rmsnorm=2 * n + 1, bias_rope_append=n, silu_mul=n)
+    if (any(r["launches_a_step"] != expected for r in report["fused"])
+            or any(r["glue_launches_a_step"] for r in report["plain"])):
+        raise AssertionError(f"drive_glue_steps [{label}]: glue launches {report}")
+    return report
+
+
 def _poison_pool(ws):
     """A kept workspace's cache overwritten: NaN in its bf16 pages (and f32
     scales), 7 in int8 pages, table, length and `next_free`. A call at its
@@ -6534,6 +6738,10 @@ def run_all(info, smi, t_start, root) -> None:
         trows, tplanted = check_table_kernels(pipe.model, g)
     rows.update(trows)
     planted.update(tplanted)
+    with phase("kernel checks: the decode step's glue"):
+        grows, gplanted = check_glue_kernels(pipe.model, g)
+    rows.update(grows)
+    planted.update(gplanted)
     with phase("kernel checks K12, K13, K14"):
         vrows, vplanted = check_vit_kernels(pipe.model, g)
     rows.update(vrows)
@@ -6616,6 +6824,12 @@ def run_all(info, smi, t_start, root) -> None:
                                                              "int8", smi)
     with phase("decode graphs kept across generate calls (int8 tree)"):
         graph_reuse = drive_graph_reuse(m.dec_params, m.dec_cfg, g, smi)
+    glue_steps = {}
+    with phase("decode step split, plain glue against the glue kernels (int8 tree)"):
+        glue_steps["int8"] = drive_glue_steps(m.dec_params, m.dec_cfg, g, "int8", smi)
+    # The glue rows' launches a step: the counters of a graphed int8 step.
+    for name, a_step in glue_steps["int8"]["fused"][0]["launches_a_step"].items():
+        rows[name]["launches_a_step"] = a_step
     with phase("process_video int8, 2 breakpoints"):
         runs["int8"], counts["int8"] = drive(pipe, "int8", BREAKPOINTS)
     with phase("process_video_online int8, 2 breakpoints"):
@@ -6658,6 +6872,9 @@ def run_all(info, smi, t_start, root) -> None:
     with phase("decode steps as CUDA graphs against eager steps (int4 tree, kv_int8)"):
         graphs["int4"], counts["graphs_int4"] = drive_graphs(m.dec_params, m.dec_cfg, g,
                                                              "int4", smi)
+    with phase("decode step split, plain glue against the glue kernels (int4 tree, kv_int8)"):
+        glue_steps["int4_kv_int8"] = drive_glue_steps(m.dec_params, m.dec_cfg, g,
+                                                      "int4_kv_int8", smi)
     with phase("process_video int4 + kv_int8, 1 breakpoint"), \
             configured(pipe, sampling=SHORT_ANSWER):
         runs["int4_kv_int8"], counts["int4_kv_int8"] = drive(pipe, "int4_kv_int8",
@@ -6767,6 +6984,8 @@ def run_all(info, smi, t_start, root) -> None:
           f"{sum(v['graphed_s'] + v['eager_s'] for r in graphs.values() for v in r.values()):.1f}"
           f" s in all  [{smi}]")
     print(f"decode graphs kept across calls: {json.dumps(graph_reuse)}  [{smi}]")
+    print(f"decode step split, plain glue against the glue kernels: "
+          f"{json.dumps(glue_steps)}  [{smi}]")
     print(f"spec_tokens 9 over int8 pages: {json.dumps(spec_rows)}")
     print(f"probe results: {json.dumps(probes)}")
     print(f"H2O: {json.dumps(h2o)}")

@@ -70,6 +70,10 @@ SIGNATURES = {
     "sc_int4_probe_attributes": [_I, _I, _I, ctypes.POINTER(ctypes.c_int)],
     "sc_dotk_attributes": [_I, _I, _I, ctypes.POINTER(ctypes.c_int)],
     "sc_paged_decode_attributes": [_I, _I, _I, ctypes.POINTER(ctypes.c_int)],
+    "sc_add_rmsnorm": [_P, _P, _P, _P, _I, _I, _F, _P],
+    "sc_bias_rope_append": [_P, _I64, _P, _I64, _P, _I64] + [_P] * 7 + [_I] + [_P] * 4
+                           + [_I] * 5 + [_P, _P],
+    "sc_silu_mul": [_P, _I64, _P, _I64, _P, _I, _I, _P],
 }
 
 

@@ -7,8 +7,9 @@ int4 weight-only forms of `ops/quant.py`, whose decode rows go to the W8,
 K10 and K11 GEMV kernels (q/k/v and gate/up share one K11 launch when all
 parts are int4). Prefill attention is the K3 kernel wrapper
 (`ops.attention.flash_attention`). RMSNorm, RoPE (HF rotate-half) and the
-logits run in f32. The paged decode runs against the pool in
-`models/paged_kv.py`; `decode_step` (the dense generation loop of
+logits run in f32 (the eager forms of `ops/decode_glue.py`). The paged
+decode runs against the pool in `models/paged_kv.py`, its glue as the
+kernels of `ops/decode_glue.py`; `decode_step` (the dense generation loop of
 `models/generate.py`, the judge's) appends each row's token at the row's own
 length of a dense bf16 `KVCache`, one indexed store per tensor and layer, and
 attends through the plain `ops.attention.decode_attention` (plain XLA in the
@@ -48,6 +49,7 @@ from streamchat_tpu_torch.ops.attention import (
     flash_attention,
     flash_attention_partial,
 )
+from streamchat_tpu_torch.ops.decode_glue import quantize_kv, rmsnorm, rope, silu_mul_plain
 
 Params = Dict[str, Any]
 
@@ -74,7 +76,7 @@ class Int8KVCache:
     """Dense KV cache stored int8 with per-(token, head) f32 scales, the
     layout of `KVCache`: k, v int8 [L, B, Hkv, Lmax, Dh]; k_s, v_s f32
     [L, B, Hkv, Lmax] (created as ones); length [B]. Values are quantized
-    on write exactly as `paged_kv._quantize_kv`, so paging it
+    on write exactly as `ops.decode_glue.quantize_kv`, so paging it
     (`paged_kv.from_contiguous_int8`) is a pure layout shuffle."""
 
     k: torch.Tensor
@@ -92,25 +94,6 @@ class Int8KVCache:
                    k_s=torch.ones(shape[:-1], dtype=torch.float32, device=device),
                    v_s=torch.ones(shape[:-1], dtype=torch.float32, device=device),
                    length=torch.zeros(batch, dtype=torch.int32, device=device))
-
-
-def rmsnorm(x: torch.Tensor, scale: torch.Tensor, eps: float) -> torch.Tensor:
-    x32 = x.float()
-    var = (x32 * x32).mean(-1, keepdim=True)
-    return (x32 * torch.rsqrt(var + eps) * scale.float()).to(x.dtype)
-
-
-def rope(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.Tensor:
-    """Rotary embedding, HF rotate-half convention. x [B, H, S, Dh],
-    positions [B, S]."""
-    dh = x.shape[-1]
-    inv_freq = 1.0 / (theta ** (torch.arange(0, dh, 2, dtype=torch.float32,
-                                             device=x.device) / dh))
-    ang = positions[:, None, :, None].float() * inv_freq          # [B,1,S,Dh/2]
-    cos, sin = torch.cos(ang), torch.sin(ang)
-    x32 = x.float()
-    x1, x2 = x32[..., : dh // 2], x32[..., dh // 2:]
-    return torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1).to(x.dtype)
 
 
 def init(cfg: DecoderConfig, generator: torch.Generator, *, device="cpu",
@@ -170,30 +153,40 @@ def _all_int4(*ps) -> bool:
     return all(isinstance(p, dict) and "w_i4p" in p for p in ps)
 
 
-def qkv_proj(h, attn, b, s, hq, hkv, dh):
-    """q/k/v projections -> ([B,Hq,S,Dh], [B,Hkv,S,Dh], [B,Hkv,S,Dh]); one
-    fused K11 launch at decode when all three are int4."""
+def qkv_linear(h, attn):
+    """The q/k/v products of h [B, S, D] without their biases -> (q, k, v)
+    [B, S, H * Dh]; one fused K11 launch at decode when all three are int4."""
     pq, pk, pv = attn["q"], attn["k"], attn["v"]
     if _all_int4(pq, pk, pv):
-        qy, ky, vy = quant.qmatmul_int4_multi(h, (pq, pk, pv))
-        if "b" in pq:
-            qy, ky, vy = qy + pq["b"], ky + pk["b"], vy + pv["b"]
-    else:
-        qy, ky, vy = _proj(h, pq), _proj(h, pk), _proj(h, pv)
+        return tuple(quant.qmatmul_int4_multi(h, (pq, pk, pv)))
+    return tuple(_mm(h, p["w"] if "w" in p else p) for p in (pq, pk, pv))
+
+
+def qkv_bias(attn):
+    """(bq, bk, bv), or None for a bias-free tree."""
+    return tuple(attn[n]["b"] for n in "qkv") if "b" in attn["q"] else None
+
+
+def qkv_proj(h, attn, b, s, hq, hkv, dh):
+    """q/k/v projections -> ([B,Hq,S,Dh], [B,Hkv,S,Dh], [B,Hkv,S,Dh])."""
+    qy, ky, vy = qkv_linear(h, attn)
+    bias = qkv_bias(attn)
+    if bias is not None:
+        qy, ky, vy = qy + bias[0], ky + bias[1], vy + bias[2]
     return (qy.reshape(b, s, hq, dh).transpose(1, 2),
             ky.reshape(b, s, hkv, dh).transpose(1, 2),
             vy.reshape(b, s, hkv, dh).transpose(1, 2))
 
 
-def _swiglu(h: torch.Tensor, mlp: Params) -> torch.Tensor:
-    """silu(gate(h)) * up(h), the input of the down projection; gate/up
-    share one K11 launch at decode when both are int4."""
+def _swiglu(h: torch.Tensor, mlp: Params, glu=silu_mul_plain) -> torch.Tensor:
+    """glu(gate(h), up(h)), by default silu(gate) * up: the input of the down
+    projection; gate/up share one K11 launch at decode when both are int4."""
     pg, pu = mlp["gate"], mlp["up"]
     if _all_int4(pg, pu):
         gy, uy = quant.qmatmul_int4_multi(h, (pg, pu))
     else:
         gy, uy = _mm(h, pg), _mm(h, pu)
-    return torch.nn.functional.silu(gy.float()).to(h.dtype) * uy
+    return glu(gy, uy)
 
 
 # Tensor-parallel hooks. A tree cut by `parallel.sharding.shard_decoder`
@@ -227,9 +220,10 @@ def attn_out(params: Params, o: torch.Tensor, attn: Params) -> torch.Tensor:
     return _row_parallel(params, o, attn["o"], "o")
 
 
-def mlp_out(params: Params, h: torch.Tensor, mlp: Params) -> torch.Tensor:
-    """The SwiGLU MLP of the normed hidden state h."""
-    return _row_parallel(params, _swiglu(h, mlp), mlp["down"], "down")
+def mlp_out(params: Params, h: torch.Tensor, mlp: Params, glu=silu_mul_plain) -> torch.Tensor:
+    """The SwiGLU MLP of the normed hidden state h; `glu` joins the gate and
+    up products (the paged decode step passes `decode_glue.silu_mul`)."""
+    return _row_parallel(params, _swiglu(h, mlp, glu), mlp["down"], "down")
 
 
 def _chunk_cache_attention(q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tensor,
@@ -251,9 +245,7 @@ def _write_kv(cache, i: int, start: int, k: torch.Tensor, v: torch.Tensor,
     way."""
     s = k.shape[2]
     if isinstance(cache, Int8KVCache):
-        from streamchat_tpu_torch.models.paged_kv import _quantize_kv
-
-        vals, sc = _quantize_kv(torch.stack([k, v]))
+        vals, sc = quantize_kv(torch.stack([k, v]))
         cache.k[i, rows, :, start:start + s] = vals[0]
         cache.v[i, rows, :, start:start + s] = vals[1]
         cache.k_s[i, rows, :, start:start + s] = sc[0]

@@ -19,10 +19,11 @@ the allocator filled through the table. On the card both are the same
 split-K tensor-core kernel, K8's blocks walking only the mapped slots below
 each row's length.
 
-Unlike the JAX package's immutable arrays, `append_token_kv` writes the
-pools IN PLACE: one position per row per call (a single indexed store), so
-a decode step never copies a pool, and `advance` adds to the length in
-place. The allocator returns a new cache object with a new table and
+Unlike the JAX package's immutable arrays, the decode step writes the
+pools IN PLACE (`ops.decode_glue.bias_rope_append`; its plain twin's
+`append_kv` is one indexed store per tensor): one position per row per
+step, so a decode step never copies a pool, and `advance` adds to the length
+in place. The allocator returns a new cache object with a new table and
 `next_free` that shares the pools: a table a caller still holds is never
 changed under it. `allocate_pages_` is its in-place form, for the graphed
 decode loop (`models/step_graph.py`): the table and `next_free` keep their
@@ -54,6 +55,8 @@ import dataclasses
 import torch
 
 from streamchat_tpu_torch.models import decoder
+from streamchat_tpu_torch.ops import decode_glue
+from streamchat_tpu_torch.ops.decode_glue import quantize_kv as _quantize_kv
 from streamchat_tpu_torch.ops.paged_attention import (
     paged_decode_attention_seq,
     paged_decode_attention_seq_int8,
@@ -227,47 +230,40 @@ def from_contiguous(cache: decoder.KVCache, num_pages: int, max_pages_per_seq: i
     return into
 
 
-def append_token_kv(cache: PagedKVCache, layer: int, k: torch.Tensor,
-                    v: torch.Tensor) -> None:
-    """Write one token per row (k, v: [B, Hkv, Dh]) into its tail page, in place.
-
-    The page must already be mapped; the length is bumped by `advance`."""
-    ps = cache.page_size
-    length = cache.length.long()
-    page_idx = cache.page_table.gather(1, (length // ps)[:, None])[:, 0].long()
-    offset = length % ps
-    cache.k_pages[layer][page_idx, :, offset] = k.to(cache.k_pages.dtype)
-    cache.v_pages[layer][page_idx, :, offset] = v.to(cache.v_pages.dtype)
-
-
 def advance(cache: PagedKVCache, tokens: int = 1) -> None:
     """Add `tokens` to every row's length, in place."""
     cache.length.add_(tokens)
 
 
-def _decode_step(params, cfg, token_ids: torch.Tensor, cache, append, attend,
+def _decode_step(params, cfg, token_ids: torch.Tensor, cache, attend,
                  positions: torch.Tensor | None = None):
-    """One decode step over a paged cache, updated in place -> (logits [B, V]
-    f32, cache). append(cache, layer, k, v) writes the new token's K/V at
-    the row's cache length; attend(q, layer, length) attends over the
-    layer's pages. The new token's RoPE position is `positions` [B], by
-    default the row's cache length."""
+    """One decode step over a paged cache (bf16 or int8 pages), updated in
+    place -> (logits [B, V] f32, cache). attend(q, layer, length) attends
+    over the layer's pages. The new token's RoPE position is `positions`
+    [B], by default the row's cache length; its K/V go to the row's tail
+    page. The glue between the projections and attention is
+    `ops.decode_glue`'s: in the decode regime four kernels a layer (add +
+    RMSNorm twice, bias + RoPE + KV append, SiLU x up) and the final add +
+    RMSNorm, the residual stream updated in place."""
     b = token_ids.shape[0]
     x = decoder.embed_tokens(params, token_ids)[:, None, :]
-    positions = (cache.length if positions is None else positions)[:, None]
-    hq, hkv, dh = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    hq, dh = cfg.num_heads, cfg.head_dim
     new_length = (cache.length + 1).to(torch.int32)
+    int8 = isinstance(cache, PagedKVCacheInt8)
+    delta = None
     for i, p in enumerate(params["layers"]):
-        h = decoder.rmsnorm(x, p["input_norm"], cfg.rms_eps)
-        q, k, v = decoder.qkv_proj(h, p["attn"], b, 1, hq, hkv, dh)
-        q = decoder.rope(q, positions, cfg.rope_theta)
-        k = decoder.rope(k, positions, cfg.rope_theta)
-        append(cache, i, k[:, :, 0], v[:, :, 0])
+        x, h = decode_glue.add_rmsnorm(x, delta, p["input_norm"], cfg.rms_eps)
+        q = decode_glue.bias_rope_append(
+            *decoder.qkv_linear(h, p["attn"]), decoder.qkv_bias(p["attn"]), positions,
+            cfg.rope_theta, cache.k_pages[i], cache.v_pages[i],
+            cache.k_scale[i] if int8 else None, cache.v_scale[i] if int8 else None,
+            cache.page_table, cache.length)
         o = attend(q, i, new_length)
-        x = x + decoder.attn_out(params, o.transpose(1, 2).reshape(b, 1, hq * dh), p["attn"])
-        x = x + decoder.mlp_out(params, decoder.rmsnorm(x, p["post_norm"], cfg.rms_eps),
-                                p["mlp"])
-    x = decoder.rmsnorm(x, params["final_norm"], cfg.rms_eps)
+        x, h = decode_glue.add_rmsnorm(
+            x, decoder.attn_out(params, o.transpose(1, 2).reshape(b, 1, hq * dh), p["attn"]),
+            p["post_norm"], cfg.rms_eps)
+        delta = decoder.mlp_out(params, h, p["mlp"], glu=decode_glue.silu_mul)
+    _, x = decode_glue.add_rmsnorm(x, delta, params["final_norm"], cfg.rms_eps)
     logits = decoder.logits_from_hidden(params, cfg, x)[:, 0]
     advance(cache)
     return logits, cache
@@ -306,8 +302,7 @@ def decode_step_paged(params, cfg, token_ids: torch.Tensor, cache: PagedKVCache,
         return paged_decode_attention_table(q, cache.k_pages[i], cache.v_pages[i],
                                             cache.page_table, length)
 
-    logits, cache = _decode_step(params, cfg, token_ids, cache, append_token_kv, attend,
-                                 positions)
+    logits, cache = _decode_step(params, cfg, token_ids, cache, attend, positions)
     if collect_mass:
         return logits, cache, torch.stack(masses)
     return logits, cache
@@ -416,14 +411,6 @@ class PagedKVCacheInt8:
         return self.k_pages.shape[3]
 
 
-def _quantize_kv(x: torch.Tensor):
-    """[..., Dh] -> (int8 values, f32 scale over the trailing dim)."""
-    amax = x.abs().amax(-1).float()                # exact: |x| and max need no rounding
-    scale = (amax / 127.0).masked_fill_(amax == 0, 1.0)
-    vals = torch.div(x, scale[..., None]).round_().clamp_(-127, 127).to(torch.int8)
-    return vals, scale
-
-
 def from_contiguous_int8(cache, num_pages: int, max_pages_per_seq: int,
                          page_size: int = 128, partitioned: bool = False,
                          into: PagedKVCacheInt8 | None = None) -> PagedKVCacheInt8:
@@ -464,18 +451,11 @@ def from_contiguous_int8(cache, num_pages: int, max_pages_per_seq: int,
 def append_token_kv_int8(cache: PagedKVCacheInt8, layer: int, k: torch.Tensor,
                          v: torch.Tensor) -> None:
     """Quantize one token per row (k, v: [B, Hkv, Dh]) into its tail page, in
-    place: K and V are quantized in one pass (a decode step is bound by the
-    host's launches), then one indexed store per tensor. The length is
-    bumped by `advance`."""
-    ps = cache.page_size
-    length = cache.length.long()
-    page_idx = cache.page_table.gather(1, (length // ps)[:, None])[:, 0].long()
-    offset = length % ps
-    vals, sc = _quantize_kv(torch.stack([k, v]))
-    cache.k_pages[layer][page_idx, :, offset] = vals[0]
-    cache.v_pages[layer][page_idx, :, offset] = vals[1]
-    cache.k_scale[layer][page_idx, :, offset] = sc[0]
-    cache.v_scale[layer][page_idx, :, offset] = sc[1]
+    place: K and V are quantized in one pass, then one indexed store per
+    tensor. The length is bumped by `advance`."""
+    decode_glue.append_kv(k, v, cache.k_pages[layer], cache.v_pages[layer],
+                          cache.k_scale[layer], cache.v_scale[layer], cache.page_table,
+                          cache.length)
 
 
 def decode_step_paged_int8(params, cfg, token_ids: torch.Tensor, cache: PagedKVCacheInt8,
@@ -490,4 +470,4 @@ def decode_step_paged_int8(params, cfg, token_ids: torch.Tensor, cache: PagedKVC
         return paged_decode_attention_table_int8(q, cache.k_pages[i], cache.v_pages[i],
                                                  *scales, cache.page_table, length)
 
-    return _decode_step(params, cfg, token_ids, cache, append_token_kv_int8, attend)
+    return _decode_step(params, cfg, token_ids, cache, attend)

@@ -1027,3 +1027,229 @@ def test_cuda_reused_graph_replays_with_no_capture(cuda, path):
     step_graph.release()
     np.testing.assert_array_equal(kept, fresh)
     assert kept_counts == fresh_counts
+
+
+# The paged decode step's glue kernels (ops/decode_glue.py): Qwen2-7B and
+# LLaMA-3-8B widths and heads.
+GLUE_GEOMETRIES = {"qwen2": dict(hq=28, hkv=4, bias=True, theta=1e6, d=3584, f=18944),
+                   "llama3": dict(hq=32, hkv=8, bias=False, theta=5e5, d=4096, f=14336)}
+
+
+def _within_tolerance(got, ref):
+    """The kernels' tolerance: elementwise 3e-2 + 2e-2 |ref|, and a row
+    relative L2 error <= 1e-2."""
+    _close(got, ref)
+    g, r = got.float().flatten(1), ref.float().flatten(1)
+    rel = ((g - r).norm(dim=1) / r.norm(dim=1).clamp_min(1e-30)).max().item()
+    assert rel <= 1e-2, rel
+
+
+def _bf16_ulps(a, b) -> int:
+    """The largest distance between two bf16 tensors in units in the last
+    place (the bit patterns in order)."""
+    def ordered(t):
+        i = t.contiguous().view(torch.int16).int()
+        return torch.where(i < 0, -(i & 0x7FFF), i)
+    return int((ordered(a) - ordered(b)).abs().max())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rows", [1, 3, 8, 9, 66])
+@pytest.mark.parametrize("residual", [False, True], ids=["no_delta", "delta"])
+@pytest.mark.parametrize("geometry", list(GLUE_GEOMETRIES))
+def test_cuda_add_rmsnorm(cuda, geometry, residual, rows):
+    """add_rmsnorm against its plain twin: the residual add bit-equal (it
+    rounds as the twin does), in place; the norm within the kernels'
+    tolerance (its sum of squares is reduced in another order)."""
+    from streamchat_tpu_torch.ops import decode_glue
+
+    d = GLUE_GEOMETRIES[geometry]["d"]
+    x, scale = _bf(1, cuda, rows, 1, d, scale=4.0), 1 + _bf(2, cuda, d, scale=0.1)
+    delta = _bf(3, cuda, rows, 1, d) if residual else None
+    ref_x, ref_h = decode_glue.add_rmsnorm_plain(x.clone(), delta, scale, 1e-6)
+    got_x, got_h = decode_glue.add_rmsnorm(x, delta, scale, 1e-6)
+    assert got_x is x and torch.equal(x, ref_x)
+    _within_tolerance(got_h, ref_h)
+    assert kernels.launch_counts()["add_rmsnorm"] == 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("views", [False, True], ids=["tensors", "column_views"])
+@pytest.mark.parametrize("rows", [1, 3, 8, 9, 66])
+@pytest.mark.parametrize("geometry", list(GLUE_GEOMETRIES))
+def test_cuda_silu_mul(cuda, geometry, rows, views):
+    """silu_mul against its plain twin, on separate tensors and on column
+    views of one [rows, 2F] buffer (K11's gate / up output)."""
+    from streamchat_tpu_torch.ops import decode_glue
+
+    f = GLUE_GEOMETRIES[geometry]["f"]
+    both = _bf(4, cuda, rows, 1, 2 * f, scale=3.0)
+    gate, up = ((both[..., :f], both[..., f:]) if views
+                else (both[..., :f].contiguous(), both[..., f:].contiguous()))
+    got = decode_glue.silu_mul(gate, up)
+    _within_tolerance(got, decode_glue.silu_mul_plain(gate, up))
+    assert kernels.launch_counts()["silu_mul"] == 1
+
+
+def _glue_pool(dev, rows, hkv, int8, lengths, seed, num_pages=40, maxp=8, ps=128):
+    """One layer's pool (random values) mapped through a shuffled table,
+    with -1 past each row's pages, at the rows' lengths -> (k_pages,
+    v_pages, k_scale, v_scale, table, length); the scales None for bf16."""
+    shape = (num_pages, hkv, ps, 128)
+    g = torch.Generator(device=dev).manual_seed(seed)
+    if int8:
+        pools = [torch.randint(-127, 128, shape, dtype=torch.int8, device=dev, generator=g)
+                 for _ in range(2)]
+        pools += [torch.rand(shape[:3], device=dev, generator=g) for _ in range(2)]
+    else:
+        pools = [_bf(seed, dev, *shape), _bf(seed + 1, dev, *shape), None, None]
+    perm = torch.randperm(num_pages, generator=g, device=dev)[:rows * maxp].reshape(rows, maxp)
+    for r, n in enumerate(lengths):
+        perm[r, n // ps + 1:] = -1
+    return (*pools, perm.to(torch.int32).contiguous(),
+            torch.tensor(lengths, dtype=torch.int32, device=dev))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("positions", [False, True], ids=["at_length", "positions"])
+@pytest.mark.parametrize("int8", [False, True], ids=["bf16_pages", "int8_pages"])
+@pytest.mark.parametrize("rows", [1, 3])
+@pytest.mark.parametrize("geometry", list(GLUE_GEOMETRIES))
+def test_cuda_bias_rope_append(cuda, geometry, rows, int8, positions):
+    """bias_rope_append against its plain twin at lengths on and past page
+    edges and positions up to 23,105: the roped q and, with bf16 pages,
+    every pool value within one bf16 ulp; with int8 pages the int8 values
+    and the scales equal; no other slot of the pool written."""
+    from streamchat_tpu_torch.ops import decode_glue
+
+    geo = GLUE_GEOMETRIES[geometry]
+    hq, hkv = geo["hq"], geo["hkv"]
+    lengths = [127, 0, 1000][:rows]
+    pool = _glue_pool(cuda, rows, hkv, int8, lengths, seed=7)
+    twin = [None if t is None else t.clone() for t in pool]
+    q, k, v = (_bf(10 + i, cuda, rows, 1, h * 128, scale=2.0)
+               for i, h in enumerate((hq, hkv, hkv)))
+    bias = (tuple(_bf(20 + i, cuda, h * 128) for i, h in enumerate((hq, hkv, hkv)))
+            if geo["bias"] else None)
+    pos = (torch.tensor([23_105, 5, 7_000][:rows], dtype=torch.int32, device=cuda)
+           if positions else None)
+    ref = decode_glue.bias_rope_append_plain(q, k, v, bias, pos, geo["theta"], *twin)
+    got = decode_glue.bias_rope_append(q, k, v, bias, pos, geo["theta"], *pool)
+    assert got.shape == (rows, hq, 1, 128) and _bf16_ulps(got, ref) <= 1
+    if int8:
+        for a, b in zip(pool[:4], twin[:4]):
+            assert torch.equal(a, b)
+    else:
+        assert _bf16_ulps(pool[0], twin[0]) <= 1 and _bf16_ulps(pool[1], twin[1]) <= 1
+    assert kernels.launch_counts()["bias_rope_append"] == 1
+
+
+@pytest.mark.cuda
+def test_cuda_decode_glue_regime(cuda):
+    """On the card every wrapper launches its kernel for one bf16 token a
+    row, any number of rows, and raises ValueError before any launch for
+    another dtype, more than one token a row or a head dim other than 128;
+    no call runs a plain twin."""
+    from streamchat_tpu_torch.ops import decode_glue
+
+    x = _bf(3, cuda, 9, 1, 256)
+    decode_glue.add_rmsnorm(x, x, torch.ones(256, device=cuda, dtype=torch.bfloat16), 1e-6)
+    decode_glue.silu_mul(x, x)
+    pool = _glue_pool(cuda, 9, 4, False, [5 + 113 * r for r in range(9)], seed=1,
+                      num_pages=72)
+    twin = [None if t is None else t.clone() for t in pool]
+    q, k = _bf(1, cuda, 9, 1, 28 * 128), _bf(2, cuda, 9, 1, 4 * 128)
+    ref = decode_glue.bias_rope_append_plain(q, k, k, None, None, 1e6, *twin)
+    got = decode_glue.bias_rope_append(q, k, k, None, None, 1e6, *pool)
+    assert _bf16_ulps(got, ref) <= 1 and _bf16_ulps(pool[0], twin[0]) <= 1
+    assert {n: kernels.launch_counts()[n] for n in ("add_rmsnorm", "silu_mul",
+                                                     "bias_rope_append")} == {
+        "add_rmsnorm": 1, "silu_mul": 1, "bias_rope_append": 1}
+    assert not any(kernels.launch_modes().get(n) for n in ("add_rmsnorm", "silu_mul",
+                                                            "bias_rope_append"))
+    one = torch.ones(256, device=cuda, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="one token a row in bf16"):
+        decode_glue.add_rmsnorm(x.float(), None, one.float(), 1e-6)
+    with pytest.raises(ValueError, match="one token a row in bf16"):
+        decode_glue.add_rmsnorm(_bf(4, cuda, 2, 3, 256), None, one, 1e-6)
+    with pytest.raises(ValueError, match="one token a row in bf16"):
+        decode_glue.silu_mul(x.float(), x.float())
+    with pytest.raises(ValueError, match="one token a row in bf16"):
+        decode_glue.bias_rope_append(q.float(), k, k, None, None, 1e6, *pool)
+    pool64 = _glue_pool(cuda, 1, 4, False, [5], seed=1)
+    k_pages = pool64[0][..., :64].contiguous()
+    q64, k64 = _bf(1, cuda, 1, 1, 28 * 64), _bf(2, cuda, 1, 1, 4 * 64)
+    with pytest.raises(ValueError, match="head dim"):
+        decode_glue.bias_rope_append(q64, k64, k64, None, None, 1e6, k_pages,
+                                     k_pages.clone(), None, None, *pool64[4:])
+    assert kernels.launch_counts()["add_rmsnorm"] == 1
+    assert kernels.launch_counts()["bias_rope_append"] == 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("tree", ["int8", "int4_kv_int8"])
+def test_cuda_graphed_glue_step_against_eager_plain_glue(cuda, monkeypatch, tree):
+    """Qwen2-7B at full width (28 layers, random q/k/v biases; a 16,384-token
+    vocabulary) as the benchmark's trees quantize it: one decode step over a
+    1,000-token prompt's pool with the glue kernels against the same step
+    with the plain glue (logits within a relative L2 error of 1e-2), then 64
+    greedy tokens graphed on the kernels against the eager plain-glue loop
+    (equal), the graphed run launching 28 x 4 + 1 = 113 glue kernels a step."""
+    import dataclasses
+
+    from streamchat_tpu_torch.config import DecoderConfig
+    from streamchat_tpu_torch.models import decoder, generate_paged, paged_kv, step_graph
+    from streamchat_tpu_torch.ops import decode_glue
+
+    cfg = dataclasses.replace(DecoderConfig.qwen2_7b(), vocab_size=16384)
+    g = torch.Generator(device=cuda).manual_seed(0)
+    params = decoder.init(cfg, g, device=cuda)
+    for p in params["layers"]:
+        for n in "qkv":
+            p["attn"][n]["b"] = (torch.randn(p["attn"][n]["b"].shape, generator=g, device=cuda)
+                                 * 0.5).to(torch.bfloat16)
+    params = quant.quantize_decoder_params(params, bits=8 if tree == "int8" else 4)
+    kv_int8 = tree != "int8"
+    torch.cuda.empty_cache()
+    embeds = (torch.randn(1, 1024, cfg.hidden_size, generator=g, device=cuda) * 0.5).to(
+        torch.bfloat16)
+    ln = torch.tensor([1000], dtype=torch.int32, device=cuda)
+    plain = dict(add_rmsnorm=decode_glue.add_rmsnorm_plain,
+                 bias_rope_append=decode_glue.bias_rope_append_plain,
+                 silu_mul=decode_glue.silu_mul_plain)
+
+    dense = decoder.KVCache.create(cfg, 1, 1024, device=cuda)
+    logits, dense = decoder.prefill(params, cfg, embeds, dense, ln)
+    tok = torch.argmax(logits, -1)
+    page = paged_kv.from_contiguous_int8 if kv_int8 else paged_kv.from_contiguous
+    step = paged_kv.decode_step_paged_int8 if kv_int8 else paged_kv.decode_step_paged
+    got, _ = step(params, cfg, tok, page(dense, 8, 8), sequential_pages=True)
+    with monkeypatch.context() as m:
+        for name, fn in plain.items():
+            m.setattr(decode_glue, name, fn)
+        ref, _ = step(params, cfg, tok, page(dense, 8, 8), sequential_pages=True)
+    rel = ((got - ref).norm() / ref.norm()).item()
+    assert torch.isfinite(got).all() and rel <= 1e-2, rel
+    del dense
+
+    def run(graph):
+        stats = {}
+        kernels.reset_launch_counts()
+        toks, _ = generate_paged.generate_paged(params, cfg, embeds, ln, g, max_new_tokens=64,
+                                                kv_int8=kv_int8, stats=stats, graph=graph)
+        return toks, stats, kernels.launch_counts()
+
+    step_graph.release()
+    fused, stats, counts = run(None)
+    step_graph.release()
+    with monkeypatch.context() as m:
+        for name, fn in plain.items():
+            m.setattr(decode_glue, name, fn)
+        eager, _, _ = run(False)
+    step_graph.release()
+    np.testing.assert_array_equal(fused, eager)
+    assert stats["graph_captures"] == 1
+    steps = stats["decode_steps"]
+    assert counts["add_rmsnorm"] == (2 * cfg.num_layers + 1) * steps
+    assert counts["bias_rope_append"] == cfg.num_layers * steps
+    assert counts["silu_mul"] == cfg.num_layers * steps
